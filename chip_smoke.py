@@ -1,0 +1,592 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (the script exits non-zero otherwise):
+
+1. device   the card's name and power limit (nvidia-smi), torch / CUDA
+            versions; TF32 off for float32 matrix products.
+2. build    every CUDA kernel of the port from src/repro_torch/kernels/csrc,
+            one nvcc per source, in parallel.
+3. kernels  each kernel against its plain PyTorch version on the card, on
+            the same inputs, at the shapes of the main paths: device time
+            (torch.profiler) of the kernel, of the plain version, of one
+            PyTorch library call that computes the same function where
+            there is one, each beside its host-to-host time per call, and
+            the least time the card could take (bound).
+4. paths    the port's main paths through the entry points a user calls,
+            with every launch count set to 0 just before and read just
+            after: (a) the paper's unit, ``ops.sigmoid``; (b) serving Yi-9B
+            at full width (random weights from a seed): 8 greedy requests,
+            4 slots, paged KV, the CORDIC kernels on. Every kernel of a
+            path must have launched.
+5. identity the Yi smoke config in float32: tokens served on the card with
+            the kernels equal the CPU's tokens with the plain versions.
+
+The line before the last holds {"kernels": [...]} (one entry per kernel:
+launches on its path, max error against plain, times, bound); the last line
+is {"ok": true, "device": {...}}. Without a CUDA device, or run from a
+directory without the repository's src/, the script exits with an error and
+prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+OUT = ROOT / "chiprun_out"
+
+#: H100 SXM published rates (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
+#: outside the tensor cores. The INT32 rate is derived from the card
+#: (SMs x 64 INT32 lanes x max SM clock).
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+INT32_LANES_PER_SM = 64
+
+#: the device every phase runs on
+DEV = "cuda"
+
+#: Yi-9B serving shapes of the main path (launch/serve.py traffic)
+SLOTS, MAX_NEW, MAX_LEN, BLOCK_LEN, REQUESTS = 4, 16, 128, 16, 8
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(ok, what) -> None:
+    """A phase's check: raises (and so fails the run) when ``ok`` is false."""
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Operation counts of the integer pipeline, from the schedule: the least
+# INT32 work a stage needs, one operation per shift, compare, select,
+# add/sub and 16-bit wrap (a sign extension), with a conditional add or
+# subtract counted as a select of the operand's sign plus an add
+# ---------------------------------------------------------------------------
+def pipeline_ops(sched):
+    wrap, cadd = 1, 2
+    r2 = 1 + 2 + 3 * (cadd + wrap)                 # sign, xs/ys, x/y/z: 12
+    r4 = 1 + 3 + 2 * (1 + 2 + cadd + wrap) + (2 + cadd + wrap)   # 21
+    lvc = 1 + 1 + 2 * (cadd + wrap)                # sign, xs, y/t: 8
+    rot = len(sched.r2_js) * r2 + len(sched.r4_js) * r4
+    div = len(sched.lvc_js) * lvc
+    boundary = 7 + 2 + 5 + 2     # quantize, input shr, 1/2 + t/2, dequantize
+    exp_codes = rot + 7 + 2      # quantize r, rotation, c + s
+    normalize = div + 2 + 4      # LVC divide and its boundary ops
+    return {"sigmoid": rot + div + boundary,
+            "wide": rot + div + boundary + 6 + 2,  # doubling count, 2^-k
+            # softmax_2d: one rotation per lane, since the function it
+            # replaces keeps each lane's e^r codes for the divide (the CUDA
+            # kernel recomputes them, which is its own cost, not the work's)
+            "softmax_lane": exp_codes + normalize,
+            # gqa_decode cordic: the TPU kernel's sum and normalize passes
+            # each rotate (_lane_exp, _lane_probs), since the pool blocks are
+            # walked again rather than the codes kept, so the work it
+            # replaces rotates twice per lane
+            "decode_lane": 2 * exp_codes + normalize}
+
+
+# ---------------------------------------------------------------------------
+# Timing. A kernel's ``ms`` is device time (the profiler's kernel durations);
+# at the main path's small shapes the host's dispatch of one call (ctypes,
+# allocation, checks) takes longer than the kernel, so the host-to-host time
+# per call is kept apart as the dispatch figure.
+# ---------------------------------------------------------------------------
+def host_ms(torch, fn, iters: int = 20, warmup: int = 2) -> float:
+    """Host-to-host time of one call, dispatch included: wall clock over
+    ``iters`` back-to-back calls, ended by a synchronize."""
+    for _ in range(warmup):
+        fn()
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def device_ms(torch, fn, iters: int = 20, warmup: int = 2,
+              kernel: str | None = None) -> float:
+    """Device time of one call: the summed durations of the device kernels
+    that ``iters`` calls launch (torch.profiler's CUDA activity) over
+    ``iters``. ``kernel`` keeps only the kernels whose name holds it (a
+    wrapper's own kernel); None keeps all (a plain version, a library call).
+    Host dispatch and the gaps between launches are outside it."""
+    if DEV != "cuda":                       # rehearsal on the CPU
+        return host_ms(torch, fn, iters, warmup)
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        if kernel is None or kernel in ev.key:
+            total_us += getattr(ev, "self_device_time_total", 0.0)
+    check(total_us > 0, f"the profiler saw no device time for {kernel or 'fn'}")
+    return total_us / 1e3 / iters
+
+
+def times(torch, fn, kernel=None, iters: int = 20, warmup: int = 2):
+    """(device ms, host-to-host ms) of one call."""
+    return (device_ms(torch, fn, iters, warmup, kernel),
+            host_ms(torch, fn, iters, warmup))
+
+
+class Card:
+    def __init__(self, torch):
+        props = torch.cuda.get_device_properties(0)
+        self.sms = props.multi_processor_count
+        self.clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+        self.int32_ops_s = self.sms * INT32_LANES_PER_SM * self.clock_hz
+
+    def bound(self, nbytes: float, int_ops: float = 0.0, flops: float = 0.0):
+        times = {"bytes": nbytes / HBM_BYTES_S,
+                 "operations": max(int_ops / self.int32_ops_s,
+                                   flops / FP32_FLOP_S)}
+        by = max(times, key=times.get)
+        return times[by] * 1e3, by
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def kernel_phase(torch, card, records, ycfg):
+    from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE
+    from repro_torch.kernels import cordic_act as K
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import softmax_cordic as SM
+
+    ops = pipeline_ops(PAPER_SCHEDULE)
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    # (1) act_2d: every Q2.14 code in [-1, 1] against the golden file, then
+    # a (d_model, d_ff) = (4096, 11008) map bit-exact against plain
+    codes = torch.arange(-(1 << 14), (1 << 14) + 1, device=dev)
+    x = codes.to(torch.float32) / (1 << 14)
+    y = K.act_2d(x, "sigmoid")
+    import numpy as np
+    with np.load(ROOT / "tests" / "golden" / "sigmoid_q2_14.npz") as z:
+        golden = torch.from_numpy(z["y"].astype(np.int64)).to(dev)
+    got = torch.round(y * (1 << 14)).to(torch.int64)
+    n_bad = int((got != golden[codes + (1 << 15)]).sum())
+    xd = x.double()
+    mae = float((y.double() - 1.0 / (1.0 + torch.exp(-xd))).abs().mean())
+    log(f"[act_2d] sigmoid over {codes.numel()} Q2.14 codes in [-1, 1]: "
+        f"{n_bad} differ from tests/golden/sigmoid_q2_14.npz; "
+        f"MAE {mae:.3e} (paper 4.23e-4)")
+    check(n_bad == 0, "sigmoid codes differ from the golden vectors")
+    big = torch.randn(ycfg.d_model, ycfg.d_ff, generator=gen, device=dev) * 3
+    a, b = K.act_2d(big, "sigmoid"), K.act_2d_plain(big, "sigmoid")
+    for op in ("tanh", "sigmoid_wide", "silu"):
+        check(torch.equal(K.act_2d(big[:64], op), K.act_2d_plain(big[:64], op)),
+              f"act_2d {op} differs from its plain version")
+    err = float((a - b).abs().max())
+    check(torch.equal(a, b), "act_2d differs from its plain version")
+    n = big.numel()
+    bound, by = card.bound(8 * n, ops["sigmoid"] * n)
+    records["act_2d"] = timed(
+        dict(shape=list(big.shape), dtype="float32", max_abs_err=err,
+             bound_ms=bound, bound_by=by),
+        kernel=times(torch, lambda: K.act_2d(big, "sigmoid"), "act_kernel"),
+        plain=times(torch, lambda: K.act_2d_plain(big, "sigmoid"), None, 3, 1),
+        library=times(torch, lambda: torch.sigmoid(big)))
+
+    # (2) silu_mul_2d at the decode (4 x d_ff) and prefill (16 x d_ff)
+    # shapes, bfloat16, bit-exact
+    F = ycfg.d_ff
+    for name, rows in (("decode", SLOTS), ("prefill", BLOCK_LEN)):
+        g = (torch.randn(rows, 1, F, generator=gen, device=dev) * 3).bfloat16()
+        u = torch.randn(rows, 1, F, generator=gen, device=dev).bfloat16()
+        a = K.silu_mul_2d(g.view(-1), u.view(-1))
+        b = K.silu_mul_2d_plain(g.view(-1), u.view(-1))
+        check(torch.equal(a, b), f"silu_mul_2d ({name}) differs from plain")
+        n = g.numel()
+        bound, by = card.bound(6 * n, ops["wide"] * n)
+        rec = timed(
+            dict(shape=[rows, F], dtype="bfloat16",
+                 max_abs_err=float((a.float() - b.float()).abs().max()),
+                 bound_ms=bound, bound_by=by),
+            kernel=times(torch, lambda: K.silu_mul_2d(g.view(-1), u.view(-1)),
+                         "silu_mul_kernel"),
+            plain=times(torch, lambda: K.silu_mul_2d_plain(
+                g.view(-1), u.view(-1)), None, 5, 1))
+        log(f"[silu_mul_2d] {name} {rec['shape']} bf16: bit-exact; "
+            f"{fmt_times(rec)}")
+        if name == "decode":
+            records["silu_mul_2d"] = rec
+
+    # (3) softmax_2d at the prefill attend shape: rows H*S = 32*16, cols
+    # M*L = 128, causal mask of an 11-token prompt in a 16-wide bucket
+    S, T = BLOCK_LEN, MAX_LEN
+    s = torch.randn(ycfg.num_heads, S, T, generator=gen, device=dev) * 4
+    qpos = torch.arange(S, device=dev)[:, None]
+    kpos = torch.arange(T, device=dev)[None, :]
+    s = torch.where((kpos <= qpos) & (kpos < 11), s, torch.full_like(s, -1e30))
+    s = s.reshape(-1, T).contiguous()
+    a, b = SM.softmax_2d(s), SM.softmax_2d_plain(s)
+    err = float((a - b).abs().max())
+    # stated tolerance: same left-to-right row sum on both sides, so equal;
+    # at most one Q2.14 code step (3.5e-4 of the lane) is accepted
+    check(bool(((a - b).abs() <= 3.5e-4 * b.abs()).all()), "softmax_2d")
+    check(bool(((a == 0) == (b == 0)).all()), "softmax_2d dead lanes")
+    live = int((s > -1e29).sum())
+    bound, by = card.bound(8 * s.numel(), ops["softmax_lane"] * live)
+    records["softmax_2d"] = timed(
+        dict(shape=list(s.shape), dtype="float32", max_abs_err=err,
+             bit_equal=bool(torch.equal(a, b)), bound_ms=bound, bound_by=by),
+        kernel=times(torch, lambda: SM.softmax_2d(s), "softmax_kernel"),
+        plain=times(torch, lambda: SM.softmax_2d_plain(s), None, 3, 1),
+        library=times(torch, lambda: torch.softmax(s, dim=-1)))
+
+    # (4) gqa_decode at Yi's decode shape, ragged and vacant slots
+    B, KH, L, M = SLOTS, ycfg.num_kv_heads, BLOCK_LEN, MAX_LEN // BLOCK_LEN
+    G, hd = ycfg.num_heads // KH, ycfg.head_dim
+    klens = [37, 0, MAX_LEN, 5]                 # 0: vacant (k_len 1, scratch)
+    N = 1 + B * M
+    q = torch.randn(B, KH, G, hd, generator=gen, device=dev).bfloat16()
+    kp = torch.randn(N, L, KH, hd, generator=gen, device=dev)
+    vp = torch.randn(N, L, KH, hd, generator=gen, device=dev)
+    tables = torch.zeros(B, M, dtype=torch.int32, device=dev)
+    nxt = 1
+    for r, k in enumerate(klens):
+        for c in range(-(-k // L)):
+            tables[r, c] = nxt
+            nxt += 1
+    k_len = torch.tensor([max(k, 1) for k in klens], dtype=torch.int32, device=dev)
+    live_blocks = sum(-(-max(k, 1) // L) for k in klens)
+    live_keys = sum(max(k, 1) for k in klens)
+    kw = dict(scale=1.0 / math.sqrt(hd), kv_dtype=torch.bfloat16)
+    for impl in ("cordic_pallas", "exact"):
+        a = PA.gqa_decode(q, kp, vp, tables, k_len, softmax_impl=impl, **kw)
+        b = PA.gqa_decode_plain(q, kp, vp, tables, k_len, softmax_impl=impl, **kw)
+        err = float((a - b).abs().max())
+        # stated tolerance: the reference's own ATOL 2e-5 and argmax identity
+        check(bool(torch.isfinite(a).all()) and err < 2e-5,
+              f"gqa_decode {impl}: |kernel - plain| {err} (ATOL 2e-5)")
+        check(torch.equal(a.reshape(B, -1).argmax(-1), b.reshape(B, -1).argmax(-1)),
+              f"gqa_decode {impl}: argmax moved against plain")
+        nbytes = (q.numel() * 2 + 2 * live_blocks * L * KH * hd * 4
+                  + tables.numel() * 4 + k_len.numel() * 4 + a.numel() * 4)
+        lanes = live_keys * KH * G
+        int_ops = (ops["decode_lane"] if impl == "cordic_pallas" else 0) * lanes
+        bound, by = card.bound(nbytes, int_ops, 4 * hd * lanes)
+        rec = timed(
+            dict(shape=[B, KH, G, hd, L, M], impl=impl, klens=klens,
+                 max_abs_err=err, bit_equal=bool(torch.equal(a, b)),
+                 bound_ms=bound, bound_by=by),
+            kernel=times(torch, lambda: PA.gqa_decode(
+                q, kp, vp, tables, k_len, softmax_impl=impl, **kw),
+                "gqa_decode_kernel"),
+            plain=times(torch, lambda: PA.gqa_decode_plain(
+                q, kp, vp, tables, k_len, softmax_impl=impl, **kw), None, 2, 1))
+        log(f"[gqa_decode] {impl} B={B} KH={KH} G={G} hd={hd} L={L} M={M} "
+            f"k_len={[max(k, 1) for k in klens]}: max |kernel - plain| {err:.3e} "
+            f"(bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
+        if impl == "cordic_pallas":
+            records["gqa_decode"] = rec
+    for name in ("act_2d", "softmax_2d"):
+        r = records[name]
+        log(f"[{name}] {r['shape']}: max |kernel - plain| {r['max_abs_err']:.3e}; "
+            f"{fmt_times(r)}")
+
+
+def timed(rec, kernel, plain, library=None):
+    """A kernel record with its device times (``ms``, ``plain_ms``,
+    ``library_ms``) and host-to-host times (``*_host_ms``)."""
+    for key, t in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
+        rec[key] = t[0] if t else None
+        rec[key.replace("ms", "host_ms")] = t[1] if t else None
+    return rec
+
+
+def fmt_times(r) -> str:
+    lib = (f", library {r['library_ms']:.4f} ms (host {r['library_host_ms']:.4f})"
+           if r["library_ms"] is not None else "")
+    return (f"device {r['ms']:.4f} ms per call (host-to-host {r['host_ms']:.4f} "
+            f"ms); plain {r['plain_ms']:.4f} ms (host {r['plain_host_ms']:.2f})"
+            f"{lib}; bound {r['bound_ms']:.5f} ms by {r['bound_by']}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main paths
+# ---------------------------------------------------------------------------
+def sigmoid_path(torch, build, ycfg):
+    """The paper's unit through the front door, as examples/quickstart.py
+    uses it: ops.sigmoid on the [-1, 1] code grid and on a (d_model, d_ff)
+    = (4096, 11008) activation map."""
+    from repro_torch.kernels import ops
+
+    dev = torch.device(DEV)
+    grid = torch.arange(-(1 << 14), (1 << 14) + 1, device=dev) / float(1 << 14)
+    acts = torch.randn(ycfg.d_model, ycfg.d_ff, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+    build.reset_launches()
+    y1, y2 = ops.sigmoid(grid), ops.sigmoid(acts)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES)
+    check(y1.shape == grid.shape and y2.shape == acts.shape, "ops.sigmoid shape")
+    check(bool(torch.isfinite(y2).all()) and float(y2.min()) >= 0.0,
+          "ops.sigmoid output finite and in [0, 1]")
+    log(f"[path sigmoid] ops.sigmoid on {grid.numel()} + {acts.numel()} "
+        f"values; launches {counts}")
+    return counts
+
+
+def serve_path(torch, build):
+    """Yi-9B at full width through ServeEngine: paged KV, decode kernel,
+    CORDIC act and softmax, greedy, the launcher's traffic."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(configs.get_config("yi-9b", act_impl="cordic_pallas"),
+                              softmax_impl="cordic_pallas")
+    t0 = time.perf_counter()
+    model = tf.init(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[path serve] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; {n_params / 1e9:.2f}B "
+        f"params, weights {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+        f"init {time.perf_counter() - t0:.1f} s")
+    eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, kv_impl="paged",
+                      block_len=BLOCK_LEN, paged_attend_impl="pallas",
+                      device=DEV)
+    # warm-up request (cuBLAS handles, first launches), outside the counts
+    for r in make_requests(cfg, 1, 2, seed=99):
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reqs = make_requests(cfg, REQUESTS, MAX_NEW, seed=0)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    steps = []
+    while eng.has_work:
+        ts = time.perf_counter()
+        eng.step()
+        steps.append(time.perf_counter() - ts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES)
+    done = reqs
+    check(all(r.done and r.error is None and len(r.out) == MAX_NEW for r in done),
+          "every request finishes with its tokens")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+          "tokens inside the vocabulary")
+    n_tok = sum(len(r.out) for r in done)
+    ttft = sorted((r.t_first - r.t_enqueue) * 1e3 for r in done)
+    peak = torch.cuda.max_memory_allocated()
+    # the logits of a plain forward of one served prompt are finite
+    logits = tf.apply(model, {"tokens": torch.as_tensor(
+        done[0].prompt[None], device=DEV).long()}, cfg)[0]
+    check(bool(torch.isfinite(logits).all()), "finite logits")
+    stats = dict(requests=len(done), tokens=n_tok, wall_s=wall,
+                 tok_s=n_tok / wall, ttft_ms_p50=statistics.median(ttft),
+                 ttft_ms_max=ttft[-1], step_ms_p50=statistics.median(steps) * 1e3,
+                 steps=len(steps), peak_gib=peak / 2**30,
+                 pool_gib=eng.kv_pool_bytes() / 2**30, launches=counts)
+    log(f"[path serve] {len(done)} requests, {n_tok} tokens in {wall:.3f} s: "
+        f"{stats['tok_s']:.1f} tok/s; TTFT p50 {stats['ttft_ms_p50']:.1f} ms, "
+        f"max {stats['ttft_ms_max']:.1f} ms; step p50 {stats['step_ms_p50']:.2f} "
+        f"ms over {len(steps)} steps; peak memory {stats['peak_gib']:.2f} GiB "
+        f"(pools {stats['pool_gib']:.3f} GiB); launches {counts}")
+    log(f"[path serve] clocks/power after serving: "
+        f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    log("[path serve] tokens " + json.dumps({r.rid: r.out for r in done}))
+    stats["profile"] = profile_steps(torch, eng, cfg)
+    del eng, model, logits
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def profile_steps(torch, eng, cfg, n_steps: int = 6):
+    """Device busy share and kernel time by name over a few engine steps
+    (4 fresh requests: their prefills, then decode steps), from
+    torch.profiler's CUDA activity. Outside the launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import make_requests
+
+    for r in make_requests(cfg, SLOTS, n_steps + 2, seed=7):
+        eng.submit(r)
+    eng.step()                                 # prefills + a first decode
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.run()
+    by_name = {}
+    for ev in prof.key_averages():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue                           # host ops: their kernels count below
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        if dev_us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us / 1e3
+    busy = sum(by_name.values())
+    if busy == 0:
+        log("[profile] the profiler saw no device time: busy share not measured")
+        return None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[profile] {n_steps} decode steps: wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle "
+        f"{100 * (1 - busy / wall_ms):.1f}%")
+    for name, ms in top:
+        log(f"[profile]   {ms / n_steps:8.3f} ms/step  {name[:90]}")
+    for kern in ("silu_mul_kernel", "softmax_kernel", "gqa_decode_kernel"):
+        ms = sum(v for k, v in by_name.items() if kern in k)
+        log(f"[profile]   {kern}: {ms / n_steps:.4f} ms/step")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "top": top}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: identity on the smoke config
+# ---------------------------------------------------------------------------
+def identity_phase(torch):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(configs.get_smoke("yi-9b", act_impl="cordic_pallas"),
+                              softmax_impl="cordic_pallas")
+    cpu_model = tf.init(cfg, seed=0, device="cpu")
+    gpu_model = tf.Transformer(cfg, device=torch.device(DEV))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    out = {}
+    for dev, model in (("cpu", cpu_model), (DEV, gpu_model)):
+        eng = ServeEngine(cfg, model, slots=2, max_len=64, kv_impl="paged",
+                          paged_attend_impl="pallas", device=dev)
+        for r in make_requests(cfg, 3, 8, seed=0):
+            eng.submit(r)
+        out[dev] = {r.rid: r.out for r in eng.run()}
+    log(f"[identity] {cfg.name} float32, 3 requests x 8 tokens: card "
+        f"(kernels) {out[DEV]} vs CPU (plain) {out['cpu']}")
+    check(out[DEV] == out["cpu"], "card tokens differ from the CPU run")
+
+
+# ---------------------------------------------------------------------------
+KERNELS = {
+    # name: (route, source, replaces)
+    "act_2d": ("cuda", "src/repro_torch/kernels/csrc/act.cu",
+               "src/repro/kernels/cordic_act.py:368"),
+    "silu_mul_2d": ("cuda", "src/repro_torch/kernels/csrc/act.cu",
+                    "src/repro/kernels/cordic_act.py:401"),
+    "softmax_2d": ("cuda", "src/repro_torch/kernels/csrc/softmax.cu",
+                   "src/repro/kernels/softmax_cordic.py:161"),
+    "gqa_decode": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
+                   "src/repro/kernels/paged_attention.py:291"),
+}
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py: src/repro_torch not found next to this script; "
+              "run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import build
+
+    t_start = time.perf_counter()
+    card_line = smi("name,power.limit")
+    log(card_line)
+    log(f"[device] python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[device] matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    card = Card(torch)
+    log(f"[device] {card.sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x "
+        f"{card.clock_hz / 1e6:.0f} MHz = {card.int32_ops_s / 1e12:.2f} TOP/s "
+        f"INT32; {HBM_BYTES_S / 1e12} TB/s HBM; {FP32_FLOP_S / 1e12} TFLOP/s FP32")
+
+    t0 = time.perf_counter()
+    build.build_all(verbose=True)
+    log(f"[build] {len(build.SOURCES)} sources in {time.perf_counter() - t0:.1f} s")
+    OUT.mkdir(exist_ok=True)
+    (OUT / "ptxas.log").write_text("\n".join(build.BUILD_LOG.values()))
+    for name, text in build.BUILD_LOG.items():
+        regs = sorted({ln.split("Used ")[1].split(" registers")[0]
+                       for ln in text.splitlines() if "registers" in ln})
+        log(f"[build] {name}.cu: registers per thread {regs}")
+
+    from repro_torch import configs
+
+    ycfg = configs.get_config("yi-9b", act_impl="cordic_pallas")
+    records = {}
+    kernel_phase(torch, card, records, ycfg)
+    launches = dict(sigmoid_path(torch, build, ycfg))
+    serve_counts, _ = serve_path(torch, build)
+    for k in ("silu_mul_2d", "softmax_2d", "gqa_decode"):
+        check(serve_counts.get(k, 0) > 0, f"serving never launched {k}")
+    check(launches.get("act_2d", 0) > 0, "ops.sigmoid never launched act_2d")
+    launches.update(serve_counts)
+    identity_phase(torch)
+
+    kernels = []
+    for name, (route, source, replaces) in KERNELS.items():
+        r = records[name]
+        kernels.append(dict(name=name, route=route, source=source,
+                            replaces=replaces, launches=launches.get(name, 0),
+                            max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(card_line)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

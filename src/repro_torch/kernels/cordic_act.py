@@ -1,0 +1,296 @@
+"""MR-HRC CORDIC activations: plain PyTorch stages and the CUDA kernels.
+
+Port of ``repro/kernels/cordic_act.py``. The stages ``_wrap16`` ..
+``_wide_sigmoid_f`` are torch functions on int32 lanes, bit-identical to the
+JAX stages of the same names (:60-292); they are the plain version of the
+CUDA kernels in ``csrc/act.cu`` (shared stages in ``csrc/cordic.cuh``) and
+what the CPU runs. ``act_2d`` and ``silu_mul_2d`` take a tensor on the CPU
+through the plain version and a CUDA tensor through the kernel; there is no
+fallback between the two.
+
+Float boundary ops round as jitted XLA rounds them: XLA:CPU contracts
+``s2 + (1 - s) * (1 - s)`` (``_wide_sigmoid_f``, into fma(1-s, 1-s, s2),
+since s2 = s*s is also the numerator), ``u * _INV_LN2 + 0.5`` and
+``u - k * _LN2`` (the dyadic reduction of the softmax stages) into FMAs. The
+plain versions compute those three in float64 and round once to float32
+(``_fma_*`` below): a product of two float32 values is exact in float64.
+The kernels write them with ``fmaf``.
+
+The sigmoid family (``sigmoid``, ``tanh``, ``sigmoid_wide``, ``silu``) is
+ported. ``exp``, ``log``, ``softplus``, ``elu`` and ``gelu_erf`` raise until
+ROADMAP B.2; the integer-in ``act_q_2d`` waits for ROADMAP B.9.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.cordic_engine.core import PAPER_FIXED, FixedConfig
+from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE, MRSchedule
+from repro_torch.kernels import build
+
+_I32 = torch.int32
+#: np.float32(log 2) and np.float32(1 / log 2), as float64 values
+_LN2 = float(torch.tensor(math.log(2.0), dtype=torch.float32))
+_INV_LN2 = float(torch.tensor(1.0 / math.log(2.0), dtype=torch.float32))
+
+OPS = ("sigmoid", "tanh", "sigmoid_wide", "silu")
+_OP_CODE = {op: i for i, op in enumerate(OPS)}
+_LATER_OPS = ("exp", "log", "softplus", "elu", "gelu_erf")
+
+
+# ---------------------------------------------------------------------------
+# Plain stages (int32 lanes), one per JAX stage
+# ---------------------------------------------------------------------------
+def _wrap16(v: torch.Tensor, bits: int) -> torch.Tensor:
+    """Mask an int32 lane to ``bits``-bit two's complement (add/and/sub)."""
+    mask = (1 << bits) - 1
+    half = 1 << (bits - 1)
+    return ((v + half) & mask) - half
+
+
+def _shr(v: torch.Tensor, s: int, bits: int) -> torch.Tensor:
+    """Arithmetic right shift with truncation, re-wrapped to the width."""
+    if s <= 0:
+        return v
+    return _wrap16(v >> s, bits)
+
+
+def _coshsinh_q(zq: torch.Tensor, sched: MRSchedule, cfg: FixedConfig):
+    """MR-HRC rotation: angle codes -> (cosh, sinh) codes in cfg.fmt."""
+    bits = cfg.fmt.total_bits
+    fb = cfg.fmt.frac_bits
+    zbits = cfg.zfmt.total_bits
+    zfb = cfg.zfmt.frac_bits
+
+    z = zq
+    if cfg.z_guard:
+        z = _wrap16(z << cfg.z_guard, zbits)
+    x = torch.full_like(zq, int(round(sched.x0 * (1 << fb))))
+    y = torch.zeros_like(zq)
+
+    for j in sched.r2_js:
+        a = int(round(math.atanh(2.0 ** -j) * (1 << zfb)))
+        pos = z >= 0
+        xs = _shr(x, j, bits)
+        ys = _shr(y, j, bits)
+        x_n = torch.where(pos, _wrap16(x + ys, bits), _wrap16(x - ys, bits))
+        y_n = torch.where(pos, _wrap16(y + xs, bits), _wrap16(y - xs, bits))
+        z = torch.where(pos, _wrap16(z - a, zbits), _wrap16(z + a, zbits))
+        x, y = x_n, y_n
+
+    for j in sched.r4_js:
+        t05 = int(round(0.5 * 4.0 ** -j * (1 << zfb)))
+        t15 = int(round(1.5 * 4.0 ** -j * (1 << zfb)))
+        a1 = int(round(math.atanh(1.0 * 4.0 ** -j) * (1 << zfb)))
+        a2 = int(round(math.atanh(2.0 * 4.0 ** -j) * (1 << zfb)))
+        pos = z >= 0
+        mag2 = (z >= t15) | (z < -t15)
+        mag0 = (z < t05) & (z >= -t05)
+        xs1 = _shr(x, 2 * j, bits)
+        ys1 = _shr(y, 2 * j, bits)
+        xs2 = _shr(x, 2 * j - 1, bits)
+        ys2 = _shr(y, 2 * j - 1, bits)
+        zero = torch.zeros_like(x)
+        dx = torch.where(mag0, zero, torch.where(mag2, ys2, ys1))
+        dy = torch.where(mag0, zero, torch.where(mag2, xs2, xs1))
+        da = torch.where(mag0, zero, torch.where(mag2, a2, a1).to(_I32))
+        x = torch.where(pos, _wrap16(x + dx, bits), _wrap16(x - dx, bits))
+        y = torch.where(pos, _wrap16(y + dy, bits), _wrap16(y - dy, bits))
+        z = torch.where(pos, _wrap16(z - da, zbits), _wrap16(z + da, zbits))
+    return x, y
+
+
+def _lvc_div_q(x: torch.Tensor, y: torch.Tensor, sched: MRSchedule,
+               cfg: FixedConfig) -> torch.Tensor:
+    """Radix-2 linear vectoring: y/x in cfg.zfmt codes."""
+    bits = cfg.fmt.total_bits
+    zbits = cfg.zfmt.total_bits
+    zfb = cfg.zfmt.frac_bits
+    t = torch.zeros_like(y)
+    for j in sched.lvc_js:
+        pos = y >= 0
+        xs = _shr(x, j, bits)
+        step = 1 << max(zfb - j, 0)
+        y = torch.where(pos, _wrap16(y - xs, bits), _wrap16(y + xs, bits))
+        t = torch.where(pos, _wrap16(t + step, zbits), _wrap16(t - step, zbits))
+    return t
+
+
+def _guard_drop(t: torch.Tensor, cfg: FixedConfig) -> torch.Tensor:
+    """Requantize zfmt -> fmt (round to nearest on the guard-bit drop)."""
+    if cfg.z_guard:
+        t = _wrap16((t + (1 << (cfg.z_guard - 1))) >> cfg.z_guard,
+                    cfg.fmt.total_bits)
+    return t
+
+
+def _cordic_tanh_q(zq: torch.Tensor, sched: MRSchedule,
+                   cfg: FixedConfig) -> torch.Tensor:
+    """tanh codes of angle codes |z| <= 0.5 (core.cordic.tanh_mr_q)."""
+    x, y = _coshsinh_q(zq, sched, cfg)
+    return _guard_drop(_lvc_div_q(x, y, sched, cfg), cfg)
+
+
+def _cordic_sigmoid_q(xq: torch.Tensor, sched: MRSchedule,
+                      cfg: FixedConfig) -> torch.Tensor:
+    """Sigmoid codes: input halving, tanh core, 1/2 + t/2 output stage."""
+    bits = cfg.fmt.total_bits
+    fb = cfg.fmt.frac_bits
+    t = _cordic_tanh_q(_shr(xq, 1, bits), sched, cfg)
+    t2 = _wrap16((t + 1) >> 1, bits)
+    return _wrap16((1 << (fb - 1)) + t2, bits)
+
+
+def _quantize_f(xf: torch.Tensor, fb: int, bits: int = 16) -> torch.Tensor:
+    """float32 -> Q codes, round half to even, saturating."""
+    lim = (1 << (bits - 1)) - 1
+    q = torch.round(xf * float(1 << fb))
+    return q.clamp(-lim - 1, lim).to(_I32)
+
+
+def _dequantize_f(q: torch.Tensor, fb: int) -> torch.Tensor:
+    return q.to(torch.float32) * (1.0 / (1 << fb))
+
+
+def _exp2_i32(k: torch.Tensor) -> torch.Tensor:
+    """2^k for int32 k through the float32 exponent field."""
+    return ((k.to(_I32) + 127) << 23).view(torch.float32)
+
+
+def _fma_denom(s: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+    """s2 + (1-s)*(1-s) as XLA computes it in ``_wide_sigmoid_f``, where
+    s2 = round(s*s) is a value of its own (it is also the numerator):
+    fma(1-s, 1-s, s2)."""
+    t = (1.0 - s).double()
+    return (t * t + s2.double()).to(torch.float32)
+
+
+def _fma_log2e_half(u: torch.Tensor) -> torch.Tensor:
+    """u * _INV_LN2 + 0.5 with the multiply-add fused, as XLA does."""
+    return (u.double() * _INV_LN2 + 0.5).to(torch.float32)
+
+
+def _fma_k(u: torch.Tensor) -> torch.Tensor:
+    """The dyadic exponent floor(u / ln2 + 1/2)."""
+    return torch.floor(_fma_log2e_half(u))
+
+
+def _fma_r(u: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """u - k * _LN2 with the multiply-add fused, as XLA does."""
+    return (u.double() - k.double() * _LN2).to(torch.float32)
+
+
+def _wide_sigmoid_f(xf: torch.Tensor, sched: MRSchedule, cfg: FixedConfig,
+                    max_doublings: int) -> torch.Tensor:
+    """Dyadic range extension around the Q2.14 core (|x| <= 2^k)."""
+    ax = xf.abs()
+    k = torch.zeros_like(xf, dtype=_I32)
+    for i in range(max_doublings):
+        k = k + (ax > 2.0 ** i).to(_I32)
+    xs = (xf * _exp2_i32(-k)).clamp(-1.0, 1.0)
+    s = _dequantize_f(_cordic_sigmoid_q(
+        _quantize_f(xs, cfg.fmt.frac_bits, cfg.fmt.total_bits), sched, cfg),
+        cfg.fmt.frac_bits)
+    for i in range(max_doublings):
+        s2 = s * s
+        doubled = s2 / _fma_denom(s, s2).clamp_min(1e-12)
+        s = torch.where(k > i, doubled, s)
+    return s
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the kernels
+# ---------------------------------------------------------------------------
+def act_2d_plain(x: torch.Tensor, op: str, *, sched: MRSchedule = PAPER_SCHEDULE,
+                 cfg: FixedConfig = PAPER_FIXED,
+                 max_doublings: int = 3) -> torch.Tensor:
+    """Plain PyTorch version of the activation kernel (any shape)."""
+    _check_op(op)
+    xf = x.to(torch.float32)
+    fb, bits = cfg.fmt.frac_bits, cfg.fmt.total_bits
+    if op == "sigmoid":
+        xq = _quantize_f(xf.clamp(-1.0, 1.0), fb, bits)
+        out = _dequantize_f(_cordic_sigmoid_q(xq, sched, cfg), fb)
+    elif op == "tanh":
+        zq = _quantize_f(xf.clamp(-0.5, 0.5), fb, bits)
+        out = _dequantize_f(_cordic_tanh_q(zq, sched, cfg), fb)
+    elif op == "sigmoid_wide":
+        out = _wide_sigmoid_f(xf, sched, cfg, max_doublings)
+    else:
+        out = xf * _wide_sigmoid_f(xf, sched, cfg, max_doublings)
+    return out.to(x.dtype)
+
+
+def silu_mul_2d_plain(gate: torch.Tensor, up: torch.Tensor, *,
+                      sched: MRSchedule = PAPER_SCHEDULE,
+                      cfg: FixedConfig = PAPER_FIXED,
+                      max_doublings: int = 3) -> torch.Tensor:
+    """Plain PyTorch version of the fused SwiGLU kernel: up * g * s(g)."""
+    g = gate.to(torch.float32)
+    u = up.to(torch.float32)
+    s = _wide_sigmoid_f(g, sched, cfg, max_doublings)
+    return (u * g * s).to(gate.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: CPU tensor -> plain version, CUDA tensor -> kernel
+# ---------------------------------------------------------------------------
+def _check_op(op: str) -> None:
+    if op in _LATER_OPS:
+        raise NotImplementedError(
+            f"act op {op!r} is not ported yet (ROADMAP B.2: exp/log/"
+            "softplus/elu/gelu_erf with log_softmax_2d)")
+    if op not in _OP_CODE:
+        raise ValueError(f"unknown act op {op!r}")
+
+
+def _check_cuda(name: str, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.dtype not in build.DTYPE_CODE:
+            raise TypeError(f"{name}: dtype {t.dtype} not supported "
+                            "(float32 or bfloat16)")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: input must be contiguous")
+        if t.device != ts[0].device or t.dtype != ts[0].dtype:
+            raise ValueError(f"{name}: inputs must share device and dtype")
+
+
+def act_2d(x: torch.Tensor, op: str, *, sched: MRSchedule = PAPER_SCHEDULE,
+           cfg: FixedConfig = PAPER_FIXED, max_doublings: int = 3) -> torch.Tensor:
+    """CORDIC activation over a tensor (the TPU kernel took 2D tiles; this
+    one runs over the flat elements of any shape)."""
+    if x.device.type == "cpu":
+        return act_2d_plain(x, op, sched=sched, cfg=cfg,
+                            max_doublings=max_doublings)
+    _check_op(op)
+    _check_cuda("act_2d", x)
+    y = torch.empty_like(x)
+    rc = build.library("act").cordic_act_2d(
+        x.data_ptr(), y.data_ptr(), x.numel(), _OP_CODE[op],
+        build.DTYPE_CODE[x.dtype], build.params_ptr(sched, cfg, max_doublings),
+        build.stream_ptr(x))
+    build.check(rc, "act_2d")
+    build.count("act_2d")
+    return y
+
+
+def silu_mul_2d(gate: torch.Tensor, up: torch.Tensor, *,
+                sched: MRSchedule = PAPER_SCHEDULE, cfg: FixedConfig = PAPER_FIXED,
+                max_doublings: int = 3) -> torch.Tensor:
+    """Fused ``up * silu(gate)`` over tensors of identical shape."""
+    if gate.shape != up.shape:
+        raise ValueError(f"silu_mul_2d: shapes differ {gate.shape} {up.shape}")
+    if gate.device.type == "cpu" and up.device.type == "cpu":
+        return silu_mul_2d_plain(gate, up, sched=sched, cfg=cfg,
+                                 max_doublings=max_doublings)
+    _check_cuda("silu_mul_2d", gate, up)
+    y = torch.empty_like(gate)
+    rc = build.library("act").cordic_silu_mul_2d(
+        gate.data_ptr(), up.data_ptr(), y.data_ptr(), gate.numel(),
+        build.DTYPE_CODE[gate.dtype], build.params_ptr(sched, cfg, max_doublings),
+        build.stream_ptr(gate))
+    build.check(rc, "silu_mul_2d")
+    build.count("silu_mul_2d")
+    return y

@@ -1,0 +1,159 @@
+"""PyTorch port of the CORDIC activation kernels against the JAX package.
+
+The port's plain versions (what a CPU tensor runs through; the CUDA kernels
+are held against them on the card by chip_smoke.py) must be bit-exact with
+the golden vectors and with the JAX Pallas kernels in interpret mode.
+"""
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import cordic_act as JK  # noqa: E402
+from repro_torch.cordic_engine.core import PAPER_FIXED  # noqa: E402
+from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE  # noqa: E402
+from repro_torch.kernels import cordic_act as K  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+GOLDEN = pathlib.Path(__file__).parent / "golden"
+ALL_CODES = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32)
+
+
+def _golden(name):
+    with np.load(GOLDEN / f"{name}_q2_14.npz") as z:
+        return z["y"].astype(np.int32)
+
+
+def test_sigmoid_all_codes_match_golden():
+    got = K._cordic_sigmoid_q(ALL_CODES, PAPER_SCHEDULE, PAPER_FIXED).numpy()
+    np.testing.assert_array_equal(got, _golden("sigmoid"))
+
+
+def test_tanh_all_codes_match_golden():
+    got = K._cordic_tanh_q(ALL_CODES, PAPER_SCHEDULE, PAPER_FIXED).numpy()
+    np.testing.assert_array_equal(got, _golden("tanh"))
+
+
+def _inputs(seed, shape=(48, 256), scale=3.0):
+    """Normal draws plus the range-extension boundaries and clamp edges."""
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32) * scale
+    edges = np.array([0.0, 0.5, -0.5, 1.0, -1.0, 2.0, -2.0, 4.0, -4.0, 8.0,
+                      -8.0, 12.0, -30.0, 1e-7, 2.0 ** -15], np.float32)
+    x.reshape(-1)[:edges.size] = edges
+    return x
+
+
+@pytest.mark.parametrize("op", K.OPS)
+def test_act_2d_bit_exact_vs_jax(op):
+    x = _inputs(1)
+    want = np.asarray(JK.act_2d(jnp.asarray(x), op, interpret=True))
+    got = K.act_2d(torch.from_numpy(x), op).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_silu_mul_2d_bit_exact_vs_jax(dtype):
+    g = _inputs(2, scale=4.0)
+    u = np.random.default_rng(3).normal(size=g.shape).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = getattr(torch, dtype)
+    want = np.asarray(JK.silu_mul_2d(jnp.asarray(g, jdt), jnp.asarray(u, jdt),
+                                     interpret=True).astype(jnp.float32))
+    got = K.silu_mul_2d(torch.from_numpy(g).to(tdt),
+                        torch.from_numpy(u).to(tdt)).float().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The three multiply-adds that jitted XLA fuses: the port's fused form must
+# match on every lane, and the two-step form must not (else the pin is moot)
+# ---------------------------------------------------------------------------
+_LN2 = np.float32(np.log(2.0))
+_INV_LN2 = np.float32(1.0 / np.log(2.0))
+_N = 1 << 16
+
+
+def _lanes(seed, lo, hi):
+    return np.random.default_rng(seed).uniform(lo, hi, _N).astype(np.float32)
+
+
+def test_fma_row_dyadic_remainder():
+    """r = u - k * ln2 (softmax_cordic.py:72, paged_attention.py:149)."""
+    u = _lanes(10, -20.0, 0.0)
+    k = np.floor(u * _INV_LN2 + np.float32(0.5)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a, b: a - b * _LN2)(u, k))
+    ut, kt = torch.from_numpy(u), torch.from_numpy(k)
+    np.testing.assert_array_equal(K._fma_r(ut, kt).numpy(), want)
+    assert ((ut - kt * float(_LN2)).numpy() != want).any()
+
+
+def test_fma_row_dyadic_exponent():
+    """u * (1/ln2) + 0.5 (softmax_cordic.py:71, paged_attention.py:148)."""
+    u = _lanes(11, -20.0, 0.0)
+    want = np.asarray(jax.jit(lambda a: a * _INV_LN2 + 0.5)(u))
+    ut = torch.from_numpy(u)
+    np.testing.assert_array_equal(K._fma_log2e_half(ut).numpy(), want)
+    assert ((ut * float(_INV_LN2) + 0.5).numpy() != want).any()
+
+
+def test_fma_row_doubling_denominator():
+    """s2 + (1-s)(1-s) with s2 = s*s also the numerator (cordic_act.py:289):
+    XLA rounds s2 once and fuses the other product, fma(1-s, 1-s, s2)."""
+    s = _lanes(12, 0.0, 1.0)
+
+    def ref(a):
+        s2 = a * a
+        return s2 / jnp.maximum(s2 + (1.0 - a) * (1.0 - a), np.float32(1e-12))
+
+    want = np.asarray(jax.jit(ref)(s))
+    st = torch.from_numpy(s)
+    s2 = st * st
+    np.testing.assert_array_equal((s2 / K._fma_denom(st, s2)).numpy(), want)
+    two_step = s2 / (s2 + (1 - st) * (1 - st))
+    other_fma = s2 / (st.double() * st.double()
+                      + ((1 - st) * (1 - st)).double()).float()
+    assert (two_step.numpy() != want).any()
+    assert (other_fma.numpy() != want).any()
+
+
+def test_fixed_point_helpers_match_jax():
+    from repro.core import fixed_point as jfp
+    from repro_torch.core import fixed_point as fp
+
+    x = _inputs(5).reshape(-1) / 2
+    codes = np.random.default_rng(6).integers(-(1 << 20), 1 << 20, x.size)
+    np.testing.assert_array_equal(
+        fp.quantize(torch.from_numpy(x)).numpy(),
+        np.asarray(jfp.quantize(jnp.asarray(x), jfp.Q2_14)))
+    np.testing.assert_array_equal(
+        fp.wrap(torch.from_numpy(codes.astype(np.int32)), fp.Q2_14).numpy(),
+        np.asarray(jfp.wrap(jnp.asarray(codes, jnp.int32), jfp.Q2_14)))
+    q = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32)
+    np.testing.assert_array_equal(
+        fp.dequantize(q).numpy(),
+        np.asarray(jfp.dequantize(jnp.asarray(q.numpy()), jfp.Q2_14)))
+
+
+# ---------------------------------------------------------------------------
+# Front door
+# ---------------------------------------------------------------------------
+def test_ops_flatten_any_rank_and_keep_dtype():
+    x = torch.from_numpy(_inputs(4, shape=(3, 5, 7)))
+    for fn, op in ((ops.sigmoid, "sigmoid"), (ops.tanh, "tanh"),
+                   (ops.sigmoid_wide, "sigmoid_wide"), (ops.silu, "silu")):
+        y = fn(x)
+        assert y.shape == x.shape and y.dtype == x.dtype
+        assert torch.equal(y.view(-1), K.act_2d_plain(x.reshape(-1), op))
+    yb = ops.silu_mul(x.bfloat16(), x.bfloat16())
+    assert yb.shape == x.shape and yb.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("op", ["exp", "log", "softplus", "elu", "gelu_erf"])
+def test_unported_ops_raise(op):
+    with pytest.raises(NotImplementedError, match="ROADMAP B.2"):
+        K.act_2d(torch.zeros(4), op)

@@ -1,0 +1,110 @@
+"""PyTorch port of the paged GQA decode kernel against the JAX kernel.
+
+The geometries of tests/test_paged_attention.py (lengths on and one off the
+block boundaries, a single-block slot, a mixed-length batch, a vacant slot
+reading scratch block 0, the kv_dtype rounding seam), batched into a few
+calls, for the ``exact`` and ``cordic_pallas`` softmax. The reference's own
+standard: ATOL 2e-5 (f32 dot and sum orders differ; the CORDIC probabilities
+are lane-exact given the row max and sum) and an unmoved per-row argmax.
+"""
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import paged_attention as JP  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_attention as P  # noqa: E402
+
+ATOL = 2e-5
+IMPLS = ("exact", "cordic_pallas")
+#: name -> (live lengths per row (0 = vacant), block_len, kv_dtype, seed)
+GEOMETRIES = {
+    "block_boundaries": ([1, 3, 4, 5, 7, 8, 9, 16, 0, 13], 4, None, 0),
+    "single_block_and_vacant": ([2, 0, 17, 5], 16, None, 1),
+    "kv_dtype_bf16": ([7, 12], 4, "bfloat16", 5),
+}
+
+
+def _case(klen_list, L, seed, KH=2, G=2, hd=8):
+    """Pools/tables/lens; vacant rows get an all-zero table and k_len 1,
+    as the engine drives inactive slots."""
+    rng = np.random.default_rng(seed)
+    B = len(klen_list)
+    M = max(-(-k // L) for k in klen_list)
+    N = 1 + B * M
+    q = rng.normal(size=(B, KH, G, hd)).astype(np.float32)
+    kp = rng.normal(size=(N, L, KH, hd)).astype(np.float32)
+    vp = rng.normal(size=(N, L, KH, hd)).astype(np.float32)
+    tables = np.zeros((B, M), np.int32)
+    nxt = 1
+    for b, klen in enumerate(klen_list):
+        for c in range(-(-klen // L)):
+            tables[b, c] = nxt
+            nxt += 1
+    k_len = np.asarray([max(k, 1) for k in klen_list], np.int32)
+    return q, kp, vp, tables, k_len
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(geom, impl):
+    klens, L, kvd, seed = GEOMETRIES[geom]
+    args = _case(klens, L, seed)
+    want = np.asarray(JP.gqa_decode(
+        *map(jnp.asarray, args), scale=0.3, softmax_impl=impl,
+        kv_dtype=getattr(jnp, kvd) if kvd else None, interpret=True))
+    got = P.gqa_decode(*map(torch.from_numpy, args), scale=0.3,
+                       softmax_impl=impl,
+                       kv_dtype=getattr(torch, kvd) if kvd else None).numpy()
+    return args, got, want
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("geom", sorted(GEOMETRIES))
+def test_gqa_decode_vs_jax(geom, impl):
+    _, got, want = _pair(geom, impl)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() < ATOL, np.abs(got - want).max()
+    np.testing.assert_array_equal(got.reshape(got.shape[0], -1).argmax(-1),
+                                  want.reshape(want.shape[0], -1).argmax(-1))
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_vacant_row_leaves_live_rows_bit_unchanged(impl):
+    (q, kp, vp, tables, k_len), full, _ = _pair("single_block_and_vacant", impl)
+    keep = np.asarray([0, 2, 3])
+    sub = P.gqa_decode(torch.from_numpy(q[keep]), torch.from_numpy(kp),
+                       torch.from_numpy(vp), torch.from_numpy(tables[keep]),
+                       torch.from_numpy(k_len[keep]), scale=0.3,
+                       softmax_impl=impl).numpy()
+    np.testing.assert_array_equal(full[keep], sub)
+
+
+def test_kv_dtype_cast_is_load_bearing():
+    (q, kp, vp, tables, k_len), got, _ = _pair("kv_dtype_bf16", "exact")
+    raw = ops.paged_attend_gqa(*map(torch.from_numpy, (q, kp, vp, tables, k_len)),
+                               scale=0.3).numpy()
+    assert np.abs(raw - got).max() > 1e-4
+
+
+def test_canonical_kv_dtype():
+    assert P.canonical_kv_dtype(None) is None
+    assert P.canonical_kv_dtype("bfloat16") is torch.bfloat16
+    assert P.canonical_kv_dtype(torch.float32) is torch.float32
+    with pytest.raises(ValueError, match="not a float dtype"):
+        P.canonical_kv_dtype(torch.int8)
+    with pytest.raises(ValueError, match="unknown kv_dtype"):
+        P.canonical_kv_dtype("bf17")
+
+
+def test_unported_branches_raise():
+    args = map(torch.from_numpy, _case([3], 4, 0))
+    with pytest.raises(NotImplementedError, match="ROADMAP B.5"):
+        P.gqa_decode(*args, scale=0.3, softmax_impl="cordic_fixed")
+    args = map(torch.from_numpy, _case([3], 4, 0))
+    with pytest.raises(NotImplementedError, match="ROADMAP B.6"):
+        P.gqa_decode(*args, scale=0.3, kv_quant="int8")
