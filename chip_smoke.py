@@ -14,15 +14,22 @@ Phases, each of which must pass (the script exits non-zero otherwise):
             (torch.profiler) of the kernel, of the plain version, of one
             PyTorch library call that computes the same function where
             there is one, each beside its host-to-host time per call, and
-            the least time the card could take (bound).
+            the least time the card could take (bound). The Q2.14 golden
+            codes of sigmoid, exp and log on the card.
 4. paths    the port's main paths through the entry points a user calls,
             with every launch count set to 0 just before and read just
             after: (a) the paper's unit, ``ops.sigmoid``; (b) serving Yi-9B
             at full width (random weights from a seed): 8 greedy requests,
-            4 slots, paged KV, the CORDIC kernels on. Every kernel of a
-            path must have launched.
+            4 slots, paged KV, the CORDIC kernels on; (c) training Yi-9B at
+            full width cut to 4 layers (float32 master weights, AdamW, the
+            loop's 8 x 32-token batches): 8 loop steps with checkpoints, a
+            bit-equal restore, 6 steps on one batch (the loss must fall),
+            an eval step. Every kernel of a path must have launched, and
+            under grad the fused SwiGLU kernel must not (the JAX rule's
+            primal).
 5. identity the Yi smoke config in float32: tokens served on the card with
-            the kernels equal the CPU's tokens with the plain versions.
+            the kernels equal the CPU's tokens with the plain versions, and
+            5 train steps' losses on the card agree with the CPU's.
 
 The line before the last holds {"kernels": [...]} (one entry per kernel:
 launches on its path, max error against plain, times, bound); the last line
@@ -56,6 +63,11 @@ DEV = "cuda"
 
 #: Yi-9B serving shapes of the main path (launch/serve.py traffic)
 SLOTS, MAX_NEW, MAX_LEN, BLOCK_LEN, REQUESTS = 4, 16, 128, 16, 8
+#: the train path: Yi-9B widths, depth cut to fit one card with float32
+#: master weights and AdamW moments (16 B per parameter); the loop's batches
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 32
+#: the fixed-batch descent check: steps and learning rate
+DESCENT_STEPS, DESCENT_LR = 6, 1e-4
 
 
 def log(msg: str) -> None:
@@ -82,6 +94,8 @@ def smi(query: str) -> str:
 # subtract counted as a select of the operand's sign plus an add
 # ---------------------------------------------------------------------------
 def pipeline_ops(sched):
+    from repro_torch.kernels.cordic_act import _HYP_VEC_JS as HYP_VEC_JS
+
     wrap, cadd = 1, 2
     r2 = 1 + 2 + 3 * (cadd + wrap)                 # sign, xs/ys, x/y/z: 12
     r4 = 1 + 3 + 2 * (1 + 2 + cadd + wrap) + (2 + cadd + wrap)   # 21
@@ -93,6 +107,10 @@ def pipeline_ops(sched):
     normalize = div + 2 + 4      # LVC divide and its boundary ops
     return {"sigmoid": rot + div + boundary,
             "wide": rot + div + boundary + 6 + 2,  # doubling count, 2^-k
+            # log_softmax_2d: one rotation per live lane and its add into
+            # the row sum; the vectoring log runs once per row
+            "log_softmax_lane": exp_codes + 1,
+            "log_row": len(HYP_VEC_JS) * r2 + 7 + 7 + 8,
             # softmax_2d: one rotation per lane, since the function it
             # replaces keeps each lane's e^r codes for the divide (the CUDA
             # kernel recomputes them, which is its own cost, not the work's)
@@ -178,6 +196,8 @@ class Card:
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def kernel_phase(torch, card, records, ycfg):
+    import numpy as np
+
     from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE
     from repro_torch.kernels import cordic_act as K
     from repro_torch.kernels import paged_attention as PA
@@ -192,7 +212,6 @@ def kernel_phase(torch, card, records, ycfg):
     codes = torch.arange(-(1 << 14), (1 << 14) + 1, device=dev)
     x = codes.to(torch.float32) / (1 << 14)
     y = K.act_2d(x, "sigmoid")
-    import numpy as np
     with np.load(ROOT / "tests" / "golden" / "sigmoid_q2_14.npz") as z:
         golden = torch.from_numpy(z["y"].astype(np.int64)).to(dev)
     got = torch.round(y * (1 << 14)).to(torch.int64)
@@ -219,10 +238,11 @@ def kernel_phase(torch, card, records, ycfg):
         plain=times(torch, lambda: K.act_2d_plain(big, "sigmoid"), None, 3, 1),
         library=times(torch, lambda: torch.sigmoid(big)))
 
-    # (2) silu_mul_2d at the decode (4 x d_ff) and prefill (16 x d_ff)
-    # shapes, bfloat16, bit-exact
+    # (2) silu_mul_2d at the decode (4 x d_ff), prefill (16 x d_ff) and
+    # eval-step (B*S x d_ff = 256 x d_ff) shapes, bfloat16, bit-exact
     F = ycfg.d_ff
-    for name, rows in (("decode", SLOTS), ("prefill", BLOCK_LEN)):
+    for name, rows in (("decode", SLOTS), ("prefill", BLOCK_LEN),
+                       ("eval step", TRAIN_BATCH * TRAIN_SEQ)):
         g = (torch.randn(rows, 1, F, generator=gen, device=dev) * 3).bfloat16()
         u = torch.randn(rows, 1, F, generator=gen, device=dev).bfloat16()
         a = K.silu_mul_2d(g.view(-1), u.view(-1))
@@ -265,6 +285,27 @@ def kernel_phase(torch, card, records, ycfg):
         kernel=times(torch, lambda: SM.softmax_2d(s), "softmax_kernel"),
         plain=times(torch, lambda: SM.softmax_2d_plain(s), None, 3, 1),
         library=times(torch, lambda: torch.softmax(s, dim=-1)))
+    # and at the train step's attend shape (_attend_block): rows B*KH*G*S =
+    # 8*4*8*32, cols S = 32, causal, at the same tolerance
+    st = torch.randn(TRAIN_BATCH, ycfg.num_kv_heads,
+                     ycfg.num_heads // ycfg.num_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
+                     generator=gen, device=dev) * 4
+    causal = torch.ones(TRAIN_SEQ, TRAIN_SEQ, dtype=torch.bool, device=dev).tril()
+    st = torch.where(causal, st, torch.full_like(st, -1e30))
+    st = st.reshape(-1, TRAIN_SEQ).contiguous()
+    a, b = SM.softmax_2d(st), SM.softmax_2d_plain(st)
+    check(bool(((a - b).abs() <= 3.5e-4 * b.abs()).all()), "softmax_2d (train)")
+    check(bool(((a == 0) == (b == 0)).all()), "softmax_2d (train) dead lanes")
+    live = int((st > -1e29).sum())
+    bound, by = card.bound(8 * st.numel(), ops["softmax_lane"] * live)
+    rec = timed(
+        dict(shape=list(st.shape), max_abs_err=float((a - b).abs().max()),
+             bit_equal=bool(torch.equal(a, b)), bound_ms=bound, bound_by=by),
+        kernel=times(torch, lambda: SM.softmax_2d(st), "softmax_kernel"),
+        plain=times(torch, lambda: SM.softmax_2d_plain(st), None, 3, 1),
+        library=times(torch, lambda: torch.softmax(st, dim=-1)))
+    log(f"[softmax_2d] train attend {rec['shape']} causal: max |kernel - plain| "
+        f"{rec['max_abs_err']:.3e} (bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
 
     # (4) gqa_decode at Yi's decode shape, ragged and vacant slots
     B, KH, L, M = SLOTS, ycfg.num_kv_heads, BLOCK_LEN, MAX_LEN // BLOCK_LEN
@@ -312,7 +353,70 @@ def kernel_phase(torch, card, records, ycfg):
             f"(bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
         if impl == "cordic_pallas":
             records["gqa_decode"] = rec
-    for name in ("act_2d", "softmax_2d"):
+    # (5) log_softmax_2d at the loss shape: (B*S, V) = (256, 64000) float32
+    # logits with a masked tail (-1e30) on some rows, bit-exact
+    rows, V = TRAIN_BATCH * TRAIN_SEQ, ycfg.vocab_size
+    z = torch.randn(rows, V, generator=gen, device=dev) * 3
+    z[:8, V - 1000:] = -1e30
+    z[8] = -1e30
+    a, b = SM.log_softmax_2d(z), SM.log_softmax_2d_plain(z)
+    check(torch.equal(a, b), "log_softmax_2d differs from its plain version")
+    err = float((a - b).abs().max())            # every lane is finite
+    check(math.isfinite(err), "log_softmax_2d: a lane is not finite")
+    live = int((z - z.amax(-1, keepdim=True) >= -20.0).sum())
+    bound, by = card.bound(8 * z.numel(), ops["log_softmax_lane"] * live
+                           + ops["log_row"] * rows, 3 * z.numel())
+    records["log_softmax_2d"] = timed(
+        dict(shape=list(z.shape), dtype="float32", max_abs_err=err,
+             bound_ms=bound, bound_by=by),
+        kernel=times(torch, lambda: SM.log_softmax_2d(z), "log_softmax_rows_kernel"),
+        plain=times(torch, lambda: SM.log_softmax_2d_plain(z), None, 3, 1),
+        library=times(torch, lambda: torch.log_softmax(z, dim=-1)))
+    del z, a, b
+
+    # (6) act_2d exp, log, softplus, elu at the train path's MLP shape
+    # (B*S, d_ff) = (256, 11008), float32 and bfloat16, bit-exact
+    xa = torch.randn(rows, ycfg.d_ff, generator=gen, device=dev) * 30
+    xa.view(-1)[:12] = torch.tensor([0.0, -0.0, 80, -80, 85, -85, 1e-30, 1e30,
+                                     3e38, 88, -103, 0.693], device=dev)
+    for op in ("exp", "log", "softplus", "elu"):
+        xin = xa.abs() if op == "log" else xa
+        for dt in (torch.float32, torch.bfloat16):
+            check(torch.equal(K.act_2d(xin.to(dt), op), K.act_2d_plain(xin.to(dt), op)),
+                  f"act_2d {op} {dt} differs from its plain version")
+    log(f"[act_2d] exp, log, softplus, elu at {list(xa.shape)} float32 and "
+        "bfloat16: bit-exact against plain")
+    # the train step's launch: sigmoid_wide of the SwiGLU gate, bfloat16
+    xg = (xa / 10).bfloat16()
+    check(torch.equal(K.act_2d(xg, "sigmoid_wide"), K.act_2d_plain(xg, "sigmoid_wide")),
+          "act_2d sigmoid_wide differs from its plain version")
+    bound, by = card.bound(4 * xg.numel(), ops["wide"] * xg.numel())
+    rec = timed(dict(shape=list(xg.shape), bound_ms=bound, bound_by=by),
+                kernel=times(torch, lambda: K.act_2d(xg, "sigmoid_wide"), "act_kernel"),
+                plain=times(torch, lambda: K.act_2d_plain(xg, "sigmoid_wide"), None, 3, 1),
+                library=times(torch, lambda: torch.sigmoid(xg)))
+    log(f"[act_2d] sigmoid_wide {rec['shape']} bf16 (a train step's launch): "
+        f"{fmt_times(rec)}")
+
+    # (7) the exp and log cores against their Q2.14 golden codes, as
+    # tests/test_golden_vectors.py reads them
+    with np.load(ROOT / "tests" / "golden" / "exp_q2_14.npz") as zf:
+        gexp = torch.from_numpy(zf["y"].astype(np.int64)).to(dev)
+    lim = int(0.34 * (1 << 14))
+    codes = torch.arange(-lim, lim + 1, device=dev)
+    got = torch.round(K.act_2d(codes.float() / (1 << 14), "exp") * (1 << 14)).long()
+    n_exp = int((got != gexp[codes + (1 << 15)]).sum())
+    with np.load(ROOT / "tests" / "golden" / "log_q2_14.npz") as zf:
+        glog = torch.from_numpy(zf["y"].astype(np.int64)).to(dev)
+    mq = torch.arange(1 << 13, 1 << 14, device=dev)
+    got = torch.round(K.act_2d(mq.float() / (1 << 14), "log") * (1 << 13)).long()
+    n_log = int((got != glog).sum())
+    log(f"[golden] exp over {codes.numel()} codes |r| <= 0.34: {n_exp} differ "
+        f"from tests/golden/exp_q2_14.npz; log over {mq.numel()} mantissa codes: "
+        f"{n_log} differ from tests/golden/log_q2_14.npz")
+    check(n_exp == 0 and n_log == 0, "exp/log codes differ from the golden vectors")
+
+    for name in ("act_2d", "softmax_2d", "log_softmax_2d"):
         r = records[name]
         log(f"[{name}] {r['shape']}: max |kernel - plain| {r['max_abs_err']:.3e}; "
             f"{fmt_times(r)}")
@@ -439,21 +543,35 @@ def profile_steps(torch, eng, cfg, n_steps: int = 6):
     """Device busy share and kernel time by name over a few engine steps
     (4 fresh requests: their prefills, then decode steps), from
     torch.profiler's CUDA activity. Outside the launch counts."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch.serve import make_requests
 
     for r in make_requests(cfg, SLOTS, n_steps + 2, seed=7):
         eng.submit(r)
     eng.step()                                 # prefills + a first decode
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def steps():
         for _ in range(n_steps):
             eng.step()
+
+    out = profile_window(torch, steps, n_steps, "decode steps",
+                         ("silu_mul_kernel", "softmax_kernel", "gqa_decode_kernel"))
+    eng.run()
+    return out
+
+
+def profile_window(torch, run, n_steps, what, kernels):
+    """Wall time of ``run`` (``n_steps`` steps, ended by a synchronize) under
+    torch.profiler, the device's busy time in it (the summed durations of
+    its kernels) and the kernels by time; logs them. None when the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    eng.run()
     by_name = {}
     for ev in prof.key_averages():
         if "CUDA" not in str(getattr(ev, "device_type", "")):
@@ -466,15 +584,169 @@ def profile_steps(torch, eng, cfg, n_steps: int = 6):
         log("[profile] the profiler saw no device time: busy share not measured")
         return None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"[profile] {n_steps} decode steps: wall {wall_ms:.1f} ms, device busy "
+    log(f"[profile] {n_steps} {what}: wall {wall_ms:.1f} ms, device busy "
         f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle "
         f"{100 * (1 - busy / wall_ms):.1f}%")
     for name, ms in top:
         log(f"[profile]   {ms / n_steps:8.3f} ms/step  {name[:90]}")
-    for kern in ("silu_mul_kernel", "softmax_kernel", "gqa_decode_kernel"):
+    for kern in kernels:
         ms = sum(v for k, v in by_name.items() if kern in k)
         log(f"[profile]   {kern}: {ms / n_steps:.4f} ms/step")
-    return {"wall_ms": wall_ms, "busy_ms": busy, "top": top}
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle": 1 - busy / wall_ms,
+            "top": top}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c: the train path
+# ---------------------------------------------------------------------------
+def train_cfg(configs):
+    """Yi-9B widths (configs/yi_9b.py:full), depth cut to TRAIN_LAYERS
+    (block_pattern=() lets the config rebuild its pattern), every datapath
+    on the CORDIC kernels."""
+    import dataclasses
+
+    return dataclasses.replace(
+        configs.get_config("yi-9b", act_impl="cordic_pallas"),
+        num_layers=TRAIN_LAYERS, block_pattern=(),
+        softmax_impl="cordic_pallas", loss_impl="cordic_pallas")
+
+
+def train_path(torch, build):
+    """Training at Yi-9B width through the loop a user runs
+    (train/loop.py): 8 steps of the synthetic pipeline with AdamW and
+    async checkpoints every 4 steps; the latest checkpoint restored into a
+    fresh state, bit-equal; 6 steps on one fixed batch, the loss falling;
+    one eval step; 3 steps under the profiler."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as loop_lib
+    from repro_torch.train import step as step_lib
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = train_cfg(configs)
+    n_params = cfg.param_counts()["total"]
+    log(f"[path train] {cfg.name} x{cfg.num_layers} layers: d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, compute {cfg.dtype}, float32 "
+        f"master weights; {n_params / 1e9:.3f}B params; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens; act/softmax/loss impl {cfg.act_impl}/"
+        f"{cfg.softmax_impl}/{cfg.loss_impl}")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # (1) the loop: 8 steps, checkpoints at 4 and 8
+        lc = loop_lib.LoopConfig(total_steps=8, ckpt_every=4, ckpt_dir=ckpt_dir,
+                                 log_every=1, seed=0)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = loop_lib.run(cfg, lc, log=log, device=DEV)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        loop_counts = dict(build.LAUNCHES)
+        hist = out["history"]
+        check(len(hist) == 8 and all(math.isfinite(h["loss"]) and
+                                     math.isfinite(h["grad_norm"]) for h in hist),
+              "8 loop steps with finite losses and grad norms")
+        per_step = {k: v / len(hist) for k, v in loop_counts.items()}
+        log(f"[path train] loop: 8 steps in {loop_s:.1f} s (checkpoints "
+            f"included); losses {[round(h['loss'], 4) for h in hist]}; grad "
+            f"norms {[round(h['grad_norm'], 4) for h in hist]}; launches "
+            f"{loop_counts} ({per_step} per step)")
+        for k in ("act_2d", "softmax_2d", "log_softmax_2d"):
+            check(loop_counts.get(k, 0) > 0, f"a train step never launched {k}")
+        check(loop_counts.get("silu_mul_2d", 0) == 0,
+              "silu_mul_2d launched under grad (the JAX rule's primal is "
+              "u * (g * s) from act_2d)")
+
+        # (2) restore the latest checkpoint into a fresh state: bit-equal
+        state = out.pop("state")
+        last = ckpt.latest_step(ckpt_dir)
+        check(last == 8, f"latest checkpoint is step 8 (got {last})")
+        t0 = time.perf_counter()
+        fresh = step_lib.init_state(cfg, 1, adamw.AdamWConfig(), device=DEV)
+        fresh, found = loop_lib.restore_latest(lc, fresh)
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in
+                   zip(state.params.parameters(), fresh.params.parameters()))
+        same_opt = (int(fresh.opt.step) == int(state.opt.step) == 8 and all(
+            torch.equal(state.opt.mu[k], fresh.opt.mu[k])
+            and torch.equal(state.opt.nu[k], fresh.opt.nu[k]) for k in state.opt.mu))
+        log(f"[path train] restored step {found[0]} into a fresh state in "
+            f"{restore_s:.1f} s: params bit-equal {same}, moments and step "
+            f"bit-equal {same_opt}")
+        check(same and same_opt, "checkpoint round trip is not bit-equal")
+        del state, out
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # (3) 6 steps on batch_at(0) from the restored state: the loss falls
+        ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=TRAIN_SEQ,
+                                           global_batch=TRAIN_BATCH, seed=0))
+        batch = loop_lib.to_device(ds.batch_at(0), DEV)
+        train_step = step_lib.make_train_step(
+            cfg, adamw.AdamWConfig(lr=DESCENT_LR), warmup_steps=0)
+        log(f"[path train] peak memory of the loop and the restore (two "
+            f"states): {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.reset_peak_memory_stats()     # one state from here on
+        build.reset_launches()
+        losses, dts = [], []
+        for _ in range(DESCENT_STEPS):
+            t0 = time.perf_counter()
+            fresh, m = train_step(fresh, batch)
+            losses.append(m["loss"].item())
+            dts.append(time.perf_counter() - t0)
+            check(math.isfinite(losses[-1]) and math.isfinite(float(m["grad_norm"])),
+                  "finite loss and grad norm")
+        step_counts = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[path train] {DESCENT_STEPS} steps on batch_at(0), lr "
+            f"{DESCENT_LR} (warmup 0, total 10000: scale ~1): losses "
+            f"{[round(x, 4) for x in losses]}; launches {step_counts}")
+        check(losses[-1] < losses[0], "the loss does not fall on a fixed batch")
+        check(step_counts.get("silu_mul_2d", 0) == 0, "silu_mul_2d under grad")
+
+        # (4) one eval step: no grad, so the fused SwiGLU kernel runs
+        build.reset_launches()
+        em = step_lib.make_eval_step(cfg)(fresh.params, batch)
+        eval_loss = em["loss"].item()
+        eval_counts = dict(build.LAUNCHES)
+        log(f"[path train] eval step: loss {eval_loss:.4f}; launches {eval_counts}")
+        check(math.isfinite(eval_loss), "finite eval loss")
+        for k in ("silu_mul_2d", "softmax_2d", "log_softmax_2d"):
+            check(eval_counts.get(k, 0) > 0, f"the eval step never launched {k}")
+
+        # (5) device idle share over 3 steps
+        def three():
+            nonlocal fresh
+            for _ in range(3):
+                fresh, m = train_step(fresh, batch)
+                m["loss"].item()
+
+        prof = profile_window(torch, three, 3, "train steps",
+                              ("act_kernel", "softmax_kernel",
+                               "log_softmax_rows_kernel", "gemm"))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    p50 = statistics.median(dts)
+    stats = dict(step_ms_p50=p50 * 1e3, tok_s=TRAIN_BATCH * TRAIN_SEQ / p50,
+                 peak_gib=peak / 2**30, loop_s=loop_s, restore_s=restore_s,
+                 idle=prof["idle"] if prof else None)
+    idle = "not measured" if prof is None else f"{100 * prof['idle']:.1f}%"
+    log(f"[path train] step p50 {stats['step_ms_p50']:.2f} ms (host clock, "
+        f"ending in loss.item()) over {DESCENT_STEPS} steps: "
+        f"{stats['tok_s']:.0f} tokens/s; peak memory {stats['peak_gib']:.2f} "
+        f"GiB; device idle {idle} over 3 steps")
+    log(f"[path train] clocks/power after training: "
+        f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    del fresh, batch
+    torch.cuda.empty_cache()
+    return loop_counts, stats
 
 
 # ---------------------------------------------------------------------------
@@ -505,6 +777,55 @@ def identity_phase(torch):
     check(out[DEV] == out["cpu"], "card tokens differ from the CPU run")
 
 
+#: train identity tolerance, card against CPU. The kernels equal the plain
+#: versions bit for bit, so only the matmuls' summation order differs; on
+#: an H100 (torch 2.11, CUDA 12.8) the losses agreed to 7.6e-8 at step 0
+#: (one float32 ulp) and 1.6e-6 after. The bounds are about ten times
+#: that. The recipe can amplify an ulp: JAX against itself with its
+#: weights nudged one ulp spreads by up to 9e-5 (tests/test_torch_train.py)
+TRAIN_ID_RTOL = (1e-6, 2e-5)          # step 0, later steps
+
+
+def train_identity_phase(torch):
+    """The Yi smoke config in float32, 5 steps (lr 1e-2, warmup 2, total 5,
+    batch_at(0)) from the same weights: on the card with the kernels and
+    on the CPU with the plain versions."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as loop_lib
+    from repro_torch.train import step as step_lib
+
+    cfg = dataclasses.replace(configs.get_smoke("yi-9b", act_impl="cordic_pallas"),
+                              softmax_impl="cordic_pallas", loss_impl="cordic_pallas")
+    batch = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                          global_batch=8, seed=0)).batch_at(0)
+    init = tf.init(cfg, 0, "cpu", dtype=torch.float32).state_dict()
+    losses = {}
+    for dev in ("cpu", DEV):
+        params = tf.Transformer(cfg, device=torch.device(dev), dtype=torch.float32)
+        params.load_state_dict(init)
+        state = step_lib.TrainState(
+            params, adamw.init(step_lib.named_params(params)), None)
+        train_step = step_lib.make_train_step(
+            cfg, adamw.AdamWConfig(lr=1e-2), warmup_steps=2, total_steps=5)
+        b = loop_lib.to_device(batch, dev)
+        losses[dev] = []
+        for _ in range(5):
+            state, m = train_step(state, b)
+            losses[dev].append(m["loss"].item())
+    rel = [abs(a - c) / abs(c) for a, c in zip(losses[DEV], losses["cpu"])]
+    log(f"[identity] {cfg.name} float32 train, 5 steps: card (kernels) "
+        f"{losses[DEV]} vs CPU (plain) {losses['cpu']}; relative differences "
+        f"{[f'{r:.2e}' for r in rel]} (tolerance {TRAIN_ID_RTOL[0]} at step 0, "
+        f"{TRAIN_ID_RTOL[1]} after)")
+    check(rel[0] <= TRAIN_ID_RTOL[0] and max(rel[1:]) <= TRAIN_ID_RTOL[1],
+          "card train losses differ from the CPU run")
+
+
 # ---------------------------------------------------------------------------
 KERNELS = {
     # name: (route, source, replaces)
@@ -514,6 +835,8 @@ KERNELS = {
                     "src/repro/kernels/cordic_act.py:401"),
     "softmax_2d": ("cuda", "src/repro_torch/kernels/csrc/softmax.cu",
                    "src/repro/kernels/softmax_cordic.py:161"),
+    "log_softmax_2d": ("cuda", "src/repro_torch/kernels/csrc/softmax.cu",
+                       "src/repro/kernels/softmax_cordic.py:171"),
     "gqa_decode": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
                    "src/repro/kernels/paged_attention.py:291"),
 }
@@ -563,13 +886,19 @@ def main() -> int:
     ycfg = configs.get_config("yi-9b", act_impl="cordic_pallas")
     records = {}
     kernel_phase(torch, card, records, ycfg)
-    launches = dict(sigmoid_path(torch, build, ycfg))
+    sigmoid_counts = sigmoid_path(torch, build, ycfg)
+    check(sigmoid_counts.get("act_2d", 0) > 0, "ops.sigmoid never launched act_2d")
     serve_counts, _ = serve_path(torch, build)
     for k in ("silu_mul_2d", "softmax_2d", "gqa_decode"):
         check(serve_counts.get(k, 0) > 0, f"serving never launched {k}")
-    check(launches.get("act_2d", 0) > 0, "ops.sigmoid never launched act_2d")
-    launches.update(serve_counts)
+    train_counts, _ = train_path(torch, build)
+    # launches of each kernel summed over the main paths' runs
+    launches = {k: sum(c.get(k, 0) for c in (sigmoid_counts, serve_counts,
+                                             train_counts)) for k in KERNELS}
+    log(f"[paths] launches: sigmoid {sigmoid_counts}, serve {serve_counts}, "
+        f"train loop {train_counts}; summed {launches}")
     identity_phase(torch)
+    train_identity_phase(torch)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

@@ -14,9 +14,10 @@ a later ``synchronize`` would not report it.
 ``LAUNCHES`` counts kernel launches per kernel name; a wrapper adds one
 where it launches, so a run can show that it went through the kernels.
 
-The schedule ROM (atanh constants, radix-4 thresholds, x0) is computed here
-exactly as the JAX kernel computes it (``repro/kernels/cordic_act.py``
-:88, :93, :104-107) and passed by pointer in ``CordicParams``
+The schedule ROM (atanh constants, radix-4 thresholds, x0, and the
+hyperbolic-vectoring stages of the log leg) is computed here exactly as the
+JAX kernel computes it (``repro/kernels/cordic_act.py`` :88, :93, :104-107,
+:219, :255) and passed by pointer in ``CordicParams``
 (``csrc/cordic.cuh``), so the kernels stay parametric in ``MRSchedule`` and
 ``FixedConfig``.
 """
@@ -37,7 +38,11 @@ from typing import Dict
 import torch
 
 from repro_torch.cordic_engine.core import FixedConfig
-from repro_torch.cordic_engine.schedule import MRSchedule
+from repro_torch.cordic_engine.schedule import (
+    HYP_VECTORING,
+    MRSchedule,
+    hyp_vectoring_for,
+)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -48,7 +53,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES: collections.Counter = collections.Counter()
 
-_MAX_R2, _MAX_R4, _MAX_LVC = 32, 16, 32
+_MAX_R2, _MAX_R4, _MAX_LVC, _MAX_HV = 32, 16, 32, 32
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: ptxas resource report of the last build (registers, shared memory, spills)
@@ -88,17 +93,28 @@ class CordicParams(ctypes.Structure):
         ("n_lvc", ctypes.c_int),
         ("lvc_j", ctypes.c_int * _MAX_LVC), ("lvc_step", ctypes.c_int * _MAX_LVC),
         ("max_doublings", ctypes.c_int),
+        ("n_hv", ctypes.c_int),
+        ("hv_j", ctypes.c_int * _MAX_HV), ("hv_a", ctypes.c_int * _MAX_HV),
     ]
+
+
+def log_vectoring_js(frac_bits: int) -> tuple:
+    """The hyperbolic-vectoring stages of the log leg for a format: j=1..14
+    with repeats for Q2.14, deeper for the wider profiles (``_log_q``)."""
+    return (HYP_VECTORING.r2_js if frac_bits == 14
+            else hyp_vectoring_for(frac_bits).r2_js)
 
 
 @functools.lru_cache(maxsize=None)
 def cordic_params(sched: MRSchedule, cfg: FixedConfig,
                   max_doublings: int = 3) -> CordicParams:
-    """The schedule ROM for (sched, cfg), built as the JAX kernel builds it."""
-    if (len(sched.r2_js) > _MAX_R2 or len(sched.r4_js) > _MAX_R4
-            or len(sched.lvc_js) > _MAX_LVC):
-        raise ValueError(f"schedule {sched} exceeds the kernel ROM size")
+    """The schedule ROM for (sched, cfg), built as the JAX kernel builds it.
+    The log leg's vectoring stages follow the format (``_log_q``)."""
     fb, zfb = cfg.fmt.frac_bits, cfg.zfmt.frac_bits
+    hv_js = log_vectoring_js(fb)
+    if (len(sched.r2_js) > _MAX_R2 or len(sched.r4_js) > _MAX_R4
+            or len(sched.lvc_js) > _MAX_LVC or len(hv_js) > _MAX_HV):
+        raise ValueError(f"schedule {sched} exceeds the kernel ROM size")
     p = CordicParams()
     p.bits, p.fb = cfg.fmt.total_bits, fb
     p.zbits, p.zfb, p.z_guard = cfg.zfmt.total_bits, zfb, cfg.z_guard
@@ -119,6 +135,10 @@ def cordic_params(sched: MRSchedule, cfg: FixedConfig,
         p.lvc_j[i] = j
         p.lvc_step[i] = 1 << max(zfb - j, 0)
     p.max_doublings = max_doublings
+    p.n_hv = len(hv_js)
+    for i, j in enumerate(hv_js):
+        p.hv_j[i] = j
+        p.hv_a[i] = int(round(math.atanh(2.0 ** -j) * (1 << zfb)))
     return p
 
 
@@ -203,6 +223,7 @@ _SIGNATURES = {
     "softmax": {
         # (x, y, rows, cols, params, stream)
         "cordic_softmax_2d": (_P, _P, _I, _I, _P, _P),
+        "cordic_log_softmax_2d": (_P, _P, _I, _I, _P, _P),
     },
     "paged_decode": {
         # (q, q_dtype, k_pool, v_pool, tables, k_len, out,

@@ -16,9 +16,15 @@ plain versions compute those three in float64 and round once to float32
 (``_fma_*`` below): a product of two float32 values is exact in float64.
 The kernels write them with ``fmaf``.
 
-The sigmoid family (``sigmoid``, ``tanh``, ``sigmoid_wide``, ``silu``) is
-ported. ``exp``, ``log``, ``softplus``, ``elu`` and ``gelu_erf`` raise until
-ROADMAP B.2; the integer-in ``act_q_2d`` waits for ROADMAP B.9.
+The exp and log legs (``_exp_q``, ``_log_q``) reuse the same rules: the
+dyadic reduction ``r = x - k * _LN2`` is the fused form (``_fma_r``); the log
+tail ``2 * at + p * _LN2`` rounds the same whether XLA fuses it or not, so it
+is written in two steps.
+
+Ported ops: the sigmoid family (``sigmoid``, ``tanh``, ``sigmoid_wide``,
+``silu``) and ``exp``, ``log``, ``softplus``, ``elu``. ``gelu_erf`` (needs
+``_erf_q``) raises until ROADMAP B.2; the integer-in ``act_q_2d`` waits for
+ROADMAP B.9.
 """
 from __future__ import annotations
 
@@ -27,17 +33,27 @@ import math
 import torch
 
 from repro_torch.cordic_engine.core import PAPER_FIXED, FixedConfig
-from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE, MRSchedule
+from repro_torch.cordic_engine.schedule import (
+    HYP_VECTORING,
+    PAPER_SCHEDULE,
+    MRSchedule,
+)
 from repro_torch.kernels import build
 
 _I32 = torch.int32
 #: np.float32(log 2) and np.float32(1 / log 2), as float64 values
 _LN2 = float(torch.tensor(math.log(2.0), dtype=torch.float32))
 _INV_LN2 = float(torch.tensor(1.0 / math.log(2.0), dtype=torch.float32))
+#: exp clamp: keeps 2^k inside the normal float32 exponent range
+_EXP_CLIP = 80.0
+#: hyperbolic-vectoring schedule of the log leg (j=1..14 with repeats)
+_HYP_VEC_JS = HYP_VECTORING.r2_js
 
-OPS = ("sigmoid", "tanh", "sigmoid_wide", "silu")
+#: op name -> op code of csrc/act.cu
+OPS = ("sigmoid", "tanh", "sigmoid_wide", "silu", "exp", "log", "softplus",
+       "elu")
 _OP_CODE = {op: i for i, op in enumerate(OPS)}
-_LATER_OPS = ("exp", "log", "softplus", "elu", "gelu_erf")
+_LATER_OPS = ("gelu_erf",)
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +175,57 @@ def _exp2_i32(k: torch.Tensor) -> torch.Tensor:
     return ((k.to(_I32) + 127) << 23).view(torch.float32)
 
 
+def _frexp_f(v: torch.Tensor):
+    """(m, p) with v = m * 2^p, m in [0.5, 1), through the exponent field
+    (positive normal float32)."""
+    e = (v.view(_I32) >> 23) - 127
+    return v * _exp2_i32(-e) * 0.5, e + 1
+
+
+def _hyp_vector_q(x: torch.Tensor, y: torch.Tensor, cfg: FixedConfig,
+                  js=_HYP_VEC_JS) -> torch.Tensor:
+    """Radix-2 hyperbolic vectoring: drives y to 0, returns atanh(y0/x0)
+    codes in cfg.zfmt."""
+    bits = cfg.fmt.total_bits
+    zbits = cfg.zfmt.total_bits
+    zfb = cfg.zfmt.frac_bits
+    z = torch.zeros_like(y)
+    for j in js:
+        a = int(round(math.atanh(2.0 ** -j) * (1 << zfb)))
+        plus = y < 0
+        xs = _shr(x, j, bits)
+        ys = _shr(y, j, bits)
+        x_n = torch.where(plus, _wrap16(x + ys, bits), _wrap16(x - ys, bits))
+        y_n = torch.where(plus, _wrap16(y + xs, bits), _wrap16(y - xs, bits))
+        z = torch.where(plus, _wrap16(z - a, zbits), _wrap16(z + a, zbits))
+        x, y = x_n, y_n
+    return z
+
+
+def _exp_q(xf: torch.Tensor, sched: MRSchedule, cfg: FixedConfig) -> torch.Tensor:
+    """e^x over (-80, 80): dyadic reduction + Q2.14 cosh+sinh rotation."""
+    fb, bits = cfg.fmt.frac_bits, cfg.fmt.total_bits
+    x = xf.clamp(-_EXP_CLIP, _EXP_CLIP)
+    k = torch.round(x * _INV_LN2)
+    r = _fma_r(x, k)
+    c, s = _coshsinh_q(_quantize_f(r, fb, bits), sched, cfg)
+    eq = _wrap16(c + s, bits)
+    return _dequantize_f(eq, fb) * _exp2_i32(k.to(_I32))
+
+
+def _log_q(v: torch.Tensor, cfg: FixedConfig) -> torch.Tensor:
+    """ln v (v floored at 1e-30): exponent-field mantissa split, then
+    ln v = 2 atanh((m-1)/(m+1)) + p ln2 by hyperbolic vectoring."""
+    fb, bits = cfg.fmt.frac_bits, cfg.fmt.total_bits
+    zfb = cfg.zfmt.frac_bits
+    js = build.log_vectoring_js(fb)
+    m, p = _frexp_f(v.clamp_min(1e-30))
+    num = _quantize_f(m - 1.0, fb, bits)
+    den = _quantize_f(m + 1.0, fb, bits)
+    at = _dequantize_f(_hyp_vector_q(den, num, cfg, js), zfb)
+    return 2.0 * at + p.to(torch.float32) * _LN2
+
+
 def _fma_denom(s: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
     """s2 + (1-s)*(1-s) as XLA computes it in ``_wide_sigmoid_f``, where
     s2 = round(s*s) is a value of its own (it is also the numerator):
@@ -218,8 +285,19 @@ def act_2d_plain(x: torch.Tensor, op: str, *, sched: MRSchedule = PAPER_SCHEDULE
         out = _dequantize_f(_cordic_tanh_q(zq, sched, cfg), fb)
     elif op == "sigmoid_wide":
         out = _wide_sigmoid_f(xf, sched, cfg, max_doublings)
-    else:
+    elif op == "silu":
         out = xf * _wide_sigmoid_f(xf, sched, cfg, max_doublings)
+    elif op == "exp":
+        out = _exp_q(xf, sched, cfg)
+    elif op == "log":
+        out = _log_q(xf, cfg)
+    elif op == "softplus":
+        # log(1 + e^x) = relu(x) + log(1 + e^-|x|), both CORDIC legs
+        e = _exp_q(-xf.abs(), sched, cfg)
+        out = xf.clamp_min(0.0) + _log_q(1.0 + e, cfg)
+    else:  # elu
+        em1 = _exp_q(xf.clamp_max(0.0), sched, cfg) - 1.0
+        out = torch.where(xf > 0, xf, em1)
     return out.to(x.dtype)
 
 
@@ -240,8 +318,8 @@ def silu_mul_2d_plain(gate: torch.Tensor, up: torch.Tensor, *,
 def _check_op(op: str) -> None:
     if op in _LATER_OPS:
         raise NotImplementedError(
-            f"act op {op!r} is not ported yet (ROADMAP B.2: exp/log/"
-            "softplus/elu/gelu_erf with log_softmax_2d)")
+            f"act op {op!r} is not ported yet (ROADMAP B.2: gelu_erf and "
+            "its _erf_q stage)")
     if op not in _OP_CODE:
         raise ValueError(f"unknown act op {op!r}")
 

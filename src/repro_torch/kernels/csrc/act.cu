@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernels of repro/kernels/cordic_act.py:
 //   cordic_act_2d       <- act_2d (:368, body _act_kernel :298), ops sigmoid,
-//                          tanh, sigmoid_wide, silu
+//                          tanh, sigmoid_wide, silu, exp, log, softplus, elu
 //   cordic_silu_mul_2d  <- silu_mul_2d (:401, body _silu_mul_kernel :339),
 //                          the fused SwiGLU epilogue up * g * sigmoid_wide(g)
 //
@@ -10,7 +10,8 @@
 // 26-stage shift-add pipeline (8 radix-2, 4 radix-4, 14 LVC stages: at
 // least ~310 INT32 operations) against 4-12 bytes of traffic, and the card
 // has 64 INT32 lanes per SM against 3.35 TB/s, so the integer ALU saturates
-// long before memory does. The design is one element per thread over a
+// long before memory does (exp: ~170 per element, log: ~150, softplus
+// both legs). The design is one element per thread over a
 // grid-stride loop: no shared memory, no synchronisation, every stage in
 // registers with its ROM entries at constant offsets of the parameter bank.
 // The TPU's (rows, 1024) tiling is gone; the wrappers pass flat element
@@ -19,7 +20,17 @@
 
 namespace {
 
-enum ActOp { OP_SIGMOID = 0, OP_TANH = 1, OP_SIGMOID_WIDE = 2, OP_SILU = 3 };
+// op codes: the order of cordic_act.OPS
+enum ActOp {
+  OP_SIGMOID = 0,
+  OP_TANH = 1,
+  OP_SIGMOID_WIDE = 2,
+  OP_SILU = 3,
+  OP_EXP = 4,
+  OP_LOG = 5,
+  OP_SOFTPLUS = 6,
+  OP_ELU = 7
+};
 
 __device__ __forceinline__ float act_one(float xf, int op, const CordicParams& p) {
   switch (op) {
@@ -34,8 +45,17 @@ __device__ __forceinline__ float act_one(float xf, int op, const CordicParams& p
     }
     case OP_SIGMOID_WIDE:
       return wide_sigmoid_f(xf, p);
-    default:  // OP_SILU
+    case OP_SILU:
       return xf * wide_sigmoid_f(xf, p);
+    case OP_EXP:
+      return exp_q(xf, p);
+    case OP_LOG:
+      return log_q(xf, p);
+    case OP_SOFTPLUS:
+      // log(1 + e^x) = relu(x) + log(1 + e^-|x|), both CORDIC legs
+      return fmaxf(xf, 0.0f) + log_q(1.0f + exp_q(-fabsf(xf), p), p);
+    default:  // OP_ELU
+      return xf > 0.0f ? xf : exp_q(fminf(xf, 0.0f), p) - 1.0f;
   }
 }
 

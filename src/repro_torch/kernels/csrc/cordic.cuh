@@ -27,6 +27,7 @@
 #define CORDIC_MAX_R2 32
 #define CORDIC_MAX_R4 16
 #define CORDIC_MAX_LVC 32
+#define CORDIC_MAX_HV 32
 
 // Layout mirrored by kernels/build.py:_CordicParams (all 32-bit ints).
 struct CordicParams {
@@ -44,6 +45,9 @@ struct CordicParams {
   int lvc_j[CORDIC_MAX_LVC];
   int lvc_step[CORDIC_MAX_LVC];
   int max_doublings;
+  int n_hv;  // hyperbolic vectoring of the log leg (_HYP_VEC_JS)
+  int hv_j[CORDIC_MAX_HV];
+  int hv_a[CORDIC_MAX_HV];
 };
 
 // np.float32(log 2), np.float32(1 / log 2), np.float32(1e-12) bit for bit.
@@ -53,6 +57,9 @@ struct CordicParams {
 // lanes more than e^-20 below the row max flush to 0; 2^k floor of -30
 #define CORDIC_DEAD_CUTOFF (-20.0f)
 #define CORDIC_MIN_K (-30.0f)
+// exp clamp (_EXP_CLIP) and the log leg's floor, np.float32(1e-30)
+#define CORDIC_EXP_CLIP 80.0f
+#define CORDIC_LOG_FLOOR 1e-30f
 
 // _wrap16: ((v + half) & mask) - half, in unsigned arithmetic (no UB).
 __device__ __forceinline__ int wrap_bits(int v, int bits) {
@@ -177,6 +184,50 @@ __device__ __forceinline__ float wide_sigmoid_f(float xf, const CordicParams& p)
     s = (k > i) ? doubled : s;
   }
   return s;
+}
+
+// _hyp_vector_q: radix-2 hyperbolic vectoring, drives y to 0 and returns
+// atanh(y0/x0) codes in zfmt.
+__device__ __forceinline__ int hyp_vector_q(int x, int y, const CordicParams& p) {
+  const int bits = p.bits, zbits = p.zbits;
+  int z = 0;
+#pragma unroll
+  for (int i = 0; i < CORDIC_MAX_HV; ++i) {
+    if (i >= p.n_hv) break;
+    const int j = p.hv_j[i], a = p.hv_a[i];
+    const bool plus = y < 0;
+    const int xs = shr_bits(x, j, bits), ys = shr_bits(y, j, bits);
+    const int xn = plus ? wrap_bits(x + ys, bits) : wrap_bits(x - ys, bits);
+    const int yn = plus ? wrap_bits(y + xs, bits) : wrap_bits(y - xs, bits);
+    z = plus ? wrap_bits(z - a, zbits) : wrap_bits(z + a, zbits);
+    x = xn;
+    y = yn;
+  }
+  return z;
+}
+
+// _exp_q: e^x over (-80, 80). k = rint(x / ln2) is a plain multiply and a
+// round; r = x - k ln2 is the fused form jitted XLA computes.
+__device__ __forceinline__ float exp_q(float xf, const CordicParams& p) {
+  const float x = fminf(fmaxf(xf, -CORDIC_EXP_CLIP), CORDIC_EXP_CLIP);
+  const float k = rintf(x * CORDIC_INV_LN2);
+  const float r = fmaf(-k, CORDIC_LN2, x);
+  int c, s;
+  coshsinh_q(quantize_f(r, p.fb, p.bits), p, c, s);
+  return dequantize_f(wrap_bits(c + s, p.bits), p.fb) * exp2_i32((int)k);
+}
+
+// _log_q: ln v = 2 atanh((m-1)/(m+1)) + p ln2 with v = m 2^p, m in [0.5, 1)
+// by an exponent-field frexp (_frexp_f). The tail rounds the same whether
+// or not its multiply-add is fused, so it is written in two steps.
+__device__ __forceinline__ float log_q(float v, const CordicParams& p) {
+  v = fmaxf(v, CORDIC_LOG_FLOOR);
+  const int e = (__float_as_int(v) >> 23) - 127;
+  const float m = v * exp2_i32(-e) * 0.5f;
+  const int num = quantize_f(m - 1.0f, p.fb, p.bits);
+  const int den = quantize_f(m + 1.0f, p.fb, p.bits);
+  const float at = dequantize_f(hyp_vector_q(den, num, p), p.zfb);
+  return 2.0f * at + (float)(e + 1) * CORDIC_LN2;
 }
 
 // The exp stage of the CORDIC softmax (softmax_cordic._softmax_kernel and

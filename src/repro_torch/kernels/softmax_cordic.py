@@ -15,7 +15,20 @@ the two agree bit for bit; against the JAX kernel, whose reduction order is
 XLA's, a lane can differ by one Q2.14 code step of its probability where the
 sum lands on a rounding edge of its Q2.14 mantissa.
 
-``log_softmax_2d`` (train loss and scoring) waits for ROADMAP B.8.
+``log_softmax_2d`` (the train loss, ``loss_impl="cordic_pallas"``) is the
+same exp sweep followed by the hyperbolic-vectoring log of the row sum:
+
+    y_i = u_i - ln S,   ln S = 2 atanh((m-1)/(m+1)) + p ln2   (S = m 2^p)
+
+Lanes masked with -1e30 keep their hugely negative u. Its rows are up to a
+vocabulary wide (64000 lanes), too long for one thread, so the row sum is a
+fixed-order block reduction (``_block_sum``): thread t of ``LOG_SOFTMAX_T``
+sums lanes t, t+T, ... in order, then a pairwise tree adds the T partials.
+The plain version replays that order, so kernel and plain version agree bit
+for bit. Against the JAX kernel, whose sum XLA orders, only ln S can move:
+where the sum lands on a rounding edge of its Q2.14 mantissa, m-1 and m+1
+quantize one code apart and the vectoring settles a few codes of atanh
+away, so y moves by at most ``LOG_SOFTMAX_ATOL`` on every lane of that row.
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ from repro_torch.kernels.cordic_act import (
     _fma_k,
     _fma_r,
     _guard_drop,
+    _log_q,
     _lvc_div_q,
     _quantize_f,
     _shr,
@@ -41,6 +55,12 @@ from repro_torch.kernels.cordic_act import (
 #: lanes more than ~e^-20 below the row max flush to exactly zero
 _DEAD_CUTOFF = -20.0
 _MIN_K = -30.0
+#: threads per row of the log-softmax kernel (csrc/softmax.cu), which fix
+#: the order of its row sum
+LOG_SOFTMAX_T = 256
+#: |port - JAX| bound of log_softmax_2d: 4 codes of the vectoring's atanh
+#: (2^-14 each), doubled by ln S = 2 atanh(...) + p ln2
+LOG_SOFTMAX_ATOL = 2 * 4 * 2.0 ** -14
 
 
 def _exp_codes(u: torch.Tensor, sched: MRSchedule, cfg: FixedConfig):
@@ -81,6 +101,34 @@ def _seq_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _block_sum(x: torch.Tensor, threads: int = LOG_SOFTMAX_T) -> torch.Tensor:
+    """Row sum over the last axis (keepdim) in the kernel's block order:
+    strided per-thread sums left to right, then a pairwise tree over the
+    ``threads`` partials (threads a power of two)."""
+    rows, cols = x.shape
+    n = -(-cols // threads) * threads
+    xp = torch.nn.functional.pad(x, (0, n - cols))     # + 0.0 is exact
+    steps = xp.view(rows, n // threads, threads)
+    parts = torch.zeros(rows, threads, dtype=x.dtype, device=x.device)
+    for i in range(steps.shape[1]):
+        parts = parts + steps[:, i]
+    width = threads
+    while width > 1:
+        width //= 2
+        parts = parts[:, :width] + parts[:, width:2 * width]
+    return parts
+
+
+def log_softmax_2d_plain(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
+                         cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
+    """Plain PyTorch version of the CORDIC log-softmax over the last axis
+    of a 2D tensor."""
+    xf = x.to(torch.float32)
+    u = xf - xf.amax(dim=-1, keepdim=True)
+    ssum = _block_sum(_lane_exp(u, sched, cfg))
+    return u - _log_q(ssum, cfg)
+
+
 def softmax_2d_plain(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
                      cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
     """Plain PyTorch version of the CORDIC softmax over the last axis."""
@@ -107,4 +155,25 @@ def softmax_2d(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
         build.stream_ptr(x))
     build.check(rc, "softmax_2d")
     build.count("softmax_2d")
+    return y
+
+
+def log_softmax_2d(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
+                   cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
+    """CORDIC log-softmax over the last axis of a (rows, cols) float32
+    tensor."""
+    if x.dim() != 2:
+        raise ValueError(f"log_softmax_2d takes a 2D tensor, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return log_softmax_2d_plain(x, sched=sched, cfg=cfg)
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("log_softmax_2d: the kernel takes contiguous float32")
+    rows, cols = x.shape
+    y = torch.empty_like(x)
+    rc = build.library("softmax").cordic_log_softmax_2d(
+        x.data_ptr(), y.data_ptr(), rows, cols,
+        build.params_ptr(sched, cfg),
+        build.stream_ptr(x))
+    build.check(rc, "log_softmax_2d")
+    build.count("log_softmax_2d")
     return y

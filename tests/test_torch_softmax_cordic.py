@@ -89,3 +89,83 @@ def test_row_sum_is_left_to_right():
     for i in range(33):
         want = want + e[:, i]
     assert torch.equal(S._seq_sum(e)[:, 0], want)
+
+
+# ---------------------------------------------------------------------------
+# log_softmax_2d: tolerance LOG_SOFTMAX_ATOL (the module docstring): the row
+# sum's order differs from XLA's, so where it lands on a rounding edge of its
+# Q2.14 mantissa ln S moves by a few vectoring codes on every lane of the row
+# ---------------------------------------------------------------------------
+def _log_softmax_rows():
+    """(40, 1000): random rows; a masked tail, a fully masked row, extreme
+    and huge-spread logits; rows 30-31 sum onto a mantissa rounding edge in
+    XLA's order (seen with jax 0.9 on the CPU)."""
+    x = _rows(11, 40, 1000)
+    x[1, 400:] = -1e30
+    x[2, :] = -1e30
+    x[3, :] = 0.0
+    x[3, 0] = 1e4
+    x[4] *= 1000.0
+    x[5, :10] = 3e4
+    x[6, 1:] = -1e30
+    edge = np.random.default_rng(5).normal(size=(2000, 1000)).astype(np.float32)
+    x[30:32] = edge[[953, 1555]] * np.float32(0.5)
+    return x
+
+
+LOG_CASES = {"mixed_rows": _log_softmax_rows,
+             "vocab_rows": lambda: _rows(12, 4, 64000, scale=3.0),
+             "ragged_width": lambda: _rows(13, 6, 300, scale=10.0),
+             "narrow": lambda: _rows(14, 3, 7, scale=1.0)}
+
+
+@functools.lru_cache(maxsize=None)
+def _log_pair(case):
+    x = LOG_CASES[case]()
+    want = np.asarray(JS.log_softmax_2d(jnp.asarray(x), interpret=True))
+    got = S.log_softmax_2d(torch.from_numpy(x)).numpy()
+    return x, got, want
+
+
+@pytest.mark.parametrize("case", sorted(LOG_CASES))
+def test_log_softmax_2d_vs_jax_within_atol(case):
+    _, got, want = _log_pair(case)
+    assert np.abs(got - want).max() <= S.LOG_SOFTMAX_ATOL
+    assert (got == want).mean() > 0.9
+
+
+def test_log_softmax_2d_masked_and_extreme_rows():
+    x, got, _ = _log_pair("mixed_rows")
+    assert (got[1, 400:] < -1e29).all() and np.isfinite(got[1, :400]).all()
+    # a fully masked row is uniform: -ln(cols) to the vectoring's accuracy
+    np.testing.assert_allclose(got[2], np.full(1000, -np.log(1000.0)), atol=1e-3)
+    # one live lane: log p = -ln 1, which the vectoring gives to 2^-12
+    assert abs(got[6, 0]) < 2.0 ** -12 and (got[6, 1:] < -1e29).all()
+    assert abs(got[3, 0]) < 2.0 ** -12 and (got[3, 1:] < -9000).all()
+    assert got[5, :10].max() < 0.0
+    assert np.isfinite(got[[0, 3, 4, 5]]).all()
+
+
+def test_log_softmax_plain_sum_is_block_order():
+    """The order csrc/softmax.cu sums a row in: thread t adds lanes t, t+T,
+    ... left to right, then a pairwise tree adds the T partials."""
+    T = S.LOG_SOFTMAX_T
+    e = torch.from_numpy(_rows(15, 3, 3 * T + 17, scale=1.0)).abs()
+    parts = []
+    for t in range(T):
+        acc = torch.zeros(3)
+        for c in range(t, e.shape[1], T):
+            acc = acc + e[:, c]
+        parts.append(acc)
+    while len(parts) > 1:
+        half = len(parts) // 2
+        parts = [parts[i] + parts[i + half] for i in range(half)]
+    assert torch.equal(S._block_sum(e)[:, 0], parts[0])
+
+
+def test_ops_log_softmax_any_axis():
+    x = torch.from_numpy(_rows(16, 6, 40).reshape(2, 3, 40)).permute(0, 2, 1)
+    y = ops.log_softmax(x, axis=1)
+    assert y.shape == x.shape
+    want = S.log_softmax_2d(x.permute(0, 2, 1).reshape(-1, 40).contiguous())
+    assert torch.equal(y.permute(0, 2, 1).reshape(-1, 40), want)
