@@ -15,21 +15,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
             PyTorch library call that computes the same function where
             there is one, each beside its host-to-host time per call, and
             the least time the card could take (bound). The Q2.14 golden
-            codes of sigmoid, exp and log on the card.
+            codes of sigmoid (float and integer paths), exp and log on the
+            card.
 4. paths    the port's main paths through the entry points a user calls,
             with every launch count set to 0 just before and read just
-            after: (a) the paper's unit, ``ops.sigmoid``; (b) serving Yi-9B
-            at full width (random weights from a seed): 8 greedy requests,
-            4 slots, paged KV, the CORDIC kernels on; (c) training Yi-9B at
-            full width cut to 4 layers (float32 master weights, AdamW, the
-            loop's 8 x 32-token batches): 8 loop steps with checkpoints, a
-            bit-equal restore, 6 steps on one batch (the loss must fall),
-            an eval step. Every kernel of a path must have launched, and
-            under grad the fused SwiGLU kernel must not (the JAX rule's
-            primal).
-5. identity the Yi smoke config in float32: tokens served on the card with
-            the kernels equal the CPU's tokens with the plain versions, and
-            5 train steps' losses on the card agree with the CPU's.
+            after: (a) the paper's unit, ``ops.sigmoid`` and its integer
+            datapath ``ops.sigmoid_q``; (b) serving Yi-9B at full width
+            (random weights from a seed): 8 greedy requests, 4 slots, paged
+            KV, the CORDIC kernels on; (c) serving DeepSeek-V2-Lite at full
+            width and depth (27 layers, MLA + GShard MoE, 15.7B parameters)
+            on the same traffic; (d) training Yi-9B at full width cut to 4
+            layers (float32 master weights, AdamW, the loop's 8 x 32-token
+            batches): 8 loop steps with checkpoints, a bit-equal restore, 6
+            steps on one batch (the loss must fall), an eval step. Every
+            kernel of a path must have launched, and under grad the fused
+            SwiGLU kernel must not (the JAX rule's primal).
+5. identity the Yi and DeepSeek-V2-Lite smoke configs in float32: tokens
+            served on the card with the kernels equal the CPU's tokens with
+            the plain versions, and 5 Yi train steps' losses on the card
+            agree with the CPU's.
 
 The line before the last holds {"kernels": [...]} (one entry per kernel:
 launches on its path, max error against plain, times, bound); the last line
@@ -61,8 +65,10 @@ INT32_LANES_PER_SM = 64
 #: the device every phase runs on
 DEV = "cuda"
 
-#: Yi-9B serving shapes of the main path (launch/serve.py traffic)
+#: serving shapes of the main paths (launch/serve.py traffic), both archs
 SLOTS, MAX_NEW, MAX_LEN, BLOCK_LEN, REQUESTS = 4, 16, 128, 16, 8
+#: the MLA/MoE arch served at full width
+DEEPSEEK = "deepseek-v2-lite-16b"
 #: the train path: Yi-9B widths, depth cut to fit one card with float32
 #: master weights and AdamW moments (16 B per parameter); the loop's batches
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 32
@@ -106,6 +112,8 @@ def pipeline_ops(sched):
     exp_codes = rot + 7 + 2      # quantize r, rotation, c + s
     normalize = div + 2 + 4      # LVC divide and its boundary ops
     return {"sigmoid": rot + div + boundary,
+            # act_q_2d: integer codes in and out, no quantize/dequantize
+            "sigmoid_q": rot + div + 2 + 5,
             "wide": rot + div + boundary + 6 + 2,  # doubling count, 2^-k
             # log_softmax_2d: one rotation per live lane and its add into
             # the row sum; the vectoring log runs once per row
@@ -115,10 +123,10 @@ def pipeline_ops(sched):
             # replaces keeps each lane's e^r codes for the divide (the CUDA
             # kernel recomputes them, which is its own cost, not the work's)
             "softmax_lane": exp_codes + normalize,
-            # gqa_decode cordic: the TPU kernel's sum and normalize passes
-            # each rotate (_lane_exp, _lane_probs), since the pool blocks are
-            # walked again rather than the codes kept, so the work it
-            # replaces rotates twice per lane
+            # gqa_decode / mla_decode cordic: the TPU kernels' sum and
+            # normalize passes each rotate (_lane_exp, _lane_probs), since
+            # the pool blocks are walked again rather than the codes kept,
+            # so the work they replace rotates twice per lane
             "decode_lane": 2 * exp_codes + normalize}
 
 
@@ -149,7 +157,9 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 2,
     that ``iters`` calls launch (torch.profiler's CUDA activity) over
     ``iters``. ``kernel`` keeps only the kernels whose name holds it (a
     wrapper's own kernel); None keeps all (a plain version, a library call).
-    Host dispatch and the gaps between launches are outside it."""
+    Host dispatch and the gaps between launches are outside it, unless the
+    profiler records no device time three times running: then CUDA events
+    time the calls, gaps included, and a log line says so."""
     if DEV != "cuda":                       # rehearsal on the CPU
         return host_ms(torch, fn, iters, warmup)
     from torch.profiler import ProfilerActivity, profile
@@ -157,18 +167,35 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 2,
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for ev in prof.key_averages():
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
-            continue
-        if kernel is None or kernel in ev.key:
-            total_us += getattr(ev, "self_device_time_total", 0.0)
-    check(total_us > 0, f"the profiler saw no device time for {kernel or 'fn'}")
-    return total_us / 1e3 / iters
+    # the profiler now and then records no device activity for a window;
+    # profile again, then fall back to CUDA events, which also count the
+    # host's gaps between launches
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for ev in prof.key_averages():
+            if "CUDA" not in str(getattr(ev, "device_type", "")):
+                continue
+            if kernel is None or kernel in ev.key:
+                total_us += getattr(ev, "self_device_time_total", 0.0)
+        if total_us > 0:
+            return total_us / 1e3 / iters
+        log(f"[timing] the profiler saw no device time for {kernel or 'fn'} "
+            f"(attempt {attempt + 1} of 3)")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    check(ms > 0, f"no device time for {kernel or 'fn'}")
+    log(f"[timing] {kernel or 'fn'}: {ms:.4f} ms per call from CUDA events "
+        "(host gaps between launches included)")
+    return ms
 
 
 def times(torch, fn, kernel=None, iters: int = 20, warmup: int = 2):
@@ -195,7 +222,7 @@ class Card:
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def kernel_phase(torch, card, records, ycfg):
+def kernel_phase(torch, card, records, ycfg, dcfg):
     import numpy as np
 
     from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE
@@ -416,7 +443,111 @@ def kernel_phase(torch, card, records, ycfg):
         f"{n_log} differ from tests/golden/log_q2_14.npz")
     check(n_exp == 0 and n_log == 0, "exp/log codes differ from the golden vectors")
 
-    for name in ("act_2d", "softmax_2d", "log_softmax_2d"):
+    # (8) act_q_2d: all 2^16 Q2.14 codes, int16 and int32, against the
+    # golden file and the plain version; timed on the sigmoid path's
+    # (d_model, d_ff) = (4096, 11008) int16 code map
+    codes = torch.arange(-(1 << 15), 1 << 15, device=dev)
+    gsig = torch.from_numpy(np.load(ROOT / "tests" / "golden" / "sigmoid_q2_14.npz")
+                            ["y"].astype(np.int64)).to(dev)
+    for dt in (torch.int16, torch.int32):
+        a = K.act_q_2d(codes.to(dt))
+        n_bad = int((a.long() != gsig).sum())
+        log(f"[act_q_2d] {dt} over all {codes.numel()} Q2.14 codes: {n_bad} "
+            "differ from tests/golden/sigmoid_q2_14.npz")
+        check(n_bad == 0 and a.dtype == dt, f"act_q_2d {dt} codes differ from golden")
+        check(torch.equal(a, K.act_q_2d_plain(codes.to(dt))),
+              f"act_q_2d {dt} differs from its plain version")
+    xq = sigmoid_q_map(torch, ycfg)
+    a, b = K.act_q_2d(xq), K.act_q_2d_plain(xq)
+    check(torch.equal(a, b), "act_q_2d differs from its plain version")
+    n = xq.numel()
+    bound, by = card.bound(4 * n, ops["sigmoid_q"] * n)
+    records["act_q_2d"] = timed(
+        dict(shape=list(xq.shape), dtype="int16",
+             max_abs_err=float((a.long() - b.long()).abs().max()),
+             bound_ms=bound, bound_by=by),
+        kernel=times(torch, lambda: K.act_q_2d(xq), "act_q_kernel"),
+        plain=times(torch, lambda: K.act_q_2d_plain(xq), None, 3, 1))
+
+    # (9) mla_decode at DeepSeek-V2-Lite's decode shape: B 4 slots, H 16,
+    # R 512 (kv_lora), P 64 (rope), L 16, M 8; the block tables and
+    # lengths of (4) (ragged and vacant slots), bfloat16 absorbed queries,
+    # float32 pools
+    m = dcfg.mla
+    H, R, P = dcfg.num_heads, m.kv_lora_rank, m.qk_rope_dim
+    qe = torch.randn(B, H, R, generator=gen, device=dev).bfloat16()
+    qr = torch.randn(B, H, P, generator=gen, device=dev).bfloat16()
+    cp = torch.randn(N, L, R, generator=gen, device=dev)
+    rp = torch.randn(N, L, P, generator=gen, device=dev)
+    kw = dict(scale=1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim))
+    args = (qe, qr, cp, rp, tables, k_len)
+    for impl in ("cordic_pallas", "exact"):
+        a = PA.mla_decode(*args, softmax_impl=impl, **kw)
+        b = PA.mla_decode_plain(*args, softmax_impl=impl, **kw)
+        err = float((a - b).abs().max())
+        # stated tolerance: one summation order on both sides, so equal on
+        # the CORDIC path; the exact path's expf may differ from torch.exp
+        # by an ulp, held to the reference's own ATOL 2e-5
+        check(bool(torch.isfinite(a).all()), f"mla_decode {impl}: finite")
+        check(err == 0.0 if impl == "cordic_pallas" else err < 2e-5,
+              f"mla_decode {impl}: |kernel - plain| {err}")
+        check(torch.equal(a.reshape(B, -1).argmax(-1), b.reshape(B, -1).argmax(-1)),
+              f"mla_decode {impl}: argmax moved against plain")
+        nbytes = (qe.numel() * 2 + qr.numel() * 2 + live_blocks * L * (R + P) * 4
+                  + tables.numel() * 4 + k_len.numel() * 4 + a.numel() * 4)
+        lanes = live_keys * H
+        int_ops = (ops["decode_lane"] if impl == "cordic_pallas" else 0) * lanes
+        bound, by = card.bound(nbytes, int_ops, (2 * (R + P) + 2 * R) * lanes)
+        rec = timed(
+            dict(shape=[B, H, R, P, L, M], impl=impl, klens=klens,
+                 max_abs_err=err, bit_equal=bool(torch.equal(a, b)),
+                 bound_ms=bound, bound_by=by),
+            kernel=times(torch, lambda: PA.mla_decode(*args, softmax_impl=impl, **kw),
+                         "mla_decode_kernel"),
+            plain=times(torch, lambda: PA.mla_decode_plain(
+                *args, softmax_impl=impl, **kw), None, 2, 1))
+        log(f"[mla_decode] {impl} B={B} H={H} R={R} P={P} L={L} M={M} "
+            f"k_len={[max(k, 1) for k in klens]}: max |kernel - plain| {err:.3e} "
+            f"(bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
+        if impl == "cordic_pallas":
+            records["mla_decode"] = rec
+
+    # (10) the reused kernels at DeepSeek-V2-Lite's serve shapes, bit-exact:
+    # act_2d sigmoid_wide of the MoE experts' gate at decode, (G, E, C, f)
+    # = (4, 64, 4, 1408) bf16; silu_mul_2d of layer 0's dense FFN at decode
+    # (4, 10944) bf16; softmax_2d of the MLA prefill attend (H*S, T) =
+    # (16*16, 128) causal
+    E, f = dcfg.moe.num_experts, dcfg.moe.d_ff_expert
+    xg = (torch.randn(SLOTS, E, 4, f, generator=gen, device=dev) * 3).bfloat16()
+    check(torch.equal(K.act_2d(xg, "sigmoid_wide"), K.act_2d_plain(xg, "sigmoid_wide")),
+          "act_2d sigmoid_wide (MoE decode) differs from plain")
+    n = xg.numel()
+    bound, by = card.bound(4 * n, ops["wide"] * n)
+    rec = timed(dict(shape=list(xg.shape), bound_ms=bound, bound_by=by),
+                kernel=times(torch, lambda: K.act_2d(xg, "sigmoid_wide"), "act_kernel"),
+                plain=times(torch, lambda: K.act_2d_plain(xg, "sigmoid_wide"), None, 3, 1),
+                library=times(torch, lambda: torch.sigmoid(xg)))
+    log(f"[act_2d] sigmoid_wide {rec['shape']} bf16 (a MoE decode launch): "
+        f"bit-exact; {fmt_times(rec)}")
+    g = (torch.randn(SLOTS, dcfg.d_ff_dense, generator=gen, device=dev) * 3).bfloat16()
+    u = torch.randn(SLOTS, dcfg.d_ff_dense, generator=gen, device=dev).bfloat16()
+    check(torch.equal(K.silu_mul_2d(g.view(-1), u.view(-1)),
+                      K.silu_mul_2d_plain(g.view(-1), u.view(-1))),
+          "silu_mul_2d (DeepSeek dense FFN) differs from plain")
+    S, T = BLOCK_LEN, MAX_LEN
+    sd = torch.randn(dcfg.num_heads, S, T, generator=gen, device=dev) * 4
+    qpos = torch.arange(S, device=dev)[:, None]
+    kpos = torch.arange(T, device=dev)[None, :]
+    sd = torch.where((kpos <= qpos) & (kpos < 9), sd, torch.full_like(sd, -1e30))
+    sd = sd.reshape(-1, T).contiguous()
+    a, b = SM.softmax_2d(sd), SM.softmax_2d_plain(sd)
+    check(bool(((a - b).abs() <= 3.5e-4 * b.abs()).all()) and
+          bool(((a == 0) == (b == 0)).all()), "softmax_2d (MLA prefill)")
+    log(f"[deepseek shapes] silu_mul_2d {list(g.shape)} bf16 bit-exact; "
+        f"softmax_2d {list(sd.shape)} max |kernel - plain| "
+        f"{float((a - b).abs().max()):.3e} (bit-equal {bool(torch.equal(a, b))})")
+
+    for name in ("act_2d", "softmax_2d", "log_softmax_2d", "act_q_2d"):
         r = records[name]
         log(f"[{name}] {r['shape']}: max |kernel - plain| {r['max_abs_err']:.3e}; "
             f"{fmt_times(r)}")
@@ -442,30 +573,76 @@ def fmt_times(r) -> str:
 # ---------------------------------------------------------------------------
 # Phase 4: the main paths
 # ---------------------------------------------------------------------------
+def sigmoid_q_map(torch, ycfg):
+    """The integer path's input: a (d_model, d_ff) = (4096, 11008) map of
+    Q2.14 int16 codes (normal draws, saturated to the format)."""
+    dev = torch.device(DEV)
+    x = torch.randn(ycfg.d_model, ycfg.d_ff, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    return torch.round(x * (1 << 14)).clamp(-(1 << 15), (1 << 15) - 1).to(torch.int16)
+
+
 def sigmoid_path(torch, build, ycfg):
     """The paper's unit through the front door, as examples/quickstart.py
     uses it: ops.sigmoid on the [-1, 1] code grid and on a (d_model, d_ff)
-    = (4096, 11008) activation map."""
+    = (4096, 11008) activation map; the integer datapath ops.sigmoid_q on
+    all 2^16 Q2.14 codes and on a code map of the same shape."""
     from repro_torch.kernels import ops
 
     dev = torch.device(DEV)
     grid = torch.arange(-(1 << 14), (1 << 14) + 1, device=dev) / float(1 << 14)
     acts = torch.randn(ycfg.d_model, ycfg.d_ff, device=dev,
                        generator=torch.Generator(device=dev).manual_seed(1))
+    codes = torch.arange(-(1 << 15), 1 << 15, device=dev).to(torch.int16)
+    qmap = sigmoid_q_map(torch, ycfg)
     build.reset_launches()
     y1, y2 = ops.sigmoid(grid), ops.sigmoid(acts)
+    q1, q2 = ops.sigmoid_q(codes), ops.sigmoid_q(qmap)
     torch.cuda.synchronize()
     counts = dict(build.LAUNCHES)
     check(y1.shape == grid.shape and y2.shape == acts.shape, "ops.sigmoid shape")
     check(bool(torch.isfinite(y2).all()) and float(y2.min()) >= 0.0,
           "ops.sigmoid output finite and in [0, 1]")
+    check(q1.dtype == q2.dtype == torch.int16 and q2.shape == qmap.shape,
+          "ops.sigmoid_q keeps dtype and shape")
+    check(int(q2.min()) >= 0 and int(q2.max()) <= 1 << 14,
+          "ops.sigmoid_q codes inside [0, 1]")
+    # the float and integer paths agree on the [-1, 1] grid's codes
+    same = torch.equal(q1[(1 << 15) - (1 << 14):(1 << 15) + (1 << 14) + 1].long(),
+                       torch.round(y1 * (1 << 14)).long())
+    check(same, "ops.sigmoid_q codes differ from ops.sigmoid on [-1, 1]")
     log(f"[path sigmoid] ops.sigmoid on {grid.numel()} + {acts.numel()} "
-        f"values; launches {counts}")
+        f"values, ops.sigmoid_q on {codes.numel()} + {qmap.numel()} int16 "
+        f"codes (equal to ops.sigmoid's on [-1, 1]); launches {counts}")
     return counts
 
 
-def serve_path(torch, build):
-    """Yi-9B at full width through ServeEngine: paged KV, decode kernel,
+#: kernels whose per-step device time the serve profile reports, per arch
+SERVE_PROFILE = {
+    "yi-9b": ("silu_mul_kernel", "softmax_kernel", "gqa_decode_kernel"),
+    # cuBLAS names its Hopper GEMM kernels nvjet_*: the MoE experts' and
+    # the head's products
+    DEEPSEEK: ("mla_decode_kernel", "act_kernel", "silu_mul_kernel",
+               "softmax_kernel", "nvjet"),
+}
+
+
+def arch_line(cfg) -> str:
+    if cfg.mla is None:
+        return (f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+                f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}")
+    m, e = cfg.mla, cfg.moe
+    return (f"{cfg.num_layers} layers ({cfg.block_pattern.count('mla_dense')} "
+            f"mla_dense, {cfg.block_pattern.count('mla_moe')} mla_moe), d_model "
+            f"{cfg.d_model}, {cfg.num_heads} heads, MLA kv_lora {m.kv_lora_rank} "
+            f"qk_nope {m.qk_nope_dim} qk_rope {m.qk_rope_dim} v {m.v_dim}, dense "
+            f"FFN {cfg.d_ff_dense}, {e.num_experts} experts x {e.d_ff_expert} "
+            f"top-{e.top_k} + {e.num_shared_experts} shared ({e.router_score} "
+            "router)")
+
+
+def serve_path(torch, build, arch):
+    """An arch at full width through ServeEngine: paged KV, decode kernel,
     CORDIC act and softmax, greedy, the launcher's traffic."""
     import dataclasses
 
@@ -474,17 +651,19 @@ def serve_path(torch, build):
     from repro_torch.models import transformer as tf
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = dataclasses.replace(configs.get_config("yi-9b", act_impl="cordic_pallas"),
+    cfg = dataclasses.replace(configs.get_config(arch, act_impl="cordic_pallas"),
                               softmax_impl="cordic_pallas")
+    tag = f"[path serve {arch}]"
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     model = tf.init(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[path serve] {cfg.name}: {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; {n_params / 1e9:.2f}B "
-        f"params, weights {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
-        f"init {time.perf_counter() - t0:.1f} s")
+    log(f"{tag} {cfg.name}: {arch_line(cfg)}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}; {n_params / 1e9:.2f}B params (spec "
+        f"{cfg.param_counts()['total'] / 1e9:.2f}B), weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+        f"{time.perf_counter() - t0:.1f} s")
     eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, kv_impl="paged",
                       block_len=BLOCK_LEN, paged_attend_impl="pallas",
                       device=DEV)
@@ -525,21 +704,21 @@ def serve_path(torch, build):
                  ttft_ms_max=ttft[-1], step_ms_p50=statistics.median(steps) * 1e3,
                  steps=len(steps), peak_gib=peak / 2**30,
                  pool_gib=eng.kv_pool_bytes() / 2**30, launches=counts)
-    log(f"[path serve] {len(done)} requests, {n_tok} tokens in {wall:.3f} s: "
+    log(f"{tag} {len(done)} requests, {n_tok} tokens in {wall:.3f} s: "
         f"{stats['tok_s']:.1f} tok/s; TTFT p50 {stats['ttft_ms_p50']:.1f} ms, "
         f"max {stats['ttft_ms_max']:.1f} ms; step p50 {stats['step_ms_p50']:.2f} "
         f"ms over {len(steps)} steps; peak memory {stats['peak_gib']:.2f} GiB "
         f"(pools {stats['pool_gib']:.3f} GiB); launches {counts}")
-    log(f"[path serve] clocks/power after serving: "
+    log(f"{tag} clocks/power after serving: "
         f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
-    log("[path serve] tokens " + json.dumps({r.rid: r.out for r in done}))
-    stats["profile"] = profile_steps(torch, eng, cfg)
+    log(f"{tag} tokens " + json.dumps({r.rid: r.out for r in done}))
+    stats["profile"] = profile_steps(torch, eng, cfg, SERVE_PROFILE[arch])
     del eng, model, logits
     torch.cuda.empty_cache()
     return counts, stats
 
 
-def profile_steps(torch, eng, cfg, n_steps: int = 6):
+def profile_steps(torch, eng, cfg, kernels, n_steps: int = 6):
     """Device busy share and kernel time by name over a few engine steps
     (4 fresh requests: their prefills, then decode steps), from
     torch.profiler's CUDA activity. Outside the launch counts."""
@@ -554,8 +733,8 @@ def profile_steps(torch, eng, cfg, n_steps: int = 6):
         for _ in range(n_steps):
             eng.step()
 
-    out = profile_window(torch, steps, n_steps, "decode steps",
-                         ("silu_mul_kernel", "softmax_kernel", "gqa_decode_kernel"))
+    out = profile_window(torch, steps, n_steps, f"{cfg.name} decode steps",
+                         kernels)
     eng.run()
     return out
 
@@ -752,7 +931,7 @@ def train_path(torch, build):
 # ---------------------------------------------------------------------------
 # Phase 5: identity on the smoke config
 # ---------------------------------------------------------------------------
-def identity_phase(torch):
+def identity_phase(torch, arch):
     import dataclasses
 
     from repro_torch import configs
@@ -760,7 +939,7 @@ def identity_phase(torch):
     from repro_torch.models import transformer as tf
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = dataclasses.replace(configs.get_smoke("yi-9b", act_impl="cordic_pallas"),
+    cfg = dataclasses.replace(configs.get_smoke(arch, act_impl="cordic_pallas"),
                               softmax_impl="cordic_pallas")
     cpu_model = tf.init(cfg, seed=0, device="cpu")
     gpu_model = tf.Transformer(cfg, device=torch.device(DEV))
@@ -839,6 +1018,10 @@ KERNELS = {
                        "src/repro/kernels/softmax_cordic.py:171"),
     "gqa_decode": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
                    "src/repro/kernels/paged_attention.py:291"),
+    "act_q_2d": ("cuda", "src/repro_torch/kernels/csrc/act.cu",
+                 "src/repro/kernels/cordic_act.py:385"),
+    "mla_decode": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
+                   "src/repro/kernels/paged_attention.py:421"),
 }
 
 
@@ -884,20 +1067,28 @@ def main() -> int:
     from repro_torch import configs
 
     ycfg = configs.get_config("yi-9b", act_impl="cordic_pallas")
+    dcfg = configs.get_config(DEEPSEEK, act_impl="cordic_pallas")
     records = {}
-    kernel_phase(torch, card, records, ycfg)
+    kernel_phase(torch, card, records, ycfg, dcfg)
     sigmoid_counts = sigmoid_path(torch, build, ycfg)
-    check(sigmoid_counts.get("act_2d", 0) > 0, "ops.sigmoid never launched act_2d")
-    serve_counts, _ = serve_path(torch, build)
+    for k in ("act_2d", "act_q_2d"):
+        check(sigmoid_counts.get(k, 0) > 0, f"the sigmoid path never launched {k}")
+    serve_counts, _ = serve_path(torch, build, "yi-9b")
     for k in ("silu_mul_2d", "softmax_2d", "gqa_decode"):
-        check(serve_counts.get(k, 0) > 0, f"serving never launched {k}")
+        check(serve_counts.get(k, 0) > 0, f"serving Yi-9B never launched {k}")
+    ds_counts, _ = serve_path(torch, build, DEEPSEEK)
+    for k in ("mla_decode", "act_2d", "silu_mul_2d", "softmax_2d"):
+        check(ds_counts.get(k, 0) > 0, f"serving DeepSeek-V2-Lite never launched {k}")
+    check(ds_counts.get("gqa_decode", 0) == 0,
+          "serving DeepSeek-V2-Lite launched the GQA decode kernel")
     train_counts, _ = train_path(torch, build)
     # launches of each kernel summed over the main paths' runs
-    launches = {k: sum(c.get(k, 0) for c in (sigmoid_counts, serve_counts,
-                                             train_counts)) for k in KERNELS}
-    log(f"[paths] launches: sigmoid {sigmoid_counts}, serve {serve_counts}, "
-        f"train loop {train_counts}; summed {launches}")
-    identity_phase(torch)
+    paths = (sigmoid_counts, serve_counts, ds_counts, train_counts)
+    launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNELS}
+    log(f"[paths] launches: sigmoid {sigmoid_counts}, serve yi-9b {serve_counts}, "
+        f"serve {DEEPSEEK} {ds_counts}, train loop {train_counts}; summed {launches}")
+    for arch in ("yi-9b", DEEPSEEK):
+        identity_phase(torch, arch)
     train_identity_phase(torch)
 
     kernels = []

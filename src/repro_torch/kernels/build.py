@@ -219,6 +219,8 @@ _SIGNATURES = {
         "cordic_act_2d": (_P, _P, _LL, _I, _I, _P, _P),
         # (gate, up, y, n, dtype, params, stream)
         "cordic_silu_mul_2d": (_P, _P, _P, _LL, _I, _P, _P),
+        # (x, y, n, int dtype, params, stream)
+        "cordic_act_q_2d": (_P, _P, _LL, _I, _P, _P),
     },
     "softmax": {
         # (x, y, rows, cols, params, stream)
@@ -230,6 +232,10 @@ _SIGNATURES = {
         #  B, KH, G, hd, L, M, scale, impl, kv_dtype, params, stream)
         "paged_gqa_decode": (_P, _I, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P),
+        # (q_eff, q_rope, q_dtype, c_pool, r_pool, tables, k_len, out,
+        #  B, H, R, P, L, M, heads_per_cta, scale, impl, params, stream)
+        "paged_mla_decode": (_P, _P, _I, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P),
     },
 }
 

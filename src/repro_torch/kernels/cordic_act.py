@@ -23,8 +23,8 @@ is written in two steps.
 
 Ported ops: the sigmoid family (``sigmoid``, ``tanh``, ``sigmoid_wide``,
 ``silu``) and ``exp``, ``log``, ``softplus``, ``elu``. ``gelu_erf`` (needs
-``_erf_q``) raises until ROADMAP B.2; the integer-in ``act_q_2d`` waits for
-ROADMAP B.9.
+``_erf_q``) raises until ROADMAP B.2. ``act_q_2d`` is the paper's integer
+datapath: Q2.14 int16/int32 codes in, sigmoid codes of the same dtype out.
 """
 from __future__ import annotations
 
@@ -312,6 +312,13 @@ def silu_mul_2d_plain(gate: torch.Tensor, up: torch.Tensor, *,
     return (u * g * s).to(gate.dtype)
 
 
+def act_q_2d_plain(x_q: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
+                   cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
+    """Plain PyTorch version of the integer sigmoid kernel: Q2.14 codes in
+    (int16 or int32), sigmoid codes of the same dtype out."""
+    return _cordic_sigmoid_q(x_q.to(_I32), sched, cfg).to(x_q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: CPU tensor -> plain version, CUDA tensor -> kernel
 # ---------------------------------------------------------------------------
@@ -371,4 +378,28 @@ def silu_mul_2d(gate: torch.Tensor, up: torch.Tensor, *,
         build.stream_ptr(gate))
     build.check(rc, "silu_mul_2d")
     build.count("silu_mul_2d")
+    return y
+
+
+#: integer dtypes of act_q_2d -> dtype code of csrc/act.cu
+_INT_CODE = {torch.int16: 0, torch.int32: 1}
+
+
+def act_q_2d(x_q: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
+             cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
+    """Integer (Q2.14 int16/int32 codes) sigmoid over the flat elements of a
+    tensor of any shape; the result has the input's dtype."""
+    if x_q.dtype not in _INT_CODE:
+        raise TypeError(f"act_q_2d: dtype {x_q.dtype} not supported "
+                        "(int16 or int32 codes)")
+    if x_q.device.type == "cpu":
+        return act_q_2d_plain(x_q, sched=sched, cfg=cfg)
+    if not x_q.is_contiguous():
+        raise ValueError("act_q_2d: input must be contiguous")
+    y = torch.empty_like(x_q)
+    rc = build.library("act").cordic_act_q_2d(
+        x_q.data_ptr(), y.data_ptr(), x_q.numel(), _INT_CODE[x_q.dtype],
+        build.params_ptr(sched, cfg), build.stream_ptr(x_q))
+    build.check(rc, "act_q_2d")
+    build.count("act_q_2d")
     return y

@@ -5,6 +5,10 @@
 //                          tanh, sigmoid_wide, silu, exp, log, softplus, elu
 //   cordic_silu_mul_2d  <- silu_mul_2d (:401, body _silu_mul_kernel :339),
 //                          the fused SwiGLU epilogue up * g * sigmoid_wide(g)
+//   cordic_act_q_2d     <- act_q_2d (:385, body _act_q_kernel :333), the
+//                          paper's integer datapath: Q2.14 int16/int32 codes
+//                          in, sigmoid codes of the same dtype out; the
+//                          cordic_sigmoid_q stage alone, no float boundary
 //
 // What bounds it here: integer operations. Each element runs the unrolled
 // 26-stage shift-add pipeline (8 radix-2, 4 radix-4, 14 LVC stages: at
@@ -82,6 +86,19 @@ __global__ void silu_mul_kernel(const T* __restrict__ gate, const T* __restrict_
   }
 }
 
+// Integer codes in and out: the stage of cordic.cuh with no float boundary.
+// The result is already wrapped to the format's width, so the store into
+// the input's dtype keeps it (as .astype(o_ref.dtype) in the reference).
+template <typename T>
+__global__ void act_q_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
+                             const CordicParams p) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    y[i] = (T)cordic_sigmoid_q((int)x[i], p);
+  }
+}
+
 constexpr int kThreads = 256;
 
 unsigned grid_for(long long n) {
@@ -124,6 +141,20 @@ extern "C" int cordic_silu_mul_2d(const void* gate, const void* up, void* y, lon
       silu_mul_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
           (const __nv_bfloat16*)gate, (const __nv_bfloat16*)up, (__nv_bfloat16*)y, n,
           *p);
+  }
+  return (int)cudaGetLastError();
+}
+
+// dtype: 0 int16, 1 int32.
+extern "C" int cordic_act_q_2d(const void* x, void* y, long long n, int dtype,
+                               const CordicParams* p, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n > 0) {
+    const unsigned grid = grid_for(n);
+    if (dtype == 0)
+      act_q_kernel<short><<<grid, kThreads, 0, s>>>((const short*)x, (short*)y, n, *p);
+    else
+      act_q_kernel<int><<<grid, kThreads, 0, s>>>((const int*)x, (int*)y, n, *p);
   }
   return (int)cudaGetLastError();
 }

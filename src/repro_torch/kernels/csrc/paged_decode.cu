@@ -1,4 +1,5 @@
-// Paged GQA decode attention on Hopper.
+// Paged decode attention on Hopper: GQA (paged_gqa_decode) and absorbed-form
+// MLA (paged_mla_decode, after the GQA kernel below).
 //
 // Replaces gqa_decode of repro/kernels/paged_attention.py (:291; pallas_call
 // :373, body _gqa_kernel :240, _pass_update :197, _exp_codes :139,
@@ -208,4 +209,217 @@ extern "C" int paged_gqa_decode(const void* q, int q_dtype, const void* k_pool,
              : launch_impl<__nv_bfloat16, __nv_bfloat16>(impl, q, k_pool, v_pool, tables,
                                                          k_len, out, B, KH, G, hd, L, M,
                                                          scale, pp, s);
+}
+
+// ---------------------------------------------------------------------------
+// Paged MLA decode, absorbed form.
+//
+// Replaces mla_decode of repro/kernels/paged_attention.py (:421; pallas_call
+// :460, body _mla_kernel :384, shared _pass_update :197). Each slot scores
+// q_eff . c + q_rope . r against its live blocks of the compressed-latent
+// pool (N, L, R) and the shared rope-key pool (N, L, P) and accumulates the
+// probabilities against the latent rows themselves: the output is the
+// (H, R) latent, projected by wv_b outside.
+//
+// What bounds it here: as for GQA, neither rate at serving shapes. A step
+// reads each live block of (L, R + P) floats once per pass (36 KB at
+// L 16, R 512, P 64), so the kernel is again a latency chain. Unlike GQA
+// the pools have no head axis: one staged block serves every head, so the
+// grid is (slot, head group) with heads_per_cta heads per block (B x H/4 =
+// 16 blocks at 4 slots and 16 heads), each block walking its own table row
+// over the live blocks only. A score sums R + P products: 16 threads share
+// it (strided partials, gathered by shuffles), so a block's heads x lanes
+// scores take a few rounds rather than one 576-long chain per thread. The
+// latent accumulator is (heads, R) in shared memory, one thread per column
+// and head, summing the block's lanes left to right.
+//
+// Order, shared with mla_decode_plain: partial t of a score sums elements
+// t, t + 16, ... left to right; lane 0 adds the 16 partials left to right,
+// the latent sum and the rope sum separately; score = (sum_R + sum_P) *
+// scale, as _mla_kernel writes it. Block and latent sums run left to right
+// over the lanes.
+namespace {
+
+constexpr int kMlaThreads = 256;
+constexpr int kSplit = 16;  // MLA_SPLIT: threads (strided partials) per score
+
+// A dot product of n floats in the fixed order above, on a 16-lane group
+// whose lane t is `t`; the result is exact on lane 0 of the group. Every
+// lane of the warp must call it (the partials are gathered by shuffles).
+__device__ __forceinline__ float split_dot(const float* a, const float* b, int n, int t) {
+  float part = 0.0f;
+  for (int i = t; i < n; i += kSplit) part = part + a[i] * b[i];
+  float s = __shfl_sync(0xffffffffu, part, 0, kSplit);
+  for (int k = 1; k < kSplit; ++k) s = s + __shfl_sync(0xffffffffu, part, k, kSplit);
+  return s;
+}
+
+template <typename TQ, bool CORDIC>
+__global__ void mla_decode_kernel(const TQ* __restrict__ q_eff, const TQ* __restrict__ q_rope,
+                                  const float* __restrict__ c_pool,
+                                  const float* __restrict__ r_pool,
+                                  const int* __restrict__ tables,
+                                  const int* __restrict__ k_len, float* __restrict__ out,
+                                  int H, int R, int P, int L, int M, int HG, float scale,
+                                  const CordicParams p) {
+  extern __shared__ float smem[];
+  float* cs = smem;            // (L, R) latent block
+  float* rs = cs + L * R;      // (L, P) rope-key block
+  float* qe = rs + L * P;      // (HG, R)
+  float* qr = qe + HG * R;     // (HG, P)
+  float* sc = qr + HG * P;     // (HG, L) scores, then lane weights
+  float* acc = sc + HG * L;    // (HG, R) latent accumulator
+  float* mrow = acc + HG * R;  // (HG,) running max
+  float* lrow = mrow + HG;     // (HG,) running sum
+  float* alpha = lrow + HG;    // (HG,) online rescale factor (exact)
+
+  const int b = blockIdx.x, h0 = blockIdx.y * HG, tid = threadIdx.x;
+  const int hg = min(HG, H - h0);
+  const int klen = k_len[b];
+  const int* trow = tables + (long long)b * M;
+  const long long qoff = ((long long)b * H + h0) * R;
+  const long long roff = ((long long)b * H + h0) * P;
+
+  for (int i = tid; i < hg * R; i += kMlaThreads) {
+    qe[i] = load_as_float(q_eff, qoff + i);
+    acc[i] = 0.0f;
+  }
+  for (int i = tid; i < hg * P; i += kMlaThreads) qr[i] = load_as_float(q_rope, roff + i);
+  for (int h = tid; h < hg; h += kMlaThreads) {
+    mrow[h] = kNegInf;
+    lrow[h] = 0.0f;
+  }
+  __syncthreads();
+
+  const int grp = tid / kSplit, lane = tid - grp * kSplit;
+  constexpr int kGroups = kMlaThreads / kSplit;
+  const int nsc = hg * L;
+  const int live = min(M, (klen + L - 1) / L);  // blocks with c * L < k_len
+  const int passes = CORDIC ? 3 : 1;
+  for (int pass = 0; pass < passes; ++pass) {
+    for (int c = 0; c < live; ++c) {
+      const long long blk = trow[c];
+      const int base = c * L;
+      for (int i = tid; i < L * R; i += kMlaThreads) cs[i] = c_pool[blk * L * R + i];
+      for (int i = tid; i < L * P; i += kMlaThreads) rs[i] = r_pool[blk * L * P + i];
+      __syncthreads();
+      // uniform trip count across the warp: every lane reaches the shuffles
+      for (int s0 = 0; s0 < nsc; s0 += kGroups) {
+        const int si = s0 + grp;
+        const bool on = si < nsc;
+        const int h = on ? si / L : 0;
+        const int l = on ? si - h * L : 0;
+        const float sr = split_dot(qe + h * R, cs + l * R, R, lane);
+        const float sp = split_dot(qr + h * P, rs + l * P, P, lane);
+        if (on && lane == 0) {
+          const float s = (sr + sp) * scale;
+          sc[si] = (base + l < klen) ? s : kNegInf;
+        }
+      }
+      __syncthreads();
+
+      if (!CORDIC) {
+        for (int g = tid; g < hg; g += kMlaThreads) {
+          float mx = sc[g * L];
+          for (int l = 1; l < L; ++l) mx = fmaxf(mx, sc[g * L + l]);
+          const float m_old = mrow[g];
+          const float m_new = fmaxf(m_old, mx);
+          alpha[g] = expf(m_old - m_new);
+          mrow[g] = m_new;
+        }
+        __syncthreads();
+        for (int i = tid; i < nsc; i += kMlaThreads) sc[i] = expf(sc[i] - mrow[i / L]);
+        __syncthreads();
+        for (int g = tid; g < hg; g += kMlaThreads) {
+          float bs = 0.0f;
+          for (int l = 0; l < L; ++l) bs = bs + sc[g * L + l];
+          lrow[g] = lrow[g] * alpha[g] + bs;
+        }
+        for (int i = tid; i < hg * R; i += kMlaThreads) {
+          const int g = i / R, r = i - g * R;
+          float pv = 0.0f;
+          for (int l = 0; l < L; ++l) pv = pv + sc[g * L + l] * cs[l * R + r];
+          acc[i] = acc[i] * alpha[g] + pv;
+        }
+      } else if (pass == 0) {
+        for (int g = tid; g < hg; g += kMlaThreads) {
+          float mx = sc[g * L];
+          for (int l = 1; l < L; ++l) mx = fmaxf(mx, sc[g * L + l]);
+          mrow[g] = fmaxf(mrow[g], mx);
+        }
+      } else if (pass == 1) {
+        for (int i = tid; i < nsc; i += kMlaThreads) sc[i] = lane_exp(sc[i] - mrow[i / L], p);
+        __syncthreads();
+        for (int g = tid; g < hg; g += kMlaThreads) {
+          float bs = 0.0f;
+          for (int l = 0; l < L; ++l) bs = bs + sc[g * L + l];
+          lrow[g] = lrow[g] + bs;
+        }
+      } else {
+        for (int i = tid; i < nsc; i += kMlaThreads) {
+          const int g = i / L;
+          sc[i] = lane_prob(sc[i] - mrow[g], row_sum_frexp(lrow[g], p), p);
+        }
+        __syncthreads();
+        for (int i = tid; i < hg * R; i += kMlaThreads) {
+          const int g = i / R, r = i - g * R;
+          float pv = 0.0f;
+          for (int l = 0; l < L; ++l) pv = pv + sc[g * L + l] * cs[l * R + r];
+          acc[i] = acc[i] + pv;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int i = tid; i < hg * R; i += kMlaThreads)
+    out[qoff + i] = CORDIC ? acc[i] : acc[i] / lrow[i / R];
+}
+
+template <typename TQ, bool CORDIC>
+int launch_mla(const void* q_eff, const void* q_rope, const void* c_pool, const void* r_pool,
+               const void* tables, const void* k_len, void* out, int B, int H, int R, int P,
+               int L, int M, int HG, float scale, const CordicParams& p, cudaStream_t s) {
+  auto kern = mla_decode_kernel<TQ, CORDIC>;
+  const size_t bytes =
+      sizeof(float) * ((size_t)L * R + (size_t)L * P + 2 * (size_t)HG * R +
+                       (size_t)HG * P + (size_t)HG * L + 3 * (size_t)HG);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<dim3(B, (H + HG - 1) / HG), kMlaThreads, bytes, s>>>(
+      (const TQ*)q_eff, (const TQ*)q_rope, (const float*)c_pool, (const float*)r_pool,
+      (const int*)tables, (const int*)k_len, (float*)out, H, R, P, L, M, HG, scale, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename TQ>
+int launch_mla_impl(int impl, const void* qe, const void* qr, const void* cp, const void* rp,
+                    const void* t, const void* kl, void* o, int B, int H, int R, int P, int L,
+                    int M, int HG, float scale, const CordicParams& p, cudaStream_t s) {
+  return impl ? launch_mla<TQ, true>(qe, qr, cp, rp, t, kl, o, B, H, R, P, L, M, HG, scale, p, s)
+              : launch_mla<TQ, false>(qe, qr, cp, rp, t, kl, o, B, H, R, P, L, M, HG, scale, p,
+                                      s);
+}
+
+}  // namespace
+
+// impl: 0 exact, 1 cordic_pallas. q_dtype: 0 float32, 1 bfloat16 (q_eff and
+// q_rope alike). heads_per_cta: heads of one block (grid y = ceil(H / it)).
+extern "C" int paged_mla_decode(const void* q_eff, const void* q_rope, int q_dtype,
+                                const void* c_pool, const void* r_pool, const void* tables,
+                                const void* k_len, void* out, int B, int H, int R, int P,
+                                int L, int M, int heads_per_cta, float scale, int impl,
+                                const CordicParams* p, void* stream) {
+  if (B == 0 || H == 0) return (int)cudaGetLastError();
+  if (heads_per_cta < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int HG = heads_per_cta < H ? heads_per_cta : H;
+  return q_dtype == 0
+             ? launch_mla_impl<float>(impl, q_eff, q_rope, c_pool, r_pool, tables, k_len, out,
+                                      B, H, R, P, L, M, HG, scale, *p, s)
+             : launch_mla_impl<__nv_bfloat16>(impl, q_eff, q_rope, c_pool, r_pool, tables,
+                                              k_len, out, B, H, R, P, L, M, HG, scale, *p, s);
 }

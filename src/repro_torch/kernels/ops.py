@@ -14,7 +14,8 @@ the port does the same under grad: ``silu_mul`` then returns
 ``u * (g * sigmoid_wide(g))`` in the input dtype from one ``act_2d`` launch,
 not the fused ``silu_mul_2d`` kernel, whose ``(u * g) * s`` rounds
 differently; ``silu`` launches ``act_2d`` twice (the primal and the
-``sigmoid_wide`` of its tangent).
+``sigmoid_wide`` of its tangent). ``sigmoid_q`` and ``paged_attend_mla``
+have no gradient, as their JAX counterparts have no jvp rule.
 """
 from __future__ import annotations
 
@@ -244,3 +245,21 @@ def paged_attend_gqa(q, k_pool, v_pool, tables, k_len, *, scale,
                          softmax_impl=softmax_impl, kv_dtype=kv_dtype,
                          kv_quant=kv_quant, k_scale_pool=k_scale_pool,
                          v_scale_pool=v_scale_pool, sched=sched, cfg=cfg)
+
+
+def paged_attend_mla(q_eff, q_rope, c_pool, r_pool, tables, k_len, *, scale,
+                     softmax_impl: str = "exact", sched=PAPER_SCHEDULE,
+                     cfg=PAPER_FIXED):
+    """Block-walking paged MLA decode attend, absorbed form
+    (kernels/paged_attention.py). Returns latent outputs (B,H,R) float32."""
+    return PA.mla_decode(q_eff, q_rope, c_pool, r_pool, tables, k_len,
+                         scale=scale, softmax_impl=softmax_impl, sched=sched,
+                         cfg=cfg)
+
+
+def sigmoid_q(x_q, sched=PAPER_SCHEDULE, cfg=PAPER_FIXED):
+    """The integer path: Q2.14 codes in (int16/int32), Q2.14 sigmoid codes
+    out, same shape and dtype. Activations never leave the integer domain.
+    No gradient (integer in and out), as in the JAX package."""
+    y = K.act_q_2d(x_q.contiguous().view(-1), sched=sched, cfg=cfg)
+    return y.view(x_q.shape)

@@ -1,10 +1,12 @@
-"""Paged GQA decode attention: plain PyTorch version and the CUDA kernel.
+"""Paged decode attention, GQA and MLA: plain PyTorch versions and the
+CUDA kernels.
 
-Port of ``gqa_decode`` / ``canonical_kv_dtype`` of
+Port of ``gqa_decode``, ``mla_decode`` and ``canonical_kv_dtype`` of
 ``repro/kernels/paged_attention.py``. One query row per slot walks its own
-block table up to ``k_len`` and attends the live K/V blocks in place; the
-kernel (``csrc/paged_decode.cu``) runs a (slot, kv-head) grid and loops over
-live blocks only.
+block table up to ``k_len`` and attends the live blocks in place; the
+kernels (``csrc/paged_decode.cu``) loop over live blocks only, GQA on a
+(slot, kv-head) grid, MLA on a (slot, head-group) grid (the latent and rope
+pools have no head axis, so one staged block serves every head of a group).
 
 Softmax (``softmax_impl``):
 
@@ -12,15 +14,18 @@ Softmax (``softmax_impl``):
     "cordic_pallas"  three sweeps: row max, CORDIC e^u row sum, lane-exact
                      R2-LVC probabilities (``softmax_cordic`` stages)
 
-Summation orders are fixed and shared by the kernel and the plain version:
-scores are left-to-right sums over head_dim, block sums and P.V sums run
-left to right over a block's lanes. With ``-fmad=false`` the two agree bit
-for bit on ``cordic_pallas``; against the JAX kernel, whose dots XLA orders,
-outputs agree to f32 round-off (the reference's own ATOL 2e-5).
+Summation orders are fixed and shared by the kernels and the plain
+versions: a GQA score is a left-to-right sum over head_dim; an MLA score is
+``(sum_R qe*c + sum_P qr*r) * scale``, each sum taken as ``MLA_SPLIT``
+strided partials (partial t sums elements t, t + MLA_SPLIT, ... left to
+right, one thread each) added left to right; block sums and P.V sums run
+left to right over a block's lanes. With ``-fmad=false`` kernel and plain
+agree bit for bit on ``cordic_pallas``; against the JAX kernels, whose dots
+XLA orders, outputs agree to f32 round-off (the reference's own ATOL 2e-5).
 
 Not ported yet: ``cordic_fixed`` (``functions.exp_fixed/divide_fixed``,
-ROADMAP B.5), the quantized-pool branch (``kv_quant``, ROADMAP B.6) and
-``mla_decode`` (ROADMAP B.7).
+ROADMAP B.5, with A.3) and the quantized-pool branch of ``gqa_decode``
+(``kv_quant``, ROADMAP B.6).
 """
 from __future__ import annotations
 
@@ -42,7 +47,8 @@ def _impl(softmax_impl: Optional[str]) -> str:
     if impl == "cordic_fixed":
         raise NotImplementedError(
             "paged decode with softmax_impl='cordic_fixed' is not ported yet "
-            "(ROADMAP B.5: the functions.exp_fixed/divide_fixed branch)")
+            "(ROADMAP B.5 with A.3: the functions.exp_fixed/divide_fixed "
+            "branch)")
     if impl not in IMPLS:
         raise ValueError(f"unknown softmax_impl {softmax_impl!r}")
     return impl
@@ -88,6 +94,51 @@ def _seq_pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _walk(tables, k_len, L: int, impl: str):
+    """The block walk of both decodes: (pass, block ids (B,), live rows
+    (B,), valid lanes (B,L)) for every pass and every table column some row
+    still covers (c * L < k_len), in the kernels' order."""
+    klen = k_len.to(torch.int64)
+    lane = torch.arange(L, device=tables.device)
+    for pas in range(1 if impl == "exact" else 3):
+        for c in range(tables.shape[1]):
+            live = c * L < klen
+            if bool(live.any()):
+                yield (pas, tables[:, c].to(torch.int64), live,
+                       (c * L + lane)[None, :] < klen[:, None])
+
+
+def _pass_update(s, live, pas, impl, state, contract, sched, cfg):
+    """One block of the softmax accumulation shared by both decodes (the
+    JAX ``_pass_update``). s (..., L) masked scores; live broadcastable to
+    s[..., :1]; state (running max, running sum, accumulator);
+    contract(p) -> the block's weighted-value sum. ``exact``: the online
+    (flash-decoding) recurrence; ``cordic_pallas``: pass 0 the row max,
+    pass 1 the CORDIC e^u row sum, pass 2 the lane-exact probabilities."""
+    m, l_sum, acc = state
+    if impl == "exact":
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        ef = torch.exp(s - m_new)
+        return (torch.where(live, m_new, m),
+                torch.where(live, l_sum * alpha + _seq_sum(ef), l_sum),
+                torch.where(live, acc * alpha + contract(ef), acc))
+    if pas == 0:
+        return torch.where(live, torch.maximum(m, s.amax(dim=-1, keepdim=True)), m), \
+            l_sum, acc
+    if pas == 1:
+        return m, torch.where(live, l_sum + _seq_sum(_lane_exp(s - m, sched, cfg)),
+                              l_sum), acc
+    pr = _lane_probs(s - m, l_sum, sched, cfg)
+    return m, l_sum, torch.where(live, acc + contract(pr), acc)
+
+
+def _init_state(lead, width, device):
+    m = torch.full(lead + (1,), NEG_INF, dtype=torch.float32, device=device)
+    return (m, torch.zeros_like(m),
+            torch.zeros(lead + (width,), dtype=torch.float32, device=device))
+
+
 def gqa_decode_plain(q, k_pool, v_pool, tables, k_len, *, scale: float,
                      softmax_impl: str = "exact", kv_dtype=None,
                      sched: MRSchedule = PAPER_SCHEDULE,
@@ -97,45 +148,17 @@ def gqa_decode_plain(q, k_pool, v_pool, tables, k_len, *, scale: float,
     impl = _impl(softmax_impl)
     kvd = canonical_kv_dtype(kv_dtype) or canonical_kv_dtype(k_pool.dtype)
     B, KH, G, hd = q.shape
-    L = k_pool.shape[1]
-    M = tables.shape[1]
     qf = q.to(torch.float32)
-    klen = k_len.to(torch.int64)
-    m = torch.full((B, KH, G, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    l_sum = torch.zeros_like(m)
-    acc = torch.zeros((B, KH, G, hd), dtype=torch.float32, device=q.device)
-    lane = torch.arange(L, device=q.device)
-    for pas in range(1 if impl == "exact" else 3):
-        for c in range(M):
-            live = (c * L < klen)[:, None, None, None]             # (B,1,1,1)
-            if not bool(live.any()):
-                continue
-            blk = tables[:, c].to(torch.int64)
-            kb = k_pool[blk].to(kvd).to(torch.float32)             # (B,L,KH,hd)
-            s = _seq_scores(qf, kb) * scale
-            valid = (c * L + lane)[None, :] < klen[:, None]         # (B,L)
-            s = torch.where(valid[:, None, None, :], s,
-                            torch.full_like(s, NEG_INF))
-            mx = s.amax(dim=-1, keepdim=True)
-            if impl == "exact":
-                vb = v_pool[blk].to(kvd).to(torch.float32)
-                m_new = torch.maximum(m, mx)
-                alpha = torch.exp(m - m_new)
-                ef = torch.exp(s - m_new)
-                l_new = l_sum * alpha + _seq_sum(ef)
-                acc_new = acc * alpha + _seq_pv(ef, vb)
-                m = torch.where(live, m_new, m)
-                l_sum = torch.where(live, l_new, l_sum)
-                acc = torch.where(live, acc_new, acc)
-            elif pas == 0:
-                m = torch.where(live, torch.maximum(m, mx), m)
-            elif pas == 1:
-                ef = _lane_exp(s - m, sched, cfg)
-                l_sum = torch.where(live, l_sum + _seq_sum(ef), l_sum)
-            else:
-                vb = v_pool[blk].to(kvd).to(torch.float32)
-                pr = _lane_probs(s - m, l_sum, sched, cfg)
-                acc = torch.where(live, acc + _seq_pv(pr, vb), acc)
+    state = _init_state((B, KH, G), hd, q.device)
+    for pas, blk, live, valid in _walk(tables, k_len, k_pool.shape[1], impl):
+        kb = k_pool[blk].to(kvd).to(torch.float32)                 # (B,L,KH,hd)
+        s = _seq_scores(qf, kb) * scale
+        s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+        state = _pass_update(
+            s, live[:, None, None, None], pas, impl, state,
+            lambda p: _seq_pv(p, v_pool[blk].to(kvd).to(torch.float32)),
+            sched, cfg)
+    _, l_sum, acc = state
     return acc / l_sum if impl == "exact" else acc
 
 
@@ -186,4 +209,114 @@ def gqa_decode(q, k_pool, v_pool, tables, k_len, *, scale: float,
         build.DTYPE_CODE[kvd], build.params_ptr(sched, cfg), build.stream_ptr(q))
     build.check(rc, "gqa_decode")
     build.count("gqa_decode")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MLA decode (absorbed form)
+# ---------------------------------------------------------------------------
+#: strided partials of an MLA score sum (the kernel's threads per score)
+MLA_SPLIT = 16
+
+
+def _split_dot(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """q (B,H,n) . c (B,L,n) -> (B,H,L) in the kernel's order: MLA_SPLIT
+    strided partials, partial t summing elements t, t + MLA_SPLIT, ... left
+    to right, then the partials added left to right."""
+    B, H, n = q.shape
+    part = torch.zeros((B, H, c.shape[1], MLA_SPLIT), dtype=torch.float32,
+                       device=q.device)
+    for i in range(0, n, MLA_SPLIT):
+        w = min(MLA_SPLIT, n - i)
+        part[..., :w] = part[..., :w] + (q[:, :, None, i:i + w]
+                                         * c[:, None, :, i:i + w])
+    s = part[..., 0]
+    for t in range(1, MLA_SPLIT):
+        s = s + part[..., t]
+    return s
+
+
+def _seq_latent(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """p (B,H,L) . c (B,L,R) -> (B,H,R), summed left to right over the
+    block's lanes."""
+    acc = torch.zeros(p.shape[:2] + (c.shape[-1],), dtype=torch.float32,
+                      device=p.device)
+    for l in range(c.shape[1]):
+        acc = acc + p[..., l:l + 1] * c[:, l, None, :]
+    return acc
+
+
+def mla_decode_plain(q_eff, q_rope, c_pool, r_pool, tables, k_len, *,
+                     scale: float, softmax_impl: str = "exact",
+                     sched: MRSchedule = PAPER_SCHEDULE,
+                     cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
+    """Plain PyTorch version of the block-walking MLA decode (same block
+    order, same sums as the kernel)."""
+    impl = _impl(softmax_impl)
+    B, H, R = q_eff.shape
+    qe = q_eff.to(torch.float32)
+    qr = q_rope.to(torch.float32)
+    state = _init_state((B, H), R, qe.device)
+    for pas, blk, live, valid in _walk(tables, k_len, c_pool.shape[1], impl):
+        cb = c_pool[blk].to(torch.float32)                          # (B,L,R)
+        rb = r_pool[blk].to(torch.float32)                          # (B,L,P)
+        s = (_split_dot(qe, cb) + _split_dot(qr, rb)) * scale      # (B,H,L)
+        s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
+        state = _pass_update(s, live[:, None, None], pas, impl, state,
+                             lambda p: _seq_latent(p, cb), sched, cfg)
+    _, l_sum, acc = state
+    return acc / l_sum if impl == "exact" else acc
+
+
+#: heads per CTA of the MLA decode kernel (grid: slots x ceil(H / this))
+MLA_HEADS_PER_CTA = 4
+
+
+def mla_decode(q_eff, q_rope, c_pool, r_pool, tables, k_len, *, scale: float,
+               softmax_impl: str = "exact",
+               sched: MRSchedule = PAPER_SCHEDULE,
+               cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
+    """Paged absorbed-form MLA decode: scores against the compressed latent
+    and the shared rope key, output accumulated in the latent space.
+
+    q_eff (B,H,R) absorbed queries (q_nope @ wk_b), q_rope (B,H,P), float32
+    or bfloat16; c_pool (N,L,R) and r_pool (N,L,P) float32 (block 0 is
+    scratch); tables (B,M) int32; k_len (B,) int32 >= 1. Returns (B,H,R)
+    float32 latent outputs (the wv_b projection stays outside, as in
+    models.attention)."""
+    impl = _impl(softmax_impl)
+    if q_eff.device.type == "cpu":
+        return mla_decode_plain(q_eff, q_rope, c_pool, r_pool, tables, k_len,
+                                scale=scale, softmax_impl=impl, sched=sched,
+                                cfg=cfg)
+    B, H, R = q_eff.shape
+    P = q_rope.shape[-1]
+    N, L = c_pool.shape[:2]
+    M = tables.shape[1]
+    if q_eff.dtype not in build.DTYPE_CODE or q_rope.dtype != q_eff.dtype:
+        raise TypeError(f"mla_decode: q_eff {q_eff.dtype} / q_rope "
+                        f"{q_rope.dtype} not supported (one of float32, "
+                        "bfloat16)")
+    if c_pool.dtype != torch.float32 or r_pool.dtype != torch.float32:
+        raise TypeError("mla_decode: the kernel takes float32 pools")
+    if (q_rope.shape != (B, H, P) or c_pool.shape != (N, L, R)
+            or r_pool.shape != (N, L, P)):
+        raise ValueError(f"mla_decode: q_eff {tuple(q_eff.shape)}, q_rope "
+                         f"{tuple(q_rope.shape)}, pools {tuple(c_pool.shape)} "
+                         f"{tuple(r_pool.shape)} do not match")
+    if tables.dtype != torch.int32 or k_len.dtype != torch.int32 \
+            or tables.shape[0] != B or k_len.shape != (B,):
+        raise ValueError("mla_decode: tables (B,M) and k_len (B,) are int32")
+    ts = (q_eff, q_rope, c_pool, r_pool, tables, k_len)
+    if any(t.device != q_eff.device or not t.is_contiguous() for t in ts):
+        raise ValueError("mla_decode: inputs must be contiguous on one device")
+    out = torch.empty((B, H, R), dtype=torch.float32, device=q_eff.device)
+    rc = build.library("paged_decode").paged_mla_decode(
+        q_eff.data_ptr(), q_rope.data_ptr(), build.DTYPE_CODE[q_eff.dtype],
+        c_pool.data_ptr(), r_pool.data_ptr(), tables.data_ptr(),
+        k_len.data_ptr(), out.data_ptr(), B, H, R, P, L, M,
+        MLA_HEADS_PER_CTA, float(scale), IMPLS.index(impl),
+        build.params_ptr(sched, cfg), build.stream_ptr(q_eff))
+    build.check(rc, "mla_decode")
+    build.count("mla_decode")
     return out

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
         --requests 8 --slots 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --smoke --device cpu
 
 Boots the paged continuous-batching engine for a registered arch with
 random weights from a seed, on the card (``--device cuda``, the default) or

@@ -1,19 +1,22 @@
-"""GQA attention (port of the GQA half of ``repro/models/attention.py``).
+"""GQA and MLA attention (port of ``repro/models/attention.py``).
 
 Prefill and no-cache passes attend over dense shapes (``causal_attention``,
 ``_attend_rows``); a paged decode step either gathers its table
-(``paged_attend_impl="gather"``) or walks its live blocks with the CUDA
-decode kernel (``"pallas"``, kernels/paged_attention.py).
+(``paged_attend_impl="gather"``) or walks its live blocks with a CUDA
+decode kernel (``"pallas"``, kernels/paged_attention.py): ``gqa_decode``
+for GQA, ``mla_decode`` for MLA (absorbed form against the compressed
+latent and rope-key pools).
 
 The paged KV plane is updated in place: ``_pool_write`` scatters new K/V
 into the global pools with ``index_put_`` where the JAX code returns new
 pools (``paged_pool_view``/``paged_pool_merge`` have no counterpart). A
-layer's cache is a dict {"k_pool", "v_pool", "tables", "lens"}; every layer
-shares one ``tables`` and one ``lens`` tensor, and the model advances
-``lens`` once per apply (models/transformer.py).
+layer's cache is a dict {"k_pool", "v_pool", "tables", "lens"} (GQA) or
+{"c_kv_pool", "k_rope_pool", "tables", "lens"} (MLA); every layer shares
+one ``tables`` and one ``lens`` tensor, and the model advances ``lens``
+once per apply (models/transformer.py).
 
-MLA, the dense per-slot KV cache and the quantized pools are not ported yet
-(ROADMAP A.10, A.6, A.9).
+The dense per-slot KV cache and the quantized pools are not ported yet
+(ROADMAP A.6, A.9).
 """
 from __future__ import annotations
 
@@ -171,6 +174,14 @@ def gqa_init_paged_cache(cfg, slots: int, num_blocks: int, block_len: int,
     return {
         "k_pool": torch.zeros(shape, dtype=dtype, device=device),
         "v_pool": torch.zeros(shape, dtype=dtype, device=device),
+        **_slot_rows(slots, max_blocks, device, tables, lens),
+    }
+
+
+def _slot_rows(slots, max_blocks, device, tables, lens) -> Dict[str, torch.Tensor]:
+    """The per-slot block tables and lengths (zeros unless shared ones are
+    given)."""
+    return {
         "tables": (tables if tables is not None else
                    torch.zeros((slots, max_blocks), dtype=torch.int32, device=device)),
         "lens": (lens if lens is not None else
@@ -270,3 +281,181 @@ def gqa_apply(p: GQAttention, x, cfg, *, cache: Optional[dict] = None):
                          score_dtype=cfg.score_dtype,
                          softmax_impl=getattr(cfg, "softmax_impl", "exact"))
     return _out_project(o.reshape(B, S, H, hd), p.wo)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+class MLAttention(nn.Module):
+    """wq (d,H,nope+rope), wkv_a (d,R+rope), kv_norm (R,), wkv_b
+    (R,H,nope+v), wo (H,v,d), as the JAX ``mla_spec``."""
+
+    def __init__(self, cfg, *, dtype: torch.dtype, device: torch.device,
+                 gen: torch.Generator = None):
+        super().__init__()
+        m = cfg.mla
+        d, H = cfg.d_model, cfg.num_heads
+        for name, shape in (
+                ("wq", (d, H, m.qk_nope_dim + m.qk_rope_dim)),
+                ("wkv_a", (d, m.kv_lora_rank + m.qk_rope_dim)),
+                ("wkv_b", (m.kv_lora_rank, H, m.qk_nope_dim + m.v_dim)),
+                ("wo", (H, m.v_dim, d))):
+            w = (cm.init_normal(shape, gen, dtype, device) if gen is not None
+                 else torch.empty(shape, dtype=dtype, device=device))
+            setattr(self, name, nn.Parameter(w, requires_grad=False))
+        self.kv_norm = nn.Parameter(
+            torch.ones(m.kv_lora_rank, dtype=dtype, device=device),
+            requires_grad=False)
+
+
+def mla_init_paged_cache(cfg, slots: int, num_blocks: int, block_len: int,
+                         max_blocks: int, dtype=torch.float32, *, device,
+                         tables: Optional[torch.Tensor] = None,
+                         lens: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """One MLA layer's paged cache: block pools over the compressed latent
+    (num_blocks, block_len, kv_lora_rank) and the shared rope key
+    (num_blocks, block_len, qk_rope_dim), block 0 scratch, plus the per-slot
+    tables and lengths (shareable across layers)."""
+    if getattr(cfg, "kv_quant", "none") not in (None, "none"):
+        raise ValueError("kv_quant applies to GQA paged pools only; MLA "
+                         "layers store the compressed latent unquantized")
+    m = cfg.mla
+    return {
+        "c_kv_pool": torch.zeros((num_blocks, block_len, m.kv_lora_rank),
+                                 dtype=dtype, device=device),
+        "k_rope_pool": torch.zeros((num_blocks, block_len, m.qk_rope_dim),
+                                   dtype=dtype, device=device),
+        **_slot_rows(slots, max_blocks, device, tables, lens),
+    }
+
+
+def _mla_project_q(p: MLAttention, x, cfg, positions):
+    m = cfg.mla
+    q = _project(x, p.wq)                                     # (B,S,H,nope+rope)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    return q_nope, cm.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_compress(p: MLAttention, x, cfg, positions):
+    """(c_kv (B,S,R) rmsnormed, k_rope (B,S,rope) RoPE'd), in x.dtype."""
+    m = cfg.mla
+    kv = x @ p.wkv_a.to(x.dtype)
+    c_kv, k_rope = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
+    c_kv = cm.rmsnorm(p.kv_norm, c_kv)
+    k_rope = cm.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_split_wkv_b(p: MLAttention, cfg, dtype):
+    m = cfg.mla
+    wkv_b = p.wkv_b.to(dtype)
+    return wkv_b[..., :m.qk_nope_dim], wkv_b[..., m.qk_nope_dim:]
+
+
+def _mla_scale(cfg) -> float:
+    m = cfg.mla
+    return 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+
+
+def _mla_absorbed_decode(q_nope, q_rope, cc, cr, wk_b, wv_b, scale, valid,
+                         score_dtype, softmax_impl):
+    """Absorbed-form single-query MLA decode against a compressed buffer:
+    q_nope/q_rope (B,1,H,.), cc/cr (B,T,.), ``valid`` broadcastable to the
+    (B,H,1,T) score mask. Returns o (B,1,H,v_dim) float32."""
+    _check_score_dtype(score_dtype)
+    q_eff = torch.einsum("bshk,lhk->bshl", q_nope, wk_b)          # (B,1,H,R)
+    cc32 = cc.to(torch.float32)
+    s = (torch.einsum("bshl,btl->bhst", q_eff.to(torch.float32), cc32)
+         + torch.einsum("bshk,btk->bhst", q_rope.to(torch.float32),
+                        cr.to(torch.float32))) * scale
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    pr = _softmax_fn(softmax_impl)(s, axis=-1)
+    o_lat = torch.einsum("bhst,btl->bshl", pr, cc32)
+    return torch.einsum("bshl,lhv->bshv", o_lat, wv_b.to(torch.float32))
+
+
+def _mla_decompress_kq(q_nope, q_rope, cc, cr, m, H, wk_b, wv_b):
+    """Decompress a (compressed latent, rope key) buffer into full k/v and
+    build the grouped query (B,S,H,1,nope+rope) for the row attends."""
+    dtype = q_nope.dtype
+    B, T = cc.shape[:2]
+    S = q_nope.shape[1]
+    ccd = cc.to(dtype)
+    k_nope = torch.einsum("btl,lhk->bthk", ccd, wk_b)
+    v = torch.einsum("btl,lhv->bthv", ccd, wv_b)
+    k = torch.cat([k_nope, cr[:, :, None, :].to(dtype).expand(
+        B, T, H, m.qk_rope_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope.expand(B, S, H, m.qk_rope_dim)], dim=-1)
+    return k, v, q.reshape(B, S, H, 1, m.qk_nope_dim + m.qk_rope_dim)
+
+
+def _mla_paged_apply(p: MLAttention, x, cfg, cache):
+    """Paged MLA: writes the compressed latent and the rope key into the
+    pools in place, then absorbed decode (S == 1) through the decode kernel
+    (``paged_attend_impl="pallas"``) or the table gather, or prefill as
+    decompress plus ``_attend_rows`` over the gathered buffer. The caller
+    advances ``cache["lens"]``."""
+    B, S, _ = x.shape
+    m, H = cfg.mla, cfg.num_heads
+    lens, tables = cache["lens"], cache["tables"]
+    positions = lens.to(torch.int64)[:, None] + torch.arange(S, device=x.device)[None, :]
+
+    q_nope, q_rope = _mla_project_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_compress(p, x, cfg, positions)
+    cp, rp = cache["c_kv_pool"], cache["k_rope_pool"]
+    _pool_write(cp, tables, lens, c_kv)
+    _pool_write(rp, tables, lens, k_rope)
+
+    wk_b, wv_b = _mla_split_wkv_b(p, cfg, x.dtype)
+    scale = _mla_scale(cfg)
+    k_len = lens.to(torch.int64) + S
+    softmax_impl = getattr(cfg, "softmax_impl", "exact")
+
+    if S == 1:
+        if _paged_attend_impl(cfg) == "pallas":
+            q_eff = torch.einsum("bshk,lhk->bshl", q_nope, wk_b)
+            o_lat = kops.paged_attend_mla(
+                q_eff[:, 0].contiguous(), q_rope[:, 0].contiguous(), cp, rp,
+                tables, (lens + 1).to(torch.int32), scale=scale,
+                softmax_impl=softmax_impl)
+            o = torch.einsum("bshl,lhv->bshv", o_lat[:, None],
+                             wv_b.to(torch.float32))
+        else:
+            cc = _pool_gather(cp, tables)                          # (B,T,R)
+            cr = _pool_gather(rp, tables)
+            T = cc.shape[1]
+            valid = (torch.arange(T, device=x.device)[None, :]
+                     < k_len[:, None])[:, None, None, :]
+            o = _mla_absorbed_decode(q_nope, q_rope, cc, cr, wk_b, wv_b,
+                                     scale, valid, cfg.score_dtype,
+                                     softmax_impl)
+    else:
+        # prefill: decompress the gathered buffer, per-row-positioned attend
+        cc = _pool_gather(cp, tables)
+        cr = _pool_gather(rp, tables)
+        k, v, qg = _mla_decompress_kq(q_nope, q_rope, cc, cr, m, H, wk_b, wv_b)
+        o = _attend_rows(qg, k, v, positions, k_len, scale,
+                         softmax_impl=softmax_impl)
+        o = o.to(qg.dtype).reshape(B, S, H, m.v_dim)
+    return _out_project(o.to(x.dtype), p.wo)
+
+
+def mla_apply(p: MLAttention, x, cfg, *, cache: Optional[dict] = None):
+    """x (B,S,d) -> (B,S,d). Without a cache: decompress K/V and run the
+    chunked causal core. With a paged cache: see _mla_paged_apply."""
+    B, S, _ = x.shape
+    m, H = cfg.mla, cfg.num_heads
+    if cache is not None:
+        if "c_kv_pool" not in cache:
+            raise NotImplementedError(
+                "the dense per-slot KV cache is not ported yet (ROADMAP A.6); "
+                "serve with kv_impl='paged'")
+        return _mla_paged_apply(p, x, cfg, cache)
+    positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_project_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_compress(p, x, cfg, positions)
+    wk_b, wv_b = _mla_split_wkv_b(p, cfg, x.dtype)
+    k, v, qg = _mla_decompress_kq(q_nope, q_rope, c_kv, k_rope, m, H, wk_b, wv_b)
+    o = causal_attention(qg, k, v, chunk=cfg.attn_chunk,
+                         softmax_impl=getattr(cfg, "softmax_impl", "exact"))
+    return _out_project(o.reshape(B, S, H, m.v_dim), p.wo)

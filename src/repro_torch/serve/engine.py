@@ -1,5 +1,6 @@
 """Slot-based continuous batching over the paged KV plane (port of
-``repro/serve/engine.py``, paged greedy path).
+``repro/serve/engine.py``, paged greedy path), for dense GQA models and
+MLA/MoE ones (DeepSeek-V2-Lite: compressed-latent and rope-key pools).
 
 Every ``step()`` runs the iteration scheduler's prefill phase, one row per
 prefill dispatch (``make_paged_prefill_step``: bucket-padded prompt straight
@@ -8,6 +9,10 @@ then ONE batched decode over all slots (``make_paged_decode_step``).
 Admission allocates the blocks a request can reach from the refcounted
 ``KVPager``; a request that does not fit waits at the queue head (FIFO
 backpressure); ``submit`` rejects requests that can never be served.
+
+Prefill runs at the bucket width, pad tokens included, as the JAX engine
+does: a GShard MoE layer's expert capacity follows the dispatch width
+(models/moe.py), so another width would route differently.
 
 The pools, block tables and lengths live on the device and are updated in
 place (models/attention.py); the JAX engine's jitted pure functions over
@@ -135,6 +140,11 @@ class ServeEngine:
             raise ValueError("paged_attend_impl='pallas' supports "
                              f"score_dtype='f32' only (got {cfg.score_dtype!r})")
         if getattr(cfg, "kv_quant", "none") not in (None, "none"):
+            if getattr(cfg, "mla", None) is not None or any(
+                    k.startswith("mla") for k in cfg.block_pattern):
+                raise ValueError(
+                    "kv_quant applies to GQA paged pools only; MLA layers "
+                    "store the compressed latent unquantized")
             raise _unported("kv_quant", "A.9")
         if prefill_chunk is not None:
             raise _unported("chunked prefill", "A.6")
@@ -170,11 +180,15 @@ class ServeEngine:
         if num_blocks is None:
             num_blocks = slots * self.max_blocks + 1   # worst case + scratch
         self.pager = kvp.KVPager(num_blocks, self.block_len, slots)
-        # float32 pools, as the JAX engine allocates them; the attend casts
-        # K/V to cfg.dtype (the kv_dtype seam)
+        # float32 pools, as the JAX engine allocates them: K/V per kv-head
+        # for GQA (the attend casts them to cfg.dtype, the kv_dtype seam),
+        # the compressed latent and the rope key for MLA (already rounded
+        # to cfg.dtype by the write)
         self._caches = tf.init_paged_cache(cfg, slots, num_blocks,
                                            self.block_len, self.max_blocks,
                                            torch.float32, device=self.device)
+        # device bytes per block across layers, whatever the pools hold
+        self.pager.block_bytes = self.kv_pool_bytes() // num_blocks
         self._prefill = make_paged_prefill_step(cfg)
         self._decode = make_paged_decode_step(cfg)
         self._done: List[Request] = []

@@ -35,6 +35,14 @@ def _no_compress(compress: bool) -> None:
             "distributed/compression.py)")
 
 
+def _check_trainable(cfg) -> None:
+    if set(cfg.block_pattern) != {"dense"}:
+        raise NotImplementedError(
+            f"training block pattern {sorted(set(cfg.block_pattern))} is not "
+            "ported yet (ROADMAP A.11: MLA/MoE training); the port trains "
+            "dense GQA models and serves MLA/MoE ones")
+
+
 def named_params(params) -> Dict[str, torch.Tensor]:
     return dict(params.named_parameters())
 
@@ -44,6 +52,7 @@ def init_state(cfg, seed: int, opt_cfg: adamw.AdamWConfig, *,
                device=None) -> TrainState:
     """Fresh master weights (``dtype``) from ``seed`` and zero moments."""
     _no_compress(compress)
+    _check_trainable(cfg)
     params = tf.init(cfg, seed, resolve_device(device), dtype=dtype)
     return TrainState(params=params, opt=adamw.init(named_params(params)),
                       err=None)
@@ -80,6 +89,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, accum: int = 1,
                     total_steps: int = 10000):
     """Returns train_step(state, batch) -> (state, metrics)."""
     _no_compress(compress)
+    _check_trainable(cfg)
 
     def grads_of(params, batch):
         named = named_params(params)

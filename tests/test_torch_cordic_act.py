@@ -221,3 +221,26 @@ def test_exp_log_stages_match_jax():
     want = np.asarray(JK._hyp_vector_q(jnp.asarray(den), jnp.asarray(num),
                                        JK.PAPER_FIXED))
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The integer path: act_q_2d / ops.sigmoid_q (Q2.14 codes in and out)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["int16", "int32"])
+def test_sigmoid_q_all_codes_match_golden_and_jax(dtype):
+    """All 2^16 codes, bit-exact against the golden file and JAX
+    ops.sigmoid_q (the Pallas act_q_2d in interpret mode); the result keeps
+    the input's dtype and shape."""
+    from repro.kernels import ops as jops
+
+    codes = np.arange(-(1 << 15), 1 << 15).astype(dtype).reshape(256, 256)
+    got = ops.sigmoid_q(torch.from_numpy(codes))
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == (256, 256)
+    got = got.numpy()
+    np.testing.assert_array_equal(got.reshape(-1), _golden("sigmoid"))
+    np.testing.assert_array_equal(got, np.asarray(jops.sigmoid_q(jnp.asarray(codes))))
+
+
+def test_act_q_2d_rejects_float_codes():
+    with pytest.raises(TypeError, match="int16 or int32"):
+        K.act_q_2d(torch.zeros(4))

@@ -1,4 +1,6 @@
-"""PyTorch port of the dense GQA model against the JAX model.
+"""PyTorch port of the decoder against the JAX model: the dense GQA model
+(Yi-9B smoke) and the MLA/MoE one (DeepSeek-V2-Lite smoke: seg0 one
+``mla_dense`` block, seg1 two stacked ``mla_moe`` blocks).
 
 Yi-9B smoke config in float32, JAX weights through the bridge
 (``load_jax_params``), CORDIC activations and softmax on. Tolerance: the
@@ -8,7 +10,8 @@ difference crosses a rounding edge of a Q2.14 code, a CORDIC stage moves by
 one code step: up to 3.5e-4 of a softmax probability, 6.1e-5 of an
 activation. Carried through the attention output, the MLP and the head,
 those steps leave the logits (|l| < 1) within 1e-3 (2.9e-4 seen), and every
-argmax holds.
+argmax holds. The same bar holds the DeepSeek smoke model, whose MoE
+routing (top-k of float32 router scores) comes out equal.
 """
 import dataclasses
 import functools
@@ -105,3 +108,98 @@ def test_init_without_gpu_raises_unless_cpu_requested():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         T.init(cfg)
     assert T.init(cfg, device="cpu").embed.device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2-Lite smoke: MLA attention, a dense first layer, MoE layers
+# ---------------------------------------------------------------------------
+DS = "deepseek-v2-lite-16b"
+
+
+def spec_params(spec, seed=0):
+    """A JAX param tree drawn with numpy at the spec's inits and scales
+    (normal / sqrt(fan in), or the spec's scale; norms ones): faster than
+    a jax.random init of the MoE stacks. The other port test files that
+    need a JAX tree import it."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(p):
+        if p.init in ("ones", "zeros"):
+            return (np.ones if p.init == "ones" else np.zeros)(p.shape, np.float32)
+        std = p.scale if p.scale is not None else p.shape[-2] ** -0.5
+        return (rng.normal(size=p.shape) * std).astype(np.float32)
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else jnp.asarray(leaf(v))
+                for k, v in tree.items()}
+    return walk(spec)
+
+
+def _ds_cfgs(**kw):
+    jcfg = dataclasses.replace(jconfigs.get_smoke(DS, act_impl="cordic_pallas"), **kw)
+    cfg = dataclasses.replace(configs.get_smoke(DS, act_impl="cordic_pallas"), **kw)
+    return jcfg, cfg
+
+
+@functools.lru_cache(maxsize=None)
+def _ds_params():
+    jcfg, cfg = _ds_cfgs()
+    jparams = spec_params(JT.model_spec(jcfg))
+    return jparams, T.load_jax_params(cfg, T.flatten_params(jparams), device="cpu")
+
+
+def test_deepseek_bridge_maps_both_segments():
+    """seg0 (one mla_dense block) is unstacked, seg1 (two mla_moe blocks)
+    stacked; every leaf lands and jax_tree gives the tree back."""
+    jparams, model = _ds_params()
+    _, cfg = _ds_cfgs()
+    flat = T.flatten_params(jparams)
+    assert [s[1:] for s in T.segments(cfg)] == [("mla_dense", 0, 1), ("mla_moe", 1, 2)]
+    np.testing.assert_array_equal(model.blocks[0].ffn.w_gate.numpy(),
+                                  flat["seg0/ffn/w_gate"])
+    np.testing.assert_array_equal(model.blocks[0].attn.kv_norm.numpy(),
+                                  flat["seg0/attn/kv_norm/scale"])
+    np.testing.assert_array_equal(model.blocks[2].ffn.shared.w_up.numpy(),
+                                  flat["seg1/ffn/shared/w_up"][1])
+    np.testing.assert_array_equal(model.blocks[1].ffn.w_down.numpy(),
+                                  flat["seg1/ffn/w_down"][0])
+    assert len(T.jax_layout(cfg)) == sum(1 for _ in model.parameters())
+    back = T.flatten_params(T.jax_tree(cfg, dict(model.named_parameters())))
+    assert sorted(back) == sorted(flat)
+    for k in flat:
+        np.testing.assert_array_equal(back[k], np.asarray(flat[k]))
+
+
+def test_deepseek_no_cache_logits_match_jax():
+    jcfg, cfg = _ds_cfgs(softmax_impl="cordic_pallas")
+    jparams, model = _ds_params()
+    toks = _tokens()
+    want, want_aux, _ = JT.apply(jparams, {"tokens": jnp.asarray(toks)}, jcfg)
+    want = np.asarray(want)
+    got, aux, _ = T.apply(model, {"tokens": torch.from_numpy(toks).long()}, cfg)
+    diff = np.abs(got.numpy() - want)
+    assert np.median(diff) < 1e-6 and diff.max() < ATOL, diff.max()
+    np.testing.assert_array_equal(got.numpy().argmax(-1), want.argmax(-1))
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+
+
+def test_deepseek_paged_prefill_matches_no_cache_forward():
+    """A 16-wide prefill through the latent and rope pools sees exactly the
+    causal prefix of the no-cache forward (same dispatch width, so the MoE
+    routes alike)."""
+    _, cfg = _ds_cfgs(softmax_impl="cordic_pallas")
+    _, model = _ds_params()
+    toks = torch.from_numpy(_tokens(1, (1, 16))).long()
+    ref = T.apply(model, {"tokens": toks}, cfg)[0]
+    cache = T.init_paged_cache(cfg, 2, 9, 16, 4, device="cpu")
+    cache.tables[0, :1] = torch.tensor([3], dtype=torch.int32)
+    logits, _, cache = T.apply(model, {"tokens": toks}, cfg,
+                               cache=cache.view(cache.tables[:1], cache.lens[:1]))
+    assert int(cache.lens[0]) == 16
+    torch.testing.assert_close(logits, ref, rtol=0, atol=ATOL)
+    layer = cache.layers[2]
+    assert set(layer) == {"c_kv_pool", "k_rope_pool", "tables", "lens"}
+    assert bool((layer["c_kv_pool"][3] != 0).any())
+    assert bool((layer["k_rope_pool"][1:3] == 0).all())
+    m = cfg.mla
+    assert cache.pool_bytes() == 3 * 9 * 16 * (m.kv_lora_rank + m.qk_rope_dim) * 4

@@ -1,4 +1,5 @@
-"""PyTorch port of the paged GQA decode kernel against the JAX kernel.
+"""PyTorch port of the paged decode kernels (GQA and MLA) against the JAX
+kernels.
 
 The geometries of tests/test_paged_attention.py (lengths on and one off the
 block boundaries, a single-block slot, a mixed-length batch, a vacant slot
@@ -108,3 +109,90 @@ def test_unported_branches_raise():
     args = map(torch.from_numpy, _case([3], 4, 0))
     with pytest.raises(NotImplementedError, match="ROADMAP B.6"):
         P.gqa_decode(*args, scale=0.3, kv_quant="int8")
+
+
+# ---------------------------------------------------------------------------
+# MLA decode: the JAX suite's geometries (tests/test_paged_attention.py:149,
+# L 4, H 4, R 16, P 8, scale 0.2): lengths [1], [4], [5], [8], [9],
+# [3, 8, 1, 13, 16] and a vacant slot ([6, 0]), as the rows of one batch
+# per softmax impl (rows are independent). Same standard: ATOL 2e-5 and an
+# unmoved per-row argmax.
+# ---------------------------------------------------------------------------
+MLA_GEOMETRIES = ([1], [4], [5], [8], [9], [3, 8, 1, 13, 16], [6, 0])
+
+
+def _mla_case(klen_list, L=4, H=4, R=16, P=8, seed=0):
+    rng = np.random.default_rng(seed)
+    B = len(klen_list)
+    M = max(-(-k // L) for k in klen_list)
+    N = 1 + B * M
+    qe = rng.normal(size=(B, H, R)).astype(np.float32)
+    qr = rng.normal(size=(B, H, P)).astype(np.float32)
+    cp = rng.normal(size=(N, L, R)).astype(np.float32)
+    rp = rng.normal(size=(N, L, P)).astype(np.float32)
+    tables = np.zeros((B, M), np.int32)
+    nxt = 1
+    for b, klen in enumerate(klen_list):
+        for c in range(-(-klen // L)):
+            tables[b, c] = nxt
+            nxt += 1
+    k_len = np.asarray([max(k, 1) for k in klen_list], np.int32)
+    return qe, qr, cp, rp, tables, k_len
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_pair(impl):
+    klens = [k for g in MLA_GEOMETRIES for k in g]
+    args = _mla_case(klens, seed=3)
+    want = np.asarray(JP.mla_decode(*map(jnp.asarray, args), scale=0.2,
+                                    softmax_impl=impl, interpret=True))
+    got = ops.paged_attend_mla(*map(torch.from_numpy, args), scale=0.2,
+                               softmax_impl=impl).numpy()
+    return args, got, want
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("geom", range(len(MLA_GEOMETRIES)))
+def test_mla_decode_vs_jax(geom, impl):
+    _, got, want = _mla_pair(impl)
+    row0 = sum(len(g) for g in MLA_GEOMETRIES[:geom])
+    rows = slice(row0, row0 + len(MLA_GEOMETRIES[geom]))
+    got, want = got[rows], want[rows]
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    assert np.abs(got - want).max() < ATOL, np.abs(got - want).max()
+    np.testing.assert_array_equal(got.reshape(got.shape[0], -1).argmax(-1),
+                                  want.reshape(want.shape[0], -1).argmax(-1))
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_mla_vacant_row_leaves_live_rows_bit_unchanged(impl):
+    (qe, qr, cp, rp, tables, k_len), full, _ = _mla_pair(impl)
+    keep = np.flatnonzero(k_len > 1)
+    sub = P.mla_decode(*(torch.from_numpy(a[keep]) for a in (qe, qr)),
+                       torch.from_numpy(cp), torch.from_numpy(rp),
+                       torch.from_numpy(tables[keep]),
+                       torch.from_numpy(k_len[keep]), scale=0.2,
+                       softmax_impl=impl).numpy()
+    np.testing.assert_array_equal(full[keep], sub)
+
+
+def test_mla_split_dot_order():
+    """The score sum's fixed order: 16 strided partials, then left to right
+    (what the kernel's 16 threads per score compute)."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.normal(size=(1, 1, 40)).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(1, 1, 40)).astype(np.float32))
+    part = [np.float32(0.0)] * P.MLA_SPLIT
+    for i in range(40):
+        t = i % P.MLA_SPLIT
+        part[t] = np.float32(part[t] + np.float32(q[0, 0, i] * c[0, 0, i]))
+    want = part[0]
+    for t in range(1, P.MLA_SPLIT):
+        want = np.float32(want + part[t])
+    assert P._split_dot(q, c).item() == want
+
+
+def test_mla_unported_branch_raises():
+    args = map(torch.from_numpy, _mla_case([3]))
+    with pytest.raises(NotImplementedError, match="ROADMAP B.5"):
+        P.mla_decode(*args, scale=0.2, softmax_impl="cordic_fixed")

@@ -1,6 +1,7 @@
 """PyTorch port of the paged serving engine against the JAX engine, plus
 the port's package boundary and its copies of the pure-Python serving
 modules."""
+import functools
 import subprocess
 import sys
 
@@ -22,6 +23,7 @@ from repro_torch.serve import engine as E  # noqa: E402
 from repro_torch.serve import kv_pager as kvp  # noqa: E402
 from repro_torch.serve import scheduler as sched  # noqa: E402
 from repro_torch.serve.sampling import SamplingParams  # noqa: E402
+from test_torch_models import spec_params  # noqa: E402
 
 ENGINE_KW = dict(slots=2, max_len=64, softmax_impl="cordic_pallas",
                  kv_impl="paged", paged_attend_impl="pallas")
@@ -69,6 +71,87 @@ def test_gather_and_kernel_decode_emit_the_same_tokens():
             eng.submit(E.Request(rid=i, prompt=p, max_new_tokens=8))
         outs.append({r.rid: r.out for r in eng.run()})
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2-Lite smoke: MLA pools, the MLA decode kernel's plain version,
+# GShard MoE routing at the bucket width
+# ---------------------------------------------------------------------------
+DS = "deepseek-v2-lite-16b"
+
+
+@functools.lru_cache(maxsize=None)
+def _ds_params():
+    """The JAX smoke model's tree, drawn with numpy at its spec's scales
+    (jax.random init of the MoE stacks is the slow part of a JAX init)."""
+    return spec_params(JT.model_spec(jconfigs.get_smoke(DS)))
+
+
+def test_deepseek_greedy_tokens_identical_to_jax_engine():
+    """DeepSeek-V2-Lite smoke config, paged latent/rope pools, the MLA
+    decode kernel's plain version, CORDIC act and softmax; 3 requests
+    through 2 slots, 8 new tokens each."""
+    jcfg = jconfigs.get_smoke(DS, act_impl="cordic_pallas")
+    cfg = configs.get_smoke(DS, act_impl="cordic_pallas")
+    jparams = _ds_params()
+    prompts = _prompts(cfg.vocab_size)
+
+    jeng = JE.ServeEngine(jcfg, jparams, **ENGINE_KW)
+    for i, p in enumerate(prompts):
+        jeng.submit(JE.Request(rid=i, prompt=p, max_new_tokens=8))
+    want = {r.rid: r.out for r in jeng.run()}
+
+    model = T.load_jax_params(cfg, T.flatten_params(jparams), device="cpu")
+    eng = E.ServeEngine(cfg, model, device="cpu", **ENGINE_KW)
+    m = cfg.mla
+    assert eng.kv_pool_bytes() == jeng.kv_pool_bytes() == (
+        cfg.num_layers * eng.pager.num_blocks * eng.block_len
+        * (m.kv_lora_rank + m.qk_rope_dim) * 4)
+    assert eng.pager.block_bytes == eng.kv_pool_bytes() // eng.pager.num_blocks
+    for i, p in enumerate(prompts):
+        eng.submit(E.Request(rid=i, prompt=p, max_new_tokens=8))
+    got = {r.rid: r.out for r in eng.run()}
+    assert got == want
+    assert all(len(v) == 8 for v in got.values())
+    assert eng.pager.blocks_in_use == 0
+
+
+def test_deepseek_gather_and_kernel_decode_emit_the_same_tokens():
+    cfg = configs.get_smoke(DS, act_impl="cordic_pallas")
+    model = T.init(cfg, seed=3, device="cpu")
+    outs = []
+    for impl in ("pallas", "gather"):
+        eng = E.ServeEngine(cfg, model, device="cpu",
+                            **{**ENGINE_KW, "paged_attend_impl": impl})
+        for i, p in enumerate(_prompts(cfg.vocab_size, seed=1)):
+            eng.submit(E.Request(rid=i, prompt=p, max_new_tokens=8))
+        outs.append({r.rid: r.out for r in eng.run()})
+    assert outs[0] == outs[1]
+
+
+def test_deepseek_launcher_serves_on_the_cpu(capsys):
+    from repro_torch.launch import serve as launch
+
+    assert launch.main(["--arch", DS, "--smoke", "--device", "cpu",
+                        "--requests", "3", "--slots", "2", "--max-new", "4",
+                        "--max-len", "64"]) == 0
+    assert "3 requests, 12 tokens" in capsys.readouterr().out
+
+
+def test_kv_quant_with_mla_is_rejected_as_in_jax():
+    cfg = configs.get_smoke(DS, act_impl="cordic_pallas")
+    with pytest.raises(ValueError, match="GQA paged pools only"):
+        E.ServeEngine(cfg, T.init(cfg, device="cpu"), device="cpu",
+                      **{**ENGINE_KW, "kv_quant": "int8"})
+
+
+def test_mla_moe_training_is_not_ported_yet():
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+
+    cfg = configs.get_smoke(DS, act_impl="cordic_pallas")
+    with pytest.raises(NotImplementedError, match="A.11"):
+        step_lib.make_train_step(cfg, adamw.AdamWConfig())
 
 
 def test_launcher_serves_on_the_cpu(capsys):
