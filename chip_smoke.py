@@ -20,19 +20,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 4. paths    the port's main paths through the entry points a user calls,
             with every launch count set to 0 just before and read just
             after: (a) the paper's unit, ``ops.sigmoid`` and its integer
-            datapath ``ops.sigmoid_q``; (b) serving Yi-9B at full width
+            datapath ``ops.sigmoid_q``, and the registry's gelu_erf
+            (act_2d's gelu_erf op); (b) serving Yi-9B at full width
             (random weights from a seed): 8 greedy requests, 4 slots, paged
             KV, the CORDIC kernels on; (c) serving DeepSeek-V2-Lite at full
             width and depth (27 layers, MLA + GShard MoE, 15.7B parameters)
-            on the same traffic; (d) training Yi-9B at full width cut to 4
+            on the same traffic; each arch a second time on the
+            paper-faithful datapath (act_impl and softmax_impl
+            "cordic_fixed": the decode kernels' cordic_fixed branch, the
+            activations and the prefill softmax in plain torch, none of the
+            activation or softmax kernels); (d) training Yi-9B at full width cut to 4
             layers (float32 master weights, AdamW, the loop's 8 x 32-token
             batches): 8 loop steps with checkpoints, a bit-equal restore, 6
             steps on one batch (the loss must fall), an eval step. Every
             kernel of a path must have launched, and under grad the fused
             SwiGLU kernel must not (the JAX rule's primal).
-5. identity the Yi and DeepSeek-V2-Lite smoke configs in float32: tokens
-            served on the card with the kernels equal the CPU's tokens with
-            the plain versions, and 5 Yi train steps' losses on the card
+5. identity the Yi and DeepSeek-V2-Lite smoke configs in float32, on both
+            datapaths: tokens served on the card with the kernels equal the
+            CPU's tokens with the plain versions, and 5 Yi train steps' losses on the card
             agree with the CPU's.
 
 The line before the last holds {"kernels": [...]} (one entry per kernel:
@@ -78,6 +83,16 @@ DESCENT_STEPS, DESCENT_LR = 6, 1e-4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_T_PHASE = [time.perf_counter()]
+
+
+def phase_done(name: str) -> None:
+    """Log the wall time since the previous phase ended."""
+    now = time.perf_counter()
+    log(f"[time] {name}: {now - _T_PHASE[0]:.1f} s")
+    _T_PHASE[0] = now
 
 
 def check(ok, what) -> None:
@@ -127,7 +142,10 @@ def pipeline_ops(sched):
             # normalize passes each rotate (_lane_exp, _lane_probs), since
             # the pool blocks are walked again rather than the codes kept,
             # so the work they replace rotates twice per lane
-            "decode_lane": 2 * exp_codes + normalize}
+            "decode_lane": 2 * exp_codes + normalize,
+            # act_2d gelu_erf: one e^r rotation with its dyadic boundary
+            # (the erf prefactor, sqrt and GELU product are float work)
+            "gelu_erf": exp_codes + 4}
 
 
 # ---------------------------------------------------------------------------
@@ -352,19 +370,23 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
     live_blocks = sum(-(-max(k, 1) // L) for k in klens)
     live_keys = sum(max(k, 1) for k in klens)
     kw = dict(scale=1.0 / math.sqrt(hd), kv_dtype=torch.bfloat16)
-    for impl in ("cordic_pallas", "exact"):
+    for impl in ("cordic_pallas", "exact", "cordic_fixed"):
         a = PA.gqa_decode(q, kp, vp, tables, k_len, softmax_impl=impl, **kw)
         b = PA.gqa_decode_plain(q, kp, vp, tables, k_len, softmax_impl=impl, **kw)
         err = float((a - b).abs().max())
-        # stated tolerance: the reference's own ATOL 2e-5 and argmax identity
+        # stated tolerance: the reference's own ATOL 2e-5 and argmax
+        # identity; cordic_fixed (one summation order, the library's lanes
+        # replayed in the kernel) must be bit-equal
         check(bool(torch.isfinite(a).all()) and err < 2e-5,
               f"gqa_decode {impl}: |kernel - plain| {err} (ATOL 2e-5)")
+        check(impl != "cordic_fixed" or err == 0.0,
+              f"gqa_decode cordic_fixed: |kernel - plain| {err} (bit-equal)")
         check(torch.equal(a.reshape(B, -1).argmax(-1), b.reshape(B, -1).argmax(-1)),
               f"gqa_decode {impl}: argmax moved against plain")
         nbytes = (q.numel() * 2 + 2 * live_blocks * L * KH * hd * 4
                   + tables.numel() * 4 + k_len.numel() * 4 + a.numel() * 4)
         lanes = live_keys * KH * G
-        int_ops = (ops["decode_lane"] if impl == "cordic_pallas" else 0) * lanes
+        int_ops = (ops["decode_lane"] if impl != "exact" else 0) * lanes
         bound, by = card.bound(nbytes, int_ops, 4 * hd * lanes)
         rec = timed(
             dict(shape=[B, KH, G, hd, L, M], impl=impl, klens=klens,
@@ -380,6 +402,8 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
             f"(bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
         if impl == "cordic_pallas":
             records["gqa_decode"] = rec
+        elif impl == "cordic_fixed":
+            records["gqa_decode[cordic_fixed]"] = rec
     # (5) log_softmax_2d at the loss shape: (B*S, V) = (256, 64000) float32
     # logits with a masked tail (-1e30) on some rows, bit-exact
     rows, V = TRAIN_BATCH * TRAIN_SEQ, ycfg.vocab_size
@@ -481,7 +505,7 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
     rp = torch.randn(N, L, P, generator=gen, device=dev)
     kw = dict(scale=1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim))
     args = (qe, qr, cp, rp, tables, k_len)
-    for impl in ("cordic_pallas", "exact"):
+    for impl in ("cordic_pallas", "exact", "cordic_fixed"):
         a = PA.mla_decode(*args, softmax_impl=impl, **kw)
         b = PA.mla_decode_plain(*args, softmax_impl=impl, **kw)
         err = float((a - b).abs().max())
@@ -489,14 +513,14 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
         # the CORDIC path; the exact path's expf may differ from torch.exp
         # by an ulp, held to the reference's own ATOL 2e-5
         check(bool(torch.isfinite(a).all()), f"mla_decode {impl}: finite")
-        check(err == 0.0 if impl == "cordic_pallas" else err < 2e-5,
+        check(err == 0.0 if impl != "exact" else err < 2e-5,
               f"mla_decode {impl}: |kernel - plain| {err}")
         check(torch.equal(a.reshape(B, -1).argmax(-1), b.reshape(B, -1).argmax(-1)),
               f"mla_decode {impl}: argmax moved against plain")
         nbytes = (qe.numel() * 2 + qr.numel() * 2 + live_blocks * L * (R + P) * 4
                   + tables.numel() * 4 + k_len.numel() * 4 + a.numel() * 4)
         lanes = live_keys * H
-        int_ops = (ops["decode_lane"] if impl == "cordic_pallas" else 0) * lanes
+        int_ops = (ops["decode_lane"] if impl != "exact" else 0) * lanes
         bound, by = card.bound(nbytes, int_ops, (2 * (R + P) + 2 * R) * lanes)
         rec = timed(
             dict(shape=[B, H, R, P, L, M], impl=impl, klens=klens,
@@ -511,6 +535,8 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
             f"(bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
         if impl == "cordic_pallas":
             records["mla_decode"] = rec
+        elif impl == "cordic_fixed":
+            records["mla_decode[cordic_fixed]"] = rec
 
     # (10) the reused kernels at DeepSeek-V2-Lite's serve shapes, bit-exact:
     # act_2d sigmoid_wide of the MoE experts' gate at decode, (G, E, C, f)
@@ -547,7 +573,31 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
         f"softmax_2d {list(sd.shape)} max |kernel - plain| "
         f"{float((a - b).abs().max()):.3e} (bit-equal {bool(torch.equal(a, b))})")
 
-    for name in ("act_2d", "softmax_2d", "log_softmax_2d", "act_q_2d"):
+    # (11) act_2d gelu_erf (the registry's get_activation("gelu_erf",
+    # "cordic_pallas")) on the (d_model, d_ff) = (4096, 11008) map of (1),
+    # float32 and bfloat16, bit-exact; timed in float32 beside torch's
+    # erf-form GELU
+    xe = big
+    errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        a = K.act_2d(xe.to(dt), "gelu_erf")
+        b = K.act_2d_plain(xe.to(dt), "gelu_erf")
+        check(torch.equal(a, b), f"act_2d gelu_erf {dt} differs from its plain version")
+        errs.append(float((a.float() - b.float()).abs().max()))
+    del a, b
+    n = xe.numel()
+    bound, by = card.bound(8 * n, ops["gelu_erf"] * n, 16 * n)
+    records["act_2d[gelu_erf]"] = timed(
+        dict(shape=list(xe.shape), dtype="float32", max_abs_err=max(errs),
+             bound_ms=bound, bound_by=by),
+        kernel=times(torch, lambda: K.act_2d(xe, "gelu_erf"), "act_kernel"),
+        plain=times(torch, lambda: K.act_2d_plain(xe, "gelu_erf"), None, 3, 1),
+        library=times(torch, lambda: torch.nn.functional.gelu(xe, approximate="none")))
+    log(f"[act_2d] gelu_erf {list(xe.shape)} float32 and bfloat16: bit-exact "
+        "against plain")
+
+    for name in ("act_2d", "softmax_2d", "log_softmax_2d", "act_q_2d",
+                 "act_2d[gelu_erf]"):
         r = records[name]
         log(f"[{name}] {r['shape']}: max |kernel - plain| {r['max_abs_err']:.3e}; "
             f"{fmt_times(r)}")
@@ -614,7 +664,24 @@ def sigmoid_path(torch, build, ycfg):
     log(f"[path sigmoid] ops.sigmoid on {grid.numel()} + {acts.numel()} "
         f"values, ops.sigmoid_q on {codes.numel()} + {qmap.numel()} int16 "
         f"codes (equal to ops.sigmoid's on [-1, 1]); launches {counts}")
-    return counts
+    # the engine's other function kinds reach act_2d through the registry:
+    # gelu_erf of the same activation map
+    from repro_torch.core.activations import get_activation
+
+    gelu = get_activation("gelu_erf", "cordic_pallas")
+    build.reset_launches()
+    g = gelu(acts)
+    torch.cuda.synchronize()
+    gelu_counts = dict(build.LAUNCHES)
+    check(g.shape == acts.shape and bool(torch.isfinite(g).all()),
+          "gelu_erf output finite, of the input's shape")
+    check(float((g - torch.nn.functional.gelu(acts)).abs().max()) < 1e-3,
+          "gelu_erf within the approximation's 1e-3 of the erf GELU")
+    log(f"[path sigmoid] get_activation('gelu_erf', 'cordic_pallas') on "
+        f"{acts.numel()} values: max |y - gelu| "
+        f"{float((g - torch.nn.functional.gelu(acts)).abs().max()):.3e}; "
+        f"launches {gelu_counts}")
+    return counts, gelu_counts
 
 
 #: kernels whose per-step device time the serve profile reports, per arch
@@ -641,29 +708,51 @@ def arch_line(cfg) -> str:
             "router)")
 
 
+#: the datapaths each arch is served on: (act_impl, softmax_impl)
+SERVE_IMPLS = (("cordic_pallas", "cordic_pallas"), ("cordic_fixed", "cordic_fixed"))
+
+
 def serve_path(torch, build, arch):
     """An arch at full width through ServeEngine: paged KV, decode kernel,
-    CORDIC act and softmax, greedy, the launcher's traffic."""
+    greedy, the launcher's traffic; served once per datapath of
+    SERVE_IMPLS on one model (the weights do not depend on the datapath).
+    Returns {act_impl: (launch counts, stats)}."""
     import dataclasses
 
     from repro_torch import configs
+    from repro_torch.models import transformer as tf
+
+    base = configs.get_config(arch, act_impl="cordic_pallas")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = tf.init(base, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[path serve {arch}] {base.name}: {arch_line(base)}, vocab "
+        f"{base.vocab_size}, {base.dtype}; {n_params / 1e9:.2f}B params (spec "
+        f"{base.param_counts()['total'] / 1e9:.2f}B), weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for act_impl, softmax_impl in SERVE_IMPLS:
+        cfg = dataclasses.replace(base, act_impl=act_impl, softmax_impl=softmax_impl)
+        t0 = time.perf_counter()
+        out[act_impl] = serve_run(torch, build, arch, cfg, model)
+        log(f"[time] serve {arch} {act_impl}: {time.perf_counter() - t0:.1f} s "
+            "(warm-up, traffic, logits check, profile)")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_run(torch, build, arch, cfg, model):
+    """The launcher's traffic through one engine, launch counts zeroed just
+    before and read just after; step times, TTFT, memory, a profile."""
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import transformer as tf
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = dataclasses.replace(configs.get_config(arch, act_impl="cordic_pallas"),
-                              softmax_impl="cordic_pallas")
-    tag = f"[path serve {arch}]"
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    model = tf.init(cfg, seed=0, device=DEV)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"{tag} {cfg.name}: {arch_line(cfg)}, vocab {cfg.vocab_size}, "
-        f"{cfg.dtype}; {n_params / 1e9:.2f}B params (spec "
-        f"{cfg.param_counts()['total'] / 1e9:.2f}B), weights "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
-        f"{time.perf_counter() - t0:.1f} s")
+    tag = f"[path serve {arch} {cfg.act_impl}/{cfg.softmax_impl}]"
     eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, kv_impl="paged",
                       block_len=BLOCK_LEN, paged_attend_impl="pallas",
                       device=DEV)
@@ -712,8 +801,13 @@ def serve_path(torch, build, arch):
     log(f"{tag} clocks/power after serving: "
         f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     log(f"{tag} tokens " + json.dumps({r.rid: r.out for r in done}))
-    stats["profile"] = profile_steps(torch, eng, cfg, SERVE_PROFILE[arch])
-    del eng, model, logits
+    # the plain datapath issues ~40,000 launches a step; the profiler's
+    # bookkeeping of them is slow, so it profiles fewer steps
+    t0 = time.perf_counter()
+    n_prof = 6 if cfg.act_impl == "cordic_pallas" else 2
+    stats["profile"] = profile_steps(torch, eng, cfg, SERVE_PROFILE[arch], n_prof)
+    log(f"[time] {tag} profile of {n_prof} steps: {time.perf_counter() - t0:.1f} s")
+    del eng, logits
     torch.cuda.empty_cache()
     return counts, stats
 
@@ -931,7 +1025,7 @@ def train_path(torch, build):
 # ---------------------------------------------------------------------------
 # Phase 5: identity on the smoke config
 # ---------------------------------------------------------------------------
-def identity_phase(torch, arch):
+def identity_phase(torch, arch, impl):
     import dataclasses
 
     from repro_torch import configs
@@ -939,8 +1033,8 @@ def identity_phase(torch, arch):
     from repro_torch.models import transformer as tf
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = dataclasses.replace(configs.get_smoke(arch, act_impl="cordic_pallas"),
-                              softmax_impl="cordic_pallas")
+    cfg = dataclasses.replace(configs.get_smoke(arch, act_impl=impl),
+                              softmax_impl=impl)
     cpu_model = tf.init(cfg, seed=0, device="cpu")
     gpu_model = tf.Transformer(cfg, device=torch.device(DEV))
     gpu_model.load_state_dict(cpu_model.state_dict())
@@ -951,7 +1045,7 @@ def identity_phase(torch, arch):
         for r in make_requests(cfg, 3, 8, seed=0):
             eng.submit(r)
         out[dev] = {r.rid: r.out for r in eng.run()}
-    log(f"[identity] {cfg.name} float32, 3 requests x 8 tokens: card "
+    log(f"[identity] {cfg.name} float32 {impl}, 3 requests x 8 tokens: card "
         f"(kernels) {out[DEV]} vs CPU (plain) {out['cpu']}")
     check(out[DEV] == out["cpu"], "card tokens differ from the CPU run")
 
@@ -1022,6 +1116,15 @@ KERNELS = {
                  "src/repro/kernels/cordic_act.py:385"),
     "mla_decode": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
                    "src/repro/kernels/paged_attention.py:421"),
+    # the branches ported after their kernels, each on its own path
+    "act_2d[gelu_erf]": ("cuda", "src/repro_torch/kernels/csrc/act.cu",
+                         "src/repro/kernels/cordic_act.py:368"),
+    "gqa_decode[cordic_fixed]": ("cuda",
+                                 "src/repro_torch/kernels/csrc/paged_decode.cu",
+                                 "src/repro/kernels/paged_attention.py:291"),
+    "mla_decode[cordic_fixed]": ("cuda",
+                                 "src/repro_torch/kernels/csrc/paged_decode.cu",
+                                 "src/repro/kernels/paged_attention.py:421"),
 }
 
 
@@ -1069,27 +1172,53 @@ def main() -> int:
     ycfg = configs.get_config("yi-9b", act_impl="cordic_pallas")
     dcfg = configs.get_config(DEEPSEEK, act_impl="cordic_pallas")
     records = {}
+    phase_done("device and build")
     kernel_phase(torch, card, records, ycfg, dcfg)
-    sigmoid_counts = sigmoid_path(torch, build, ycfg)
+    phase_done("kernels")
+    sigmoid_counts, gelu_counts = sigmoid_path(torch, build, ycfg)
+    phase_done("path sigmoid")
     for k in ("act_2d", "act_q_2d"):
         check(sigmoid_counts.get(k, 0) > 0, f"the sigmoid path never launched {k}")
-    serve_counts, _ = serve_path(torch, build, "yi-9b")
+    check(gelu_counts.get("act_2d", 0) > 0, "the gelu_erf activation never launched act_2d")
+    yi = serve_path(torch, build, "yi-9b")
+    phase_done("path serve yi-9b")
+    serve_counts, yi_fixed = yi["cordic_pallas"][0], yi["cordic_fixed"][0]
     for k in ("silu_mul_2d", "softmax_2d", "gqa_decode"):
         check(serve_counts.get(k, 0) > 0, f"serving Yi-9B never launched {k}")
-    ds_counts, _ = serve_path(torch, build, DEEPSEEK)
+    ds = serve_path(torch, build, DEEPSEEK)
+    phase_done(f"path serve {DEEPSEEK}")
+    ds_counts, ds_fixed = ds["cordic_pallas"][0], ds["cordic_fixed"][0]
     for k in ("mla_decode", "act_2d", "silu_mul_2d", "softmax_2d"):
         check(ds_counts.get(k, 0) > 0, f"serving DeepSeek-V2-Lite never launched {k}")
     check(ds_counts.get("gqa_decode", 0) == 0,
           "serving DeepSeek-V2-Lite launched the GQA decode kernel")
+    # the cordic_fixed datapath: the decode kernel's cordic_fixed branch on
+    # every decode step; activations and the prefill softmax in plain torch
+    check(yi_fixed.get("gqa_decode", 0) > 0, "Yi-9B cordic_fixed: no gqa_decode")
+    check(ds_fixed.get("mla_decode", 0) > 0, "DeepSeek cordic_fixed: no mla_decode")
+    for name, c in (("Yi-9B", yi_fixed), ("DeepSeek-V2-Lite", ds_fixed)):
+        for k in ("act_2d", "silu_mul_2d", "softmax_2d"):
+            check(c.get(k, 0) == 0, f"{name} cordic_fixed launched {k}")
+    check(ds_fixed.get("gqa_decode", 0) == 0, "DeepSeek cordic_fixed launched gqa_decode")
     train_counts, _ = train_path(torch, build)
-    # launches of each kernel summed over the main paths' runs
+    phase_done("path train")
+    # launches of each kernel summed over the main paths' runs; a branch
+    # ported later counts on its own path
     paths = (sigmoid_counts, serve_counts, ds_counts, train_counts)
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNELS}
-    log(f"[paths] launches: sigmoid {sigmoid_counts}, serve yi-9b {serve_counts}, "
-        f"serve {DEEPSEEK} {ds_counts}, train loop {train_counts}; summed {launches}")
+    launches["act_2d[gelu_erf]"] = gelu_counts.get("act_2d", 0)
+    launches["gqa_decode[cordic_fixed]"] = yi_fixed.get("gqa_decode", 0)
+    launches["mla_decode[cordic_fixed]"] = ds_fixed.get("mla_decode", 0)
+    log(f"[paths] launches: sigmoid {sigmoid_counts}, gelu_erf {gelu_counts}, "
+        f"serve yi-9b {serve_counts}, cordic_fixed {yi_fixed}, serve {DEEPSEEK} "
+        f"{ds_counts}, cordic_fixed {ds_fixed}, train loop {train_counts}; "
+        f"per kernel {launches}")
     for arch in ("yi-9b", DEEPSEEK):
-        identity_phase(torch, arch)
+        for impl in ("cordic_pallas", "cordic_fixed"):
+            identity_phase(torch, arch, impl)
+            phase_done(f"identity {arch} {impl}")
     train_identity_phase(torch)
+    phase_done("identity train")
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

@@ -21,10 +21,12 @@ dyadic reduction ``r = x - k * _LN2`` is the fused form (``_fma_r``); the log
 tail ``2 * at + p * _LN2`` rounds the same whether XLA fuses it or not, so it
 is written in two steps.
 
-Ported ops: the sigmoid family (``sigmoid``, ``tanh``, ``sigmoid_wide``,
-``silu``) and ``exp``, ``log``, ``softplus``, ``elu``. ``gelu_erf`` (needs
-``_erf_q``) raises until ROADMAP B.2. ``act_q_2d`` is the paper's integer
-datapath: Q2.14 int16/int32 codes in, sigmoid codes of the same dtype out.
+Ops: the sigmoid family (``sigmoid``, ``tanh``, ``sigmoid_wide``,
+``silu``), ``exp``, ``log``, ``softplus``, ``elu`` and ``gelu_erf`` (the
+``_erf_q`` stage over ``_exp_q``, whose rational prefactor XLA computes
+without FMAs). ``act_q_2d`` is the
+paper's integer datapath: Q2.14 int16/int32 codes in, sigmoid codes of the
+same dtype out.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import math
 
 import torch
 
+from repro_torch.core import numerics as nx
 from repro_torch.cordic_engine.core import PAPER_FIXED, FixedConfig
 from repro_torch.cordic_engine.schedule import (
     HYP_VECTORING,
@@ -49,11 +52,15 @@ _EXP_CLIP = 80.0
 #: hyperbolic-vectoring schedule of the log leg (j=1..14 with repeats)
 _HYP_VEC_JS = HYP_VECTORING.r2_js
 
+#: erf's rational prefactor constants and 1/sqrt(2), float32 values
+_ERF_A = float(torch.tensor(0.147, dtype=torch.float32))
+_FOUR_PI = float(torch.tensor(4.0 / math.pi, dtype=torch.float32))
+_INV_SQRT2 = float(torch.tensor(1.0 / math.sqrt(2.0), dtype=torch.float32))
+
 #: op name -> op code of csrc/act.cu
 OPS = ("sigmoid", "tanh", "sigmoid_wide", "silu", "exp", "log", "softplus",
-       "elu")
+       "elu", "gelu_erf")
 _OP_CODE = {op: i for i, op in enumerate(OPS)}
-_LATER_OPS = ("gelu_erf",)
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +233,17 @@ def _log_q(v: torch.Tensor, cfg: FixedConfig) -> torch.Tensor:
     return 2.0 * at + p.to(torch.float32) * _LN2
 
 
+def _erf_q(u: torch.Tensor, sched: MRSchedule, cfg: FixedConfig) -> torch.Tensor:
+    """Exponential erf approximation with the CORDIC exp core (|err| <
+    2.5e-4): erf(u)^2 ~ 1 - exp(-u^2 (4/pi + a u^2) / (1 + a u^2)); XLA
+    rounds the prefactor's two products (no FMA), the sqrt is a correctly
+    rounded boundary op."""
+    u2 = u * u
+    g = u2 * (_FOUR_PI + _ERF_A * u2) / (1.0 + _ERF_A * u2)
+    e = _exp_q(-g, sched, cfg)
+    return torch.sign(u) * nx.sqrt((1.0 - e).clamp_min(0.0))
+
+
 def _fma_denom(s: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
     """s2 + (1-s)*(1-s) as XLA computes it in ``_wide_sigmoid_f``, where
     s2 = round(s*s) is a value of its own (it is also the numerator):
@@ -295,9 +313,11 @@ def act_2d_plain(x: torch.Tensor, op: str, *, sched: MRSchedule = PAPER_SCHEDULE
         # log(1 + e^x) = relu(x) + log(1 + e^-|x|), both CORDIC legs
         e = _exp_q(-xf.abs(), sched, cfg)
         out = xf.clamp_min(0.0) + _log_q(1.0 + e, cfg)
-    else:  # elu
+    elif op == "elu":
         em1 = _exp_q(xf.clamp_max(0.0), sched, cfg) - 1.0
         out = torch.where(xf > 0, xf, em1)
+    else:  # gelu_erf: 0.5 x (1 + erf(x / sqrt 2))
+        out = 0.5 * xf * (1.0 + _erf_q(xf * _INV_SQRT2, sched, cfg))
     return out.to(x.dtype)
 
 
@@ -323,10 +343,6 @@ def act_q_2d_plain(x_q: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
 # Wrappers: CPU tensor -> plain version, CUDA tensor -> kernel
 # ---------------------------------------------------------------------------
 def _check_op(op: str) -> None:
-    if op in _LATER_OPS:
-        raise NotImplementedError(
-            f"act op {op!r} is not ported yet (ROADMAP B.2: gelu_erf and "
-            "its _erf_q stage)")
     if op not in _OP_CODE:
         raise ValueError(f"unknown act op {op!r}")
 

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernels of repro/kernels/cordic_act.py:
 //   cordic_act_2d       <- act_2d (:368, body _act_kernel :298), ops sigmoid,
-//                          tanh, sigmoid_wide, silu, exp, log, softplus, elu
+//                          tanh, sigmoid_wide, silu, exp, log, softplus, elu,
+//                          gelu_erf
 //   cordic_silu_mul_2d  <- silu_mul_2d (:401, body _silu_mul_kernel :339),
 //                          the fused SwiGLU epilogue up * g * sigmoid_wide(g)
 //   cordic_act_q_2d     <- act_q_2d (:385, body _act_q_kernel :333), the
@@ -33,7 +34,8 @@ enum ActOp {
   OP_EXP = 4,
   OP_LOG = 5,
   OP_SOFTPLUS = 6,
-  OP_ELU = 7
+  OP_ELU = 7,
+  OP_GELU_ERF = 8
 };
 
 __device__ __forceinline__ float act_one(float xf, int op, const CordicParams& p) {
@@ -58,8 +60,10 @@ __device__ __forceinline__ float act_one(float xf, int op, const CordicParams& p
     case OP_SOFTPLUS:
       // log(1 + e^x) = relu(x) + log(1 + e^-|x|), both CORDIC legs
       return fmaxf(xf, 0.0f) + log_q(1.0f + exp_q(-fabsf(xf), p), p);
-    default:  // OP_ELU
+    case OP_ELU:
       return xf > 0.0f ? xf : exp_q(fminf(xf, 0.0f), p) - 1.0f;
+    default:  // OP_GELU_ERF: 0.5 x (1 + erf(x / sqrt 2))
+      return 0.5f * xf * (1.0f + erf_q(xf * CORDIC_INV_SQRT2, p));
   }
 }
 

@@ -60,6 +60,12 @@ struct CordicParams {
 // exp clamp (_EXP_CLIP) and the log leg's floor, np.float32(1e-30)
 #define CORDIC_EXP_CLIP 80.0f
 #define CORDIC_LOG_FLOOR 1e-30f
+// erf's prefactor: np.float32(0.147), np.float32(4 / pi); np.float32(1/sqrt 2)
+#define CORDIC_ERF_A __int_as_float(0x3e16872b)
+#define CORDIC_FOUR_PI __int_as_float(0x3fa2f983)
+#define CORDIC_INV_SQRT2 __int_as_float(0x3f3504f3)
+// log 2 in double
+#define CORDIC_LN2_D __longlong_as_double(0x3fe62e42fefa39efLL)
 
 // _wrap16: ((v + half) & mask) - half, in unsigned arithmetic (no UB).
 __device__ __forceinline__ int wrap_bits(int v, int bits) {
@@ -228,6 +234,64 @@ __device__ __forceinline__ float log_q(float v, const CordicParams& p) {
   const int den = quantize_f(m + 1.0f, p.fb, p.bits);
   const float at = dequantize_f(hyp_vector_q(den, num, p), p.zfb);
   return 2.0f * at + (float)(e + 1) * CORDIC_LN2;
+}
+
+// _erf_q: erf(u)^2 ~ 1 - exp(-u^2 (4/pi + a u^2) / (1 + a u^2)) over the
+// exp_q stage; jitted XLA rounds the prefactor's products (no FMA; with
+// -fmad=false none forms here), the sqrt is IEEE (no fast-math).
+__device__ __forceinline__ float erf_q(float u, const CordicParams& p) {
+  const float u2 = u * u;
+  const float g = u2 * (CORDIC_FOUR_PI + CORDIC_ERF_A * u2) / (1.0f + CORDIC_ERF_A * u2);
+  const float sg = u > 0.0f ? 1.0f : (u < 0.0f ? -1.0f : 0.0f);
+  return sg * sqrtf(fmaxf(1.0f - exp_q(-g, p), 0.0f));
+}
+
+// jnp.exp2 of an integer-valued k as jitted XLA:CPU computes it: exp(f32(k
+// log2)), whose range reduction leaves r = f32(k log2) - k ln2, so the
+// result is 2^k * f32(1 + r) (exact only for small |k|), and values below
+// the normal range flush to 0. The functions.exp_fixed/divide_fixed lanes
+// use it; the kernels' own exp stages scale by exact powers (exp2_i32).
+__device__ __forceinline__ float xla_exp2(float k) {
+  const double kd = (double)k;
+  const double x = (double)(float)(kd * (double)CORDIC_LN2);
+  const double m = (double)(float)(1.0 + (x - kd * CORDIC_LN2_D));
+  const float out = (float)(m * ldexp(1.0, (int)kd));
+  return fabsf(out) < 1.17549435e-38f ? 0.0f : out;
+}
+
+// functions.exp_fixed: e^x over (-80, 80), k = round(x / ln2) half to even
+// (not the floor of the softmax stages), r = x - k ln2 with the product
+// rounded (jitted XLA does not fuse this one), the rotation, then the
+// jnp.exp2 scale. No lane is flushed: a masked score clips at
+// e^-80 and enters the row sum and the P.V sum.
+__device__ __forceinline__ float lane_exp_fixed(float u, const CordicParams& p) {
+  const float x = fminf(fmaxf(u, -CORDIC_EXP_CLIP), CORDIC_EXP_CLIP);
+  const float k = rintf(x * CORDIC_INV_LN2);
+  const float r = x - k * CORDIC_LN2;
+  int c, s;
+  coshsinh_q(quantize_f(r, p.fb, p.bits), p, c, s);
+  return dequantize_f(wrap_bits(c + s, p.bits), p.fb) * xla_exp2(k);
+}
+
+__device__ __forceinline__ float sign_f(float v) {
+  return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
+}
+
+// functions.divide_fixed(e, S) with e = exp_fixed(u): frexp of both
+// operands, the numerator halved when m_e >= m_S, the R2-LVC division of
+// the Q-format mantissas (vector_q with LIN_VECTORING is lvc_div_q: the same
+// stage list, the same where/add/sub structure), the quotient read in zfmt,
+// the 2^(p_e - p_S + h) scale and the sign.
+__device__ __forceinline__ float lane_prob_fixed(float u, float ssum, const CordicParams& p) {
+  const float e = lane_exp_fixed(u, p);
+  int py, px;
+  const float my = frexpf(fabsf(e), &py);
+  const float mx = frexpf(fabsf(ssum), &px);
+  const int h = my >= mx ? 1 : 0;
+  const int num = quantize_f(h ? my * 0.5f : my, p.fb, p.bits);
+  const int den = quantize_f(fmaxf(mx, 0.5f), p.fb, p.bits);
+  const float q = dequantize_f(lvc_div_q(den, num, p), p.zfb);
+  return sign_f(e) * sign_f(ssum) * q * xla_exp2((float)(py - px + h));
 }
 
 // The exp stage of the CORDIC softmax (softmax_cordic._softmax_kernel and

@@ -13,6 +13,11 @@
 //   cordic_pallas  three sweeps (row max, CORDIC e^u row sum, lane-exact
 //                  R2-LVC probabilities), so the probabilities equal the
 //                  CORDIC softmax kernel's lane for lane
+//   cordic_fixed   the same three sweeps with the function library's lanes
+//                  (lane_exp_fixed, lane_prob_fixed): functions.exp_fixed in
+//                  the sum, divide_fixed(exp_fixed(u), S) in the probabilities,
+//                  so they equal functions.softmax_fixed's; masked lanes of a
+//                  live block clip at e^-80 instead of flushing to 0
 //
 // What bounds it here: at serving shapes, neither rate. A decode step reads
 // a few live blocks per (slot, kv-head) (tens of KB in all), so the kernel
@@ -36,6 +41,21 @@ namespace {
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;  // NEG_INF of the reference
 
+// softmax impl codes: the order of paged_attention.IMPLS
+constexpr int kExact = 0, kCordicPallas = 1, kCordicFixed = 2;
+
+// pass 1 and pass 2 lanes of the two CORDIC impls
+template <int IMPL>
+__device__ __forceinline__ float pass_exp(float u, const CordicParams& p) {
+  return IMPL == kCordicFixed ? lane_exp_fixed(u, p) : lane_exp(u, p);
+}
+
+template <int IMPL>
+__device__ __forceinline__ float pass_prob(float u, float ssum, const CordicParams& p) {
+  return IMPL == kCordicFixed ? lane_prob_fixed(u, ssum, p)
+                              : lane_prob(u, row_sum_frexp(ssum, p), p);
+}
+
 template <typename T>
 __device__ __forceinline__ float kv_round(float v);
 template <>
@@ -45,8 +65,8 @@ __device__ __forceinline__ float kv_round<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// TQ: query dtype; TKV: the kv_dtype cast replayed per block; CORDIC: impl.
-template <typename TQ, typename TKV, bool CORDIC>
+// TQ: query dtype; TKV: the kv_dtype cast replayed per block; IMPL: softmax.
+template <typename TQ, typename TKV, int IMPL>
 __global__ void gqa_decode_kernel(const TQ* __restrict__ q, const float* __restrict__ k_pool,
                                   const float* __restrict__ v_pool,
                                   const int* __restrict__ tables,
@@ -79,6 +99,7 @@ __global__ void gqa_decode_kernel(const TQ* __restrict__ q, const float* __restr
   __syncthreads();
 
   const int live = min(M, (klen + L - 1) / L);  // blocks with c * L < k_len
+  constexpr bool CORDIC = IMPL != kExact;
   const int passes = CORDIC ? 3 : 1;
   for (int pass = 0; pass < passes; ++pass) {
     const bool need_v = !CORDIC || pass == 2;
@@ -133,7 +154,8 @@ __global__ void gqa_decode_kernel(const TQ* __restrict__ q, const float* __restr
           mrow[g] = fmaxf(mrow[g], mx);
         }
       } else if (pass == 1) {
-        for (int i = tid; i < G * L; i += kThreads) sc[i] = lane_exp(sc[i] - mrow[i / L], p);
+        for (int i = tid; i < G * L; i += kThreads)
+          sc[i] = pass_exp<IMPL>(sc[i] - mrow[i / L], p);
         __syncthreads();
         for (int g = tid; g < G; g += kThreads) {
           float bs = 0.0f;
@@ -143,7 +165,7 @@ __global__ void gqa_decode_kernel(const TQ* __restrict__ q, const float* __restr
       } else {
         for (int i = tid; i < G * L; i += kThreads) {
           const int g = i / L;
-          sc[i] = lane_prob(sc[i] - mrow[g], row_sum_frexp(lrow[g], p), p);
+          sc[i] = pass_prob<IMPL>(sc[i] - mrow[g], lrow[g], p);
         }
         __syncthreads();
         for (int i = tid; i < G * hd; i += kThreads) {
@@ -161,11 +183,11 @@ __global__ void gqa_decode_kernel(const TQ* __restrict__ q, const float* __restr
     out[qoff + i] = CORDIC ? acc[i] : acc[i] / lrow[i / hd];
 }
 
-template <typename TQ, typename TKV, bool CORDIC>
+template <typename TQ, typename TKV, int IMPL>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
            const void* k_len, void* out, int B, int KH, int G, int hd, int L, int M,
            float scale, const CordicParams& p, cudaStream_t s) {
-  auto kern = gqa_decode_kernel<TQ, TKV, CORDIC>;
+  auto kern = gqa_decode_kernel<TQ, TKV, IMPL>;
   const size_t bytes = sizeof(float) * (2 * G * hd + 2 * L * hd + G * L + 3 * G);
   if (bytes > 48 * 1024) {
     const cudaError_t e =
@@ -182,13 +204,24 @@ template <typename TQ, typename TKV>
 int launch_impl(int impl, const void* q, const void* kp, const void* vp, const void* t,
                 const void* kl, void* o, int B, int KH, int G, int hd, int L, int M,
                 float scale, const CordicParams& p, cudaStream_t s) {
-  return impl ? launch<TQ, TKV, true>(q, kp, vp, t, kl, o, B, KH, G, hd, L, M, scale, p, s)
-              : launch<TQ, TKV, false>(q, kp, vp, t, kl, o, B, KH, G, hd, L, M, scale, p, s);
+  switch (impl) {
+    case kExact:
+      return launch<TQ, TKV, kExact>(q, kp, vp, t, kl, o, B, KH, G, hd, L, M, scale, p, s);
+    case kCordicPallas:
+      return launch<TQ, TKV, kCordicPallas>(q, kp, vp, t, kl, o, B, KH, G, hd, L, M, scale,
+                                            p, s);
+    case kCordicFixed:
+      return launch<TQ, TKV, kCordicFixed>(q, kp, vp, t, kl, o, B, KH, G, hd, L, M, scale,
+                                           p, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// impl: 0 exact, 1 cordic_pallas. q_dtype / kv_dtype: 0 float32, 1 bfloat16.
+// impl: 0 exact, 1 cordic_pallas, 2 cordic_fixed. q_dtype / kv_dtype: 0 float32,
+// 1 bfloat16.
 extern "C" int paged_gqa_decode(const void* q, int q_dtype, const void* k_pool,
                                 const void* v_pool, const void* tables, const void* k_len,
                                 void* out, int B, int KH, int G, int hd, int L, int M,
@@ -254,7 +287,7 @@ __device__ __forceinline__ float split_dot(const float* a, const float* b, int n
   return s;
 }
 
-template <typename TQ, bool CORDIC>
+template <typename TQ, int IMPL>
 __global__ void mla_decode_kernel(const TQ* __restrict__ q_eff, const TQ* __restrict__ q_rope,
                                   const float* __restrict__ c_pool,
                                   const float* __restrict__ r_pool,
@@ -295,6 +328,7 @@ __global__ void mla_decode_kernel(const TQ* __restrict__ q_eff, const TQ* __rest
   constexpr int kGroups = kMlaThreads / kSplit;
   const int nsc = hg * L;
   const int live = min(M, (klen + L - 1) / L);  // blocks with c * L < k_len
+  constexpr bool CORDIC = IMPL != kExact;
   const int passes = CORDIC ? 3 : 1;
   for (int pass = 0; pass < passes; ++pass) {
     for (int c = 0; c < live; ++c) {
@@ -348,7 +382,8 @@ __global__ void mla_decode_kernel(const TQ* __restrict__ q_eff, const TQ* __rest
           mrow[g] = fmaxf(mrow[g], mx);
         }
       } else if (pass == 1) {
-        for (int i = tid; i < nsc; i += kMlaThreads) sc[i] = lane_exp(sc[i] - mrow[i / L], p);
+        for (int i = tid; i < nsc; i += kMlaThreads)
+          sc[i] = pass_exp<IMPL>(sc[i] - mrow[i / L], p);
         __syncthreads();
         for (int g = tid; g < hg; g += kMlaThreads) {
           float bs = 0.0f;
@@ -358,7 +393,7 @@ __global__ void mla_decode_kernel(const TQ* __restrict__ q_eff, const TQ* __rest
       } else {
         for (int i = tid; i < nsc; i += kMlaThreads) {
           const int g = i / L;
-          sc[i] = lane_prob(sc[i] - mrow[g], row_sum_frexp(lrow[g], p), p);
+          sc[i] = pass_prob<IMPL>(sc[i] - mrow[g], lrow[g], p);
         }
         __syncthreads();
         for (int i = tid; i < hg * R; i += kMlaThreads) {
@@ -376,11 +411,11 @@ __global__ void mla_decode_kernel(const TQ* __restrict__ q_eff, const TQ* __rest
     out[qoff + i] = CORDIC ? acc[i] : acc[i] / lrow[i / R];
 }
 
-template <typename TQ, bool CORDIC>
+template <typename TQ, int IMPL>
 int launch_mla(const void* q_eff, const void* q_rope, const void* c_pool, const void* r_pool,
                const void* tables, const void* k_len, void* out, int B, int H, int R, int P,
                int L, int M, int HG, float scale, const CordicParams& p, cudaStream_t s) {
-  auto kern = mla_decode_kernel<TQ, CORDIC>;
+  auto kern = mla_decode_kernel<TQ, IMPL>;
   const size_t bytes =
       sizeof(float) * ((size_t)L * R + (size_t)L * P + 2 * (size_t)HG * R +
                        (size_t)HG * P + (size_t)HG * L + 3 * (size_t)HG);
@@ -399,14 +434,24 @@ template <typename TQ>
 int launch_mla_impl(int impl, const void* qe, const void* qr, const void* cp, const void* rp,
                     const void* t, const void* kl, void* o, int B, int H, int R, int P, int L,
                     int M, int HG, float scale, const CordicParams& p, cudaStream_t s) {
-  return impl ? launch_mla<TQ, true>(qe, qr, cp, rp, t, kl, o, B, H, R, P, L, M, HG, scale, p, s)
-              : launch_mla<TQ, false>(qe, qr, cp, rp, t, kl, o, B, H, R, P, L, M, HG, scale, p,
-                                      s);
+  switch (impl) {
+    case kExact:
+      return launch_mla<TQ, kExact>(qe, qr, cp, rp, t, kl, o, B, H, R, P, L, M, HG, scale, p,
+                                    s);
+    case kCordicPallas:
+      return launch_mla<TQ, kCordicPallas>(qe, qr, cp, rp, t, kl, o, B, H, R, P, L, M, HG,
+                                           scale, p, s);
+    case kCordicFixed:
+      return launch_mla<TQ, kCordicFixed>(qe, qr, cp, rp, t, kl, o, B, H, R, P, L, M, HG,
+                                          scale, p, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// impl: 0 exact, 1 cordic_pallas. q_dtype: 0 float32, 1 bfloat16 (q_eff and
+// impl: 0 exact, 1 cordic_pallas, 2 cordic_fixed. q_dtype: 0 float32, 1 bfloat16 (q_eff and
 // q_rope alike). heads_per_cta: heads of one block (grid y = ceil(H / it)).
 extern "C" int paged_mla_decode(const void* q_eff, const void* q_rope, int q_dtype,
                                 const void* c_pool, const void* r_pool, const void* tables,

@@ -19,6 +19,8 @@ have no gradient, as their JAX counterparts have no jvp rule.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.cordic_engine.core import PAPER_FIXED
@@ -51,6 +53,13 @@ def _log_deriv(x, y):
     return torch.where(x > 1e-30, 1.0 / x, torch.zeros_like(x))
 
 
+def _gelu_erf_deriv(x, y):
+    """gelu'(x) = Phi(x) + x phi(x), the closed form of ops.py:81-84."""
+    cdf = 0.5 * torch.erfc(-x * (1.0 / math.sqrt(2.0)))
+    pdf = torch.exp(-0.5 * x * x) * (1.0 / math.sqrt(2.0 * math.pi))
+    return cdf + x * pdf
+
+
 _DERIV = {
     "sigmoid": _sigmoid_deriv,
     "sigmoid_wide": _sigmoid_deriv,
@@ -59,6 +68,7 @@ _DERIV = {
     "log": _log_deriv,
     "softplus": lambda x, y: -torch.expm1(-y),
     "elu": lambda x, y: torch.where(x > 0, torch.ones_like(y), y + 1.0),
+    "gelu_erf": _gelu_erf_deriv,
 }
 
 
@@ -117,6 +127,11 @@ def softplus(x, sched=PAPER_SCHEDULE, cfg=PAPER_FIXED, max_doublings=3):
 def elu(x, sched=PAPER_SCHEDULE, cfg=PAPER_FIXED, max_doublings=3):
     """x for x > 0, e^x - 1 otherwise (alpha 1)."""
     return _unary(x, "elu", sched, cfg, max_doublings)
+
+
+def gelu_erf(x, sched=PAPER_SCHEDULE, cfg=PAPER_FIXED, max_doublings=3):
+    """Exact-form GELU 0.5 x (1 + erf(x / sqrt 2)), erf by the CORDIC exp."""
+    return _unary(x, "gelu_erf", sched, cfg, max_doublings)
 
 
 class _Silu(torch.autograd.Function):

@@ -13,6 +13,11 @@ Softmax (``softmax_impl``):
     "exact"          one sweep, online (flash-decoding) rescaling, exp
     "cordic_pallas"  three sweeps: row max, CORDIC e^u row sum, lane-exact
                      R2-LVC probabilities (``softmax_cordic`` stages)
+    "cordic_fixed"   the same three sweeps on the function library's lanes:
+                     ``functions.exp_fixed`` in the sum and
+                     ``divide_fixed(exp_fixed(u), S)`` in the probabilities,
+                     as ``functions.softmax_fixed`` computes them (masked
+                     lanes of a live block clip at e^-80, no lane flushes)
 
 Summation orders are fixed and shared by the kernels and the plain
 versions: a GQA score is a left-to-right sum over head_dim; an MLA score is
@@ -20,12 +25,11 @@ versions: a GQA score is a left-to-right sum over head_dim; an MLA score is
 strided partials (partial t sums elements t, t + MLA_SPLIT, ... left to
 right, one thread each) added left to right; block sums and P.V sums run
 left to right over a block's lanes. With ``-fmad=false`` kernel and plain
-agree bit for bit on ``cordic_pallas``; against the JAX kernels, whose dots
+agree bit for bit on both CORDIC impls; against the JAX kernels, whose dots
 XLA orders, outputs agree to f32 round-off (the reference's own ATOL 2e-5).
 
-Not ported yet: ``cordic_fixed`` (``functions.exp_fixed/divide_fixed``,
-ROADMAP B.5, with A.3) and the quantized-pool branch of ``gqa_decode``
-(``kv_quant``, ROADMAP B.6).
+Not ported yet: the quantized-pool branch of ``gqa_decode`` (``kv_quant``,
+ROADMAP B.6).
 """
 from __future__ import annotations
 
@@ -33,22 +37,19 @@ from typing import Optional
 
 import torch
 
+from repro_torch.cordic_engine import functions as F
 from repro_torch.cordic_engine.core import PAPER_FIXED, FixedConfig
 from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE, MRSchedule
 from repro_torch.kernels import build
 from repro_torch.kernels.softmax_cordic import _lane_exp, _lane_probs, _seq_sum
 
 NEG_INF = -1e30
-IMPLS = ("exact", "cordic_pallas")
+#: softmax impls, in the order of the kernels' impl codes
+IMPLS = ("exact", "cordic_pallas", "cordic_fixed")
 
 
 def _impl(softmax_impl: Optional[str]) -> str:
     impl = "exact" if softmax_impl is None else softmax_impl
-    if impl == "cordic_fixed":
-        raise NotImplementedError(
-            "paged decode with softmax_impl='cordic_fixed' is not ported yet "
-            "(ROADMAP B.5 with A.3: the functions.exp_fixed/divide_fixed "
-            "branch)")
     if impl not in IMPLS:
         raise ValueError(f"unknown softmax_impl {softmax_impl!r}")
     return impl
@@ -113,8 +114,10 @@ def _pass_update(s, live, pas, impl, state, contract, sched, cfg):
     JAX ``_pass_update``). s (..., L) masked scores; live broadcastable to
     s[..., :1]; state (running max, running sum, accumulator);
     contract(p) -> the block's weighted-value sum. ``exact``: the online
-    (flash-decoding) recurrence; ``cordic_pallas``: pass 0 the row max,
-    pass 1 the CORDIC e^u row sum, pass 2 the lane-exact probabilities."""
+    (flash-decoding) recurrence; the CORDIC impls: pass 0 the row max,
+    pass 1 the CORDIC e^u row sum, pass 2 the lane-exact probabilities
+    (``cordic_fixed`` through the function library, which takes the
+    reference's default schedules)."""
     m, l_sum, acc = state
     if impl == "exact":
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
@@ -127,10 +130,22 @@ def _pass_update(s, live, pas, impl, state, contract, sched, cfg):
         return torch.where(live, torch.maximum(m, s.amax(dim=-1, keepdim=True)), m), \
             l_sum, acc
     if pas == 1:
-        return m, torch.where(live, l_sum + _seq_sum(_lane_exp(s - m, sched, cfg)),
-                              l_sum), acc
-    pr = _lane_probs(s - m, l_sum, sched, cfg)
+        e = (F.exp_fixed(s - m, cfg=cfg) if impl == "cordic_fixed"
+             else _lane_exp(s - m, sched, cfg))
+        return m, torch.where(live, l_sum + _seq_sum(e), l_sum), acc
+    if impl == "cordic_fixed":
+        pr = F.divide_fixed(F.exp_fixed(s - m, cfg=cfg), l_sum, cfg=cfg)
+    else:
+        pr = _lane_probs(s - m, l_sum, sched, cfg)
     return m, l_sum, torch.where(live, acc + contract(pr), acc)
+
+
+def _kernel_sched(impl: str, sched: MRSchedule) -> MRSchedule:
+    """The schedule whose ROM the kernel gets: ``cordic_fixed`` runs
+    ``exp_fixed``/``divide_fixed`` with their default schedules
+    (HYP_ROTATION, LIN_VECTORING: PAPER_SCHEDULE's two halves), whatever
+    ``sched`` the caller passed, as the reference does."""
+    return PAPER_SCHEDULE if impl == "cordic_fixed" else sched
 
 
 def _init_state(lead, width, device):
@@ -206,7 +221,8 @@ def gqa_decode(q, k_pool, v_pool, tables, k_len, *, scale: float,
         q.data_ptr(), build.DTYPE_CODE[q.dtype], k_pool.data_ptr(),
         v_pool.data_ptr(), tables.data_ptr(), k_len.data_ptr(), out.data_ptr(),
         B, KH, G, hd, L, M, float(scale), IMPLS.index(impl),
-        build.DTYPE_CODE[kvd], build.params_ptr(sched, cfg), build.stream_ptr(q))
+        build.DTYPE_CODE[kvd], build.params_ptr(_kernel_sched(impl, sched), cfg),
+        build.stream_ptr(q))
     build.check(rc, "gqa_decode")
     build.count("gqa_decode")
     return out
@@ -316,7 +332,8 @@ def mla_decode(q_eff, q_rope, c_pool, r_pool, tables, k_len, *, scale: float,
         c_pool.data_ptr(), r_pool.data_ptr(), tables.data_ptr(),
         k_len.data_ptr(), out.data_ptr(), B, H, R, P, L, M,
         MLA_HEADS_PER_CTA, float(scale), IMPLS.index(impl),
-        build.params_ptr(sched, cfg), build.stream_ptr(q_eff))
+        build.params_ptr(_kernel_sched(impl, sched), cfg),
+        build.stream_ptr(q_eff))
     build.check(rc, "mla_decode")
     build.count("mla_decode")
     return out

@@ -9,8 +9,11 @@ Boots the paged continuous-batching engine for a registered arch with
 random weights from a seed, on the card (``--device cuda``, the default) or
 on the CPU through the plain versions of the kernels (``--device cpu``,
 with ``--smoke`` for a config the CPU can run). Takes the JAX launcher's
-flags; the ones this port does not serve yet raise. The attention softmax
-is the CORDIC kernel (``softmax_impl="cordic_pallas"``).
+flags; the ones this port does not serve yet raise. ``--act-impl`` takes the
+activation registry's four datapaths (``core/activations.ACT_IMPLS``;
+``cordic_pallas``, the CUDA kernels, by default). The attention softmax is
+the CORDIC kernel (``softmax_impl="cordic_pallas"``); other softmax impls
+are set through ``ServeEngine(softmax_impl=...)``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.core.activations import ACT_IMPLS
 from repro_torch.models import transformer as tf
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.sampling import SamplingParams
@@ -32,9 +36,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
-    ap.add_argument("--act-impl", default="cordic_pallas",
-                    choices=["cordic_pallas"],
-                    help="activation datapath (the CORDIC kernels)")
+    ap.add_argument("--act-impl", default="cordic_pallas", choices=ACT_IMPLS,
+                    help="activation datapath: the CORDIC kernels "
+                         "(cordic_pallas), the plain Q2.14 library "
+                         "(cordic_fixed), its float twin or torch's own")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)

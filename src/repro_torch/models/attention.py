@@ -26,6 +26,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from repro_torch.cordic_engine import functions as F
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 
@@ -37,6 +38,7 @@ def _softmax_fn(impl: Optional[str]):
 
     "exact"         exp(x - max) / sum, as jax.nn.softmax computes it
     "cordic_pallas" the CORDIC softmax kernel (kernels/softmax_cordic.py)
+    "cordic_fixed"  the same Q2.14 math in plain torch (functions.softmax)
     """
     if impl in (None, "exact"):
         def exact(s, axis=-1):
@@ -46,9 +48,7 @@ def _softmax_fn(impl: Optional[str]):
     if impl == "cordic_pallas":
         return lambda s, axis=-1: kops.softmax(s, axis)
     if impl == "cordic_fixed":
-        raise NotImplementedError(
-            "softmax_impl='cordic_fixed' is not ported yet (ROADMAP A.3: "
-            "cordic_engine.functions)")
+        return lambda s, axis=-1: F.softmax(s, axis)
     raise ValueError(f"unknown softmax_impl {impl!r}")
 
 

@@ -13,13 +13,13 @@ too). Those einsums are plain matrix products (``torch.einsum``), as the
 JAX package leaves them to XLA.
 
 Router scores: ``"softmax"`` (float32, exp(x - max) / sum) or ``"sigmoid"``
-(the CORDIC ``sigmoid_wide`` kernel, then normalised). Top-k keeps the lower
-expert index first on equal scores, as ``jax.lax.top_k`` does (a stable
-descending sort). The expert SiLU is ``x * sigmoid_wide(x)`` through
-``act_2d`` with sigma rounded to ``x.dtype`` before the product, which is
-``get_activation("silu", "cordic_pallas")`` of the JAX package; it is
-neither the fused ``silu_mul_2d`` nor ``act_2d``'s ``silu`` op, which round
-differently in bfloat16.
+(the registry's ``sigmoid`` of ``cfg.act_impl``, range "reduce", then
+normalised). Top-k keeps the lower expert index first on equal scores, as
+``jax.lax.top_k`` does (a stable descending sort). The expert SiLU is the
+registry's ``silu`` of ``cfg.act_impl``: for ``cordic_pallas`` that is ``x *
+sigmoid_wide(x)`` through ``act_2d`` with sigma rounded to ``x.dtype``
+before the product, neither the fused ``silu_mul_2d`` nor ``act_2d``'s
+``silu`` op, which round differently in bfloat16.
 """
 from __future__ import annotations
 
@@ -29,15 +29,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from repro_torch.kernels import ops as kops
-from repro_torch.models import common as cm
+from repro_torch.core.activations import get_activation
 from repro_torch.models import mlp as mlpm
-
-
-def _leaf(shape, gen, dtype, device, std=None) -> nn.Parameter:
-    w = (cm.init_normal(shape, gen, dtype, device, std) if gen is not None
-         else torch.empty(shape, dtype=dtype, device=device))
-    return nn.Parameter(w, requires_grad=False)
 
 
 class MoE(nn.Module):
@@ -49,25 +42,13 @@ class MoE(nn.Module):
         super().__init__()
         m, d = cfg.moe, cfg.d_model
         E, f = m.num_experts, m.d_ff_expert
-        self.router = _leaf((d, E), gen, dtype, device, 0.02)
-        self.w_gate = _leaf((E, d, f), gen, dtype, device)
-        self.w_up = _leaf((E, d, f), gen, dtype, device)
-        self.w_down = _leaf((E, f, d), gen, dtype, device)
+        self.router = mlpm.leaf((d, E), gen, dtype, device, 0.02)
+        self.w_gate = mlpm.leaf((E, d, f), gen, dtype, device)
+        self.w_up = mlpm.leaf((E, d, f), gen, dtype, device)
+        self.w_down = mlpm.leaf((E, f, d), gen, dtype, device)
         self.shared = (mlpm.SwiGLU(d, f * m.num_shared_experts, dtype=dtype,
                                    device=device, gen=gen)
                        if m.num_shared_experts else None)
-
-
-def _check_act(cfg) -> None:
-    if cfg.act_impl != "cordic_pallas":
-        raise NotImplementedError(
-            f"act_impl={cfg.act_impl!r} is not ported yet (ROADMAP A.3: the "
-            "activation registry); the port runs act_impl='cordic_pallas'")
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """x * sigmoid_wide(x), sigma in x.dtype (the JAX registry's silu)."""
-    return x * kops.sigmoid_wide(x)
 
 
 def router_scores(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -78,8 +59,7 @@ def router_scores(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Ten
         e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
         return e / e.sum(dim=-1, keepdim=True), logits
     if m.router_score == "sigmoid":
-        _check_act(cfg)
-        s = kops.sigmoid_wide(logits)
+        s = get_activation("sigmoid", cfg.act_impl, range_mode="reduce")(logits)
         return s / (s.sum(dim=-1, keepdim=True) + 1e-9), logits
     raise ValueError(m.router_score)
 
@@ -117,7 +97,6 @@ def route(scores: torch.Tensor, cfg):
 def moe_apply(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) -> (y (B,S,d), aux loss float32). GShard dispatch with the
     capacity factor, in per-sequence groups (G = B)."""
-    _check_act(cfg)
     m = cfg.moe
     B, S, d = x.shape
     E = m.num_experts
@@ -137,9 +116,10 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]
     combine_t = combine.sum(dim=2)
 
     xe = torch.einsum("gsec,gsd->gecd", disp_t, x)            # (G,E,C,d)
+    act = get_activation("silu", cfg.act_impl, range_mode="reduce")
     g = torch.einsum("gecd,edf->gecf", xe, p.w_gate.to(dt))
     u = torch.einsum("gecd,edf->gecf", xe, p.w_up.to(dt))
-    h = _silu(g) * u
+    h = act(g) * u
     ye = torch.einsum("gecf,efd->gecd", h, p.w_down.to(dt))
     y = torch.einsum("gsec,gecd->gsd", combine_t, ye)         # (G,S,d)
 
@@ -153,5 +133,5 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]
         sp = p.shared
         gs = x @ sp.w_gate.to(dt)
         us = x @ sp.w_up.to(dt)
-        y = y + (_silu(gs) * us) @ sp.w_down.to(dt)
+        y = y + (act(gs) * us) @ sp.w_down.to(dt)
     return y, aux

@@ -3,8 +3,8 @@
 
     cfg.loss_impl = "exact"         - max-subtract, exp, log in float32 (the
                                       formula of jax.nn.log_softmax)
-    cfg.loss_impl = "cordic"        - the jnp fixed-point library; not
-                                      ported yet (ROADMAP A.3), raises
+    cfg.loss_impl = "cordic"        - cordic_engine.functions.log_softmax
+                                      (the plain fixed-point library)
     cfg.loss_impl = "cordic_pallas" - kernels.ops.log_softmax (the CORDIC
                                       log-softmax kernel)
 
@@ -32,9 +32,9 @@ def log_softmax_fn(impl: str) -> Callable:
     if impl == "exact":
         return _exact_log_softmax
     if impl == "cordic":
-        raise NotImplementedError(
-            "loss_impl='cordic' is not ported yet (ROADMAP A.3: "
-            "cordic_engine.functions.log_softmax)")
+        from repro_torch.cordic_engine import functions as F
+
+        return F.log_softmax
     if impl == "cordic_pallas":
         from repro_torch.kernels import ops as kops
 

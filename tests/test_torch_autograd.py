@@ -21,7 +21,7 @@ from repro_torch.kernels import ops  # noqa: E402
 
 #: float32 round-off of a gradient, relative to its largest entry
 RTOL = 1e-6
-UNARY = ["sigmoid", "sigmoid_wide", "tanh", "exp", "log", "softplus", "elu",
+UNARY = ["sigmoid", "sigmoid_wide", "tanh", "exp", "log", "softplus", "elu", "gelu_erf",
          "silu"]
 
 

@@ -203,3 +203,51 @@ def test_deepseek_paged_prefill_matches_no_cache_forward():
     assert bool((layer["k_rope_pool"][1:3] == 0).all())
     m = cfg.mla
     assert cache.pool_bytes() == 3 * 9 * 16 * (m.kv_lora_rank + m.qk_rope_dim) * 4
+
+
+# ---------------------------------------------------------------------------
+# The paper-faithful datapath: act_impl and softmax_impl "cordic_fixed" (the
+# registry's silu through sigmoid_cordic_wide, functions.softmax), plain
+# torch against the JAX package's plain jnp, with the same bar
+# ---------------------------------------------------------------------------
+FIXED = dict(act_impl="cordic_fixed", softmax_impl="cordic_fixed")
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", DS])
+def test_cordic_fixed_logits_match_jax(arch):
+    if arch == DS:
+        jcfg, cfg = _ds_cfgs(**FIXED)
+        jparams, model = _ds_params()
+    else:
+        jcfg, cfg = _cfgs(**FIXED)
+        jparams, model = _params()
+    toks = _tokens()
+    want, want_aux, _ = JT.apply(jparams, {"tokens": jnp.asarray(toks)}, jcfg)
+    want = np.asarray(want)
+    got, aux, _ = T.apply(model, {"tokens": torch.from_numpy(toks).long()}, cfg)
+    diff = np.abs(got.numpy() - want)
+    assert np.median(diff) < 1e-6 and diff.max() < ATOL, diff.max()
+    np.testing.assert_array_equal(got.numpy().argmax(-1), want.argmax(-1))
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5, atol=1e-12)
+
+
+def test_gelu_mlp_matches_jax():
+    """The GELU MLP (no served arch uses it yet) against the JAX block."""
+    from repro.models import mlp as JM
+    from repro_torch.models import mlp as M
+
+    rng = np.random.default_rng(4)
+    d, f = 16, 40
+    p = M.GeluMLP(d, f, dtype=torch.float32, device="cpu",
+                  gen=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        p.b_in.copy_(torch.from_numpy(rng.normal(size=f).astype(np.float32)))
+        p.b_out.copy_(torch.from_numpy(rng.normal(size=d).astype(np.float32)))
+    jp = {k: jnp.asarray(v.numpy()) for k, v in p.named_parameters()}
+    x = rng.normal(size=(2, 5, d)).astype(np.float32)
+    for impl in ("cordic_fixed", "cordic_pallas"):
+        cfg = dataclasses.replace(configs.get_smoke("yi-9b"), act_impl=impl)
+        jcfg = dataclasses.replace(jconfigs.get_smoke("yi-9b"), act_impl=impl)
+        want = np.asarray(jax.jit(lambda a: JM.gelu_mlp_apply(jp, a, jcfg))(x))
+        got = M.gelu_mlp_apply(p, torch.from_numpy(x), cfg).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

@@ -129,6 +129,32 @@ def test_deepseek_gather_and_kernel_decode_emit_the_same_tokens():
     assert outs[0] == outs[1]
 
 
+@pytest.mark.parametrize("arch", ["yi-9b", DS])
+def test_cordic_fixed_greedy_tokens_identical_to_jax_engine(arch):
+    """The paper-faithful datapath (act_impl and softmax_impl
+    "cordic_fixed"): paged pools, the decode kernels' cordic_fixed plain
+    versions, 3 requests through 2 slots, 8 new tokens each, against the
+    JAX engine with its Pallas decode in interpret mode."""
+    kw = {**ENGINE_KW, "softmax_impl": "cordic_fixed"}
+    jcfg = jconfigs.get_smoke(arch, act_impl="cordic_fixed")
+    cfg = configs.get_smoke(arch, act_impl="cordic_fixed")
+    jparams = (_ds_params() if arch == DS
+               else JT.init(jcfg, jax.random.PRNGKey(0)))
+    prompts = _prompts(cfg.vocab_size)
+    jeng = JE.ServeEngine(jcfg, jparams, **kw)
+    for i, p in enumerate(prompts):
+        jeng.submit(JE.Request(rid=i, prompt=p, max_new_tokens=8))
+    want = {r.rid: r.out for r in jeng.run()}
+
+    model = T.load_jax_params(cfg, T.flatten_params(jparams), device="cpu")
+    eng = E.ServeEngine(cfg, model, device="cpu", **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(E.Request(rid=i, prompt=p, max_new_tokens=8))
+    got = {r.rid: r.out for r in eng.run()}
+    assert got == want
+    assert all(len(v) == 8 for v in got.values())
+
+
 def test_deepseek_launcher_serves_on_the_cpu(capsys):
     from repro_torch.launch import serve as launch
 

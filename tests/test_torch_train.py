@@ -163,8 +163,12 @@ def test_masked_cross_entropy_matches_jax():
         want = jlosses.cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
                                      None if m is None else jnp.asarray(m))
         assert float(got) == pytest.approx(float(want), rel=1e-6, abs=1e-7)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        losses.log_softmax_fn("cordic")
+    # loss_impl="cordic": the plain fixed-point log-softmax, as in JAX
+    from repro.cordic_engine import functions as JF
+
+    want = np.asarray(jax.jit(JF.log_softmax_fixed)(logits))
+    got = losses.log_softmax_fn("cordic")(torch.from_numpy(logits)).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------
