@@ -29,20 +29,29 @@ Phases, each of which must pass (the script exits non-zero otherwise):
             paper-faithful datapath (act_impl and softmax_impl
             "cordic_fixed": the decode kernels' cordic_fixed branch, the
             activations and the prefill softmax in plain torch, none of the
-            activation or softmax kernels); (d) training Yi-9B at full width cut to 4
+            activation or softmax kernels); (d) Yi-9B's KV memory plane on
+            the same model: the launcher traffic twice more from int8 and
+            Q2.14 pools (gqa_decode's kv_quant branch on every decode
+            step), the radix prefix cache on a shared-prompt trace over
+            int8 pools (cache on and off; the cache-on tokens equal each
+            request's alone in a fresh cache-on engine), and the pools of
+            engines built at max_len 4096 (none, int8, Q2.14); (e) training Yi-9B at full width cut to 4
             layers (float32 master weights, AdamW, the loop's 8 x 32-token
             batches): 8 loop steps with checkpoints, a bit-equal restore, 6
             steps on one batch (the loss must fall), an eval step. Every
             kernel of a path must have launched, and under grad the fused
             SwiGLU kernel must not (the JAX rule's primal).
 5. identity the Yi and DeepSeek-V2-Lite smoke configs in float32, on both
-            datapaths: tokens served on the card with the kernels equal the
-            CPU's tokens with the plain versions, and 5 Yi train steps' losses on the card
-            agree with the CPU's.
+            datapaths, and Yi's on int8 and Q2.14 pools and with the prefix
+            cache: tokens served on the card with the kernels equal the
+            CPU's tokens with the plain versions (and, on int8, the card's
+            gather attend's); 5 Yi train steps' losses on the card agree
+            with the CPU's.
 
 The line before the last holds {"kernels": [...]} (one entry per kernel:
 launches on its path, max error against plain, times, bound); the last line
-is {"ok": true, "device": {...}}. Without a CUDA device, or run from a
+is {"ok": true, "device": {...}}. The whole log is also written to
+chiprun_out/chip_smoke.log. Without a CUDA device, or run from a
 directory without the repository's src/, the script exits with an error and
 prints no result.
 """
@@ -79,10 +88,24 @@ DEEPSEEK = "deepseek-v2-lite-16b"
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 32
 #: the fixed-batch descent check: steps and learning rate
 DESCENT_STEPS, DESCENT_LR = 6, 1e-4
+#: the quantized pool formats served, and the prefix trace: a shared
+#: prompt of 4 blocks, then 7 requests of it plus a 3-8-token tail
+KV_FORMATS = ("int8", "q2_14")
+PREFIX_LEN, PREFIX_WAVE = 64, 7
+#: the long-context pool geometry (engines built, not served)
+LONG_MAX_LEN = 4096
+
+
+#: the whole log, also written to OUT (a chip run returns only the end of
+#: standard output); opened by main once the card is found
+LOG_FILE = []
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+    for f in LOG_FILE:
+        f.write(msg + "\n")
+        f.flush()
 
 
 _T_PHASE = [time.perf_counter()]
@@ -146,6 +169,16 @@ def pipeline_ops(sched):
             # act_2d gelu_erf: one e^r rotation with its dyadic boundary
             # (the erf prefactor, sqrt and GELU product are float work)
             "gelu_erf": exp_codes + 4}
+
+
+def dequant_flops() -> int:
+    """FP32 operations of one KV dequant (functions.multiply_float over a
+    code): the code's scale to a value, three per linear-rotation stage
+    (the shifted product, the y and z updates), the sign product, the
+    sign and the 2^e scale."""
+    from repro_torch.cordic_engine.schedule import LIN_ROTATION
+
+    return 1 + 3 * len(LIN_ROTATION.r2_js) + 3
 
 
 # ---------------------------------------------------------------------------
@@ -404,6 +437,7 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
             records["gqa_decode"] = rec
         elif impl == "cordic_fixed":
             records["gqa_decode[cordic_fixed]"] = rec
+    quant_decode_kernel(torch, card, records, q, tables, k_len, klens, gen, ops)
     # (5) log_softmax_2d at the loss shape: (B*S, V) = (256, 64000) float32
     # logits with a masked tail (-1e30) on some rows, bit-exact
     rows, V = TRAIN_BATCH * TRAIN_SEQ, ycfg.vocab_size
@@ -603,6 +637,81 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
             f"{fmt_times(r)}")
 
 
+def quant_decode_kernel(torch, card, records, q, tables, k_len, klens, gen, ops):
+    """(4b) gqa_decode's kv_quant branch at the decode shape, tables and
+    lengths of (4): int8 and Q2.14 codes with per-block per-head scales,
+    made by kv_quant.block_scale / quantize from seeded floats. Every
+    instantiation (q = kv_dtype float32 or bfloat16, the only pairs the
+    kernel takes quantized pools for, three softmax impls) against the plain
+    version, bit-equal (max |kernel - plain| = 0), and a mixed pair raises;
+    timed with bfloat16 queries and kv_dtype on cordic_pallas, the serving
+    configuration."""
+    from repro_torch.core import kv_quant as kvq
+    from repro_torch.kernels import paged_attention as PA
+
+    B, KH, G, hd = q.shape
+    L, M = BLOCK_LEN, tables.shape[1]
+    N = 1 + B * M
+    dev = q.device
+    kf = torch.randn(N, L, KH, hd, generator=gen, device=dev) * 2
+    vf = torch.randn(N, L, KH, hd, generator=gen, device=dev)
+    q32 = q.float()
+    live_blocks = sum(-(-max(k, 1) // L) for k in klens)
+    lanes = sum(max(k, 1) for k in klens) * KH * G
+    for fmt in KV_FORMATS:
+        spec = kvq.spec_for(fmt)
+        ks, vs = kvq.block_scale(kf, spec), kvq.block_scale(vf, spec)
+        kq, vq = kvq.quantize(kf, spec, ks), kvq.quantize(vf, spec, vs)
+        qkw = dict(scale=1.0 / math.sqrt(hd), kv_quant=fmt, k_scale_pool=ks,
+                   v_scale_pool=vs)
+        errs = {}
+        for impl in ("exact", "cordic_fixed", "cordic_pallas"):
+            for dt in (torch.float32, torch.bfloat16):
+                args = (q32.to(dt), kq, vq, tables, k_len)
+                a = PA.gqa_decode(*args, softmax_impl=impl, kv_dtype=dt, **qkw)
+                b = PA.gqa_decode_plain(*args, softmax_impl=impl, kv_dtype=dt,
+                                        **qkw)
+                err = float((a - b).abs().max())
+                errs[(impl, str(dt)[6:])] = err
+                check(bool(torch.isfinite(a).all()), f"gqa_decode[{fmt}] finite")
+                check(err == 0.0, f"gqa_decode[{fmt}] {impl} q = kv_dtype {dt}: "
+                      f"|kernel - plain| {err} (bit-equal)")
+                check(torch.equal(a.reshape(B, -1).argmax(-1),
+                                  b.reshape(B, -1).argmax(-1)),
+                      f"gqa_decode[{fmt}] {impl}: argmax moved against plain")
+        try:
+            PA.gqa_decode(q32.bfloat16(), kq, vq, tables, k_len,
+                          kv_dtype=torch.float32, **qkw)
+            check(False, f"gqa_decode[{fmt}]: a mixed q / kv_dtype pair launched")
+        except TypeError:
+            pass
+        log(f"[gqa_decode[{fmt}]] max |kernel - plain| by (impl, q = kv_dtype): "
+            + ", ".join(f"{k[0]}/{k[1]} {v:.3e}" for k, v in errs.items())
+            + "; a mixed q / kv_dtype pair raises")
+        qb = q32.bfloat16()
+        kw = dict(qkw, softmax_impl="cordic_pallas", kv_dtype=torch.bfloat16)
+        a = PA.gqa_decode(qb, kq, vq, tables, k_len, **kw)
+        b = PA.gqa_decode_plain(qb, kq, vq, tables, k_len, **kw)
+        code_bytes = kq.element_size()
+        nbytes = (qb.numel() * 2 + 2 * live_blocks * L * KH * hd * code_bytes
+                  + 2 * live_blocks * KH * 4 + tables.numel() * 4
+                  + k_len.numel() * 4 + a.numel() * 4)
+        flops = 4 * hd * lanes + dequant_flops() * 2 * live_blocks * L * KH * hd
+        bound, by = card.bound(nbytes, ops["decode_lane"] * lanes, flops)
+        rec = timed(
+            dict(shape=[B, KH, G, hd, L, M], impl="cordic_pallas", kv_quant=fmt,
+                 klens=klens, max_abs_err=float((a - b).abs().max()),
+                 bit_equal=bool(torch.equal(a, b)), bound_ms=bound, bound_by=by),
+            kernel=times(torch, lambda: PA.gqa_decode(qb, kq, vq, tables, k_len, **kw),
+                         "gqa_decode_kernel"),
+            plain=times(torch, lambda: PA.gqa_decode_plain(
+                qb, kq, vq, tables, k_len, **kw), None, 2, 1))
+        log(f"[gqa_decode[{fmt}]] cordic_pallas bf16 B={B} KH={KH} G={G} hd={hd} "
+            f"L={L} M={M} k_len={[max(k, 1) for k in klens]}: max |kernel - "
+            f"plain| {rec['max_abs_err']:.3e}; {fmt_times(rec)}")
+        records[f"gqa_decode[{fmt}]"] = rec
+
+
 def timed(rec, kernel, plain, library=None):
     """A kernel record with its device times (``ms``, ``plain_ms``,
     ``library_ms``) and host-to-host times (``*_host_ms``)."""
@@ -740,22 +849,50 @@ def serve_path(torch, build, arch):
         out[act_impl] = serve_run(torch, build, arch, cfg, model)
         log(f"[time] serve {arch} {act_impl}: {time.perf_counter() - t0:.1f} s "
             "(warm-up, traffic, logits check, profile)")
+    if arch == "yi-9b":
+        cfg = dataclasses.replace(base, softmax_impl="cordic_pallas")
+        ref = out["cordic_pallas"][1]
+        for fmt in KV_FORMATS:
+            t0 = time.perf_counter()
+            # the profile of int8 only (4 steps), within the time limit
+            out[fmt] = serve_run(torch, build, arch, cfg, model, kv_quant=fmt,
+                                 n_prof=4 if fmt == "int8" else 0)
+            st = out[fmt][1]
+            same = sum(a == b for rid, toks in ref["out"].items()
+                       for a, b in zip(toks, st["out"][rid]))
+            log(f"[path serve {arch} kv_quant={fmt}] greedy match against the "
+                f"float32 pools' cordic_pallas tokens: {same}/{ref['tokens']} = "
+                f"{same / ref['tokens']:.4f} (random weights: reported, not "
+                f"gated); pool bytes {st['pool_bytes']} vs {ref['pool_bytes']}: "
+                f"{ref['pool_bytes'] / st['pool_bytes']:.3f}x fewer; tok/s "
+                f"{st['tok_s'] / ref['tok_s']:.3f}x, step p50 "
+                f"{st['step_ms_p50'] / ref['step_ms_p50']:.3f}x, TTFT p50 "
+                f"{st['ttft_ms_p50'] / ref['ttft_ms_p50']:.3f}x the float32 run's")
+            log(f"[time] serve {arch} kv_quant={fmt}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["prefix"] = prefix_path(torch, build, cfg, model)
+        log(f"[time] prefix path: {time.perf_counter() - t0:.1f} s")
+        long_context_pools(torch, cfg, model)
     del model
     torch.cuda.empty_cache()
     return out
 
 
-def serve_run(torch, build, arch, cfg, model):
+def serve_run(torch, build, arch, cfg, model, kv_quant="none", n_prof=None):
     """The launcher's traffic through one engine, launch counts zeroed just
-    before and read just after; step times, TTFT, memory, a profile."""
+    before and read just after; step times, TTFT, memory, a profile of
+    ``n_prof`` decode steps (None: 6 on the kernels' datapath, 1 on the
+    plain one, whose ~40,000 launches a step the profiler books slowly; 0:
+    none)."""
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import transformer as tf
     from repro_torch.serve.engine import ServeEngine
 
-    tag = f"[path serve {arch} {cfg.act_impl}/{cfg.softmax_impl}]"
+    tag = f"[path serve {arch} {cfg.act_impl}/{cfg.softmax_impl}" + (
+        f" kv_quant={kv_quant}]" if kv_quant != "none" else "]")
     eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, kv_impl="paged",
                       block_len=BLOCK_LEN, paged_attend_impl="pallas",
-                      device=DEV)
+                      kv_quant=kv_quant, device=DEV)
     # warm-up request (cuBLAS handles, first launches), outside the counts
     for r in make_requests(cfg, 1, 2, seed=99):
         eng.submit(r)
@@ -788,11 +925,20 @@ def serve_run(torch, build, arch, cfg, model):
     logits = tf.apply(model, {"tokens": torch.as_tensor(
         done[0].prompt[None], device=DEV).long()}, cfg)[0]
     check(bool(torch.isfinite(logits).all()), "finite logits")
+    if kv_quant != "none":
+        check(counts.get("gqa_decode", 0) == cfg.num_layers * len(steps),
+              f"{tag} gqa_decode launched {counts.get('gqa_decode', 0)} times, "
+              f"not {cfg.num_layers} x {len(steps)} decode steps")
+        pre, dec = quant_logits(torch, model, eng.cfg, done[0].prompt)
+        check(bool(torch.isfinite(pre).all()) and bool(torch.isfinite(dec).all()),
+              f"{tag} finite logits through a quantized paged cache")
     stats = dict(requests=len(done), tokens=n_tok, wall_s=wall,
                  tok_s=n_tok / wall, ttft_ms_p50=statistics.median(ttft),
                  ttft_ms_max=ttft[-1], step_ms_p50=statistics.median(steps) * 1e3,
                  steps=len(steps), peak_gib=peak / 2**30,
-                 pool_gib=eng.kv_pool_bytes() / 2**30, launches=counts)
+                 pool_gib=eng.kv_pool_bytes() / 2**30,
+                 pool_bytes=eng.kv_pool_bytes(), launches=counts,
+                 out={r.rid: r.out for r in done})
     log(f"{tag} {len(done)} requests, {n_tok} tokens in {wall:.3f} s: "
         f"{stats['tok_s']:.1f} tok/s; TTFT p50 {stats['ttft_ms_p50']:.1f} ms, "
         f"max {stats['ttft_ms_max']:.1f} ms; step p50 {stats['step_ms_p50']:.2f} "
@@ -804,12 +950,155 @@ def serve_run(torch, build, arch, cfg, model):
     # the plain datapath issues ~40,000 launches a step; the profiler's
     # bookkeeping of them is slow, so it profiles fewer steps
     t0 = time.perf_counter()
-    n_prof = 6 if cfg.act_impl == "cordic_pallas" else 2
-    stats["profile"] = profile_steps(torch, eng, cfg, SERVE_PROFILE[arch], n_prof)
+    if n_prof is None:
+        n_prof = 6 if cfg.act_impl == "cordic_pallas" else 1
+    stats["profile"] = (profile_steps(torch, eng, cfg, SERVE_PROFILE[arch], n_prof)
+                        if n_prof else None)
     log(f"[time] {tag} profile of {n_prof} steps: {time.perf_counter() - t0:.1f} s")
     del eng, logits
     torch.cuda.empty_cache()
     return counts, stats
+
+
+def quant_logits(torch, model, cfg, prompt):
+    """Logits of a bucket-wide prefill of ``prompt`` and of one decode step
+    (through gqa_decode's kv_quant branch) in a fresh one-slot quantized
+    paged cache; ``cfg`` is the serving engine's."""
+    from repro_torch.models import transformer as tf
+
+    M = MAX_LEN // BLOCK_LEN
+    cache = tf.init_paged_cache(cfg, 1, M + 1, BLOCK_LEN, M, device=DEV)
+    cache.tables[0] = torch.arange(1, M + 1, dtype=torch.int32, device=DEV)
+    toks = torch.zeros(1, BLOCK_LEN, dtype=torch.long, device=DEV)
+    toks[0, :len(prompt)] = torch.as_tensor(prompt, device=DEV)
+    pre = tf.apply(model, {"tokens": toks}, cfg, cache=cache)[0][:, :len(prompt)]
+    cache.lens[0] = len(prompt)              # the pad tail is not kept
+    nxt = pre[:, -1].argmax(-1, keepdim=True)
+    dec = tf.apply(model, {"tokens": nxt}, cfg, cache=cache)[0]
+    return pre, dec
+
+
+def prefix_path(torch, build, cfg, model):
+    """The radix prefix cache at Yi-9B width over int8 pools: a prime
+    request of a PREFIX_LEN-token shared prompt served to completion, then
+    PREFIX_WAVE requests of that prompt plus a 3-8-token tail (a chat or
+    agent deployment whose requests share one system prompt), MAX_NEW new
+    tokens each, with the cache on and off, one engine each. With the cache
+    on, the engine prefills in block-wide pieces (serve/engine.py), so the
+    gate holds it to the cache on without hits: each request alone in a
+    fresh engine, whose prefills run the same pieces from position 0. The
+    cache-off run prefills whole rows; its tokens are compared but not
+    gated (another GEMM width rounds otherwise on the card)."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    rng = np.random.default_rng(11)
+    shared = rng.integers(0, cfg.vocab_size, PREFIX_LEN).astype(np.int32)
+    tails = [rng.integers(0, cfg.vocab_size, int(rng.integers(3, 9))).astype(np.int32)
+             for _ in range(PREFIX_WAVE)]
+
+    def engine(on):
+        return ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN,
+                           kv_impl="paged", block_len=BLOCK_LEN,
+                           paged_attend_impl="pallas", kv_quant="int8",
+                           prefix_cache=on, device=DEV)
+
+    def request(rid):
+        prompt = shared.copy() if rid == 0 else np.concatenate([shared, tails[rid - 1]])
+        return Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW)
+
+    res = {}
+    for on in (False, True):
+        eng = engine(on)
+        prime = request(0)
+        eng.submit(prime)
+        eng.run()
+        wave = [request(1 + i) for i in range(PREFIX_WAVE)]
+        pre_tokens, hit0 = eng.prefill_tokens, eng.prefix_hit_tokens
+        build.reset_launches()
+        t0 = time.perf_counter()
+        for r in wave:
+            eng.submit(r)
+        shared_peak = 0
+        while eng.has_work:
+            eng.step()
+            shared_peak = max(shared_peak, eng.pager.blocks_shared)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(all(r.done and len(r.out) == MAX_NEW for r in wave),
+              "prefix trace: every request finishes")
+        hits = eng.prefix_hit_tokens - hit0
+        ttft = sorted((r.t_first - r.t_enqueue) * 1e3 for r in wave)
+        res[on] = dict(
+            tokens=[prime.out] + [r.out for r in wave], hit_tokens=hits,
+            prompt_tokens=sum(len(r.prompt) for r in wave) - hits,
+            prefill_width=eng.prefill_tokens - pre_tokens,
+            shared_peak=shared_peak, peak_blocks=eng.pager.stats().peak_in_use,
+            ttft_p50=statistics.median(ttft), ttft_max=ttft[-1], wall_s=wall,
+            launches=dict(build.LAUNCHES),
+            hits=eng.prefix.hits if eng.prefix is not None else 0)
+        r = res[on]
+        log(f"[path prefix] cache {'on' if on else 'off'}: {PREFIX_WAVE} requests "
+            f"after a {PREFIX_LEN}-token prime in {wall:.3f} s; prefix hit tokens "
+            f"{hits} ({r['hits']} hits); prompt tokens prefilled {r['prompt_tokens']}, "
+            f"prefill row widths {r['prefill_width']}; blocks shared (peak) "
+            f"{shared_peak}; peak blocks in use {r['peak_blocks']}; TTFT p50 "
+            f"{r['ttft_p50']:.1f} ms, max {r['ttft_max']:.1f} ms; launches "
+            f"{r['launches']}")
+        del eng
+        torch.cuda.empty_cache()
+    alone, ttft_alone = [], []
+    for rid in range(1 + PREFIX_WAVE):
+        eng = engine(True)
+        r = request(rid)
+        eng.submit(r)
+        eng.run()
+        check(eng.prefix_hit_tokens == 0, "a request alone hits nothing")
+        alone.append(r.out)
+        ttft_alone.append((r.t_first - r.t_enqueue) * 1e3)
+        del eng
+    torch.cuda.empty_cache()
+    off, on = res[False], res[True]
+    check(on["tokens"] == alone, "prefix cache hits change the tokens")
+    check(on["hit_tokens"] == PREFIX_WAVE * PREFIX_LEN, "the wave hits the prime's blocks")
+    same = sum(a == b for x, y in zip(off["tokens"], on["tokens"]) for a, b in zip(x, y))
+    log(f"[path prefix] cache-on tokens equal the cache on without hits (each "
+        f"request alone in a fresh engine, TTFT p50 {statistics.median(ttft_alone):.1f} "
+        f"ms); cache-off (whole-row prefill) tokens match {same}/"
+        f"{(1 + PREFIX_WAVE) * MAX_NEW} (reported, not gated); prefill tokens "
+        f"saved {off['prompt_tokens'] - on['prompt_tokens']} of "
+        f"{off['prompt_tokens']} (row widths {off['prefill_width']} -> "
+        f"{on['prefill_width']}); peak blocks {off['peak_blocks']} -> "
+        f"{on['peak_blocks']}; TTFT p50 {off['ttft_p50']:.1f} -> "
+        f"{on['ttft_p50']:.1f} ms")
+    return res
+
+
+def long_context_pools(torch, cfg, model):
+    """Engines built (not served) at max_len LONG_MAX_LEN with SLOTS slots
+    for each pool format: kv_pool_bytes and the device memory the engine
+    allocated."""
+    from repro_torch.serve.engine import ServeEngine
+
+    base = None
+    for fmt in ("none",) + KV_FORMATS:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        eng = ServeEngine(cfg, model, slots=SLOTS, max_len=LONG_MAX_LEN,
+                          kv_impl="paged", block_len=BLOCK_LEN,
+                          paged_attend_impl="pallas", kv_quant=fmt, device=DEV)
+        torch.cuda.synchronize()
+        delta = torch.cuda.memory_allocated() - before
+        nbytes = eng.kv_pool_bytes()
+        base = base or nbytes
+        check(delta >= nbytes, f"long-context {fmt}: allocated {delta} < pools {nbytes}")
+        log(f"[path memory] max_len {LONG_MAX_LEN}, {SLOTS} slots, "
+            f"{eng.pager.stats().num_blocks} blocks, kv_quant={fmt}: kv_pool_bytes "
+            f"{nbytes} ({nbytes / 1e9:.3f} GB, {base / nbytes:.3f}x fewer than "
+            f"float32), memory_allocated delta {delta} ({delta / 1e9:.3f} GB)")
+        del eng
+        torch.cuda.empty_cache()
 
 
 def profile_steps(torch, eng, cfg, kernels, n_steps: int = 6):
@@ -1025,7 +1314,12 @@ def train_path(torch, build):
 # ---------------------------------------------------------------------------
 # Phase 5: identity on the smoke config
 # ---------------------------------------------------------------------------
-def identity_phase(torch, arch, impl):
+def identity_phase(torch, arch, impl, kv_quant="none", prefix_cache=False):
+    """A smoke config in float32 served on the card (kernels) and on the CPU
+    (plain versions), 3 requests x 8 tokens (with the prefix cache: 4
+    requests after a shared two-block prompt, so that later ones hit);
+    the tokens must be equal. On quantized pools the card also serves
+    with the gather attend, whose tokens must equal the kernel's."""
     import dataclasses
 
     from repro_torch import configs
@@ -1038,16 +1332,31 @@ def identity_phase(torch, arch, impl):
     cpu_model = tf.init(cfg, seed=0, device="cpu")
     gpu_model = tf.Transformer(cfg, device=torch.device(DEV))
     gpu_model.load_state_dict(cpu_model.state_dict())
-    out = {}
-    for dev, model in (("cpu", cpu_model), (DEV, gpu_model)):
+    n, prefix_len = (4, 32) if prefix_cache else (3, 0)
+    runs = [("cpu", cpu_model, "pallas"), (DEV, gpu_model, "pallas")]
+    if kv_quant != "none":
+        runs.append((DEV, gpu_model, "gather"))
+    out, hits = {}, {}
+    for dev, model, attend in runs:
         eng = ServeEngine(cfg, model, slots=2, max_len=64, kv_impl="paged",
-                          paged_attend_impl="pallas", device=dev)
-        for r in make_requests(cfg, 3, 8, seed=0):
+                          paged_attend_impl=attend, kv_quant=kv_quant,
+                          prefix_cache=prefix_cache, device=dev)
+        for r in make_requests(cfg, n, 8, seed=0, prefix_len=prefix_len):
             eng.submit(r)
-        out[dev] = {r.rid: r.out for r in eng.run()}
-    log(f"[identity] {cfg.name} float32 {impl}, 3 requests x 8 tokens: card "
-        f"(kernels) {out[DEV]} vs CPU (plain) {out['cpu']}")
-    check(out[DEV] == out["cpu"], "card tokens differ from the CPU run")
+        out[dev, attend] = {r.rid: r.out for r in eng.run()}
+        hits[dev, attend] = eng.prefix.hits if prefix_cache else 0
+    what = (f"{cfg.name} float32 {impl}" + (f" kv_quant={kv_quant}" if kv_quant != "none"
+                                            else "")
+            + (f" prefix cache ({hits[DEV, 'pallas']} hits)" if prefix_cache else ""))
+    log(f"[identity] {what}, {n} requests x 8 tokens: card (kernels) "
+        f"{out[DEV, 'pallas']} vs CPU (plain) {out['cpu', 'pallas']}")
+    check(out[DEV, "pallas"] == out["cpu", "pallas"],
+          f"{what}: card tokens differ from the CPU run")
+    check(not prefix_cache or hits[DEV, "pallas"] > 0, f"{what}: no prefix hit")
+    if kv_quant != "none":
+        log(f"[identity] {what}: card gather attend {out[DEV, 'gather']}")
+        check(out[DEV, "gather"] == out[DEV, "pallas"],
+              f"{what}: the kernel's tokens differ from the gather attend's")
 
 
 #: train identity tolerance, card against CPU. The kernels equal the plain
@@ -1125,6 +1434,11 @@ KERNELS = {
     "mla_decode[cordic_fixed]": ("cuda",
                                  "src/repro_torch/kernels/csrc/paged_decode.cu",
                                  "src/repro/kernels/paged_attention.py:421"),
+    # gqa_decode's kv_quant branch (_gqa_kernel :260-275)
+    "gqa_decode[int8]": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
+                         "src/repro/kernels/paged_attention.py:291"),
+    "gqa_decode[q2_14]": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
+                          "src/repro/kernels/paged_attention.py:291"),
 }
 
 
@@ -1143,6 +1457,8 @@ def main() -> int:
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
+    OUT.mkdir(exist_ok=True)
+    LOG_FILE.append(open(OUT / "chip_smoke.log", "w"))
     card_line = smi("name,power.limit")
     log(card_line)
     log(f"[device] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1160,7 +1476,6 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(verbose=True)
     log(f"[build] {len(build.SOURCES)} sources in {time.perf_counter() - t0:.1f} s")
-    OUT.mkdir(exist_ok=True)
     (OUT / "ptxas.log").write_text("\n".join(build.BUILD_LOG.values()))
     for name, text in build.BUILD_LOG.items():
         regs = sorted({ln.split("Used ")[1].split(" registers")[0]
@@ -1185,6 +1500,10 @@ def main() -> int:
     serve_counts, yi_fixed = yi["cordic_pallas"][0], yi["cordic_fixed"][0]
     for k in ("silu_mul_2d", "softmax_2d", "gqa_decode"):
         check(serve_counts.get(k, 0) > 0, f"serving Yi-9B never launched {k}")
+    for fmt in KV_FORMATS:
+        for k in ("silu_mul_2d", "softmax_2d", "gqa_decode"):
+            check(yi[fmt][0].get(k, 0) > 0, f"serving Yi-9B on {fmt} pools never "
+                  f"launched {k}")
     ds = serve_path(torch, build, DEEPSEEK)
     phase_done(f"path serve {DEEPSEEK}")
     ds_counts, ds_fixed = ds["cordic_pallas"][0], ds["cordic_fixed"][0]
@@ -1209,14 +1528,22 @@ def main() -> int:
     launches["act_2d[gelu_erf]"] = gelu_counts.get("act_2d", 0)
     launches["gqa_decode[cordic_fixed]"] = yi_fixed.get("gqa_decode", 0)
     launches["mla_decode[cordic_fixed]"] = ds_fixed.get("mla_decode", 0)
+    for fmt in KV_FORMATS:
+        launches[f"gqa_decode[{fmt}]"] = yi[fmt][0].get("gqa_decode", 0)
     log(f"[paths] launches: sigmoid {sigmoid_counts}, gelu_erf {gelu_counts}, "
-        f"serve yi-9b {serve_counts}, cordic_fixed {yi_fixed}, serve {DEEPSEEK} "
+        f"serve yi-9b {serve_counts}, cordic_fixed {yi_fixed}, int8 "
+        f"{yi['int8'][0]}, q2_14 {yi['q2_14'][0]}, serve {DEEPSEEK} "
         f"{ds_counts}, cordic_fixed {ds_fixed}, train loop {train_counts}; "
         f"per kernel {launches}")
     for arch in ("yi-9b", DEEPSEEK):
         for impl in ("cordic_pallas", "cordic_fixed"):
             identity_phase(torch, arch, impl)
             phase_done(f"identity {arch} {impl}")
+    for fmt in KV_FORMATS:
+        identity_phase(torch, "yi-9b", "cordic_pallas", kv_quant=fmt)
+        phase_done(f"identity yi-9b kv_quant={fmt}")
+    identity_phase(torch, "yi-9b", "cordic_pallas", kv_quant="int8", prefix_cache=True)
+    phase_done("identity yi-9b int8 prefix cache")
     train_identity_phase(torch)
     phase_done("identity train")
 

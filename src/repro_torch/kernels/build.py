@@ -14,10 +14,12 @@ a later ``synchronize`` would not report it.
 ``LAUNCHES`` counts kernel launches per kernel name; a wrapper adds one
 where it launches, so a run can show that it went through the kernels.
 
-The schedule ROM (atanh constants, radix-4 thresholds, x0, and the
-hyperbolic-vectoring stages of the log leg) is computed here exactly as the
-JAX kernel computes it (``repro/kernels/cordic_act.py`` :88, :93, :104-107,
-:219, :255) and passed by pointer in ``CordicParams``
+The schedule ROM (atanh constants, radix-4 thresholds, x0, the
+hyperbolic-vectoring stages of the log leg and the linear-rotation stages
+of the KV dequant) is computed here exactly as the JAX kernel computes it
+(``repro/kernels/cordic_act.py`` :88, :93, :104-107, :219, :255;
+``repro/cordic_engine/schedule.py`` ``LIN_ROTATION``) and passed by pointer
+in ``CordicParams``
 (``csrc/cordic.cuh``), so the kernels stay parametric in ``MRSchedule`` and
 ``FixedConfig``.
 """
@@ -40,6 +42,7 @@ import torch
 from repro_torch.cordic_engine.core import FixedConfig
 from repro_torch.cordic_engine.schedule import (
     HYP_VECTORING,
+    LIN_ROTATION,
     MRSchedule,
     hyp_vectoring_for,
 )
@@ -53,7 +56,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES: collections.Counter = collections.Counter()
 
-_MAX_R2, _MAX_R4, _MAX_LVC, _MAX_HV = 32, 16, 32, 32
+_MAX_R2, _MAX_R4, _MAX_LVC, _MAX_HV, _MAX_LIN = 32, 16, 32, 32, 32
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: ptxas resource report of the last build (registers, shared memory, spills)
@@ -95,6 +98,7 @@ class CordicParams(ctypes.Structure):
         ("max_doublings", ctypes.c_int),
         ("n_hv", ctypes.c_int),
         ("hv_j", ctypes.c_int * _MAX_HV), ("hv_a", ctypes.c_int * _MAX_HV),
+        ("n_lin", ctypes.c_int), ("lin_j", ctypes.c_int * _MAX_LIN),
     ]
 
 
@@ -109,11 +113,15 @@ def log_vectoring_js(frac_bits: int) -> tuple:
 def cordic_params(sched: MRSchedule, cfg: FixedConfig,
                   max_doublings: int = 3) -> CordicParams:
     """The schedule ROM for (sched, cfg), built as the JAX kernel builds it.
-    The log leg's vectoring stages follow the format (``_log_q``)."""
+    The log leg's vectoring stages follow the format (``_log_q``); the
+    linear-rotation stages are those of ``functions.multiply_float``
+    (``LIN_ROTATION``), the KV dequant's multiply."""
     fb, zfb = cfg.fmt.frac_bits, cfg.zfmt.frac_bits
     hv_js = log_vectoring_js(fb)
+    lin_js = LIN_ROTATION.r2_js
     if (len(sched.r2_js) > _MAX_R2 or len(sched.r4_js) > _MAX_R4
-            or len(sched.lvc_js) > _MAX_LVC or len(hv_js) > _MAX_HV):
+            or len(sched.lvc_js) > _MAX_LVC or len(hv_js) > _MAX_HV
+            or len(lin_js) > _MAX_LIN):
         raise ValueError(f"schedule {sched} exceeds the kernel ROM size")
     p = CordicParams()
     p.bits, p.fb = cfg.fmt.total_bits, fb
@@ -139,6 +147,9 @@ def cordic_params(sched: MRSchedule, cfg: FixedConfig,
     for i, j in enumerate(hv_js):
         p.hv_j[i] = j
         p.hv_a[i] = int(round(math.atanh(2.0 ** -j) * (1 << zfb)))
+    p.n_lin = len(lin_js)
+    for i, j in enumerate(lin_js):
+        p.lin_j[i] = j
     return p
 
 
@@ -228,9 +239,10 @@ _SIGNATURES = {
         "cordic_log_softmax_2d": (_P, _P, _I, _I, _P, _P),
     },
     "paged_decode": {
-        # (q, q_dtype, k_pool, v_pool, tables, k_len, out,
-        #  B, KH, G, hd, L, M, scale, impl, kv_dtype, params, stream)
-        "paged_gqa_decode": (_P, _I, _P, _P, _P, _P, _P,
+        # (q, q_dtype, k_pool, v_pool, pool_dtype, k_scale, v_scale,
+        #  code_res, tables, k_len, out, B, KH, G, hd, L, M, scale, impl,
+        #  kv_dtype, params, stream)
+        "paged_gqa_decode": (_P, _I, _P, _P, _I, _P, _P, _F, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P),
         # (q_eff, q_rope, q_dtype, c_pool, r_pool, tables, k_len, out,
         #  B, H, R, P, L, M, heads_per_cta, scale, impl, params, stream)

@@ -28,6 +28,7 @@
 #define CORDIC_MAX_R4 16
 #define CORDIC_MAX_LVC 32
 #define CORDIC_MAX_HV 32
+#define CORDIC_MAX_LIN 32
 
 // Layout mirrored by kernels/build.py:_CordicParams (all 32-bit ints).
 struct CordicParams {
@@ -48,6 +49,8 @@ struct CordicParams {
   int n_hv;  // hyperbolic vectoring of the log leg (_HYP_VEC_JS)
   int hv_j[CORDIC_MAX_HV];
   int hv_a[CORDIC_MAX_HV];
+  int n_lin;  // linear rotation of the KV dequant's multiply (LIN_ROTATION)
+  int lin_j[CORDIC_MAX_LIN];
 };
 
 // np.float32(log 2), np.float32(1 / log 2), np.float32(1e-12) bit for bit.
@@ -292,6 +295,36 @@ __device__ __forceinline__ float lane_prob_fixed(float u, float ssum, const Cord
   const int den = quantize_f(fmaxf(mx, 0.5f), p.fb, p.bits);
   const float q = dequantize_f(lvc_div_q(den, num, p), p.zfb);
   return sign_f(e) * sign_f(ssum) * q * xla_exp2((float)(py - px + h));
+}
+
+// functions.multiply_float(a, s), the KV dequant's scale multiply
+// (core/kv_quant.dequantize, with a = code * resolution): sign(a) sign(s),
+// the frexp mantissas of |a| and s floored at 0.5, the float linear
+// rotation over the LIN_ROTATION stages (y += d x 2^-j, z -= d 2^-j, d = +1
+// where z >= 0), then sign * y * jnp.exp2(p_a + p_s) as xla_exp2 gives it
+// (inexact beyond |k| ~ 16, which a small Q2.14 code times a small scale
+// reaches). Every step is exact but y's adds, taken in the reference's
+// order; a zero code gives 0.
+__device__ __forceinline__ float lin_multiply_float(float a, float s, const CordicParams& p) {
+  const float sign = sign_f(a) * sign_f(s);
+  int pa, ps;
+  const float x = fmaxf(frexpf(fabsf(a), &pa), 0.5f);
+  float z = fmaxf(frexpf(fabsf(s), &ps), 0.5f);
+  float y = 0.0f;
+#pragma unroll
+  for (int i = 0; i < CORDIC_MAX_LIN; ++i) {
+    if (i >= p.n_lin) break;
+    const float step = __int_as_float((127 - p.lin_j[i]) << 23);  // 2^-j
+    const float xs = x * step;
+    if (z >= 0.0f) {
+      y = y + xs;
+      z = z - step;
+    } else {
+      y = y - xs;
+      z = z + step;
+    }
+  }
+  return sign * y * xla_exp2((float)(pa + ps));
 }
 
 // The exp stage of the CORDIC softmax (softmax_cordic._softmax_kernel and

@@ -28,12 +28,25 @@
 // BlockSpec walk; a block's K/V tile sits in shared memory; all G query
 // rows of the kv-head share it.
 //
+// Quantized pools (kv_quant, _gqa_kernel :260-275 with the scale-pool
+// operands :347-353): the pool type TP is int8_t or int16_t codes, and each
+// live block's two per-head scales (k_scale[blk * KH + h], v_scale[...]) are
+// read once per block; every staged element is
+// kv_round<TKV>(lin_multiply_float(code * code_res, scale)), the CORDIC
+// linear-rotation dequant of core/kv_quant.dequantize. The CORDIC impls
+// stage K in each of their three passes, so K is dequantized three times:
+// a right and simple first kernel; keeping the dequantized block (or the
+// scores) across passes is the first thing a redesign removes.
+//
 // Summation orders are fixed and shared with the plain PyTorch version:
 // a score is a left-to-right sum over head_dim of q*k products, then times
 // the scale; block sums and P.V sums run left to right over the block's
 // lanes. Compiled with -fmad=false, so kernel and plain agree bit for bit
 // on the CORDIC path; XLA's dot orders differ, hence the reference's own
 // f32 tolerance against the JAX kernel.
+#include <cstdint>
+#include <type_traits>
+
 #include "cordic.cuh"
 
 namespace {
@@ -65,10 +78,27 @@ __device__ __forceinline__ float kv_round<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// TQ: query dtype; TKV: the kv_dtype cast replayed per block; IMPL: softmax.
-template <typename TQ, typename TKV, int IMPL>
-__global__ void gqa_decode_kernel(const TQ* __restrict__ q, const float* __restrict__ k_pool,
-                                  const float* __restrict__ v_pool,
+// A pool element as float: a float32 pool's value, or a code dequantized
+// against its block's scale.
+template <typename TP>
+__device__ __forceinline__ float pool_value(TP v, float scale, float code_res,
+                                            const CordicParams& p) {
+  return lin_multiply_float((float)v * code_res, scale, p);
+}
+template <>
+__device__ __forceinline__ float pool_value<float>(float v, float, float,
+                                                   const CordicParams&) {
+  return v;
+}
+
+// TQ: query dtype; TKV: the kv_dtype cast replayed per block; TP: the pool's
+// storage (float, or int8_t/int16_t codes with per-block scales); IMPL:
+// softmax.
+template <typename TQ, typename TKV, typename TP, int IMPL>
+__global__ void gqa_decode_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pool,
+                                  const TP* __restrict__ v_pool,
+                                  const float* __restrict__ k_scale,
+                                  const float* __restrict__ v_scale, float code_res,
                                   const int* __restrict__ tables,
                                   const int* __restrict__ k_len, float* __restrict__ out,
                                   int KH, int G, int hd, int L, int M, float scale,
@@ -106,11 +136,14 @@ __global__ void gqa_decode_kernel(const TQ* __restrict__ q, const float* __restr
     for (int c = 0; c < live; ++c) {
       const long long blk = trow[c];
       const int base = c * L;
+      constexpr bool QUANT = !std::is_same<TP, float>::value;
+      const float ksc = QUANT ? k_scale[blk * KH + h] : 1.0f;
+      const float vsc = QUANT && need_v ? v_scale[blk * KH + h] : 1.0f;
       for (int i = tid; i < L * hd; i += kThreads) {
         const int l = i / hd, d = i - l * hd;
         const long long off = ((blk * L + l) * KH + h) * hd + d;
-        ks[i] = kv_round<TKV>(k_pool[off]);
-        if (need_v) vs[i] = kv_round<TKV>(v_pool[off]);
+        ks[i] = kv_round<TKV>(pool_value<TP>(k_pool[off], ksc, code_res, p));
+        if (need_v) vs[i] = kv_round<TKV>(pool_value<TP>(v_pool[off], vsc, code_res, p));
       }
       __syncthreads();
       for (int i = tid; i < G * L; i += kThreads) {
@@ -183,65 +216,85 @@ __global__ void gqa_decode_kernel(const TQ* __restrict__ q, const float* __restr
     out[qoff + i] = CORDIC ? acc[i] : acc[i] / lrow[i / hd];
 }
 
-template <typename TQ, typename TKV, int IMPL>
-int launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
-           const void* k_len, void* out, int B, int KH, int G, int hd, int L, int M,
-           float scale, const CordicParams& p, cudaStream_t s) {
-  auto kern = gqa_decode_kernel<TQ, TKV, IMPL>;
+// The arguments of one GQA decode launch.
+struct GqaArgs {
+  const void *q, *k_pool, *v_pool;
+  const float *k_scale, *v_scale;
+  float code_res;
+  const int *tables, *k_len;
+  float* out;
+  int B, KH, G, hd, L, M;
+  float scale;
+};
+
+template <typename TQ, typename TKV, typename TP, int IMPL>
+int launch(const GqaArgs& a, const CordicParams& p, cudaStream_t s) {
+  auto kern = gqa_decode_kernel<TQ, TKV, TP, IMPL>;
+  const int G = a.G, hd = a.hd, L = a.L;
   const size_t bytes = sizeof(float) * (2 * G * hd + 2 * L * hd + G * L + 3 * G);
   if (bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<dim3(B, KH), kThreads, bytes, s>>>(
-      (const TQ*)q, (const float*)k_pool, (const float*)v_pool, (const int*)tables,
-      (const int*)k_len, (float*)out, KH, G, hd, L, M, scale, p);
+  kern<<<dim3(a.B, a.KH), kThreads, bytes, s>>>(
+      (const TQ*)a.q, (const TP*)a.k_pool, (const TP*)a.v_pool, a.k_scale, a.v_scale,
+      a.code_res, a.tables, a.k_len, a.out, a.KH, G, hd, L, a.M, a.scale, p);
   return (int)cudaGetLastError();
 }
 
-template <typename TQ, typename TKV>
-int launch_impl(int impl, const void* q, const void* kp, const void* vp, const void* t,
-                const void* kl, void* o, int B, int KH, int G, int hd, int L, int M,
-                float scale, const CordicParams& p, cudaStream_t s) {
+template <typename TQ, typename TKV, typename TP>
+int launch_impl(int impl, const GqaArgs& a, const CordicParams& p, cudaStream_t s) {
   switch (impl) {
     case kExact:
-      return launch<TQ, TKV, kExact>(q, kp, vp, t, kl, o, B, KH, G, hd, L, M, scale, p, s);
+      return launch<TQ, TKV, TP, kExact>(a, p, s);
     case kCordicPallas:
-      return launch<TQ, TKV, kCordicPallas>(q, kp, vp, t, kl, o, B, KH, G, hd, L, M, scale,
-                                            p, s);
+      return launch<TQ, TKV, TP, kCordicPallas>(a, p, s);
     case kCordicFixed:
-      return launch<TQ, TKV, kCordicFixed>(q, kp, vp, t, kl, o, B, KH, G, hd, L, M, scale,
-                                           p, s);
+      return launch<TQ, TKV, TP, kCordicFixed>(a, p, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+// Integer pools are instantiated for matched q / kv_dtype pairs only (the
+// engine passes kv_dtype = the query dtype); float pools for all four pairs.
+template <typename TQ, typename TKV>
+int launch_pool(int pool_dtype, int impl, const GqaArgs& a, const CordicParams& p,
+                cudaStream_t s) {
+  if (pool_dtype == 0) return launch_impl<TQ, TKV, float>(impl, a, p, s);
+  if constexpr (std::is_same<TQ, TKV>::value) {
+    if (pool_dtype == 1) return launch_impl<TQ, TKV, int8_t>(impl, a, p, s);
+    if (pool_dtype == 2) return launch_impl<TQ, TKV, int16_t>(impl, a, p, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // impl: 0 exact, 1 cordic_pallas, 2 cordic_fixed. q_dtype / kv_dtype: 0 float32,
-// 1 bfloat16.
+// 1 bfloat16. pool_dtype: 0 float32 pools (k_scale / v_scale unused), 1 int8
+// codes, 2 int16 codes, each dequantized as code * code_res times its block's
+// per-head scale (k_scale / v_scale: (N, 1, KH, 1) float32).
 extern "C" int paged_gqa_decode(const void* q, int q_dtype, const void* k_pool,
-                                const void* v_pool, const void* tables, const void* k_len,
-                                void* out, int B, int KH, int G, int hd, int L, int M,
-                                float scale, int impl, int kv_dtype, const CordicParams* p,
-                                void* stream) {
+                                const void* v_pool, int pool_dtype, const void* k_scale,
+                                const void* v_scale, float code_res, const void* tables,
+                                const void* k_len, void* out, int B, int KH, int G, int hd,
+                                int L, int M, float scale, int impl, int kv_dtype,
+                                const CordicParams* p, void* stream) {
   if (B == 0) return (int)cudaGetLastError();
+  if (pool_dtype != 0 && (k_scale == nullptr || v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const GqaArgs a{q, k_pool, v_pool, (const float*)k_scale, (const float*)v_scale,
+                  code_res, (const int*)tables, (const int*)k_len, (float*)out,
+                  B, KH, G, hd, L, M, scale};
   const CordicParams& pp = *p;
   if (q_dtype == 0)
-    return kv_dtype == 0
-               ? launch_impl<float, float>(impl, q, k_pool, v_pool, tables, k_len, out, B,
-                                           KH, G, hd, L, M, scale, pp, s)
-               : launch_impl<float, __nv_bfloat16>(impl, q, k_pool, v_pool, tables, k_len,
-                                                   out, B, KH, G, hd, L, M, scale, pp, s);
-  return kv_dtype == 0
-             ? launch_impl<__nv_bfloat16, float>(impl, q, k_pool, v_pool, tables, k_len,
-                                                 out, B, KH, G, hd, L, M, scale, pp, s)
-             : launch_impl<__nv_bfloat16, __nv_bfloat16>(impl, q, k_pool, v_pool, tables,
-                                                         k_len, out, B, KH, G, hd, L, M,
-                                                         scale, pp, s);
+    return kv_dtype == 0 ? launch_pool<float, float>(pool_dtype, impl, a, pp, s)
+                         : launch_pool<float, __nv_bfloat16>(pool_dtype, impl, a, pp, s);
+  return kv_dtype == 0 ? launch_pool<__nv_bfloat16, float>(pool_dtype, impl, a, pp, s)
+                       : launch_pool<__nv_bfloat16, __nv_bfloat16>(pool_dtype, impl, a, pp, s);
 }
 
 // ---------------------------------------------------------------------------

@@ -28,8 +28,12 @@ left to right over a block's lanes. With ``-fmad=false`` kernel and plain
 agree bit for bit on both CORDIC impls; against the JAX kernels, whose dots
 XLA orders, outputs agree to f32 round-off (the reference's own ATOL 2e-5).
 
-Not ported yet: the quantized-pool branch of ``gqa_decode`` (``kv_quant``,
-ROADMAP B.6).
+Quantized pools (``gqa_decode(kv_quant="int8" | "q2_14")``): the pools hold
+int8/int16 codes and ``k_scale_pool``/``v_scale_pool`` (N,1,KH,1) float32
+the per-block per-head scales; each live block is dequantized by
+``kv_quant.dequantize`` (the CORDIC linear-rotation multiply, exact in
+every step but the sweep's adds, which both sides take in one order) and
+then takes the ``kv_dtype`` round, so kernel and plain stay bit-equal.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import torch
 
 from repro_torch.cordic_engine import functions as F
 from repro_torch.cordic_engine.core import PAPER_FIXED, FixedConfig
+from repro_torch.core import kv_quant as kvq
 from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE, MRSchedule
 from repro_torch.kernels import build
 from repro_torch.kernels.softmax_cordic import _lane_exp, _lane_probs, _seq_sum
@@ -154,27 +159,55 @@ def _init_state(lead, width, device):
             torch.zeros(lead + (width,), dtype=torch.float32, device=device))
 
 
+def _quant_args(k_pool, kv_quant, k_scale_pool, v_scale_pool, kv_dtype):
+    """(spec or None, kv_dtype) of a decode call, validated as the JAX
+    kernel does: ``kv_quant`` and both scale pools come together (checked
+    before the kv_dtype resolution, so an integer pool without kv_quant
+    names the real mismatch); under quantization kv_dtype defaults to
+    float32, else to the pool's dtype."""
+    spec = kvq.spec_for(kv_quant)
+    if (spec is not None) != (k_scale_pool is not None
+                              and v_scale_pool is not None):
+        raise ValueError(
+            f"kv_quant and the scale pools come together: kv_quant={kv_quant!r} "
+            f"with k_scale_pool {'set' if k_scale_pool is not None else 'missing'}")
+    kvd = canonical_kv_dtype(kv_dtype)
+    if kvd is None:
+        kvd = torch.float32 if spec is not None else canonical_kv_dtype(k_pool.dtype)
+    return spec, kvd
+
+
 def gqa_decode_plain(q, k_pool, v_pool, tables, k_len, *, scale: float,
                      softmax_impl: str = "exact", kv_dtype=None,
-                     sched: MRSchedule = PAPER_SCHEDULE,
+                     kv_quant: str = "none", k_scale_pool=None,
+                     v_scale_pool=None, sched: MRSchedule = PAPER_SCHEDULE,
                      cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
     """Plain PyTorch version of the block-walking decode (same block order,
     same sums as the kernel)."""
     impl = _impl(softmax_impl)
-    kvd = canonical_kv_dtype(kv_dtype) or canonical_kv_dtype(k_pool.dtype)
+    spec, kvd = _quant_args(k_pool, kv_quant, k_scale_pool, v_scale_pool,
+                            kv_dtype)
+
+    def block(pool, scales, blk):
+        vals = (pool[blk] if spec is None
+                else kvq.dequantize(pool[blk], spec, scales[blk]))
+        return vals.to(kvd).to(torch.float32)                      # (B,L,KH,hd)
+
     B, KH, G, hd = q.shape
     qf = q.to(torch.float32)
     state = _init_state((B, KH, G), hd, q.device)
     for pas, blk, live, valid in _walk(tables, k_len, k_pool.shape[1], impl):
-        kb = k_pool[blk].to(kvd).to(torch.float32)                 # (B,L,KH,hd)
-        s = _seq_scores(qf, kb) * scale
+        s = _seq_scores(qf, block(k_pool, k_scale_pool, blk)) * scale
         s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
         state = _pass_update(
             s, live[:, None, None, None], pas, impl, state,
-            lambda p: _seq_pv(p, v_pool[blk].to(kvd).to(torch.float32)),
-            sched, cfg)
+            lambda p: _seq_pv(p, block(v_pool, v_scale_pool, blk)), sched, cfg)
     _, l_sum, acc = state
     return acc / l_sum if impl == "exact" else acc
+
+
+#: pool storage codes of the C interface: float32 pools, int8 and int16 codes
+POOL_CODE = {torch.float32: 0, torch.int8: 1, torch.int16: 2}
 
 
 def gqa_decode(q, k_pool, v_pool, tables, k_len, *, scale: float,
@@ -185,41 +218,58 @@ def gqa_decode(q, k_pool, v_pool, tables, k_len, *, scale: float,
     """Paged GQA decode attend.
 
     q (B,KH,G,hd) float32/bfloat16; pools (N,L,KH,hd) float32 (block 0 is
-    scratch); tables (B,M) int32; k_len (B,) int32 >= 1. ``kv_dtype`` is
-    the storage-rounding cast replayed on each K/V block (None: the pool's
-    dtype). Returns (B,KH,G,hd) float32.
+    scratch), or under ``kv_quant`` int8/int16 codes with (N,1,KH,1)
+    float32 scale pools; tables (B,M) int32; k_len (B,) int32 >= 1.
+    ``kv_dtype`` is the storage-rounding cast replayed on each K/V block
+    (None: the pool's dtype, float32 under kv_quant); on the card,
+    quantized pools take a kv_dtype equal to q's dtype. Returns (B,KH,G,hd)
+    float32.
     """
-    if kv_quant not in (None, "none") or k_scale_pool is not None \
-            or v_scale_pool is not None:
-        raise NotImplementedError(
-            "quantized paged pools are not ported yet (ROADMAP B.6)")
     impl = _impl(softmax_impl)
+    spec, kvd = _quant_args(k_pool, kv_quant, k_scale_pool, v_scale_pool,
+                            kv_dtype)
     if q.device.type == "cpu":
         return gqa_decode_plain(q, k_pool, v_pool, tables, k_len, scale=scale,
-                                softmax_impl=impl, kv_dtype=kv_dtype,
-                                sched=sched, cfg=cfg)
-    kvd = canonical_kv_dtype(kv_dtype) or canonical_kv_dtype(k_pool.dtype)
+                                softmax_impl=impl, kv_dtype=kvd,
+                                kv_quant=kv_quant, k_scale_pool=k_scale_pool,
+                                v_scale_pool=v_scale_pool, sched=sched, cfg=cfg)
     B, KH, G, hd = q.shape
     N, L = k_pool.shape[:2]
     M = tables.shape[1]
     if q.dtype not in build.DTYPE_CODE or kvd not in build.DTYPE_CODE:
         raise TypeError(f"gqa_decode: q {q.dtype} / kv_dtype {kvd} not "
                         "supported (float32 or bfloat16)")
-    if k_pool.dtype != torch.float32 or v_pool.dtype != torch.float32:
-        raise TypeError("gqa_decode: the kernel takes float32 pools")
+    pool_dtype = torch.float32 if spec is None else spec.code_dtype
+    if spec is not None and kvd != q.dtype:
+        raise TypeError(f"gqa_decode: the kernel takes quantized pools with "
+                        f"kv_dtype equal to the query dtype, got q {q.dtype} / "
+                        f"kv_dtype {kvd}")
+    if k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
+        raise TypeError(f"gqa_decode: kv_quant={kv_quant!r} takes "
+                        f"{pool_dtype} pools, got {k_pool.dtype}/{v_pool.dtype}")
     if k_pool.shape != (N, L, KH, hd) or v_pool.shape != k_pool.shape:
         raise ValueError(f"gqa_decode: pools {tuple(k_pool.shape)} do not "
                          f"match q {tuple(q.shape)}")
     if tables.dtype != torch.int32 or k_len.dtype != torch.int32 \
             or tables.shape[0] != B or k_len.shape != (B,):
         raise ValueError("gqa_decode: tables (B,M) and k_len (B,) are int32")
-    ts = (q, k_pool, v_pool, tables, k_len)
+    ts = [q, k_pool, v_pool, tables, k_len]
+    if spec is not None:
+        for sp in (k_scale_pool, v_scale_pool):
+            if sp.dtype != torch.float32 or sp.shape != (N, 1, KH, 1):
+                raise ValueError(f"gqa_decode: scale pools are ({N}, 1, {KH}, 1) "
+                                 f"float32, got {tuple(sp.shape)} {sp.dtype}")
+        ts += [k_scale_pool, v_scale_pool]
     if any(t.device != q.device or not t.is_contiguous() for t in ts):
         raise ValueError("gqa_decode: inputs must be contiguous on one device")
     out = torch.empty((B, KH, G, hd), dtype=torch.float32, device=q.device)
     rc = build.library("paged_decode").paged_gqa_decode(
         q.data_ptr(), build.DTYPE_CODE[q.dtype], k_pool.data_ptr(),
-        v_pool.data_ptr(), tables.data_ptr(), k_len.data_ptr(), out.data_ptr(),
+        v_pool.data_ptr(), POOL_CODE[pool_dtype],
+        0 if spec is None else k_scale_pool.data_ptr(),
+        0 if spec is None else v_scale_pool.data_ptr(),
+        1.0 if spec is None else float(spec.fmt.resolution),
+        tables.data_ptr(), k_len.data_ptr(), out.data_ptr(),
         B, KH, G, hd, L, M, float(scale), IMPLS.index(impl),
         build.DTYPE_CODE[kvd], build.params_ptr(_kernel_sched(impl, sched), cfg),
         build.stream_ptr(q))

@@ -4,6 +4,8 @@
         --requests 8 --slots 4
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-lite-16b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+        --smoke --device cpu --kv-quant int8 --prefix-cache
 
 Boots the paged continuous-batching engine for a registered arch with
 random weights from a seed, on the card (``--device cuda``, the default) or
@@ -13,7 +15,11 @@ flags; the ones this port does not serve yet raise. ``--act-impl`` takes the
 activation registry's four datapaths (``core/activations.ACT_IMPLS``;
 ``cordic_pallas``, the CUDA kernels, by default). The attention softmax is
 the CORDIC kernel (``softmax_impl="cordic_pallas"``); other softmax impls
-are set through ``ServeEngine(softmax_impl=...)``.
+are set through ``ServeEngine(softmax_impl=...)``. ``--kv-quant`` stores
+the GQA pools as int8 or Q2.14 codes with per-block scales;
+``--prefix-cache`` turns on the radix prefix cache and, as the JAX
+launcher does, prepends one shared system prompt of two blocks to every
+request so that later admissions hit it.
 """
 from __future__ import annotations
 
@@ -56,11 +62,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged decode attend: table gather or the decode "
                          "kernel")
     ap.add_argument("--kv-quant", default="none",
-                    choices=["none", "int8", "q2_14"])
+                    choices=["none", "int8", "q2_14"],
+                    help="paged-pool storage: float32, or int8 / Q2.14 "
+                         "codes with per-block per-head scales")
     ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--prefill-batch", type=int, default=0)
     ap.add_argument("--max-prefill-tokens", type=int, default=0)
-    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache over the paged pool; the "
+                         "requests share a system prompt of two blocks")
     ap.add_argument("--prefix-eviction", default="lru", choices=["lru", "fifo"])
     ap.add_argument("--tp", type=int, default=0)
     ap.add_argument("--metrics-json", default=None)
@@ -76,7 +86,8 @@ def main(argv=None):
     cfg = (configs.get_smoke(args.arch, act_impl=args.act_impl) if args.smoke
            else configs.get_config(args.arch, act_impl=args.act_impl))
     print(f"[serve] arch={cfg.name} slots={args.slots} kv={args.kv_impl} "
-          f"attend={args.paged_attend_impl} device={args.device}")
+          f"kv_quant={args.kv_quant} attend={args.paged_attend_impl} "
+          f"device={args.device}")
     params = tf.init(cfg, seed=0, device=args.device)
     eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
                       sampling=SamplingParams(temperature=args.temperature,
@@ -92,7 +103,9 @@ def main(argv=None):
                       prefix_cache=args.prefix_cache,
                       prefix_eviction=args.prefix_eviction,
                       tp=args.tp or None, device=args.device)
-    for r in make_requests(cfg, args.requests, args.max_new):
+    prefix_len = 2 * args.block_len if args.prefix_cache else 0
+    for r in make_requests(cfg, args.requests, args.max_new,
+                           prefix_len=prefix_len):
         eng.submit(r)
     t0 = time.perf_counter()
     done = eng.run()
@@ -104,19 +117,27 @@ def main(argv=None):
     st = eng.pager.stats()
     print(f"[serve] pool: peak {st.peak_in_use}/{st.num_blocks - 1} blocks x "
           f"{eng.block_len} positions, {st.allocs} allocs, "
-          f"{st.alloc_failures} backpressure waits")
+          f"{st.alloc_failures} backpressure waits; "
+          f"{eng.kv_pool_bytes()} pool bytes")
+    if eng.prefix is not None:
+        print(f"[serve] prefix cache ({eng.prefix.policy}): "
+              f"{eng.prefix.hits} hits / {eng.prefix.hit_blocks} blocks "
+              f"reused, {eng.prefix.evicted_blocks} evicted")
     assert len(done) == args.requests
     return 0
 
 
-def make_requests(cfg, n: int, max_new: int, seed: int = 0):
-    """The JAX launcher's traffic: prompts of 4-11 random tokens."""
+def make_requests(cfg, n: int, max_new: int, seed: int = 0, prefix_len: int = 0):
+    """The JAX launcher's traffic: prompts of 4-11 random tokens, after a
+    shared system prompt of ``prefix_len`` tokens (drawn first)."""
     rng = np.random.default_rng(seed)
+    sys_prompt = rng.integers(0, cfg.vocab_size, prefix_len).astype(np.int32)
     reqs = []
     for i in range(n):
-        prompt = rng.integers(0, cfg.vocab_size,
-                              int(rng.integers(4, 12))).astype(np.int32)
-        reqs.append(Request(rid=i, prompt=prompt, max_new_tokens=max_new))
+        tail = rng.integers(0, cfg.vocab_size,
+                            int(rng.integers(4, 12))).astype(np.int32)
+        reqs.append(Request(rid=i, prompt=np.concatenate([sys_prompt, tail]),
+                            max_new_tokens=max_new))
     return reqs
 
 

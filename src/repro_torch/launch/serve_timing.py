@@ -1,0 +1,128 @@
+"""Serving times of whichever ``repro_torch`` is on PYTHONPATH, so that two
+trees of the port can be timed against each other on one card:
+
+    PYTHONPATH=<tree>/src python src/repro_torch/launch/serve_timing.py \
+        --label parent --out chiprun_out/serve_timing.jsonl
+
+Run by path (not with ``-m``), so that an older tree's package is the one
+timed. Builds Yi-9B at full width (random weights, seed 0, the CORDIC
+kernels on) and measures, on the card:
+
+1. the launcher's traffic (8 greedy requests of 4-11 tokens, 16 new tokens,
+   4 slots, max_len 128, float32 pools, the decode kernel): tok/s, step p50
+   and TTFT p50, host clock, after one warm-up request, ``--repeats``
+   times on one engine;
+2. one prefill of a ``--prompt-len``-token prompt at max_len 4096 (its
+   TTFT, one request alone, after a 256-token warm-up): with the prefix
+   cache off (whole-row prefill), and where the tree has the cache, on with
+   no hit (block-wide pieces, serve/engine.py).
+
+Prints one JSON object per run, appended to ``--out`` as well.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.launch.serve import make_requests
+from repro_torch.models import transformer as tf
+from repro_torch.serve.engine import Request, ServeEngine
+
+SLOTS, BLOCK_LEN = 4, 16
+
+
+def _engine(cfg, model, max_len, **kw):
+    return ServeEngine(cfg, model, slots=SLOTS, max_len=max_len,
+                       softmax_impl="cordic_pallas", kv_impl="paged",
+                       block_len=BLOCK_LEN, paged_attend_impl="pallas",
+                       device="cuda", **kw)
+
+
+def launcher_traffic(cfg, model, repeats=1, requests=8, max_new=16, max_len=128):
+    eng = _engine(cfg, model, max_len)
+    for r in make_requests(cfg, 1, 2, seed=99):       # warm-up
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    return [_traffic(eng, make_requests(cfg, requests, max_new, seed=0))
+            for _ in range(repeats)]
+
+
+def _traffic(eng, reqs):
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    steps = []
+    while eng.has_work:
+        ts = time.perf_counter()
+        eng.step()
+        steps.append(time.perf_counter() - ts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r.out) for r in reqs)
+    return dict(tok_s=n_tok / wall, step_ms_p50=statistics.median(steps) * 1e3,
+                ttft_ms_p50=statistics.median(
+                    (r.t_first - r.t_enqueue) * 1e3 for r in reqs),
+                steps=len(steps), tokens={r.rid: r.out for r in reqs})
+
+
+def long_prefill(cfg, model, prompt_len, prefix_cache, max_len=4096):
+    """TTFT of one ``prompt_len``-token prompt served alone (one new
+    token), after a 256-token warm-up request on the same engine."""
+    try:
+        eng = _engine(cfg, model, max_len,
+                      **({"prefix_cache": True} if prefix_cache else {}))
+    except NotImplementedError:                 # a tree without the cache
+        return None
+    rng = np.random.default_rng(7)
+    for n in (256, prompt_len):
+        r = Request(rid=n, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new_tokens=1)
+        eng.submit(r)
+        eng.run()
+        torch.cuda.synchronize()
+    hits = getattr(eng, "prefix_hit_tokens", 0)
+    out = dict(ttft_ms=(r.t_first - r.t_enqueue) * 1e3, token=r.out[0],
+               hit_tokens=hits,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--label", required=True)
+    ap.add_argument("--prompt-len", type=int, default=4000)
+    ap.add_argument("--repeats", type=int, default=1)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    t0 = time.perf_counter()
+    cfg = configs.get_config("yi-9b", act_impl="cordic_pallas")
+    model = tf.init(cfg, seed=0, device="cuda")
+    res = dict(label=args.label, card=card, prompt_len=args.prompt_len,
+               init_s=time.perf_counter() - t0)
+    res["launcher"] = launcher_traffic(cfg, model, args.repeats)
+    res["long_off"] = [long_prefill(cfg, model, args.prompt_len, False)
+                       for _ in range(2)]
+    res["long_on"] = long_prefill(cfg, model, args.prompt_len, True)
+    line = json.dumps(res)
+    print(line)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

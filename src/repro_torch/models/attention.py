@@ -15,8 +15,13 @@ layer's cache is a dict {"k_pool", "v_pool", "tables", "lens"} (GQA) or
 one ``tables`` and one ``lens`` tensor, and the model advances ``lens``
 once per apply (models/transformer.py).
 
-The dense per-slot KV cache and the quantized pools are not ported yet
-(ROADMAP A.6, A.9).
+Under ``cfg.kv_quant`` ("int8", "q2_14"; core/kv_quant.py) the GQA pools
+hold integer codes and two more leaves, "k_scale_pool" and
+"v_scale_pool", hold each block's per-head float32 scale:
+``_pool_write_quant`` quantizes at write, the gather attend dequantizes
+through ``_pool_gather_dequant``, the decode kernel inside its block walk.
+
+The dense per-slot KV cache is not ported yet (ROADMAP A.6).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 from torch import nn
 
 from repro_torch.cordic_engine import functions as F
+from repro_torch.core import kv_quant as kvq
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 
@@ -152,11 +158,65 @@ def _pool_write(pool, tables, lens, new) -> None:
     pool.index_put_((blk.reshape(-1),), blocks)
 
 
+def _pool_write_quant(pool, scale_pool, tables, lens, new, spec) -> None:
+    """_pool_write for a quantized pool, in place: codes against
+    per-block-per-head amax scales.
+
+    pool (N, L, KH, hd) integer codes; scale_pool (N, 1, KH, 1) float32.
+    S % L == 0 (prefill): each written block takes a fresh scale from its
+    own per-head amax, the bucket padding included. S == 1 (decode): a
+    fresh block (``lens % L == 0``) takes the new element's scale; otherwise
+    the scale is ``max(old, need)`` and the block's codes are re-quantized
+    by ``round(code * old / new)`` (ratio <= 1; exactly 1.0, so codes
+    survive bit for bit, when the scale does not grow). The block's old
+    scale and codes are read before anything is written. Vacant slots land
+    in scratch block 0, as in ``_pool_write``.
+    """
+    B, S = new.shape[:2]
+    L = pool.shape[1]
+    M = tables.shape[1]
+    fmt = spec.fmt
+    lens = lens.to(torch.int64)
+    tables = tables.to(torch.int64)
+    if S == 1:
+        blk = tables.gather(1, (lens // L).clamp(0, M - 1)[:, None])[:, 0]
+        elem = new[:, 0].to(torch.float32)                         # (B,KH,hd)
+        need = kvq.scale_for_amax(elem.abs().amax(dim=-1)[:, None, :, None], spec)
+        old = scale_pool[blk]                                      # (B,1,KH,1)
+        cur = pool[blk].to(torch.float32)                          # (B,L,KH,hd)
+        fresh = (lens % L == 0)[:, None, None, None]
+        new_scale = torch.where(fresh, need, torch.maximum(old, need))
+        resc = torch.clamp(torch.round(cur * (old / new_scale)),
+                           fmt.min_int, fmt.max_int).to(pool.dtype)
+        code = kvq.quantize(elem, spec, new_scale[:, 0])           # (B,KH,hd)
+        pool.index_put_((blk,), resc)
+        pool.index_put_((blk, lens % L), code)
+        scale_pool.index_put_((blk,), new_scale)
+        return
+    assert S % L == 0, f"prefill width {S} not a multiple of block_len {L}"
+    nb = S // L
+    idx = (lens // L)[:, None] + torch.arange(nb, device=pool.device)[None, :]
+    blk = tables.gather(1, idx.clamp(0, M - 1)).reshape(-1)
+    blocks = new.reshape((B * nb, L) + tuple(new.shape[2:])).to(torch.float32)
+    scales = kvq.block_scale(blocks, spec)                         # (B*nb,1,KH,1)
+    pool.index_put_((blk,), kvq.quantize(blocks, spec, scales))
+    scale_pool.index_put_((blk,), scales)
+
+
 def _pool_gather(pool, tables):
     """(N, L, *f) pool + (B, M) tables -> (B, M*L, *f), the full table."""
     B, M = tables.shape
     L = pool.shape[1]
     return pool[tables.to(torch.int64)].reshape((B, M * L) + tuple(pool.shape[2:]))
+
+
+def _pool_gather_dequant(pool, scale_pool, tables, spec):
+    """_pool_gather for a quantized pool: codes and per-block scales through
+    the same table, CORDIC-dequantized elementwise -> (B, M*L, KH, hd)
+    float32, from the same (code, scale) pairs the decode kernel reads."""
+    L = pool.shape[1]
+    scales = _pool_gather(scale_pool, tables).repeat_interleave(L, dim=1)
+    return kvq.dequantize(_pool_gather(pool, tables), spec, scales)
 
 
 def gqa_init_paged_cache(cfg, slots: int, num_blocks: int, block_len: int,
@@ -165,17 +225,24 @@ def gqa_init_paged_cache(cfg, slots: int, num_blocks: int, block_len: int,
                          lens: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """One layer's paged cache: (num_blocks, block_len, KH, hd) K/V pools
     (block 0 is scratch) plus the per-slot tables and lengths, which the
-    caller may share across layers."""
-    if getattr(cfg, "kv_quant", "none") not in (None, "none"):
-        raise NotImplementedError(
-            "kv_quant pools are not ported yet (ROADMAP A.9)")
+    caller may share across layers. Under ``cfg.kv_quant`` the pools hold
+    codes in the format's lane dtype, and "k_scale_pool"/"v_scale_pool"
+    (num_blocks, 1, KH, 1) float32 hold the per-block per-head scales,
+    starting at 1.0."""
+    spec = kvq.spec_for(getattr(cfg, "kv_quant", "none"))
     KH, hd = cfg.num_kv_heads, cfg.head_dim
     shape = (num_blocks, block_len, KH, hd)
-    return {
-        "k_pool": torch.zeros(shape, dtype=dtype, device=device),
-        "v_pool": torch.zeros(shape, dtype=dtype, device=device),
+    pool_dtype = dtype if spec is None else spec.code_dtype
+    cache = {
+        "k_pool": torch.zeros(shape, dtype=pool_dtype, device=device),
+        "v_pool": torch.zeros(shape, dtype=pool_dtype, device=device),
         **_slot_rows(slots, max_blocks, device, tables, lens),
     }
+    if spec is not None:
+        for name in ("k_scale_pool", "v_scale_pool"):
+            cache[name] = torch.ones((num_blocks, 1, KH, 1), dtype=torch.float32,
+                                     device=device)
+    return cache
 
 
 def _slot_rows(slots, max_blocks, device, tables, lens) -> Dict[str, torch.Tensor]:
@@ -238,8 +305,16 @@ def _gqa_paged_apply(p: GQAttention, x, cfg, cache, q, k, v):
     q = cm.apply_rope(q, positions, cfg.rope_theta)
     k = cm.apply_rope(k, positions, cfg.rope_theta)
     kp, vp = cache["k_pool"], cache["v_pool"]
-    _pool_write(kp, tables, lens, k)
-    _pool_write(vp, tables, lens, v)
+    kv_quant = getattr(cfg, "kv_quant", "none")
+    spec = kvq.spec_for(kv_quant)
+    ks = vs = None
+    if spec is None:
+        _pool_write(kp, tables, lens, k)
+        _pool_write(vp, tables, lens, v)
+    else:
+        ks, vs = cache["k_scale_pool"], cache["v_scale_pool"]
+        _pool_write_quant(kp, ks, tables, lens, k, spec)
+        _pool_write_quant(vp, vs, tables, lens, v, spec)
     qg = q.reshape(B, S, KH, G, hd)
 
     if S == 1 and _paged_attend_impl(cfg) == "pallas":
@@ -247,10 +322,15 @@ def _gqa_paged_apply(p: GQAttention, x, cfg, cache, q, k, v):
             qg[:, 0].contiguous(), kp, vp, tables, (lens + 1).to(torch.int32),
             scale=1.0 / math.sqrt(hd),
             softmax_impl=getattr(cfg, "softmax_impl", "exact"),
-            kv_dtype=x.dtype)[:, None]
+            kv_dtype=x.dtype, kv_quant=kv_quant, k_scale_pool=ks,
+            v_scale_pool=vs)[:, None]
     else:
-        k_full = _pool_gather(kp, tables).to(x.dtype)
-        v_full = _pool_gather(vp, tables).to(x.dtype)
+        if spec is None:
+            k_full = _pool_gather(kp, tables).to(x.dtype)
+            v_full = _pool_gather(vp, tables).to(x.dtype)
+        else:
+            k_full = _pool_gather_dequant(kp, ks, tables, spec).to(x.dtype)
+            v_full = _pool_gather_dequant(vp, vs, tables, spec).to(x.dtype)
         o = _attend_rows(qg, k_full, v_full, positions, lens.to(torch.int64) + S,
                          1.0 / math.sqrt(hd), cfg.score_dtype,
                          getattr(cfg, "softmax_impl", "exact"))

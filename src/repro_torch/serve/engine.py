@@ -12,16 +12,30 @@ backpressure); ``submit`` rejects requests that can never be served.
 
 Prefill runs at the bucket width, pad tokens included, as the JAX engine
 does: a GShard MoE layer's expert capacity follows the dispatch width
-(models/moe.py), so another width would route differently.
+(models/moe.py), so another width would route differently. The one
+exception is the prefix cache on a model without MoE layers (below).
+
+The KV memory plane has two options, as in the JAX engine:
+``kv_quant="int8" | "q2_14"`` stores the GQA pools as block-scaled codes
+(core/kv_quant.py; MLA pools stay unquantized and reject it), and
+``prefix_cache=True`` indexes full prompt blocks in a radix tree
+(serve/prefix_cache.py): an admission whose prompt shares full blocks with
+an earlier one binds those blocks into its table and prefills from the
+first unshared block. With the cache on, a model without MoE layers
+prefills in block-wide pieces, up to the prompt's last block: cuBLAS picks
+its GEMM kernel by the row count, so on the card a position's K, V and
+logits would otherwise depend on where its prefill started, and a shared
+block would not hold the bytes its sharer would have written itself.
+Cache-off prefills stay whole.
 
 The pools, block tables and lengths live on the device and are updated in
 place (models/attention.py); the JAX engine's jitted pure functions over
 donated caches have no counterpart, since PyTorch runs eagerly.
 
 Not ported yet, each raising where it is asked for: ``kv_impl="dense"``
-(ROADMAP A.6), chunked and multi-row prefill (A.6), the prefix cache (A.6),
-tensor parallelism (A.12), observability (A.8), ``kv_quant`` (A.9),
-sampling with temperature (A.7) and ``score`` (B.8).
+(ROADMAP A.6), chunked and multi-row prefill (A.6), tensor parallelism
+(A.12), observability (A.8), sampling with temperature (A.7) and ``score``
+(B.8).
 """
 from __future__ import annotations
 
@@ -33,14 +47,16 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import kv_quant as kvq
 from repro_torch.models import transformer as tf
 from repro_torch.serve import kv_pager as kvp
 from repro_torch.serve import sampling as sp
+from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import IterationScheduler, PrefillRow
 
 
-def make_paged_prefill_step(cfg) -> Callable:
+def make_paged_prefill_step(cfg, piece: Optional[int] = None) -> Callable:
     """One prefill row straight into pool blocks.
 
     tokens (1, W) bucket-padded; view_row (1, M) the block-table row the
@@ -49,15 +65,20 @@ def make_paged_prefill_step(cfg) -> Callable:
     start (1,) the first position; then the slot's table row and length
     are set to full_row / pin_len: the bucket's pad tail advanced the
     view's length past the prompt, and the slot keeps the real one (what
-    the JAX dense plane's override_cache_length does). Returns the logits
-    row at logit_idx."""
+    the JAX dense plane's override_cache_length does). With ``piece`` the
+    row runs as W / piece applies of ``piece`` positions each, one after
+    the other through the same view. Returns the logits row at
+    logit_idx."""
     def prefill(params, cache: tf.PagedCache, tokens, slot: int, view_row,
                 full_row, start, pin_len: int, logit_idx: int):
-        logits, _, _ = tf.apply(params, {"tokens": tokens}, cfg,
-                                cache=cache.view(view_row, start))
+        view = cache.view(view_row, start)
+        step = piece or tokens.shape[1]
+        for i in range(0, tokens.shape[1], step):
+            logits, _, _ = tf.apply(params, {"tokens": tokens[:, i:i + step]},
+                                    cfg, cache=view)
         cache.tables[slot] = full_row[0]
         cache.lens[slot] = pin_len
-        return logits[:, logit_idx]
+        return logits[:, logit_idx - i]
     return prefill
 
 
@@ -139,19 +160,18 @@ class ServeEngine:
         if self.paged_attend_impl == "pallas" and cfg.score_dtype != "f32":
             raise ValueError("paged_attend_impl='pallas' supports "
                              f"score_dtype='f32' only (got {cfg.score_dtype!r})")
-        if getattr(cfg, "kv_quant", "none") not in (None, "none"):
-            if getattr(cfg, "mla", None) is not None or any(
-                    k.startswith("mla") for k in cfg.block_pattern):
-                raise ValueError(
-                    "kv_quant applies to GQA paged pools only; MLA layers "
-                    "store the compressed latent unquantized")
-            raise _unported("kv_quant", "A.9")
+        self.kv_quant = getattr(cfg, "kv_quant", "none")
+        self._kv_quant_spec = kvq.spec_for(self.kv_quant)   # raises on a typo
+        if self._kv_quant_spec is not None and (
+                getattr(cfg, "mla", None) is not None
+                or any(k.startswith("mla") for k in cfg.block_pattern)):
+            raise ValueError(
+                "kv_quant applies to GQA paged pools only; MLA layers "
+                "store the compressed latent unquantized")
         if prefill_chunk is not None:
             raise _unported("chunked prefill", "A.6")
         if prefill_batch not in (None, 1):
             raise _unported("multi-row prefill", "A.6")
-        if prefix_cache:
-            raise _unported("the prefix cache", "A.6")
         if obs is not None:
             raise _unported("observability", "A.8")
         if (tp or 1) > 1 or mesh is not None:
@@ -180,16 +200,27 @@ class ServeEngine:
         if num_blocks is None:
             num_blocks = slots * self.max_blocks + 1   # worst case + scratch
         self.pager = kvp.KVPager(num_blocks, self.block_len, slots)
+        self.prefix = (PrefixCache(self.pager, self.block_len,
+                                   policy=prefix_eviction)
+                       if prefix_cache else None)
+        #: prompt positions served from shared prefix blocks, and prefill
+        #: row widths dispatched (pad included; the JAX engine's
+        #: prefix.hit_tokens and engine.prefill.tokens)
+        self.prefix_hit_tokens = 0
+        self.prefill_tokens = 0
         # float32 pools, as the JAX engine allocates them: K/V per kv-head
-        # for GQA (the attend casts them to cfg.dtype, the kv_dtype seam),
-        # the compressed latent and the rope key for MLA (already rounded
-        # to cfg.dtype by the write)
+        # for GQA (the attend casts them to cfg.dtype, the kv_dtype seam;
+        # codes and scales under kv_quant), the compressed latent and the
+        # rope key for MLA (already rounded to cfg.dtype by the write)
         self._caches = tf.init_paged_cache(cfg, slots, num_blocks,
                                            self.block_len, self.max_blocks,
                                            torch.float32, device=self.device)
         # device bytes per block across layers, whatever the pools hold
         self.pager.block_bytes = self.kv_pool_bytes() // num_blocks
-        self._prefill = make_paged_prefill_step(cfg)
+        #: piece width of a prefill (module docstring), None for whole rows
+        self.prefill_piece = (self.block_len if prefix_cache and
+                              "mla_moe" not in cfg.block_pattern else None)
+        self._prefill = make_paged_prefill_step(cfg, self.prefill_piece)
         self._decode = make_paged_decode_step(cfg)
         self._done: List[Request] = []
         self._active: List[Optional[Request]] = [None] * slots
@@ -206,7 +237,8 @@ class ServeEngine:
         return bool(self._queue) or any(a is not None for a in self._active)
 
     def kv_pool_bytes(self) -> int:
-        """Resident device bytes of the K/V pools across layers."""
+        """Resident device bytes of the pools across layers: K/V (codes and
+        scales under kv_quant), or MLA's latent and rope key."""
         return self._caches.pool_bytes()
 
     def score(self, prompt: np.ndarray) -> np.ndarray:
@@ -250,20 +282,40 @@ class ServeEngine:
 
     def _admit_slot(self, req: Request):
         """Scheduler callback: a free slot with the request's blocks
-        allocated, or None (no free slot, or pool backpressure)."""
+        allocated, or None (no free slot, or pool backpressure). With the
+        prefix cache on, only the unshared footprint is allocated: the
+        matched blocks (pinned by ``match``) go first in the slot's table
+        and the slot id comes back as ``(slot, start)``, prefill resuming
+        at ``start``."""
         s = next((i for i in range(self.slots) if self._active[i] is None), None)
         if s is None:
             return None
-        need = self._blocks_for(req)
-        blocks = self.pager.alloc(s, need)
+        need_total = self._blocks_for(req)
+        shared, start = [], 0
+        if self.prefix is not None:
+            matched = self.prefix.match(req.prompt)
+            start = self.scheduler.resume_start(
+                len(req.prompt), len(matched) * self.block_len)
+            m_used = start // self.block_len
+            if m_used < len(matched):        # the row geometry used fewer
+                self.pager.release(matched[m_used:])
+            shared = matched[:m_used]
+        need = need_total - len(shared)
+        if self.prefix is not None and not self.pager.can_alloc(need):
+            self.prefix.evict_until(need)
+        blocks = self.pager.alloc(s, need, shared=shared)
         if blocks is None:
+            if shared:                       # unwind the match pins
+                self.pager.release(shared)
             return None
         row = np.zeros(self.max_blocks, np.int32)
-        row[:need] = blocks
+        row[:len(shared)] = shared
+        row[len(shared):need_total] = blocks
         self._slot_rows[s] = row
         self._active[s] = req
+        self.prefix_hit_tokens += start
         req.t_admit = time.perf_counter()
-        return s
+        return (s, start) if start else s
 
     def _release_slot(self, s: int) -> None:
         """Free the slot's blocks and point its table at scratch block 0, so
@@ -281,23 +333,37 @@ class ServeEngine:
         self._done.append(req)
 
     def _dispatch_prefill(self, row: PrefillRow) -> None:
+        """One prefill row: the prompt from ``row.start`` (past any shared
+        prefix blocks) at the row's bucket width, or in pieces up to the
+        prompt's last block."""
         req, s = row.req, row.slot
         plen = len(req.prompt)
         width = row.width
+        if self.prefill_piece:
+            width = min(width, self.block_len * kvp.blocks_needed(
+                plen - row.start, self.block_len))
+        hi = min(plen, row.start + width)
         toks = np.zeros((1, width), np.int32)
-        toks[0, :plen] = req.prompt
+        toks[0, :hi - row.start] = req.prompt[row.start:hi]
         frow = self._slot_rows[s]
         view = np.full((1, self.max_blocks), kvp.SCRATCH_BLOCK, np.int32)
-        nb_live = kvp.blocks_needed(plen, self.block_len)
+        nb_live = kvp.blocks_needed(hi, self.block_len)
         view[0, :nb_live] = frow[:nb_live]
         dev = self.device
+        self.prefill_tokens += width
         logits = self._prefill(
             self.params, self._caches,
             torch.from_numpy(toks).to(dev, torch.int64), s,
             torch.from_numpy(view).to(dev), torch.from_numpy(frow[None]).to(dev),
-            torch.zeros(1, dtype=torch.int32, device=dev), plen, plen - 1)
+            torch.full((1,), row.start, dtype=torch.int32, device=dev), plen,
+            plen - 1 - row.start)
         first = int(sp.greedy_tokens(logits)[0])
         req.t_first = time.perf_counter()
+        if self.prefix is not None:
+            # the prompt's full blocks are shareable once written
+            nfull = plen // self.block_len
+            if nfull:
+                self.prefix.insert(req.prompt, [int(b) for b in frow[:nfull]])
         req.out.append(first)
         if (self.eos is not None and first == self.eos) or \
                 len(req.out) >= req.max_new_tokens:

@@ -116,8 +116,13 @@ def test_canonical_kv_dtype():
 
 
 def test_unported_branches_raise():
-    args = map(torch.from_numpy, _case([3], 4, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP B.6"):
+    """Every branch of the reference is ported (the kv_quant branch is held
+    in tests/test_torch_kv_quant.py); an unknown format or a half-wired
+    quantized call is refused."""
+    args = list(map(torch.from_numpy, _case([3], 4, 0)))
+    with pytest.raises(ValueError, match="unknown kv_quant"):
+        P.gqa_decode(*args, scale=0.3, kv_quant="int4")
+    with pytest.raises(ValueError, match="scale pools come together"):
         P.gqa_decode(*args, scale=0.3, kv_quant="int8")
 
 
