@@ -2,15 +2,26 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --decode-kernels --src <tree>/src --label <name> \
+        [--out chiprun_out/decode.jsonl] [--save chiprun_out/<name>.pt]
 
-Phases, each of which must pass (the script exits non-zero otherwise):
+The second form runs only the decode kernels' part of phase 3 (every
+gqa_decode and mla_decode branch at the launcher and the long-context
+shape, against the plain versions, timed) on the ``repro_torch`` under
+``--src``, so two trees are timed by one harness in one call: run parent,
+change, change, parent; each run appends one JSON line to ``--out``, and
+``--save`` writes the kernels' outputs for a bit-for-bit comparison.
+
+Phases of the first form, each of which must pass (the script exits non-zero otherwise):
 
 1. device   the card's name and power limit (nvidia-smi), torch / CUDA
             versions; TF32 off for float32 matrix products.
 2. build    every CUDA kernel of the port from src/repro_torch/kernels/csrc,
             one nvcc per source, in parallel.
 3. kernels  each kernel against its plain PyTorch version on the card, on
-            the same inputs, at the shapes of the main paths: device time
+            the same inputs, at the shapes of the main paths, and the
+            decode kernels also at the long-context shape (max_len 4096:
+            M 256, N 1025, k_len [4096, 4000, 2501, 1]): device time
             (torch.profiler) of the kernel, of the plain version, of one
             PyTorch library call that computes the same function where
             there is one, each beside its host-to-host time per call, and
@@ -34,9 +45,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
             Q2.14 pools (gqa_decode's kv_quant branch on every decode
             step), the radix prefix cache on a shared-prompt trace over
             int8 pools (cache on and off; the cache-on tokens equal each
-            request's alone in a fresh cache-on engine), and the pools of
-            engines built at max_len 4096 (none, int8, Q2.14); (e) training Yi-9B at full width cut to 4
-            layers (float32 master weights, AdamW, the loop's 8 x 32-token
+            request's alone in a fresh cache-on engine); (d') each arch on
+            each datapath (Yi's kernel datapath also on int8 and Q2.14
+            pools) in an engine at max_len 4096: its pool bytes and the
+            decode kernel's workspace per call, and one 4000-token request
+            served (1024 tokens on cordic_fixed, whose prefill is plain
+            torch), so the decode kernel's branch runs at the long shape
+            (M 256) on every step: the long-shape entries' launches; (e)
+            training Yi-9B at full width cut to 4 layers (float32 master weights, AdamW, the loop's 8 x 32-token
             batches): 8 loop steps with checkpoints, a bit-equal restore, 6
             steps on one batch (the loss must fall), an eval step. Every
             kernel of a path must have launched, and under grad the fused
@@ -59,6 +75,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -92,9 +109,21 @@ DESCENT_STEPS, DESCENT_LR = 6, 1e-4
 #: prompt of 4 blocks, then 7 requests of it plus a 3-8-token tail
 KV_FORMATS = ("int8", "q2_14")
 PREFIX_LEN, PREFIX_WAVE = 64, 7
-#: the long-context pool geometry (engines built, not served)
+#: the long-context geometry: pools of engines at this max_len, the decode
+#: kernels' long shape (ragged lengths, one vacant slot), and the prompt of
+#: the long-context serve
 LONG_MAX_LEN = 4096
+LONG_KLENS = [4096, 4000, 2501, 1]
+LONG_PROMPT = 4000
+#: the long-context serve's prompt on the cordic_fixed datapath, whose
+#: plain prefill softmax took 78 s over 4000 tokens on Yi-9B; the decode
+#: kernel's grid (M 256) and launch count do not depend on it
+LONG_PROMPT_FIXED = 1024
 
+
+#: each decode branch's kernel output by record name (--decode-kernels
+#: --save writes them, so two trees' outputs can be compared bit for bit)
+DECODE_OUTPUTS = {}
 
 #: the whole log, also written to OUT (a chip run returns only the end of
 #: standard output); opened by main once the card is found
@@ -161,11 +190,12 @@ def pipeline_ops(sched):
             # replaces keeps each lane's e^r codes for the divide (the CUDA
             # kernel recomputes them, which is its own cost, not the work's)
             "softmax_lane": exp_codes + normalize,
-            # gqa_decode / mla_decode cordic: the TPU kernels' sum and
-            # normalize passes each rotate (_lane_exp, _lane_probs), since
-            # the pool blocks are walked again rather than the codes kept,
-            # so the work they replace rotates twice per lane
-            "decode_lane": 2 * exp_codes + normalize,
+            # gqa_decode / mla_decode cordic: the least work of the
+            # function, one rotation per lane (its e^r codes serve both the
+            # row sum and the divide) and the normalize, as softmax_lane;
+            # the TPU kernel rotates again in its normalize pass, and the
+            # CUDA kernels keep the codes
+            "decode_lane": exp_codes + normalize,
             # act_2d gelu_erf: one e^r rotation with its dyadic boundary
             # (the erf prefactor, sqrt and GELU product are float work)
             "gelu_erf": exp_codes + 4}
@@ -202,15 +232,24 @@ def host_ms(torch, fn, iters: int = 20, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+#: seconds of back-to-back calls before a kernel's timing window: without
+#: them, two windows of the same small kernel were seen to read up to 2.7x
+#: apart (the card's clocks and caches settling)
+WARM_S = 0.2
+
+
 def device_ms(torch, fn, iters: int = 20, warmup: int = 2,
-              kernel: str | None = None) -> float:
+              kernel: str | None = None, parts: dict | None = None) -> float:
     """Device time of one call: the summed durations of the device kernels
     that ``iters`` calls launch (torch.profiler's CUDA activity) over
-    ``iters``. ``kernel`` keeps only the kernels whose name holds it (a
+    ``iters``, after ``warmup`` calls (and, for a kernel, WARM_S seconds of
+    them). ``kernel`` keeps only the kernels whose name holds it (a
     wrapper's own kernel); None keeps all (a plain version, a library call).
     Host dispatch and the gaps between launches are outside it, unless the
     profiler records no device time three times running: then CUDA events
-    time the calls, gaps included, and a log line says so."""
+    time the calls, gaps included, and a log line says so. ``parts``, when
+    given, gets the device ms per call of each kernel name (a template's
+    instantiations summed: a decode kernel's phases)."""
     if DEV != "cuda":                       # rehearsal on the CPU
         return host_ms(torch, fn, iters, warmup)
     from torch.profiler import ProfilerActivity, profile
@@ -218,6 +257,11 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 2,
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while kernel is not None and time.perf_counter() - t0 < WARM_S:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
     # the profiler now and then records no device activity for a window;
     # profile again, then fall back to CUDA events, which also count the
     # host's gaps between launches
@@ -231,7 +275,11 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 2,
             if "CUDA" not in str(getattr(ev, "device_type", "")):
                 continue
             if kernel is None or kernel in ev.key:
-                total_us += getattr(ev, "self_device_time_total", 0.0)
+                us = getattr(ev, "self_device_time_total", 0.0)
+                total_us += us
+                if parts is not None and kernel is not None:
+                    name = re.search(kernel + r"\w*", ev.key).group(0)
+                    parts[name] = parts.get(name, 0.0) + us / 1e3 / iters
         if total_us > 0:
             return total_us / 1e3 / iters
         log(f"[timing] the profiler saw no device time for {kernel or 'fn'} "
@@ -249,9 +297,9 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 2,
     return ms
 
 
-def times(torch, fn, kernel=None, iters: int = 20, warmup: int = 2):
-    """(device ms, host-to-host ms) of one call."""
-    return (device_ms(torch, fn, iters, warmup, kernel),
+def times(torch, fn, kernel=None, iters: int = 20, warmup: int = 2, parts=None):
+    """(device ms, host-to-host ms) of one call; ``parts`` as in device_ms."""
+    return (device_ms(torch, fn, iters, warmup, kernel, parts),
             host_ms(torch, fn, iters, warmup))
 
 
@@ -278,7 +326,6 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
 
     from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE
     from repro_torch.kernels import cordic_act as K
-    from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import softmax_cordic as SM
 
     ops = pipeline_ops(PAPER_SCHEDULE)
@@ -385,59 +432,7 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
     log(f"[softmax_2d] train attend {rec['shape']} causal: max |kernel - plain| "
         f"{rec['max_abs_err']:.3e} (bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
 
-    # (4) gqa_decode at Yi's decode shape, ragged and vacant slots
-    B, KH, L, M = SLOTS, ycfg.num_kv_heads, BLOCK_LEN, MAX_LEN // BLOCK_LEN
-    G, hd = ycfg.num_heads // KH, ycfg.head_dim
-    klens = [37, 0, MAX_LEN, 5]                 # 0: vacant (k_len 1, scratch)
-    N = 1 + B * M
-    q = torch.randn(B, KH, G, hd, generator=gen, device=dev).bfloat16()
-    kp = torch.randn(N, L, KH, hd, generator=gen, device=dev)
-    vp = torch.randn(N, L, KH, hd, generator=gen, device=dev)
-    tables = torch.zeros(B, M, dtype=torch.int32, device=dev)
-    nxt = 1
-    for r, k in enumerate(klens):
-        for c in range(-(-k // L)):
-            tables[r, c] = nxt
-            nxt += 1
-    k_len = torch.tensor([max(k, 1) for k in klens], dtype=torch.int32, device=dev)
-    live_blocks = sum(-(-max(k, 1) // L) for k in klens)
-    live_keys = sum(max(k, 1) for k in klens)
-    kw = dict(scale=1.0 / math.sqrt(hd), kv_dtype=torch.bfloat16)
-    for impl in ("cordic_pallas", "exact", "cordic_fixed"):
-        a = PA.gqa_decode(q, kp, vp, tables, k_len, softmax_impl=impl, **kw)
-        b = PA.gqa_decode_plain(q, kp, vp, tables, k_len, softmax_impl=impl, **kw)
-        err = float((a - b).abs().max())
-        # stated tolerance: the reference's own ATOL 2e-5 and argmax
-        # identity; cordic_fixed (one summation order, the library's lanes
-        # replayed in the kernel) must be bit-equal
-        check(bool(torch.isfinite(a).all()) and err < 2e-5,
-              f"gqa_decode {impl}: |kernel - plain| {err} (ATOL 2e-5)")
-        check(impl != "cordic_fixed" or err == 0.0,
-              f"gqa_decode cordic_fixed: |kernel - plain| {err} (bit-equal)")
-        check(torch.equal(a.reshape(B, -1).argmax(-1), b.reshape(B, -1).argmax(-1)),
-              f"gqa_decode {impl}: argmax moved against plain")
-        nbytes = (q.numel() * 2 + 2 * live_blocks * L * KH * hd * 4
-                  + tables.numel() * 4 + k_len.numel() * 4 + a.numel() * 4)
-        lanes = live_keys * KH * G
-        int_ops = (ops["decode_lane"] if impl != "exact" else 0) * lanes
-        bound, by = card.bound(nbytes, int_ops, 4 * hd * lanes)
-        rec = timed(
-            dict(shape=[B, KH, G, hd, L, M], impl=impl, klens=klens,
-                 max_abs_err=err, bit_equal=bool(torch.equal(a, b)),
-                 bound_ms=bound, bound_by=by),
-            kernel=times(torch, lambda: PA.gqa_decode(
-                q, kp, vp, tables, k_len, softmax_impl=impl, **kw),
-                "gqa_decode_kernel"),
-            plain=times(torch, lambda: PA.gqa_decode_plain(
-                q, kp, vp, tables, k_len, softmax_impl=impl, **kw), None, 2, 1))
-        log(f"[gqa_decode] {impl} B={B} KH={KH} G={G} hd={hd} L={L} M={M} "
-            f"k_len={[max(k, 1) for k in klens]}: max |kernel - plain| {err:.3e} "
-            f"(bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
-        if impl == "cordic_pallas":
-            records["gqa_decode"] = rec
-        elif impl == "cordic_fixed":
-            records["gqa_decode[cordic_fixed]"] = rec
-    quant_decode_kernel(torch, card, records, q, tables, k_len, klens, gen, ops)
+    decode_kernels(torch, card, records, ycfg, dcfg, ops)
     # (5) log_softmax_2d at the loss shape: (B*S, V) = (256, 64000) float32
     # logits with a masked tail (-1e30) on some rows, bit-exact
     rows, V = TRAIN_BATCH * TRAIN_SEQ, ycfg.vocab_size
@@ -527,51 +522,6 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
         kernel=times(torch, lambda: K.act_q_2d(xq), "act_q_kernel"),
         plain=times(torch, lambda: K.act_q_2d_plain(xq), None, 3, 1))
 
-    # (9) mla_decode at DeepSeek-V2-Lite's decode shape: B 4 slots, H 16,
-    # R 512 (kv_lora), P 64 (rope), L 16, M 8; the block tables and
-    # lengths of (4) (ragged and vacant slots), bfloat16 absorbed queries,
-    # float32 pools
-    m = dcfg.mla
-    H, R, P = dcfg.num_heads, m.kv_lora_rank, m.qk_rope_dim
-    qe = torch.randn(B, H, R, generator=gen, device=dev).bfloat16()
-    qr = torch.randn(B, H, P, generator=gen, device=dev).bfloat16()
-    cp = torch.randn(N, L, R, generator=gen, device=dev)
-    rp = torch.randn(N, L, P, generator=gen, device=dev)
-    kw = dict(scale=1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim))
-    args = (qe, qr, cp, rp, tables, k_len)
-    for impl in ("cordic_pallas", "exact", "cordic_fixed"):
-        a = PA.mla_decode(*args, softmax_impl=impl, **kw)
-        b = PA.mla_decode_plain(*args, softmax_impl=impl, **kw)
-        err = float((a - b).abs().max())
-        # stated tolerance: one summation order on both sides, so equal on
-        # the CORDIC path; the exact path's expf may differ from torch.exp
-        # by an ulp, held to the reference's own ATOL 2e-5
-        check(bool(torch.isfinite(a).all()), f"mla_decode {impl}: finite")
-        check(err == 0.0 if impl != "exact" else err < 2e-5,
-              f"mla_decode {impl}: |kernel - plain| {err}")
-        check(torch.equal(a.reshape(B, -1).argmax(-1), b.reshape(B, -1).argmax(-1)),
-              f"mla_decode {impl}: argmax moved against plain")
-        nbytes = (qe.numel() * 2 + qr.numel() * 2 + live_blocks * L * (R + P) * 4
-                  + tables.numel() * 4 + k_len.numel() * 4 + a.numel() * 4)
-        lanes = live_keys * H
-        int_ops = (ops["decode_lane"] if impl != "exact" else 0) * lanes
-        bound, by = card.bound(nbytes, int_ops, (2 * (R + P) + 2 * R) * lanes)
-        rec = timed(
-            dict(shape=[B, H, R, P, L, M], impl=impl, klens=klens,
-                 max_abs_err=err, bit_equal=bool(torch.equal(a, b)),
-                 bound_ms=bound, bound_by=by),
-            kernel=times(torch, lambda: PA.mla_decode(*args, softmax_impl=impl, **kw),
-                         "mla_decode_kernel"),
-            plain=times(torch, lambda: PA.mla_decode_plain(
-                *args, softmax_impl=impl, **kw), None, 2, 1))
-        log(f"[mla_decode] {impl} B={B} H={H} R={R} P={P} L={L} M={M} "
-            f"k_len={[max(k, 1) for k in klens]}: max |kernel - plain| {err:.3e} "
-            f"(bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
-        if impl == "cordic_pallas":
-            records["mla_decode"] = rec
-        elif impl == "cordic_fixed":
-            records["mla_decode[cordic_fixed]"] = rec
-
     # (10) the reused kernels at DeepSeek-V2-Lite's serve shapes, bit-exact:
     # act_2d sigmoid_wide of the MoE experts' gate at decode, (G, E, C, f)
     # = (4, 64, 4, 1408) bf16; silu_mul_2d of layer 0's dense FFN at decode
@@ -637,6 +587,116 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
             f"{fmt_times(r)}")
 
 
+def decode_kernels(torch, card, records, ycfg, dcfg, ops):
+    """(4) and (9): the decode kernels, gqa_decode at Yi-9B's decode shape
+    (with its kv_quant branch) and mla_decode at DeepSeek-V2-Lite's, on the
+    launcher's tables (ragged, a vacant slot), then both at the
+    long-context shape; inputs from their own generator (seed 0), so a
+    --decode-kernels run sees the same ones."""
+    from repro_torch.kernels import paged_attention as PA
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # (4) gqa_decode at Yi's decode shape, ragged and vacant slots
+    B, KH, L, M = SLOTS, ycfg.num_kv_heads, BLOCK_LEN, MAX_LEN // BLOCK_LEN
+    G, hd = ycfg.num_heads // KH, ycfg.head_dim
+    klens = [37, 0, MAX_LEN, 5]                 # 0: vacant (k_len 1, scratch)
+    N = 1 + B * M
+    q = torch.randn(B, KH, G, hd, generator=gen, device=dev).bfloat16()
+    kp = torch.randn(N, L, KH, hd, generator=gen, device=dev)
+    vp = torch.randn(N, L, KH, hd, generator=gen, device=dev)
+    tables = torch.zeros(B, M, dtype=torch.int32, device=dev)
+    nxt = 1
+    for r, k in enumerate(klens):
+        for c in range(-(-k // L)):
+            tables[r, c] = nxt
+            nxt += 1
+    k_len = torch.tensor([max(k, 1) for k in klens], dtype=torch.int32, device=dev)
+    live_blocks = sum(-(-max(k, 1) // L) for k in klens)
+    live_keys = sum(max(k, 1) for k in klens)
+    kw = dict(scale=1.0 / math.sqrt(hd), kv_dtype=torch.bfloat16)
+    for impl in ("cordic_pallas", "exact", "cordic_fixed"):
+        a = PA.gqa_decode(q, kp, vp, tables, k_len, softmax_impl=impl, **kw)
+        DECODE_OUTPUTS[f"gqa_decode[{impl}]"] = a.cpu()
+        b = PA.gqa_decode_plain(q, kp, vp, tables, k_len, softmax_impl=impl, **kw)
+        err = float((a - b).abs().max())
+        # stated tolerance: the reference's own ATOL 2e-5 and argmax
+        # identity; the CORDIC impls (one summation order per output row,
+        # the lanes replayed in the kernel) must be bit-equal
+        check(bool(torch.isfinite(a).all()) and err < 2e-5,
+              f"gqa_decode {impl}: |kernel - plain| {err} (ATOL 2e-5)")
+        check(impl == "exact" or err == 0.0,
+              f"gqa_decode {impl}: |kernel - plain| {err} (bit-equal)")
+        check(torch.equal(a.reshape(B, -1).argmax(-1), b.reshape(B, -1).argmax(-1)),
+              f"gqa_decode {impl}: argmax moved against plain")
+        nbytes = (q.numel() * 2 + 2 * live_blocks * L * KH * hd * 4
+                  + tables.numel() * 4 + k_len.numel() * 4 + a.numel() * 4)
+        lanes = live_keys * KH * G
+        int_ops = (ops["decode_lane"] if impl != "exact" else 0) * lanes
+        bound, by = card.bound(nbytes, int_ops, 4 * hd * lanes)
+        phases = {}
+        rec = timed(
+            dict(shape=[B, KH, G, hd, L, M], impl=impl, klens=klens,
+                 max_abs_err=err, bit_equal=bool(torch.equal(a, b)),
+                 bound_ms=bound, bound_by=by, phases=phases),
+            kernel=times(torch, lambda: PA.gqa_decode(
+                q, kp, vp, tables, k_len, softmax_impl=impl, **kw),
+                "gqa_decode_kernel", parts=phases),
+            plain=times(torch, lambda: PA.gqa_decode_plain(
+                q, kp, vp, tables, k_len, softmax_impl=impl, **kw), None, 2, 1))
+        log(f"[gqa_decode] {impl} B={B} KH={KH} G={G} hd={hd} L={L} M={M} "
+            f"k_len={[max(k, 1) for k in klens]}: max |kernel - plain| {err:.3e} "
+            f"(bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
+        records["gqa_decode" + ("" if impl == "cordic_pallas" else f"[{impl}]")] = rec
+    quant_decode_kernel(torch, card, records, q, tables, k_len, klens, gen, ops)
+
+    # (9) mla_decode at DeepSeek-V2-Lite's decode shape: B 4 slots, H 16,
+    # R 512 (kv_lora), P 64 (rope), L 16, M 8; the block tables and
+    # lengths of (4) (ragged and vacant slots), bfloat16 absorbed queries,
+    # float32 pools
+    m = dcfg.mla
+    H, R, P = dcfg.num_heads, m.kv_lora_rank, m.qk_rope_dim
+    qe = torch.randn(B, H, R, generator=gen, device=dev).bfloat16()
+    qr = torch.randn(B, H, P, generator=gen, device=dev).bfloat16()
+    cp = torch.randn(N, L, R, generator=gen, device=dev)
+    rp = torch.randn(N, L, P, generator=gen, device=dev)
+    kw = dict(scale=1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim))
+    args = (qe, qr, cp, rp, tables, k_len)
+    for impl in ("cordic_pallas", "exact", "cordic_fixed"):
+        a = PA.mla_decode(*args, softmax_impl=impl, **kw)
+        DECODE_OUTPUTS[f"mla_decode[{impl}]"] = a.cpu()
+        b = PA.mla_decode_plain(*args, softmax_impl=impl, **kw)
+        err = float((a - b).abs().max())
+        # stated tolerance: one summation order on both sides, so equal on
+        # the CORDIC path; the exact path's expf may differ from torch.exp
+        # by an ulp, held to the reference's own ATOL 2e-5
+        check(bool(torch.isfinite(a).all()), f"mla_decode {impl}: finite")
+        check(err == 0.0 if impl != "exact" else err < 2e-5,
+              f"mla_decode {impl}: |kernel - plain| {err}")
+        check(torch.equal(a.reshape(B, -1).argmax(-1), b.reshape(B, -1).argmax(-1)),
+              f"mla_decode {impl}: argmax moved against plain")
+        nbytes = (qe.numel() * 2 + qr.numel() * 2 + live_blocks * L * (R + P) * 4
+                  + tables.numel() * 4 + k_len.numel() * 4 + a.numel() * 4)
+        lanes = live_keys * H
+        int_ops = (ops["decode_lane"] if impl != "exact" else 0) * lanes
+        bound, by = card.bound(nbytes, int_ops, (2 * (R + P) + 2 * R) * lanes)
+        phases = {}
+        rec = timed(
+            dict(shape=[B, H, R, P, L, M], impl=impl, klens=klens,
+                 max_abs_err=err, bit_equal=bool(torch.equal(a, b)),
+                 bound_ms=bound, bound_by=by, phases=phases),
+            kernel=times(torch, lambda: PA.mla_decode(*args, softmax_impl=impl, **kw),
+                         "mla_decode_kernel", parts=phases),
+            plain=times(torch, lambda: PA.mla_decode_plain(
+                *args, softmax_impl=impl, **kw), None, 2, 1))
+        log(f"[mla_decode] {impl} B={B} H={H} R={R} P={P} L={L} M={M} "
+            f"k_len={[max(k, 1) for k in klens]}: max |kernel - plain| {err:.3e} "
+            f"(bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
+        records["mla_decode" + ("" if impl == "cordic_pallas" else f"[{impl}]")] = rec
+
+    long_decode_kernels(torch, card, records, ycfg, dcfg, gen, ops)
+
+
 def quant_decode_kernel(torch, card, records, q, tables, k_len, klens, gen, ops):
     """(4b) gqa_decode's kv_quant branch at the decode shape, tables and
     lengths of (4): int8 and Q2.14 codes with per-block per-head scales,
@@ -691,6 +751,7 @@ def quant_decode_kernel(torch, card, records, q, tables, k_len, klens, gen, ops)
         qb = q32.bfloat16()
         kw = dict(qkw, softmax_impl="cordic_pallas", kv_dtype=torch.bfloat16)
         a = PA.gqa_decode(qb, kq, vq, tables, k_len, **kw)
+        DECODE_OUTPUTS[f"gqa_decode[{fmt}]"] = a.cpu()
         b = PA.gqa_decode_plain(qb, kq, vq, tables, k_len, **kw)
         code_bytes = kq.element_size()
         nbytes = (qb.numel() * 2 + 2 * live_blocks * L * KH * hd * code_bytes
@@ -698,18 +759,147 @@ def quant_decode_kernel(torch, card, records, q, tables, k_len, klens, gen, ops)
                   + k_len.numel() * 4 + a.numel() * 4)
         flops = 4 * hd * lanes + dequant_flops() * 2 * live_blocks * L * KH * hd
         bound, by = card.bound(nbytes, ops["decode_lane"] * lanes, flops)
+        phases = {}
         rec = timed(
             dict(shape=[B, KH, G, hd, L, M], impl="cordic_pallas", kv_quant=fmt,
                  klens=klens, max_abs_err=float((a - b).abs().max()),
-                 bit_equal=bool(torch.equal(a, b)), bound_ms=bound, bound_by=by),
+                 bit_equal=bool(torch.equal(a, b)), bound_ms=bound, bound_by=by,
+                 phases=phases),
             kernel=times(torch, lambda: PA.gqa_decode(qb, kq, vq, tables, k_len, **kw),
-                         "gqa_decode_kernel"),
+                         "gqa_decode_kernel", parts=phases),
             plain=times(torch, lambda: PA.gqa_decode_plain(
                 qb, kq, vq, tables, k_len, **kw), None, 2, 1))
         log(f"[gqa_decode[{fmt}]] cordic_pallas bf16 B={B} KH={KH} G={G} hd={hd} "
             f"L={L} M={M} k_len={[max(k, 1) for k in klens]}: max |kernel - "
             f"plain| {rec['max_abs_err']:.3e}; {fmt_times(rec)}")
         records[f"gqa_decode[{fmt}]"] = rec
+
+
+def long_decode_kernels(torch, card, records, ycfg, dcfg, gen, ops):
+    """(9b) gqa_decode and mla_decode at the long-context shape, the pools
+    of an engine at max_len LONG_MAX_LEN: M 256 table columns, N 1025
+    blocks, ragged lengths with a vacant slot (LONG_KLENS: 664 live blocks,
+    10,598 live keys). Every GQA branch (three impls on float32 pools,
+    cordic_pallas on int8 and Q2.14 pools; bfloat16 queries and kv_dtype)
+    and every MLA impl (bfloat16 queries) against its plain version:
+    bit-equal on the CORDIC impls and the integer pools, ATOL 2e-5 on
+    exact, argmax equal. The plain version runs once per branch, for the
+    check; its ``plain_ms`` is that one call's time by CUDA events (host
+    gaps included), not a profiled device time. Each branch also runs with
+    16-block softmax tiles (a row of up to 256 blocks in 16 tiles: the path
+    of rows longer than SOFTMAX_TILE_LANES), bit-equal to the one-tile
+    run."""
+    from repro_torch.core import kv_quant as kvq
+    from repro_torch.kernels import paged_attention as PA
+
+    dev = torch.device(DEV)
+    B, L, M = SLOTS, BLOCK_LEN, LONG_MAX_LEN // BLOCK_LEN
+    KH, G, hd = ycfg.num_kv_heads, ycfg.num_heads // ycfg.num_kv_heads, ycfg.head_dim
+    N = 1 + B * M
+    tables = torch.zeros(B, M, dtype=torch.int32)
+    nxt = 1
+    for r, k in enumerate(LONG_KLENS):
+        for c in range(-(-k // L)):
+            tables[r, c] = nxt
+            nxt += 1
+    tables = tables.to(dev)
+    k_len = torch.tensor(LONG_KLENS, dtype=torch.int32, device=dev)
+    live_blocks = sum(-(-k // L) for k in LONG_KLENS)
+    live_keys = sum(LONG_KLENS)
+    q = torch.randn(B, KH, G, hd, generator=gen, device=dev).bfloat16()
+    kf = torch.randn(N, L, KH, hd, generator=gen, device=dev)
+    vf = torch.randn(N, L, KH, hd, generator=gen, device=dev)
+    m = dcfg.mla
+    H, R, P = dcfg.num_heads, m.kv_lora_rank, m.qk_rope_dim
+    qe = torch.randn(B, H, R, generator=gen, device=dev).bfloat16()
+    qr = torch.randn(B, H, P, generator=gen, device=dev).bfloat16()
+    cp = torch.randn(N, L, R, generator=gen, device=dev)
+    rp = torch.randn(N, L, P, generator=gen, device=dev)
+    # a tree from before the plans (a --decode-kernels run of an older
+    # tree) times its kernels without the plan's report and tiled check
+    tiled = {}
+    if hasattr(PA, "SOFTMAX_TILE_LANES"):
+        gplan, mplan = PA.gqa_plan(B, KH, G, hd, L, M), PA.mla_plan(B, H, R, P, L, M)
+        tiled = {"gqa_decode": PA.gqa_plan(B, KH, G, hd, L, M, 16 * L),
+                 "mla_decode": PA.mla_plan(B, H, R, P, L, M, 16 * L)}
+        log(f"[long decode] B={B} M={M} N={N} k_len={LONG_KLENS}: {live_blocks} live "
+            f"blocks, {live_keys} live keys; gqa_decode CTAs (score, softmax, pv, fold) "
+            f"{gplan.ctas}, score CTAs with live blocks "
+            f"{gplan.live_score_ctas(LONG_KLENS, L)}, workspace "
+            f"{4 * gplan.workspace_floats} bytes; mla_decode CTAs {mplan.ctas}, "
+            f"score CTAs with live blocks {mplan.live_score_ctas(LONG_KLENS, L)}, "
+            f"workspace {4 * mplan.workspace_floats} bytes")
+    meta = tables.numel() * 4 + k_len.numel() * 4
+    cases = []
+    for impl, fmt in (("cordic_pallas", "none"), ("exact", "none"),
+                      ("cordic_fixed", "none"), ("cordic_pallas", "int8"),
+                      ("cordic_pallas", "q2_14")):
+        kw = dict(scale=1.0 / math.sqrt(hd), softmax_impl=impl, kv_dtype=torch.bfloat16)
+        kp, vp, code_bytes, flops = kf, vf, 4, 4 * hd * live_keys * KH * G
+        scale_bytes = 0
+        if fmt != "none":
+            spec = kvq.spec_for(fmt)
+            ks, vs = kvq.block_scale(kf * 2, spec), kvq.block_scale(vf, spec)
+            kp, vp = kvq.quantize(kf * 2, spec, ks), kvq.quantize(vf, spec, vs)
+            kw.update(kv_quant=fmt, k_scale_pool=ks, v_scale_pool=vs)
+            code_bytes = kp.element_size()
+            scale_bytes = 2 * live_blocks * KH * 4
+            flops += dequant_flops() * 2 * live_keys * KH * hd
+        nbytes = (q.numel() * 2 + 2 * live_keys * KH * hd * code_bytes + scale_bytes
+                  + meta + q.numel() * 4)
+        int_ops = (ops["decode_lane"] if impl != "exact" else 0) * live_keys * KH * G
+        name = ("gqa_decode" + {"cordic_pallas": "", "exact": "[exact",
+                                "cordic_fixed": "[cordic_fixed"}[impl]
+                + (f"[{fmt}" if fmt != "none" else ""))
+        name = (name + ",long]") if "[" in name else name + "[long]"
+        args = (q, kp, vp, tables, k_len)
+        cases.append((name, impl, lambda a=args, kw=kw, **pl: PA.gqa_decode(*a, **kw, **pl),
+                      lambda a=args, kw=kw: PA.gqa_decode_plain(*a, **kw),
+                      "gqa_decode_kernel", nbytes, int_ops, flops, B * KH * G))
+    for impl in ("cordic_pallas", "exact", "cordic_fixed"):
+        kw = dict(scale=1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim), softmax_impl=impl)
+        nbytes = (qe.numel() * 2 + qr.numel() * 2 + live_keys * (R + P) * 4 + meta
+                  + qe.numel() * 4)
+        lanes = live_keys * H
+        int_ops = (ops["decode_lane"] if impl != "exact" else 0) * lanes
+        name = {"cordic_pallas": "mla_decode[long]", "exact": "mla_decode[exact,long]",
+                "cordic_fixed": "mla_decode[cordic_fixed,long]"}[impl]
+        args = (qe, qr, cp, rp, tables, k_len)
+        cases.append((name, impl, lambda a=args, kw=kw, **pl: PA.mla_decode(*a, **kw, **pl),
+                      lambda a=args, kw=kw: PA.mla_decode_plain(*a, **kw),
+                      "mla_decode_kernel", nbytes, int_ops,
+                      (2 * (R + P) + 2 * R) * lanes, B * H))
+    for name, impl, fn, plain, kernel, nbytes, int_ops, flops, rows in cases:
+        a = fn()
+        DECODE_OUTPUTS[name] = a.cpu()
+        if tiled:
+            check(torch.equal(fn(plan=tiled[kernel.removesuffix('_kernel')]), a),
+                  f"{name}: 16-block softmax tiles differ from one tile")
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        b = plain()
+        end.record()
+        torch.cuda.synchronize()
+        err = float((a - b).abs().max())
+        check(bool(torch.isfinite(a).all()), f"{name}: finite")
+        check(err == 0.0 if impl != "exact" else err < 2e-5,
+              f"{name}: |kernel - plain| {err}")
+        check(torch.equal(a.reshape(B, -1).argmax(-1), b.reshape(B, -1).argmax(-1)),
+              f"{name}: argmax moved against plain")
+        bound, by = card.bound(nbytes, int_ops, flops)
+        phases = {}
+        ms, hms = times(torch, fn, kernel, 10, 200, phases)
+        rec = dict(shape=[B, M, N], impl=impl, klens=LONG_KLENS, max_abs_err=err,
+                   phases=phases,
+                   bit_equal=bool(torch.equal(a, b)), bound_ms=bound, bound_by=by,
+                   ms=ms, host_ms=hms, plain_ms=start.elapsed_time(end),
+                   plain_host_ms=None, library_ms=None, library_host_ms=None)
+        records[name] = rec
+        log(f"[{name}] rows {rows}, k_len {LONG_KLENS}: max |kernel - plain| "
+            f"{err:.3e} (bit-equal {rec['bit_equal']}); device {ms:.4f} ms per "
+            f"call (host-to-host {hms:.4f} ms; by phase {phases}); plain, one check "
+            f"call {rec['plain_ms']:.1f} ms (CUDA events); bound {bound:.5f} ms by {by}")
+        del a, b
 
 
 def timed(rec, kernel, plain, library=None):
@@ -849,6 +1039,14 @@ def serve_path(torch, build, arch):
         out[act_impl] = serve_run(torch, build, arch, cfg, model)
         log(f"[time] serve {arch} {act_impl}: {time.perf_counter() - t0:.1f} s "
             "(warm-up, traffic, logits check, profile)")
+        # the long-context serve on this datapath (Yi's kernel datapath also
+        # on the quantized pools): the decode kernel's branch at M 256
+        t0 = time.perf_counter()
+        formats = ("none",) + (KV_FORMATS if arch == "yi-9b"
+                               and act_impl == "cordic_pallas" else ())
+        out[f"long {act_impl}"] = long_context_pools(torch, build, cfg, model, formats)
+        log(f"[time] long-context path {arch} {act_impl}: "
+            f"{time.perf_counter() - t0:.1f} s")
     if arch == "yi-9b":
         cfg = dataclasses.replace(base, softmax_impl="cordic_pallas")
         ref = out["cordic_pallas"][1]
@@ -872,7 +1070,6 @@ def serve_path(torch, build, arch):
         t0 = time.perf_counter()
         out["prefix"] = prefix_path(torch, build, cfg, model)
         log(f"[time] prefix path: {time.perf_counter() - t0:.1f} s")
-        long_context_pools(torch, cfg, model)
     del model
     torch.cuda.empty_cache()
     return out
@@ -1075,14 +1272,26 @@ def prefix_path(torch, build, cfg, model):
     return res
 
 
-def long_context_pools(torch, cfg, model):
-    """Engines built (not served) at max_len LONG_MAX_LEN with SLOTS slots
-    for each pool format: kv_pool_bytes and the device memory the engine
-    allocated."""
-    from repro_torch.serve.engine import ServeEngine
+def long_context_pools(torch, build, cfg, model, formats):
+    """Engines at max_len LONG_MAX_LEN with SLOTS slots for each pool
+    format of ``formats``: kv_pool_bytes, the decode kernel's workspace per
+    call and the device memory the engine allocated; then each serves one
+    LONG_PROMPT-token request (LONG_PROMPT_FIXED on the cordic_fixed
+    softmax; 8 new tokens, greedy) on ``cfg``'s datapath,
+    launch counts zeroed just before and read just after, so the decode
+    kernel (gqa_decode, or mla_decode on an MLA arch) runs at the long
+    shape (M 256 table columns) on every decode step. Returns {format:
+    launch counts}."""
+    import numpy as np
 
-    base = None
-    for fmt in ("none",) + KV_FORMATS:
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    base, counts = None, {}
+    kernel = "mla_decode" if cfg.mla is not None else "gqa_decode"
+    tag = f"{cfg.name} {cfg.act_impl}/{cfg.softmax_impl}"
+    n_prompt = LONG_PROMPT_FIXED if cfg.softmax_impl == "cordic_fixed" else LONG_PROMPT
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, n_prompt)
+    for fmt in formats:
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         eng = ServeEngine(cfg, model, slots=SLOTS, max_len=LONG_MAX_LEN,
@@ -1093,12 +1302,37 @@ def long_context_pools(torch, cfg, model):
         nbytes = eng.kv_pool_bytes()
         base = base or nbytes
         check(delta >= nbytes, f"long-context {fmt}: allocated {delta} < pools {nbytes}")
-        log(f"[path memory] max_len {LONG_MAX_LEN}, {SLOTS} slots, "
+        ws = eng.decode_workspace_bytes()
+        log(f"[path memory] {tag} max_len {LONG_MAX_LEN}, {SLOTS} slots, "
             f"{eng.pager.stats().num_blocks} blocks, kv_quant={fmt}: kv_pool_bytes "
             f"{nbytes} ({nbytes / 1e9:.3f} GB, {base / nbytes:.3f}x fewer than "
-            f"float32), memory_allocated delta {delta} ({delta / 1e9:.3f} GB)")
+            f"float32), memory_allocated delta {delta} ({delta / 1e9:.3f} GB); "
+            f"{kernel} workspace per call {ws} bytes ({ws / 1e9:.3f} GB, "
+            f"{ws / nbytes:.3f}x the pools)")
+        req = Request(rid=0, prompt=prompt.astype(np.int32), max_new_tokens=8)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        eng.submit(req)
+        steps = []
+        while eng.has_work:
+            ts = time.perf_counter()
+            eng.step()
+            steps.append(time.perf_counter() - ts)
+        torch.cuda.synchronize()
+        counts[fmt] = dict(build.LAUNCHES)
+        check(req.done and len(req.out) == 8 and all(0 <= t < cfg.vocab_size for t in req.out),
+              f"long-context {fmt}: the request finishes with its tokens")
+        check(counts[fmt].get(kernel, 0) == cfg.num_layers * len(steps),
+              f"long-context {tag} {fmt}: {kernel} launched "
+              f"{counts[fmt].get(kernel, 0)} times, not {cfg.num_layers} x "
+              f"{len(steps)} steps")
+        log(f"[path long {tag} {fmt}] one {n_prompt}-token request, 8 new tokens in "
+            f"{time.perf_counter() - t0:.3f} s: TTFT {(req.t_first - req.t_enqueue) * 1e3:.1f} "
+            f"ms; step p50 after the prefill's {statistics.median(steps[1:]) * 1e3:.2f} "
+            f"ms over {len(steps) - 1} steps; tokens {req.out}; launches {counts[fmt]}")
         del eng
         torch.cuda.empty_cache()
+    return counts
 
 
 def profile_steps(torch, eng, cfg, kernels, n_steps: int = 6):
@@ -1440,9 +1674,68 @@ KERNELS = {
     "gqa_decode[q2_14]": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
                           "src/repro/kernels/paged_attention.py:291"),
 }
+# the decode kernels at the long-context shape (long_decode_kernels)
+for _name in ("gqa_decode[long]", "gqa_decode[cordic_fixed,long]",
+              "gqa_decode[int8,long]", "gqa_decode[q2_14,long]"):
+    KERNELS[_name] = KERNELS["gqa_decode"]
+for _name in ("mla_decode[long]", "mla_decode[cordic_fixed,long]"):
+    KERNELS[_name] = KERNELS["mla_decode"]
 
 
-def main() -> int:
+def decode_main(args) -> int:
+    """--decode-kernels: the decode kernels of the tree under ``args.src``
+    against their plain versions, timed; one JSON line to ``args.out``."""
+    import torch
+
+    src = Path(args.src).resolve()
+    if not torch.cuda.is_available() or not (src / "repro_torch").is_dir():
+        print(f"chip_smoke.py: no CUDA device, or no repro_torch under {src}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch import configs
+    from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE
+    from repro_torch.kernels import build
+
+    OUT.mkdir(exist_ok=True)
+    LOG_FILE.append(open(OUT / f"decode_kernels_{args.label}.log", "w"))
+    card_line = smi("name,power.limit")
+    log(f"{card_line}; decode kernels of {src} ({args.label})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = Card(torch)
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"[build] {time.perf_counter() - t0:.1f} s")
+    records = {}
+    decode_kernels(torch, card, records,
+                   configs.get_config("yi-9b", act_impl="cordic_pallas"),
+                   configs.get_config(DEEPSEEK, act_impl="cordic_pallas"),
+                   pipeline_ops(PAPER_SCHEDULE))
+    line = json.dumps(dict(label=args.label, card=card_line, src=str(src),
+                           records=records))
+    log(line)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    if args.save:
+        torch.save(DECODE_OUTPUTS, args.save)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--decode-kernels", action="store_true",
+                    help="only the decode kernels' checks and times")
+    ap.add_argument("--src", default=str(SRC),
+                    help="the tree whose repro_torch --decode-kernels runs")
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--out", default=None, help="append the JSON line here")
+    ap.add_argument("--save", default=None, help="torch.save the outputs here")
+    args = ap.parse_args(argv)
+    if args.decode_kernels:
+        return decode_main(args)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
               "run it from a checkout of the repository", file=sys.stderr)
@@ -1530,6 +1823,19 @@ def main() -> int:
     launches["mla_decode[cordic_fixed]"] = ds_fixed.get("mla_decode", 0)
     for fmt in KV_FORMATS:
         launches[f"gqa_decode[{fmt}]"] = yi[fmt][0].get("gqa_decode", 0)
+    # long-shape entries: each from the long-context serve that runs its
+    # branch at M 256 (max_len LONG_MAX_LEN)
+    long_runs = {"gqa_decode[long]": (yi["long cordic_pallas"]["none"], "gqa_decode"),
+                 "gqa_decode[cordic_fixed,long]": (yi["long cordic_fixed"]["none"],
+                                                   "gqa_decode"),
+                 "mla_decode[long]": (ds["long cordic_pallas"]["none"], "mla_decode"),
+                 "mla_decode[cordic_fixed,long]": (ds["long cordic_fixed"]["none"],
+                                                   "mla_decode")}
+    for fmt in KV_FORMATS:
+        long_runs[f"gqa_decode[{fmt},long]"] = (yi["long cordic_pallas"][fmt], "gqa_decode")
+    for name, (counts, kernel) in long_runs.items():
+        launches[name] = counts.get(kernel, 0)
+        check(launches[name] > 0, f"the long-context serve of {name} never launched {kernel}")
     log(f"[paths] launches: sigmoid {sigmoid_counts}, gelu_erf {gelu_counts}, "
         f"serve yi-9b {serve_counts}, cordic_fixed {yi_fixed}, int8 "
         f"{yi['int8'][0]}, q2_14 {yi['q2_14'][0]}, serve {DEEPSEEK} "

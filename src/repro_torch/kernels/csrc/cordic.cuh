@@ -285,8 +285,7 @@ __device__ __forceinline__ float sign_f(float v) {
 // the Q-format mantissas (vector_q with LIN_VECTORING is lvc_div_q: the same
 // stage list, the same where/add/sub structure), the quotient read in zfmt,
 // the 2^(p_e - p_S + h) scale and the sign.
-__device__ __forceinline__ float lane_prob_fixed(float u, float ssum, const CordicParams& p) {
-  const float e = lane_exp_fixed(u, p);
+__device__ __forceinline__ float prob_fixed(float e, float ssum, const CordicParams& p) {
   int py, px;
   const float my = frexpf(fabsf(e), &py);
   const float mx = frexpf(fabsf(ssum), &px);
@@ -364,14 +363,21 @@ __device__ __forceinline__ RowSum row_sum_frexp(float ssum, const CordicParams& 
   return r;
 }
 
-__device__ __forceinline__ float lane_prob(float u, RowSum rs, const CordicParams& p) {
-  int eq, ki;
-  bool dead;
-  exp_codes(u, p, eq, ki, dead);
+// The normalization of one lane from its exp_codes (a decode kernel keeps
+// the codes from its row-sum pass rather than rotating again).
+__device__ __forceinline__ float prob_codes(int eq, int ki, bool dead, RowSum rs,
+                                            const CordicParams& p) {
   const int t = lvc_div_q(rs.mq, shr_bits(eq, 1, p.bits), p);
   const float tf = dequantize_f(guard_drop(t, p), p.fb);
   const float out = tf * exp2_i32(ki - rs.pe + 1);
   return dead ? 0.0f : out;
+}
+
+__device__ __forceinline__ float lane_prob(float u, RowSum rs, const CordicParams& p) {
+  int eq, ki;
+  bool dead;
+  exp_codes(u, p, eq, ki, dead);
+  return prob_codes(eq, ki, dead, rs, p);
 }
 
 template <typename T>

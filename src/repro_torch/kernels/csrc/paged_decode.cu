@@ -1,49 +1,73 @@
 // Paged decode attention on Hopper: GQA (paged_gqa_decode) and absorbed-form
-// MLA (paged_mla_decode, after the GQA kernel below).
+// MLA (paged_mla_decode).
 //
-// Replaces gqa_decode of repro/kernels/paged_attention.py (:291; pallas_call
-// :373, body _gqa_kernel :240, _pass_update :197, _exp_codes :139,
-// _lane_exp :155, _lane_probs :172). One query row per slot walks that
-// slot's block table up to k_len and attends its K/V blocks in place; no
-// max_len-sized gather is materialised.
+// Replaces gqa_decode and mla_decode of repro/kernels/paged_attention.py
+// (:291 and :421; pallas_call :373 and :460, bodies _gqa_kernel :240 and
+// _mla_kernel :384, the shared block update _pass_update :197, the lanes
+// _exp_codes :139, _lane_exp :155, _lane_probs :172). One query row per slot
+// attends that slot's live blocks (c * L < k_len) in place, through its own
+// block-table row; no max_len-sized gather is materialised.
 //
 // softmax impls:
-//   exact          one sweep over the live blocks with the online
-//                  (flash-decoding) rescaling recurrence, expf
-//   cordic_pallas  three sweeps (row max, CORDIC e^u row sum, lane-exact
-//                  R2-LVC probabilities), so the probabilities equal the
-//                  CORDIC softmax kernel's lane for lane
-//   cordic_fixed   the same three sweeps with the function library's lanes
-//                  (lane_exp_fixed, lane_prob_fixed): functions.exp_fixed in
-//                  the sum, divide_fixed(exp_fixed(u), S) in the probabilities,
-//                  so they equal functions.softmax_fixed's; masked lanes of a
-//                  live block clip at e^-80 instead of flushing to 0
+//   exact          the online (flash-decoding) rescaling recurrence, expf
+//   cordic_pallas  row max, CORDIC e^u row sum, lane-exact R2-LVC
+//                  probabilities, so they equal the CORDIC softmax kernel's
+//                  lane for lane
+//   cordic_fixed   the same with the function library's lanes
+//                  (lane_exp_fixed, prob_fixed): functions.exp_fixed in the
+//                  sum, divide_fixed(exp_fixed(u), S) in the probabilities, as
+//                  functions.softmax_fixed; masked lanes of a live block clip
+//                  at e^-80 instead of flushing to 0
 //
-// What bounds it here: at serving shapes, neither rate. A decode step reads
-// a few live blocks per (slot, kv-head) (tens of KB in all), so the kernel
-// is a latency chain: load a block, score it, reduce, accumulate. The
-// design keeps that chain short and simple: the grid is (slot, kv-head),
-// each block reads its own block-table row and loops only over the live
-// blocks (c * L < k_len), which replaces the TPU's scalar-prefetched
-// BlockSpec walk; a block's K/V tile sits in shared memory; all G query
-// rows of the kv-head share it.
+// What bounds it: at serving shapes neither rate. A decode step reads a few
+// live blocks per (slot, kv-head), so the work is a chain of dependent
+// loads; at long contexts (thousands of keys a slot) it is the K/V bytes
+// and, on the CORDIC impls, the integer work of one rotation per lane. The
+// TPU kernel walks a row's blocks in sequence, once per softmax pass (three
+// for CORDIC). Here only the folds run in sequence; everything that feeds
+// them runs in parallel over rows, blocks and value columns, in four
+// launches on the caller's stream that share a workspace (no host read of
+// k_len, no host synchronisation, no atomics; a CTA past a slot's live
+// blocks exits at once):
+//
+//   score    grid (ceil(M / chunk), KH, B), all G query rows of a kv-head a
+//            CTA: stages (and dequantizes) K of `chunk` blocks once, writes
+//            the masked, scaled scores of each row's live lanes
+//   softmax  grid (KH * G, B), one row a CTA, its lanes in shared memory
+//            (`tile` blocks at a time: a longer row passes through in
+//            tiles, once per pass): the row max; every lane's e^u
+//            (cordic_pallas keeps the codes, cordic_fixed e) and each
+//            block's sum, in parallel; the row sum folded over the blocks
+//            in table order; the probabilities from the kept e^u. exact: the
+//            running max and rescale factor of each block, the lanes'
+//            e^(s - m_c), the row sum l = l * alpha_c + bs_c
+//   pv       grid (ceil(M / chunk), KH, B): stages (and dequantizes) V of
+//            `chunk` blocks once and writes each block's P.V sums for all G
+//            rows, a thread per (half of the rows, value column)
+//   fold     grid (KH * G * ceil(hd / 128), B): each output column's
+//            accumulator over the blocks' P.V sums, in table order
+//
+// MLA runs the same four phases (its kernels follow the GQA ones).
+//
+// Summation orders are fixed and shared with the plain PyTorch versions
+// (kernels/paged_attention.py), and they are the TPU kernel's walk per
+// output row: a score is a left-to-right sum over head_dim of q*k products,
+// then times the scale, then the mask; block sums and P.V sums run left to
+// right over a block's lanes; the row sum and the accumulator fold block by
+// block in table order (exact: l = l * alpha + bs, acc = acc * alpha + pv).
+// The row max and the running maxima are order-free. Compiled with
+// -fmad=false, so kernel and plain agree bit for bit on both CORDIC impls
+// and on quantized pools; XLA's dot orders differ, hence the reference's own
+// f32 tolerance against the JAX kernel.
 //
 // Quantized pools (kv_quant, _gqa_kernel :260-275 with the scale-pool
 // operands :347-353): the pool type TP is int8_t or int16_t codes, and each
-// live block's two per-head scales (k_scale[blk * KH + h], v_scale[...]) are
-// read once per block; every staged element is
-// kv_round<TKV>(lin_multiply_float(code * code_res, scale)), the CORDIC
-// linear-rotation dequant of core/kv_quant.dequantize. The CORDIC impls
-// stage K in each of their three passes, so K is dequantized three times:
-// a right and simple first kernel; keeping the dequantized block (or the
-// scores) across passes is the first thing a redesign removes.
-//
-// Summation orders are fixed and shared with the plain PyTorch version:
-// a score is a left-to-right sum over head_dim of q*k products, then times
-// the scale; block sums and P.V sums run left to right over the block's
-// lanes. Compiled with -fmad=false, so kernel and plain agree bit for bit
-// on the CORDIC path; XLA's dot orders differ, hence the reference's own
-// f32 tolerance against the JAX kernel.
+// live block's per-head scales are k_scale[blk * KH + h], v_scale[...];
+// every staged element is kv_round<TKV>(lin_multiply_float(code *
+// code_res, scale)), the CORDIC linear-rotation dequant of
+// core/kv_quant.dequantize. The score and pv phases stage K and V once, so
+// each element is dequantized once.
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
@@ -51,23 +75,28 @@
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;  // NEG_INF of the reference
 
 // softmax impl codes: the order of paged_attention.IMPLS
 constexpr int kExact = 0, kCordicPallas = 1, kCordicFixed = 2;
 
-// pass 1 and pass 2 lanes of the two CORDIC impls
-template <int IMPL>
-__device__ __forceinline__ float pass_exp(float u, const CordicParams& p) {
-  return IMPL == kCordicFixed ? lane_exp_fixed(u, p) : lane_exp(u, p);
-}
-
-template <int IMPL>
-__device__ __forceinline__ float pass_prob(float u, float ssum, const CordicParams& p) {
-  return IMPL == kCordicFixed ? lane_prob_fixed(u, ssum, p)
-                              : lane_prob(u, row_sum_frexp(ssum, p), p);
-}
+constexpr int kScoreThreads = 256;
+constexpr int kSoftmaxThreads = 512;
+// value columns of a pv CTA (two threads each, splitting the rows); threads
+// of a fold CTA at most
+constexpr int kPvCols = 128;
+constexpr int kPvThreads = 2 * kPvCols;
+constexpr int kFoldThreads = 128;  // and columns of a fold CTA
+// blocks of one score or pv CTA (each thread keeps that many sums in flight)
+constexpr int kMaxChunk = 4;
+// query rows whose P.V sums one pv thread forms at once
+constexpr int kPvRows = 4;
+// loads of a fold thread in flight at once
+constexpr int kFoldBatch = 32;
+// loads a thread keeps in flight while staging
+constexpr int kUnroll = 8;
+// ka[] marks a lane below the dead cutoff (probability exactly 0)
+constexpr int kDead = INT_MIN;
 
 template <typename T>
 __device__ __forceinline__ float kv_round(float v);
@@ -91,129 +120,497 @@ __device__ __forceinline__ float pool_value<float>(float v, float, float,
   return v;
 }
 
-// TQ: query dtype; TKV: the kv_dtype cast replayed per block; TP: the pool's
-// storage (float, or int8_t/int16_t codes with per-block scales); IMPL:
-// softmax.
-template <typename TQ, typename TKV, typename TP, int IMPL>
-__global__ void gqa_decode_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pool,
-                                  const TP* __restrict__ v_pool,
-                                  const float* __restrict__ k_scale,
-                                  const float* __restrict__ v_scale, float code_res,
-                                  const int* __restrict__ tables,
-                                  const int* __restrict__ k_len, float* __restrict__ out,
-                                  int KH, int G, int hd, int L, int M, float scale,
-                                  const CordicParams p) {
-  extern __shared__ float smem[];
-  float* qs = smem;            // (G, hd)
-  float* ks = qs + G * hd;     // (L, hd)
-  float* vs = ks + L * hd;     // (L, hd)
-  float* sc = vs + L * hd;     // (G, L) scores, then lane weights
-  float* acc = sc + G * L;     // (G, hd)
-  float* mrow = acc + G * hd;  // (G,) running max
-  float* lrow = mrow + G;      // (G,) running sum
-  float* alpha = lrow + G;     // (G,) online rescale factor (exact)
+// Four pool elements in one load: a pool row is a multiple of 4 elements
+// and 16-byte aligned (the wrappers check both).
+template <typename T>
+struct Quad;
+template <>
+struct Quad<float> {
+  using type = float4;
+};
+template <>
+struct Quad<int16_t> {
+  using type = short4;
+};
+template <>
+struct Quad<int8_t> {
+  using type = char4;
+};
 
-  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int klen = k_len[b];
-  const int* trow = tables + (long long)b * M;
-  const long long qoff = ((long long)b * KH + h) * G * hd;
+template <typename T>
+__device__ __forceinline__ typename Quad<T>::type load_quad(const T* base, long long elem) {
+  return reinterpret_cast<const typename Quad<T>::type*>(base)[elem >> 2];
+}
 
-  for (int i = tid; i < G * hd; i += kThreads) {
-    qs[i] = load_as_float(q, qoff + i);
-    acc[i] = 0.0f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    mrow[g] = kNegInf;
-    lrow[g] = 0.0f;
-  }
-  __syncthreads();
+// dst[0..3] = the kv_dtype-rounded values of a quad of pool elements.
+template <typename TKV, typename TP, typename V>
+__device__ __forceinline__ void put_quad(float* dst, const V& v, float scale, float code_res,
+                                         const CordicParams& p) {
+  dst[0] = kv_round<TKV>(pool_value<TP>(v.x, scale, code_res, p));
+  dst[1] = kv_round<TKV>(pool_value<TP>(v.y, scale, code_res, p));
+  dst[2] = kv_round<TKV>(pool_value<TP>(v.z, scale, code_res, p));
+  dst[3] = kv_round<TKV>(pool_value<TP>(v.w, scale, code_res, p));
+}
 
-  const int live = min(M, (klen + L - 1) / L);  // blocks with c * L < k_len
-  constexpr bool CORDIC = IMPL != kExact;
-  const int passes = CORDIC ? 3 : 1;
-  for (int pass = 0; pass < passes; ++pass) {
-    const bool need_v = !CORDIC || pass == 2;
-    for (int c = 0; c < live; ++c) {
-      const long long blk = trow[c];
-      const int base = c * L;
-      constexpr bool QUANT = !std::is_same<TP, float>::value;
-      const float ksc = QUANT ? k_scale[blk * KH + h] : 1.0f;
-      const float vsc = QUANT && need_v ? v_scale[blk * KH + h] : 1.0f;
-      for (int i = tid; i < L * hd; i += kThreads) {
-        const int l = i / hd, d = i - l * hd;
-        const long long off = ((blk * L + l) * KH + h) * hd + d;
-        ks[i] = kv_round<TKV>(pool_value<TP>(k_pool[off], ksc, code_res, p));
-        if (need_v) vs[i] = kv_round<TKV>(pool_value<TP>(v_pool[off], vsc, code_res, p));
-      }
-      __syncthreads();
-      for (int i = tid; i < G * L; i += kThreads) {
-        const int g = i / L, l = i - g * L;
-        const float* qr = qs + g * hd;
-        const float* kr = ks + l * hd;
-        float s = 0.0f;
-        for (int d = 0; d < hd; ++d) s = s + qr[d] * kr[d];
-        s = s * scale;
-        sc[i] = (base + l < klen) ? s : kNegInf;
-      }
-      __syncthreads();
-
-      if (!CORDIC) {
-        for (int g = tid; g < G; g += kThreads) {
-          float mx = sc[g * L];
-          for (int l = 1; l < L; ++l) mx = fmaxf(mx, sc[g * L + l]);
-          const float m_old = mrow[g];
-          const float m_new = fmaxf(m_old, mx);
-          alpha[g] = expf(m_old - m_new);
-          mrow[g] = m_new;
-        }
-        __syncthreads();
-        for (int i = tid; i < G * L; i += kThreads) sc[i] = expf(sc[i] - mrow[i / L]);
-        __syncthreads();
-        for (int g = tid; g < G; g += kThreads) {
-          float bs = 0.0f;
-          for (int l = 0; l < L; ++l) bs = bs + sc[g * L + l];
-          lrow[g] = lrow[g] * alpha[g] + bs;
-        }
-        for (int i = tid; i < G * hd; i += kThreads) {
-          const int g = i / hd, d = i - g * hd;
-          float pv = 0.0f;
-          for (int l = 0; l < L; ++l) pv = pv + sc[g * L + l] * vs[l * hd + d];
-          acc[i] = acc[i] * alpha[g] + pv;
-        }
-      } else if (pass == 0) {
-        for (int g = tid; g < G; g += kThreads) {
-          float mx = sc[g * L];
-          for (int l = 1; l < L; ++l) mx = fmaxf(mx, sc[g * L + l]);
-          mrow[g] = fmaxf(mrow[g], mx);
-        }
-      } else if (pass == 1) {
-        for (int i = tid; i < G * L; i += kThreads)
-          sc[i] = pass_exp<IMPL>(sc[i] - mrow[i / L], p);
-        __syncthreads();
-        for (int g = tid; g < G; g += kThreads) {
-          float bs = 0.0f;
-          for (int l = 0; l < L; ++l) bs = bs + sc[g * L + l];
-          lrow[g] = lrow[g] + bs;
-        }
-      } else {
-        for (int i = tid; i < G * L; i += kThreads) {
-          const int g = i / L;
-          sc[i] = pass_prob<IMPL>(sc[i] - mrow[g], lrow[g], p);
-        }
-        __syncthreads();
-        for (int i = tid; i < G * hd; i += kThreads) {
-          const int g = i / hd, d = i - g * hd;
-          float pv = 0.0f;
-          for (int l = 0; l < L; ++l) pv = pv + sc[g * L + l] * vs[l * hd + d];
-          acc[i] = acc[i] + pv;
-        }
-      }
-      __syncthreads();
+// store(i, load(i)) for i in [0, n) over the CTA, each thread's kUnroll
+// loads issued before the first store.
+template <typename Load, typename Store>
+__device__ __forceinline__ void stage(int n, Load load, Store store) {
+  using V = decltype(load(0));
+  for (int i0 = threadIdx.x; i0 < n; i0 += kUnroll * blockDim.x) {
+    V v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n) v[u] = load(i);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n) store(i, v[u]);
     }
   }
+}
 
-  for (int i = tid; i < G * hd; i += kThreads)
-    out[qoff + i] = CORDIC ? acc[i] : acc[i] / lrow[i / hd];
+__device__ __forceinline__ int live_blocks(int klen, int L, int M) {
+  return min(M, (klen + L - 1) / L);  // blocks with c * L < k_len
+}
+
+// The workspace of one call, for `rows` query rows of M * L lanes each and
+// outputs `width` wide (workspace_floats; paged_attention.gqa_plan /
+// mla_plan compute the same size, and the entry points refuse a smaller
+// one):
+//   sc  (rows, M*L)     float  scores; after the softmax phase the lane
+//                              weights (probabilities, or exact's e^(s - m_c));
+//                              cordic_fixed keeps a long row's e^u here
+//                              between its passes
+//   ea  (rows, M*L)     int    pass-1 e^r codes (cordic_pallas)
+//   ka  (rows, M*L)     int    pass-1 exponents k, kDead on a dead lane
+//   al  (rows, M)       float  exact: each block's rescale factor alpha
+//   lr  (rows,)         float  exact: the row sum
+//   pv  (rows, M, width) float each block's P.V sums
+struct Workspace {
+  float* sc;
+  int* ea;
+  int* ka;
+  float* al;
+  float* lr;
+  float* pv;
+};
+
+__host__ __device__ __forceinline__ long long workspace_floats(long long rows, int M, int L,
+                                                               int width) {
+  return rows * (3LL * M * L + M + 1 + (long long)M * width);
+}
+
+__device__ __forceinline__ Workspace carve(float* ws, long long rows, int M, int L) {
+  const long long ml = rows * M * L;
+  Workspace w;
+  w.sc = ws;
+  w.ea = reinterpret_cast<int*>(ws + ml);
+  w.ka = reinterpret_cast<int*>(ws + 2 * ml);
+  w.al = ws + 3 * ml;
+  w.lr = w.al + rows * M;
+  w.pv = w.lr + rows;
+  return w;
+}
+
+// Max over the CTA (order-free); every thread gets the result.
+__device__ __forceinline__ float cta_max(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x / 32) ? red[lane] : kNegInf;
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  return red[0];
+}
+
+// The softmax phase of one row (blockIdx.x: the row within its slot,
+// blockIdx.y: the slot). The row's lanes pass through shared memory `tile`
+// blocks at a time: a row of at most `tile` blocks is staged once and kept
+// there through every pass; a longer one is staged again in each pass,
+// tile by tile (the order of every sum is the same either way: a block
+// never straddles two tiles, and the folds run over the blocks' sums).
+// Shared by GQA and MLA.
+template <int IMPL>
+__device__ __forceinline__ void softmax_row(float* ws, long long rows, int rows_per_slot,
+                                            const int* k_len, int L, int M, int tile,
+                                            const CordicParams& p) {
+  extern __shared__ float smem[];
+  const int tl = min(tile, M) * L;  // lanes of a tile
+  float* e = smem;                  // (tl) a tile's scores, then its lanes' e^u
+  float* bs = e + tl;               // (M) block sums
+  float* bm = bs + M;               // (M) exact: running max at each block
+  float* am = bm + M;               // (M) exact: rescale factor of each block
+  __shared__ float red[32];
+  __shared__ float total;
+  const Workspace w = carve(ws, rows, M, L);
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const long long row = (long long)b * rows_per_slot + blockIdx.x;
+  const int live = live_blocks(k_len[b], L, M);
+  const int n = live * L;
+  const bool one = n <= tl;  // uniform over the CTA
+  const long long off = row * M * L;
+  float* s = w.sc + off;
+  // lanes [t0, t0 + tn) into e
+  auto load = [&](int t0, int tn) {
+    __syncthreads();
+    stage(tn, [&](int i) { return s[t0 + i]; }, [&](int i, float v) { e[i] = v; });
+    __syncthreads();
+  };
+  if (one) load(0, n);
+
+  if (IMPL == kExact) {
+    for (int t0 = 0; t0 < n; t0 += tl) {
+      const int tn = min(tl, n - t0);
+      if (!one) load(t0, tn);
+      for (int c = tid; c < tn / L; c += kSoftmaxThreads) {
+        float mx = e[c * L];
+        for (int l = 1; l < L; ++l) mx = fmaxf(mx, e[c * L + l]);
+        bm[t0 / L + c] = mx;
+      }
+    }
+    __syncthreads();
+    if (tid == 0)  // the running max m_c = max(m_{c-1}, block max), in table order
+      for (int c = 1; c < live; ++c) bm[c] = fmaxf(bm[c - 1], bm[c]);
+    __syncthreads();
+    for (int c = tid; c < live; c += kSoftmaxThreads) {  // alpha_c = e^(m_{c-1} - m_c)
+      am[c] = expf((c ? bm[c - 1] : kNegInf) - bm[c]);
+      w.al[row * M + c] = am[c];
+    }
+    for (int t0 = 0; t0 < n; t0 += tl) {
+      const int tn = min(tl, n - t0);
+      if (!one) load(t0, tn);
+      for (int i = tid; i < tn; i += kSoftmaxThreads) {
+        const float v = expf(e[i] - bm[(t0 + i) / L]);
+        e[i] = v;
+        s[t0 + i] = v;
+      }
+      __syncthreads();
+      for (int c = tid; c < tn / L; c += kSoftmaxThreads) {
+        float t = 0.0f;
+        for (int l = 0; l < L; ++l) t = t + e[c * L + l];
+        bs[t0 / L + c] = t;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float l = 0.0f;
+      for (int c = 0; c < live; ++c) l = l * am[c] + bs[c];
+      w.lr[row] = l;
+    }
+    return;
+  }
+
+  float mx = kNegInf;
+  for (int t0 = 0; t0 < n; t0 += tl) {
+    const int tn = min(tl, n - t0);
+    if (!one) load(t0, tn);
+    for (int i = tid; i < tn; i += kSoftmaxThreads) mx = fmaxf(mx, e[i]);
+  }
+  mx = cta_max(mx, red);
+  int* ea = w.ea + off;
+  int* ka = w.ka + off;
+  // pass 1: every lane's e^u and each block's sum; cordic_pallas keeps the
+  // lanes' codes for pass 2, cordic_fixed a long row's e^u
+  for (int t0 = 0; t0 < n; t0 += tl) {
+    const int tn = min(tl, n - t0);
+    if (!one) load(t0, tn);
+    for (int i = tid; i < tn; i += kSoftmaxThreads) {
+      const float u = e[i] - mx;
+      if (IMPL == kCordicFixed) {
+        e[i] = lane_exp_fixed(u, p);
+        if (!one) s[t0 + i] = e[i];
+      } else {
+        int eq, ki;
+        bool dead;
+        exp_codes(u, p, eq, ki, dead);
+        ea[t0 + i] = eq;
+        ka[t0 + i] = dead ? kDead : ki;
+        e[i] = dead ? 0.0f : dequantize_f(eq, p.fb) * exp2_i32(ki);  // lane_exp
+      }
+    }
+    __syncthreads();
+    for (int c = tid; c < tn / L; c += kSoftmaxThreads) {
+      float t = 0.0f;
+      for (int l = 0; l < L; ++l) t = t + e[c * L + l];
+      bs[t0 / L + c] = t;
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {  // the row sum, folded in table order
+    float t = 0.0f;
+    for (int c = 0; c < live; ++c) t = t + bs[c];
+    total = t;
+  }
+  __syncthreads();
+  const float ssum = total;
+  const RowSum rsum = row_sum_frexp(ssum, p);
+  // pass 2: the probabilities from the kept e^u
+  for (int i = tid; i < n; i += kSoftmaxThreads) {
+    if (IMPL == kCordicFixed) {
+      s[i] = prob_fixed(one ? e[i] : s[i], ssum, p);
+    } else {
+      const int ki = ka[i];
+      s[i] = prob_codes(ea[i], ki, ki == kDead, rsum, p);
+    }
+  }
+}
+
+// A pv thread takes value column `cc` of the staged tile vs (nc, L, vcols)
+// and forms, for every row r in [r_lo, r_hi) and block j < nc, the P.V sum
+// over the block's lanes, left to right, of ps[r][j * L + l] * vs[j][l][cc]
+// (ps: (rows, nc * L)); dst(r, j, sum) keeps it. Rows go kPvRows at a time,
+// so each staged value is read once per kPvRows rows.
+template <typename Dst>
+__device__ __forceinline__ void pv_sums(const float* ps, const float* vs, int r_lo, int r_hi,
+                                        int nc, int L, int vcols, int cc, Dst dst) {
+  const int ncl = nc * L;
+  const int nrows = r_hi;
+  for (int r0 = r_lo; r0 < r_hi; r0 += kPvRows) {
+    float pv[kPvRows][kMaxChunk];
+#pragma unroll
+    for (int r = 0; r < kPvRows; ++r)
+#pragma unroll
+      for (int j = 0; j < kMaxChunk; ++j) pv[r][j] = 0.0f;
+    for (int l = 0; l < L; ++l) {
+#pragma unroll
+      for (int j = 0; j < kMaxChunk; ++j) {
+        if (j < nc) {
+          const float v = vs[(j * L + l) * vcols + cc];
+#pragma unroll
+          for (int r = 0; r < kPvRows; ++r)
+            if (r0 + r < nrows) pv[r][j] = pv[r][j] + ps[(r0 + r) * ncl + j * L + l] * v;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kPvRows; ++r)
+#pragma unroll
+      for (int j = 0; j < kMaxChunk; ++j)
+        if (r0 + r < nrows && j < nc) dst(r0 + r, j, pv[r][j]);
+  }
+}
+
+// Stage the lane weights of `nrows` rows (row0 + r) over the table columns
+// [c0, c0 + nc) into ps (nrows, nc * L).
+__device__ __forceinline__ void stage_weights(float* ps, const Workspace& w, long long row0,
+                                              int nrows, int c0, int nc, int L, int M) {
+  const int ncl = nc * L;
+  const long long ml = (long long)M * L;
+  stage(nrows * ncl,
+        [&](int i) {
+          const int r = i / ncl;
+          return w.sc[(row0 + r) * ml + (long long)c0 * L + (i - r * ncl)];
+        },
+        [&](int i, float v) { ps[i] = v; });
+}
+
+// The fold phase of kFoldThreads columns of one row (blockIdx.x: the row
+// within its slot times the column slices, blockIdx.y: the slot): each
+// column's accumulator over the live blocks' P.V sums in table order, acc =
+// acc + pv_c (exact: acc = acc * alpha_c + pv_c, then acc / l). Shared by
+// GQA and MLA.
+template <bool EXACT>
+__device__ __forceinline__ void fold_row(float* ws, long long rows, int rows_per_slot,
+                                         int width, const int* k_len, int L, int M,
+                                         float* out) {
+  extern __shared__ float smem[];  // (M) exact: alpha
+  const Workspace w = carve(ws, rows, M, L);
+  const int slices = (width + kFoldThreads - 1) / kFoldThreads;
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int slice = blockIdx.x % slices;
+  const long long row = (long long)b * rows_per_slot + blockIdx.x / slices;
+  const int live = live_blocks(k_len[b], L, M);
+  if (EXACT) {
+    for (int c = tid; c < live; c += blockDim.x) smem[c] = w.al[row * M + c];
+    __syncthreads();
+  }
+  const float* pv = w.pv + row * M * width;
+  const int d = slice * kFoldThreads + tid;
+  if (d < width) {
+    float acc = 0.0f;
+    for (int c0 = 0; c0 < live; c0 += kFoldBatch) {  // kFoldBatch loads, then the adds
+      float v[kFoldBatch];
+#pragma unroll
+      for (int u = 0; u < kFoldBatch; ++u)
+        if (c0 + u < live) v[u] = pv[(long long)(c0 + u) * width + d];
+#pragma unroll
+      for (int u = 0; u < kFoldBatch; ++u)
+        if (c0 + u < live) acc = EXACT ? acc * smem[c0 + u] + v[u] : acc + v[u];
+    }
+    out[row * width + d] = EXACT ? acc / w.lr[row] : acc;
+  }
+}
+
+// A softmax CTA's shared memory: one tile of lanes and three (M) arrays.
+__host__ __forceinline__ size_t softmax_smem(int L, int M, int tile) {
+  return sizeof(float) * ((size_t)(tile < M ? tile : M) * L + 3 * (size_t)M);
+}
+
+// The fold grid's x extent and CTA width for `rows_per_slot` rows `width` wide.
+__host__ __forceinline__ int fold_ctas(int rows_per_slot, int width) {
+  return rows_per_slot * ((width + kFoldThreads - 1) / kFoldThreads);
+}
+
+__host__ __forceinline__ int fold_threads(int width) {
+  return width >= kFoldThreads ? kFoldThreads : (width + 31) / 32 * 32;
+}
+
+// A launch that may need more than the default 48 KB of dynamic shared memory.
+template <typename K>
+__host__ int smem_ok(K kern, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+// ---------------------------------------------------------------------------
+// GQA
+// ---------------------------------------------------------------------------
+
+// TQ: query dtype; TKV: the kv_dtype cast replayed per element; TP: the
+// pool's storage (float, or int8_t/int16_t codes with per-block scales).
+template <typename TQ, typename TKV, typename TP>
+__global__ void __launch_bounds__(kScoreThreads)
+    gqa_decode_kernel_score(const TQ* __restrict__ q, const TP* __restrict__ k_pool,
+                            const float* __restrict__ k_scale, float code_res,
+                            const int* __restrict__ tables, const int* __restrict__ k_len,
+                            float* __restrict__ ws, int KH, int G, int hd, int L, int M,
+                            int chunk, float scale, const CordicParams p) {
+  extern __shared__ float smem[];
+  __shared__ long long blk[kMaxChunk];
+  __shared__ float ksc[kMaxChunk];
+  const int hs = hd + 1;    // padded row stride: conflict-free across rows
+  float* qs = smem;         // (G, hs)
+  float* ks = qs + G * hs;  // (chunk, L, hs)
+  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
+  const int klen = k_len[b];
+  const int live = live_blocks(klen, L, M);
+  const int c0 = blockIdx.x * chunk;
+  if (c0 >= live) return;
+  const int nc = min(chunk, live - c0);
+  constexpr bool QUANT = !std::is_same<TP, float>::value;
+  if (tid < nc) {
+    const long long id = tables[(long long)b * M + c0 + tid];
+    blk[tid] = id;
+    ksc[tid] = QUANT ? k_scale[id * KH + h] : 1.0f;
+  }
+  const long long qoff = ((long long)b * KH + h) * G * hd;
+  stage(G * hd, [&](int i) { return load_as_float(q, qoff + i); },
+        [&](int i, float v) {
+          const int g = i / hd;
+          qs[g * hs + (i - g * hd)] = v;
+        });
+  __syncthreads();
+  const int hd4 = hd / 4;
+  stage(nc * L * hd4,
+        [&](int i) {
+          const int jl = i / hd4, j = jl / L;
+          return load_quad(k_pool, ((blk[j] * L + (jl - j * L)) * KH + h) * hd +
+                                       4 * (i - jl * hd4));
+        },
+        [&](int i, const auto& v) {
+          const int jl = i / hd4;
+          put_quad<TKV, TP>(ks + jl * hs + 4 * (i - jl * hd4), v, ksc[jl / L], code_res, p);
+        });
+  __syncthreads();
+  const long long ml = (long long)M * L;
+  const long long row0 = ((long long)b * KH + h) * G;
+  // item i: score (g, l) of the blocks j = par, par + 2, ... (par = i / (G L))
+  for (int i = tid; i < 2 * G * L; i += kScoreThreads) {
+    const int par = i / (G * L), gl = i - par * G * L;
+    const int g = gl / L, l = gl - g * L;
+    if (par >= nc) continue;
+    const float* qr = qs + g * hs;
+    float sc[kMaxChunk / 2];
+#pragma unroll
+    for (int u = 0; u < kMaxChunk / 2; ++u) sc[u] = 0.0f;
+    for (int d = 0; d < hd; ++d) {
+      const float qd = qr[d];
+#pragma unroll
+      for (int u = 0; u < kMaxChunk / 2; ++u) {
+        const int j = par + 2 * u;
+        if (j < nc) sc[u] = sc[u] + qd * ks[(j * L + l) * hs + d];
+      }
+    }
+    float* o = ws + (row0 + g) * ml + (long long)c0 * L + l;
+#pragma unroll
+    for (int u = 0; u < kMaxChunk / 2; ++u) {
+      const int j = par + 2 * u;
+      if (j < nc) {
+        const float v = sc[u] * scale;
+        o[j * L] = ((c0 + j) * L + l < klen) ? v : kNegInf;
+      }
+    }
+  }
+}
+
+template <int IMPL>
+__global__ void __launch_bounds__(kSoftmaxThreads)
+    gqa_decode_kernel_softmax(float* __restrict__ ws, int B, int rows_per_slot,
+                              const int* __restrict__ k_len, int L, int M, int tile,
+                              const CordicParams p) {
+  softmax_row<IMPL>(ws, (long long)B * rows_per_slot, rows_per_slot, k_len, L, M, tile, p);
+}
+
+// The P.V sums of `chunk` blocks for all G rows of a kv-head: V staged (and
+// dequantized) once, two threads a value column.
+template <typename TKV, typename TP>
+__global__ void __launch_bounds__(kPvThreads)
+    gqa_decode_kernel_pv(const TP* __restrict__ v_pool, const float* __restrict__ v_scale,
+                         float code_res, const int* __restrict__ tables,
+                         const int* __restrict__ k_len, float* __restrict__ ws, int B, int KH,
+                         int G, int hd, int L, int M, int chunk, const CordicParams p) {
+  extern __shared__ float smem[];
+  __shared__ long long blk[kMaxChunk];
+  __shared__ float vsc[kMaxChunk];
+  float* vs = smem;                   // (chunk, L, hd) values
+  float* ps = vs + chunk * L * hd;    // (G, chunk * L) lane weights
+  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
+  const int live = live_blocks(k_len[b], L, M);
+  const int c0 = blockIdx.x * chunk;
+  if (c0 >= live) return;
+  const int nc = min(chunk, live - c0);
+  constexpr bool QUANT = !std::is_same<TP, float>::value;
+  if (tid < nc) {
+    const long long id = tables[(long long)b * M + c0 + tid];
+    blk[tid] = id;
+    vsc[tid] = QUANT ? v_scale[id * KH + h] : 1.0f;
+  }
+  const Workspace w = carve(ws, (long long)B * KH * G, M, L);
+  const long long row0 = ((long long)b * KH + h) * G;
+  stage_weights(ps, w, row0, G, c0, nc, L, M);
+  __syncthreads();
+  const int hd4 = hd / 4;
+  stage(nc * L * hd4,
+        [&](int i) {
+          const int jl = i / hd4, j = jl / L;
+          return load_quad(v_pool, ((blk[j] * L + (jl - j * L)) * KH + h) * hd +
+                                       4 * (i - jl * hd4));
+        },
+        [&](int i, const auto& v) {
+          const int jl = i / hd4;
+          put_quad<TKV, TP>(vs + jl * hd + 4 * (i - jl * hd4), v, vsc[jl / L], code_res, p);
+        });
+  __syncthreads();
+  // thread (half, column): each half of the CTA takes half of the rows
+  const int half = tid / kPvCols, rh = (G + 1) / 2;
+  for (int d = tid - half * kPvCols; d < hd; d += kPvCols)
+    pv_sums(ps, vs, half * rh, min(G, (half + 1) * rh), nc, L, hd, d,
+            [&](int r, int j, float v) { w.pv[((row0 + r) * M + c0 + j) * hd + d] = v; });
+}
+
+template <bool EXACT>
+__global__ void __launch_bounds__(kFoldThreads)
+    gqa_decode_kernel_fold(float* __restrict__ ws, int B, int rows_per_slot, int hd,
+                           const int* __restrict__ k_len, int L, int M, float* __restrict__ out) {
+  fold_row<EXACT>(ws, (long long)B * rows_per_slot, rows_per_slot, hd, k_len, L, M, out);
 }
 
 // The arguments of one GQA decode launch.
@@ -222,24 +619,44 @@ struct GqaArgs {
   const float *k_scale, *v_scale;
   float code_res;
   const int *tables, *k_len;
-  float* out;
-  int B, KH, G, hd, L, M;
+  float *out, *ws;
+  int B, KH, G, hd, L, M, chunk, tile;
   float scale;
 };
 
 template <typename TQ, typename TKV, typename TP, int IMPL>
 int launch(const GqaArgs& a, const CordicParams& p, cudaStream_t s) {
-  auto kern = gqa_decode_kernel<TQ, TKV, TP, IMPL>;
-  const int G = a.G, hd = a.hd, L = a.L;
-  const size_t bytes = sizeof(float) * (2 * G * hd + 2 * L * hd + G * L + 3 * G);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kern<<<dim3(a.B, a.KH), kThreads, bytes, s>>>(
-      (const TQ*)a.q, (const TP*)a.k_pool, (const TP*)a.v_pool, a.k_scale, a.v_scale,
-      a.code_res, a.tables, a.k_len, a.out, a.KH, G, hd, L, a.M, a.scale, p);
+  const int G = a.G, hd = a.hd, L = a.L, M = a.M;
+  const dim3 blocks((M + a.chunk - 1) / a.chunk, a.KH, a.B);
+  auto score = gqa_decode_kernel_score<TQ, TKV, TP>;
+  const size_t score_bytes = sizeof(float) * (size_t)(G + a.chunk * L) * (hd + 1);
+  int rc = smem_ok(score, score_bytes);
+  if (rc) return rc;
+  score<<<blocks, kScoreThreads, score_bytes, s>>>(
+      (const TQ*)a.q, (const TP*)a.k_pool, a.k_scale, a.code_res, a.tables, a.k_len, a.ws,
+      a.KH, G, hd, L, M, a.chunk, a.scale, p);
+  if ((rc = (int)cudaGetLastError())) return rc;
+
+  auto softmax = gqa_decode_kernel_softmax<IMPL>;
+  const size_t softmax_bytes = softmax_smem(L, M, a.tile);
+  if ((rc = smem_ok(softmax, softmax_bytes))) return rc;
+  softmax<<<dim3(a.KH * G, a.B), kSoftmaxThreads, softmax_bytes, s>>>(a.ws, a.B, a.KH * G,
+                                                                      a.k_len, L, M, a.tile, p);
+  if ((rc = (int)cudaGetLastError())) return rc;
+
+  auto pv = gqa_decode_kernel_pv<TKV, TP>;
+  const size_t pv_bytes = sizeof(float) * (size_t)a.chunk * L * (hd + G);
+  if ((rc = smem_ok(pv, pv_bytes))) return rc;
+  pv<<<blocks, kPvThreads, pv_bytes, s>>>((const TP*)a.v_pool, a.v_scale, a.code_res,
+                                          a.tables, a.k_len, a.ws, a.B, a.KH, G, hd, L, M,
+                                          a.chunk, p);
+  if ((rc = (int)cudaGetLastError())) return rc;
+
+  auto fold = gqa_decode_kernel_fold<IMPL == kExact>;
+  const size_t fold_bytes = sizeof(float) * (size_t)M;
+  if ((rc = smem_ok(fold, fold_bytes))) return rc;
+  fold<<<dim3(fold_ctas(a.KH * G, hd), a.B), fold_threads(hd), fold_bytes, s>>>(
+      a.ws, a.B, a.KH * G, hd, a.k_len, L, M, a.out);
   return (int)cudaGetLastError();
 }
 
@@ -275,20 +692,43 @@ int launch_pool(int pool_dtype, int impl, const GqaArgs& a, const CordicParams& 
 // impl: 0 exact, 1 cordic_pallas, 2 cordic_fixed. q_dtype / kv_dtype: 0 float32,
 // 1 bfloat16. pool_dtype: 0 float32 pools (k_scale / v_scale unused), 1 int8
 // codes, 2 int16 codes, each dequantized as code * code_res times its block's
-// per-head scale (k_scale / v_scale: (N, 1, KH, 1) float32).
+// per-head scale (k_scale / v_scale: (N, 1, KH, 1) float32). ws: the
+// workspace of paged_attention.gqa_plan, ws_floats float32 words (at least
+// workspace_floats(B * KH * G, M, L, hd)); chunk: blocks of a score / pv CTA
+// (1..4); tile: blocks a softmax CTA holds in shared memory at once.
 extern "C" int paged_gqa_decode(const void* q, int q_dtype, const void* k_pool,
                                 const void* v_pool, int pool_dtype, const void* k_scale,
                                 const void* v_scale, float code_res, const void* tables,
-                                const void* k_len, void* out, int B, int KH, int G, int hd,
-                                int L, int M, float scale, int impl, int kv_dtype,
-                                const CordicParams* p, void* stream) {
+                                const void* k_len, void* out, void* ws, long long ws_floats,
+                                int B, int KH, int G, int hd, int L, int M, int chunk, int tile,
+                                float scale, int impl, int kv_dtype, const CordicParams* p,
+                                void* stream) {
   if (B == 0) return (int)cudaGetLastError();
   if (pool_dtype != 0 && (k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (chunk < 1 || chunk > kMaxChunk || tile < 1 || hd % 4 ||
+      ws_floats < workspace_floats((long long)B * KH * G, M, L, hd))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const GqaArgs a{q, k_pool, v_pool, (const float*)k_scale, (const float*)v_scale,
-                  code_res, (const int*)tables, (const int*)k_len, (float*)out,
-                  B, KH, G, hd, L, M, scale};
+  const GqaArgs a{q,
+                  k_pool,
+                  v_pool,
+                  (const float*)k_scale,
+                  (const float*)v_scale,
+                  code_res,
+                  (const int*)tables,
+                  (const int*)k_len,
+                  (float*)out,
+                  (float*)ws,
+                  B,
+                  KH,
+                  G,
+                  hd,
+                  L,
+                  M,
+                  chunk,
+                  tile,
+                  scale};
   const CordicParams& pp = *p;
   if (q_dtype == 0)
     return kv_dtype == 0 ? launch_pool<float, float>(pool_dtype, impl, a, pp, s)
@@ -300,203 +740,253 @@ extern "C" int paged_gqa_decode(const void* q, int q_dtype, const void* k_pool,
 // ---------------------------------------------------------------------------
 // Paged MLA decode, absorbed form.
 //
-// Replaces mla_decode of repro/kernels/paged_attention.py (:421; pallas_call
-// :460, body _mla_kernel :384, shared _pass_update :197). Each slot scores
-// q_eff . c + q_rope . r against its live blocks of the compressed-latent
-// pool (N, L, R) and the shared rope-key pool (N, L, P) and accumulates the
-// probabilities against the latent rows themselves: the output is the
-// (H, R) latent, projected by wv_b outside.
+// Each slot scores q_eff . c + q_rope . r against its live blocks of the
+// compressed-latent pool (N, L, R) and the shared rope-key pool (N, L, P) and
+// accumulates the probabilities against the latent rows themselves: the
+// output is the (H, R) latent, projected by wv_b outside. The pools have no
+// head axis, so one staged block serves every head of a CTA. The phases:
 //
-// What bounds it here: as for GQA, neither rate at serving shapes. A step
-// reads each live block of (L, R + P) floats once per pass (36 KB at
-// L 16, R 512, P 64), so the kernel is again a latency chain. Unlike GQA
-// the pools have no head axis: one staged block serves every head, so the
-// grid is (slot, head group) with heads_per_cta heads per block (B x H/4 =
-// 16 blocks at 4 slots and 16 heads), each block walking its own table row
-// over the live blocks only. A score sums R + P products: 16 threads share
-// it (strided partials, gathered by shuffles), so a block's heads x lanes
-// scores take a few rounds rather than one 576-long chain per thread. The
-// latent accumulator is (heads, R) in shared memory, one thread per column
-// and head, summing the block's lanes left to right.
+//   score    grid (ceil(M / chunk), ceil(H / HG), B): HG heads of a slot a
+//            CTA, its `chunk` blocks staged one after another; a score's
+//            two sums (R and P products) each take 16 strided partials,
+//            thread t summing partial t for 8 heads at once, then one
+//            thread a score adds the partials
+//   softmax  grid (H, B), one head a CTA (the GQA phase's code)
+//   pv       grid (ceil(M / chunk), ceil(R / 128), B): 128 latent columns
+//            of `chunk` blocks a CTA, every head's P.V sums
+//   fold     grid (H * ceil(R / 128), B), 128 latent columns of a head a CTA
 //
-// Order, shared with mla_decode_plain: partial t of a score sums elements
-// t, t + 16, ... left to right; lane 0 adds the 16 partials left to right,
-// the latent sum and the rope sum separately; score = (sum_R + sum_P) *
-// scale, as _mla_kernel writes it. Block and latent sums run left to right
-// over the lanes.
+// Order, shared with mla_decode_plain: partial t of a score sum adds
+// elements t, t + 16, ... left to right; the 16 partials are added left to
+// right, the latent sum and the rope sum separately; score = (sum_R +
+// sum_P) * scale,
+// as _mla_kernel writes it. Block and latent sums run left to right over the
+// lanes, folded in table order as above.
+// ---------------------------------------------------------------------------
 namespace {
 
-constexpr int kMlaThreads = 256;
-constexpr int kSplit = 16;  // MLA_SPLIT: threads (strided partials) per score
+constexpr int kMlaThreads = 512;
+constexpr int kSplit = 16;  // MLA_SPLIT: strided partials per score sum
+// heads whose partial t of one lane's score one thread sums at once
+constexpr int kMlaHeads = 8;
 
-// A dot product of n floats in the fixed order above, on a 16-lane group
-// whose lane t is `t`; the result is exact on lane 0 of the group. Every
-// lane of the warp must call it (the partials are gathered by shuffles).
-__device__ __forceinline__ float split_dot(const float* a, const float* b, int n, int t) {
-  float part = 0.0f;
-  for (int i = t; i < n; i += kSplit) part = part + a[i] * b[i];
-  float s = __shfl_sync(0xffffffffu, part, 0, kSplit);
-  for (int k = 1; k < kSplit; ++k) s = s + __shfl_sync(0xffffffffu, part, k, kSplit);
-  return s;
-}
-
-template <typename TQ, int IMPL>
-__global__ void mla_decode_kernel(const TQ* __restrict__ q_eff, const TQ* __restrict__ q_rope,
-                                  const float* __restrict__ c_pool,
-                                  const float* __restrict__ r_pool,
-                                  const int* __restrict__ tables,
-                                  const int* __restrict__ k_len, float* __restrict__ out,
-                                  int H, int R, int P, int L, int M, int HG, float scale,
-                                  const CordicParams p) {
+template <typename TQ>
+__global__ void __launch_bounds__(kMlaThreads)
+    mla_decode_kernel_score(const TQ* __restrict__ q_eff, const TQ* __restrict__ q_rope,
+                            const float* __restrict__ c_pool, const float* __restrict__ r_pool,
+                            const int* __restrict__ tables, const int* __restrict__ k_len,
+                            float* __restrict__ ws, int H, int R, int P, int L, int M, int HG,
+                            int chunk, float scale) {
   extern __shared__ float smem[];
-  float* cs = smem;            // (L, R) latent block
-  float* rs = cs + L * R;      // (L, P) rope-key block
-  float* qe = rs + L * P;      // (HG, R)
-  float* qr = qe + HG * R;     // (HG, P)
-  float* sc = qr + HG * P;     // (HG, L) scores, then lane weights
-  float* acc = sc + HG * L;    // (HG, R) latent accumulator
-  float* mrow = acc + HG * R;  // (HG,) running max
-  float* lrow = mrow + HG;     // (HG,) running sum
-  float* alpha = lrow + HG;    // (HG,) online rescale factor (exact)
-
-  const int b = blockIdx.x, h0 = blockIdx.y * HG, tid = threadIdx.x;
-  const int hg = min(HG, H - h0);
+  __shared__ long long blk[kMaxChunk];
+  // latent and rope rows padded by 16: the two score groups of a warp read
+  // neighbouring lanes' rows on other banks
+  const int cst = R + kSplit, rst = P + kSplit;
+  float* qe = smem;               // (hg, R) latent queries, then (hg, P) rope ones
+  float* cs = qe + HG * (R + P);  // (L, cst) latent block
+  float* rs = cs + L * cst;       // (L, rst) rope-key block
+  float* part = rs + L * rst;     // (2, HG, L, kSplit + 1) partials: latent, rope
+  const int b = blockIdx.z, h0 = blockIdx.y * HG, tid = threadIdx.x;
   const int klen = k_len[b];
-  const int* trow = tables + (long long)b * M;
-  const long long qoff = ((long long)b * H + h0) * R;
-  const long long roff = ((long long)b * H + h0) * P;
-
-  for (int i = tid; i < hg * R; i += kMlaThreads) {
-    qe[i] = load_as_float(q_eff, qoff + i);
-    acc[i] = 0.0f;
-  }
-  for (int i = tid; i < hg * P; i += kMlaThreads) qr[i] = load_as_float(q_rope, roff + i);
-  for (int h = tid; h < hg; h += kMlaThreads) {
-    mrow[h] = kNegInf;
-    lrow[h] = 0.0f;
-  }
-  __syncthreads();
-
-  const int grp = tid / kSplit, lane = tid - grp * kSplit;
-  constexpr int kGroups = kMlaThreads / kSplit;
-  const int nsc = hg * L;
-  const int live = min(M, (klen + L - 1) / L);  // blocks with c * L < k_len
-  constexpr bool CORDIC = IMPL != kExact;
-  const int passes = CORDIC ? 3 : 1;
-  for (int pass = 0; pass < passes; ++pass) {
-    for (int c = 0; c < live; ++c) {
-      const long long blk = trow[c];
-      const int base = c * L;
-      for (int i = tid; i < L * R; i += kMlaThreads) cs[i] = c_pool[blk * L * R + i];
-      for (int i = tid; i < L * P; i += kMlaThreads) rs[i] = r_pool[blk * L * P + i];
-      __syncthreads();
-      // uniform trip count across the warp: every lane reaches the shuffles
-      for (int s0 = 0; s0 < nsc; s0 += kGroups) {
-        const int si = s0 + grp;
-        const bool on = si < nsc;
-        const int h = on ? si / L : 0;
-        const int l = on ? si - h * L : 0;
-        const float sr = split_dot(qe + h * R, cs + l * R, R, lane);
-        const float sp = split_dot(qr + h * P, rs + l * P, P, lane);
-        if (on && lane == 0) {
-          const float s = (sr + sp) * scale;
-          sc[si] = (base + l < klen) ? s : kNegInf;
+  const int live = live_blocks(klen, L, M);
+  const int c0 = blockIdx.x * chunk;
+  if (c0 >= live) return;
+  const int nc = min(chunk, live - c0);
+  const int hg = min(HG, H - h0);
+  if (tid < nc) blk[tid] = tables[(long long)b * M + c0 + tid];
+  const long long qoff = ((long long)b * H + h0) * R, roff = ((long long)b * H + h0) * P;
+  stage(hg * (R + P),
+        [&](int i) {
+          return i < hg * R ? load_as_float(q_eff, qoff + i)
+                            : load_as_float(q_rope, roff + (i - hg * R));
+        },
+        [&](int i, float v) { qe[i] = v; });  // qr follows qe at hg * R
+  // thread (task, t): partial t of lane l's scores for kMlaHeads heads
+  const int task = tid / kSplit, t = tid - task * kSplit;
+  const int tasks = L * ((hg + kMlaHeads - 1) / kMlaHeads);
+  const int pst = kSplit + 1;  // padded: the final sums read across banks
+  const int r4 = R / 4, p4 = P / 4;
+  const long long ml = (long long)M * L;
+  const long long row0 = (long long)b * H + h0;
+  float* qrh = qe + hg * R;  // the rope queries, right after the hg latent ones
+  for (int j = 0; j < nc; ++j) {
+    const int base = (c0 + j) * L;
+    __syncthreads();  // blk is set; the previous block's scores are done with cs / rs
+    const long long id = blk[j];
+    stage(L * (r4 + p4),
+          [&](int i) {
+            return i < L * r4 ? load_quad(c_pool, id * L * R + 4 * (long long)i)
+                              : load_quad(r_pool, id * L * P + 4 * (long long)(i - L * r4));
+          },
+          [&](int i, const float4& v) {
+            float* dst;
+            if (i < L * r4) {
+              const int l = i / r4;
+              dst = cs + l * cst + 4 * (i - l * r4);
+            } else {
+              const int k = i - L * r4, l = k / p4;
+              dst = rs + l * rst + 4 * (k - l * p4);
+            }
+            dst[0] = v.x;
+            dst[1] = v.y;
+            dst[2] = v.z;
+            dst[3] = v.w;
+          });
+    __syncthreads();
+    for (int k = task; k < tasks; k += kMlaThreads / kSplit) {
+      const int l = k % L, h0 = k / L * kMlaHeads;
+      float pr[kMlaHeads], pp[kMlaHeads];
+#pragma unroll
+      for (int u = 0; u < kMlaHeads; ++u) pr[u] = pp[u] = 0.0f;
+      const float* cr = cs + l * cst;
+      for (int i = t; i < R; i += kSplit) {
+        const float c = cr[i];
+#pragma unroll
+        for (int u = 0; u < kMlaHeads; ++u)
+          if (h0 + u < hg) pr[u] = pr[u] + qe[(h0 + u) * R + i] * c;
+      }
+      const float* rr = rs + l * rst;
+      for (int i = t; i < P; i += kSplit) {
+        const float r = rr[i];
+#pragma unroll
+        for (int u = 0; u < kMlaHeads; ++u)
+          if (h0 + u < hg) pp[u] = pp[u] + qrh[(h0 + u) * P + i] * r;
+      }
+#pragma unroll
+      for (int u = 0; u < kMlaHeads; ++u) {
+        if (h0 + u < hg) {
+          part[((h0 + u) * L + l) * pst + t] = pr[u];
+          part[((HG + h0 + u) * L + l) * pst + t] = pp[u];
         }
       }
-      __syncthreads();
-
-      if (!CORDIC) {
-        for (int g = tid; g < hg; g += kMlaThreads) {
-          float mx = sc[g * L];
-          for (int l = 1; l < L; ++l) mx = fmaxf(mx, sc[g * L + l]);
-          const float m_old = mrow[g];
-          const float m_new = fmaxf(m_old, mx);
-          alpha[g] = expf(m_old - m_new);
-          mrow[g] = m_new;
-        }
-        __syncthreads();
-        for (int i = tid; i < nsc; i += kMlaThreads) sc[i] = expf(sc[i] - mrow[i / L]);
-        __syncthreads();
-        for (int g = tid; g < hg; g += kMlaThreads) {
-          float bs = 0.0f;
-          for (int l = 0; l < L; ++l) bs = bs + sc[g * L + l];
-          lrow[g] = lrow[g] * alpha[g] + bs;
-        }
-        for (int i = tid; i < hg * R; i += kMlaThreads) {
-          const int g = i / R, r = i - g * R;
-          float pv = 0.0f;
-          for (int l = 0; l < L; ++l) pv = pv + sc[g * L + l] * cs[l * R + r];
-          acc[i] = acc[i] * alpha[g] + pv;
-        }
-      } else if (pass == 0) {
-        for (int g = tid; g < hg; g += kMlaThreads) {
-          float mx = sc[g * L];
-          for (int l = 1; l < L; ++l) mx = fmaxf(mx, sc[g * L + l]);
-          mrow[g] = fmaxf(mrow[g], mx);
-        }
-      } else if (pass == 1) {
-        for (int i = tid; i < nsc; i += kMlaThreads)
-          sc[i] = pass_exp<IMPL>(sc[i] - mrow[i / L], p);
-        __syncthreads();
-        for (int g = tid; g < hg; g += kMlaThreads) {
-          float bs = 0.0f;
-          for (int l = 0; l < L; ++l) bs = bs + sc[g * L + l];
-          lrow[g] = lrow[g] + bs;
-        }
-      } else {
-        for (int i = tid; i < nsc; i += kMlaThreads) {
-          const int g = i / L;
-          sc[i] = pass_prob<IMPL>(sc[i] - mrow[g], lrow[g], p);
-        }
-        __syncthreads();
-        for (int i = tid; i < hg * R; i += kMlaThreads) {
-          const int g = i / R, r = i - g * R;
-          float pv = 0.0f;
-          for (int l = 0; l < L; ++l) pv = pv + sc[g * L + l] * cs[l * R + r];
-          acc[i] = acc[i] + pv;
-        }
+    }
+    __syncthreads();
+    for (int si = tid; si < hg * L; si += kMlaThreads) {  // si = h * L + l
+      const float* a = part + si * pst;
+      const float* c = part + (HG * L + si) * pst;
+      float sr = a[0], sp = c[0];
+      for (int k = 1; k < kSplit; ++k) {
+        sr = sr + a[k];
+        sp = sp + c[k];
       }
-      __syncthreads();
+      const int h = si / L, l = si - h * L;
+      const float v = (sr + sp) * scale;
+      ws[(row0 + h) * ml + base + l] = (base + l < klen) ? v : kNegInf;
     }
   }
+}
 
-  for (int i = tid; i < hg * R; i += kMlaThreads)
-    out[qoff + i] = CORDIC ? acc[i] : acc[i] / lrow[i / R];
+template <int IMPL>
+__global__ void __launch_bounds__(kSoftmaxThreads)
+    mla_decode_kernel_softmax(float* __restrict__ ws, int B, int H,
+                              const int* __restrict__ k_len, int L, int M, int tile,
+                              const CordicParams p) {
+  softmax_row<IMPL>(ws, (long long)B * H, H, k_len, L, M, tile, p);
+}
+
+// The P.V sums of `chunk` blocks for all heads of a slot, over kPvCols
+// latent columns: the latent slice staged once, two threads a column.
+__global__ void __launch_bounds__(kPvThreads)
+    mla_decode_kernel_pv(const float* __restrict__ c_pool, const int* __restrict__ tables,
+                         const int* __restrict__ k_len, float* __restrict__ ws, int B, int H,
+                         int R, int L, int M, int chunk) {
+  extern __shared__ float smem[];
+  __shared__ long long blk[kMaxChunk];
+  const int cols = kPvCols;
+  float* vs = smem;                  // (chunk, L, cols) latent slice
+  float* ps = vs + chunk * L * cols; // (H, chunk * L) lane weights
+  const int b = blockIdx.z, r0 = blockIdx.y * cols, tid = threadIdx.x;
+  const int live = live_blocks(k_len[b], L, M);
+  const int c0 = blockIdx.x * chunk;
+  if (c0 >= live) return;
+  const int nc = min(chunk, live - c0);
+  if (tid < nc) blk[tid] = tables[(long long)b * M + c0 + tid];
+  const Workspace w = carve(ws, (long long)B * H, M, L);
+  const long long row0 = (long long)b * H;
+  stage_weights(ps, w, row0, H, c0, nc, L, M);
+  __syncthreads();
+  const int c4 = cols / 4, width = min(cols, R - r0);
+  stage(nc * L * c4,
+        [&](int i) {
+          const int jl = i / c4, j = jl / L, col = 4 * (i - jl * c4);
+          return load_quad(c_pool, (blk[j] * L + (jl - j * L)) * R + r0 + (col < width ? col : 0));
+        },
+        [&](int i, const float4& v) {
+          float* dst = vs + 4 * i;
+          dst[0] = v.x;
+          dst[1] = v.y;
+          dst[2] = v.z;
+          dst[3] = v.w;
+        });
+  __syncthreads();
+  // thread (half, column): each half of the CTA takes half of the heads
+  const int half = tid / kPvCols, cc = tid - half * kPvCols, hh = (H + 1) / 2;
+  if (cc < width)
+    pv_sums(ps, vs, half * hh, min(H, (half + 1) * hh), nc, L, cols, cc,
+            [&](int r, int j, float v) { w.pv[((row0 + r) * M + c0 + j) * R + r0 + cc] = v; });
+}
+
+template <bool EXACT>
+__global__ void __launch_bounds__(kFoldThreads)
+    mla_decode_kernel_fold(float* __restrict__ ws, int B, int H, int R,
+                           const int* __restrict__ k_len, int L, int M, float* __restrict__ out) {
+  fold_row<EXACT>(ws, (long long)B * H, H, R, k_len, L, M, out);
 }
 
 template <typename TQ, int IMPL>
 int launch_mla(const void* q_eff, const void* q_rope, const void* c_pool, const void* r_pool,
-               const void* tables, const void* k_len, void* out, int B, int H, int R, int P,
-               int L, int M, int HG, float scale, const CordicParams& p, cudaStream_t s) {
-  auto kern = mla_decode_kernel<TQ, IMPL>;
-  const size_t bytes =
-      sizeof(float) * ((size_t)L * R + (size_t)L * P + 2 * (size_t)HG * R +
-                       (size_t)HG * P + (size_t)HG * L + 3 * (size_t)HG);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kern<<<dim3(B, (H + HG - 1) / HG), kMlaThreads, bytes, s>>>(
+               const void* tables, const void* k_len, void* out, void* ws, int B, int H, int R,
+               int P, int L, int M, int HG, int chunk, int tile, float scale,
+               const CordicParams& p, cudaStream_t s) {
+  auto score = mla_decode_kernel_score<TQ>;
+  const size_t score_bytes =
+      sizeof(float) * ((size_t)HG * (R + P) + (size_t)L * (R + kSplit + P + kSplit) +
+                       2 * (size_t)HG * L * (kSplit + 1));
+  int rc = smem_ok(score, score_bytes);
+  if (rc) return rc;
+  score<<<dim3((M + chunk - 1) / chunk, (H + HG - 1) / HG, B), kMlaThreads, score_bytes, s>>>(
       (const TQ*)q_eff, (const TQ*)q_rope, (const float*)c_pool, (const float*)r_pool,
-      (const int*)tables, (const int*)k_len, (float*)out, H, R, P, L, M, HG, scale, p);
+      (const int*)tables, (const int*)k_len, (float*)ws, H, R, P, L, M, HG, chunk, scale);
+  if ((rc = (int)cudaGetLastError())) return rc;
+
+  auto softmax = mla_decode_kernel_softmax<IMPL>;
+  const size_t softmax_bytes = softmax_smem(L, M, tile);
+  if ((rc = smem_ok(softmax, softmax_bytes))) return rc;
+  softmax<<<dim3(H, B), kSoftmaxThreads, softmax_bytes, s>>>((float*)ws, B, H,
+                                                             (const int*)k_len, L, M, tile, p);
+  if ((rc = (int)cudaGetLastError())) return rc;
+
+  const size_t pv_bytes = sizeof(float) * (size_t)chunk * L * (kPvCols + H);
+  if ((rc = smem_ok(mla_decode_kernel_pv, pv_bytes))) return rc;
+  mla_decode_kernel_pv<<<dim3((M + chunk - 1) / chunk, (R + kPvCols - 1) / kPvCols, B),
+                         kPvThreads, pv_bytes, s>>>((const float*)c_pool, (const int*)tables,
+                                                    (const int*)k_len, (float*)ws, B, H, R, L,
+                                                    M, chunk);
+  if ((rc = (int)cudaGetLastError())) return rc;
+
+  auto fold = mla_decode_kernel_fold<IMPL == kExact>;
+  const size_t fold_bytes = sizeof(float) * (size_t)M;
+  if ((rc = smem_ok(fold, fold_bytes))) return rc;
+  fold<<<dim3(fold_ctas(H, R), B), fold_threads(R), fold_bytes, s>>>(
+      (float*)ws, B, H, R, (const int*)k_len, L, M, (float*)out);
   return (int)cudaGetLastError();
 }
 
 template <typename TQ>
 int launch_mla_impl(int impl, const void* qe, const void* qr, const void* cp, const void* rp,
-                    const void* t, const void* kl, void* o, int B, int H, int R, int P, int L,
-                    int M, int HG, float scale, const CordicParams& p, cudaStream_t s) {
+                    const void* t, const void* kl, void* o, void* ws, int B, int H, int R,
+                    int P, int L, int M, int HG, int chunk, int tile, float scale,
+                    const CordicParams& p, cudaStream_t s) {
   switch (impl) {
     case kExact:
-      return launch_mla<TQ, kExact>(qe, qr, cp, rp, t, kl, o, B, H, R, P, L, M, HG, scale, p,
-                                    s);
+      return launch_mla<TQ, kExact>(qe, qr, cp, rp, t, kl, o, ws, B, H, R, P, L, M, HG, chunk,
+                                    tile, scale, p, s);
     case kCordicPallas:
-      return launch_mla<TQ, kCordicPallas>(qe, qr, cp, rp, t, kl, o, B, H, R, P, L, M, HG,
-                                           scale, p, s);
+      return launch_mla<TQ, kCordicPallas>(qe, qr, cp, rp, t, kl, o, ws, B, H, R, P, L, M, HG,
+                                           chunk, tile, scale, p, s);
     case kCordicFixed:
-      return launch_mla<TQ, kCordicFixed>(qe, qr, cp, rp, t, kl, o, B, H, R, P, L, M, HG,
-                                          scale, p, s);
+      return launch_mla<TQ, kCordicFixed>(qe, qr, cp, rp, t, kl, o, ws, B, H, R, P, L, M, HG,
+                                          chunk, tile, scale, p, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -504,20 +994,27 @@ int launch_mla_impl(int impl, const void* qe, const void* qr, const void* cp, co
 
 }  // namespace
 
-// impl: 0 exact, 1 cordic_pallas, 2 cordic_fixed. q_dtype: 0 float32, 1 bfloat16 (q_eff and
-// q_rope alike). heads_per_cta: heads of one block (grid y = ceil(H / it)).
+// impl: 0 exact, 1 cordic_pallas, 2 cordic_fixed. q_dtype: 0 float32, 1 bfloat16
+// (q_eff and q_rope alike). ws: the workspace of paged_attention.mla_plan,
+// ws_floats float32 words (at least workspace_floats(B * H, M, L, R)).
+// score_heads: heads of a score CTA; chunk: blocks of a score / pv CTA
+// (1..4); tile: blocks a softmax CTA holds in shared memory at once.
 extern "C" int paged_mla_decode(const void* q_eff, const void* q_rope, int q_dtype,
                                 const void* c_pool, const void* r_pool, const void* tables,
-                                const void* k_len, void* out, int B, int H, int R, int P,
-                                int L, int M, int heads_per_cta, float scale, int impl,
+                                const void* k_len, void* out, void* ws, long long ws_floats,
+                                int B, int H, int R, int P, int L, int M, int score_heads,
+                                int chunk, int tile, float scale, int impl,
                                 const CordicParams* p, void* stream) {
   if (B == 0 || H == 0) return (int)cudaGetLastError();
-  if (heads_per_cta < 1) return (int)cudaErrorInvalidValue;
+  if (score_heads < 1 || chunk < 1 || chunk > kMaxChunk || tile < 1 || R % 4 || P % 4 ||
+      ws_floats < workspace_floats((long long)B * H, M, L, R))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int HG = heads_per_cta < H ? heads_per_cta : H;
   return q_dtype == 0
              ? launch_mla_impl<float>(impl, q_eff, q_rope, c_pool, r_pool, tables, k_len, out,
-                                      B, H, R, P, L, M, HG, scale, *p, s)
+                                      ws, B, H, R, P, L, M, score_heads, chunk, tile, scale,
+                                      *p, s)
              : launch_mla_impl<__nv_bfloat16>(impl, q_eff, q_rope, c_pool, r_pool, tables,
-                                              k_len, out, B, H, R, P, L, M, HG, scale, *p, s);
+                                              k_len, out, ws, B, H, R, P, L, M, score_heads,
+                                              chunk, tile, scale, *p, s);
 }

@@ -6,8 +6,11 @@ the kernel for a CUDA tensor and the plain PyTorch version for a CPU one.
 
 Gradients: each JAX ``custom_jvp`` rule (``ops.py:49-173``) is a
 ``torch.autograd.Function`` here, with the same tangent formula transposed
-into a backward (first order only; the backward is plain PyTorch, as the
-JAX rules are plain jnp). A call that needs no gradient (grad mode off, or
+into a backward (the backward is plain PyTorch, as the
+JAX rules are plain jnp). ``silu`` and ``silu_mul`` differentiate twice
+through ``s = sigmoid_wide(x)``, as the JAX rules do: a backward run under
+grad mode recomputes ``s`` through ``sigmoid_wide``'s Function rather than
+reading the saved, graph-less ``s``. A call that needs no gradient (grad mode off, or
 no input that requires grad) takes the forward path alone, so serving runs
 exactly what it ran before. Where a JAX rule computes its primal itself,
 the port does the same under grad: ``silu_mul`` then returns
@@ -134,6 +137,18 @@ def gelu_erf(x, sched=PAPER_SCHEDULE, cfg=PAPER_FIXED, max_doublings=3):
     return _unary(x, "gelu_erf", sched, cfg, max_doublings)
 
 
+def _saved_sigmoid(ctx, x, s):
+    """The saved ``s = sigmoid_wide(x)``, or, when the backward itself is
+    being differentiated (grad mode on, as under ``create_graph=True``),
+    ``s`` recomputed through ``sigmoid_wide``'s own Function, so that a
+    second derivative flows through ``s`` as the JAX rules' does
+    (ops.py:107-113, :131-138). The recomputation runs the same kernel or
+    plain version, so the values are the saved ones bit for bit."""
+    if torch.is_grad_enabled():
+        return sigmoid_wide(x, ctx.sched, ctx.cfg, ctx.max_doublings)
+    return s
+
+
 class _Silu(torch.autograd.Function):
     """y = silu kernel; dx = (s + x s (1 - s)) dy with s = sigmoid_wide(x)
     from a second kernel call, as ops.py:107-113."""
@@ -142,12 +157,14 @@ class _Silu(torch.autograd.Function):
     def forward(ctx, x, sched, cfg, max_doublings):
         y = _elementwise(x, "silu", sched, cfg, max_doublings)
         s = _elementwise(x, "sigmoid_wide", sched, cfg, max_doublings)
+        ctx.sched, ctx.cfg, ctx.max_doublings = sched, cfg, max_doublings
         ctx.save_for_backward(x, s)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, s = ctx.saved_tensors
+        s = _saved_sigmoid(ctx, x, s)
         return (s + x * s * (1.0 - s)) * dy, None, None, None
 
 
@@ -167,12 +184,15 @@ class _SiluMul(torch.autograd.Function):
     def forward(ctx, gate, up, sched, cfg, max_doublings):
         s = _elementwise(gate, "sigmoid_wide", sched, cfg, max_doublings)
         sg = gate * s
-        ctx.save_for_backward(gate, up, s, sg)
+        ctx.sched, ctx.cfg, ctx.max_doublings = sched, cfg, max_doublings
+        ctx.save_for_backward(gate, up, s)
         return up * sg
 
     @staticmethod
     def backward(ctx, dy):
-        g, u, s, sg = ctx.saved_tensors
+        g, u, s = ctx.saved_tensors
+        s = _saved_sigmoid(ctx, g, s)
+        sg = g * s
         dsg = s + g * s * (1.0 - s)
         return u * dsg * dy, sg * dy, None, None, None
 

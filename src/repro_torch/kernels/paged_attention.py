@@ -3,10 +3,26 @@ CUDA kernels.
 
 Port of ``gqa_decode``, ``mla_decode`` and ``canonical_kv_dtype`` of
 ``repro/kernels/paged_attention.py``. One query row per slot walks its own
-block table up to ``k_len`` and attends the live blocks in place; the
-kernels (``csrc/paged_decode.cu``) loop over live blocks only, GQA on a
-(slot, kv-head) grid, MLA on a (slot, head-group) grid (the latent and rope
-pools have no head axis, so one staged block serves every head of a group).
+block table up to ``k_len`` and attends the live blocks in place. The plain
+versions walk the blocks in table order, once per softmax pass, as the JAX
+kernels (``_gqa_kernel``, ``_mla_kernel``, ``_pass_update``) do. The CUDA
+kernels (``csrc/paged_decode.cu``) keep each output row's arithmetic order
+but run everything except the folds in parallel, in four launches that
+share a workspace (``gqa_plan`` / ``mla_plan``: grids and workspace from
+the static shapes alone, never from ``k_len``):
+
+    score    (table chunks, KH, B) CTAs: K staged and dequantized once, the
+             scores of every live lane (MLA: (table chunks, head groups,
+             B), the latent staged once per head group)
+    softmax  one CTA per query row: row max, the lanes' e^u and block sums
+             in parallel, the row sum folded in table order, the
+             probabilities from the kept e^u; the row's lanes pass through
+             shared memory ``softmax_tile`` blocks at a time (a row of at
+             most that many blocks is staged once)
+    pv       (table chunks, KH, B) CTAs (MLA: (table chunks, R / 128, B)):
+             V staged once, each block's P.V sums
+    fold     one CTA per row and 128 columns: the P.V sums folded in table
+             order
 
 Softmax (``softmax_impl``):
 
@@ -19,12 +35,16 @@ Softmax (``softmax_impl``):
                      as ``functions.softmax_fixed`` computes them (masked
                      lanes of a live block clip at e^-80, no lane flushes)
 
-Summation orders are fixed and shared by the kernels and the plain
-versions: a GQA score is a left-to-right sum over head_dim; an MLA score is
+Summation orders are fixed per output row and shared by the kernels and
+the plain versions: a GQA score is a left-to-right sum over head_dim, times
+the scale, then the mask; an MLA score is
 ``(sum_R qe*c + sum_P qr*r) * scale``, each sum taken as ``MLA_SPLIT``
 strided partials (partial t sums elements t, t + MLA_SPLIT, ... left to
 right, one thread each) added left to right; block sums and P.V sums run
-left to right over a block's lanes. With ``-fmad=false`` kernel and plain
+left to right over a block's lanes; the row sum and the accumulator fold
+block by block in table order (``exact``: ``l = l * alpha + bs``, ``acc =
+acc * alpha + pv``, alpha from the running max). The row max is
+order-free. With ``-fmad=false`` kernel and plain
 agree bit for bit on both CORDIC impls; against the JAX kernels, whose dots
 XLA orders, outputs agree to f32 round-off (the reference's own ATOL 2e-5).
 
@@ -37,7 +57,10 @@ then takes the ``kv_dtype`` round, so kernel and plain stay bit-equal.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -209,12 +232,143 @@ def gqa_decode_plain(q, k_pool, v_pool, tables, k_len, *, scale: float,
 #: pool storage codes of the C interface: float32 pools, int8 and int16 codes
 POOL_CODE = {torch.float32: 0, torch.int8: 1, torch.int16: 2}
 
+#: blocks of one score / pv CTA at most (csrc kMaxChunk); a slot's table
+#: is cut into at most CTAS_PER_SLOT chunks until that cap
+MAX_CHUNK, CTAS_PER_SLOT = 4, 64
+#: heads of an MLA score CTA: fewer at short tables (more CTAs), all of a
+#: group at long ones (the latent staged once per group)
+MLA_SCORE_HEADS = (4, 16)
+#: lanes of a row a softmax CTA holds in shared memory at once (8192: a
+#: row of up to 8192 keys is staged once; a longer one passes through in
+#: tiles, once per softmax pass)
+SOFTMAX_TILE_LANES = 8192
+#: the kernels' fixed layout (csrc/paged_decode.cu): value columns of an
+#: MLA pv CTA and of a fold CTA, strided partials of an MLA score sum. The
+#: entry points check the workspace they are given against their own size
+#: (csrc ``workspace_floats``), and a launch past the shared memory limit
+#: fails, so a drift between the two sides raises rather than writes out
+#: of bounds.
+_PV_COLS, _FOLD_COLS, _SPLIT = 128, 128, 16
+#: dynamic shared memory a CTA may have on Hopper (bytes)
+_SMEM_MAX = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """The four launches of one decode call and its workspace, from the
+    static shapes alone (no host read of ``k_len``): each grid (x, y, z),
+    the blocks of a score / pv CTA, the heads of a score CTA (GQA: the G
+    rows of a kv head), the blocks a softmax CTA holds in shared memory at
+    once, the workspace in float32 words and each phase's dynamic shared
+    memory in bytes. Score and pv CTAs past a slot's live blocks exit at
+    once on the card."""
+    score_grid: Tuple[int, int, int]
+    chunk: int
+    score_heads: int
+    softmax_tile: int
+    softmax_grid: Tuple[int, int, int]
+    pv_grid: Tuple[int, int, int]
+    fold_grid: Tuple[int, int, int]
+    workspace_floats: int
+    smem: Tuple[int, int, int, int]
+
+    @property
+    def ctas(self) -> Tuple[int, int, int, int]:
+        """CTAs launched by each phase (score, softmax, pv, fold)."""
+        return tuple(math.prod(g) for g in (self.score_grid, self.softmax_grid,
+                                            self.pv_grid, self.fold_grid))
+
+    def live_score_ctas(self, k_len: Sequence[int], L: int) -> int:
+        """Score CTAs that find live blocks for these lengths (a report;
+        the wrappers never read ``k_len`` on the host)."""
+        M = self.score_grid[0] * self.chunk
+        return self.score_grid[1] * sum(
+            -(-min(M, -(-max(int(k), 1) // L)) // self.chunk) for k in k_len)
+
+
+def _chunk(M: int) -> int:
+    return min(MAX_CHUNK, max(1, -(-M // CTAS_PER_SLOT)))
+
+
+def _workspace(rows: int, M: int, L: int, width: int) -> int:
+    """Scores / lane weights, the pass-1 codes and exponents (rows, M*L)
+    each, the exact impl's block factors (rows, M) and row sums (rows,),
+    and each block's P.V sums (rows, M, width)."""
+    return rows * (3 * M * L + M + 1 + M * width)
+
+
+def _softmax_tile(L: int, M: int, tile_lanes: Optional[int]) -> int:
+    """Blocks of a softmax tile: ``tile_lanes`` (default SOFTMAX_TILE_LANES)
+    lanes, at least one block, at most the table."""
+    lanes = SOFTMAX_TILE_LANES if tile_lanes is None else tile_lanes
+    return min(M, max(1, lanes // L))
+
+
+def _checked(plan: DecodePlan, what: str, widths) -> DecodePlan:
+    if any(w % 4 for w in widths):
+        raise ValueError(f"{what}: widths {widths} must be multiples of 4 "
+                         "(the kernels load 16 bytes at a time)")
+    if max(plan.smem) > _SMEM_MAX:
+        raise ValueError(f"{what}: a CTA would need {max(plan.smem)} bytes of "
+                         f"shared memory (at most {_SMEM_MAX}); plan {plan}")
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def gqa_plan(B: int, KH: int, G: int, hd: int, L: int, M: int,
+             tile_lanes: Optional[int] = None) -> DecodePlan:
+    """The launches of ``gqa_decode`` for q (B,KH,G,hd), L-lane blocks and
+    M-wide tables; ``tile_lanes`` sets the softmax tile (default
+    SOFTMAX_TILE_LANES). Cached: a serve asks for the same plan every
+    layer of every step."""
+    chunk = _chunk(M)
+    tile = _softmax_tile(L, M, tile_lanes)
+    blocks = (-(-M // chunk), KH, B)
+    return _checked(DecodePlan(
+        score_grid=blocks, chunk=chunk, score_heads=G, softmax_tile=tile,
+        softmax_grid=(KH * G, B, 1),
+        pv_grid=blocks, fold_grid=(KH * G * -(-hd // _FOLD_COLS), B, 1),
+        workspace_floats=_workspace(B * KH * G, M, L, hd),
+        smem=(4 * (G + chunk * L) * (hd + 1), 4 * (tile * L + 3 * M),
+              4 * chunk * L * (hd + G), 4 * M)),
+        "gqa_decode", (hd,))
+
+
+@functools.lru_cache(maxsize=256)
+def mla_plan(B: int, H: int, R: int, P: int, L: int, M: int,
+             tile_lanes: Optional[int] = None) -> DecodePlan:
+    """The launches of ``mla_decode`` for q_eff (B,H,R), q_rope (B,H,P),
+    L-lane blocks and M-wide tables; ``tile_lanes`` as in ``gqa_plan``."""
+    chunk = _chunk(M)
+    tile = _softmax_tile(L, M, tile_lanes)
+    hs = min(H, MLA_SCORE_HEADS[chunk > 1])
+    return _checked(DecodePlan(
+        score_grid=(-(-M // chunk), -(-H // hs), B), chunk=chunk, score_heads=hs,
+        softmax_tile=tile, softmax_grid=(H, B, 1),
+        pv_grid=(-(-M // chunk), -(-R // _PV_COLS), B),
+        fold_grid=(H * -(-R // _FOLD_COLS), B, 1),
+        workspace_floats=_workspace(B * H, M, L, R),
+        smem=(4 * (hs * (R + P) + L * (R + P + 2 * _SPLIT) + 2 * hs * L * (_SPLIT + 1)),
+              4 * (tile * L + 3 * M),
+              4 * chunk * L * (_PV_COLS + H), 4 * M)),
+        "mla_decode", (R, P))
+
+
+def _check_operands(what, device, ts, pools) -> None:
+    """Every operand contiguous on one device; the pools 16-byte aligned
+    (the kernels load four elements at a time)."""
+    if any(t.device != device or not t.is_contiguous() for t in ts):
+        raise ValueError(f"{what}: inputs must be contiguous on one device")
+    if any(t.data_ptr() % 16 for t in pools):
+        raise ValueError(f"{what}: the pools must be 16-byte aligned")
+
 
 def gqa_decode(q, k_pool, v_pool, tables, k_len, *, scale: float,
                softmax_impl: str = "exact", kv_dtype=None,
                kv_quant: str = "none", k_scale_pool=None, v_scale_pool=None,
                sched: MRSchedule = PAPER_SCHEDULE,
-               cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
+               cfg: FixedConfig = PAPER_FIXED,
+               plan: Optional[DecodePlan] = None) -> torch.Tensor:
     """Paged GQA decode attend.
 
     q (B,KH,G,hd) float32/bfloat16; pools (N,L,KH,hd) float32 (block 0 is
@@ -222,7 +376,9 @@ def gqa_decode(q, k_pool, v_pool, tables, k_len, *, scale: float,
     float32 scale pools; tables (B,M) int32; k_len (B,) int32 >= 1.
     ``kv_dtype`` is the storage-rounding cast replayed on each K/V block
     (None: the pool's dtype, float32 under kv_quant); on the card,
-    quantized pools take a kv_dtype equal to q's dtype. Returns (B,KH,G,hd)
+    quantized pools take a kv_dtype equal to q's dtype. ``plan``: the
+    launches on the card (default ``gqa_plan`` of the shapes; one with a
+    smaller softmax tile gives the same output). Returns (B,KH,G,hd)
     float32.
     """
     impl = _impl(softmax_impl)
@@ -260,19 +416,20 @@ def gqa_decode(q, k_pool, v_pool, tables, k_len, *, scale: float,
                 raise ValueError(f"gqa_decode: scale pools are ({N}, 1, {KH}, 1) "
                                  f"float32, got {tuple(sp.shape)} {sp.dtype}")
         ts += [k_scale_pool, v_scale_pool]
-    if any(t.device != q.device or not t.is_contiguous() for t in ts):
-        raise ValueError("gqa_decode: inputs must be contiguous on one device")
+    _check_operands("gqa_decode", q.device, ts, (k_pool, v_pool))
+    plan = plan or gqa_plan(B, KH, G, hd, L, M)
     out = torch.empty((B, KH, G, hd), dtype=torch.float32, device=q.device)
+    ws = torch.empty(plan.workspace_floats, dtype=torch.float32, device=q.device)
     rc = build.library("paged_decode").paged_gqa_decode(
         q.data_ptr(), build.DTYPE_CODE[q.dtype], k_pool.data_ptr(),
         v_pool.data_ptr(), POOL_CODE[pool_dtype],
         0 if spec is None else k_scale_pool.data_ptr(),
         0 if spec is None else v_scale_pool.data_ptr(),
         1.0 if spec is None else float(spec.fmt.resolution),
-        tables.data_ptr(), k_len.data_ptr(), out.data_ptr(),
-        B, KH, G, hd, L, M, float(scale), IMPLS.index(impl),
-        build.DTYPE_CODE[kvd], build.params_ptr(_kernel_sched(impl, sched), cfg),
-        build.stream_ptr(q))
+        tables.data_ptr(), k_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        ws.numel(), B, KH, G, hd, L, M, plan.chunk, plan.softmax_tile, float(scale),
+        IMPLS.index(impl), build.DTYPE_CODE[kvd],
+        build.params_ptr(_kernel_sched(impl, sched), cfg), build.stream_ptr(q))
     build.check(rc, "gqa_decode")
     build.count("gqa_decode")
     return out
@@ -334,14 +491,11 @@ def mla_decode_plain(q_eff, q_rope, c_pool, r_pool, tables, k_len, *,
     return acc / l_sum if impl == "exact" else acc
 
 
-#: heads per CTA of the MLA decode kernel (grid: slots x ceil(H / this))
-MLA_HEADS_PER_CTA = 4
-
-
 def mla_decode(q_eff, q_rope, c_pool, r_pool, tables, k_len, *, scale: float,
                softmax_impl: str = "exact",
                sched: MRSchedule = PAPER_SCHEDULE,
-               cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
+               cfg: FixedConfig = PAPER_FIXED,
+               plan: Optional[DecodePlan] = None) -> torch.Tensor:
     """Paged absorbed-form MLA decode: scores against the compressed latent
     and the shared rope key, output accumulated in the latent space.
 
@@ -349,7 +503,8 @@ def mla_decode(q_eff, q_rope, c_pool, r_pool, tables, k_len, *, scale: float,
     or bfloat16; c_pool (N,L,R) and r_pool (N,L,P) float32 (block 0 is
     scratch); tables (B,M) int32; k_len (B,) int32 >= 1. Returns (B,H,R)
     float32 latent outputs (the wv_b projection stays outside, as in
-    models.attention)."""
+    models.attention). ``plan``: as in ``gqa_decode`` (default
+    ``mla_plan``)."""
     impl = _impl(softmax_impl)
     if q_eff.device.type == "cpu":
         return mla_decode_plain(q_eff, q_rope, c_pool, r_pool, tables, k_len,
@@ -374,14 +529,17 @@ def mla_decode(q_eff, q_rope, c_pool, r_pool, tables, k_len, *, scale: float,
             or tables.shape[0] != B or k_len.shape != (B,):
         raise ValueError("mla_decode: tables (B,M) and k_len (B,) are int32")
     ts = (q_eff, q_rope, c_pool, r_pool, tables, k_len)
-    if any(t.device != q_eff.device or not t.is_contiguous() for t in ts):
-        raise ValueError("mla_decode: inputs must be contiguous on one device")
+    _check_operands("mla_decode", q_eff.device, ts, (c_pool, r_pool))
+    plan = plan or mla_plan(B, H, R, P, L, M)
     out = torch.empty((B, H, R), dtype=torch.float32, device=q_eff.device)
+    ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
+                     device=q_eff.device)
     rc = build.library("paged_decode").paged_mla_decode(
         q_eff.data_ptr(), q_rope.data_ptr(), build.DTYPE_CODE[q_eff.dtype],
         c_pool.data_ptr(), r_pool.data_ptr(), tables.data_ptr(),
-        k_len.data_ptr(), out.data_ptr(), B, H, R, P, L, M,
-        MLA_HEADS_PER_CTA, float(scale), IMPLS.index(impl),
+        k_len.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(), B, H, R, P,
+        L, M, plan.score_heads, plan.chunk, plan.softmax_tile, float(scale),
+        IMPLS.index(impl),
         build.params_ptr(_kernel_sched(impl, sched), cfg),
         build.stream_ptr(q_eff))
     build.check(rc, "mla_decode")

@@ -118,7 +118,8 @@ def main(argv=None):
     print(f"[serve] pool: peak {st.peak_in_use}/{st.num_blocks - 1} blocks x "
           f"{eng.block_len} positions, {st.allocs} allocs, "
           f"{st.alloc_failures} backpressure waits; "
-          f"{eng.kv_pool_bytes()} pool bytes")
+          f"{eng.kv_pool_bytes()} pool bytes, "
+          f"{eng.decode_workspace_bytes()} decode workspace bytes per call")
     if eng.prefix is not None:
         print(f"[serve] prefix cache ({eng.prefix.policy}): "
               f"{eng.prefix.hits} hits / {eng.prefix.hit_blocks} blocks "

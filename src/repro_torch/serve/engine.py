@@ -241,6 +241,30 @@ class ServeEngine:
         scales under kv_quant), or MLA's latent and rope key."""
         return self._caches.pool_bytes()
 
+    def decode_workspace_bytes(self) -> int:
+        """Device bytes of the float32 workspace one decode-attention kernel
+        call allocates at this engine's slots and max_len (the
+        ``paged_attention`` plan: scores, codes and each block's P.V sums
+        over the whole table), the most over the layer kinds; 0 on the
+        gather attend. Transient: one layer's call holds it at a time, on
+        top of ``kv_pool_bytes``."""
+        from repro_torch.kernels import paged_attention as pa
+
+        if self.paged_attend_impl != "pallas":
+            return 0
+        cfg, B, L, M = self.cfg, self.slots, self.block_len, self.max_blocks
+        words = 0
+        for kind in set(cfg.block_pattern):
+            if kind.startswith("mla"):
+                plan = pa.mla_plan(B, cfg.num_heads, cfg.mla.kv_lora_rank,
+                                   cfg.mla.qk_rope_dim, L, M)
+            else:
+                plan = pa.gqa_plan(B, cfg.num_kv_heads,
+                                   cfg.num_heads // cfg.num_kv_heads,
+                                   cfg.head_dim, L, M)
+            words = max(words, plan.workspace_floats)
+        return 4 * words
+
     def score(self, prompt: np.ndarray) -> np.ndarray:
         raise _unported("log-prob scoring", "B.8: log_softmax_2d")
 

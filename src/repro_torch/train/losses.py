@@ -10,8 +10,9 @@
 
 ``token_nll`` is an ``autograd.Function`` whatever the datapath: its
 backward is the analytic softmax-minus-onehot form,
-d logits = g * (exp(logp) - onehot(labels)), from the saved primal
-log-probs, as the JAX ``custom_vjp``.
+d logits = g * (exp(logp) - onehot(labels)), from the primal log-probs,
+as the JAX ``custom_vjp``; differentiated again, it flows through the
+log-softmax of the impl.
 """
 from __future__ import annotations
 
@@ -47,17 +48,27 @@ def _take_label(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 class _TokenNLL(torch.autograd.Function):
-    """-log softmax(logits)[labels]; backward g * (exp(logp) - onehot)."""
+    """-log softmax(logits)[labels]; backward g * (exp(logp) - onehot).
+
+    A backward run under grad mode (``create_graph=True``) recomputes
+    ``logp`` from the saved logits through the impl's differentiable
+    log-softmax, so that ``exp(logp)`` carries a graph and the loss has a
+    second derivative, as the JAX ``custom_vjp`` has (its residual ``logp``
+    is differentiated through). Otherwise it reads the saved ``logp``; both
+    hold the same values."""
 
     @staticmethod
     def forward(ctx, logits, labels, impl):
         logp = log_softmax_fn(impl)(logits)
-        ctx.save_for_backward(logp, labels)
+        ctx.impl = impl
+        ctx.save_for_backward(logits, logp, labels)
         return -_take_label(logp, labels)
 
     @staticmethod
     def backward(ctx, g):
-        logp, labels = ctx.saved_tensors
+        logits, logp, labels = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            logp = log_softmax_fn(ctx.impl)(logits)
         p = torch.exp(logp)
         onehot = torch.zeros_like(p).scatter_(-1, labels.long()[..., None], 1.0)
         return g[..., None] * (p - onehot), None, None

@@ -134,3 +134,116 @@ def test_silu_mul_launches_under_grad_and_without(monkeypatch):
         ops.silu_mul(g, u)
     ops.silu_mul(g.detach(), u)
     assert calls == ["silu_mul_2d", "silu_mul_2d"]
+
+
+# ---------------------------------------------------------------------------
+# Second order (tests/test_gradients.py:75 and :184): torch.autograd.grad
+# twice, with create_graph, against jax.grad(jax.grad(...)) on seeded 4x64
+# inputs. silu and silu_mul differentiate through s = sigmoid_wide(x), and
+# token_nll through its impl's log-softmax, as the JAX rules do.
+# ---------------------------------------------------------------------------
+from repro.train import losses as jlosses  # noqa: E402
+from repro_torch.train import losses  # noqa: E402
+
+#: second-order tolerance, relative to the largest entry: float32 round-off
+#: of the composed rules (the RTOL class of the first-order tests above)
+RTOL2 = 1e-6
+SECOND = ["silu", "silu_mul/gate", "silu_mul/up", "token_nll/exact",
+          "token_nll/cordic", "token_nll/cordic_pallas"]
+
+
+def _second_inputs():
+    rng = np.random.default_rng(21)
+    x = (rng.normal(size=(4, 64)) * 2).astype(np.float32)
+    u = rng.normal(size=(4, 64)).astype(np.float32)
+    w = rng.normal(size=(4, 64)).astype(np.float32)
+    v = rng.normal(size=(4, 64)).astype(np.float32)
+    labels = rng.integers(0, 64, size=(4,)).astype(np.int32)
+    return x, u, w, v, labels
+
+
+def _jax_second(name, x, u, w, v, labels):
+    """(first-order grads, second-order grads) of one case in JAX."""
+    if name == "silu":
+        def f(a):
+            return jnp.sum(jops.silu(a) * w)
+
+        g1 = jax.grad(f)
+        return (g1(x),), (jax.grad(lambda a: jnp.sum(g1(a) * v))(x),)
+    if name.startswith("silu_mul"):
+        def f(a, b):
+            return jnp.sum(jops.silu_mul(a, b) * w)
+
+        g1 = jax.grad(f, argnums=(0, 1))
+        k = 0 if name.endswith("gate") else 1
+        h = jax.grad(lambda a, b: jnp.sum(g1(a, b)[k] * v), argnums=(0, 1))(x, u)
+        return g1(x, u), h
+    impl = name.split("/")[1]
+
+    def loss(l):
+        return jnp.mean(jlosses.token_nll(l, labels, impl))
+
+    return ((jax.grad(loss)(x),),
+            (jax.grad(lambda l: jnp.sum(jax.grad(loss)(l) ** 2))(x),))
+
+
+def _torch_second(name, x, u, w, v, labels, create_graph=True):
+    """(first-order grads, second-order grads or None) of one case in the
+    port; the second order only under ``create_graph``."""
+    xt = torch.from_numpy(x.copy()).requires_grad_(True)
+    ins = [xt]
+    if name == "silu":
+        out = (ops.silu(xt) * torch.from_numpy(w)).sum()
+    elif name.startswith("silu_mul"):
+        ut = torch.from_numpy(u.copy()).requires_grad_(True)
+        ins.append(ut)
+        out = (ops.silu_mul(xt, ut) * torch.from_numpy(w)).sum()
+    else:
+        out = losses.token_nll(xt, torch.from_numpy(labels),
+                               name.split("/")[1]).mean()
+    g1 = torch.autograd.grad(out, ins, create_graph=create_graph)
+    if not create_graph:
+        return g1, None
+    if name == "silu" or name.startswith("silu_mul"):
+        k = 1 if name.endswith("up") else 0
+        inner = (g1[k] * torch.from_numpy(v)).sum()
+    else:
+        inner = (g1[0] ** 2).sum()
+    h = torch.autograd.grad(inner, ins, allow_unused=True)
+    h = tuple(torch.zeros_like(t) if g is None else g for g, t in zip(h, ins))
+    return g1, h
+
+
+@pytest.fixture(scope="module")
+def jax_second():
+    x, u, w, v, labels = _second_inputs()
+    args = (jnp.asarray(x), jnp.asarray(u), w, v, jnp.asarray(labels))
+    out = jax.jit(lambda *a: {n: _jax_second(n, *a) for n in SECOND})(*args)
+    return {n: ([np.asarray(t) for t in g1], [np.asarray(t) for t in h])
+            for n, (g1, h) in out.items()}
+
+
+@pytest.mark.parametrize("name", SECOND)
+def test_second_order_matches_jax(name, jax_second):
+    ins = _second_inputs()
+    _, h = _torch_second(name, *ins)
+    jg1, jh = jax_second[name]
+    assert len(h) == len(jh)
+    for got, want in zip(h, jh):
+        got = got.detach().numpy()
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() <= RTOL2 * max(np.abs(want).max(), 1e-30), name
+
+
+@pytest.mark.parametrize("name", SECOND)
+def test_first_order_unchanged_by_create_graph(name, jax_second):
+    """The recomputation under grad mode returns the saved values: first
+    derivatives are bit-equal with and without create_graph, and agree
+    with JAX's."""
+    ins = _second_inputs()
+    with_graph, _ = _torch_second(name, *ins)
+    plain, _ = _torch_second(name, *ins, create_graph=False)
+    jg1, _ = jax_second[name]
+    for a, b, want in zip(with_graph, plain, jg1):
+        assert torch.equal(a.detach(), b)
+        assert np.abs(b.numpy() - want).max() <= RTOL * np.abs(want).max()
