@@ -42,6 +42,7 @@ from repro_torch.cordic_engine.schedule import (
     MRSchedule,
 )
 from repro_torch.kernels import build
+from repro_torch.kernels import code_tables as CT
 
 _I32 = torch.int32
 #: np.float32(log 2) and np.float32(1 / log 2), as float64 values
@@ -61,6 +62,10 @@ _INV_SQRT2 = float(torch.tensor(1.0 / math.sqrt(2.0), dtype=torch.float32))
 OPS = ("sigmoid", "tanh", "sigmoid_wide", "silu", "exp", "log", "softplus",
        "elu", "gelu_erf")
 _OP_CODE = {op: i for i, op in enumerate(OPS)}
+#: the code table each op reads on the table route; log has no table stage
+_TABLE_ROW = {"sigmoid": CT.TANH_ROW, "tanh": CT.TANH_ROW,
+              "sigmoid_wide": CT.TANH_ROW, "silu": CT.TANH_ROW, "exp": CT.EXP_ROW,
+              "softplus": CT.EXP_ROW, "elu": CT.EXP_ROW, "gelu_erf": CT.EXP_ROW}
 
 
 # ---------------------------------------------------------------------------
@@ -156,12 +161,32 @@ def _cordic_tanh_q(zq: torch.Tensor, sched: MRSchedule,
     return _guard_drop(_lvc_div_q(x, y, sched, cfg), cfg)
 
 
+def _tanh_code(zq: torch.Tensor, sched: MRSchedule, cfg: FixedConfig,
+               tables=None) -> torch.Tensor:
+    """The tanh stage: the pipeline, or one lookup in ``tables`` (the code
+    tables of a 16-bit format, ``code_tables.py``), as the kernels' table
+    route reads it."""
+    if tables is not None:
+        return tables.tanh_code(zq)
+    return _cordic_tanh_q(zq, sched, cfg)
+
+
+def _exp_code(zq: torch.Tensor, sched: MRSchedule, cfg: FixedConfig,
+              tables=None) -> torch.Tensor:
+    """The e^r stage: wrap(cosh r + sinh r) codes of angle codes, from the
+    rotation or from ``tables``."""
+    if tables is not None:
+        return tables.exp_code(zq)
+    c, s = _coshsinh_q(zq, sched, cfg)
+    return _wrap16(c + s, cfg.fmt.total_bits)
+
+
 def _cordic_sigmoid_q(xq: torch.Tensor, sched: MRSchedule,
-                      cfg: FixedConfig) -> torch.Tensor:
+                      cfg: FixedConfig, tables=None) -> torch.Tensor:
     """Sigmoid codes: input halving, tanh core, 1/2 + t/2 output stage."""
     bits = cfg.fmt.total_bits
     fb = cfg.fmt.frac_bits
-    t = _cordic_tanh_q(_shr(xq, 1, bits), sched, cfg)
+    t = _tanh_code(_shr(xq, 1, bits), sched, cfg, tables)
     t2 = _wrap16((t + 1) >> 1, bits)
     return _wrap16((1 << (fb - 1)) + t2, bits)
 
@@ -209,14 +234,14 @@ def _hyp_vector_q(x: torch.Tensor, y: torch.Tensor, cfg: FixedConfig,
     return z
 
 
-def _exp_q(xf: torch.Tensor, sched: MRSchedule, cfg: FixedConfig) -> torch.Tensor:
+def _exp_q(xf: torch.Tensor, sched: MRSchedule, cfg: FixedConfig,
+           tables=None) -> torch.Tensor:
     """e^x over (-80, 80): dyadic reduction + Q2.14 cosh+sinh rotation."""
     fb, bits = cfg.fmt.frac_bits, cfg.fmt.total_bits
     x = xf.clamp(-_EXP_CLIP, _EXP_CLIP)
     k = torch.round(x * _INV_LN2)
     r = _fma_r(x, k)
-    c, s = _coshsinh_q(_quantize_f(r, fb, bits), sched, cfg)
-    eq = _wrap16(c + s, bits)
+    eq = _exp_code(_quantize_f(r, fb, bits), sched, cfg, tables)
     return _dequantize_f(eq, fb) * _exp2_i32(k.to(_I32))
 
 
@@ -233,14 +258,15 @@ def _log_q(v: torch.Tensor, cfg: FixedConfig) -> torch.Tensor:
     return 2.0 * at + p.to(torch.float32) * _LN2
 
 
-def _erf_q(u: torch.Tensor, sched: MRSchedule, cfg: FixedConfig) -> torch.Tensor:
+def _erf_q(u: torch.Tensor, sched: MRSchedule, cfg: FixedConfig,
+           tables=None) -> torch.Tensor:
     """Exponential erf approximation with the CORDIC exp core (|err| <
     2.5e-4): erf(u)^2 ~ 1 - exp(-u^2 (4/pi + a u^2) / (1 + a u^2)); XLA
     rounds the prefactor's two products (no FMA), the sqrt is a correctly
     rounded boundary op."""
     u2 = u * u
     g = u2 * (_FOUR_PI + _ERF_A * u2) / (1.0 + _ERF_A * u2)
-    e = _exp_q(-g, sched, cfg)
+    e = _exp_q(-g, sched, cfg, tables)
     return torch.sign(u) * nx.sqrt((1.0 - e).clamp_min(0.0))
 
 
@@ -268,7 +294,7 @@ def _fma_r(u: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def _wide_sigmoid_f(xf: torch.Tensor, sched: MRSchedule, cfg: FixedConfig,
-                    max_doublings: int) -> torch.Tensor:
+                    max_doublings: int, tables=None) -> torch.Tensor:
     """Dyadic range extension around the Q2.14 core (|x| <= 2^k)."""
     ax = xf.abs()
     k = torch.zeros_like(xf, dtype=_I32)
@@ -276,8 +302,8 @@ def _wide_sigmoid_f(xf: torch.Tensor, sched: MRSchedule, cfg: FixedConfig,
         k = k + (ax > 2.0 ** i).to(_I32)
     xs = (xf * _exp2_i32(-k)).clamp(-1.0, 1.0)
     s = _dequantize_f(_cordic_sigmoid_q(
-        _quantize_f(xs, cfg.fmt.frac_bits, cfg.fmt.total_bits), sched, cfg),
-        cfg.fmt.frac_bits)
+        _quantize_f(xs, cfg.fmt.frac_bits, cfg.fmt.total_bits), sched, cfg,
+        tables), cfg.fmt.frac_bits)
     for i in range(max_doublings):
         s2 = s * s
         doubled = s2 / _fma_denom(s, s2).clamp_min(1e-12)
@@ -289,35 +315,38 @@ def _wide_sigmoid_f(xf: torch.Tensor, sched: MRSchedule, cfg: FixedConfig,
 # Plain versions of the kernels
 # ---------------------------------------------------------------------------
 def act_2d_plain(x: torch.Tensor, op: str, *, sched: MRSchedule = PAPER_SCHEDULE,
-                 cfg: FixedConfig = PAPER_FIXED,
-                 max_doublings: int = 3) -> torch.Tensor:
-    """Plain PyTorch version of the activation kernel (any shape)."""
+                 cfg: FixedConfig = PAPER_FIXED, max_doublings: int = 3,
+                 tables=None) -> torch.Tensor:
+    """Plain PyTorch version of the activation kernel (any shape).
+    ``tables`` (``code_tables.code_tables`` of a 16-bit format) takes the
+    tanh and e^r stages from lookups, as the kernel's table route does; the
+    boundary code around them is the same."""
     _check_op(op)
     xf = x.to(torch.float32)
     fb, bits = cfg.fmt.frac_bits, cfg.fmt.total_bits
     if op == "sigmoid":
         xq = _quantize_f(xf.clamp(-1.0, 1.0), fb, bits)
-        out = _dequantize_f(_cordic_sigmoid_q(xq, sched, cfg), fb)
+        out = _dequantize_f(_cordic_sigmoid_q(xq, sched, cfg, tables), fb)
     elif op == "tanh":
         zq = _quantize_f(xf.clamp(-0.5, 0.5), fb, bits)
-        out = _dequantize_f(_cordic_tanh_q(zq, sched, cfg), fb)
+        out = _dequantize_f(_tanh_code(zq, sched, cfg, tables), fb)
     elif op == "sigmoid_wide":
-        out = _wide_sigmoid_f(xf, sched, cfg, max_doublings)
+        out = _wide_sigmoid_f(xf, sched, cfg, max_doublings, tables)
     elif op == "silu":
-        out = xf * _wide_sigmoid_f(xf, sched, cfg, max_doublings)
+        out = xf * _wide_sigmoid_f(xf, sched, cfg, max_doublings, tables)
     elif op == "exp":
-        out = _exp_q(xf, sched, cfg)
+        out = _exp_q(xf, sched, cfg, tables)
     elif op == "log":
         out = _log_q(xf, cfg)
     elif op == "softplus":
         # log(1 + e^x) = relu(x) + log(1 + e^-|x|), both CORDIC legs
-        e = _exp_q(-xf.abs(), sched, cfg)
+        e = _exp_q(-xf.abs(), sched, cfg, tables)
         out = xf.clamp_min(0.0) + _log_q(1.0 + e, cfg)
     elif op == "elu":
-        em1 = _exp_q(xf.clamp_max(0.0), sched, cfg) - 1.0
+        em1 = _exp_q(xf.clamp_max(0.0), sched, cfg, tables) - 1.0
         out = torch.where(xf > 0, xf, em1)
     else:  # gelu_erf: 0.5 x (1 + erf(x / sqrt 2))
-        out = 0.5 * xf * (1.0 + _erf_q(xf * _INV_SQRT2, sched, cfg))
+        out = 0.5 * xf * (1.0 + _erf_q(xf * _INV_SQRT2, sched, cfg, tables))
     return out.to(x.dtype)
 
 
@@ -368,10 +397,11 @@ def act_2d(x: torch.Tensor, op: str, *, sched: MRSchedule = PAPER_SCHEDULE,
     _check_op(op)
     _check_cuda("act_2d", x)
     y = torch.empty_like(x)
+    tab, half = CT.table_args(_TABLE_ROW.get(op), sched, cfg, x.device)
     rc = build.library("act").cordic_act_2d(
         x.data_ptr(), y.data_ptr(), x.numel(), _OP_CODE[op],
         build.DTYPE_CODE[x.dtype], build.params_ptr(sched, cfg, max_doublings),
-        build.stream_ptr(x))
+        tab, half, build.stream_ptr(x))
     build.check(rc, "act_2d")
     build.count("act_2d")
     return y

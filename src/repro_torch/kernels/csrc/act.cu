@@ -11,16 +11,29 @@
 //                          in, sigmoid codes of the same dtype out; the
 //                          cordic_sigmoid_q stage alone, no float boundary
 //
-// What bounds it here: integer operations. Each element runs the unrolled
-// 26-stage shift-add pipeline (8 radix-2, 4 radix-4, 14 LVC stages: at
-// least ~310 INT32 operations) against 4-12 bytes of traffic, and the card
-// has 64 INT32 lanes per SM against 3.35 TB/s, so the integer ALU saturates
-// long before memory does (exp: ~170 per element, log: ~150, softplus
-// both legs). The design is one element per thread over a
-// grid-stride loop: no shared memory, no synchronisation, every stage in
-// registers with its ROM entries at constant offsets of the parameter bank.
-// The TPU's (rows, 1024) tiling is gone; the wrappers pass flat element
-// counts.
+// act_kernel, the pipeline route (every op in a format wider than 16 bits,
+// log in every format; silu_mul_kernel and act_q_kernel are the same
+// design): each element runs the unrolled 26-stage shift-add pipeline (8
+// radix-2, 4 radix-4, 14 LVC stages: at least ~310 INT32 operations) against
+// 4-12 bytes of traffic, and the card has 64 INT32 lanes per SM against
+// 3.35 TB/s, so the integer ALU saturates long before memory does (exp:
+// ~170 per element, log: ~150, softplus both legs). One element per thread
+// over a grid-stride loop, every stage in registers with its ROM entries at
+// constant offsets of the parameter bank. The TPU's (rows, 1024) tiling is
+// gone; the wrappers pass flat element counts.
+//
+// act_kernel_tab, the table route (a 16-bit format, every op but log): the
+// op's one costly stage is a function of one code in [-2^(fb-1), 2^(fb-1)]
+// (code_tables.py), so it is one load from the stage's code table, which
+// cordic_code_tables builds on the card from the pipeline's own device
+// functions: the output is the pipeline's bit for bit, and an element costs
+// its float boundary ops (~15-25 operations) instead of ~310, which leaves
+// HBM bytes as the bound for sigmoid. Persistent CTAs (as many as fit the
+// card at once) read the op's 32 KB table through L1, where it stays (a
+// copy staged into shared memory per CTA lost or tied at every size
+// measured); 16-byte loads and stores (4 float32 or 8 bfloat16 lanes) where
+// both pointers allow. softplus takes only its exp leg from the table; its
+// log leg (two operands) stays on the pipeline.
 #include "cordic.cuh"
 
 namespace {
@@ -38,32 +51,46 @@ enum ActOp {
   OP_GELU_ERF = 8
 };
 
+// One op's boundary code around the stage set's tanh or e^r stage.
+template <int OP, class Stages>
+__device__ __forceinline__ float act_op(float xf, const CordicParams& p, const Stages& st) {
+  if constexpr (OP == OP_SIGMOID) {
+    const int xq = quantize_f(fminf(fmaxf(xf, -1.0f), 1.0f), p.fb, p.bits);
+    return dequantize_f(sigmoid_code(xq, p, st), p.fb);
+  } else if constexpr (OP == OP_TANH) {
+    // |z| <= 0.5 clamp: direct angle feed, as _act_kernel does
+    const int zq = quantize_f(fminf(fmaxf(xf, -0.5f), 0.5f), p.fb, p.bits);
+    return dequantize_f(st.tanh_code(zq), p.fb);
+  } else if constexpr (OP == OP_SIGMOID_WIDE) {
+    return wide_sigmoid_f(xf, p, st);
+  } else if constexpr (OP == OP_SILU) {
+    return xf * wide_sigmoid_f(xf, p, st);
+  } else if constexpr (OP == OP_EXP) {
+    return exp_q(xf, p, st);
+  } else if constexpr (OP == OP_LOG) {
+    return log_q(xf, p);
+  } else if constexpr (OP == OP_SOFTPLUS) {
+    // log(1 + e^x) = relu(x) + log(1 + e^-|x|), both CORDIC legs
+    return fmaxf(xf, 0.0f) + log_q(1.0f + exp_q(-fabsf(xf), p, st), p);
+  } else if constexpr (OP == OP_ELU) {
+    return xf > 0.0f ? xf : exp_q(fminf(xf, 0.0f), p, st) - 1.0f;
+  } else {  // OP_GELU_ERF: 0.5 x (1 + erf(x / sqrt 2))
+    return 0.5f * xf * (1.0f + erf_q(xf * CORDIC_INV_SQRT2, p, st));
+  }
+}
+
 __device__ __forceinline__ float act_one(float xf, int op, const CordicParams& p) {
+  const PipelineStages st{p};
   switch (op) {
-    case OP_SIGMOID: {
-      const int xq = quantize_f(fminf(fmaxf(xf, -1.0f), 1.0f), p.fb, p.bits);
-      return dequantize_f(cordic_sigmoid_q(xq, p), p.fb);
-    }
-    case OP_TANH: {
-      // |z| <= 0.5 clamp: direct angle feed, as _act_kernel does
-      const int zq = quantize_f(fminf(fmaxf(xf, -0.5f), 0.5f), p.fb, p.bits);
-      return dequantize_f(cordic_tanh_q(zq, p), p.fb);
-    }
-    case OP_SIGMOID_WIDE:
-      return wide_sigmoid_f(xf, p);
-    case OP_SILU:
-      return xf * wide_sigmoid_f(xf, p);
-    case OP_EXP:
-      return exp_q(xf, p);
-    case OP_LOG:
-      return log_q(xf, p);
-    case OP_SOFTPLUS:
-      // log(1 + e^x) = relu(x) + log(1 + e^-|x|), both CORDIC legs
-      return fmaxf(xf, 0.0f) + log_q(1.0f + exp_q(-fabsf(xf), p), p);
-    case OP_ELU:
-      return xf > 0.0f ? xf : exp_q(fminf(xf, 0.0f), p) - 1.0f;
-    default:  // OP_GELU_ERF: 0.5 x (1 + erf(x / sqrt 2))
-      return 0.5f * xf * (1.0f + erf_q(xf * CORDIC_INV_SQRT2, p));
+    case OP_SIGMOID: return act_op<OP_SIGMOID>(xf, p, st);
+    case OP_TANH: return act_op<OP_TANH>(xf, p, st);
+    case OP_SIGMOID_WIDE: return act_op<OP_SIGMOID_WIDE>(xf, p, st);
+    case OP_SILU: return act_op<OP_SILU>(xf, p, st);
+    case OP_EXP: return act_op<OP_EXP>(xf, p, st);
+    case OP_LOG: return act_op<OP_LOG>(xf, p, st);
+    case OP_SOFTPLUS: return act_op<OP_SOFTPLUS>(xf, p, st);
+    case OP_ELU: return act_op<OP_ELU>(xf, p, st);
+    default: return act_op<OP_GELU_ERF>(xf, p, st);
   }
 }
 
@@ -75,6 +102,87 @@ __global__ void act_kernel(const T* __restrict__ x, T* __restrict__ y, long long
        i += stride) {
     store_float(y, i, act_one(load_as_float(x, i), op, p));
   }
+}
+
+// 16 bytes of lanes: 4 float32 or 8 bfloat16, as float32 values.
+template <typename T>
+struct Lanes16;
+
+template <>
+struct Lanes16<float> {
+  static constexpr int n = 4;
+  __device__ __forceinline__ static void load(const float* x, long long v, float* f) {
+    const float4 a = reinterpret_cast<const float4*>(x)[v];
+    f[0] = a.x;
+    f[1] = a.y;
+    f[2] = a.z;
+    f[3] = a.w;
+  }
+  __device__ __forceinline__ static void store(float* y, long long v, const float* f) {
+    reinterpret_cast<float4*>(y)[v] = make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+
+template <>
+struct Lanes16<__nv_bfloat16> {
+  static constexpr int n = 8;
+  // a bfloat16 is the high half of its float32 value (exact)
+  __device__ __forceinline__ static void load(const __nv_bfloat16* x, long long v, float* f) {
+    const uint4 a = reinterpret_cast<const uint4*>(x)[v];
+    const unsigned w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* y, long long v, const float* f) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned lo = __bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i]));
+      const unsigned hi = __bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i + 1]));
+      w[i] = lo | (hi << 16);
+    }
+    reinterpret_cast<uint4*>(y)[v] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+constexpr int kTabThreads = 256;
+
+// The table route of act_2d: OP's stage from `tab` (the op's one table,
+// code = tab[z + half]). vec: both pointers are 16-byte aligned, so whole
+// vectors go first and the tail element by element.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kTabThreads)
+    act_kernel_tab(const T* __restrict__ x, T* __restrict__ y, long long n, int vec,
+                   const CordicParams p, const short* __restrict__ tab, int half) {
+  constexpr bool kTanh = OP <= OP_SILU;  // the sigmoid family reads tanh codes
+  const TableStages st{kTanh ? tab : nullptr, kTanh ? nullptr : tab, half};
+  using L = Lanes16<T>;
+  const long long nv = vec ? n / L::n : 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long v = gid; v < nv; v += stride) {
+    float f[L::n];
+    L::load(x, v, f);
+#pragma unroll
+    for (int i = 0; i < L::n; ++i) f[i] = act_op<OP>(f[i], p, st);
+    L::store(y, v, f);
+  }
+  for (long long i = nv * L::n + gid; i < n; i += stride)
+    store_float(y, i, act_op<OP>(load_as_float(x, i), p, st));
+}
+
+// Both code tables of a 16-bit format by the pipeline's own stages: entry i
+// of row 0 the tanh code of z = i - half, of row 1 the e^r code.
+__global__ void code_tables_kernel(short* __restrict__ tab, int half, const CordicParams p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = 2 * half + 1;
+  if (i >= n) return;
+  const PipelineStages st{p};
+  tab[i] = (short)st.tanh_code(i - half);
+  tab[n + i] = (short)st.exp_code(i - half);
 }
 
 template <typename T>
@@ -105,31 +213,86 @@ __global__ void act_q_kernel(const T* __restrict__ x, T* __restrict__ y, long lo
 
 constexpr int kThreads = 256;
 
-unsigned grid_for(long long n) {
+int sm_count() {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
+  return sms;
+}
+
+unsigned grid_for(long long n) {
   const long long blocks = (n + kThreads - 1) / kThreads;
-  const long long cap = (long long)sms * 16;
+  const long long cap = (long long)sm_count() * 16;
   return (unsigned)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
+}
+
+// Persistent grid of the table route: as many CTAs as are resident on the
+// card at once, fewer when the launch has less work.
+template <typename T, int OP>
+int launch_tab(const void* x, void* y, long long n, const CordicParams& p, const void* tab,
+               int half, cudaStream_t s) {
+  static int resident = 0;
+  if (resident == 0) {
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, act_kernel_tab<T, OP>,
+                                                  kTabThreads, 0);
+    resident = (per_sm > 0 ? per_sm : 1) * sm_count();
+  }
+  constexpr int lanes = 16 / sizeof(T);
+  const int vec = ((unsigned long long)x % 16 == 0 && (unsigned long long)y % 16 == 0) ? 1 : 0;
+  const long long work = vec ? (n + lanes - 1) / lanes : n;
+  long long grid = (work + kTabThreads - 1) / kTabThreads;
+  grid = grid < 1 ? 1 : (grid > resident ? resident : grid);
+  act_kernel_tab<T, OP><<<(unsigned)grid, kTabThreads, 0, s>>>((const T*)x, (T*)y, n, vec, p,
+                                                              (const short*)tab, half);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_tab_op(int op, const void* x, void* y, long long n, const CordicParams& p,
+                  const void* tab, int half, cudaStream_t s) {
+  switch (op) {
+    case OP_SIGMOID: return launch_tab<T, OP_SIGMOID>(x, y, n, p, tab, half, s);
+    case OP_TANH: return launch_tab<T, OP_TANH>(x, y, n, p, tab, half, s);
+    case OP_SIGMOID_WIDE: return launch_tab<T, OP_SIGMOID_WIDE>(x, y, n, p, tab, half, s);
+    case OP_SILU: return launch_tab<T, OP_SILU>(x, y, n, p, tab, half, s);
+    case OP_EXP: return launch_tab<T, OP_EXP>(x, y, n, p, tab, half, s);
+    case OP_SOFTPLUS: return launch_tab<T, OP_SOFTPLUS>(x, y, n, p, tab, half, s);
+    case OP_ELU: return launch_tab<T, OP_ELU>(x, y, n, p, tab, half, s);
+    case OP_GELU_ERF: return launch_tab<T, OP_GELU_ERF>(x, y, n, p, tab, half, s);
+    default: return (int)cudaErrorInvalidValue;  // log has no table stage
+  }
 }
 
 }  // namespace
 
+// tab: the op's code table (null: the pipeline route), its codes
+// [-half, half].
 extern "C" int cordic_act_2d(const void* x, void* y, long long n, int op, int dtype,
-                             const CordicParams* p, void* stream) {
+                             const CordicParams* p, const void* tab, int half, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0) {
-    const unsigned grid = grid_for(n);
-    if (dtype == 0)
-      act_kernel<float><<<grid, kThreads, 0, s>>>((const float*)x, (float*)y, n, op, *p);
-    else
-      act_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-          (const __nv_bfloat16*)x, (__nv_bfloat16*)y, n, op, *p);
-  }
+  if (n <= 0) return (int)cudaGetLastError();
+  if (tab != nullptr)
+    return dtype == 0 ? launch_tab_op<float>(op, x, y, n, *p, tab, half, s)
+                      : launch_tab_op<__nv_bfloat16>(op, x, y, n, *p, tab, half, s);
+  const unsigned grid = grid_for(n);
+  if (dtype == 0)
+    act_kernel<float><<<grid, kThreads, 0, s>>>((const float*)x, (float*)y, n, op, *p);
+  else
+    act_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        (const __nv_bfloat16*)x, (__nv_bfloat16*)y, n, op, *p);
+  return (int)cudaGetLastError();
+}
+
+// tab: a (2, 2 half + 1) int16 buffer; row 0 gets the tanh codes, row 1
+// the e^r codes of [-half, half].
+extern "C" int cordic_code_tables(void* tab, int half, const CordicParams* p, void* stream) {
+  const int n = 2 * half + 1;
+  code_tables_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+      (short*)tab, half, *p);
   return (int)cudaGetLastError();
 }
 

@@ -3,6 +3,13 @@
 // act.cu, softmax.cu and paged_decode.cu all include this header, the way
 // softmax_cordic.py:36 and paged_attention.py:80 import those stages.
 //
+// Two routes reach the two costly stages (tanh codes of an angle code, and
+// the e^r codes wrap(cosh + sinh) of one): PipelineStages runs the rotation
+// (and the LVC divide), TableStages reads the stage's answer from a code
+// table the card built with the same functions (kernels/code_tables.py; a
+// 16-bit format only). The float boundary code around them is written once,
+// as templates over the stage set, so the routes agree bit for bit.
+//
 // The stage loops unroll over the ROM's maximum size with a guard on the
 // schedule's length, so every ROM entry is read at a constant offset of the
 // kernel's by-value parameter (the constant bank), never through a local
@@ -151,12 +158,47 @@ __device__ __forceinline__ int cordic_tanh_q(int zq, const CordicParams& p) {
   return guard_drop(lvc_div_q(x, y, p), p);
 }
 
+// The stages by rotation: what every pipeline kernel runs.
+struct PipelineStages {
+  const CordicParams& p;
+  __device__ __forceinline__ int tanh_code(int z) const { return cordic_tanh_q(z, p); }
+  __device__ __forceinline__ int exp_code(int z) const {
+    int c, s;
+    coshsinh_q(z, p, c, s);
+    return wrap_bits(c + s, p.bits);
+  }
+};
+
+// The stages by lookup: entry i of a table holds the stage's code for the
+// angle code i - half (code_tables.py), read from global memory through L1
+// (32 KB a table: it stays in each SM's L1; staging it into shared memory
+// lost or tied at every size measured, PERF.md). Every code the wrappers'
+// inputs can give lies in [-half, half]; only a NaN lane, outside the
+// kernels' contract, can index beyond it, and then reads the edge entry
+// instead. A kernel hands over the one table its op reads.
+struct TableStages {
+  const short* tanh_tab;
+  const short* exp_tab;
+  int half;
+  __device__ __forceinline__ int at(const short* tab, int z) const {
+    return __ldg(tab + min(max(z, -half), half) + half);
+  }
+  __device__ __forceinline__ int tanh_code(int z) const { return at(tanh_tab, z); }
+  __device__ __forceinline__ int exp_code(int z) const { return at(exp_tab, z); }
+};
+
 // _cordic_sigmoid_q: input halving, tanh core, 1/2 + t/2 output stage.
-__device__ __forceinline__ int cordic_sigmoid_q(int xq, const CordicParams& p) {
-  const int t = cordic_tanh_q(shr_bits(xq, 1, p.bits), p);
+template <class Stages>
+__device__ __forceinline__ int sigmoid_code(int xq, const CordicParams& p,
+                                            const Stages& st) {
+  const int t = st.tanh_code(shr_bits(xq, 1, p.bits));
   const int half = 1 << (p.fb - 1);
   const int t2 = wrap_bits((t + 1) >> 1, p.bits);
   return wrap_bits(half + t2, p.bits);
+}
+
+__device__ __forceinline__ int cordic_sigmoid_q(int xq, const CordicParams& p) {
+  return sigmoid_code(xq, p, PipelineStages{p});
 }
 
 // _quantize_f: float -> Q codes, round half to even, saturating.
@@ -177,12 +219,14 @@ __device__ __forceinline__ float exp2_i32(int k) {
 }
 
 // _wide_sigmoid_f: dyadic range extension around the Q2.14 core.
-__device__ __forceinline__ float wide_sigmoid_f(float xf, const CordicParams& p) {
+template <class Stages>
+__device__ __forceinline__ float wide_sigmoid_f(float xf, const CordicParams& p,
+                                                const Stages& st) {
   const float ax = fabsf(xf);
   int k = 0;
   for (int i = 0; i < p.max_doublings; ++i) k += (ax > (float)(1 << i)) ? 1 : 0;
   const float xs = fminf(fmaxf(xf * exp2_i32(-k), -1.0f), 1.0f);
-  float s = dequantize_f(cordic_sigmoid_q(quantize_f(xs, p.fb, p.bits), p), p.fb);
+  float s = dequantize_f(sigmoid_code(quantize_f(xs, p.fb, p.bits), p, st), p.fb);
   for (int i = 0; i < p.max_doublings; ++i) {
     const float s2 = s * s;
     const float t = 1.0f - s;
@@ -193,6 +237,10 @@ __device__ __forceinline__ float wide_sigmoid_f(float xf, const CordicParams& p)
     s = (k > i) ? doubled : s;
   }
   return s;
+}
+
+__device__ __forceinline__ float wide_sigmoid_f(float xf, const CordicParams& p) {
+  return wide_sigmoid_f(xf, p, PipelineStages{p});
 }
 
 // _hyp_vector_q: radix-2 hyperbolic vectoring, drives y to 0 and returns
@@ -217,13 +265,17 @@ __device__ __forceinline__ int hyp_vector_q(int x, int y, const CordicParams& p)
 
 // _exp_q: e^x over (-80, 80). k = rint(x / ln2) is a plain multiply and a
 // round; r = x - k ln2 is the fused form jitted XLA computes.
-__device__ __forceinline__ float exp_q(float xf, const CordicParams& p) {
+template <class Stages>
+__device__ __forceinline__ float exp_q(float xf, const CordicParams& p, const Stages& st) {
   const float x = fminf(fmaxf(xf, -CORDIC_EXP_CLIP), CORDIC_EXP_CLIP);
   const float k = rintf(x * CORDIC_INV_LN2);
   const float r = fmaf(-k, CORDIC_LN2, x);
-  int c, s;
-  coshsinh_q(quantize_f(r, p.fb, p.bits), p, c, s);
-  return dequantize_f(wrap_bits(c + s, p.bits), p.fb) * exp2_i32((int)k);
+  const int eq = st.exp_code(quantize_f(r, p.fb, p.bits));
+  return dequantize_f(eq, p.fb) * exp2_i32((int)k);
+}
+
+__device__ __forceinline__ float exp_q(float xf, const CordicParams& p) {
+  return exp_q(xf, p, PipelineStages{p});
 }
 
 // _log_q: ln v = 2 atanh((m-1)/(m+1)) + p ln2 with v = m 2^p, m in [0.5, 1)
@@ -242,11 +294,12 @@ __device__ __forceinline__ float log_q(float v, const CordicParams& p) {
 // _erf_q: erf(u)^2 ~ 1 - exp(-u^2 (4/pi + a u^2) / (1 + a u^2)) over the
 // exp_q stage; jitted XLA rounds the prefactor's products (no FMA; with
 // -fmad=false none forms here), the sqrt is IEEE (no fast-math).
-__device__ __forceinline__ float erf_q(float u, const CordicParams& p) {
+template <class Stages>
+__device__ __forceinline__ float erf_q(float u, const CordicParams& p, const Stages& st) {
   const float u2 = u * u;
   const float g = u2 * (CORDIC_FOUR_PI + CORDIC_ERF_A * u2) / (1.0f + CORDIC_ERF_A * u2);
   const float sg = u > 0.0f ? 1.0f : (u < 0.0f ? -1.0f : 0.0f);
-  return sg * sqrtf(fmaxf(1.0f - exp_q(-g, p), 0.0f));
+  return sg * sqrtf(fmaxf(1.0f - exp_q(-g, p, st), 0.0f));
 }
 
 // jnp.exp2 of an integer-valued k as jitted XLA:CPU computes it: exp(f32(k
@@ -329,16 +382,25 @@ __device__ __forceinline__ float lin_multiply_float(float a, float s, const Cord
 // The exp stage of the CORDIC softmax (softmax_cordic._softmax_kernel and
 // paged_attention._exp_codes): u = k ln2 + r, e^r = cosh r + sinh r codes,
 // the dyadic exponent k, and the dead-lane flag (u < -20).
-__device__ __forceinline__ void exp_codes(float u, const CordicParams& p,
+template <class Stages>
+__device__ __forceinline__ void exp_codes(float u, const CordicParams& p, const Stages& st,
                                           int& eq, int& ki, bool& dead) {
   dead = u < CORDIC_DEAD_CUTOFF;
   // fma(u, 1/ln2, 0.5) and fma(-k, ln2, u): the forms jitted XLA computes
   const float k = fmaxf(floorf(fmaf(u, CORDIC_INV_LN2, 0.5f)), CORDIC_MIN_K);
   const float r = dead ? 0.0f : fmaf(-k, CORDIC_LN2, u);
-  int c, s;
-  coshsinh_q(quantize_f(r, p.fb, p.bits), p, c, s);
-  eq = wrap_bits(c + s, p.bits);
+  eq = st.exp_code(quantize_f(r, p.fb, p.bits));
   ki = (int)k;
+}
+
+__device__ __forceinline__ void exp_codes(float u, const CordicParams& p,
+                                          int& eq, int& ki, bool& dead) {
+  exp_codes(u, p, PipelineStages{p}, eq, ki, dead);
+}
+
+// A lane's e^u from its codes: dead lanes exactly 0.
+__device__ __forceinline__ float exp_value(int eq, int ki, bool dead, const CordicParams& p) {
+  return dead ? 0.0f : dequantize_f(eq, p.fb) * exp2_i32(ki);
 }
 
 // _lane_exp (cordic_pallas): e^u with dead lanes flushed to 0.
@@ -346,7 +408,7 @@ __device__ __forceinline__ float lane_exp(float u, const CordicParams& p) {
   int eq, ki;
   bool dead;
   exp_codes(u, p, eq, ki, dead);
-  return dead ? 0.0f : dequantize_f(eq, p.fb) * exp2_i32(ki);
+  return exp_value(eq, ki, dead, p);
 }
 
 // Normalization stage given the row sum: exponent-field frexp of S, Q-format

@@ -69,7 +69,7 @@ from repro_torch.cordic_engine.core import PAPER_FIXED, FixedConfig
 from repro_torch.core import kv_quant as kvq
 from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE, MRSchedule
 from repro_torch.kernels import build
-from repro_torch.kernels.softmax_cordic import _lane_exp, _lane_probs, _seq_sum
+from repro_torch.kernels.softmax_cordic import _lane_exp, _lane_probs
 
 NEG_INF = -1e30
 #: softmax impls, in the order of the kernels' impl codes
@@ -135,6 +135,15 @@ def _walk(tables, k_len, L: int, impl: str):
             if bool(live.any()):
                 yield (pas, tables[:, c].to(torch.int64), live,
                        (c * L + lane)[None, :] < klen[:, None])
+
+
+def _seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Left-to-right float32 sum over the last axis (keepdim): a block's
+    sum, in the order the decode kernels take it."""
+    acc = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i:i + 1]
+    return acc
 
 
 def _pass_update(s, live, pas, impl, state, contract, sched, cfg):

@@ -8,40 +8,45 @@ Port of ``softmax_2d`` of ``repro/kernels/softmax_cordic.py``:
     S   = sum_i e_i = m * 2^p             exponent-field frexp
     p_i = ((e_i/2) / m) * 2^(k_i - p + 1) R2-LVC division
 
-Lanes more than e^-20 below the row max are exactly 0. The TPU kernel pads
-columns to 128 lanes; this one takes the row as it is. The row sum runs left
-to right in both the plain version and the kernel (``csrc/softmax.cu``), so
-the two agree bit for bit; against the JAX kernel, whose reduction order is
-XLA's, a lane can differ by one Q2.14 code step of its probability where the
-sum lands on a rounding edge of its Q2.14 mantissa.
+Lanes more than e^-20 below the row max are exactly 0.
+
+The row sum is taken in XLA:CPU's order (``_xla_row_sum``), so the plain
+version, the kernel (``csrc/softmax.cu``) and the JAX kernel agree bit for
+bit. Jitted XLA:CPU rewrites ``jnp.sum(axis=-1)`` into nested reduce-windows
+(``window={size=1x32 stride=1x32}``, then e.g. ``pad=0_0x8_8`` and
+``pad=0_0x0_1`` at 64,000 columns, jax 0.9.0): windows of 32 lanes summed
+left to right, padded ``floor(p/2)`` in front and ``ceil(p/2)`` behind,
+until at most 32 partials remain, which are summed left to right. The JAX
+kernel sums the row padded to ``cols_p`` lanes (``_rowwise_call``), so the
+replay starts from ``cols_p``: it equals jitted ``jnp.sum`` of the
+zero-padded row at 32 to 64,000 columns, and not that of the unpadded row
+at widths that are not a multiple of 128.
 
 ``log_softmax_2d`` (the train loss, ``loss_impl="cordic_pallas"``) is the
 same exp sweep followed by the hyperbolic-vectoring log of the row sum:
 
     y_i = u_i - ln S,   ln S = 2 atanh((m-1)/(m+1)) + p ln2   (S = m 2^p)
 
-Lanes masked with -1e30 keep their hugely negative u. Its rows are up to a
-vocabulary wide (64000 lanes), too long for one thread, so the row sum is a
-fixed-order block reduction (``_block_sum``): thread t of ``LOG_SOFTMAX_T``
-sums lanes t, t+T, ... in order, then a pairwise tree adds the T partials.
-The plain version replays that order, so kernel and plain version agree bit
-for bit. Against the JAX kernel, whose sum XLA orders, only ln S can move:
-where the sum lands on a rounding edge of its Q2.14 mantissa, m-1 and m+1
-quantize one code apart and the vectoring settles a few codes of atanh
-away, so y moves by at most ``LOG_SOFTMAX_ATOL`` on every lane of that row.
+Lanes masked with -1e30 keep their hugely negative u. Its sum takes the same
+order, so it too equals the JAX kernel bit for bit.
+
+In a 16-bit format the kernel reads the e^r codes from the card's code
+table (``code_tables.py``); ``tables`` makes the plain version do the same.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import numerics as nx
 from repro_torch.cordic_engine.core import PAPER_FIXED, FixedConfig
 from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE, MRSchedule
 from repro_torch.kernels import build
+from repro_torch.kernels import code_tables as CT
 from repro_torch.kernels.cordic_act import (
     _I32,
-    _coshsinh_q,
     _dequantize_f,
     _exp2_i32,
+    _exp_code,
     _fma_k,
     _fma_r,
     _guard_drop,
@@ -49,42 +54,35 @@ from repro_torch.kernels.cordic_act import (
     _lvc_div_q,
     _quantize_f,
     _shr,
-    _wrap16,
 )
 
 #: lanes more than ~e^-20 below the row max flush to exactly zero
 _DEAD_CUTOFF = -20.0
 _MIN_K = -30.0
-#: threads per row of the log-softmax kernel (csrc/softmax.cu), which fix
-#: the order of its row sum
-LOG_SOFTMAX_T = 256
-#: |port - JAX| bound of log_softmax_2d: 4 codes of the vectoring's atanh
-#: (2^-14 each), doubled by ln S = 2 atanh(...) + p ln2
-LOG_SOFTMAX_ATOL = 2 * 4 * 2.0 ** -14
 
 
-def _exp_codes(u: torch.Tensor, sched: MRSchedule, cfg: FixedConfig):
+def _exp_codes(u: torch.Tensor, sched: MRSchedule, cfg: FixedConfig, tables=None):
     """Dyadic reduction + rotation: (e^r codes, exponents k, dead mask)."""
     fb, bits = cfg.fmt.frac_bits, cfg.fmt.total_bits
     dead = u < _DEAD_CUTOFF
     k = _fma_k(u).clamp_min(_MIN_K)
     r = torch.where(dead, torch.zeros_like(u), _fma_r(u, k))
-    c, s = _coshsinh_q(_quantize_f(r, fb, bits), sched, cfg)
-    return _wrap16(c + s, bits), k.to(_I32), dead
+    return _exp_code(_quantize_f(r, fb, bits), sched, cfg, tables), k.to(_I32), dead
 
 
-def _lane_exp(u: torch.Tensor, sched: MRSchedule, cfg: FixedConfig) -> torch.Tensor:
+def _lane_exp(u: torch.Tensor, sched: MRSchedule, cfg: FixedConfig,
+              tables=None) -> torch.Tensor:
     """CORDIC e^u per lane (u <= 0), dead lanes exactly 0."""
-    eq, ki, dead = _exp_codes(u, sched, cfg)
+    eq, ki, dead = _exp_codes(u, sched, cfg, tables)
     ef = _dequantize_f(eq, cfg.fmt.frac_bits) * _exp2_i32(ki)
     return torch.where(dead, torch.zeros_like(ef), ef)
 
 
 def _lane_probs(u: torch.Tensor, ssum: torch.Tensor, sched: MRSchedule,
-                cfg: FixedConfig) -> torch.Tensor:
+                cfg: FixedConfig, tables=None) -> torch.Tensor:
     """Normalised probability per lane given the row sum (broadcastable)."""
     fb, bits = cfg.fmt.frac_bits, cfg.fmt.total_bits
-    eq, ki, dead = _exp_codes(u, sched, cfg)
+    eq, ki, dead = _exp_codes(u, sched, cfg, tables)
     p = (ssum.view(_I32) >> 23) - 127
     mq = _quantize_f(ssum * _exp2_i32(-p), fb, bits).expand_as(eq)
     t = _lvc_div_q(mq, _shr(eq, 1, bits), sched, cfg)
@@ -92,31 +90,17 @@ def _lane_probs(u: torch.Tensor, ssum: torch.Tensor, sched: MRSchedule,
     return torch.where(dead, torch.zeros_like(out), out)
 
 
-def _seq_sum(x: torch.Tensor) -> torch.Tensor:
-    """Left-to-right float32 sum over the last axis (keepdim), the order the
-    kernels use."""
-    acc = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
-    for i in range(x.shape[-1]):
-        acc = acc + x[..., i:i + 1]
-    return acc
+def cols_padded(cols: int) -> int:
+    """The row width the JAX kernel sums over (``_rowwise_call``)."""
+    return max(128, -(-cols // 128) * 128)
 
 
-def _block_sum(x: torch.Tensor, threads: int = LOG_SOFTMAX_T) -> torch.Tensor:
-    """Row sum over the last axis (keepdim) in the kernel's block order:
-    strided per-thread sums left to right, then a pairwise tree over the
-    ``threads`` partials (threads a power of two)."""
-    rows, cols = x.shape
-    n = -(-cols // threads) * threads
-    xp = torch.nn.functional.pad(x, (0, n - cols))     # + 0.0 is exact
-    steps = xp.view(rows, n // threads, threads)
-    parts = torch.zeros(rows, threads, dtype=x.dtype, device=x.device)
-    for i in range(steps.shape[1]):
-        parts = parts + steps[:, i]
-    width = threads
-    while width > 1:
-        width //= 2
-        parts = parts[:, :width] + parts[:, width:2 * width]
-    return parts
+def _xla_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Row sum over the last axis (keepdim) in jitted XLA:CPU's order over
+    the row zero-padded to ``cols_padded`` lanes (adding 0.0 is exact)."""
+    cols = x.shape[-1]
+    xp = torch.nn.functional.pad(x, (0, cols_padded(cols) - cols))
+    return nx.xla_sum(xp, -1, keepdim=True)
 
 
 def log_softmax_2d_plain(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
@@ -125,18 +109,19 @@ def log_softmax_2d_plain(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
     of a 2D tensor."""
     xf = x.to(torch.float32)
     u = xf - xf.amax(dim=-1, keepdim=True)
-    ssum = _block_sum(_lane_exp(u, sched, cfg))
+    ssum = _xla_row_sum(_lane_exp(u, sched, cfg))
     return u - _log_q(ssum, cfg)
 
 
 def softmax_2d_plain(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
-                     cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
-    """Plain PyTorch version of the CORDIC softmax over the last axis."""
+                     cfg: FixedConfig = PAPER_FIXED, tables=None) -> torch.Tensor:
+    """Plain PyTorch version of the CORDIC softmax over the last axis;
+    ``tables`` as in ``cordic_act.act_2d_plain``."""
     xf = x.to(torch.float32)
     m = xf.amax(dim=-1, keepdim=True)
     u = xf - m
-    ssum = _seq_sum(_lane_exp(u, sched, cfg))
-    return _lane_probs(u, ssum, sched, cfg)
+    ssum = _xla_row_sum(_lane_exp(u, sched, cfg, tables))
+    return _lane_probs(u, ssum, sched, cfg, tables)
 
 
 def softmax_2d(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
@@ -150,9 +135,10 @@ def softmax_2d(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
         raise ValueError("softmax_2d: the kernel takes contiguous float32")
     rows, cols = x.shape
     y = torch.empty_like(x)
+    tab, half = CT.table_args(CT.EXP_ROW, sched, cfg, x.device)
     rc = build.library("softmax").cordic_softmax_2d(
         x.data_ptr(), y.data_ptr(), rows, cols, build.params_ptr(sched, cfg),
-        build.stream_ptr(x))
+        tab, half, build.stream_ptr(x))
     build.check(rc, "softmax_2d")
     build.count("softmax_2d")
     return y

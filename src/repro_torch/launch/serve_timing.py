@@ -19,7 +19,11 @@ weights, seed 0, the CORDIC kernels on) and measures, on the card:
    decode steps against the long context (their step p50): with the
    prefix cache off (whole-row prefill), and where the tree has the cache,
    on with no hit (block-wide pieces, serve/engine.py). ``--prompt-len 0``
-   skips it.
+   skips it;
+3. with ``--train-steps N``, after the serving model is freed: N train
+   steps of Yi-9B at full width cut to 4 layers (the CORDIC act, softmax
+   and loss kernels, AdamW, one batch of 8 x 32 tokens) after 2 warm-up
+   steps: their p50, host clock ending in ``loss.item()``.
 
 Prints one JSON object per run, appended to ``--out`` as well.
 """
@@ -140,6 +144,35 @@ def long_prefill(cfg, model, prompt_len, prefix_cache, max_len=4096, max_new=8):
     return out
 
 
+def train_steps(n_steps, layers=4, batch=8, seq=32):
+    """Step p50 of ``n_steps`` train steps on one batch (see the module
+    docstring), after 2 warm-up steps."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as loop_lib
+    from repro_torch.train import step as step_lib
+
+    cfg = dataclasses.replace(
+        configs.get_config("yi-9b", act_impl="cordic_pallas"), num_layers=layers,
+        block_pattern=(), softmax_impl="cordic_pallas", loss_impl="cordic_pallas")
+    state = step_lib.init_state(cfg, 1, adamw.AdamWConfig(), device="cuda")
+    ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                       global_batch=batch, seed=0))
+    b = loop_lib.to_device(ds.batch_at(0), "cuda")
+    step = step_lib.make_train_step(cfg, adamw.AdamWConfig(lr=1e-4), warmup_steps=0)
+    dts, losses = [], []
+    for _ in range(n_steps + 2):
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(m["loss"].item())
+        dts.append(time.perf_counter() - t0)
+    p50 = statistics.median(dts[2:])
+    return dict(step_ms_p50=p50 * 1e3, tok_s=batch * seq / p50, steps=n_steps,
+                losses=losses)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", required=True)
@@ -147,6 +180,7 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=4000)
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--profile-steps", type=int, default=0)
+    ap.add_argument("--train-steps", type=int, default=0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     card = subprocess.run(
@@ -163,6 +197,10 @@ def main(argv=None):
         res["long_off"] = [long_prefill(cfg, model, args.prompt_len, False)
                            for _ in range(2)]
         res["long_on"] = long_prefill(cfg, model, args.prompt_len, True)
+    if args.train_steps:
+        del model
+        torch.cuda.empty_cache()
+        res["train"] = train_steps(args.train_steps)
     line = json.dumps(res)
     print(line)
     if args.out:

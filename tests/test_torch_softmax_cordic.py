@@ -1,11 +1,10 @@
-"""PyTorch port of the CORDIC softmax kernel against the JAX kernel.
+"""PyTorch port of the CORDIC softmax kernels against the JAX kernels.
 
-Tolerance: the row sum runs left to right in the port and in XLA's own order
-in the JAX kernel, so where a sum lands on a rounding edge of its Q2.14
-mantissa every lane of that row moves by one Q2.14 code step of its
-probability. One step is 2^-14 of a quotient in (0.175, 0.71), so at most
-3.5e-4 of the lane's value. Most lanes are bit-equal; dead lanes are exactly
-0 on both sides.
+No tolerance: the port sums each row in jitted XLA:CPU's order over the
+row padded to 128 lanes (``softmax_cordic._xla_row_sum``), so softmax and
+log-softmax equal the JAX kernels in interpret mode bit for bit. The edge
+cases are rows whose sum lands on a rounding edge of its Q2.14 mantissa,
+where another order moves a lane by a code step.
 """
 import functools
 
@@ -14,12 +13,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import softmax_cordic as JS  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import softmax_cordic as S  # noqa: E402
 
+#: one Q2.14 code step of a probability: 2^-14 of a quotient in (0.175, 0.71)
 REL_STEP = 2.0 ** -14 / 0.175
 
 
@@ -42,7 +43,16 @@ def _attention_rows():
     return x
 
 
-CASES = {"attention_rows": _attention_rows, "wide_rows": lambda: _rows(3, 8, 300)}
+def _edge_rows(seed, cols, picks):
+    """Rows of a (300, cols) scale-0.5 draw whose sums land on a rounding
+    edge: a left-to-right sum moves their lanes by a code step (seen with
+    the port's plain stages on the CPU)."""
+    return _rows(seed, 300, cols, scale=0.5)[picks]
+
+
+CASES = {"attention_rows": _attention_rows, "wide_rows": lambda: _rows(3, 8, 300),
+         "edge_rows": lambda: _edge_rows(2, 4096, [41, 164, 257]),
+         "edge_ragged": lambda: _edge_rows(3, 4000, [62])}
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,11 +64,26 @@ def _pair(case):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_softmax_2d_vs_jax_within_one_code_step(case):
+def test_softmax_2d_vs_jax_bit_exact(case):
     _, got, want = _pair(case)
-    np.testing.assert_array_equal(got == 0, want == 0)
-    assert (np.abs(got - want) <= REL_STEP * want + 1e-30).all()
-    assert (got == want).mean() > 0.9
+    np.testing.assert_array_equal(got, want)
+
+
+def _left_to_right(x: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros(x.shape[:-1] + (1,))
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i:i + 1]
+    return acc
+
+
+@pytest.mark.parametrize("case", ["edge_rows", "edge_ragged"])
+def test_softmax_edge_rows_need_xla_order(case, monkeypatch):
+    """The left-to-right row sum (the order of the port before the replay)
+    misses the JAX kernel on every edge row."""
+    x, _, want = _pair(case)
+    monkeypatch.setattr(S, "_xla_row_sum", _left_to_right)
+    got = S.softmax_2d_plain(torch.from_numpy(x)).numpy()
+    assert (got != want).any(axis=-1).all()
 
 
 def test_softmax_2d_masked_rows():
@@ -82,19 +107,19 @@ def test_ops_softmax_any_axis():
     assert torch.equal(y.permute(0, 2, 1).reshape(-1, 40), want)
 
 
-def test_row_sum_is_left_to_right():
-    """The order the CUDA kernel reproduces: ((0 + e0) + e1) + ..."""
-    e = torch.from_numpy(_rows(5, 3, 33, scale=1.0)).abs()
-    want = torch.zeros(3)
-    for i in range(33):
-        want = want + e[:, i]
-    assert torch.equal(S._seq_sum(e)[:, 0], want)
+@pytest.mark.parametrize("cols", [32, 128, 300, 512, 4000, 4096, 64000])
+def test_row_sum_is_xla_order(cols):
+    """The order the CUDA kernels reproduce: jitted jnp.sum of the row
+    zero-padded to the JAX kernel's 128-lane width, bit for bit."""
+    e = np.abs(_rows(cols, 4, cols, scale=1.0)) * np.float32(1e3)
+    cols_p = S.cols_padded(cols)
+    padded = np.pad(e, ((0, 0), (0, cols_p - cols)))
+    want = np.asarray(jax.jit(lambda a: jnp.sum(a, axis=-1, keepdims=True))(padded))
+    np.testing.assert_array_equal(S._xla_row_sum(torch.from_numpy(e)).numpy(), want)
 
 
 # ---------------------------------------------------------------------------
-# log_softmax_2d: tolerance LOG_SOFTMAX_ATOL (the module docstring): the row
-# sum's order differs from XLA's, so where it lands on a rounding edge of its
-# Q2.14 mantissa ln S moves by a few vectoring codes on every lane of the row
+# log_softmax_2d: bit-exact, the same row-sum order
 # ---------------------------------------------------------------------------
 def _log_softmax_rows():
     """(40, 1000): random rows; a masked tail, a fully masked row, extreme
@@ -128,10 +153,9 @@ def _log_pair(case):
 
 
 @pytest.mark.parametrize("case", sorted(LOG_CASES))
-def test_log_softmax_2d_vs_jax_within_atol(case):
+def test_log_softmax_2d_vs_jax_bit_exact(case):
     _, got, want = _log_pair(case)
-    assert np.abs(got - want).max() <= S.LOG_SOFTMAX_ATOL
-    assert (got == want).mean() > 0.9
+    np.testing.assert_array_equal(got, want)
 
 
 def test_log_softmax_2d_masked_and_extreme_rows():
@@ -146,21 +170,29 @@ def test_log_softmax_2d_masked_and_extreme_rows():
     assert np.isfinite(got[[0, 3, 4, 5]]).all()
 
 
-def test_log_softmax_plain_sum_is_block_order():
-    """The order csrc/softmax.cu sums a row in: thread t adds lanes t, t+T,
-    ... left to right, then a pairwise tree adds the T partials."""
-    T = S.LOG_SOFTMAX_T
-    e = torch.from_numpy(_rows(15, 3, 3 * T + 17, scale=1.0)).abs()
-    parts = []
-    for t in range(T):
-        acc = torch.zeros(3)
-        for c in range(t, e.shape[1], T):
-            acc = acc + e[:, c]
-        parts.append(acc)
-    while len(parts) > 1:
-        half = len(parts) // 2
-        parts = [parts[i] + parts[i + half] for i in range(half)]
-    assert torch.equal(S._block_sum(e)[:, 0], parts[0])
+def _block_order(x: torch.Tensor, threads: int = 256) -> torch.Tensor:
+    """The log-softmax kernel's order before the replay: thread t adds
+    lanes t, t+T, ... left to right, then a pairwise tree of the partials."""
+    rows, cols = x.shape
+    n = -(-cols // threads) * threads
+    steps = torch.nn.functional.pad(x, (0, n - cols)).view(rows, n // threads, threads)
+    parts = torch.zeros(rows, threads)
+    for i in range(steps.shape[1]):
+        parts = parts + steps[:, i]
+    while parts.shape[1] > 1:
+        half = parts.shape[1] // 2
+        parts = parts[:, :half] + parts[:, half:]
+    return parts
+
+
+def test_log_softmax_edge_rows_need_xla_order(monkeypatch):
+    """Rows 30-31 of the mixed case: the block order misses the JAX kernel
+    on every lane of both rows (ln S moves by a few vectoring codes)."""
+    x, _, want = _log_pair("mixed_rows")
+    monkeypatch.setattr(S, "_xla_row_sum", _block_order)
+    got = S.log_softmax_2d_plain(torch.from_numpy(x[30:32])).numpy()
+    assert (got != want[30:32]).all()
+    assert np.abs(got - want[30:32]).max() <= 2 * 4 * 2.0 ** -14
 
 
 def test_ops_log_softmax_any_axis():

@@ -251,8 +251,8 @@ def test_parity_limits_match_the_recipes_own_spread(jax_run, monkeypatch):
     loss_spread, gn_spread = _rel_spread(nudged, jhist)
     assert 5e-5 < loss_spread <= 5e-4 and 5e-3 < gn_spread <= 5e-2, nudged
 
-    # the port with its CORDIC row sums in another order (softmax right to
-    # left, log-softmax over 128 partials): the same 5 steps, bit for bit
+    # the port with its CORDIC row sums in another order (XLA's windows
+    # over the reversed row): the same 5 steps, bit for bit
     def run():
         state, train_step = _port_state(flat), _port_step()
         b = loop_lib.to_device(_batch(), "cpu")
@@ -263,9 +263,8 @@ def test_parity_limits_match_the_recipes_own_spread(jax_run, monkeypatch):
         return out
 
     base = run()
-    seq_sum, block_sum = SM._seq_sum, SM._block_sum
-    monkeypatch.setattr(SM, "_seq_sum", lambda x: seq_sum(x.flip(-1)))
-    monkeypatch.setattr(SM, "_block_sum", lambda x, threads=0: block_sum(x, 128))
+    row_sum = SM._xla_row_sum
+    monkeypatch.setattr(SM, "_xla_row_sum", lambda x: row_sum(x.flip(-1)))
     assert run() == base
 
 
