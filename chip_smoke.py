@@ -14,8 +14,7 @@ shape, against the plain versions, timed) on the ``repro_torch`` under
 change, change, parent; each run appends one JSON line to ``--out``, and
 ``--save`` writes the kernels' outputs for a bit-for-bit comparison. The
 third form does the same for the row kernels: act_2d (each op at its
-shapes), softmax_2d and log_softmax_2d, and in a tree with code tables
-both table placements (shared memory, L1).
+shapes), silu_mul_2d, softmax_2d and log_softmax_2d.
 
 Phases of the first form, each of which must pass (the script exits non-zero otherwise):
 
@@ -213,6 +212,7 @@ def pipeline_ops(sched):
             "sigmoid_tab": lookup + boundary,
             "wide_tab": lookup + boundary + 6 + 2,
             "exp_codes_tab": exp_codes_tab,
+            "log_softmax_lane_tab": exp_codes_tab + 1,
             "softmax_lane_tab": exp_codes_tab + normalize,
             "gelu_erf_tab": exp_codes_tab + 4}
 
@@ -262,8 +262,10 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 2,
     them). ``kernel`` keeps only the kernels whose name holds it (a
     wrapper's own kernel); None keeps all (a plain version, a library call).
     Host dispatch and the gaps between launches are outside it, unless the
-    profiler records no device time three times running: then CUDA events
-    time the calls, gaps included, and a log line says so. ``parts``, when
+    profiler records no device time, or a count of some kernel's launches
+    that is not a multiple of ``iters`` (it dropped launches), three times
+    running (once, for a window of every kernel): then CUDA events time the
+    calls, gaps included, and a log line says so. ``parts``, when
     given, gets the device ms per call of each kernel name (a template's
     instantiations summed: a decode kernel's phases)."""
     if DEV != "cuda":                       # rehearsal on the CPU
@@ -281,8 +283,11 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 2,
     # the profiler now and then records no device activity for a window, or
     # drops some of a kernel's launches (a kernel then read faster than HBM
     # allows); profile again, then fall back to CUDA events around calls
-    # queued behind a 50 ms device sleep, so they run back to back
-    for attempt in range(3):
+    # queued behind a 50 ms device sleep, so they run back to back. A window
+    # of every kernel (a plain version's thousands of launches) drops on
+    # every try: it gets one
+    attempts = 3 if kernel is not None else 1
+    for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -294,7 +299,7 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 2,
             if kernel is None or kernel in ev.key:
                 us = getattr(ev, "self_device_time_total", 0.0)
                 total_us += us
-                if kernel is not None and ev.count % iters:
+                if ev.count % iters:
                     dropped.append(f"{ev.count} of {ev.key[:60]}")
                 if parts is not None and kernel is not None:
                     name = re.search(kernel + r"\w*", ev.key).group(0)
@@ -306,10 +311,10 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 2,
             return total_us / 1e3 / iters
         if dropped:
             log(f"[timing] the profiler recorded {', '.join(dropped)} for {iters} calls "
-                f"(attempt {attempt + 1} of 3)")
+                f"(attempt {attempt + 1} of {attempts})")
             continue
         log(f"[timing] the profiler saw no device time for {kernel or 'fn'} "
-            f"(attempt {attempt + 1} of 3)")
+            f"(attempt {attempt + 1} of {attempts})")
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda._sleep(100_000_000)
     start.record()
@@ -419,27 +424,34 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
         library=times(torch, lambda: torch.sigmoid(big)))
 
     # (2) silu_mul_2d at the decode (4 x d_ff), prefill (16 x d_ff) and
-    # eval-step (B*S x d_ff = 256 x d_ff) shapes, bfloat16, bit-exact
+    # eval-step (B*S x d_ff = 256 x d_ff) shapes, bfloat16 (timed) and
+    # float32, 16-byte aligned and not (the table route's vector and
+    # element paths), and in Q2.20 (the pipeline route): bit-exact
     F = ycfg.d_ff
     for name, rows in (("decode", SLOTS), ("prefill", BLOCK_LEN),
                        ("eval step", TRAIN_BATCH * TRAIN_SEQ)):
-        g = (torch.randn(rows, 1, F, generator=gen, device=dev) * 3).bfloat16()
-        u = torch.randn(rows, 1, F, generator=gen, device=dev).bfloat16()
-        a = K.silu_mul_2d(g.view(-1), u.view(-1))
-        b = K.silu_mul_2d_plain(g.view(-1), u.view(-1))
-        check(torch.equal(a, b), f"silu_mul_2d ({name}) differs from plain")
+        g = (torch.randn(rows * F + 1, generator=gen, device=dev) * 3).bfloat16()
+        u = torch.randn(rows * F + 1, generator=gen, device=dev).bfloat16()
+        for dt in (torch.bfloat16, torch.float32):
+            for off in (0, 1):
+                gd, ud = g.to(dt)[off:off + rows * F], u.to(dt)[off:off + rows * F]
+                check(torch.equal(K.silu_mul_2d(gd, ud), K.silu_mul_2d_plain(gd, ud)),
+                      f"silu_mul_2d ({name}, {dt}, offset {off}) differs from plain")
+        gd, ud = g[:rows * F].float(), u[:rows * F].float()
+        check(torch.equal(K.silu_mul_2d(gd, ud, **q20), K.silu_mul_2d_plain(gd, ud, **q20)),
+              f"silu_mul_2d ({name}) in Q2.20 (pipeline route) differs from plain")
+        g, u = g[:rows * F], u[:rows * F]
+        a, b = K.silu_mul_2d(g, u), K.silu_mul_2d_plain(g, u)
         n = g.numel()
-        bound, by = card.bound(6 * n, ops["wide"] * n)
+        bound, by = card.bound(6 * n, ops["wide_tab"] * n)
         rec = timed(
             dict(shape=[rows, F], dtype="bfloat16",
                  max_abs_err=float((a.float() - b.float()).abs().max()),
                  bound_ms=bound, bound_by=by),
-            kernel=times(torch, lambda: K.silu_mul_2d(g.view(-1), u.view(-1)),
-                         "silu_mul_kernel"),
-            plain=times(torch, lambda: K.silu_mul_2d_plain(
-                g.view(-1), u.view(-1)), None, 5, 1))
-        log(f"[silu_mul_2d] {name} {rec['shape']} bf16: bit-exact; "
-            f"{fmt_times(rec)}")
+            kernel=times(torch, lambda: K.silu_mul_2d(g, u), "silu_mul_kernel"),
+            plain=times(torch, lambda: K.silu_mul_2d_plain(g, u), None, 5, 1))
+        log(f"[silu_mul_2d] {name} {rec['shape']} bf16: bit-exact (bf16 and f32, "
+            f"aligned and not, and in Q2.20); {fmt_times(rec)}")
         if name == "decode":
             records["silu_mul_2d"] = rec
 
@@ -514,16 +526,26 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
     check(torch.equal(a, b), "log_softmax_2d differs from its plain version")
     err = float((a - b).abs().max())            # every lane is finite
     check(math.isfinite(err), "log_softmax_2d: a lane is not finite")
+    # the pipeline route (Q2.20); rows of V - 1 lanes one element off
+    # 16-byte alignment (the element path)
+    check(torch.equal(SM.log_softmax_2d(z, **q20), SM.log_softmax_2d_plain(z, **q20)),
+          "log_softmax_2d in Q2.20 (pipeline route) differs from its plain version")
+    zo = z.view(-1)[1:1 + rows * (V - 1)].view(rows, V - 1)
+    check(torch.equal(SM.log_softmax_2d(zo), SM.log_softmax_2d_plain(zo)),
+          f"log_softmax_2d ({V - 1} lanes, misaligned) differs from its plain version")
+    wide = log_softmax_wide_rows(torch, SM, gen, q20)
+    log(f"[log_softmax_2d] {list(z.shape)}: bit-exact, and in Q2.20, and at "
+        f"{V - 1} lanes misaligned; plan {SM.log_softmax_plan(V)}; {wide}")
     live = int((z - z.amax(-1, keepdim=True) >= -20.0).sum())
-    bound, by = card.bound(8 * z.numel(), ops["log_softmax_lane"] * live
+    bound, by = card.bound(8 * z.numel(), ops["log_softmax_lane_tab"] * live
                            + ops["log_row"] * rows, 3 * z.numel())
     records["log_softmax_2d"] = timed(
         dict(shape=list(z.shape), dtype="float32", max_abs_err=err,
              bound_ms=bound, bound_by=by),
-        kernel=times(torch, lambda: SM.log_softmax_2d(z), "log_softmax_rows_kernel"),
+        kernel=times(torch, lambda: SM.log_softmax_2d(z), "log_softmax_cluster_kernel"),
         plain=times(torch, lambda: SM.log_softmax_2d_plain(z), None, 3, 1),
         library=times(torch, lambda: torch.log_softmax(z, dim=-1)))
-    del z, a, b
+    del z, zo, a, b
 
     # (6) act_2d exp, log, softplus, elu at the train path's MLP shape
     # (B*S, d_ff) = (256, 11008), float32 and bfloat16, bit-exact
@@ -671,6 +693,43 @@ def long_softmax_rows(torch, gen):
     qpos = torch.arange(P - 256, P, device=dev)[:, None]
     kpos = torch.arange(T, device=dev)[None, :]
     return torch.where(kpos <= qpos, s, torch.full_like(s, -1e30)).contiguous()
+
+
+def log_softmax_wide_rows(torch, SM, gen, q20) -> str:
+    """log_softmax_2d on rows too wide for a cluster's shared memory (its
+    slices read from global memory in each pass), on both routes, and the
+    launch's refusal of a split that is not its layout's."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import code_tables as CT
+
+    cols = 400000
+    plan = SM.log_softmax_plan(cols)
+    check(not plan.staged, f"log_softmax_plan({cols}) keeps its slices in shared memory")
+    w = torch.randn(4, cols, generator=gen, device=DEV) * 3
+    w[0, cols - 5000:] = -1e30
+    for kw, route in ((dict(), "table"), (q20, "Q2.20")):
+        check(torch.equal(SM.log_softmax_2d(w, **kw), SM.log_softmax_2d_plain(w, **kw)),
+              f"log_softmax_2d at {cols} lanes ({route}, from global memory) "
+              "differs from its plain version")
+    # the entry takes the split as numbers; one that leaves windows out,
+    # leaves a CTA empty, or sizes shared memory off the layout is refused
+    # (cudaErrorInvalidValue) and launches nothing
+    y = torch.full_like(w, 7.0)
+    tab, half = CT.table_args(CT.EXP_ROW, SM.PAPER_SCHEDULE, SM.PAPER_FIXED, w.device)
+    n1 = SM.cols_padded(cols) // 32
+    bad = {"windows left out": (8, 100, plan.smem),
+           "an empty CTA": (8, n1 // 6, SM._ls_smem(n1, n1 // 6, False)),
+           "a cluster of 9": (9, -(-n1 // 9), SM._ls_smem(n1, -(-n1 // 9), False)),
+           "4 bytes short": (8, plan.windows, plan.smem - 4)}
+    for what, (cs, wpc, smem) in bad.items():
+        rc = build.library("softmax").cordic_log_softmax_2d(
+            w.data_ptr(), y.data_ptr(), 4, cols, cs, wpc, smem, 0,
+            build.params_ptr(SM.PAPER_SCHEDULE, SM.PAPER_FIXED), tab, half,
+            build.stream_ptr(w))
+        check(rc == 1, f"log_softmax_2d's entry took a split with {what} (rc {rc})")
+    torch.cuda.synchronize()
+    check(bool((y == 7.0).all()), "a refused log_softmax_2d launch wrote its output")
+    return f"{list(w.shape)} from global memory ({plan}): bit-exact, and in Q2.20; {len(bad)} bad splits refused"
 
 
 def decode_kernels(torch, card, records, ycfg, dcfg, ops):
@@ -1612,7 +1671,7 @@ def train_path(torch, build):
 
         prof = profile_window(torch, three, 3, "train steps",
                               ("act_kernel", "softmax_kernel",
-                               "log_softmax_rows_kernel", "gemm"))
+                               "log_softmax_cluster_kernel", "gemm"))
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     p50 = statistics.median(dts)
@@ -1774,11 +1833,14 @@ ROW_OUTPUTS = {}
 
 def row_kernels(torch, card, records, ycfg, dcfg, ops):
     """--row-kernels: act_2d (each op at its main paths' shapes),
-    softmax_2d and log_softmax_2d against their plain versions, device ms
-    beside one PyTorch call's; inputs from their own generator (seed 0), so
-    any tree sees the same ones. Only the wrappers every tree has are
-    called. Each output's SHA-256 goes into its record, and outputs of up
-    to 2^20 elements into ROW_OUTPUTS (--save)."""
+    silu_mul_2d, softmax_2d and log_softmax_2d against their plain
+    versions, device ms beside one PyTorch call's where there is one;
+    inputs from their own generator (seed 0), so any tree sees the same
+    ones. Only the wrappers every tree has are called, with the arguments
+    every tree takes; a kernel is picked out of the profiler by a part of
+    its name that every tree's kernel has. Each output's SHA-256 goes into
+    its record, and outputs of up to 2^20 elements into ROW_OUTPUTS
+    (--save)."""
     from repro_torch.kernels import cordic_act as K
     from repro_torch.kernels import softmax_cordic as SM
 
@@ -1830,9 +1892,23 @@ def row_kernels(torch, card, records, ycfg, dcfg, ops):
     check(torch.equal(a, SM.log_softmax_2d_plain(z)), f"{name} differs from plain")
     records[name] = dict(
         numel=z.numel(), sha256=keep_output(torch, name, a),
-        ms=device_ms(torch, lambda: SM.log_softmax_2d(z), kernel="log_softmax_rows_kernel"),
+        ms=device_ms(torch, lambda: SM.log_softmax_2d(z), kernel="log_softmax_"),
         library_ms=device_ms(torch, lambda: torch.log_softmax(z, dim=-1)))
     log(f"[rows] {name}: {records[name]}")
+    # silu_mul_2d (the SwiGLU epilogue): Yi's decode, prefill and eval-step
+    # rows and DeepSeek's dense FFN at decode, bfloat16
+    for rows, F in ((SLOTS, ycfg.d_ff), (BLOCK_LEN, ycfg.d_ff),
+                    (TRAIN_BATCH * TRAIN_SEQ, ycfg.d_ff), (SLOTS, dcfg.d_ff_dense)):
+        g = (torch.randn(rows, F, generator=gen, device=dev) * 3).bfloat16()
+        u = torch.randn(rows, F, generator=gen, device=dev).bfloat16()
+        name = f"silu_mul_2d[{rows}x{F},bfloat16]"
+        a = K.silu_mul_2d(g, u)
+        check(torch.equal(a, K.silu_mul_2d_plain(g, u)), f"{name} differs from its plain version")
+        records[name] = dict(
+            numel=g.numel(), sha256=keep_output(torch, name, a),
+            ms=device_ms(torch, lambda: K.silu_mul_2d(g, u), kernel="silu_mul_kernel"),
+            library_ms=None)
+        log(f"[rows] {name}: {records[name]}")
 
 
 def keep_output(torch, name, t) -> str:
@@ -1897,8 +1973,8 @@ def main(argv=None) -> int:
     ap.add_argument("--decode-kernels", action="store_true",
                     help="only the decode kernels' checks and times")
     ap.add_argument("--row-kernels", action="store_true",
-                    help="only act_2d's, softmax_2d's and log_softmax_2d's "
-                    "checks and times")
+                    help="only act_2d's, silu_mul_2d's, softmax_2d's and "
+                    "log_softmax_2d's checks and times")
     ap.add_argument("--src", default=str(SRC),
                     help="the tree whose repro_torch --decode-kernels or "
                     "--row-kernels runs")

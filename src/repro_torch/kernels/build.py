@@ -230,16 +230,17 @@ _SIGNATURES = {
         "cordic_act_2d": (_P, _P, _LL, _I, _I, _P, _P, _I, _P),
         # (tables, half, params, stream)
         "cordic_code_tables": (_P, _I, _P, _P),
-        # (gate, up, y, n, dtype, params, stream)
-        "cordic_silu_mul_2d": (_P, _P, _P, _LL, _I, _P, _P),
+        # (gate, up, y, n, dtype, params, table, half, stream)
+        "cordic_silu_mul_2d": (_P, _P, _P, _LL, _I, _P, _P, _I, _P),
         # (x, y, n, int dtype, params, stream)
         "cordic_act_q_2d": (_P, _P, _LL, _I, _P, _P),
     },
     "softmax": {
         # (x, y, rows, cols, params, table, half, stream)
         "cordic_softmax_2d": (_P, _P, _I, _I, _P, _P, _I, _P),
-        # (x, y, rows, cols, params, stream)
-        "cordic_log_softmax_2d": (_P, _P, _I, _I, _P, _P),
+        # (x, y, rows, cols, cluster, windows, smem, staged, params, table,
+        #  half, stream)
+        "cordic_log_softmax_2d": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P),
     },
     "paged_decode": {
         # (q, q_dtype, k_pool, v_pool, pool_dtype, k_scale, v_scale,

@@ -353,11 +353,12 @@ def act_2d_plain(x: torch.Tensor, op: str, *, sched: MRSchedule = PAPER_SCHEDULE
 def silu_mul_2d_plain(gate: torch.Tensor, up: torch.Tensor, *,
                       sched: MRSchedule = PAPER_SCHEDULE,
                       cfg: FixedConfig = PAPER_FIXED,
-                      max_doublings: int = 3) -> torch.Tensor:
-    """Plain PyTorch version of the fused SwiGLU kernel: up * g * s(g)."""
+                      max_doublings: int = 3, tables=None) -> torch.Tensor:
+    """Plain PyTorch version of the fused SwiGLU kernel: up * g * s(g);
+    ``tables`` as in ``act_2d_plain``."""
     g = gate.to(torch.float32)
     u = up.to(torch.float32)
-    s = _wide_sigmoid_f(g, sched, cfg, max_doublings)
+    s = _wide_sigmoid_f(g, sched, cfg, max_doublings, tables)
     return (u * g * s).to(gate.dtype)
 
 
@@ -418,10 +419,11 @@ def silu_mul_2d(gate: torch.Tensor, up: torch.Tensor, *,
                                  max_doublings=max_doublings)
     _check_cuda("silu_mul_2d", gate, up)
     y = torch.empty_like(gate)
+    tab, half = CT.table_args(CT.TANH_ROW, sched, cfg, gate.device)
     rc = build.library("act").cordic_silu_mul_2d(
         gate.data_ptr(), up.data_ptr(), y.data_ptr(), gate.numel(),
         build.DTYPE_CODE[gate.dtype], build.params_ptr(sched, cfg, max_doublings),
-        build.stream_ptr(gate))
+        tab, half, build.stream_ptr(gate))
     build.check(rc, "silu_mul_2d")
     build.count("silu_mul_2d")
     return y

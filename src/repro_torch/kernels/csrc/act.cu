@@ -22,18 +22,21 @@
 // constant offsets of the parameter bank. The TPU's (rows, 1024) tiling is
 // gone; the wrappers pass flat element counts.
 //
-// act_kernel_tab, the table route (a 16-bit format, every op but log): the
-// op's one costly stage is a function of one code in [-2^(fb-1), 2^(fb-1)]
-// (code_tables.py), so it is one load from the stage's code table, which
-// cordic_code_tables builds on the card from the pipeline's own device
-// functions: the output is the pipeline's bit for bit, and an element costs
-// its float boundary ops (~15-25 operations) instead of ~310, which leaves
-// HBM bytes as the bound for sigmoid. Persistent CTAs (as many as fit the
-// card at once) read the op's 32 KB table through L1, where it stays (a
-// copy staged into shared memory per CTA lost or tied at every size
-// measured); 16-byte loads and stores (4 float32 or 8 bfloat16 lanes) where
-// both pointers allow. softplus takes only its exp leg from the table; its
-// log leg (two operands) stays on the pipeline.
+// act_kernel_tab and silu_mul_kernel_tab, the table route (a 16-bit format,
+// every op but log; silu_mul's sigmoid_wide): the op's one costly stage is
+// a function of one code in [-2^(fb-1), 2^(fb-1)] (code_tables.py), so it
+// is one load from the stage's code table, which cordic_code_tables builds
+// on the card from the pipeline's own device functions: the output is the
+// pipeline's bit for bit, and an element costs its float boundary ops
+// (~15-30 operations) instead of ~310, which leaves HBM bytes as the bound
+// for sigmoid and for silu_mul (6 bytes an element in bfloat16, against 28
+// operations). Persistent CTAs (as many as fit the card at once) read the
+// op's 32 KB table through L1, where it stays (a copy staged into shared
+// memory per CTA lost or tied at every size measured); 16-byte loads and
+// stores (4 float32 or 8 bfloat16 lanes) where every pointer allows.
+// softplus takes only its exp leg from the table; its log leg (two
+// operands) stays on the pipeline. sigmoid_wide's doubling loop stops at
+// the lane's k (cordic.cuh), so a lane with |x| <= 1 runs no divide.
 #include "cordic.cuh"
 
 namespace {
@@ -198,6 +201,55 @@ __global__ void silu_mul_kernel(const T* __restrict__ gate, const T* __restrict_
   }
 }
 
+// The table route of silu_mul_2d: sigmoid_wide's tanh stage from `tab` (the
+// tanh-code table). vec: 16 bytes a thread (the three pointers are 16-byte
+// aligned and the launch has the elements to fill the card that way), so
+// whole vectors go first and the tail element by element; otherwise an
+// element a thread.
+template <typename T>
+__global__ void __launch_bounds__(kTabThreads)
+    silu_mul_kernel_tab(const T* __restrict__ gate, const T* __restrict__ up,
+                        T* __restrict__ y, long long n, int vec, const CordicParams p,
+                        const short* __restrict__ tab, int half) {
+  const TableStages st{tab, nullptr, half};
+  using L = Lanes16<T>;
+  const long long nv = vec ? n / L::n : 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long v = gid; v < nv; v += stride) {
+    float g[L::n], u[L::n], s[L::n];
+    int k[L::n];
+    L::load(gate, v, g);
+    L::load(up, v, u);
+    // every lane's table load first; then the doublings of all lanes side
+    // by side, as many steps as the largest k among them (a lane keeps its
+    // first k, as the reference's select does), so the lanes' divides
+    // overlap; then the product
+    int kmax = 0;
+#pragma unroll
+    for (int i = 0; i < L::n; ++i) {
+      s[i] = wide_core(g[i], p, st, k[i]);
+      kmax = max(kmax, k[i]);
+    }
+    for (int d = 0; d < kmax; ++d) {
+#pragma unroll
+      for (int i = 0; i < L::n; ++i) {
+        const float dbl = wide_doubled(s[i]);
+        s[i] = k[i] > d ? dbl : s[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < L::n; ++i) g[i] = (u[i] * g[i]) * s[i];
+    L::store(y, v, g);
+  }
+  for (long long i = nv * L::n + gid; i < n; i += stride) {
+    const float g = load_as_float(gate, i);
+    const float u = load_as_float(up, i);
+    const float s = wide_sigmoid_f(g, p, st);
+    store_float(y, i, (u * g) * s);
+  }
+}
+
 // Integer codes in and out: the stage of cordic.cuh with no float boundary.
 // The result is already wrapped to the format's width, so the store into
 // the input's dtype keeps it (as .astype(o_ref.dtype) in the reference).
@@ -251,6 +303,33 @@ int launch_tab(const void* x, void* y, long long n, const CordicParams& p, const
   return (int)cudaGetLastError();
 }
 
+// 16 bytes a lane group: every pointer 16-byte aligned.
+bool aligned16(const void* a, const void* b, const void* c) {
+  return ((unsigned long long)a | (unsigned long long)b | (unsigned long long)c) % 16 == 0;
+}
+
+template <typename T>
+int launch_silu_mul_tab(const void* gate, const void* up, void* y, long long n,
+                        const CordicParams& p, const void* tab, int half, cudaStream_t s) {
+  static int resident = 0;
+  if (resident == 0) {
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, silu_mul_kernel_tab<T>,
+                                                  kTabThreads, 0);
+    resident = (per_sm > 0 ? per_sm : 1) * sm_count();
+  }
+  constexpr int lanes = 16 / sizeof(T);
+  // a launch of fewer vectors than the card holds threads (a decode step's
+  // 4 x 11008) takes an element a thread: 8 times the CTAs, on every SM
+  const int vec = aligned16(gate, up, y) && n / lanes >= (long long)resident * kTabThreads;
+  const long long work = vec ? (n + lanes - 1) / lanes : n;
+  long long grid = (work + kTabThreads - 1) / kTabThreads;
+  grid = grid < 1 ? 1 : (grid > resident ? resident : grid);
+  silu_mul_kernel_tab<T><<<(unsigned)grid, kTabThreads, 0, s>>>(
+      (const T*)gate, (const T*)up, (T*)y, n, vec, p, (const short*)tab, half);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_tab_op(int op, const void* x, void* y, long long n, const CordicParams& p,
                   const void* tab, int half, cudaStream_t s) {
@@ -296,9 +375,15 @@ extern "C" int cordic_code_tables(void* tab, int half, const CordicParams* p, vo
   return (int)cudaGetLastError();
 }
 
+// tab: the tanh-code table (null: the pipeline route), its codes
+// [-half, half].
 extern "C" int cordic_silu_mul_2d(const void* gate, const void* up, void* y, long long n,
-                                  int dtype, const CordicParams* p, void* stream) {
+                                  int dtype, const CordicParams* p, const void* tab,
+                                  int half, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (n > 0 && tab != nullptr)
+    return dtype == 0 ? launch_silu_mul_tab<float>(gate, up, y, n, *p, tab, half, s)
+                      : launch_silu_mul_tab<__nv_bfloat16>(gate, up, y, n, *p, tab, half, s);
   if (n > 0) {
     const unsigned grid = grid_for(n);
     if (dtype == 0)

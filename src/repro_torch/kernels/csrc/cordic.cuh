@@ -218,25 +218,44 @@ __device__ __forceinline__ float exp2_i32(int k) {
   return __int_as_float((k + 127) << 23);
 }
 
-// _wide_sigmoid_f: dyadic range extension around the Q2.14 core.
+// _wide_sigmoid_f: dyadic range extension around the Q2.14 core, in two
+// halves. wide_core: the doubling count k (|x| <= 2^k) and the core's
+// sigmoid of x 2^-k; no branch, so a kernel can issue several lanes' table
+// loads before it uses one. wide_doublings: the reference runs
+// max_doublings doubling steps and keeps the first k (its select discards
+// the rest), so the loop stops at the lane's k: the same bits, and a lane
+// with |x| <= 1 (k = 0) runs no divide.
+template <class Stages>
+__device__ __forceinline__ float wide_core(float xf, const CordicParams& p, const Stages& st,
+                                           int& k) {
+  const float ax = fabsf(xf);
+  k = 0;
+  for (int i = 0; i < p.max_doublings; ++i) k += (ax > (float)(1 << i)) ? 1 : 0;
+  const float xs = fminf(fmaxf(xf * exp2_i32(-k), -1.0f), 1.0f);
+  return dequantize_f(sigmoid_code(quantize_f(xs, p.fb, p.bits), p, st), p.fb);
+}
+
+// One doubling step: s -> s^2 / (s^2 + (1 - s)^2).
+__device__ __forceinline__ float wide_doubled(float s) {
+  const float s2 = s * s;
+  const float t = 1.0f - s;
+  // XLA:CPU contracts `s2 + (1 - s) * (1 - s)` into fma(1-s, 1-s, s2): s2
+  // is rounded once, as a value of its own (it is the numerator too)
+  const float denom = fmaf(t, t, s2);
+  return s2 / fmaxf(denom, CORDIC_DIV_FLOOR);
+}
+
+__device__ __forceinline__ float wide_doublings(float s, int k) {
+  for (int i = 0; i < k; ++i) s = wide_doubled(s);
+  return s;
+}
+
 template <class Stages>
 __device__ __forceinline__ float wide_sigmoid_f(float xf, const CordicParams& p,
                                                 const Stages& st) {
-  const float ax = fabsf(xf);
-  int k = 0;
-  for (int i = 0; i < p.max_doublings; ++i) k += (ax > (float)(1 << i)) ? 1 : 0;
-  const float xs = fminf(fmaxf(xf * exp2_i32(-k), -1.0f), 1.0f);
-  float s = dequantize_f(sigmoid_code(quantize_f(xs, p.fb, p.bits), p, st), p.fb);
-  for (int i = 0; i < p.max_doublings; ++i) {
-    const float s2 = s * s;
-    const float t = 1.0f - s;
-    // XLA:CPU contracts `s2 + (1 - s) * (1 - s)` into fma(1-s, 1-s, s2):
-    // s2 is rounded once, as a value of its own (it is the numerator too)
-    const float denom = fmaf(t, t, s2);
-    const float doubled = s2 / fmaxf(denom, CORDIC_DIV_FLOOR);
-    s = (k > i) ? doubled : s;
-  }
-  return s;
+  int k;
+  const float s = wide_core(xf, p, st, k);
+  return wide_doublings(s, k);
 }
 
 __device__ __forceinline__ float wide_sigmoid_f(float xf, const CordicParams& p) {

@@ -40,11 +40,32 @@
 // _log_softmax_kernel :93): the same max and exp sweeps and the same row-sum
 // order, then ln S of the row sum by the hyperbolic-vectoring log leg (once
 // per row), and y = (x - max) - ln S; lanes masked with -1e30 keep their
-// huge negative value. One CTA per row (a vocabulary wide, 64,000 lanes:
-// 2000 windows, then 63, then 2, then the final add). What bounds it:
-// integer operations, one rotation per lane (~170 INT32 operations) against
-// 8 bytes; the row is read three times (max, exp, out), the second and third
-// mostly from L2 (a 64000-lane row is 256 KB).
+// huge negative value. What bounds it: HBM bytes on the table route (a
+// live lane costs ~16 INT32 operations, the e^r stage one load from the
+// exp-code table, against 8 bytes: one read, one write), the rotation's
+// ~190 operations a lane in wider formats.
+//
+// log_softmax_cluster_kernel splits a row over a thread-block cluster (the
+// split is log_softmax_plan in softmax_cordic.py): CTA r of the cluster
+// takes the whole 32-lane windows [r W, r W + W) of the row, loads them
+// into shared memory once (cp.async), and the max, exp and output passes
+// read them there; a row too wide for the cluster's shared memory reads its
+// slices from global memory (L2) in each pass instead. Shared memory
+// keeps window w's eight 16-byte chunks in one 128-byte row, chunk j at
+// j ^ (w & 7), so a thread that sums window w (one 16-byte load a chunk)
+// and a quarter-warp that reads 8 neighbouring chunks both hit 8 distinct
+// bank groups. Across the cluster (distributed shared memory): each CTA's
+// max is read by every CTA (exact in any order); each CTA writes its window
+// sums (each window left to right, as window_sums) into rank 0's array;
+// rank 0's first warp runs the later levels (xla_tree_sum) and log_q once
+// and writes ln S into every CTA. Three cluster barriers; no CTA touches
+// another's shared memory after the last. (Neither the later levels by
+// rank 0's whole CTA nor every CTA running them itself, its sums broadcast
+// and one barrier fewer, was faster on the card.) The e^r lookups need the
+// table in L1, so the launch asks for a shared-memory carveout that leaves
+// L1 room for it (kLsCarveout).
+#include <cooperative_groups.h>
+
 #include <algorithm>
 
 #include "cordic.cuh"
@@ -224,7 +245,7 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   }
 }
 
-// The shared memory of softmax_kernel_wide and log_softmax_rows_kernel:
+// The shared memory of softmax_kernel_wide:
 // kWideWarps tiles, the window sums (n1), the next
 // level's (n1 / 32 + 1), the warps' maxima and the row sum.
 __host__ __device__ __forceinline__ int wide_floats(int n1) {
@@ -278,29 +299,182 @@ __global__ void __launch_bounds__(kWideThreads)
   }
 }
 
-__global__ void __launch_bounds__(kWideThreads)
-    log_softmax_rows_kernel(const float* __restrict__ x, float* __restrict__ y, int cols,
-                            const CordicParams p) {
-  extern __shared__ __align__(16) float f[];
-  const int n1 = cols_padded(cols) / 32;
-  float* tile = f + (threadIdx.x >> 5) * kTile;
-  float* part = f + kWideWarps * kTile;
-  float* part2 = part + n1;
-  float* warp_max = part2 + n1 / 32 + 1;
-  float* row_sum = warp_max + kWideWarps;
-  const float* xr = x + (long long)blockIdx.x * cols;
-  float* yr = y + (long long)blockIdx.x * cols;
+// The CTA of a cluster: kLsThreads threads.
+constexpr int kLsThreads = 256;
+constexpr int kLsWarps = kLsThreads / 32;
+constexpr int kLsMaxCluster = 8;  // the largest portable cluster
 
-  const float m = block_row_max<kWideThreads>(xr, cols, warp_max);
-  window_sums(cols, n1, tile, part, kWideWarps, [&](int c) { return lane_exp(xr[c] - m, p); });
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const float s = xla_tree_sum(part, part2, n1);
-    if (threadIdx.x == 0) *row_sum = s;
+// A CTA's shared memory, in floats from its start: [the slice, staged
+// only: wpc windows x 32 lanes] [the row's window sums: n1] [the next
+// level: n1 / 32 + 1] [the warps' maxima: kLsWarps] [this CTA's max, ln S].
+// log_softmax_plan sizes the same layout; the launch refuses another size.
+struct LsLayout {
+  int part, part2, warp_max, slots, floats;
+};
+
+__host__ __device__ __forceinline__ LsLayout ls_layout(int n1, int wpc, bool staged) {
+  LsLayout o;
+  o.part = staged ? 32 * wpc : 0;
+  o.part2 = o.part + n1;
+  o.warp_max = o.part2 + n1 / 32 + 1;
+  o.slots = o.warp_max + kLsWarps;
+  o.floats = o.slots + 2;
+  return o;
+}
+// shared memory an SM keeps for CTAs, in percent of the most it can (228
+// KB): 70% rounds to 164 KB, four CTAs of a 64,000-lane row's plan, and
+// leaves L1 92 KB (a CTA that needs more gets more)
+constexpr int kLsCarveout = 70;
+// registers for four CTAs an SM (64 a thread; 79 without the bound left
+// three)
+constexpr int kLsCtasPerSm = 4;
+
+// cp.async of 4 or 16 bytes into shared memory (cached at L1: .ca; 16
+// bytes may bypass it: .cg); one wait for all of a thread's copies.
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Word of slice lane l (window l / 32) in the swizzled layout.
+__device__ __forceinline__ int slice_word(int l) {
+  const int w = l >> 5, j = (l >> 2) & 7;
+  return (w << 5) | ((j ^ (w & 7)) << 2) | (l & 3);
+}
+
+template <bool kTab, bool kStaged>
+__global__ void __launch_bounds__(kLsThreads, kLsCtasPerSm)
+    log_softmax_cluster_kernel(const float* __restrict__ x, float* __restrict__ y, int cols,
+                               int wpc, int vec, const CordicParams p,
+                               const short* __restrict__ tab, int half) {
+  extern __shared__ __align__(16) float f[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const auto st = RouteStages<kTab>::make(p, tab, half);
+  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n1 = cols_padded(cols) / 32;
+  const int w0 = rank * wpc, nw = max(min(n1 - w0, wpc), 0);
+  // the slice's real lanes: [32 w0, 32 w0 + lanes) of the row
+  const int lanes = max(min(32 * (w0 + nw), cols) - 32 * w0, 0);
+  const long long row = blockIdx.x / csize;
+  const float* xs = x + row * cols + 32LL * w0;
+  float* ys = y + row * cols + 32LL * w0;
+  const LsLayout lay = ls_layout(n1, wpc, kStaged);
+  float* slice = f;
+  float* part = f + lay.part;
+  float* part2 = f + lay.part2;
+  float* warp_max = f + lay.warp_max;
+  float* slots = f + lay.slots;  // [0] this CTA's max, [1] ln S
+  // vec: 16-byte chunks (cols % 4 == 0 and both rows 16-byte aligned, so
+  // every slice is whole chunks)
+  const int nv = vec ? lanes / 4 : 0;
+  if constexpr (kStaged) {
+    for (int v = tid; v < nv; v += kLsThreads) copy_async16(slice + slice_word(4 * v), xs + 4 * v);
+    for (int l = 4 * nv + tid; l < lanes; l += kLsThreads) copy_async4(slice + slice_word(l), xs + l);
+    copy_async_wait();
+    __syncthreads();
   }
+  auto chunk = [&](int v) -> float4 {  // lanes 4 v .. 4 v + 3 of the slice
+    if constexpr (kStaged) return reinterpret_cast<const float4*>(slice)[slice_word(4 * v) >> 2];
+    return reinterpret_cast<const float4*>(xs)[v];
+  };
+  auto lane_x = [&](int l) -> float { return kStaged ? slice[slice_word(l)] : xs[l]; };
+
+  // pass 1: the row max, over the cluster's CTAs
+  float m = -INFINITY;
+  for (int v = tid; v < nv; v += kLsThreads) {
+    const float4 a = chunk(v);
+    m = fmaxf(fmaxf(m, a.x), fmaxf(a.y, fmaxf(a.z, a.w)));
+  }
+  for (int l = 4 * nv + tid; l < lanes; l += kLsThreads) m = fmaxf(m, lane_x(l));
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+  if (lane == 0) warp_max[warp] = m;
   __syncthreads();
-  const float lns = log_q(*row_sum, p);
-  for (int c = threadIdx.x; c < cols; c += kWideThreads) yr[c] = (xr[c] - m) - lns;
+  if (tid == 0) {
+    for (int w = 1; w < kLsWarps; ++w) m = fmaxf(m, warp_max[w]);
+    slots[0] = m;
+  }
+  cluster.sync();  // every CTA has started and holds its max
+  m = -INFINITY;
+  if (lane < csize) m = *cluster.map_shared_rank(slots, lane);
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+
+  // pass 2: level 1 of the row sum, a window a thread, into rank 0's array
+  float* part0 = cluster.map_shared_rank(part, 0);
+  for (int wl = tid; wl < nw; wl += kLsThreads) {
+    float s = 0.0f;
+    // lanes 4 j .. 4 j + 3 of the window into s, left to right
+    auto add_chunk = [&](int j) {
+      const int l = 32 * wl + 4 * j;
+      float a[4];
+      if (kStaged || 4 * nv > l) {  // a whole staged chunk, or a global one
+        const float4 c = kStaged ? reinterpret_cast<const float4*>(slice)[slice_word(l) >> 2]
+                                 : reinterpret_cast<const float4*>(xs)[l >> 2];
+        a[0] = c.x;
+        a[1] = c.y;
+        a[2] = c.z;
+        a[3] = c.w;
+      } else {
+        for (int e = 0; e < 4; ++e) a[e] = l + e < lanes ? xs[l + e] : 0.0f;
+      }
+      // no branch before the adds, so the 32 lanes' table loads can all
+      // be in flight; a lane past the row (any value: a code off the table
+      // reads its edge) adds 0
+      float ev[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int eq, ki;
+        bool dead;
+        exp_codes(a[e] - m, p, st, eq, ki, dead);
+        ev[e] = exp_value(eq, ki, dead, p);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s = s + (l + e < lanes ? ev[e] : 0.0f);
+    };
+    // the table route unrolls the window (its lookups all in flight); the
+    // rotation's 32 inlined copies only slowed nvcc (minutes), so the
+    // pipeline route loops
+    if constexpr (kTab) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) add_chunk(j);
+    } else {
+#pragma unroll 1
+      for (int j = 0; j < 8; ++j) add_chunk(j);
+    }
+    part0[w0 + wl] = s;
+  }
+  cluster.sync();  // rank 0 holds every window sum
+
+  // the later levels and ln S, once per row (rank 0's first warp), handed
+  // to every CTA
+  if (rank == 0 && warp == 0) {
+    const float ssum = xla_tree_sum(part, part2, n1);
+    if (lane < csize) *cluster.map_shared_rank(slots + 1, lane) = log_q(ssum, p);
+  }
+  cluster.sync();  // no CTA touches another's shared memory after this
+  const float lns = slots[1];
+
+  // pass 3: y = (x - m) - ln S
+  for (int v = tid; v < nv; v += kLsThreads) {
+    const float4 a = chunk(v);
+    reinterpret_cast<float4*>(ys)[v] =
+        make_float4((a.x - m) - lns, (a.y - m) - lns, (a.z - m) - lns, (a.w - m) - lns);
+  }
+  for (int l = 4 * nv + tid; l < lanes; l += kLsThreads) ys[l] = (lane_x(l) - m) - lns;
 }
 
 int sm_count() {
@@ -356,6 +530,44 @@ int launch_softmax(const float* x, float* y, int rows, int cols, const CordicPar
   return (int)cudaGetLastError();
 }
 
+template <bool kTab, bool kStaged>
+int launch_log_softmax(const float* x, float* y, int rows, int cols, int cluster, int wpc,
+                       int smem, const CordicParams& p, const short* tab, int half,
+                       cudaStream_t s) {
+  auto kern = log_softmax_cluster_kernel<kTab, kStaged>;
+  static int allowed = 48 * 1024;
+  static bool carved = false;
+  if (!allow_smem(kern, smem, allowed)) {
+    const int e = (int)cudaGetLastError();
+    return e != 0 ? e : (int)cudaErrorInvalidValue;
+  }
+  // leave L1 the room for the exp-code table (a 32 KB table whose codes
+  // |z| <= 5680 are live): without the hint the slices take all but 28 KB
+  // of an SM's 256 KB and every lookup went to L2
+  if (!carved) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, kLsCarveout);
+    if (e != cudaSuccess) return (int)e;
+    carved = true;
+  }
+  const int vec = (cols % 4 == 0 && ((unsigned long long)x | (unsigned long long)y) % 16 == 0);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster * (unsigned)rows, 1, 1);
+  cfg.blockDim = dim3(kLsThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, x, y, cols, wpc, vec, p, tab, half);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // tab: the exp-code table of a 16-bit format (null: the pipeline route),
@@ -372,14 +584,26 @@ extern "C" int cordic_softmax_2d(const void* x, void* y, int rows, int cols,
                       : launch_softmax<true>(xf, yf, rows, cols, *p, t, half, s);
 }
 
-extern "C" int cordic_log_softmax_2d(const void* x, void* y, int rows, int cols,
-                                     const CordicParams* p, void* stream) {
-  if (rows > 0 && cols > 0) {
-    const size_t smem = (size_t)wide_floats(cols_padded(cols) / 32) * sizeof(float);
-    static int allowed = 48 * 1024;
-    if (!allow_smem(log_softmax_rows_kernel, smem, allowed)) return (int)cudaGetLastError();
-    log_softmax_rows_kernel<<<rows, kWideThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)x, (float*)y, cols, *p);
-  }
-  return (int)cudaGetLastError();
+// tab: the exp-code table of a 16-bit format (null: the pipeline route),
+// its codes [-half, half]. The split (cluster CTAs a row, wpc windows a
+// CTA, smem bytes a CTA, staged) is softmax_cordic.log_softmax_plan's: it
+// must cover the row's n1 windows, leave no CTA without one, and give
+// smem the bytes of ls_layout, else the launch is refused.
+extern "C" int cordic_log_softmax_2d(const void* x, void* y, int rows, int cols, int cluster,
+                                     int wpc, int smem, int staged, const CordicParams* p,
+                                     const void* tab, int half, void* stream) {
+  if (rows <= 0 || cols <= 0) return (int)cudaGetLastError();
+  const int n1 = cols_padded(cols) / 32;
+  if (cluster < 1 || cluster > kLsMaxCluster || wpc < 1 || (long long)cluster * wpc < n1 ||
+      (long long)(cluster - 1) * wpc >= n1 || (staged != 0 && staged != 1) ||
+      (long long)smem != 4LL * ls_layout(n1, wpc, staged).floats)
+    return (int)cudaErrorInvalidValue;
+  const float* xf = (const float*)x;
+  float* yf = (float*)y;
+  const short* t = (const short*)tab;
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto launch = staged ? (t ? launch_log_softmax<true, true> : launch_log_softmax<false, true>)
+                             : (t ? launch_log_softmax<true, false>
+                                  : launch_log_softmax<false, false>);
+  return launch(xf, yf, rows, cols, cluster, wpc, smem, *p, t, half, s);
 }

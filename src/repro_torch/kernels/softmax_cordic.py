@@ -30,10 +30,18 @@ same exp sweep followed by the hyperbolic-vectoring log of the row sum:
 Lanes masked with -1e30 keep their hugely negative u. Its sum takes the same
 order, so it too equals the JAX kernel bit for bit.
 
-In a 16-bit format the kernel reads the e^r codes from the card's code
-table (``code_tables.py``); ``tables`` makes the plain version do the same.
+In a 16-bit format the kernels read the e^r codes from the card's code
+table (``code_tables.py``); ``tables`` makes the plain versions do the same.
+
+The log-softmax kernel splits a row over a thread-block cluster whose CTAs
+each hold whole 32-lane windows of it in shared memory; ``log_softmax_plan``
+chooses the split, so the CPU tests reach it.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import List, Tuple
 
 import torch
 
@@ -104,12 +112,12 @@ def _xla_row_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def log_softmax_2d_plain(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
-                         cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
+                         cfg: FixedConfig = PAPER_FIXED, tables=None) -> torch.Tensor:
     """Plain PyTorch version of the CORDIC log-softmax over the last axis
-    of a 2D tensor."""
+    of a 2D tensor; ``tables`` as in ``cordic_act.act_2d_plain``."""
     xf = x.to(torch.float32)
     u = xf - xf.amax(dim=-1, keepdim=True)
-    ssum = _xla_row_sum(_lane_exp(u, sched, cfg))
+    ssum = _xla_row_sum(_lane_exp(u, sched, cfg, tables))
     return u - _log_q(ssum, cfg)
 
 
@@ -144,10 +152,78 @@ def softmax_2d(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
     return y
 
 
+#: log_softmax_cluster_kernel's CTA (threads, warps), the largest portable
+#: thread-block cluster, and the shared memory a CTA may use on the H100
+#: (227 KB)
+LS_THREADS, LS_WARPS = 256, 8
+LS_MAX_CLUSTER = 8
+SMEM_LIMIT = 232448
+
+
+def _ls_smem(n1: int, windows: int, staged: bool) -> int:
+    """Shared-memory bytes of a CTA (csrc ``ls_layout``): the slice (128
+    bytes a window, staged only), the row's ``n1`` window sums, the next
+    level, the warps' maxima, the CTA's max and ln S (floats). The launch
+    refuses any other size."""
+    return (128 * windows if staged else 0) + 4 * (n1 + n1 // 32 + 1 + LS_WARPS + 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class LogSoftmaxPlan:
+    """A row of ``cols`` lanes split over a cluster of ``cluster`` CTAs:
+    CTA r takes the 32-lane windows [r W, r W + W) of the row padded to
+    ``cols_padded(cols)`` (W = ``windows``; the last may hold fewer, none
+    holds none); ``staged``: the CTA keeps them in shared memory, else it
+    reads them from global memory in each pass. A plan that leaves a window
+    out or a CTA empty, or needs more shared memory than a CTA may have,
+    raises."""
+
+    cols: int
+    cluster: int
+    windows: int
+    staged: bool
+
+    def __post_init__(self):
+        n1 = cols_padded(self.cols) // 32
+        if not 1 <= self.cluster <= LS_MAX_CLUSTER:
+            raise ValueError(f"log_softmax_2d: a cluster of {self.cluster} CTAs "
+                             f"(1 to {LS_MAX_CLUSTER})")
+        if not (self.cluster - 1) * self.windows < n1 <= self.cluster * self.windows:
+            raise ValueError(f"log_softmax_2d: {self.cluster} CTAs of {self.windows} "
+                             f"windows do not split a row of {n1} windows")
+        if self.smem > SMEM_LIMIT:
+            raise ValueError(f"log_softmax_2d: a row of {self.cols} lanes needs "
+                             f"{self.smem} bytes of shared memory a CTA, more than "
+                             f"{SMEM_LIMIT}")
+
+    @property
+    def smem(self) -> int:
+        """The shared-memory bytes of a CTA."""
+        return _ls_smem(cols_padded(self.cols) // 32, self.windows, self.staged)
+
+    def slices(self) -> List[Tuple[int, int]]:
+        """(first window, end window) of each CTA, as the kernel takes them."""
+        n1 = cols_padded(self.cols) // 32
+        return [(r * self.windows, min(r * self.windows + self.windows, n1))
+                for r in range(self.cluster)]
+
+
+@functools.lru_cache(maxsize=64)
+def log_softmax_plan(cols: int) -> LogSoftmaxPlan:
+    """The split of a ``cols``-lane row: a window a thread (256 windows, 8192
+    lanes a CTA) up to a cluster of 8, beyond that more windows a CTA (at
+    256,000 lanes 1000: 128 KB of row); a slice that does not fit in shared
+    memory (past ~360,000 lanes) is read from global memory in each pass."""
+    n1 = cols_padded(cols) // 32
+    cs = min(LS_MAX_CLUSTER, -(-n1 // LS_THREADS))
+    wpc = -(-n1 // cs)
+    return LogSoftmaxPlan(cols, cs, wpc, _ls_smem(n1, wpc, True) <= SMEM_LIMIT)
+
+
 def log_softmax_2d(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
                    cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
     """CORDIC log-softmax over the last axis of a (rows, cols) float32
-    tensor."""
+    tensor, a row split by ``log_softmax_plan(cols)``."""
     if x.dim() != 2:
         raise ValueError(f"log_softmax_2d takes a 2D tensor, got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -155,10 +231,12 @@ def log_softmax_2d(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("log_softmax_2d: the kernel takes contiguous float32")
     rows, cols = x.shape
+    plan = log_softmax_plan(cols)
     y = torch.empty_like(x)
+    tab, half = CT.table_args(CT.EXP_ROW, sched, cfg, x.device)
     rc = build.library("softmax").cordic_log_softmax_2d(
-        x.data_ptr(), y.data_ptr(), rows, cols,
-        build.params_ptr(sched, cfg),
+        x.data_ptr(), y.data_ptr(), rows, cols, plan.cluster, plan.windows,
+        plan.smem, int(plan.staged), build.params_ptr(sched, cfg), tab, half,
         build.stream_ptr(x))
     build.check(rc, "log_softmax_2d")
     build.count("log_softmax_2d")

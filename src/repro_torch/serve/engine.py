@@ -35,7 +35,7 @@ donated caches have no counterpart, since PyTorch runs eagerly.
 Not ported yet, each raising where it is asked for: ``kv_impl="dense"``
 (ROADMAP A.6), chunked and multi-row prefill (A.6), tensor parallelism
 (A.12), observability (A.8), sampling with temperature (A.7) and ``score``
-(B.8).
+(A.6).
 """
 from __future__ import annotations
 
@@ -266,7 +266,7 @@ class ServeEngine:
         return 4 * words
 
     def score(self, prompt: np.ndarray) -> np.ndarray:
-        raise _unported("log-prob scoring", "B.8: log_softmax_2d")
+        raise _unported("log-prob scoring", "A.6")
 
     # -- admission ------------------------------------------------------------
     def _validate(self, req: Request) -> Optional[str]:

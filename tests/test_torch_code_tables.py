@@ -116,6 +116,20 @@ def test_table_route_equals_softmax_plain():
     assert torch.equal(S.softmax_2d_plain(x, tables=_tables()), S.softmax_2d_plain(x))
 
 
+def test_table_route_equals_log_softmax_plain():
+    x = _softmax_rows()
+    assert torch.equal(S.log_softmax_2d_plain(x, tables=_tables()),
+                       S.log_softmax_2d_plain(x))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_table_route_equals_silu_mul_plain(dtype):
+    g = torch.from_numpy(_edge_lanes()).to(getattr(torch, dtype))
+    u = torch.from_numpy(np.random.default_rng(2).normal(size=g.numel()).astype(np.float32))
+    u = u.to(g.dtype)
+    assert torch.equal(K.silu_mul_2d_plain(g, u, tables=_tables()), K.silu_mul_2d_plain(g, u))
+
+
 def test_lookups_refuse_codes_off_the_table():
     """The range the wrappers' inputs stay in (the equalities above hold on
     inputs out to +-inf); a NaN lane, outside the kernels' contract, is the

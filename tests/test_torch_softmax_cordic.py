@@ -17,6 +17,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import softmax_cordic as JS  # noqa: E402
+from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import softmax_cordic as S  # noqa: E402
 
@@ -201,3 +202,61 @@ def test_ops_log_softmax_any_axis():
     assert y.shape == x.shape
     want = S.log_softmax_2d(x.permute(0, 2, 1).reshape(-1, 40).contiguous())
     assert torch.equal(y.permute(0, 2, 1).reshape(-1, 40), want)
+
+
+# ---------------------------------------------------------------------------
+# log_softmax_plan: the kernel's split of a row over a thread-block cluster
+# ---------------------------------------------------------------------------
+def _check_plan(plan):
+    n1 = S.cols_padded(plan.cols) // 32
+    slices = plan.slices()
+    assert len(slices) == plan.cluster and 1 <= plan.cluster <= S.LS_MAX_CLUSTER
+    covered = [w for a, b in slices for w in range(a, b)]
+    assert covered == list(range(n1))            # every window once, in order
+    assert all(0 < b - a <= plan.windows for a, b in slices)
+    assert plan.smem <= S.SMEM_LIMIT
+    tail = 4 * (n1 + n1 // 32 + 1 + S.LS_WARPS + 2)
+    assert plan.smem == tail + (128 * plan.windows if plan.staged else 0)
+
+
+@pytest.mark.parametrize("cols", [5, 128, 300, 4000, 32000, 64000, 102400, 152064, 256000])
+def test_log_softmax_plan_covers_the_row(cols):
+    plan = S.log_softmax_plan(cols)
+    _check_plan(plan)
+    # every registry width up to 256,000 lanes keeps its row in shared memory
+    assert plan.staged
+    # a window a thread up to a cluster of 8 CTAs
+    assert plan.windows <= S.LS_THREADS or plan.cluster == S.LS_MAX_CLUSTER
+
+
+def test_log_softmax_plan_registry_vocabularies():
+    for arch in configs.ARCH_IDS:
+        for cfg in (configs.get_config(arch), configs.get_smoke(arch)):
+            plan = S.log_softmax_plan(cfg.vocab_size)
+            _check_plan(plan)
+            assert plan.staged
+
+
+def test_log_softmax_plan_wide_rows():
+    # past ~360,000 lanes a cluster's slices no longer fit: read from L2
+    wide = S.log_softmax_plan(400000)
+    _check_plan(wide)
+    assert not wide.staged and wide.cluster == S.LS_MAX_CLUSTER
+    with pytest.raises(ValueError, match="shared memory"):
+        S.log_softmax_plan(2_000_000)
+    # a split other than the chosen one, as the kernel takes it
+    plan = S.LogSoftmaxPlan(4000, 3, 43, True)
+    _check_plan(plan)
+    assert plan.slices() == [(0, 43), (43, 86), (86, 128)]
+
+
+@pytest.mark.parametrize("cols,cluster,windows,staged,match", [
+    (64000, 8, 100, True, "do not split"),       # 800 of 2000 windows
+    (64000, 8, 300, True, "do not split"),       # the last CTA holds none
+    (64000, 9, 223, True, "cluster"),
+    (64000, 0, 2000, True, "cluster"),
+    (400000, 8, 1563, True, "shared memory"),    # 200 KB of row a CTA
+])
+def test_log_softmax_bad_plan_raises(cols, cluster, windows, staged, match):
+    with pytest.raises(ValueError, match=match):
+        S.LogSoftmaxPlan(cols, cluster, windows, staged)
