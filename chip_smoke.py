@@ -14,7 +14,7 @@ shape, against the plain versions, timed) on the ``repro_torch`` under
 change, change, parent; each run appends one JSON line to ``--out``, and
 ``--save`` writes the kernels' outputs for a bit-for-bit comparison. The
 third form does the same for the row kernels: act_2d (each op at its
-shapes), silu_mul_2d, softmax_2d and log_softmax_2d.
+shapes), silu_mul_2d, softmax_2d, log_softmax_2d and act_q_2d.
 
 Phases of the first form, each of which must pass (the script exits non-zero otherwise):
 
@@ -31,7 +31,8 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             there is one, each beside its host-to-host time per call, and
             the least time the card could take (bound). The Q2.14 golden
             codes of sigmoid (float and integer paths), exp and log on the
-            card.
+            card; act_q_2d's sigmoid-code table (its build time) and its
+            table route in both dtypes.
 4. paths    the port's main paths through the entry points a user calls,
             with every launch count set to 0 just before and read just
             after: (a) the paper's unit, ``ops.sigmoid`` and its integer
@@ -58,15 +59,24 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             (M 256) on every step: the long-shape entries' launches; (e)
             training Yi-9B at full width cut to 4 layers (float32 master weights, AdamW, the loop's 8 x 32-token
             batches): 8 loop steps with checkpoints, a bit-equal restore, 6
-            steps on one batch (the loss must fall), an eval step. Every
-            kernel of a path must have launched, and under grad the fused
-            SwiGLU kernel must not (the JAX rule's primal).
+            steps on one batch (the loss must fall), an eval step; (f)
+            chunked and multi-row prefill: trace 1 (8 prompts of 17-100
+            tokens, chunks of 32, 4 rows a dispatch) on Yi-9B with the chunk
+            and without, and under the prefix cache (chunked and unchunked
+            tokens must be equal), once on DeepSeek-V2-Lite; trace 2 on
+            Yi-9B (a 4000-token prompt beside three 8-token ones at max_len
+            4096, chunks of 512, and unchunked: the short requests' TTFT);
+            ``ServeEngine.score`` of a 128-token prompt through
+            log_softmax_2d. Every kernel of a path must have launched, and
+            under grad the fused SwiGLU kernel must not (the JAX rule's
+            primal).
 5. identity the Yi and DeepSeek-V2-Lite smoke configs in float32, on both
             datapaths, and Yi's on int8 and Q2.14 pools and with the prefix
             cache: tokens served on the card with the kernels equal the
             CPU's tokens with the plain versions (and, on int8, the card's
-            gather attend's); 5 Yi train steps' losses on the card agree
-            with the CPU's.
+            gather attend's); both archs with chunked, multi-row prefill
+            (and their ``score``) too; 5 Yi train steps' losses on the card
+            agree with the CPU's.
 
 The line before the last holds {"kernels": [...]} (one entry per kernel:
 launches on its path, max error against plain, times, bound); the last line
@@ -123,6 +133,13 @@ LONG_PROMPT = 4000
 #: plain prefill softmax took 78 s over 4000 tokens on Yi-9B; the decode
 #: kernel's grid (M 256) and launch count do not depend on it
 LONG_PROMPT_FIXED = 1024
+#: chunked and multi-row prefill: trace 1, REQUESTS prompts of 17-100
+#: tokens at MAX_LEN, chunks of CHUNK tokens, CHUNK_BATCH rows a dispatch;
+#: trace 2, one LONG_PROMPT-token prompt beside LONG_SHORTS 8-token ones at
+#: LONG_MAX_LEN, chunks of LONG_CHUNK; the scored prompt's length
+CHUNK, CHUNK_BATCH = 32, 4
+LONG_CHUNK, LONG_SHORTS = 512, 3
+SCORE_LEN = 128
 
 
 #: each decode branch's kernel output by record name (--decode-kernels
@@ -190,6 +207,9 @@ def pipeline_ops(sched):
     return {"sigmoid": rot + div + boundary,
             # act_q_2d: integer codes in and out, no quantize/dequantize
             "sigmoid_q": rot + div + 2 + 5,
+            # its table route: the index ((x >> 1) & 0xFFFF) ^ 0x8000 (3)
+            # and the lookup
+            "sigmoid_q_tab": 3 + 1,
             "wide": rot + div + boundary + 6 + 2,  # doubling count, 2^-k
             # log_softmax_2d: one rotation per live lane and its add into
             # the row sum; the vectoring log runs once per row
@@ -593,31 +613,8 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
         f"{n_log} differ from tests/golden/log_q2_14.npz")
     check(n_exp == 0 and n_log == 0, "exp/log codes differ from the golden vectors")
 
-    # (8) act_q_2d: all 2^16 Q2.14 codes, int16 and int32, against the
-    # golden file and the plain version; timed on the sigmoid path's
-    # (d_model, d_ff) = (4096, 11008) int16 code map
-    codes = torch.arange(-(1 << 15), 1 << 15, device=dev)
-    gsig = torch.from_numpy(np.load(ROOT / "tests" / "golden" / "sigmoid_q2_14.npz")
-                            ["y"].astype(np.int64)).to(dev)
-    for dt in (torch.int16, torch.int32):
-        a = K.act_q_2d(codes.to(dt))
-        n_bad = int((a.long() != gsig).sum())
-        log(f"[act_q_2d] {dt} over all {codes.numel()} Q2.14 codes: {n_bad} "
-            "differ from tests/golden/sigmoid_q2_14.npz")
-        check(n_bad == 0 and a.dtype == dt, f"act_q_2d {dt} codes differ from golden")
-        check(torch.equal(a, K.act_q_2d_plain(codes.to(dt))),
-              f"act_q_2d {dt} differs from its plain version")
-    xq = sigmoid_q_map(torch, ycfg)
-    a, b = K.act_q_2d(xq), K.act_q_2d_plain(xq)
-    check(torch.equal(a, b), "act_q_2d differs from its plain version")
-    n = xq.numel()
-    bound, by = card.bound(4 * n, ops["sigmoid_q"] * n)
-    records["act_q_2d"] = timed(
-        dict(shape=list(xq.shape), dtype="int16",
-             max_abs_err=float((a.long() - b.long()).abs().max()),
-             bound_ms=bound, bound_by=by),
-        kernel=times(torch, lambda: K.act_q_2d(xq), "act_q_kernel"),
-        plain=times(torch, lambda: K.act_q_2d_plain(xq), None, 3, 1))
+    # (8) act_q_2d: the table route and the pipeline (act_q_phase)
+    act_q_phase(torch, card, records, ycfg, ops, q20)
 
     # (10) the reused kernels at DeepSeek-V2-Lite's serve shapes, bit-exact:
     # act_2d sigmoid_wide of the MoE experts' gate at decode, (G, E, C, f)
@@ -681,6 +678,77 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
         r = records[name]
         log(f"[{name}] {r['shape']}: max |kernel - plain| {r['max_abs_err']:.3e}; "
             f"{fmt_times(r)}")
+
+
+def act_q_phase(torch, card, records, ycfg, ops, q20):
+    """act_q_2d: the sigmoid-code table built on the card (build ms, equal to
+    the plain builder); all 2^16 Q2.14 codes, int16 and int32, against the
+    golden file and the plain version; int32 codes over the whole int32
+    range (+-2^31 included) and a misaligned view; Q2.20 on the pipeline
+    route; timed on the sigmoid path's (d_model, d_ff) = (4096, 11008) code
+    map in int16 and int32."""
+    import numpy as np
+
+    from repro_torch.cordic_engine.core import PAPER_FIXED
+    from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE
+    from repro_torch.kernels import code_tables as CT
+    from repro_torch.kernels import cordic_act as K
+
+    dev = torch.device(DEV)
+    CT._SIGMOID_Q_CACHE.clear()
+    t0 = time.perf_counter()
+    qtab = CT.sigmoid_q_table(PAPER_SCHEDULE, PAPER_FIXED, dev)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(qtab.cpu(), CT.sigmoid_q_table_plain(PAPER_SCHEDULE, PAPER_FIXED))
+    log(f"[act_q_2d] the sigmoid-code table ({qtab.numel()} codes) built on the card in "
+        f"{build_ms:.2f} ms (first use, host clock, synchronized): equal to the plain "
+        f"builder {same}")
+    check(same, "the card's sigmoid-code table differs from the plain builder")
+    codes = torch.arange(-(1 << 15), 1 << 15, device=dev)
+    gsig = torch.from_numpy(np.load(ROOT / "tests" / "golden" / "sigmoid_q2_14.npz")
+                            ["y"].astype(np.int64)).to(dev)
+    for dt in (torch.int16, torch.int32):
+        a = K.act_q_2d(codes.to(dt))
+        n_bad = int((a.long() != gsig).sum())
+        log(f"[act_q_2d] {dt} over all {codes.numel()} Q2.14 codes: {n_bad} "
+            "differ from tests/golden/sigmoid_q2_14.npz")
+        check(n_bad == 0 and a.dtype == dt, f"act_q_2d {dt} codes differ from golden")
+        check(torch.equal(a, K.act_q_2d_plain(codes.to(dt))),
+              f"act_q_2d {dt} differs from its plain version")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    wide = torch.randint(-(1 << 31), 1 << 31, (1 << 20,), generator=gen, device=dev,
+                         dtype=torch.int64)
+    wide[:6] = torch.tensor([-(1 << 31), (1 << 31) - 1, -(1 << 31) + 1, (1 << 31) - 2,
+                             1 << 16, -(1 << 16) - 1])
+    wide = wide.to(torch.int32)
+    a = K.act_q_2d(wide)
+    check(torch.equal(a, K.act_q_2d_plain(wide)),
+          "act_q_2d int32 codes beyond 16 bits differ from the plain version")
+    check(torch.equal(K.act_q_2d(wide[1:]), a[1:]), "act_q_2d misaligned (element path)")
+    check(torch.equal(K.act_q_2d(codes.to(torch.int16)[1:]),
+                      K.act_q_2d_plain(codes.to(torch.int16)[1:])),
+          "act_q_2d int16 misaligned (element path)")
+    w20 = wide[:1 << 16]
+    check(torch.equal(K.act_q_2d(w20, **q20), K.act_q_2d_plain(w20, **q20)),
+          "act_q_2d in Q2.20 (pipeline route) differs from its plain version")
+    log(f"[act_q_2d] {wide.numel()} int32 codes over the whole int32 range (+-2^31 "
+        "included), misaligned int16 and int32 views, and Q2.20 (pipeline route): "
+        "bit-exact against plain")
+    xq = sigmoid_q_map(torch, ycfg)
+    for dt in (torch.int16, torch.int32):
+        x = xq.to(dt)
+        a, b = K.act_q_2d(x), K.act_q_2d_plain(x)
+        check(torch.equal(a, b), f"act_q_2d {dt} differs from its plain version")
+        n, size = x.numel(), x.element_size()
+        bound, by = card.bound(2 * size * n, ops["sigmoid_q_tab"] * n)
+        name = "act_q_2d" if dt == torch.int16 else "act_q_2d[int32]"
+        records[name] = timed(
+            dict(shape=list(x.shape), dtype=str(dt)[6:],
+                 max_abs_err=float((a.long() - b.long()).abs().max()),
+                 bound_ms=bound, bound_by=by),
+            kernel=times(torch, lambda: K.act_q_2d(x), "act_q_kernel"),
+            plain=times(torch, lambda: K.act_q_2d_plain(x), None, 3, 1))
+        log(f"[act_q_2d] {name} {list(x.shape)}: {fmt_times(records[name])}")
 
 
 def long_softmax_rows(torch, gen):
@@ -1215,6 +1283,17 @@ def serve_path(torch, build, arch):
         t0 = time.perf_counter()
         out["prefix"] = prefix_path(torch, build, cfg, model)
         log(f"[time] prefix path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["chunked"] = chunked_path(torch, build, cfg, model)
+        log(f"[time] chunked path: {time.perf_counter() - t0:.1f} s")
+    else:
+        cfg = dataclasses.replace(base, softmax_impl="cordic_pallas")
+        t0 = time.perf_counter()
+        reqs, counts, _ = serve_trace(torch, build, cfg, model, chunked_trace(cfg),
+                                      "trace 1, chunked", prefill_chunk=CHUNK,
+                                      prefill_batch=CHUNK_BATCH)
+        out["chunked"] = {"chunked": counts}
+        log(f"[time] chunked path: {time.perf_counter() - t0:.1f} s")
     del model
     torch.cuda.empty_cache()
     return out
@@ -1480,6 +1559,134 @@ def long_context_pools(torch, build, cfg, model, formats):
     return counts
 
 
+def chunked_trace(cfg):
+    """Trace 1: REQUESTS prompts of 17-100 tokens, so chunks of CHUNK span
+    most of them and a dispatch packs several rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    return [rng.integers(0, cfg.vocab_size, int(rng.integers(17, 101))).astype(np.int32)
+            for _ in range(REQUESTS)]
+
+
+def serve_trace(torch, build, cfg, model, prompts, what, max_new=MAX_NEW,
+                max_len=MAX_LEN, **kw):
+    """``prompts`` (greedy, ``max_new`` new tokens each, or one budget a
+    prompt) through a fresh engine with the engine knobs ``kw``, launch
+    counts zeroed just before and read just after; every request must
+    finish with its tokens. Returns (requests, launch counts, stats)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(cfg, model, slots=SLOTS, max_len=max_len, kv_impl="paged",
+                      block_len=BLOCK_LEN, paged_attend_impl="pallas", device=DEV, **kw)
+    groups = []
+    dispatch = eng._dispatch_prefill
+    eng._dispatch_prefill = lambda g: (groups.append(len(g)), dispatch(g))
+    budgets = max_new if isinstance(max_new, list) else [max_new] * len(prompts)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(prompts, budgets))]
+    build.reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    steps = 0
+    while eng.has_work:
+        eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES)
+    check(all(r.done and r.error is None and len(r.out) == r.max_new_tokens
+              and all(0 <= t < cfg.vocab_size for t in r.out) for r in reqs),
+          f"{cfg.name} {what}: every request finishes with its tokens")
+    ttft = [(r.t_first - r.t_enqueue) * 1e3 for r in reqs]
+    stats = dict(tokens=[r.out for r in reqs], ttft_ms=ttft, wall_s=wall, steps=steps,
+                 groups=groups, hits=eng.prefix.hits if eng.prefix is not None else 0)
+    log(f"[path chunked {cfg.name}] {what} ({kw}): {len(reqs)} requests, prompts "
+        f"{[len(p) for p in prompts]}, {sum(len(r.out) for r in reqs)} tokens in "
+        f"{wall:.3f} s over {steps} steps; prefill dispatches of {groups} rows; TTFT "
+        f"p50 {statistics.median(ttft):.1f} ms, max {max(ttft):.1f} ms; launches {counts}")
+    log(f"[path chunked {cfg.name}] {what} tokens {json.dumps(stats['tokens'])}")
+    del eng
+    torch.cuda.empty_cache()
+    return reqs, counts, stats
+
+
+def chunked_path(torch, build, cfg, model):
+    """Yi-9B's chunked and multi-row prefill and ``score``: trace 1 with and
+    without chunks (cache off: the multi-row run's tokens against the
+    single-row run's are reported, not gated, since cuBLAS picks its GEMM by
+    the row count, ROADMAP B.10), then with the prefix cache on, chunked
+    (one row a dispatch) and not: both prefill the same one-block pieces,
+    so their tokens must be equal; trace 2 (the long prompt beside short
+    ones) with the chunk and without, the short requests' TTFT read;
+    ``score`` of a SCORE_LEN-token prompt through log_softmax_2d. Returns
+    {run: launch counts}."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.serve.engine import ServeEngine
+
+    prompts = chunked_trace(cfg)
+    chunk = dict(prefill_chunk=CHUNK, prefill_batch=CHUNK_BATCH)
+    runs, counts = {}, {}
+    for name, kw in (("trace 1", {}), ("trace 1, chunked", chunk),
+                     ("trace 1, cache on", dict(prefix_cache=True)),
+                     ("trace 1, cache on, chunked",
+                      dict(prefix_cache=True, prefill_chunk=CHUNK, prefill_batch=1))):
+        _, counts[name], runs[name] = serve_trace(torch, build, cfg, model, prompts, name, **kw)
+    check(max(runs["trace 1, chunked"]["groups"]) > 1, "trace 1: no multi-row dispatch")
+    on, on_chunked = runs["trace 1, cache on"], runs["trace 1, cache on, chunked"]
+    check(on_chunked["tokens"] == on["tokens"],
+          "chunked prefill under the prefix cache changed the tokens")
+    n_tok = REQUESTS * MAX_NEW
+    same = sum(a == b for x, y in zip(runs["trace 1"]["tokens"], runs["trace 1, chunked"]["tokens"])
+               for a, b in zip(x, y))
+    log(f"[path chunked {cfg.name}] trace 1 under the prefix cache: chunked (one row a "
+        f"dispatch) tokens equal the unchunked run's ({n_tok} tokens); cache off, the "
+        f"multi-row chunked run matches the single-row unchunked run {same}/{n_tok} "
+        "(reported, not gated: ROADMAP B.10)")
+    rng = np.random.default_rng(23)
+    long = [rng.integers(0, cfg.vocab_size, LONG_PROMPT).astype(np.int32)]
+    shorts = [rng.integers(0, cfg.vocab_size, 8).astype(np.int32) for _ in range(LONG_SHORTS)]
+    ttft = {}
+    for name, kw in (("trace 2, chunked", dict(prefill_chunk=LONG_CHUNK)), ("trace 2", {})):
+        _, counts[name], st = serve_trace(torch, build, cfg, model, long + shorts, name,
+                                          max_new=[8] + [MAX_NEW] * LONG_SHORTS,
+                                          max_len=LONG_MAX_LEN, **kw)
+        ttft[name] = st["ttft_ms"]
+    log(f"[path chunked {cfg.name}] trace 2: the {LONG_PROMPT}-token prompt's TTFT "
+        f"{ttft['trace 2, chunked'][0]:.1f} ms chunked ({LONG_CHUNK}), "
+        f"{ttft['trace 2'][0]:.1f} ms whole; the {LONG_SHORTS} short requests' TTFT "
+        f"{[round(t, 1) for t in ttft['trace 2, chunked'][1:]]} ms chunked, "
+        f"{[round(t, 1) for t in ttft['trace 2'][1:]]} ms whole (a reading, not a claim)")
+    prompt = np.random.default_rng(31).integers(0, cfg.vocab_size, SCORE_LEN).astype(np.int32)
+    lps = {}
+    for impl in ("exact", "cordic_pallas"):
+        eng = ServeEngine(dataclasses.replace(cfg, loss_impl=impl), model, slots=1,
+                          max_len=MAX_LEN, kv_impl="paged", block_len=BLOCK_LEN,
+                          paged_attend_impl="pallas", device=DEV)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        lps[impl] = eng.score(prompt)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts[f"score {impl}"] = dict(build.LAUNCHES)
+        del eng
+    lp = lps["cordic_pallas"]
+    check(lp.shape == (SCORE_LEN - 1,) and bool(np.isfinite(lp).all())
+          and float(lp.max()) <= 1e-3, "score: finite log-probs of the prompt's shape")
+    check(counts["score cordic_pallas"].get("log_softmax_2d", 0) > 0,
+          "score never launched log_softmax_2d")
+    log(f"[path score {cfg.name}] {SCORE_LEN}-token prompt: {lp.shape[0]} log-probs over "
+        f"{cfg.vocab_size} lanes in {ms:.1f} ms (host clock); mean {float(lp.mean()):.4f}; "
+        f"max |cordic_pallas - exact| {float(np.abs(lp - lps['exact']).max()):.3e}; "
+        f"launches {counts['score cordic_pallas']}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def profile_steps(torch, eng, cfg, kernels, n_steps: int = 6):
     """Device busy share and kernel time by name over a few engine steps
     (4 fresh requests: their prefills, then decode steps), from
@@ -1738,6 +1945,46 @@ def identity_phase(torch, arch, impl, kv_quant="none", prefix_cache=False):
               f"{what}: the kernel's tokens differ from the gather attend's")
 
 
+def chunked_identity_phase(torch, arch):
+    """A smoke config in float32 with chunked, multi-row prefill (chunks of
+    16, two rows a dispatch, prompts of 5-40 tokens): the card's tokens
+    equal the CPU's with the same knobs; on Yi also ``score`` of a 24-token
+    prompt through log_softmax_2d, within tests/test_torch_models.py's
+    logit bound (1e-3) of the CPU's plain version."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(configs.get_smoke(arch, act_impl="cordic_pallas"),
+                              softmax_impl="cordic_pallas", loss_impl="cordic_pallas")
+    cpu_model = tf.init(cfg, seed=0, device="cpu")
+    gpu_model = tf.Transformer(cfg, device=torch.device(DEV))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 40, 17, 33)]
+    score_prompt = rng.integers(0, cfg.vocab_size, 24).astype(np.int32)
+    out, scores = {}, {}
+    for dev, model in (("cpu", cpu_model), (DEV, gpu_model)):
+        eng = ServeEngine(cfg, model, slots=2, max_len=64, kv_impl="paged",
+                          paged_attend_impl="pallas", prefill_chunk=16, device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=8))
+        out[dev] = {r.rid: r.out for r in eng.run()}
+        scores[dev] = eng.score(score_prompt)
+    log(f"[identity] {cfg.name} float32 chunked (16, 2 rows a dispatch), prompts "
+        f"{[len(p) for p in prompts]} x 8 tokens: card (kernels) {out[DEV]} vs CPU "
+        f"(plain) {out['cpu']}")
+    check(out[DEV] == out["cpu"], f"{cfg.name} chunked: card tokens differ from the CPU run")
+    err = float(np.abs(scores[DEV] - scores["cpu"]).max())
+    log(f"[identity] {cfg.name} score of a 24-token prompt (log_softmax_2d): max |card - "
+        f"CPU| {err:.3e}")
+    check(err <= 1e-3, f"{cfg.name} score: card log-probs differ from the CPU's")
+
+
 #: train identity tolerance, card against CPU. The kernels equal the plain
 #: versions bit for bit, so only the matmuls' summation order differs; on
 #: an H100 (torch 2.11, CUDA 12.8) the losses agreed to 7.6e-8 at step 0
@@ -1833,7 +2080,7 @@ ROW_OUTPUTS = {}
 
 def row_kernels(torch, card, records, ycfg, dcfg, ops):
     """--row-kernels: act_2d (each op at its main paths' shapes),
-    silu_mul_2d, softmax_2d and log_softmax_2d against their plain
+    silu_mul_2d, softmax_2d, log_softmax_2d and act_q_2d against their plain
     versions, device ms beside one PyTorch call's where there is one;
     inputs from their own generator (seed 0), so any tree sees the same
     ones. Only the wrappers every tree has are called, with the arguments
@@ -1909,6 +2156,18 @@ def row_kernels(torch, card, records, ycfg, dcfg, ops):
             ms=device_ms(torch, lambda: K.silu_mul_2d(g, u), kernel="silu_mul_kernel"),
             library_ms=None)
         log(f"[rows] {name}: {records[name]}")
+    # act_q_2d (the paper's integer datapath) on the sigmoid path's code map,
+    # int16 and int32
+    xq = sigmoid_q_map(torch, ycfg)
+    for x in (xq, xq.to(torch.int32)):
+        name = f"act_q_2d[{'x'.join(map(str, x.shape))},{str(x.dtype)[6:]}]"
+        a = K.act_q_2d(x)
+        check(torch.equal(a, K.act_q_2d_plain(x)), f"{name} differs from its plain version")
+        records[name] = dict(
+            numel=x.numel(), sha256=keep_output(torch, name, a),
+            ms=device_ms(torch, lambda: K.act_q_2d(x), kernel="act_q_kernel"),
+            library_ms=None)
+        log(f"[rows] {name}: {records[name]}")
 
 
 def keep_output(torch, name, t) -> str:
@@ -1973,8 +2232,8 @@ def main(argv=None) -> int:
     ap.add_argument("--decode-kernels", action="store_true",
                     help="only the decode kernels' checks and times")
     ap.add_argument("--row-kernels", action="store_true",
-                    help="only act_2d's, silu_mul_2d's, softmax_2d's and "
-                    "log_softmax_2d's checks and times")
+                    help="only act_2d's, silu_mul_2d's, softmax_2d's, "
+                    "log_softmax_2d's and act_q_2d's checks and times")
     ap.add_argument("--src", default=str(SRC),
                     help="the tree whose repro_torch --decode-kernels or "
                     "--row-kernels runs")
@@ -2045,6 +2304,9 @@ def main(argv=None) -> int:
         for k in ("silu_mul_2d", "softmax_2d", "gqa_decode"):
             check(yi[fmt][0].get(k, 0) > 0, f"serving Yi-9B on {fmt} pools never "
                   f"launched {k}")
+    yi_chunked, yi_score = yi["chunked"]["trace 1, chunked"], yi["chunked"]["score cordic_pallas"]
+    for k in ("silu_mul_2d", "softmax_2d", "gqa_decode"):
+        check(yi_chunked.get(k, 0) > 0, f"Yi-9B's chunked trace never launched {k}")
     ds = serve_path(torch, build, DEEPSEEK)
     phase_done(f"path serve {DEEPSEEK}")
     ds_counts, ds_fixed = ds["cordic_pallas"][0], ds["cordic_fixed"][0]
@@ -2052,6 +2314,9 @@ def main(argv=None) -> int:
         check(ds_counts.get(k, 0) > 0, f"serving DeepSeek-V2-Lite never launched {k}")
     check(ds_counts.get("gqa_decode", 0) == 0,
           "serving DeepSeek-V2-Lite launched the GQA decode kernel")
+    ds_chunked = ds["chunked"]["chunked"]
+    for k in ("mla_decode", "act_2d", "silu_mul_2d", "softmax_2d"):
+        check(ds_chunked.get(k, 0) > 0, f"DeepSeek-V2-Lite's chunked trace never launched {k}")
     # the cordic_fixed datapath: the decode kernel's cordic_fixed branch on
     # every decode step; activations and the prefill softmax in plain torch
     check(yi_fixed.get("gqa_decode", 0) > 0, "Yi-9B cordic_fixed: no gqa_decode")
@@ -2064,7 +2329,8 @@ def main(argv=None) -> int:
     phase_done("path train")
     # launches of each kernel summed over the main paths' runs; a branch
     # ported later counts on its own path
-    paths = (sigmoid_counts, serve_counts, ds_counts, train_counts)
+    paths = (sigmoid_counts, serve_counts, ds_counts, train_counts, yi_chunked, yi_score,
+             ds_chunked)
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNELS}
     launches["act_2d[gelu_erf]"] = gelu_counts.get("act_2d", 0)
     launches["gqa_decode[cordic_fixed]"] = yi_fixed.get("gqa_decode", 0)
@@ -2087,7 +2353,8 @@ def main(argv=None) -> int:
     log(f"[paths] launches: sigmoid {sigmoid_counts}, gelu_erf {gelu_counts}, "
         f"serve yi-9b {serve_counts}, cordic_fixed {yi_fixed}, int8 "
         f"{yi['int8'][0]}, q2_14 {yi['q2_14'][0]}, serve {DEEPSEEK} "
-        f"{ds_counts}, cordic_fixed {ds_fixed}, train loop {train_counts}; "
+        f"{ds_counts}, cordic_fixed {ds_fixed}, train loop {train_counts}, chunked "
+        f"yi-9b {yi_chunked}, score {yi_score}, chunked {DEEPSEEK} {ds_chunked}; "
         f"per kernel {launches}")
     for arch in ("yi-9b", DEEPSEEK):
         for impl in ("cordic_pallas", "cordic_fixed"):
@@ -2098,6 +2365,9 @@ def main(argv=None) -> int:
         phase_done(f"identity yi-9b kv_quant={fmt}")
     identity_phase(torch, "yi-9b", "cordic_pallas", kv_quant="int8", prefix_cache=True)
     phase_done("identity yi-9b int8 prefix cache")
+    for arch in ("yi-9b", DEEPSEEK):
+        chunked_identity_phase(torch, arch)
+        phase_done(f"identity {arch} chunked")
     train_identity_phase(torch)
     phase_done("identity train")
 

@@ -232,8 +232,10 @@ _SIGNATURES = {
         "cordic_code_tables": (_P, _I, _P, _P),
         # (gate, up, y, n, dtype, params, table, half, stream)
         "cordic_silu_mul_2d": (_P, _P, _P, _LL, _I, _P, _P, _I, _P),
-        # (x, y, n, int dtype, params, stream)
-        "cordic_act_q_2d": (_P, _P, _LL, _I, _P, _P),
+        # (x, y, n, int dtype, params, sigmoid-code table, stream)
+        "cordic_act_q_2d": (_P, _P, _LL, _I, _P, _P, _P),
+        # (table, params, stream)
+        "cordic_sigmoid_q_table": (_P, _P, _P),
     },
     "softmax": {
         # (x, y, rows, cols, params, table, half, stream)

@@ -1,4 +1,4 @@
-"""Code tables of the two CORDIC stages a 16-bit format can look up.
+"""Code tables of the CORDIC stages a 16-bit format can look up.
 
 In a 16-bit format each of the two stages that cost the CORDIC kernels
 their operations is a function of one code from a small range:
@@ -19,8 +19,19 @@ bit; the float boundary ops around the stages are unchanged. Formats wider
 than 16 bits (Q2.20, Q2.29) keep the pipeline: the route is chosen from
 the format alone.
 
+A third table serves the integer datapath (``act_q_2d``): its sigmoid code
+``wrap(2^(fb-1) + wrap((t + 1) >> 1))``, t the tanh code of ``z =
+wrap16(x >> 1)``, is a function of z alone. int16 codes reach z in
+[-16384, 16383]; int32 codes are not clamped, so bits 1-16 of the code
+decide and z takes all 65,536 values, beyond the tanh table's
+[-2^(fb-1), 2^(fb-1)]. So the sigmoid-code table holds every z: 65,536
+int16 entries (128 KB), entry ``z + 32768``, which int16 inputs touch only
+in its contiguous middle half. The card builds it with the pipeline's own
+``cordic_sigmoid_q`` (``cordic_sigmoid_q_table``, ``csrc/act.cu``).
+
 The tables are cached per (schedule, format, device). A CUDA stream capture
-cannot build them: build them first (``code_tables`` before the capture).
+cannot build them: build them first (``code_tables`` and ``sigmoid_q_table``
+before the capture).
 """
 from __future__ import annotations
 
@@ -87,7 +98,28 @@ def exp_code_table_plain(sched: MRSchedule, cfg: FixedConfig) -> torch.Tensor:
     return K._exp_code(_codes(cfg), sched, cfg).to(torch.int16)
 
 
+#: entries of the sigmoid-code table: every 16-bit z
+SIGMOID_Q_ENTRIES = 1 << 16
+
+
+def sigmoid_q_index(x_q: torch.Tensor) -> torch.Tensor:
+    """Entry of the sigmoid-code table for int16 or int32 codes:
+    wrap16(x >> 1) + 32768, as ``((x >> 1) & 0xFFFF) ^ 0x8000``."""
+    return ((x_q.to(torch.int32) >> 1) & 0xFFFF) ^ 0x8000
+
+
+def sigmoid_q_table_plain(sched: MRSchedule, cfg: FixedConfig) -> torch.Tensor:
+    """Sigmoid codes of every z in [-32768, 32767] by the plain stages, fed
+    the code 2z (whose halving is z)."""
+    from repro_torch.kernels import cordic_act as K
+
+    z = torch.arange(-(SIGMOID_Q_ENTRIES // 2), SIGMOID_Q_ENTRIES // 2,
+                     dtype=torch.int32)
+    return K._cordic_sigmoid_q(2 * z, sched, cfg).to(torch.int16)
+
+
 _CACHE: Dict[Tuple[MRSchedule, FixedConfig, torch.device], CodeTables] = {}
+_SIGMOID_Q_CACHE: Dict[Tuple[MRSchedule, FixedConfig, torch.device], torch.Tensor] = {}
 
 
 def _device(device) -> torch.device:
@@ -95,6 +127,12 @@ def _device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _no_capture(what: str) -> None:
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what}: build the tables before a CUDA stream "
+                           "capture")
 
 
 def code_tables(sched: MRSchedule, cfg: FixedConfig, device) -> CodeTables:
@@ -112,9 +150,7 @@ def code_tables(sched: MRSchedule, cfg: FixedConfig, device) -> CodeTables:
         codes = torch.stack([tanh_code_table_plain(sched, cfg),
                              exp_code_table_plain(sched, cfg)])
     else:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("code_tables: build the tables before a CUDA "
-                               "stream capture")
+        _no_capture("code_tables")
         codes = torch.empty(2, 2 * h + 1, dtype=torch.int16, device=dev)
         rc = build.library("act").cordic_code_tables(
             codes.data_ptr(), h, build.params_ptr(sched, cfg), build.stream_ptr(codes))
@@ -134,3 +170,29 @@ def table_args(row, sched: MRSchedule, cfg: FixedConfig, device):
         return None, 0
     tabs = code_tables(sched, cfg, device)
     return tabs.codes[row].data_ptr(), tabs.half
+
+
+def sigmoid_q_table(sched: MRSchedule, cfg: FixedConfig, device) -> torch.Tensor:
+    """The (65,536,) int16 sigmoid-code table of (sched, cfg) on ``device``,
+    built at first use: on the card by ``cordic_sigmoid_q``, on the CPU by
+    the plain stages."""
+    if not table_route(cfg):
+        raise ValueError(f"no sigmoid-code table for a {cfg.fmt.total_bits}-bit "
+                         "format")
+    dev = _device(device)
+    key = (sched, cfg, dev)
+    tab = _SIGMOID_Q_CACHE.get(key)
+    if tab is not None:
+        return tab
+    if dev.type == "cpu":
+        tab = sigmoid_q_table_plain(sched, cfg)
+    else:
+        _no_capture("sigmoid_q_table")
+        tab = torch.empty(SIGMOID_Q_ENTRIES, dtype=torch.int16, device=dev)
+        rc = build.library("act").cordic_sigmoid_q_table(
+            tab.data_ptr(), build.params_ptr(sched, cfg), build.stream_ptr(tab))
+        build.check(rc, "sigmoid_q_table")
+        build.count("sigmoid_q_table")
+        torch.cuda.current_stream(dev).synchronize()
+    _SIGMOID_Q_CACHE[key] = tab
+    return tab

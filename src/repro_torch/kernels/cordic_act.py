@@ -26,7 +26,8 @@ Ops: the sigmoid family (``sigmoid``, ``tanh``, ``sigmoid_wide``,
 ``_erf_q`` stage over ``_exp_q``, whose rational prefactor XLA computes
 without FMAs). ``act_q_2d`` is the
 paper's integer datapath: Q2.14 int16/int32 codes in, sigmoid codes of the
-same dtype out.
+same dtype out; in a 16-bit format its kernel reads one 65,536-entry
+table of sigmoid codes (``code_tables.py``).
 """
 from __future__ import annotations
 
@@ -363,9 +364,13 @@ def silu_mul_2d_plain(gate: torch.Tensor, up: torch.Tensor, *,
 
 
 def act_q_2d_plain(x_q: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
-                   cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
+                   cfg: FixedConfig = PAPER_FIXED, table=None) -> torch.Tensor:
     """Plain PyTorch version of the integer sigmoid kernel: Q2.14 codes in
-    (int16 or int32), sigmoid codes of the same dtype out."""
+    (int16 or int32), sigmoid codes of the same dtype out. ``table``
+    (``code_tables.sigmoid_q_table`` of a 16-bit format) looks every code up
+    as the kernel's table route does."""
+    if table is not None:
+        return table[CT.sigmoid_q_index(x_q).long()].to(x_q.dtype)
     return _cordic_sigmoid_q(x_q.to(_I32), sched, cfg).to(x_q.dtype)
 
 
@@ -436,7 +441,9 @@ _INT_CODE = {torch.int16: 0, torch.int32: 1}
 def act_q_2d(x_q: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
              cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
     """Integer (Q2.14 int16/int32 codes) sigmoid over the flat elements of a
-    tensor of any shape; the result has the input's dtype."""
+    tensor of any shape; the result has the input's dtype. In a 16-bit
+    format the kernel looks each code up in the sigmoid-code table
+    (``code_tables.sigmoid_q_table``); wider formats run the pipeline."""
     if x_q.dtype not in _INT_CODE:
         raise TypeError(f"act_q_2d: dtype {x_q.dtype} not supported "
                         "(int16 or int32 codes)")
@@ -445,9 +452,11 @@ def act_q_2d(x_q: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
     if not x_q.is_contiguous():
         raise ValueError("act_q_2d: input must be contiguous")
     y = torch.empty_like(x_q)
+    tab = (CT.sigmoid_q_table(sched, cfg, x_q.device).data_ptr()
+           if CT.table_route(cfg) else None)
     rc = build.library("act").cordic_act_q_2d(
         x_q.data_ptr(), y.data_ptr(), x_q.numel(), _INT_CODE[x_q.dtype],
-        build.params_ptr(sched, cfg), build.stream_ptr(x_q))
+        build.params_ptr(sched, cfg), tab, build.stream_ptr(x_q))
     build.check(rc, "act_q_2d")
     build.count("act_q_2d")
     return y

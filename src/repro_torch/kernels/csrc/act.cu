@@ -37,6 +37,21 @@
 // softplus takes only its exp leg from the table; its log leg (two
 // operands) stays on the pipeline. sigmoid_wide's doubling loop stops at
 // the lane's k (cordic.cuh), so a lane with |x| <= 1 runs no divide.
+//
+// act_q_kernel_tab, act_q_2d's table route (a 16-bit format): the sigmoid
+// code of x is a function of z = wrap16(x >> 1) alone, and z takes 65,536
+// values, so the whole function is one table (code_tables.py), which
+// cordic_sigmoid_q_table builds on the card with cordic_sigmoid_q itself:
+// the output is the pipeline's bit for bit. An element is then its index
+// arithmetic ((x >> 1) & 0xFFFF) ^ 0x8000 and one lookup, against 4 (int16)
+// or 8 (int32) bytes of traffic, so HBM bytes bound it. Persistent CTAs
+// stream 16-byte vectors (8 int16 or 4 int32 codes a thread, two vectors in
+// flight, evict-first), each CTA with its own copy of the table in shared
+// memory: int16 codes halve into [-16384, 16383], so they need only the
+// table's contiguous middle 64 KB (three CTAs an SM), int32 codes the whole
+// 128 KB (one CTA of 1024 threads an SM). The lookups are random gathers
+// from shared memory, so a warp's 32 lanes conflict on banks (two lanes on
+// one 4-byte word share it); the two vectors in flight hide them behind HBM.
 #include "cordic.cuh"
 
 namespace {
@@ -263,6 +278,75 @@ __global__ void act_q_kernel(const T* __restrict__ x, T* __restrict__ y, long lo
   }
 }
 
+// The part of the sigmoid-code table a code dtype reaches: int16 codes
+// halve into [-16384, 16383], entries [16384, 49152).
+template <typename T>
+struct QTab {
+  static constexpr int lo = sizeof(T) == 2 ? (1 << 14) : 0;
+  static constexpr int len = sizeof(T) == 2 ? (1 << 15) : (1 << 16);
+  static constexpr int threads = sizeof(T) == 2 ? 512 : 1024;
+};
+
+// The sigmoid code of code c from `t` (the reached part of the table).
+template <typename T>
+__device__ __forceinline__ int q_look(const short* t, int c) {
+  return t[(((c >> 1) & 0xFFFF) ^ 0x8000) - QTab<T>::lo];
+}
+
+// 16 bytes of codes: 8 int16 or 4 int32; a code sign-extends to int and
+// its sigmoid code (a 16-bit value) is stored back in the input's width.
+template <typename T>
+__device__ __forceinline__ uint4 q_look16(const short* t, uint4 a) {
+  unsigned w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 2) {
+      const unsigned lo = q_look<T>(t, (short)(w[i] & 0xffffu));
+      const unsigned hi = q_look<T>(t, (short)(w[i] >> 16));
+      w[i] = (lo & 0xffffu) | (hi << 16);
+    } else {
+      w[i] = (unsigned)q_look<T>(t, (int)w[i]);
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// act_q_2d's table route. vec: both pointers are 16-byte aligned, so whole
+// vectors go first and the tail element by element.
+template <typename T>
+__global__ void __launch_bounds__(QTab<T>::threads)
+    act_q_kernel_tab(const T* __restrict__ x, T* __restrict__ y, long long n, int vec,
+                     const short* __restrict__ tab) {
+  extern __shared__ uint4 q_smem[];
+  const uint4* src = reinterpret_cast<const uint4*>(tab + QTab<T>::lo);
+  for (int i = threadIdx.x; i < QTab<T>::len / 8; i += blockDim.x) q_smem[i] = src[i];
+  __syncthreads();
+  const short* t = reinterpret_cast<const short*>(q_smem);
+  constexpr int L = 16 / sizeof(T);
+  const long long nv = vec ? n / L : 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+  long long v = gid;
+  for (; v + stride < nv; v += 2 * stride) {
+    const uint4 a = __ldcs(xv + v);
+    const uint4 b = __ldcs(xv + v + stride);
+    __stcs(yv + v, q_look16<T>(t, a));
+    __stcs(yv + v + stride, q_look16<T>(t, b));
+  }
+  if (v < nv) __stcs(yv + v, q_look16<T>(t, __ldcs(xv + v)));
+  for (long long i = nv * L + gid; i < n; i += stride)
+    y[i] = (T)q_look<T>(t, (int)x[i]);
+}
+
+// The sigmoid-code table by the pipeline: entry i is the code of z =
+// i - 32768, fed as the code 2z, whose halving is z.
+__global__ void sigmoid_q_table_kernel(short* __restrict__ tab, const CordicParams p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < (1 << 16)) tab[i] = (short)cordic_sigmoid_q(2 * (i - (1 << 15)), p);
+}
+
 constexpr int kThreads = 256;
 
 int sm_count() {
@@ -327,6 +411,33 @@ int launch_silu_mul_tab(const void* gate, const void* up, void* y, long long n,
   grid = grid < 1 ? 1 : (grid > resident ? resident : grid);
   silu_mul_kernel_tab<T><<<(unsigned)grid, kTabThreads, 0, s>>>(
       (const T*)gate, (const T*)up, (T*)y, n, vec, p, (const short*)tab, half);
+  return (int)cudaGetLastError();
+}
+
+// Persistent grid of act_q_2d's table route: as many CTAs as are resident
+// on the card at once (the table's shared-memory copy sets how many an SM
+// holds), fewer when the launch has less work.
+template <typename T>
+int launch_act_q_tab(const void* x, void* y, long long n, const void* tab, cudaStream_t s) {
+  constexpr int threads = QTab<T>::threads;
+  constexpr int smem = QTab<T>::len * 2;
+  static int resident = 0;
+  if (resident == 0) {
+    const auto kern = act_q_kernel_tab<T>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         (int)cudaSharedmemCarveoutMaxShared);
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
+    resident = (per_sm > 0 ? per_sm : 1) * sm_count();
+  }
+  constexpr int lanes = 16 / sizeof(T);
+  const int vec = ((unsigned long long)x | (unsigned long long)y) % 16 == 0 ? 1 : 0;
+  const long long work = vec ? (n + 2 * lanes - 1) / (2 * lanes) : n;
+  long long grid = (work + threads - 1) / threads;
+  grid = grid < 1 ? 1 : (grid > resident ? resident : grid);
+  act_q_kernel_tab<T><<<(unsigned)grid, threads, smem, s>>>((const T*)x, (T*)y, n, vec,
+                                                            (const short*)tab);
   return (int)cudaGetLastError();
 }
 
@@ -397,10 +508,14 @@ extern "C" int cordic_silu_mul_2d(const void* gate, const void* up, void* y, lon
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 int16, 1 int32.
+// dtype: 0 int16, 1 int32. tab: the sigmoid-code table (null: the
+// pipeline route).
 extern "C" int cordic_act_q_2d(const void* x, void* y, long long n, int dtype,
-                               const CordicParams* p, void* stream) {
+                               const CordicParams* p, const void* tab, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (n > 0 && tab != nullptr)
+    return dtype == 0 ? launch_act_q_tab<short>(x, y, n, tab, s)
+                      : launch_act_q_tab<int>(x, y, n, tab, s);
   if (n > 0) {
     const unsigned grid = grid_for(n);
     if (dtype == 0)
@@ -408,5 +523,12 @@ extern "C" int cordic_act_q_2d(const void* x, void* y, long long n, int dtype,
     else
       act_q_kernel<int><<<grid, kThreads, 0, s>>>((const int*)x, (int*)y, n, *p);
   }
+  return (int)cudaGetLastError();
+}
+
+// tab: 65,536 int16 entries, the sigmoid code of every z in [-32768, 32767].
+extern "C" int cordic_sigmoid_q_table(void* tab, const CordicParams* p, void* stream) {
+  sigmoid_q_table_kernel<<<(1 << 16) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+      (short*)tab, *p);
   return (int)cudaGetLastError();
 }

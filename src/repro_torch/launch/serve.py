@@ -6,6 +6,8 @@
         --arch deepseek-v2-lite-16b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
         --smoke --device cpu --kv-quant int8 --prefix-cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+        --smoke --device cpu --prefill-chunk 16 --prefill-batch 2
 
 Boots the paged continuous-batching engine for a registered arch with
 random weights from a seed, on the card (``--device cuda``, the default) or
@@ -19,7 +21,14 @@ are set through ``ServeEngine(softmax_impl=...)``. ``--kv-quant`` stores
 the GQA pools as int8 or Q2.14 codes with per-block scales;
 ``--prefix-cache`` turns on the radix prefix cache and, as the JAX
 launcher does, prepends one shared system prompt of two blocks to every
-request so that later admissions hit it.
+request so that later admissions hit it. ``--prefill-chunk`` streams long
+prompts in block-aligned chunks interleaved with decode steps,
+``--prefill-batch`` packs that many prefill rows into one dispatch (default:
+``--slots`` when chunking, else 1; with ``--prefix-cache`` on a model
+without MoE layers only 1) and ``--max-prefill-tokens`` caps the
+prefill tokens of an iteration. Not ported yet, each raising: ``--kv-impl
+dense`` (ROADMAP A.6), ``--tp`` (A.12), ``--metrics-json`` and
+``--trace-out`` (A.8), and a ``--temperature`` above 0 (A.7).
 """
 from __future__ import annotations
 

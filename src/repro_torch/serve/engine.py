@@ -2,18 +2,34 @@
 ``repro/serve/engine.py``, paged greedy path), for dense GQA models and
 MLA/MoE ones (DeepSeek-V2-Lite: compressed-latent and rope-key pools).
 
-Every ``step()`` runs the iteration scheduler's prefill phase, one row per
-prefill dispatch (``make_paged_prefill_step``: bucket-padded prompt straight
-into the slot's pool blocks, pad-tail writes trimmed to the scratch block),
-then ONE batched decode over all slots (``make_paged_decode_step``).
-Admission allocates the blocks a request can reach from the refcounted
-``KVPager``; a request that does not fit waits at the queue head (FIFO
-backpressure); ``submit`` rejects requests that can never be served.
+Every ``step()`` runs the iteration scheduler's prefill phase
+(serve/scheduler.py: chunk continuations first, then FIFO admissions, under
+a ``max_prefill_tokens`` budget), then ONE batched decode over all slots
+(``make_paged_decode_step``). Admission allocates the blocks a request can
+reach from the refcounted ``KVPager``; a request that does not fit waits at
+the queue head (FIFO backpressure); ``submit`` rejects requests that can
+never be served.
 
-Prefill runs at the bucket width, pad tokens included, as the JAX engine
-does: a GShard MoE layer's expert capacity follows the dispatch width
-(models/moe.py), so another width would route differently. The one
-exception is the prefix cache on a model without MoE layers (below).
+Two knobs shape the prefill phase, as in the JAX engine:
+
+``prefill_chunk=C``   prompts longer than C stream in as block-aligned
+    C-wide chunks, one per iteration, interleaved with decode steps, so a
+    long prompt no longer stalls the short requests' first tokens.
+    Mid-prefill slots are left out of the decode (their chunks pin the
+    slot's length each dispatch); the final chunk pins the true length and
+    emits the first token. An iteration whose only work is prefill skips
+    the decode.
+``prefill_batch=R``   up to R scheduled rows run as ONE multi-row prefill
+    (``make_paged_prefill_step``), padded to a power of two with
+    all-scratch rows. Defaults to ``slots`` when chunking, else 1; under
+    the prefix cache on a model without MoE layers it is 1 (below).
+
+Prefill runs at the bucket (or chunk) width, pad tokens included, as the
+JAX engine does: a GShard MoE layer's expert capacity follows the dispatch
+width (models/moe.py), so another width, chunking or row count would route
+differently; with the same knobs the port routes as the JAX engine does.
+The one exception is the prefix cache on a model without MoE layers
+(below).
 
 The KV memory plane has two options, as in the JAX engine:
 ``kv_quant="int8" | "q2_14"`` stores the GQA pools as block-scaled codes
@@ -21,21 +37,26 @@ The KV memory plane has two options, as in the JAX engine:
 ``prefix_cache=True`` indexes full prompt blocks in a radix tree
 (serve/prefix_cache.py): an admission whose prompt shares full blocks with
 an earlier one binds those blocks into its table and prefills from the
-first unshared block. With the cache on, a model without MoE layers
-prefills in block-wide pieces, up to the prompt's last block: cuBLAS picks
+first unshared block, pinned like a mid-chunk continuation. With the cache
+on, a model without MoE layers prefills one row a dispatch in block-wide
+pieces, up to the last block the row reaches, chunked or not: cuBLAS picks
 its GEMM kernel by the row count, so on the card a position's K, V and
-logits would otherwise depend on where its prefill started, and a shared
-block would not hold the bytes its sharer would have written itself.
-Cache-off prefills stay whole.
+logits would otherwise depend on where its prefill started and on how
+many rows shared its dispatch, and a shared block would not hold the bytes
+its sharer would have written itself. A ``prefill_batch`` above 1 is
+refused there. Cache-off prefills stay whole.
+
+``score(prompt)`` returns the teacher-forced log-probs of a prompt through
+the log-softmax datapath of ``cfg.loss_impl`` (train/losses.py), as the
+JAX engine's ``score``.
 
 The pools, block tables and lengths live on the device and are updated in
 place (models/attention.py); the JAX engine's jitted pure functions over
 donated caches have no counterpart, since PyTorch runs eagerly.
 
 Not ported yet, each raising where it is asked for: ``kv_impl="dense"``
-(ROADMAP A.6), chunked and multi-row prefill (A.6), tensor parallelism
-(A.12), observability (A.8), sampling with temperature (A.7) and ``score``
-(A.6).
+(ROADMAP A.6, with the recurrent archs of A.10), tensor parallelism
+(A.12), observability (A.8) and sampling with temperature (A.7).
 """
 from __future__ import annotations
 
@@ -57,28 +78,44 @@ from repro_torch.serve.scheduler import IterationScheduler, PrefillRow
 
 
 def make_paged_prefill_step(cfg, piece: Optional[int] = None) -> Callable:
-    """One prefill row straight into pool blocks.
+    """R prefill rows straight into pool blocks, as ONE batch-R apply
+    against the shared pools (the JAX ``make_paged_prefill_step``).
 
-    tokens (1, W) bucket-padded; view_row (1, M) the block-table row the
-    apply writes through (the slot's blocks up to the last one holding a
-    position this row can see, scratch after: the tail-write trim);
-    start (1,) the first position; then the slot's table row and length
-    are set to full_row / pin_len: the bucket's pad tail advanced the
-    view's length past the prompt, and the slot keeps the real one (what
-    the JAX dense plane's override_cache_length does). With ``piece`` the
-    row runs as W / piece applies of ``piece`` positions each, one after
-    the other through the same view. Returns the logits row at
-    logit_idx."""
-    def prefill(params, cache: tf.PagedCache, tokens, slot: int, view_row,
-                full_row, start, pin_len: int, logit_idx: int):
-        view = cache.view(view_row, start)
-        step = piece or tokens.shape[1]
-        for i in range(0, tokens.shape[1], step):
+    Per row r: tokens[r] (W,) the bucket/chunk-padded segment; view_rows[r]
+    (M,) the block-table row the apply writes through (the slot's blocks up
+    to the last one holding a position this row can see, scratch after: the
+    tail-write trim; pad rows are all scratch); starts[r] the first
+    position; then each valid row's slot gets full_rows[r] and its length
+    pinned to pins[r] (the true length on a final row, the chunk frontier
+    mid-prompt): the pad tail advanced the view's length past it. Pad rows
+    (``valid`` false) register nothing, so a pad row aliasing a live slot
+    id never clobbers it. With ``piece`` the rows run as W / piece applies
+    of ``piece`` positions each, one after the other through the same view.
+    ``slot_ids``, ``pins``, ``logit_idx`` and ``valid`` are host arrays.
+    Returns the (R, V) logits rows at logit_idx."""
+    def prefill(params, cache: tf.PagedCache, tokens, slot_ids, view_rows,
+                full_rows, starts, pins, logit_idx, valid):
+        view = cache.view(view_rows, starts)
+        R, W = tokens.shape
+        step = piece or W
+        last = None
+        for i in range(0, W, step):
             logits, _, _ = tf.apply(params, {"tokens": tokens[:, i:i + step]},
                                     cfg, cache=view)
-        cache.tables[slot] = full_row[0]
-        cache.lens[slot] = pin_len
-        return logits[:, logit_idx - i]
+            if last is None:
+                last = logits.new_empty(R, logits.shape[-1])
+            rows = np.flatnonzero((logit_idx >= i) & (logit_idx < i + step))
+            if rows.size:
+                r = torch.as_tensor(rows, device=logits.device)
+                last[r] = logits[r, torch.as_tensor(logit_idx[rows] - i,
+                                                    device=logits.device)]
+        dev = cache.tables.device
+        live = torch.as_tensor(np.flatnonzero(valid), device=dev)
+        slots = torch.as_tensor(slot_ids[valid].astype(np.int64), device=dev)
+        cache.tables[slots] = full_rows[live]
+        cache.lens[slots] = torch.as_tensor(pins[valid], dtype=cache.lens.dtype,
+                                            device=dev)
+        return last
     return prefill
 
 
@@ -89,6 +126,23 @@ def make_paged_decode_step(cfg) -> Callable:
         logits, _, _ = tf.apply(params, {"tokens": tokens}, cfg, cache=cache)
         return sp.greedy_tokens(logits[:, -1])
     return decode
+
+
+def make_score_step(cfg) -> Callable:
+    """Teacher-forced per-token log-probs of prompts (the JAX
+    ``make_score_step``): tokens (B, S) -> (B, S - 1) log p(token_t | <t),
+    through the log-softmax of ``cfg.loss_impl`` (train/losses.py), so
+    served scoring runs the training loss's datapath (``log_softmax_2d``
+    under ``cordic_pallas``)."""
+    from repro_torch.train import losses
+
+    logp_fn = losses.log_softmax_fn(getattr(cfg, "loss_impl", "exact"))
+
+    def score(params, tokens):
+        logits, _, _ = tf.apply(params, {"tokens": tokens}, cfg)
+        logp = logp_fn(logits[:, :-1])
+        return logp.gather(-1, tokens[:, 1:, None])[..., 0]
+    return score
 
 
 @dataclasses.dataclass
@@ -115,10 +169,11 @@ def _unported(what: str, entry: str) -> NotImplementedError:
 
 class ServeEngine:
     """Static batch of ``slots``; each holds one request. Admission pads the
-    prompt to a length bucket and prefills it into freshly allocated pool
-    blocks, emitting the first token; every ``step()`` advances all slots
-    with one batched decode. Finished slots release their blocks and are
-    refilled from the queue, head first."""
+    prompt to a length bucket (or, past ``prefill_chunk``, a first chunk)
+    and prefills it into freshly allocated pool blocks; the final prefill
+    row emits the first token; every ``step()`` advances all slots not
+    mid-prefill with one batched decode. Finished slots release their
+    blocks and are refilled from the queue, head first."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  eos_token: Optional[int] = None, greedy: bool = True,
@@ -168,10 +223,6 @@ class ServeEngine:
             raise ValueError(
                 "kv_quant applies to GQA paged pools only; MLA layers "
                 "store the compressed latent unquantized")
-        if prefill_chunk is not None:
-            raise _unported("chunked prefill", "A.6")
-        if prefill_batch not in (None, 1):
-            raise _unported("multi-row prefill", "A.6")
         if obs is not None:
             raise _unported("observability", "A.8")
         if (tp or 1) > 1 or mesh is not None:
@@ -192,7 +243,21 @@ class ServeEngine:
         self.buckets = kvp.bucket_lengths(max_len, self.block_len)
         self.scheduler = IterationScheduler(
             buckets=self.buckets, block_len=self.block_len, max_len=max_len,
-            prefill_chunk=None, max_prefill_tokens=max_prefill_tokens)
+            prefill_chunk=prefill_chunk, max_prefill_tokens=max_prefill_tokens)
+        #: piece width of a prefill (module docstring), None for whole rows
+        self.prefill_piece = (self.block_len if prefix_cache and
+                              "mla_moe" not in cfg.block_pattern else None)
+        if prefill_batch is None:
+            prefill_batch = (slots if prefill_chunk is not None
+                             and not self.prefill_piece else 1)
+        if prefill_batch < 1:
+            raise ValueError(f"prefill_batch must be >= 1, got {prefill_batch}")
+        if prefill_batch > 1 and self.prefill_piece:
+            raise ValueError(
+                f"prefill_batch {prefill_batch} with the prefix cache on a model "
+                "without MoE layers: its block-wide pieces run one row a "
+                "dispatch (module docstring); use prefill_batch=1")
+        self.prefill_batch = int(prefill_batch)
         if max_len % self.block_len:
             raise ValueError(f"max_len {max_len} not a multiple of "
                              f"block_len {self.block_len}")
@@ -217,11 +282,9 @@ class ServeEngine:
                                            torch.float32, device=self.device)
         # device bytes per block across layers, whatever the pools hold
         self.pager.block_bytes = self.kv_pool_bytes() // num_blocks
-        #: piece width of a prefill (module docstring), None for whole rows
-        self.prefill_piece = (self.block_len if prefix_cache and
-                              "mla_moe" not in cfg.block_pattern else None)
         self._prefill = make_paged_prefill_step(cfg, self.prefill_piece)
         self._decode = make_paged_decode_step(cfg)
+        self._score = make_score_step(cfg)
         self._done: List[Request] = []
         self._active: List[Optional[Request]] = [None] * slots
         self._slot_rows = {}
@@ -265,8 +328,12 @@ class ServeEngine:
             words = max(words, plan.workspace_floats)
         return 4 * words
 
+    @torch.inference_mode()
     def score(self, prompt: np.ndarray) -> np.ndarray:
-        raise _unported("log-prob scoring", "A.6")
+        """(S,) int32 prompt -> (S-1,) per-token log-probs (teacher-forced),
+        through the cfg.loss_impl-selected log-softmax datapath."""
+        toks = torch.as_tensor(np.asarray(prompt, np.int64)[None], device=self.device)
+        return self._score(self.params, toks)[0].cpu().numpy()
 
     # -- admission ------------------------------------------------------------
     def _validate(self, req: Request) -> Optional[str]:
@@ -356,38 +423,15 @@ class ServeEngine:
         req.t_finish = time.perf_counter()
         self._done.append(req)
 
-    def _dispatch_prefill(self, row: PrefillRow) -> None:
-        """One prefill row: the prompt from ``row.start`` (past any shared
-        prefix blocks) at the row's bucket width, or in pieces up to the
-        prompt's last block."""
-        req, s = row.req, row.slot
-        plen = len(req.prompt)
-        width = row.width
-        if self.prefill_piece:
-            width = min(width, self.block_len * kvp.blocks_needed(
-                plen - row.start, self.block_len))
-        hi = min(plen, row.start + width)
-        toks = np.zeros((1, width), np.int32)
-        toks[0, :hi - row.start] = req.prompt[row.start:hi]
-        frow = self._slot_rows[s]
-        view = np.full((1, self.max_blocks), kvp.SCRATCH_BLOCK, np.int32)
-        nb_live = kvp.blocks_needed(hi, self.block_len)
-        view[0, :nb_live] = frow[:nb_live]
-        dev = self.device
-        self.prefill_tokens += width
-        logits = self._prefill(
-            self.params, self._caches,
-            torch.from_numpy(toks).to(dev, torch.int64), s,
-            torch.from_numpy(view).to(dev), torch.from_numpy(frow[None]).to(dev),
-            torch.full((1,), row.start, dtype=torch.int32, device=dev), plen,
-            plen - 1 - row.start)
-        first = int(sp.greedy_tokens(logits)[0])
+    def _complete_prefill(self, req: Request, s: int, first: int) -> None:
+        """A final prefill row landed: its first token; with the prefix cache
+        on, the prompt's full blocks become shareable."""
         req.t_first = time.perf_counter()
         if self.prefix is not None:
-            # the prompt's full blocks are shareable once written
-            nfull = plen // self.block_len
+            nfull = len(req.prompt) // self.block_len
             if nfull:
-                self.prefix.insert(req.prompt, [int(b) for b in frow[:nfull]])
+                self.prefix.insert(req.prompt,
+                                   [int(b) for b in self._slot_rows[s][:nfull]])
         req.out.append(first)
         if (self.eos is not None and first == self.eos) or \
                 len(req.out) >= req.max_new_tokens:
@@ -396,21 +440,89 @@ class ServeEngine:
         else:
             self._next_tok[s, 0] = first
 
+    def _dispatch_prefill(self, group: List[PrefillRow]) -> None:
+        """One multi-row prefill over up to ``prefill_batch`` scheduled rows,
+        padded to a power of two with all-scratch rows, at the group's
+        widest row (or, a single row, in pieces up to the last block it
+        reaches)."""
+        rp = 1
+        while rp < len(group):
+            rp *= 2
+        width = max(r.width for r in group)
+        if self.prefill_piece:                      # one row a dispatch
+            (r,) = group
+            width = min(r.width, self.block_len * kvp.blocks_needed(
+                len(r.req.prompt) - r.start, self.block_len))
+        toks = np.zeros((rp, width), np.int32)
+        slot_ids = np.zeros(rp, np.int32)
+        view_rows = np.full((rp, self.max_blocks), kvp.SCRATCH_BLOCK, np.int32)
+        full_rows = np.zeros((rp, self.max_blocks), np.int32)
+        starts = np.zeros(rp, np.int32)
+        pins = np.zeros(rp, np.int32)
+        lidx = np.zeros(rp, np.int64)
+        valid = np.zeros(rp, bool)
+        for i, row in enumerate(group):
+            plen = len(row.req.prompt)
+            hi = min(plen, row.start + width)
+            toks[i, :hi - row.start] = row.req.prompt[row.start:hi]
+            frow = self._slot_rows[row.slot]
+            nb_live = kvp.blocks_needed(hi, self.block_len)
+            view_rows[i, :nb_live] = frow[:nb_live]
+            full_rows[i] = frow
+            slot_ids[i] = row.slot
+            starts[i] = row.start
+            pins[i] = plen if row.final else row.start + row.width
+            lidx[i] = (plen - 1 - row.start) if row.final else 0
+            valid[i] = True
+        dev = self.device
+        self.prefill_tokens += width * len(group)
+        logits = self._prefill(
+            self.params, self._caches,
+            torch.from_numpy(toks).to(dev, torch.int64), slot_ids,
+            torch.from_numpy(view_rows).to(dev), torch.from_numpy(full_rows).to(dev),
+            torch.from_numpy(starts).to(dev), pins, lidx, valid)
+        finals = [(i, row) for i, row in enumerate(group) if row.final]
+        if finals:
+            first = sp.greedy_tokens(logits).cpu().numpy()
+            for i, row in finals:
+                self._complete_prefill(row.req, row.slot, int(first[i]))
+
+    def _prefill_phase(self) -> int:
+        """This iteration's scheduled prefill rows, packed into dispatches of
+        up to ``prefill_batch``; a group flushes before a wider groupmate
+        would push any row past max_len. Returns the rows run."""
+        rows = self.scheduler.plan(self._admit_slot)
+        group: List[PrefillRow] = []
+        gw = 0
+        for row in rows:
+            w = max(gw, row.width)
+            if group and (len(group) >= self.prefill_batch or any(
+                    r.start + w > self.max_len for r in group + [row])):
+                self._dispatch_prefill(group)
+                group, w = [], row.width
+            group.append(row)
+            gw = w
+        if group:
+            self._dispatch_prefill(group)
+        return len(rows)
+
     # -- the loop ---------------------------------------------------------------
     @torch.inference_mode()
     def step(self) -> int:
-        """Prefill phase, then one batched decode over the occupied slots.
+        """Prefill phase, then one batched decode over the occupied slots
+        not mid-prefill (the others ride along, their outputs ignored).
         Returns the number of slots that advanced (or prefill rows run on a
-        prefill-only iteration); 0 means no work was done."""
-        rows = self.scheduler.plan(self._admit_slot)
-        for row in rows:
-            self._dispatch_prefill(row)
-        decodable = [s for s in range(self.slots) if self._active[s] is not None]
+        prefill-only iteration, which skips the decode); 0 means no work
+        was done."""
+        n_rows = self._prefill_phase()
+        chunking = self.scheduler.chunking
+        decodable = [s for s in range(self.slots)
+                     if self._active[s] is not None and s not in chunking]
         if not decodable:
-            if not rows and self._queue:
+            if not n_rows and self._queue:
                 raise RuntimeError(
                     f"request {self._queue[0].rid} can never be admitted")
-            return len(rows)
+            return n_rows
         nxt = self._decode(self.params, self._caches,
                            torch.from_numpy(self._next_tok).to(self.device,
                                                                torch.int64))

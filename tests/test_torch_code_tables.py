@@ -141,3 +141,48 @@ def test_lookups_refuse_codes_off_the_table():
     assert int(tabs.tanh_code(torch.tensor([8192], dtype=torch.int32))) == int(
         K._cordic_tanh_q(torch.tensor([8192], dtype=torch.int32), PAPER_SCHEDULE,
                          PAPER_FIXED))
+
+
+# ---------------------------------------------------------------------------
+# The sigmoid-code table of act_q_2d's table route (every 16-bit z)
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _sigmoid_q_table():
+    return CT.sigmoid_q_table(PAPER_SCHEDULE, PAPER_FIXED, "cpu")
+
+
+def test_sigmoid_q_table_equals_the_plain_kernel_at_every_z():
+    """Entry z + 32768 is act_q_2d_plain of the codes 2z and 2z + 1 (both
+    halve to z), over all 65,536 z; the table is cached."""
+    tab = _sigmoid_q_table()
+    assert tab.shape == (CT.SIGMOID_Q_ENTRIES,) and tab.dtype == torch.int16
+    z = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32)
+    for x in (2 * z, 2 * z + 1):
+        assert torch.equal(tab, K.act_q_2d_plain(x).to(torch.int16))
+        assert torch.equal(CT.sigmoid_q_index(x), z + (1 << 15))
+    assert CT.sigmoid_q_table(PAPER_SCHEDULE, PAPER_FIXED, "cpu") is tab
+
+
+def test_sigmoid_q_lookup_equals_jax_on_int16_and_int32_codes():
+    """The table route (emulated by ``act_q_2d_plain(table=)``) equals the
+    JAX ops.sigmoid_q (Pallas act_q_2d in interpret mode) on every int16
+    code and on int32 codes over the whole int32 range, +-2^31 included."""
+    from repro.kernels import ops as jops
+
+    tab = _sigmoid_q_table()
+    wide = np.random.default_rng(0).integers(-(1 << 31), 1 << 31, 1 << 14, dtype=np.int64)
+    wide[:6] = [-(1 << 31), (1 << 31) - 1, -(1 << 31) + 1, (1 << 31) - 2, 1 << 16,
+                -(1 << 16) - 1]
+    for codes in (np.arange(-(1 << 15), 1 << 15).astype(np.int16).reshape(256, 256),
+                  wide.astype(np.int32).reshape(128, 128)):
+        got = K.act_q_2d_plain(torch.from_numpy(codes), table=tab)
+        assert got.dtype == torch.from_numpy(codes).dtype
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(jops.sigmoid_q(jnp.asarray(codes))))
+
+
+def test_sigmoid_q_table_only_in_a_16_bit_format():
+    """Q2.20 keeps act_q_2d on the pipeline route: no table is built."""
+    q20 = FixedConfig(fmt=fp.Q2_20)
+    with pytest.raises(ValueError, match="22-bit"):
+        CT.sigmoid_q_table(mr_schedule_for(20), q20, "cpu")

@@ -219,7 +219,6 @@ def test_engine_without_gpu_raises_unless_cpu_requested():
 
 @pytest.mark.parametrize("kw,entry", [
     (dict(kv_impl="dense"), "A.6"),
-    (dict(prefill_chunk=16), "A.6"),
     (dict(tp=2), "A.12"),
     (dict(sampling=SamplingParams(temperature=0.7)), "A.7"),
 ])
