@@ -32,7 +32,8 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             the least time the card could take (bound). The Q2.14 golden
             codes of sigmoid (float and integer paths), exp and log on the
             card; act_q_2d's sigmoid-code table (its build time) and its
-            table route in both dtypes.
+            table route in both dtypes; softmax_2d also at the dense
+            decode attend (4 slots x 32 heads of 128 and of 4096 lanes).
 4. paths    the port's main paths through the entry points a user calls,
             with every launch count set to 0 just before and read just
             after: (a) the paper's unit, ``ops.sigmoid`` and its integer
@@ -67,16 +68,31 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             Yi-9B (a 4000-token prompt beside three 8-token ones at max_len
             4096, chunks of 512, and unchunked: the short requests' TTFT);
             ``ServeEngine.score`` of a 128-token prompt through
-            log_softmax_2d. Every kernel of a path must have launched, and
-            under grad the fused SwiGLU kernel must not (the JAX rule's
-            primal).
+            log_softmax_2d; (g) the dense KV plane: Yi-9B and
+            DeepSeek-V2-Lite on the launcher traffic (softmax_2d once a
+            layer on every decode step and prefill, tokens set beside the
+            paged run's), and Yi with one 4000-token request at max_len
+            4096 (softmax_2d at 128 x 4096 a layer a step; its step p50
+            beside the paged engine's); (h) seeded sampling: the sampler
+            on fixed 4 x 64,000 logits, its Gumbel noise and tokens equal
+            to the CPU's, timed beside the argmax; Yi on the paged plane
+            with even rids sampled (T 0.8, top-k 40), served twice with
+            seed 0 (equal tokens), its greedy rows equal to the all-greedy
+            run's; (i) observability: Yi's launcher traffic with
+            Observability(trace=True) inside observe_saturation (tokens
+            equal to the run with it off), chiprun_out/metrics.json and
+            trace.json (validate_chrome_trace), TTFT, TPOT, the step and
+            each engine phase's p50. Every kernel of a path must have
+            launched, and under grad the fused SwiGLU kernel must not (the
+            JAX rule's primal).
 5. identity the Yi and DeepSeek-V2-Lite smoke configs in float32, on both
             datapaths, and Yi's on int8 and Q2.14 pools and with the prefix
             cache: tokens served on the card with the kernels equal the
             CPU's tokens with the plain versions (and, on int8, the card's
             gather attend's); both archs with chunked, multi-row prefill
-            (and their ``score``) too; 5 Yi train steps' losses on the card
-            agree with the CPU's.
+            (and their ``score``) too; both archs on the dense plane, all
+            greedy and with the sampling mix; 5 Yi train steps' losses on
+            the card agree with the CPU's.
 
 The line before the last holds {"kernels": [...]} (one entry per kernel:
 launches on its path, max error against plain, times, bound); the last line
@@ -140,7 +156,13 @@ LONG_PROMPT_FIXED = 1024
 CHUNK, CHUNK_BATCH = 32, 4
 LONG_CHUNK, LONG_SHORTS = 512, 3
 SCORE_LEN = 128
+#: the sampling mix: even rids at this (temperature, top_k), odd rids greedy
+MIX = (0.8, 40)
 
+
+#: the long-context serves' decode step p50 (ms) and tokens, by (arch,
+#: softmax_impl, pool format)
+LONG_STEPS = {}
 
 #: each decode branch's kernel output by record name (--decode-kernels
 #: --save writes them, so two trees' outputs can be compared bit for bit)
@@ -534,6 +556,7 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
     log(f"[softmax_2d] long prefill attend {rec['shape']} causal: bit-exact, and in "
         f"Q2.20; {fmt_times(rec)}")
     del sl, a, b
+    dense_decode_softmax(torch, card, SM, ycfg, gen, ops)
 
     decode_kernels(torch, card, records, ycfg, dcfg, ops)
     # (5) log_softmax_2d at the loss shape: (B*S, V) = (256, 64000) float32
@@ -749,6 +772,34 @@ def act_q_phase(torch, card, records, ycfg, ops, q20):
             kernel=times(torch, lambda: K.act_q_2d(x), "act_q_kernel"),
             plain=times(torch, lambda: K.act_q_2d_plain(x), None, 3, 1))
         log(f"[act_q_2d] {name} {list(x.shape)}: {fmt_times(records[name])}")
+
+
+def dense_decode_softmax(torch, card, SM, ycfg, gen, ops):
+    """softmax_2d at the dense decode step's attend: SLOTS x H rows of
+    max_len lanes (MAX_LEN and LONG_MAX_LEN), each slot's rows masked past
+    its length (ragged, one vacant slot), against its plain version and
+    torch.softmax, timed."""
+    dev = torch.device(DEV)
+    H = ycfg.num_heads
+    for T in (MAX_LEN, LONG_MAX_LEN):
+        k_len = torch.tensor([T, (3 * T) // 4, T // 3, 1], device=dev)
+        s = torch.randn(SLOTS * H, T, generator=gen, device=dev) * 4
+        kpos = torch.arange(T, device=dev)[None, :]
+        s = torch.where(kpos < k_len.repeat_interleave(H)[:, None], s,
+                        torch.full_like(s, -1e30)).contiguous()
+        a, b = SM.softmax_2d(s), SM.softmax_2d_plain(s)
+        check(torch.equal(a, b), f"softmax_2d (dense decode, {T} lanes) differs "
+              "from its plain version")
+        live = int((s > -1e29).sum())
+        bound, by = card.bound(8 * s.numel(), ops["softmax_lane_tab"] * live)
+        rec = timed(
+            dict(shape=list(s.shape), max_abs_err=float((a - b).abs().max()),
+                 bound_ms=bound, bound_by=by),
+            kernel=times(torch, lambda: SM.softmax_2d(s), "softmax_kernel"),
+            plain=times(torch, lambda: SM.softmax_2d_plain(s), None, 3, 1),
+            library=times(torch, lambda: torch.softmax(s, dim=-1)))
+        log(f"[softmax_2d] dense decode attend {rec['shape']} (k_len "
+            f"{k_len.tolist()} a slot): bit-exact; {fmt_times(rec)}")
 
 
 def long_softmax_rows(torch, gen):
@@ -1286,6 +1337,15 @@ def serve_path(torch, build, arch):
         t0 = time.perf_counter()
         out["chunked"] = chunked_path(torch, build, cfg, model)
         log(f"[time] chunked path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["dense"] = dense_path(torch, build, cfg, model, ref)
+        log(f"[time] dense path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["sampling"] = sampling_path(torch, build, cfg, model, ref)
+        log(f"[time] sampling path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["obs"] = obs_path(torch, build, cfg, model, ref)
+        log(f"[time] obs path: {time.perf_counter() - t0:.1f} s")
     else:
         cfg = dataclasses.replace(base, softmax_impl="cordic_pallas")
         t0 = time.perf_counter()
@@ -1294,6 +1354,10 @@ def serve_path(torch, build, arch):
                                       prefill_batch=CHUNK_BATCH)
         out["chunked"] = {"chunked": counts}
         log(f"[time] chunked path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["dense"] = dense_path(torch, build, cfg, model, out["cordic_pallas"][1],
+                                  long=False)
+        log(f"[time] dense path: {time.perf_counter() - t0:.1f} s")
     del model
     torch.cuda.empty_cache()
     return out
@@ -1550,6 +1614,8 @@ def long_context_pools(torch, build, cfg, model, formats):
               f"long-context {tag} {fmt}: {kernel} launched "
               f"{counts[fmt].get(kernel, 0)} times, not {cfg.num_layers} x "
               f"{len(steps)} steps")
+        LONG_STEPS[cfg.name, cfg.softmax_impl, fmt] = (
+            statistics.median(steps[1:]) * 1e3, list(req.out))
         log(f"[path long {tag} {fmt}] one {n_prompt}-token request, 8 new tokens in "
             f"{time.perf_counter() - t0:.3f} s: TTFT {(req.t_first - req.t_enqueue) * 1e3:.1f} "
             f"ms; step p50 after the prefill's {statistics.median(steps[1:]) * 1e3:.2f} "
@@ -1683,6 +1749,244 @@ def chunked_path(torch, build, cfg, model):
         f"{cfg.vocab_size} lanes in {ms:.1f} ms (host clock); mean {float(lp.mean()):.4f}; "
         f"max |cordic_pallas - exact| {float(np.abs(lp - lps['exact']).max()):.3e}; "
         f"launches {counts['score cordic_pallas']}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def drive(torch, eng, reqs):
+    """Submit ``reqs`` to ``eng`` and step it until it drains, each step
+    timed on the host clock; returns the step times (s) and the wall time."""
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    steps = []
+    while eng.has_work:
+        ts = time.perf_counter()
+        eng.step()
+        steps.append(time.perf_counter() - ts)
+    torch.cuda.synchronize()
+    return steps, time.perf_counter() - t0
+
+
+def dense_serve(torch, build, cfg, model, prompt=None, max_len=MAX_LEN, max_new=8):
+    """One dense-plane engine (SLOTS slots, the table-free attend) serving
+    the launcher's traffic, or one ``prompt`` of ``max_new`` tokens, launch
+    counts zeroed just before and read just after, decode steps and prefill
+    dispatches read from its metrics. softmax_2d must launch once a layer
+    on every apply: each decode step and each prefill. Returns (requests,
+    launch counts, stats)."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng = ServeEngine(cfg, model, slots=SLOTS, max_len=max_len, kv_impl="dense",
+                      block_len=BLOCK_LEN, device=DEV)
+    torch.cuda.synchronize()
+    delta = torch.cuda.memory_allocated() - before
+    check(delta >= eng.kv_cache_bytes(), f"dense {cfg.name}: allocated {delta} < "
+          f"caches {eng.kv_cache_bytes()}")
+    if prompt is None:
+        for r in make_requests(cfg, 1, 2, seed=99):     # warm-up, outside the counts
+            eng.submit(r)
+        eng.run()
+        reqs = make_requests(cfg, REQUESTS, MAX_NEW, seed=0)
+    else:
+        reqs = [Request(rid=0, prompt=prompt.astype("int32"), max_new_tokens=max_new)]
+    ob = obs_lib.Observability()
+    eng.attach_obs(ob)
+    build.reset_launches()
+    steps, wall = drive(torch, eng, reqs)
+    counts = dict(build.LAUNCHES)
+    check(all(r.done and r.error is None and len(r.out) == r.max_new_tokens
+              and all(0 <= t < cfg.vocab_size for t in r.out) for r in reqs),
+          f"dense {cfg.name}: every request finishes with its tokens")
+    n_dec = ob.metrics.get("engine.phase.dispatch_ms").count
+    n_pre = ob.metrics.get("engine.prefill.dispatches").value
+    check(counts.get("softmax_2d", 0) == cfg.num_layers * (n_dec + n_pre),
+          f"dense {cfg.name}: softmax_2d launched {counts.get('softmax_2d', 0)} times, "
+          f"not {cfg.num_layers} x ({n_dec} decode steps + {n_pre} prefills)")
+    for k in ("gqa_decode", "mla_decode"):
+        check(counts.get(k, 0) == 0, f"dense {cfg.name}: the paged decode kernel {k} ran")
+    ttft = sorted((r.t_first - r.t_enqueue) * 1e3 for r in reqs)
+    stats = dict(out={r.rid: r.out for r in reqs}, cache_bytes=eng.kv_cache_bytes(),
+                 alloc_delta=delta, decode_steps=n_dec, prefills=n_pre, wall_s=wall,
+                 step_ms_p50=statistics.median(steps[1:] if prompt is not None
+                                               else steps) * 1e3,
+                 ttft_ms_p50=statistics.median(ttft), tokens=sum(len(r.out) for r in reqs))
+    del eng
+    torch.cuda.empty_cache()
+    return reqs, counts, stats
+
+
+def dense_path(torch, build, cfg, model, ref, long=True):
+    """(g) The dense KV plane at full width: the launcher traffic (greedy,
+    SLOTS slots, MAX_LEN) with softmax_2d's launches per decode step, its
+    tokens set beside the paged run's ``ref`` (a match count); then (Yi)
+    one LONG_PROMPT-token request at LONG_MAX_LEN, every decode step's
+    softmax_2d at SLOTS x H rows of LONG_MAX_LEN lanes, its step p50
+    beside the paged engine's. Returns {run: launch counts}."""
+    import numpy as np
+
+    tag = f"[path dense {cfg.name} {cfg.act_impl}/{cfg.softmax_impl}]"
+    counts = {}
+    reqs, counts["launcher"], st = dense_serve(torch, build, cfg, model)
+    same = sum(a == b for rid, toks in ref["out"].items()
+               for a, b in zip(toks, st["out"][rid]))
+    log(f"{tag} {len(reqs)} requests, {st['tokens']} tokens in {st['wall_s']:.3f} s; "
+        f"{st['decode_steps']} decode steps + {st['prefills']} prefills, softmax_2d "
+        f"{counts['launcher'].get('softmax_2d', 0)} launches = {cfg.num_layers} a decode "
+        f"step and a prefill; step p50 {st['step_ms_p50']:.2f} ms (paged "
+        f"{ref['step_ms_p50']:.2f} ms), TTFT p50 {st['ttft_ms_p50']:.1f} ms (paged "
+        f"{ref['ttft_ms_p50']:.1f}); caches {st['cache_bytes']} bytes; greedy match "
+        f"against the paged decode kernel's tokens {same}/{ref['tokens']} (reported, "
+        f"not gated: another attend); launches {counts['launcher']}")
+    log(f"{tag} tokens {json.dumps(st['out'])}")
+    if not long:
+        return counts
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, LONG_PROMPT)
+    _, counts["long"], lst = dense_serve(torch, build, cfg, model, prompt=prompt,
+                                         max_len=LONG_MAX_LEN)
+    p50, ptoks = LONG_STEPS[cfg.name, cfg.softmax_impl, "none"]
+    log(f"{tag} one {LONG_PROMPT}-token request at max_len {LONG_MAX_LEN}, {SLOTS} "
+        f"slots: caches {lst['cache_bytes']} bytes ({lst['cache_bytes'] / 1e9:.3f} GB), "
+        f"memory_allocated delta {lst['alloc_delta']}; {lst['decode_steps']} decode "
+        f"steps, softmax_2d at {SLOTS * cfg.num_heads} x {LONG_MAX_LEN} a layer: "
+        f"{counts['long'].get('softmax_2d', 0)} launches; step p50 after the prefill "
+        f"{lst['step_ms_p50']:.2f} ms dense vs {p50:.2f} ms paged (gqa_decode); TTFT "
+        f"{lst['ttft_ms_p50']:.1f} ms; tokens {lst['out'][0]} (paged {ptoks})")
+    return counts
+
+
+def sampler_alone(torch):
+    """(h) The sampler on fixed logits (4 x 64,000 float32 from a seed,
+    keys of (seed 0, rid, step)) on the card and on the CPU: the Gumbel
+    noise and the tokens must be equal; timed beside the argmax."""
+    from repro_torch.serve import prng
+    from repro_torch.serve import sampling as sp
+
+    V = 64000
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn(4, V, generator=gen) * 3
+    rids, steps = torch.tensor([0, 1, 2, 3]), torch.tensor([0, 1, 5, 15])
+    temps = torch.tensor([0.8, 0.8, 2.5, 0.5])
+    top_ks = torch.tensor([40, 0, 8, 40])
+    greedy = torch.tensor([False, False, False, True])
+    keys = sp.request_key(prng.threefry_seed(0), rids, steps)
+    knobs = (keys, temps, top_ks, greedy)
+    dl = logits.to(DEV)
+    noise = {"cpu": prng.gumbel(keys, (V,)), DEV: prng.gumbel(keys.to(DEV), (V,)).cpu()}
+    toks = {"cpu": sp.sample_batched(logits, *knobs),
+            DEV: sp.sample_batched(dl, *knobs).cpu()}
+    scaled_eq = torch.equal(sp.scale_by_temperature(dl, temps).cpu(),
+                            sp.scale_by_temperature(logits, temps))
+    check(torch.equal(noise[DEV], noise["cpu"]), "the card's Gumbel noise differs "
+          "from the CPU's")
+    check(torch.equal(toks[DEV], toks["cpu"]), "the card's sampled tokens differ "
+          "from the CPU's")
+    t_s = times(torch, lambda: sp.sample_batched(dl, *knobs), iters=10)
+    t_g = times(torch, lambda: sp.greedy_tokens(dl))
+    log(f"[path sampler] 4 x {V} logits, keys (0, rid {rids.tolist()}, step "
+        f"{steps.tolist()}), T {temps.tolist()}, top_k {top_ks.tolist()}, greedy "
+        f"{greedy.tolist()}: Gumbel noise and tokens {toks[DEV].tolist()} equal to the "
+        f"CPU's (temperature-scaled logits equal: {scaled_eq}); sample_batched device "
+        f"{t_s[0]:.4f} ms, host-to-host {t_s[1]:.3f} ms per call; argmax device "
+        f"{t_g[0]:.4f} ms, host-to-host {t_g[1]:.4f} ms")
+    return t_s, t_g
+
+
+def sampling_path(torch, build, cfg, model, ref):
+    """(h) Yi's launcher prompts on the paged plane with the kernels, even
+    rids sampled at MIX, odd rids greedy, served twice with seed 0: the two
+    runs' tokens must be equal, and the greedy requests' tokens those of the
+    all-greedy run ``ref`` (same batch shapes, so those rows' logits are the
+    same). Returns the launch counts."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sampling import SamplingParams
+
+    t_s, t_g = sampler_alone(torch)
+    runs = []
+    for _ in range(2):
+        eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, kv_impl="paged",
+                          block_len=BLOCK_LEN, paged_attend_impl="pallas", seed=0,
+                          device=DEV)
+        for r in make_requests(cfg, 1, 2, seed=99):
+            eng.submit(r)
+        eng.run()
+        reqs = make_requests(cfg, REQUESTS, MAX_NEW, seed=0)
+        for r in reqs[::2]:
+            r.sampling = SamplingParams(*MIX)
+        build.reset_launches()
+        steps, wall = drive(torch, eng, reqs)
+        runs.append(({r.rid: r.out for r in reqs}, statistics.median(steps) * 1e3,
+                     dict(build.LAUNCHES)))
+        del eng
+    out, p50, counts = runs[0]
+    check(runs[1][0] == out, "sampled serving with seed 0 did not repeat its tokens")
+    for rid in range(1, REQUESTS, 2):
+        check(out[rid] == ref["out"][rid], f"greedy request {rid} in the sampling mix "
+              "differs from the all-greedy run")
+    differ = sum(out[rid] != ref["out"][rid] for rid in range(0, REQUESTS, 2))
+    log(f"[path sampling {cfg.name}] launcher prompts, even rids T={MIX[0]} "
+        f"top_k={MIX[1]}, odd greedy, paged + kernels, twice with seed 0: tokens repeat; "
+        f"the {REQUESTS // 2} greedy requests equal the all-greedy run's; {differ} of "
+        f"{REQUESTS // 2} sampled requests differ from their greedy tokens; step p50 "
+        f"{p50:.2f} / {runs[1][1]:.2f} ms vs {ref['step_ms_p50']:.2f} ms all-greedy "
+        f"(sampler alone {t_s[1]:.3f} ms host-to-host a call); launches {counts}")
+    log(f"[path sampling {cfg.name}] tokens {json.dumps(out)}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def obs_path(torch, build, cfg, model, ref):
+    """(i) Yi's launcher traffic on the paged plane with the kernels, with
+    Observability(trace=True) attached after the warm-up and the serve
+    inside observe_saturation: its tokens must equal the obs-off run
+    ``ref``; writes OUT/metrics.json and OUT/trace.json (held to
+    validate_chrome_trace) and logs TTFT, TPOT, the step and each phase's
+    p50. Returns the launch counts."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, kv_impl="paged",
+                      block_len=BLOCK_LEN, paged_attend_impl="pallas", device=DEV)
+    for r in make_requests(cfg, 1, 2, seed=99):
+        eng.submit(r)
+    eng.run()
+    ob = obs_lib.Observability(trace=True)
+    eng.attach_obs(ob)
+    reqs = make_requests(cfg, REQUESTS, MAX_NEW, seed=0)
+    build.reset_launches()
+    with obs_lib.observe_saturation(ob.metrics):
+        drive(torch, eng, reqs)
+    counts = dict(build.LAUNCHES)
+    check({r.rid: r.out for r in reqs} == ref["out"],
+          "tokens with observability on differ from the run with it off")
+    m = ob.metrics
+    m.to_json(str(OUT / "metrics.json"))
+    ob.trace.export(str(OUT / "trace.json"))
+    obs_lib.validate_chrome_trace(json.loads((OUT / "trace.json").read_text()))
+    def q(name, p):
+        return m.get(name).quantile(p)
+
+    phases = {n.split(".")[2][:-3]: q(n, 0.5) for n in m.names()
+              if n.startswith("engine.phase.")}
+    log(f"[path obs {cfg.name}] tokens equal the obs-off run's; "
+        f"{len(ob.trace.events)} trace events, {len(m.names())} metrics "
+        f"(chiprun_out/metrics.json, trace.json: validate_chrome_trace passes); "
+        f"launches {counts}")
+    log(f"[obs] TTFT p50 {q('engine.ttft_ms', 0.5):.2f} ms, p99 "
+        f"{q('engine.ttft_ms', 0.99):.2f} ms; TPOT p50 {q('engine.tpot_ms', 0.5):.3f} ms")
+    log(f"[obs] engine.step_ms p50 {q('engine.step_ms', 0.5):.3f} ms over "
+        f"{m.get('engine.step_ms').count} steps; phase p50 (ms) "
+        + ", ".join(f"{k} {v:.3f} (n {m.get(f'engine.phase.{k}_ms').count})"
+                    for k, v in sorted(phases.items())))
+    log(f"[obs] saturation: " + json.dumps({n: m.get(n).value for n in m.names()
+                                          if n.startswith("fixed_point.")}))
+    del eng
     torch.cuda.empty_cache()
     return counts
 
@@ -1983,6 +2287,42 @@ def chunked_identity_phase(torch, arch):
     log(f"[identity] {cfg.name} score of a 24-token prompt (log_softmax_2d): max |card - "
         f"CPU| {err:.3e}")
     check(err <= 1e-3, f"{cfg.name} score: card log-probs differ from the CPU's")
+
+
+def dense_identity_phase(torch, arch):
+    """A smoke config in float32 on the dense plane, 4 requests x 8 tokens
+    through 2 slots, all greedy and then with the sampling mix (even rids
+    at MIX): the card's tokens with the kernels equal the CPU's with the
+    plain versions."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sampling import SamplingParams
+
+    cfg = dataclasses.replace(configs.get_smoke(arch, act_impl="cordic_pallas"),
+                              softmax_impl="cordic_pallas")
+    cpu_model = tf.init(cfg, seed=0, device="cpu")
+    gpu_model = tf.Transformer(cfg, device=torch.device(DEV))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    for mix in (False, True):
+        out = {}
+        for dev, model in (("cpu", cpu_model), (DEV, gpu_model)):
+            eng = ServeEngine(cfg, model, slots=2, max_len=64, kv_impl="dense",
+                              device=dev)
+            reqs = make_requests(cfg, 4, 8, seed=0)
+            for r in reqs[::2] if mix else ():
+                r.sampling = SamplingParams(*MIX)
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            out[dev] = {r.rid: r.out for r in reqs}
+        what = f"{cfg.name} float32 dense" + (f", even rids sampled at {MIX}" if mix else "")
+        log(f"[identity] {what}, 4 requests x 8 tokens: card (kernels) {out[DEV]} vs "
+            f"CPU (plain) {out['cpu']}")
+        check(out[DEV] == out["cpu"], f"{what}: card tokens differ from the CPU run")
 
 
 #: train identity tolerance, card against CPU. The kernels equal the plain
@@ -2307,6 +2647,12 @@ def main(argv=None) -> int:
     yi_chunked, yi_score = yi["chunked"]["trace 1, chunked"], yi["chunked"]["score cordic_pallas"]
     for k in ("silu_mul_2d", "softmax_2d", "gqa_decode"):
         check(yi_chunked.get(k, 0) > 0, f"Yi-9B's chunked trace never launched {k}")
+    yi_dense, yi_dense_long = yi["dense"]["launcher"], yi["dense"]["long"]
+    for k in ("silu_mul_2d", "softmax_2d"):
+        check(yi_dense.get(k, 0) > 0, f"Yi-9B's dense plane never launched {k}")
+    for name in ("sampling", "obs"):
+        for k in ("silu_mul_2d", "softmax_2d", "gqa_decode"):
+            check(yi[name].get(k, 0) > 0, f"Yi-9B's {name} run never launched {k}")
     ds = serve_path(torch, build, DEEPSEEK)
     phase_done(f"path serve {DEEPSEEK}")
     ds_counts, ds_fixed = ds["cordic_pallas"][0], ds["cordic_fixed"][0]
@@ -2317,6 +2663,9 @@ def main(argv=None) -> int:
     ds_chunked = ds["chunked"]["chunked"]
     for k in ("mla_decode", "act_2d", "silu_mul_2d", "softmax_2d"):
         check(ds_chunked.get(k, 0) > 0, f"DeepSeek-V2-Lite's chunked trace never launched {k}")
+    ds_dense = ds["dense"]["launcher"]
+    for k in ("act_2d", "silu_mul_2d", "softmax_2d"):
+        check(ds_dense.get(k, 0) > 0, f"DeepSeek-V2-Lite's dense plane never launched {k}")
     # the cordic_fixed datapath: the decode kernel's cordic_fixed branch on
     # every decode step; activations and the prefill softmax in plain torch
     check(yi_fixed.get("gqa_decode", 0) > 0, "Yi-9B cordic_fixed: no gqa_decode")
@@ -2330,7 +2679,7 @@ def main(argv=None) -> int:
     # launches of each kernel summed over the main paths' runs; a branch
     # ported later counts on its own path
     paths = (sigmoid_counts, serve_counts, ds_counts, train_counts, yi_chunked, yi_score,
-             ds_chunked)
+             ds_chunked, yi_dense, yi_dense_long, ds_dense)
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNELS}
     launches["act_2d[gelu_erf]"] = gelu_counts.get("act_2d", 0)
     launches["gqa_decode[cordic_fixed]"] = yi_fixed.get("gqa_decode", 0)
@@ -2354,8 +2703,9 @@ def main(argv=None) -> int:
         f"serve yi-9b {serve_counts}, cordic_fixed {yi_fixed}, int8 "
         f"{yi['int8'][0]}, q2_14 {yi['q2_14'][0]}, serve {DEEPSEEK} "
         f"{ds_counts}, cordic_fixed {ds_fixed}, train loop {train_counts}, chunked "
-        f"yi-9b {yi_chunked}, score {yi_score}, chunked {DEEPSEEK} {ds_chunked}; "
-        f"per kernel {launches}")
+        f"yi-9b {yi_chunked}, score {yi_score}, chunked {DEEPSEEK} {ds_chunked}, dense "
+        f"yi-9b {yi_dense}, long {yi_dense_long}, dense {DEEPSEEK} {ds_dense}, sampling "
+        f"yi-9b {yi['sampling']}, obs yi-9b {yi['obs']}; per kernel {launches}")
     for arch in ("yi-9b", DEEPSEEK):
         for impl in ("cordic_pallas", "cordic_fixed"):
             identity_phase(torch, arch, impl)
@@ -2368,6 +2718,8 @@ def main(argv=None) -> int:
     for arch in ("yi-9b", DEEPSEEK):
         chunked_identity_phase(torch, arch)
         phase_done(f"identity {arch} chunked")
+        dense_identity_phase(torch, arch)
+        phase_done(f"identity {arch} dense")
     train_identity_phase(torch)
     phase_done("identity train")
 

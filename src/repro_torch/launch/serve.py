@@ -8,27 +8,38 @@
         --smoke --device cpu --kv-quant int8 --prefix-cache
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
         --smoke --device cpu --prefill-chunk 16 --prefill-batch 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+        --smoke --device cpu --kv-impl dense --temperature 0.8 --top-k 40 \
+        --metrics-json metrics.json --trace-out trace.json
 
-Boots the paged continuous-batching engine for a registered arch with
-random weights from a seed, on the card (``--device cuda``, the default) or
-on the CPU through the plain versions of the kernels (``--device cpu``,
-with ``--smoke`` for a config the CPU can run). Takes the JAX launcher's
-flags; the ones this port does not serve yet raise. ``--act-impl`` takes the
+Boots the continuous-batching engine for a registered arch with random
+weights from a seed, on the card (``--device cuda``, the default) or on the
+CPU through the plain versions of the kernels (``--device cpu``, with
+``--smoke`` for a config the CPU can run). Takes every flag of the JAX
+launcher; only ``--tp`` raises (ROADMAP A.12). ``--act-impl`` takes the
 activation registry's four datapaths (``core/activations.ACT_IMPLS``;
 ``cordic_pallas``, the CUDA kernels, by default). The attention softmax is
 the CORDIC kernel (``softmax_impl="cordic_pallas"``); other softmax impls
-are set through ``ServeEngine(softmax_impl=...)``. ``--kv-quant`` stores
-the GQA pools as int8 or Q2.14 codes with per-block scales;
-``--prefix-cache`` turns on the radix prefix cache and, as the JAX
-launcher does, prepends one shared system prompt of two blocks to every
-request so that later admissions hit it. ``--prefill-chunk`` streams long
-prompts in block-aligned chunks interleaved with decode steps,
-``--prefill-batch`` packs that many prefill rows into one dispatch (default:
-``--slots`` when chunking, else 1; with ``--prefix-cache`` on a model
-without MoE layers only 1) and ``--max-prefill-tokens`` caps the
-prefill tokens of an iteration. Not ported yet, each raising: ``--kv-impl
-dense`` (ROADMAP A.6), ``--tp`` (A.12), ``--metrics-json`` and
-``--trace-out`` (A.8), and a ``--temperature`` above 0 (A.7).
+are set through ``ServeEngine(softmax_impl=...)``.
+
+``--kv-impl`` stays ``paged`` by default here (the JAX launcher's is
+``dense``); ``--kv-impl dense`` serves from one max_len buffer per slot.
+``--paged-attend-impl`` defaults to the decode kernel (``pallas``) on the
+paged plane and to ``gather`` on the dense one, which has no block tables:
+an explicit ``pallas`` with ``--kv-impl dense`` raises, as in JAX.
+``--temperature`` / ``--top-k`` sample every request (0 = greedy) with the
+JAX sampler's keys. ``--kv-quant`` stores the GQA pools as int8 or Q2.14
+codes with per-block scales; ``--prefix-cache`` turns on the radix prefix
+cache and, as the JAX launcher does, prepends one shared system prompt of
+two blocks to every request so that later admissions hit it.
+``--prefill-chunk`` streams long prompts in block-aligned chunks
+interleaved with decode steps, ``--prefill-batch`` packs that many prefill
+rows into one dispatch (default: ``--slots`` when chunking the paged
+plane, else 1; with ``--prefix-cache`` on a model without MoE layers only
+1) and ``--max-prefill-tokens`` caps the prefill tokens of an iteration.
+``--metrics-json`` / ``--trace-out`` serve with observability on, inside
+``observe_saturation``, print TTFT p50/p99 and TPOT p50, and write the
+metrics snapshot / the Chrome trace.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch import obs as obs_lib
 from repro_torch.core.activations import ACT_IMPLS
 from repro_torch.models import transformer as tf
 from repro_torch.serve.engine import Request, ServeEngine
@@ -60,16 +72,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="0 = greedy (sampling is ROADMAP A.7)")
+                    help="sampling temperature (CORDIC datapath); 0 = greedy")
     ap.add_argument("--top-k", type=int, default=0)
-    ap.add_argument("--kv-impl", default="paged", choices=["dense", "paged"])
+    ap.add_argument("--kv-impl", default="paged", choices=["dense", "paged"],
+                    help="decode KV layout: the global block pool or one "
+                         "max_len buffer per slot")
     ap.add_argument("--block-len", type=int, default=16)
     ap.add_argument("--num-blocks", type=int, default=0,
                     help="paged pool size incl. scratch (0 = worst case)")
-    ap.add_argument("--paged-attend-impl", default="pallas",
+    ap.add_argument("--paged-attend-impl", default=None,
                     choices=["gather", "pallas"],
                     help="paged decode attend: table gather or the decode "
-                         "kernel")
+                         "kernel (default: pallas on the paged plane, gather "
+                         "on the dense one)")
     ap.add_argument("--kv-quant", default="none",
                     choices=["none", "int8", "q2_14"],
                     help="paged-pool storage: float32, or int8 / Q2.14 "
@@ -81,21 +96,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="radix prefix cache over the paged pool; the "
                          "requests share a system prompt of two blocks")
     ap.add_argument("--prefix-eviction", default="lru", choices=["lru", "fifo"])
-    ap.add_argument("--tp", type=int, default=0)
-    ap.add_argument("--metrics-json", default=None)
-    ap.add_argument("--trace-out", default=None)
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor parallelism: not ported yet (ROADMAP A.12)")
+    ap.add_argument("--metrics-json", default=None,
+                    help="write the metrics registry's snapshot here")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace (Perfetto) of the requests "
+                         "and the engine's phases here")
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.metrics_json or args.trace_out:
-        raise NotImplementedError("observability is not ported yet "
-                                  "(ROADMAP A.8)")
+    attend = args.paged_attend_impl or (
+        "pallas" if args.kv_impl == "paged" else "gather")
+    obs = (obs_lib.Observability(trace=args.trace_out is not None)
+           if (args.metrics_json or args.trace_out) else None)
     cfg = (configs.get_smoke(args.arch, act_impl=args.act_impl) if args.smoke
            else configs.get_config(args.arch, act_impl=args.act_impl))
     print(f"[serve] arch={cfg.name} slots={args.slots} kv={args.kv_impl} "
-          f"kv_quant={args.kv_quant} attend={args.paged_attend_impl} "
+          f"kv_quant={args.kv_quant} attend={attend} "
+          f"temperature={args.temperature} top_k={args.top_k} "
           f"device={args.device}")
     params = tf.init(cfg, seed=0, device=args.device)
     eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
@@ -104,35 +125,58 @@ def main(argv=None):
                       softmax_impl="cordic_pallas", kv_impl=args.kv_impl,
                       block_len=args.block_len,
                       num_blocks=args.num_blocks or None,
-                      paged_attend_impl=args.paged_attend_impl,
+                      paged_attend_impl=attend,
                       kv_quant=args.kv_quant,
                       prefill_chunk=args.prefill_chunk or None,
                       prefill_batch=args.prefill_batch or None,
                       max_prefill_tokens=args.max_prefill_tokens or None,
                       prefix_cache=args.prefix_cache,
                       prefix_eviction=args.prefix_eviction,
-                      tp=args.tp or None, device=args.device)
+                      tp=args.tp or None, obs=obs, device=args.device)
     prefix_len = 2 * args.block_len if args.prefix_cache else 0
     for r in make_requests(cfg, args.requests, args.max_new,
                            prefix_len=prefix_len):
         eng.submit(r)
     t0 = time.perf_counter()
-    done = eng.run()
+    if obs is not None:
+        # count the plain quantizes' clips into the same registry
+        with obs_lib.observe_saturation(obs.metrics):
+            done = eng.run()
+    else:
+        done = eng.run()
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     total = sum(len(r.out) for r in done)
     print(f"[serve] {len(done)} requests, {total} tokens, {dt:.3f}s")
-    st = eng.pager.stats()
-    print(f"[serve] pool: peak {st.peak_in_use}/{st.num_blocks - 1} blocks x "
-          f"{eng.block_len} positions, {st.allocs} allocs, "
-          f"{st.alloc_failures} backpressure waits; "
-          f"{eng.kv_pool_bytes()} pool bytes, "
-          f"{eng.decode_workspace_bytes()} decode workspace bytes per call")
+    if eng.pager is not None:
+        st = eng.pager.stats()
+        print(f"[serve] pool: peak {st.peak_in_use}/{st.num_blocks - 1} blocks x "
+              f"{eng.block_len} positions, {st.allocs} allocs, "
+              f"{st.alloc_failures} backpressure waits; "
+              f"{eng.kv_pool_bytes()} pool bytes, "
+              f"{eng.decode_workspace_bytes()} decode workspace bytes per call")
+    else:
+        print(f"[serve] dense caches: {eng.kv_cache_bytes()} bytes "
+              f"({args.slots} slots x {args.max_len} positions)")
     if eng.prefix is not None:
         print(f"[serve] prefix cache ({eng.prefix.policy}): "
               f"{eng.prefix.hits} hits / {eng.prefix.hit_blocks} blocks "
               f"reused, {eng.prefix.evicted_blocks} evicted")
+    if obs is not None:
+        m = obs.metrics
+        ttft, tpot = m.get("engine.ttft_ms"), m.get("engine.tpot_ms")
+        print(f"[serve] ttft p50/p99 {ttft.quantile(0.5):.1f}/"
+              f"{ttft.quantile(0.99):.1f} ms, tpot p50 "
+              f"{tpot.quantile(0.5):.2f} ms "
+              f"({int(m.get('engine.tokens.emitted').value)} tok)")
+        if args.metrics_json:
+            m.to_json(args.metrics_json)
+            print(f"[serve] wrote metrics -> {args.metrics_json}")
+        if args.trace_out:
+            obs.trace.export(args.trace_out)
+            print(f"[serve] wrote Chrome trace -> {args.trace_out} "
+                  "(load at ui.perfetto.dev)")
     assert len(done) == args.requests
     return 0
 

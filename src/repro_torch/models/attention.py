@@ -21,7 +21,17 @@ hold integer codes and two more leaves, "k_scale_pool" and
 ``_pool_write_quant`` quantizes at write, the gather attend dequantizes
 through ``_pool_gather_dequant``, the decode kernel inside its block walk.
 
-The dense per-slot KV cache is not ported yet (ROADMAP A.6).
+The dense KV plane (``kv_impl="dense"``) holds one max_len buffer per
+slot: {"k", "v", "idx"} (GQA) or {"c_kv", "k_rope", "idx"} (MLA), float32
+as the JAX engine allocates them, with one (slots,) position vector
+``idx`` shared by every layer. ``_dense_write`` writes the S new positions
+of each row in place at its own ``idx`` (clamped into the buffer, as
+``dynamic_update_slice``), and the attend is the paged gather path's with
+the buffer in place of the gathered table: ``_attend_rows`` with a per-row
+``k_len`` for prefill and GQA decode, ``_mla_absorbed_decode`` for MLA
+decode. One batched decode serves every slot, where the JAX engine
+``vmap``s a batch-1 decode over them; each row computes what its batch-1
+decode does.
 """
 from __future__ import annotations
 
@@ -219,6 +229,35 @@ def _pool_gather_dequant(pool, scale_pool, tables, spec):
     return kvq.dequantize(_pool_gather(pool, tables), spec, scales)
 
 
+def _dense_write(buf, idx, new) -> None:
+    """Write S new positions per row into a dense buffer, in place: buf
+    (B, T, *f), idx (B,) int32, new (B, S, *f). Row b lands at positions
+    clamp(idx[b], 0, T - S) + [0, S), as ``dynamic_update_slice`` clamps
+    its start (a vacant slot's idx runs on past the buffer)."""
+    B, S = new.shape[:2]
+    start = idx.to(torch.int64).clamp(0, buf.shape[1] - S)
+    pos = start[:, None] + torch.arange(S, device=buf.device)[None, :]
+    rows = torch.arange(B, device=buf.device)[:, None].expand(B, S)
+    buf.index_put_((rows, pos), new.to(buf.dtype))
+
+
+def _dense_idx(batch: int, device, idx) -> torch.Tensor:
+    return (idx if idx is not None else
+            torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def gqa_init_cache(cfg, batch: int, max_len: int, dtype=torch.float32, *,
+                   device, idx: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """One GQA layer's dense cache: (batch, max_len, KH, hd) K/V buffers
+    and the (batch,) positions ``idx``, which the caller may share across
+    layers."""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "idx": _dense_idx(batch, device, idx)}
+
+
 def gqa_init_paged_cache(cfg, slots: int, num_blocks: int, block_len: int,
                          max_blocks: int, dtype=torch.float32, *, device,
                          tables: Optional[torch.Tensor] = None,
@@ -338,9 +377,32 @@ def _gqa_paged_apply(p: GQAttention, x, cfg, cache, q, k, v):
     return _out_project(o, p.wo)
 
 
+def _gqa_dense_apply(p: GQAttention, x, cfg, cache, q, k, v):
+    """Dense continuation of gqa_apply: writes the S new K/V positions of
+    each row at its ``idx`` in place, then attends over the whole buffer
+    masked past ``idx + S`` (the paged gather path with the buffer in place
+    of the gather). The caller advances ``cache["idx"]``."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    KH = k.shape[2]
+    G = q.shape[2] // KH
+    idx = cache["idx"].to(torch.int64)
+    positions = idx[:, None] + torch.arange(S, device=x.device)[None, :]
+    q = cm.apply_rope(q, positions, cfg.rope_theta)
+    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    _dense_write(cache["k"], cache["idx"], k)
+    _dense_write(cache["v"], cache["idx"], v)
+    qg = q.reshape(B, S, KH, G, hd)
+    o = _attend_rows(qg, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
+                     positions, idx + S, 1.0 / math.sqrt(hd), cfg.score_dtype,
+                     getattr(cfg, "softmax_impl", "exact"))
+    o = o.to(qg.dtype).reshape(B, S, KH * G, hd)
+    return _out_project(o, p.wo)
+
+
 def gqa_apply(p: GQAttention, x, cfg, *, cache: Optional[dict] = None):
     """x (B,S,d) -> (B,S,d). Without a cache: causal attention over x.
-    With a paged cache: see _gqa_paged_apply."""
+    With a paged cache: see _gqa_paged_apply; a dense one: _gqa_dense_apply."""
     B, S, d = x.shape
     hd = cfg.head_dim
     H, KH = cfg.num_heads, cfg.num_kv_heads
@@ -349,11 +411,9 @@ def gqa_apply(p: GQAttention, x, cfg, *, cache: Optional[dict] = None):
     k = _project(x, p.wk)
     v = _project(x, p.wv)
     if cache is not None:
-        if "k_pool" not in cache:
-            raise NotImplementedError(
-                "the dense per-slot KV cache is not ported yet (ROADMAP A.6); "
-                "serve with kv_impl='paged'")
-        return _gqa_paged_apply(p, x, cfg, cache, q, k, v)
+        if "k_pool" in cache:
+            return _gqa_paged_apply(p, x, cfg, cache, q, k, v)
+        return _gqa_dense_apply(p, x, cfg, cache, q, k, v)
     positions = torch.arange(S, device=x.device)[None, :]
     q = cm.apply_rope(q, positions, cfg.rope_theta)
     k = cm.apply_rope(k, positions, cfg.rope_theta)
@@ -386,6 +446,20 @@ class MLAttention(nn.Module):
         self.kv_norm = nn.Parameter(
             torch.ones(m.kv_lora_rank, dtype=dtype, device=device),
             requires_grad=False)
+
+
+def mla_init_cache(cfg, batch: int, max_len: int, dtype=torch.float32, *,
+                   device, idx: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """One MLA layer's dense cache: the compressed latent (batch, max_len,
+    kv_lora_rank), the rope key (batch, max_len, qk_rope_dim) and the
+    (batch,) positions ``idx`` (shareable across layers)."""
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope_dim), dtype=dtype,
+                                  device=device),
+            "idx": _dense_idx(batch, device, idx)}
 
 
 def mla_init_paged_cache(cfg, slots: int, num_blocks: int, block_len: int,
@@ -520,17 +594,47 @@ def _mla_paged_apply(p: MLAttention, x, cfg, cache):
     return _out_project(o.to(x.dtype), p.wo)
 
 
+def _mla_dense_apply(p: MLAttention, x, cfg, cache):
+    """Dense MLA: writes each row's compressed latent and rope key at its
+    ``idx`` in place, then absorbed decode (S == 1) or decompress plus
+    ``_attend_rows`` (prefill) over the whole buffer, masked past
+    ``idx + S``. The caller advances ``cache["idx"]``."""
+    B, S, _ = x.shape
+    m, H = cfg.mla, cfg.num_heads
+    idx = cache["idx"].to(torch.int64)
+    positions = idx[:, None] + torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_project_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_compress(p, x, cfg, positions)
+    cc, cr = cache["c_kv"], cache["k_rope"]
+    _dense_write(cc, cache["idx"], c_kv)
+    _dense_write(cr, cache["idx"], k_rope)
+    wk_b, wv_b = _mla_split_wkv_b(p, cfg, x.dtype)
+    scale = _mla_scale(cfg)
+    k_len = idx + S
+    softmax_impl = getattr(cfg, "softmax_impl", "exact")
+    if S == 1:
+        valid = (torch.arange(cc.shape[1], device=x.device)[None, :]
+                 < k_len[:, None])[:, None, None, :]
+        o = _mla_absorbed_decode(q_nope, q_rope, cc, cr, wk_b, wv_b, scale,
+                                 valid, cfg.score_dtype, softmax_impl)
+    else:
+        k, v, qg = _mla_decompress_kq(q_nope, q_rope, cc, cr, m, H, wk_b, wv_b)
+        o = _attend_rows(qg, k, v, positions, k_len, scale,
+                         softmax_impl=softmax_impl)
+        o = o.to(qg.dtype).reshape(B, S, H, m.v_dim)
+    return _out_project(o.to(x.dtype), p.wo)
+
+
 def mla_apply(p: MLAttention, x, cfg, *, cache: Optional[dict] = None):
     """x (B,S,d) -> (B,S,d). Without a cache: decompress K/V and run the
-    chunked causal core. With a paged cache: see _mla_paged_apply."""
+    chunked causal core. With a paged cache: see _mla_paged_apply; a dense
+    one: _mla_dense_apply."""
     B, S, _ = x.shape
     m, H = cfg.mla, cfg.num_heads
     if cache is not None:
-        if "c_kv_pool" not in cache:
-            raise NotImplementedError(
-                "the dense per-slot KV cache is not ported yet (ROADMAP A.6); "
-                "serve with kv_impl='paged'")
-        return _mla_paged_apply(p, x, cfg, cache)
+        if "c_kv_pool" in cache:
+            return _mla_paged_apply(p, x, cfg, cache)
+        return _mla_dense_apply(p, x, cfg, cache)
     positions = torch.arange(S, device=x.device)[None, :]
     q_nope, q_rope = _mla_project_q(p, x, cfg, positions)
     c_kv, k_rope = _mla_compress(p, x, cfg, positions)

@@ -9,6 +9,9 @@ Public API, with the JAX names:
     jax_tree(cfg, named) / from_jax_flat(cfg, flat)
                                                -> the JAX param layout
     init_paged_cache(cfg, slots, num_blocks, block_len, max_blocks, ...)
+    init_cache(cfg, batch, max_len, ...)       -> DenseCache (kv_impl="dense")
+    override_cache_length(cache, length)       pins the positions, in place
+    stack_caches / insert_slot / take_slot     slot rows of a DenseCache
     apply(params, batch, cfg, cache)           -> (logits, aux, cache)
     loss_fn(params, batch, cfg)                -> (loss, metrics)
 
@@ -296,6 +299,40 @@ def _pools(layer: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v for k, v in layer.items() if k.endswith("_pool")}
 
 
+class DenseCache:
+    """The dense KV plane of the whole model: per-layer max_len buffers
+    (K/V for GQA, compressed latent and rope key for MLA), one row per
+    slot, and one (slots,) position vector ``idx`` shared by every layer
+    (the JAX stacked cache's per-slot ``idx`` leaves). Updated in place."""
+
+    def __init__(self, layers, idx: torch.Tensor):
+        self.layers = layers
+        self.idx = idx
+
+    @property
+    def positions(self) -> torch.Tensor:
+        return self.idx
+
+    def rows(self, lo: int, hi: int) -> "DenseCache":
+        """Slots [lo, hi) as a view: writes through it land here."""
+        idx = self.idx[lo:hi]
+        return DenseCache([{**{k: v[lo:hi] for k, v in c.items() if k != "idx"},
+                            "idx": idx} for c in self.layers], idx)
+
+    def copy_from(self, other: "DenseCache") -> None:
+        """Copy another cache of the same row count into this one."""
+        for dst, src in zip(self.layers, other.layers):
+            for k, v in dst.items():
+                if k != "idx":
+                    v.copy_(src[k])
+        self.idx.copy_(other.idx)
+
+    def nbytes(self) -> int:
+        """Resident bytes of every layer's buffers."""
+        return sum(v.numel() * v.element_size()
+                   for c in self.layers for k, v in c.items() if k != "idx")
+
+
 class PagedCache:
     """The paged KV plane of the whole model: per-layer pools (K/V for GQA,
     compressed latent and rope key for MLA) and one (slots, max_blocks)
@@ -312,6 +349,10 @@ class PagedCache:
         lengths (a prefill row); replaces paged_pool_view/_merge."""
         return PagedCache([{**_pools(c), "tables": tables, "lens": lens}
                            for c in self.layers], tables, lens)
+
+    @property
+    def positions(self) -> torch.Tensor:
+        return self.lens
 
     def pool_bytes(self) -> int:
         """Resident bytes of every layer's pools."""
@@ -341,14 +382,65 @@ def init_paged_cache(cfg, slots: int, num_blocks: int, block_len: int,
     return PagedCache(layers, tables, lens)
 
 
+#: per-layer dense cache of each block kind (the JAX ``_gqa_cache`` /
+#: ``_mla_cache`` of ``BLOCKS``)
+CACHE_FNS = {
+    "dense": attn.gqa_init_cache,
+    "mla_dense": attn.mla_init_cache,
+    "mla_moe": attn.mla_init_cache,
+}
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
+               device=None) -> DenseCache:
+    """Dense decode cache for kv_impl="dense": every layer's buffers for
+    ``batch`` rows of ``max_len`` positions, zeros, positions 0."""
+    _check_cfg(cfg)
+    dev = resolve_device(device)
+    idx = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    return DenseCache([CACHE_FNS[kind](cfg, batch, max_len, dtype, device=dev,
+                                       idx=idx)
+                       for kind in cfg.block_pattern], idx)
+
+
+def override_cache_length(cache, length) -> None:
+    """Pin every row's position (``idx`` dense, ``lens`` paged) to
+    ``length``, in place: a bucketed prefill advanced it past the prompt's
+    true length."""
+    cache.positions.fill_(int(length))
+
+
+def stack_caches(caches: List[DenseCache]) -> DenseCache:
+    """Per-request dense caches -> one cache with a row per request."""
+    idx = torch.cat([c.idx for c in caches])
+    layers = [{**{k: torch.cat([c.layers[i][k] for c in caches])
+                  for k in layer if k != "idx"}, "idx": idx}
+              for i, layer in enumerate(caches[0].layers)]
+    return DenseCache(layers, idx)
+
+
+def insert_slot(stacked: DenseCache, cache: DenseCache, slot: int) -> DenseCache:
+    """Copy a one-row cache into row ``slot`` of ``stacked``, in place
+    (leaf dtypes follow ``stacked``); returns ``stacked``."""
+    take_slot(stacked, slot).copy_from(cache)
+    return stacked
+
+
+def take_slot(stacked: DenseCache, slot: int) -> DenseCache:
+    """Row ``slot`` of a dense cache as a one-row view (not a copy, unlike
+    the JAX ``take_slot``: writes through it land in ``stacked``)."""
+    return stacked.rows(slot, slot + 1)
+
+
 def apply(params: Transformer, batch: Dict[str, torch.Tensor], cfg=None,
-          cache: Optional[PagedCache] = None):
+          cache=None):
     """batch {"tokens": (B,S) int}. Returns (logits f32, aux, cache): aux is
     the MoE layers' load-balancing losses summed (a float32 scalar tensor),
     0.0 for a model without MoE layers.
 
-    With a paged cache, positions start at ``cache.lens`` and the lengths
-    advance by S, in place, after the last layer."""
+    With a cache (PagedCache or DenseCache), positions start at each row's
+    ``cache.positions`` (``lens`` / ``idx``) and advance by S, in place,
+    after the last layer."""
     cfg = params.cfg if cfg is None else cfg
     x = cm.embed(params.embed, batch["tokens"]).to(cm.dtype_of(cfg.dtype))
     S = x.shape[1]
@@ -359,7 +451,7 @@ def apply(params: Transformer, batch: Dict[str, torch.Tensor], cfg=None,
         if aux is not None:
             aux_total = aux_total + aux
     if cache is not None:
-        cache.lens.add_(S)
+        cache.positions.add_(S)
     x = cm.rmsnorm(params.final_norm, x, cfg.norm_eps)
     logits = cm.unembed(params.lm_head, x.to(torch.float32))
     return logits, aux_total, cache

@@ -1,14 +1,28 @@
-"""Slot-based continuous batching over the paged KV plane (port of
-``repro/serve/engine.py``, paged greedy path), for dense GQA models and
-MLA/MoE ones (DeepSeek-V2-Lite: compressed-latent and rope-key pools).
+"""Slot-based continuous batching over a dense or paged KV plane (port of
+``repro/serve/engine.py``), for dense GQA models and MLA/MoE ones
+(DeepSeek-V2-Lite: compressed-latent and rope-key caches).
 
 Every ``step()`` runs the iteration scheduler's prefill phase
 (serve/scheduler.py: chunk continuations first, then FIFO admissions, under
 a ``max_prefill_tokens`` budget), then ONE batched decode over all slots
-(``make_paged_decode_step``). Admission allocates the blocks a request can
-reach from the refcounted ``KVPager``; a request that does not fit waits at
-the queue head (FIFO backpressure); ``submit`` rejects requests that can
-never be served.
+(``make_batched_decode_step``) and the sampling tail. ``cfg.kv_impl``
+picks the KV layout, as in the JAX engine:
+
+``dense``  one max_len buffer per slot (``tf.init_cache``, float32 as the
+    JAX engine allocates it). A prefill row runs alone, batch 1, in place
+    in its slot's rows (``tf.take_slot`` is a view), where the JAX engine
+    prefills a fresh batch-1 cache and inserts it at the final chunk; a
+    mid-prefill slot's rows are its partial cache. The decode is one
+    batch-``slots`` apply with per-row positions, where the JAX engine
+    ``vmap``s a batch-1 decode; each row computes what its batch-1 decode
+    does. A slot riding along in the decode (vacant or mid-prefill) writes
+    its garbage at its own position, which the next prefill rewrites.
+``paged``  a global pool of ``block_len``-position blocks per layer with
+    per-slot block tables, the refcounted ``KVPager`` on the host (below).
+
+Admission allocates the blocks a request can reach from the refcounted
+``KVPager`` (paged); a request that does not fit waits at the queue head
+(FIFO backpressure); ``submit`` rejects requests that can never be served.
 
 Two knobs shape the prefill phase, as in the JAX engine:
 
@@ -22,7 +36,8 @@ Two knobs shape the prefill phase, as in the JAX engine:
 ``prefill_batch=R``   up to R scheduled rows run as ONE multi-row prefill
     (``make_paged_prefill_step``), padded to a power of two with
     all-scratch rows. Defaults to ``slots`` when chunking, else 1; under
-    the prefix cache on a model without MoE layers it is 1 (below).
+    the prefix cache on a model without MoE layers it is 1 (below). The
+    dense plane prefills one row a dispatch, whatever R.
 
 Prefill runs at the bucket (or chunk) width, pad tokens included, as the
 JAX engine does: a GShard MoE layer's expert capacity follows the dispatch
@@ -31,7 +46,8 @@ differently; with the same knobs the port routes as the JAX engine does.
 The one exception is the prefix cache on a model without MoE layers
 (below).
 
-The KV memory plane has two options, as in the JAX engine:
+The paged plane has two options, as in the JAX engine, and the dense
+plane refuses both, with the JAX engine's messages:
 ``kv_quant="int8" | "q2_14"`` stores the GQA pools as block-scaled codes
 (core/kv_quant.py; MLA pools stay unquantized and reject it), and
 ``prefix_cache=True`` indexes full prompt blocks in a radix tree
@@ -46,35 +62,68 @@ many rows shared its dispatch, and a shared block would not hold the bytes
 its sharer would have written itself. A ``prefill_batch`` above 1 is
 refused there. Cache-off prefills stay whole.
 
+Sampling (serve/sampling.py) is per request: each carries its own
+``SamplingParams`` and draws token t from the key
+fold_in(fold_in(PRNGKey(seed), rid), t) (t = 0 is the prefill's token), so
+its tokens do not depend on its slot, its batch or the KV plane, and equal
+the JAX engine's bit for bit. A batch whose rows are all greedy takes the
+argmax alone (the JAX ``greedy_only`` variant); greedy rows take the
+argmax of the raw logits either way.
+
+Observability (repro_torch/obs): ``obs=Observability()`` (``trace=True``
+for a Chrome trace) registers the metrics of ``docs/observability.md``
+(``_bind_obs_handles``, ``KVPager.attach_metrics``); everything recorded
+is host-side, so the tokens are the same with it on or off. The port
+compiles nothing, so ``engine.compiles.prefill`` / ``.decode`` stay 0, and
+it runs on one device, so ``engine.mesh.tp`` and ``.devices`` read 1. The
+spans time the host: on the card ``dispatch`` is the enqueue of a step's
+launches and ``host_sync`` the wait for the device, the copy of the step's
+tokens to the host.
+
 ``score(prompt)`` returns the teacher-forced log-probs of a prompt through
 the log-softmax datapath of ``cfg.loss_impl`` (train/losses.py), as the
 JAX engine's ``score``.
 
-The pools, block tables and lengths live on the device and are updated in
-place (models/attention.py); the JAX engine's jitted pure functions over
-donated caches have no counterpart, since PyTorch runs eagerly.
-
-Not ported yet, each raising where it is asked for: ``kv_impl="dense"``
-(ROADMAP A.6, with the recurrent archs of A.10), tensor parallelism
-(A.12), observability (A.8) and sampling with temperature (A.7).
+The caches, block tables and positions live on the device and are updated
+in place (models/attention.py); the JAX engine's jitted pure functions
+over donated caches have no counterpart, since PyTorch runs eagerly.
+Tensor parallelism (``tp``, ``mesh``) is not ported yet and raises
+(ROADMAP A.12).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_lib
 from repro_torch import resolve_device
 from repro_torch.core import kv_quant as kvq
 from repro_torch.models import transformer as tf
 from repro_torch.serve import kv_pager as kvp
+from repro_torch.serve import prng
 from repro_torch.serve import sampling as sp
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import IterationScheduler, PrefillRow
+
+
+def make_bucketed_prefill_step(cfg) -> Callable:
+    """Dense prefill of one bucket- or chunk-padded row into its slot's
+    rows (``cache``, a one-row view): positions start at ``start``, then
+    the row is pinned to ``pin`` (the true length on a final row, the chunk
+    frontier mid-prompt: the pad tail advanced it further) and the (1, V)
+    logits at ``logit_idx`` come back."""
+    def prefill(params, cache: tf.DenseCache, tokens, start: int, pin: int,
+                logit_idx: int):
+        tf.override_cache_length(cache, start)
+        logits, _, _ = tf.apply(params, {"tokens": tokens}, cfg, cache=cache)
+        tf.override_cache_length(cache, pin)
+        return logits[:, logit_idx]
+    return prefill
 
 
 def make_paged_prefill_step(cfg, piece: Optional[int] = None) -> Callable:
@@ -119,12 +168,35 @@ def make_paged_prefill_step(cfg, piece: Optional[int] = None) -> Callable:
     return prefill
 
 
-def make_paged_decode_step(cfg) -> Callable:
-    """One decode for ALL slots: a batch-``slots`` apply against the global
-    pools, then the greedy token per slot."""
-    def decode(params, cache: tf.PagedCache, tokens):
+def _sample_step(last, rids, steps, temps, top_ks, greedy, base_key,
+                 greedy_only: bool):
+    """The sampling tail of a decode or a prefill: (S, V) logits -> (S,)
+    int32 tokens on the logits' device. ``greedy_only`` is the argmax
+    alone; greedy rows take the argmax of the raw logits in both, so which
+    one runs never changes a token. The knobs are host tensors; the keys
+    are derived on the host and copied with them."""
+    if greedy_only:
+        return sp.greedy_tokens(last)
+    keys = sp.request_key(base_key, rids, steps)
+    return sp.sample_batched(last, keys, temps, top_ks, greedy)
+
+
+def make_batched_decode_step(cfg, *, greedy_only: bool = False) -> Callable:
+    """One decode for ALL slots of a dense or paged cache (the JAX
+    ``make_batched_decode_step`` and ``make_paged_decode_step``): a
+    batch-``slots`` apply at per-row positions, then the sampling tail.
+
+    tokens (S, 1) the previous token per slot; rids, steps (S,) the request
+    id and token index of each slot, hashed into its key
+    fold_in(fold_in(base_key, rid), step); temps, top_ks, greedy (S,) its
+    SamplingParams (host tensors). Returns the (S,) next tokens on the
+    device; vacant and mid-prefill slots' tokens are garbage the engine
+    ignores."""
+    def decode(params, cache, tokens, rids, steps, temps, top_ks, greedy,
+               base_key):
         logits, _, _ = tf.apply(params, {"tokens": tokens}, cfg, cache=cache)
-        return sp.greedy_tokens(logits[:, -1])
+        return _sample_step(logits[:, -1], rids, steps, temps, top_ks, greedy,
+                            base_key, greedy_only)
     return decode
 
 
@@ -156,7 +228,8 @@ class Request:
     #: set when submit() rejects the request; a rejected request is done
     #: with out == []
     error: Optional[str] = None
-    # lifecycle timestamps (time.perf_counter() seconds); -1 = not reached
+    # lifecycle timestamps (time.perf_counter() seconds), stamped whether
+    # observability is attached or not; -1 = not reached
     t_enqueue: float = dataclasses.field(default=-1.0, repr=False)
     t_admit: float = dataclasses.field(default=-1.0, repr=False)
     t_first: float = dataclasses.field(default=-1.0, repr=False)
@@ -170,10 +243,11 @@ def _unported(what: str, entry: str) -> NotImplementedError:
 class ServeEngine:
     """Static batch of ``slots``; each holds one request. Admission pads the
     prompt to a length bucket (or, past ``prefill_chunk``, a first chunk)
-    and prefills it into freshly allocated pool blocks; the final prefill
-    row emits the first token; every ``step()`` advances all slots not
-    mid-prefill with one batched decode. Finished slots release their
-    blocks and are refilled from the queue, head first."""
+    and prefills it into its slot's dense rows or freshly allocated pool
+    blocks; the final prefill row emits the first token; every ``step()``
+    advances all slots not mid-prefill with one batched decode. Finished
+    slots release their blocks (paged) and are refilled from the queue,
+    head first."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  eos_token: Optional[int] = None, greedy: bool = True,
@@ -191,9 +265,11 @@ class ServeEngine:
                  max_prefill_tokens: Optional[int] = None,
                  prefix_cache: bool = False,
                  prefix_eviction: str = "lru",
-                 obs=None, tp: Optional[int] = None, mesh=None,
+                 obs: Optional[obs_lib.Observability] = None,
+                 tp: Optional[int] = None, mesh=None,
                  device=None):
         assert cfg.input_mode == "tokens", "engine serves token LMs"
+        self.obs = obs if obs is not None else obs_lib.NULL
         for name, val in (("softmax_impl", softmax_impl), ("loss_impl", loss_impl),
                           ("kv_impl", kv_impl), ("kv_block_len", block_len),
                           ("paged_attend_impl", paged_attend_impl),
@@ -207,30 +283,43 @@ class ServeEngine:
         self.paged_attend_impl = getattr(cfg, "paged_attend_impl", "gather")
         if self.kv_impl not in ("dense", "paged"):
             raise ValueError(f"unknown kv_impl {self.kv_impl!r}")
-        if self.kv_impl == "dense":
-            raise _unported("kv_impl='dense'", "A.6; serve with kv_impl='paged'")
+        paged = self.kv_impl == "paged"
         if self.paged_attend_impl not in ("gather", "pallas"):
             raise ValueError(
                 f"unknown paged_attend_impl {self.paged_attend_impl!r}")
+        if self.paged_attend_impl == "pallas" and not paged:
+            raise ValueError(
+                "paged_attend_impl='pallas' selects the block-walking "
+                "decode kernel over the paged KV plane; serve it with "
+                "kv_impl='paged' (the dense plane has no block tables)")
         if self.paged_attend_impl == "pallas" and cfg.score_dtype != "f32":
             raise ValueError("paged_attend_impl='pallas' supports "
                              f"score_dtype='f32' only (got {cfg.score_dtype!r})")
         self.kv_quant = getattr(cfg, "kv_quant", "none")
         self._kv_quant_spec = kvq.spec_for(self.kv_quant)   # raises on a typo
-        if self._kv_quant_spec is not None and (
-                getattr(cfg, "mla", None) is not None
-                or any(k.startswith("mla") for k in cfg.block_pattern)):
+        if self._kv_quant_spec is not None:
+            if not paged:
+                raise ValueError(
+                    "kv_quant quantizes the paged block pools; serve it "
+                    "with kv_impl='paged' (the dense plane stays full-"
+                    f"width), got kv_impl={self.kv_impl!r}")
+            if (getattr(cfg, "mla", None) is not None
+                    or any(k.startswith("mla") for k in cfg.block_pattern)):
+                raise ValueError(
+                    "kv_quant applies to GQA paged pools only; MLA layers "
+                    "store the compressed latent unquantized")
+        if prefix_cache and not paged:
             raise ValueError(
-                "kv_quant applies to GQA paged pools only; MLA layers "
-                "store the compressed latent unquantized")
-        if obs is not None:
-            raise _unported("observability", "A.8")
+                "prefix_cache shares KV pool blocks through the block-"
+                "table indirection; serve it with kv_impl='paged' (the "
+                "dense plane has per-slot buffers, nothing to share)")
         if (tp or 1) > 1 or mesh is not None:
             raise _unported("tensor parallelism", "A.12")
         self.default_sampling = (sampling if sampling is not None
                                  else SamplingParams(temperature=temperature,
                                                      greedy=greedy))
-        sp.check_greedy(self.default_sampling)
+        #: PRNGKey(seed), on the host: the keys are derived there
+        self._base_key = prng.threefry_seed(seed)
         if params.cfg.d_model != cfg.d_model:
             raise ValueError("params were built for another config")
         if params.embed.device.type != self.device.type:
@@ -248,7 +337,7 @@ class ServeEngine:
         self.prefill_piece = (self.block_len if prefix_cache and
                               "mla_moe" not in cfg.block_pattern else None)
         if prefill_batch is None:
-            prefill_batch = (slots if prefill_chunk is not None
+            prefill_batch = (slots if prefill_chunk is not None and paged
                              and not self.prefill_piece else 1)
         if prefill_batch < 1:
             raise ValueError(f"prefill_batch must be >= 1, got {prefill_batch}")
@@ -257,38 +346,129 @@ class ServeEngine:
                 f"prefill_batch {prefill_batch} with the prefix cache on a model "
                 "without MoE layers: its block-wide pieces run one row a "
                 "dispatch (module docstring); use prefill_batch=1")
-        self.prefill_batch = int(prefill_batch)
-        if max_len % self.block_len:
-            raise ValueError(f"max_len {max_len} not a multiple of "
-                             f"block_len {self.block_len}")
-        self.max_blocks = max_len // self.block_len
-        if num_blocks is None:
-            num_blocks = slots * self.max_blocks + 1   # worst case + scratch
-        self.pager = kvp.KVPager(num_blocks, self.block_len, slots)
-        self.prefix = (PrefixCache(self.pager, self.block_len,
-                                   policy=prefix_eviction)
-                       if prefix_cache else None)
+        # the dense plane prefills one row a dispatch, as the JAX engine
+        self.prefill_batch = int(prefill_batch) if paged else 1
         #: prompt positions served from shared prefix blocks, and prefill
-        #: row widths dispatched (pad included; the JAX engine's
-        #: prefix.hit_tokens and engine.prefill.tokens)
+        #: row widths dispatched (pad included)
         self.prefix_hit_tokens = 0
         self.prefill_tokens = 0
-        # float32 pools, as the JAX engine allocates them: K/V per kv-head
-        # for GQA (the attend casts them to cfg.dtype, the kv_dtype seam;
-        # codes and scales under kv_quant), the compressed latent and the
-        # rope key for MLA (already rounded to cfg.dtype by the write)
-        self._caches = tf.init_paged_cache(cfg, slots, num_blocks,
-                                           self.block_len, self.max_blocks,
-                                           torch.float32, device=self.device)
-        # device bytes per block across layers, whatever the pools hold
-        self.pager.block_bytes = self.kv_pool_bytes() // num_blocks
-        self._prefill = make_paged_prefill_step(cfg, self.prefill_piece)
-        self._decode = make_paged_decode_step(cfg)
+        if paged:
+            if max_len % self.block_len:
+                raise ValueError(f"max_len {max_len} not a multiple of "
+                                 f"block_len {self.block_len}")
+            self.max_blocks = max_len // self.block_len
+            if num_blocks is None:
+                num_blocks = slots * self.max_blocks + 1   # worst case + scratch
+            self.pager: Optional[kvp.KVPager] = kvp.KVPager(
+                num_blocks, self.block_len, slots)
+            self.prefix = (PrefixCache(self.pager, self.block_len,
+                                       policy=prefix_eviction)
+                           if prefix_cache else None)
+            # float32 pools, as the JAX engine allocates them: K/V per
+            # kv-head for GQA (the attend casts them to cfg.dtype, the
+            # kv_dtype seam; codes and scales under kv_quant), the
+            # compressed latent and the rope key for MLA (already rounded
+            # to cfg.dtype by the write)
+            self._caches = tf.init_paged_cache(cfg, slots, num_blocks,
+                                               self.block_len, self.max_blocks,
+                                               torch.float32, device=self.device)
+            # device bytes per block across layers, whatever the pools hold
+            self.pager.block_bytes = self.kv_pool_bytes() // num_blocks
+            self._prefill = make_paged_prefill_step(cfg, self.prefill_piece)
+        else:
+            self.pager = None
+            self.prefix = None
+            # float32 buffers, as the JAX engine's stacked per-slot caches
+            self._caches = tf.init_cache(cfg, slots, max_len, torch.float32,
+                                         device=self.device)
+            self._prefill = make_bucketed_prefill_step(cfg)
+        self._decode_sample = make_batched_decode_step(cfg)
+        self._decode_greedy = make_batched_decode_step(cfg, greedy_only=True)
         self._score = make_score_step(cfg)
         self._done: List[Request] = []
         self._active: List[Optional[Request]] = [None] * slots
-        self._slot_rows = {}
+        self._slot_rows: Dict[int, np.ndarray] = {}
         self._next_tok = np.zeros((slots, 1), np.int32)
+        # per-slot sampling state mirrored into the batched decode each step
+        self._rids = np.zeros(slots, np.int64)
+        self._steps = np.zeros(slots, np.int64)     # == len(req.out) per slot
+        self._temps = np.ones(slots, np.float32)
+        self._top_ks = np.zeros(slots, np.int64)
+        self._greedy = np.ones(slots, bool)
+        self._bind_obs_handles()
+
+    # -- observability ----------------------------------------------------------
+    def _bind_obs_handles(self) -> None:
+        # handles into self.obs.metrics (null no-ops when obs is off); the
+        # names, types and units are docs/observability.md's
+        m = self.obs.metrics
+        self._m_submitted = m.counter("engine.requests.submitted",
+                                      unit="requests")
+        self._m_rejected = m.counter("engine.requests.rejected",
+                                     unit="requests")
+        self._m_finished = m.counter("engine.requests.finished",
+                                     unit="requests")
+        self._m_pre_disp = m.counter("engine.prefill.dispatches",
+                                     unit="calls")
+        self._m_pre_rows = m.counter("engine.prefill.rows", unit="rows")
+        self._m_pre_chunks = m.counter("engine.prefill.chunks", unit="rows")
+        self._m_pre_tokens = m.counter("engine.prefill.tokens", unit="tokens")
+        self._m_prefix_hits = m.counter("prefix.hit_tokens", unit="tokens")
+        self._m_prefix_shared = m.gauge("prefix.blocks_shared",
+                                        unit="blocks")
+        self._m_blocks_saved = m.counter("kv.pool.blocks_saved",
+                                         unit="blocks")
+        self._m_tokens = m.counter("engine.tokens.emitted", unit="tokens")
+        self._m_steps = m.counter("engine.steps", unit="steps")
+        self._m_queue = m.gauge("engine.queue_depth", unit="requests")
+        self._m_occ = m.gauge("engine.batch_occupancy", unit="slots")
+        # one device, no mesh: set once so every snapshot records it
+        self._m_mesh_tp = m.gauge("engine.mesh.tp", unit="shards")
+        self._m_mesh_dev = m.gauge("engine.mesh.devices", unit="devices")
+        self._m_mesh_tp.set(1)
+        self._m_mesh_dev.set(1)
+        self._m_kvq_bits = m.gauge("kv.quant.code_bits", unit="bits")
+        self._m_kvq_bpt = m.gauge("kv.quant.bytes_per_token", unit="bytes")
+        spec = self._kv_quant_spec
+        self._m_kvq_bits.set(spec.code_bits if spec is not None else 32)
+        if self.pager is not None and self.pager.block_bytes:
+            self._m_kvq_bpt.set(self.pager.block_bytes / self.block_len)
+        self._m_ttft = m.histogram("engine.ttft_ms", unit="ms")
+        self._m_tpot = m.histogram("engine.tpot_ms", unit="ms")
+        self._m_e2e = m.histogram("engine.e2e_ms", unit="ms")
+        self._m_prefill = m.histogram("engine.prefill_ms", unit="ms")
+        self._m_step = m.histogram("engine.step_ms", unit="ms")
+        # registered for the metric set's sake: the port compiles nothing,
+        # so they stay 0
+        m.counter("engine.compiles.prefill", unit="compiles")
+        m.counter("engine.compiles.decode", unit="compiles")
+        if self.pager is not None:
+            self.pager.attach_metrics(m if self.obs.enabled else None)
+
+    def attach_obs(self, obs: Optional[obs_lib.Observability]) -> None:
+        """Attach (or replace, or with None detach) the observability
+        handle mid-lifetime, e.g. after a warm-up pass. Metrics recorded so
+        far stay in the previous handle's registry; requests queued before
+        still reach the latency histograms (their stamps are absolute)."""
+        self.obs = obs if obs is not None else obs_lib.NULL
+        self._bind_obs_handles()
+
+    def _obs_prefilled(self, req: Request, first: int) -> None:
+        """Prefill-completion record: the prefill span (admit -> first
+        token, chunk interleaving included), TTFT (enqueue -> first token,
+        queueing included) and the first-token event. The time stamp is
+        taken whether obs is attached or not."""
+        now = time.perf_counter()
+        req.t_first = now
+        if not self.obs.enabled:
+            return
+        self._m_prefill.observe((now - req.t_admit) * 1e3)
+        if req.t_enqueue >= 0:
+            self._m_ttft.observe((now - req.t_enqueue) * 1e3)
+        self._m_tokens.inc()
+        self.obs.request_span("prefill", req.rid,
+                              max(0.0, req.t_admit - self.obs.epoch))
+        self.obs.request_event("first_token", req.rid, {"token": first})
 
     @property
     def _queue(self):
@@ -301,8 +481,15 @@ class ServeEngine:
 
     def kv_pool_bytes(self) -> int:
         """Resident device bytes of the pools across layers: K/V (codes and
-        scales under kv_quant), or MLA's latent and rope key."""
-        return self._caches.pool_bytes()
+        scales under kv_quant), or MLA's latent and rope key. 0 on the
+        dense plane, as the JAX engine's."""
+        return self._caches.pool_bytes() if self.pager is not None else 0
+
+    def kv_cache_bytes(self) -> int:
+        """Resident device bytes of the KV plane: the pools (paged) or the
+        per-slot buffers (dense)."""
+        return (self._caches.pool_bytes() if self.pager is not None
+                else self._caches.nbytes())
 
     def decode_workspace_bytes(self) -> int:
         """Device bytes of the float32 workspace one decode-attention kernel
@@ -343,26 +530,32 @@ class ServeEngine:
         if plen > self.max_len:
             return (f"prompt length {plen} exceeds engine max_len "
                     f"{self.max_len}")
-        need = self._blocks_for(req)
-        if need > self.pager.capacity:
-            return (f"needs {need} KV blocks worst-case but the pool has "
-                    f"{self.pager.capacity} allocatable")
+        if self.pager is not None:
+            need = self._blocks_for(req)
+            if need > self.pager.capacity:
+                return (f"needs {need} KV blocks worst-case but the pool has "
+                        f"{self.pager.capacity} allocatable")
         return None
 
     def submit(self, req: Request) -> None:
         """Validate and enqueue one request; inadmissible requests are
         rejected at once (``req.error`` set, ``done=True``)."""
         req.t_enqueue = time.perf_counter()
-        sp.check_greedy(req.sampling or self.default_sampling)
         err = self._validate(req)
+        self._m_submitted.inc()
         if err is not None:
             req.error = f"rejected at submit: {err}"
             req.done = True
+            self._m_rejected.inc()
+            self.obs.request_event("reject", req.rid, {"reason": err})
             self._done.append(req)
             return
         # decode never writes past max_len
         req.max_new_tokens = min(req.max_new_tokens,
                                  self.max_len - len(req.prompt) + 1)
+        self.obs.request_event("enqueue", req.rid,
+                               {"prompt_len": len(req.prompt),
+                                "max_new_tokens": req.max_new_tokens})
         self.scheduler.enqueue(req)
 
     def _blocks_for(self, req: Request) -> int:
@@ -372,8 +565,8 @@ class ServeEngine:
         return kvp.blocks_needed(need_len, self.block_len)
 
     def _admit_slot(self, req: Request):
-        """Scheduler callback: a free slot with the request's blocks
-        allocated, or None (no free slot, or pool backpressure). With the
+        """Scheduler callback: a free slot (paged: with the request's blocks
+        allocated), or None (no free slot, or pool backpressure). With the
         prefix cache on, only the unshared footprint is allocated: the
         matched blocks (pinned by ``match``) go first in the slot's table
         and the slot id comes back as ``(slot, start)``, prefill resuming
@@ -381,52 +574,99 @@ class ServeEngine:
         s = next((i for i in range(self.slots) if self._active[i] is None), None)
         if s is None:
             return None
-        need_total = self._blocks_for(req)
-        shared, start = [], 0
-        if self.prefix is not None:
-            matched = self.prefix.match(req.prompt)
-            start = self.scheduler.resume_start(
-                len(req.prompt), len(matched) * self.block_len)
-            m_used = start // self.block_len
-            if m_used < len(matched):        # the row geometry used fewer
-                self.pager.release(matched[m_used:])
-            shared = matched[:m_used]
-        need = need_total - len(shared)
-        if self.prefix is not None and not self.pager.can_alloc(need):
-            self.prefix.evict_until(need)
-        blocks = self.pager.alloc(s, need, shared=shared)
-        if blocks is None:
-            if shared:                       # unwind the match pins
-                self.pager.release(shared)
-            return None
-        row = np.zeros(self.max_blocks, np.int32)
-        row[:len(shared)] = shared
-        row[len(shared):need_total] = blocks
-        self._slot_rows[s] = row
+        need, start = 0, 0
+        if self.pager is not None:
+            need_total = self._blocks_for(req)
+            shared = []
+            if self.prefix is not None:
+                matched = self.prefix.match(req.prompt)
+                start = self.scheduler.resume_start(
+                    len(req.prompt), len(matched) * self.block_len)
+                m_used = start // self.block_len
+                if m_used < len(matched):    # the row geometry used fewer
+                    self.pager.release(matched[m_used:])
+                shared = matched[:m_used]
+            need = need_total - len(shared)
+            if self.prefix is not None and not self.pager.can_alloc(need):
+                self.prefix.evict_until(need)
+            blocks = self.pager.alloc(s, need, shared=shared)
+            if blocks is None:
+                if shared:                   # unwind the match pins
+                    self.pager.release(shared)
+                return None
+            row = np.zeros(self.max_blocks, np.int32)
+            row[:len(shared)] = shared
+            row[len(shared):need_total] = blocks
+            self._slot_rows[s] = row
+            if start:
+                self.prefix_hit_tokens += start
+                self._m_prefix_hits.inc(start)
+                self._m_blocks_saved.inc(len(shared))
+            if self.prefix is not None:
+                self._m_prefix_shared.set(self.pager.blocks_shared)
         self._active[s] = req
-        self.prefix_hit_tokens += start
         req.t_admit = time.perf_counter()
+        if self.obs.enabled:
+            ev = {"slot": s}
+            if self.pager is not None:
+                ev["blocks"] = need
+                if start:
+                    ev["prefix_tokens"] = start
+            self.obs.request_event("admit", req.rid, ev)
         return (s, start) if start else s
 
     def _release_slot(self, s: int) -> None:
-        """Free the slot's blocks and point its table at scratch block 0, so
-        a vacant slot never writes into reallocated blocks."""
+        """Free the slot; paged, its blocks too, and point its table at
+        scratch block 0, so a vacant slot never writes into reallocated
+        blocks. Its sampling knobs go back to greedy, so a vacated sampled
+        slot does not keep the decode off the argmax-only path."""
         self._active[s] = None
         self._slot_rows.pop(s, None)
         self.scheduler.drop_slot(s)
-        self.pager.free(s)
-        self._caches.tables[s] = 0
-        self._caches.lens[s] = 0
+        if self.pager is not None:
+            self.pager.free(s)
+            if self.prefix is not None:
+                self._m_prefix_shared.set(self.pager.blocks_shared)
+            self._caches.tables[s] = 0
+            self._caches.lens[s] = 0
+        self._temps[s] = 1.0
+        self._top_ks[s] = 0
+        self._greedy[s] = True
 
     def _finish(self, req: Request) -> None:
         req.done = True
         req.t_finish = time.perf_counter()
+        if self.obs.enabled:
+            self._m_finished.inc()
+            if req.t_enqueue >= 0:
+                self._m_e2e.observe((req.t_finish - req.t_enqueue) * 1e3)
+            if req.t_first >= 0 and len(req.out) > 1:
+                # the mean decode interval after the first token
+                self._m_tpot.observe((req.t_finish - req.t_first)
+                                     / (len(req.out) - 1) * 1e3)
+            self.obs.request_event("finish", req.rid, {"tokens": len(req.out)})
         self._done.append(req)
 
+    def _sample_first(self, logits: torch.Tensor, reqs: List[Request]) -> np.ndarray:
+        """The prefill-emitted tokens (step 0 of each request's key stream)
+        of the (R, V) logits rows of ``reqs``, each with its own
+        SamplingParams."""
+        knobs = [(r.sampling or self.default_sampling).resolved() for r in reqs]
+        greedy = torch.tensor([g for _, _, g in knobs])
+        toks = _sample_step(
+            logits, torch.tensor([r.rid for r in reqs], dtype=torch.int64),
+            torch.zeros(len(reqs), dtype=torch.int64),
+            torch.tensor([t for t, _, _ in knobs], dtype=torch.float32),
+            torch.tensor([k for _, k, _ in knobs], dtype=torch.int64), greedy,
+            self._base_key, bool(greedy.all()))
+        return toks.cpu().numpy()
+
     def _complete_prefill(self, req: Request, s: int, first: int) -> None:
-        """A final prefill row landed: its first token; with the prefix cache
-        on, the prompt's full blocks become shareable."""
-        req.t_first = time.perf_counter()
+        """A final prefill row landed with its first token: the slot joins
+        the decode next iteration (or frees at once on eos / a budget of
+        one); with the prefix cache on, the prompt's full blocks become
+        shareable."""
+        self._obs_prefilled(req, first)
         if self.prefix is not None:
             nfull = len(req.prompt) // self.block_len
             if nfull:
@@ -437,10 +677,44 @@ class ServeEngine:
                 len(req.out) >= req.max_new_tokens:
             self._finish(req)
             self._release_slot(s)
-        else:
-            self._next_tok[s, 0] = first
+            return
+        self._next_tok[s, 0] = first
+        temp, top_k, greedy = (req.sampling or self.default_sampling).resolved()
+        self._rids[s] = req.rid
+        self._steps[s] = len(req.out)
+        self._temps[s] = temp
+        self._top_ks[s] = top_k
+        self._greedy[s] = greedy
 
     def _dispatch_prefill(self, group: List[PrefillRow]) -> None:
+        """One prefill dispatch of the scheduled rows ``group``: one
+        multi-row paged dispatch, or on the dense plane a single row."""
+        self._m_pre_disp.inc()
+        if self.pager is None:
+            (row,) = group
+            self._dispatch_prefill_dense(row)
+        else:
+            self._dispatch_prefill_paged(group)
+
+    def _dispatch_prefill_dense(self, row: PrefillRow) -> None:
+        """One dense prefill row into its slot's rows: a fresh row starts at
+        position 0, a chunk continuation at its frontier; mid-prefill the
+        rows hold the partial cache, which no decode reads."""
+        req, s = row.req, row.slot
+        plen = len(req.prompt)
+        toks = np.zeros((1, row.width), np.int64)
+        hi = min(plen, row.start + row.width)
+        toks[0, :hi - row.start] = req.prompt[row.start:hi]
+        pin = plen if row.final else row.start + row.width
+        li = (plen - 1 - row.start) if row.final else row.width - 1
+        self.prefill_tokens += row.width
+        logits = self._prefill(self.params, tf.take_slot(self._caches, s),
+                               torch.from_numpy(toks).to(self.device),
+                               row.start, pin, li)
+        if row.final:
+            self._complete_prefill(req, s, int(self._sample_first(logits, [req])[0]))
+
+    def _dispatch_prefill_paged(self, group: List[PrefillRow]) -> None:
         """One multi-row prefill over up to ``prefill_batch`` scheduled rows,
         padded to a power of two with all-scratch rows, at the group's
         widest row (or, a single row, in pieces up to the last block it
@@ -483,15 +757,23 @@ class ServeEngine:
             torch.from_numpy(starts).to(dev), pins, lidx, valid)
         finals = [(i, row) for i, row in enumerate(group) if row.final]
         if finals:
-            first = sp.greedy_tokens(logits).cpu().numpy()
-            for i, row in finals:
-                self._complete_prefill(row.req, row.slot, int(first[i]))
+            rows = torch.as_tensor([i for i, _ in finals], device=dev)
+            first = self._sample_first(logits[rows], [row.req for _, row in finals])
+            for (_, row), tok in zip(finals, first):
+                self._complete_prefill(row.req, row.slot, int(tok))
 
     def _prefill_phase(self) -> int:
         """This iteration's scheduled prefill rows, packed into dispatches of
         up to ``prefill_batch``; a group flushes before a wider groupmate
         would push any row past max_len. Returns the rows run."""
         rows = self.scheduler.plan(self._admit_slot)
+        if not rows:
+            return 0
+        self._m_pre_rows.inc(len(rows))
+        self._m_pre_tokens.inc(sum(r.width for r in rows))
+        n_chunked = sum(1 for r in rows if not (r.fresh and r.final))
+        if n_chunked:
+            self._m_pre_chunks.inc(n_chunked)
         group: List[PrefillRow] = []
         gw = 0
         for row in rows:
@@ -513,29 +795,58 @@ class ServeEngine:
         not mid-prefill (the others ride along, their outputs ignored).
         Returns the number of slots that advanced (or prefill rows run on a
         prefill-only iteration, which skips the decode); 0 means no work
-        was done."""
-        n_rows = self._prefill_phase()
+        was done. The phase spans (``admit``, ``dispatch``, ``host_sync``,
+        ``sample_copy``) are the JAX engine's."""
+        ob = self.obs
+        t_step = time.perf_counter()
+        self._m_steps.inc()
+        self._m_queue.set(len(self._queue))     # backlog before admission
+        with ob.phase("admit"):
+            n_rows = self._prefill_phase()
         chunking = self.scheduler.chunking
         decodable = [s for s in range(self.slots)
                      if self._active[s] is not None and s not in chunking]
+        self._m_occ.set(len(decodable))
+        if ob.trace is not None:
+            ob.trace.counter("engine.load", ob.now_us(),
+                             {"queue_depth": len(self._queue),
+                              "batch_occupancy": len(decodable)})
         if not decodable:
             if not n_rows and self._queue:
                 raise RuntimeError(
                     f"request {self._queue[0].rid} can never be admitted")
+            if n_rows and ob.enabled:
+                self._m_step.observe((time.perf_counter() - t_step) * 1e3)
             return n_rows
-        nxt = self._decode(self.params, self._caches,
-                           torch.from_numpy(self._next_tok).to(self.device,
-                                                               torch.int64))
-        nxt = nxt.cpu().numpy()
-        for s in decodable:
-            req = self._active[s]
-            tok = int(nxt[s])
-            req.out.append(tok)
-            self._next_tok[s, 0] = tok
-            if (self.eos is not None and tok == self.eos) or \
-                    len(req.out) >= req.max_new_tokens:
-                self._finish(req)
-                self._release_slot(s)
+        # dispatch: the decode's launches queued; host_sync: the copy of
+        # its tokens, where the host waits for the device
+        with ob.phase("dispatch"):
+            greedy_only = bool(self._greedy.all())
+            decode = self._decode_greedy if greedy_only else self._decode_sample
+            nxt = decode(self.params, self._caches,
+                         torch.from_numpy(self._next_tok).to(self.device,
+                                                             torch.int64),
+                         torch.from_numpy(self._rids), torch.from_numpy(self._steps),
+                         torch.from_numpy(self._temps), torch.from_numpy(self._top_ks),
+                         torch.from_numpy(self._greedy), self._base_key)
+        with ob.phase("host_sync"):
+            nxt = nxt.cpu().numpy()
+        with ob.phase("sample_copy"):
+            for s in decodable:
+                req = self._active[s]
+                tok = int(nxt[s])
+                req.out.append(tok)
+                self._next_tok[s, 0] = tok
+                self._steps[s] = len(req.out)
+                ob.request_event("token", req.rid,
+                                 {"step": len(req.out), "token": tok})
+                if (self.eos is not None and tok == self.eos) or \
+                        len(req.out) >= req.max_new_tokens:
+                    self._finish(req)
+                    self._release_slot(s)
+        if ob.enabled:
+            self._m_tokens.inc(len(decodable))
+            self._m_step.observe((time.perf_counter() - t_step) * 1e3)
         return len(decodable)
 
     def run(self) -> List[Request]:

@@ -53,31 +53,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+from repro_torch.obs.metrics import NULL_REGISTRY
+
 #: Pool block id reserved for garbage writes from vacant slots; never
 #: allocated to a request and never read through a live mask.
 SCRATCH_BLOCK = 0
 
 
-class _NullMetric:
-    """No-op counter/gauge: the port has no observability layer yet
-    (ROADMAP A.8), so pool metrics bind to this."""
-
-    def inc(self, n=1) -> None:
-        pass
-
-    def set(self, v) -> None:
-        pass
-
-
-class _NullRegistry:
-    def counter(self, name: str, unit: str = "") -> _NullMetric:
-        return _NullMetric()
-
-    def gauge(self, name: str, unit: str = "") -> _NullMetric:
-        return _NullMetric()
-
-
-_NULL_REGISTRY = _NullRegistry()
 
 
 def bucket_lengths(max_len: int, block_len: int = 16,
@@ -166,10 +148,10 @@ class KVPager:
         self.attach_metrics(metrics)
 
     def attach_metrics(self, metrics) -> None:
-        """Bind pool gauges/counters to a repro.obs MetricsRegistry (None
-        detaches: updates become no-ops through the null registry)."""
+        """Bind pool gauges/counters to a repro_torch.obs MetricsRegistry
+        (None detaches: updates become no-ops through the null registry)."""
         if metrics is None:
-            metrics = _NULL_REGISTRY
+            metrics = NULL_REGISTRY
         self._m_in_use = metrics.gauge("kv.pool.blocks_in_use",
                                        unit="blocks")
         self._m_bytes = metrics.gauge("kv.pool.bytes_in_use", unit="bytes")

@@ -22,7 +22,6 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import engine as E  # noqa: E402
 from repro_torch.serve import kv_pager as kvp  # noqa: E402
 from repro_torch.serve import scheduler as sched  # noqa: E402
-from repro_torch.serve.sampling import SamplingParams  # noqa: E402
 from test_torch_models import spec_params  # noqa: E402
 
 ENGINE_KW = dict(slots=2, max_len=64, softmax_impl="cordic_pallas",
@@ -218,15 +217,41 @@ def test_engine_without_gpu_raises_unless_cpu_requested():
 
 
 @pytest.mark.parametrize("kw,entry", [
-    (dict(kv_impl="dense"), "A.6"),
     (dict(tp=2), "A.12"),
-    (dict(sampling=SamplingParams(temperature=0.7)), "A.7"),
 ])
 def test_unported_engine_options_raise(kw, entry):
     cfg = configs.get_smoke("yi-9b", act_impl="cordic_pallas")
     model = T.init(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=entry):
         E.ServeEngine(cfg, model, device="cpu", **{**ENGINE_KW, **kw})
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--kv-impl", "dense"], "attend=gather"),
+    (["--temperature", "0.8", "--top-k", "40"], "temperature=0.8 top_k=40"),
+    (["--metrics-json", "{tmp}/metrics.json", "--trace-out", "{tmp}/trace.json"],
+     "wrote Chrome trace"),
+], ids=["kv-impl-dense", "temperature-top-k", "metrics-trace"])
+def test_launcher_takes_the_jax_launchers_flags(flags, want, tmp_path, capsys):
+    """The dense plane, seeded sampling and observability through the
+    launcher on the smoke config (only --tp raises)."""
+    import json
+
+    from repro_torch.launch import serve as launch
+    from repro_torch.obs import validate_chrome_trace
+
+    flags = [f.format(tmp=tmp_path) for f in flags]
+    assert launch.main(["--arch", "yi-9b", "--smoke", "--device", "cpu",
+                        "--requests", "3", "--slots", "2", "--max-new", "4",
+                        "--max-len", "64", *flags]) == 0
+    out = capsys.readouterr().out
+    assert "3 requests, 12 tokens" in out and want in out
+    if "--metrics-json" in flags:
+        assert "ttft p50/p99" in out and "tpot p50" in out
+        snap = json.loads((tmp_path / "metrics.json").read_text())["metrics"]
+        assert snap["engine.tokens.emitted"]["value"] == 12
+        assert snap["engine.requests.finished"]["value"] == 3
+        validate_chrome_trace(json.loads((tmp_path / "trace.json").read_text()))
 
 
 def test_submit_rejects_and_clamps():
