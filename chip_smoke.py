@@ -6,6 +6,7 @@
         [--out chiprun_out/decode.jsonl] [--save chiprun_out/<name>.pt]
     python3 chip_smoke.py --row-kernels --src <tree>/src --label <name> \
         [--out chiprun_out/rows.jsonl] [--save chiprun_out/<name>.pt]
+    python3 chip_smoke.py --archs
 
 The second form runs only the decode kernels' part of phase 3 (every
 gqa_decode and mla_decode branch at the launcher and the long-context
@@ -14,7 +15,8 @@ shape, against the plain versions, timed) on the ``repro_torch`` under
 change, change, parent; each run appends one JSON line to ``--out``, and
 ``--save`` writes the kernels' outputs for a bit-for-bit comparison. The
 third form does the same for the row kernels: act_2d (each op at its
-shapes), silu_mul_2d, softmax_2d, log_softmax_2d and act_q_2d.
+shapes), silu_mul_2d, softmax_2d, log_softmax_2d and act_q_2d. The fourth
+runs the build and phases 4 (j)-(k) alone.
 
 Phases of the first form, each of which must pass (the script exits non-zero otherwise):
 
@@ -82,7 +84,24 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             Observability(trace=True) inside observe_saturation (tokens
             equal to the run with it off), chiprun_out/metrics.json and
             trace.json (validate_chrome_trace), TTFT, TPOT, the step and
-            each engine phase's p50. Every kernel of a path must have
+            each engine phase's p50; (j) the recurrent pair at full width
+            and depth on the dense plane (xlstm-1.3b: 42 mLSTM and 6
+            sLSTM layers; zamba2-1.2b: 38 Mamba2 layers and 6 applications
+            of the shared attention block), the kernels on: the kernel
+            route's logits against the plain versions' on the same model,
+            the launcher traffic (act_2d everywhere, softmax_2d and
+            silu_mul_2d from the shared block, exact-length prefill), its
+            tokens equal to each request's manual exact-length prefill and
+            decode loop, a profile, the sLSTM loop's host operations a
+            token, then the traffic cut to 4 x 8 tokens on cordic_fixed,
+            and an mLSTM / Mamba2 block's decode after an 8-token prefill
+            against the 9-token prefill (float32, the reference's atol);
+            (k) qwen2.5-32b (gqa_decode's group of 5 against plain first)
+            and deepseek-coder-33b at full depth, phi3.5-moe cut to 16
+            layers and command-r-plus to 8 (the weights one card holds),
+            each on the paged plane with the decode kernel (gqa_decode a
+            layer every decode step), with the gather and on the dense
+            plane, match counts reported. Every kernel of a path must have
             launched, and under grad the fused SwiGLU kernel must not (the
             JAX rule's primal).
 5. identity the Yi and DeepSeek-V2-Lite smoke configs in float32, on both
@@ -2049,6 +2068,450 @@ def profile_window(torch, run, n_steps, what, kernels):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4j-4k: the recurrent pair and the attention archs of the recurrent
+# slice
+# ---------------------------------------------------------------------------
+#: the recurrent pair, served on the dense plane at full width and depth
+RECURRENT_ARCHS = ("xlstm-1.3b", "zamba2-1.2b")
+#: the attention archs at full width, with the depth one card holds (None:
+#: full depth). Weights in bf16, the lm_head in float32: qwen2.5-32b 67.1
+#: GB and deepseek-coder-33b 67.2 GB whole; phi3.5-moe's 32 layers are 84
+#: GB of experts alone and command-r-plus's 64 layers 201 GB
+ATTENTION_ARCHS = {"qwen2.5-32b": None, "deepseek-coder-33b": None,
+                   "phi3.5-moe-42b-a6.6b": 16, "command-r-plus-104b": 8}
+#: the recurrent pair's cordic_fixed serve, cut to fit the time limit
+#: (plain Q2.14 SiLUs: ~850 host operations a call, ~0.8 s a decode step)
+FIXED_REQUESTS, FIXED_MAX_NEW = 4, 8
+#: decode after an 8-token prefill against the 9-token prefill's last
+#: position: the reference's own bounds (tests/test_models.py)
+STATE_ATOL = {"mlstm": 2e-3, "mamba2": 2e-4}
+#: the logits check: the kernel route against the plain versions on the
+#: card, the bar tests/test_torch_models.py holds the port to against JAX
+LOGITS_ATOL = 1e-3
+
+
+class PlainRoute:
+    """Inside it, the row kernels' wrappers (act_2d, silu_mul_2d,
+    softmax_2d) run their plain PyTorch versions on card tensors, so a
+    forward computes the plain-version logits of the same model; no launch
+    is counted."""
+
+    def __enter__(self):
+        from repro_torch.kernels import cordic_act as K
+        from repro_torch.kernels import softmax_cordic as SM
+
+        self.saved = (K.act_2d, K.silu_mul_2d, SM.softmax_2d)
+        K.act_2d = lambda x, op, **kw: K.act_2d_plain(x, op, **kw)
+        K.silu_mul_2d = lambda g, u, **kw: K.silu_mul_2d_plain(g, u, **kw)
+        SM.softmax_2d = lambda x, **kw: SM.softmax_2d_plain(x, **kw)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import cordic_act as K
+        from repro_torch.kernels import softmax_cordic as SM
+
+        K.act_2d, K.silu_mul_2d, SM.softmax_2d = self.saved
+        return False
+
+
+def launcher_serve(torch, build, cfg, model, n_req=REQUESTS, max_new=MAX_NEW,
+                   warm=True, **engine_kw):
+    """The launcher's traffic (``n_req`` greedy requests of ``max_new``
+    tokens, SLOTS slots, MAX_LEN) through one engine built with
+    ``engine_kw``, after a warm-up request outside the counts; launch
+    counts zeroed just before and read just after, decode steps and
+    prefill dispatches from its metrics. Returns (requests, launch counts,
+    stats, engine)."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, block_len=BLOCK_LEN,
+                      device=DEV, **engine_kw)
+    if warm:
+        for r in make_requests(cfg, 1, 2, seed=99):
+            eng.submit(r)
+        eng.run()
+    reqs = make_requests(cfg, n_req, max_new, seed=0)
+    ob = obs_lib.Observability()
+    eng.attach_obs(ob)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    steps, wall = drive(torch, eng, reqs)
+    counts = dict(build.LAUNCHES)
+    check(all(r.done and r.error is None and len(r.out) == max_new
+              and all(0 <= t < cfg.vocab_size for t in r.out) for r in reqs),
+          f"{cfg.name} {engine_kw}: every request finishes with its tokens")
+    ttft = sorted((r.t_first - r.t_enqueue) * 1e3 for r in reqs)
+    n_tok = sum(len(r.out) for r in reqs)
+    stats = dict(out={r.rid: r.out for r in reqs}, tokens=n_tok, wall_s=wall,
+                 tok_s=n_tok / wall, step_ms_p50=statistics.median(steps) * 1e3,
+                 ttft_ms_p50=statistics.median(ttft), ttft_ms_max=ttft[-1],
+                 decode_steps=ob.metrics.get("engine.phase.dispatch_ms").count,
+                 prefills=int(ob.metrics.get("engine.prefill.dispatches").value),
+                 prefill_tokens=int(ob.metrics.get("engine.prefill.tokens").value),
+                 cache_bytes=eng.kv_cache_bytes(),
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return reqs, counts, stats, eng
+
+
+def serve_line(tag, st, counts) -> str:
+    return (f"{tag} {len(st['out'])} requests, {st['tokens']} tokens in "
+            f"{st['wall_s']:.3f} s: {st['tok_s']:.1f} tok/s; step p50 "
+            f"{st['step_ms_p50']:.2f} ms ({st['decode_steps']} decode steps, "
+            f"{st['prefills']} prefills of {st['prefill_tokens']} tokens); TTFT p50 "
+            f"{st['ttft_ms_p50']:.1f} ms, max {st['ttft_ms_max']:.1f} ms; KV bytes "
+            f"{st['cache_bytes']}; peak memory {st['peak_gib']:.2f} GiB; launches {counts}")
+
+
+def match_count(a, b) -> int:
+    return sum(x == y for rid, toks in a.items() for x, y in zip(toks, b[rid]))
+
+
+def manual_tokens(torch, cfg, model, prompt, n_tok):
+    """A manual exact-length prefill of ``prompt`` in a fresh one-row dense
+    cache (``make_prefill_step``), then greedy decode steps, each row of a
+    SLOTS-row copy of that cache fed the same token: every row is the
+    request alone, and the card's products see the engine's row counts
+    (cuBLAS picks its GEMM by the row count, ROADMAP F6). Returns row 0's
+    tokens; every row must agree."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import make_prefill_step
+
+    one = tf.init_cache(cfg, 1, MAX_LEN, device=DEV)
+    with torch.inference_mode():
+        logits = make_prefill_step(cfg)(model, one, torch.as_tensor(
+            prompt[None], device=DEV).long())
+        out = [int(logits[0].argmax())]
+        cache = tf.stack_caches([one] * SLOTS)
+        for _ in range(n_tok - 1):
+            tok = torch.full((SLOTS, 1), out[-1], dtype=torch.long, device=DEV)
+            nxt = tf.apply(model, {"tokens": tok}, cfg, cache)[0][:, -1].argmax(-1)
+            check(bool((nxt == nxt[0]).all()), f"{cfg.name}: the copies of one "
+                  "request decoded apart")
+            out.append(int(nxt[0]))
+    return out
+
+
+def state_continuation(torch, cfg):
+    """(3) An mLSTM or Mamba2 block at full width in float32 (random weights
+    from a seed, the reference's exact activations): the decode step after
+    an 8-token prefill against the 9-token prefill's last position, within
+    the reference's atol. Returns {kind: max |error|}."""
+    import dataclasses
+
+    from repro_torch.models import ssm as ssmm
+    from repro_torch.models import xlstm as xlm
+
+    kinds = {"mlstm": (xlm.MLSTM, xlm.mlstm_apply, xlm.mlstm_init_cache),
+             "mamba2": (ssmm.Mamba2, ssmm.mamba2_apply, ssmm.mamba2_init_cache)}
+    cfg = dataclasses.replace(cfg, act_impl="exact")
+    out = {}
+    for kind in set(cfg.block_pattern) & set(kinds):
+        module, apply, init = kinds[kind]
+        gen = torch.Generator(device=DEV).manual_seed(3)
+        with torch.inference_mode():
+            blk = module(cfg, dtype=torch.float32, device=torch.device(DEV), gen=gen)
+            x = 0.5 * torch.randn(2, 9, cfg.d_model, generator=gen, device=DEV)
+            full = apply(blk, x, cfg)
+            cache = init(cfg, 2, device=DEV)
+            apply(blk, x[:, :8], cfg, cache)
+            dec = apply(blk, x[:, 8:9], cfg, cache)
+        err = float((dec[:, 0] - full[:, 8]).abs().max())
+        log(f"[path recurrent {cfg.name}] {kind} block, float32, d_model {cfg.d_model}: "
+            f"decode after an 8-token prefill vs the 9-token prefill's last position: "
+            f"max |diff| {err:.3e} (reference atol {STATE_ATOL[kind]}); state bytes a "
+            f"row {sum(v[0].numel() * 4 for v in cache.values())}")
+        check(err <= STATE_ATOL[kind], f"{cfg.name} {kind}: decode after prefill "
+              f"off by {err} (atol {STATE_ATOL[kind]})")
+        out[kind] = err
+        del blk, cache
+    return out
+
+
+def slstm_host_ops(torch, build, cfg, model):
+    """The sLSTM time loop's cost on the host: PyTorch operations
+    dispatched (a TorchDispatchMode count, kernel wrappers' own included)
+    and kernel launches for one sLSTM block on 2 and on 1 positions of one
+    row; the difference is one token's step of the loop. Returns (ops,
+    launches) per token and layer."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import xlstm as xlm
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    blk = next(b for b, k in zip(model.blocks, cfg.block_pattern) if k == "slstm")
+    out = {}
+    for S in (1, 2):
+        x = torch.zeros(1, S, cfg.d_model, dtype=torch.bfloat16, device=DEV)
+        with torch.inference_mode(), Count():
+            Count.n = 0
+            build.reset_launches()
+            xlm.slstm_apply(blk.mixer, x, cfg)
+            out[S] = (Count.n, sum(build.LAUNCHES.values()))
+    return out[2][0] - out[1][0], out[2][1] - out[1][1]
+
+
+def recurrent_path(torch, build, arch):
+    """(j) A recurrent arch at full width and depth, random weights from
+    seed 0, on the dense plane (the only plane it has) with the kernels
+    (act_impl and softmax_impl cordic_pallas): (1) the kernel route's
+    logits of a launcher prompt against the plain versions' on the same
+    model, (2) the launcher traffic, whose greedy tokens must equal each
+    request's manual exact-length prefill and decode loop, with a short
+    profile; then the same model on cordic_fixed (FIXED_REQUESTS x
+    FIXED_MAX_NEW); (3) decode after prefill of the arch's mLSTM / Mamba2
+    block. Returns {run: launch counts}."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import transformer as tf
+
+    base = configs.get_config(arch, act_impl="cordic_pallas")
+    cfg = dataclasses.replace(base, softmax_impl="cordic_pallas")
+    tag = f"[path recurrent {arch}]"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = tf.init(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    kinds = {k: cfg.block_pattern.count(k) for k in sorted(set(cfg.block_pattern))}
+    log(f"{tag} {cfg.num_layers} layers {kinds}"
+        + (f" + {tf.num_shared_apps(cfg)} applications of one shared "
+           f"{cfg.shared_block} block" if cfg.shared_block else "")
+        + f", d_model {cfg.d_model}, {cfg.num_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}; {len(tf.segments(cfg))} segments; "
+        f"{n_params / 1e9:.3f}B params (spec {cfg.param_counts()['total'] / 1e9:.3f}B: "
+        f"the JAX spec's projections, whatever the arch's name), weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+        f"{time.perf_counter() - t0:.1f} s; nothing cut")
+    counts = {}
+    # (1) the logits check
+    t0 = time.perf_counter()
+    prompt = make_requests(cfg, 1, 1, seed=0)[0].prompt
+    toks = torch.as_tensor(prompt[None], device=DEV).long()
+    with torch.inference_mode():
+        build.reset_launches()
+        kern = tf.apply(model, {"tokens": toks}, cfg)[0]
+        fwd_counts = dict(build.LAUNCHES)
+        with PlainRoute():
+            build.reset_launches()
+            plain = tf.apply(model, {"tokens": toks}, cfg)[0]
+            check(not build.LAUNCHES, f"{tag} the plain route launched {dict(build.LAUNCHES)}")
+    err = float((kern - plain).abs().max())
+    log(f"{tag} logits check, a {len(prompt)}-token prompt: max |kernel route - plain "
+        f"versions| {err:.3e} (bound {LOGITS_ATOL}; bit-equal {torch.equal(kern, plain)}), "
+        f"argmax equal {torch.equal(kern.argmax(-1), plain.argmax(-1))}; the forward's "
+        f"launches {fwd_counts} ({time.perf_counter() - t0:.1f} s)")
+    check(bool(torch.isfinite(kern).all()) and err <= LOGITS_ATOL,
+          f"{tag} kernel-route logits off the plain versions' by {err}")
+    check(fwd_counts.get("act_2d", 0) > 0, f"{tag} the forward never launched act_2d")
+    # (2) the launcher traffic on the kernels, against the manual loop
+    t0 = time.perf_counter()
+    reqs, counts["cordic_pallas"], st, eng = launcher_serve(
+        torch, build, cfg, model, kv_impl="dense")
+    c = counts["cordic_pallas"]
+    log(serve_line(f"{tag} cordic_pallas/cordic_pallas dense:", st, c))
+    log(f"{tag} tokens {json.dumps(st['out'])}")
+    check(not eng._bucketed and st["prefill_tokens"] == sum(len(r.prompt) for r in reqs),
+          f"{tag} prefill not at exact length: {st['prefill_tokens']} tokens")
+    check(c.get("act_2d", 0) > 0, f"{tag} serving never launched act_2d")
+    for k in ("gqa_decode", "mla_decode"):
+        check(c.get(k, 0) == 0, f"{tag} the paged decode kernel {k} ran")
+    n_apps = tf.num_shared_apps(cfg)
+    check(c.get("softmax_2d", 0) == n_apps * (st["decode_steps"] + st["prefills"]),
+          f"{tag} softmax_2d launched {c.get('softmax_2d', 0)} times, not {n_apps} "
+          f"shared applications x ({st['decode_steps']} decode steps + "
+          f"{st['prefills']} prefills)")
+    check((c.get("silu_mul_2d", 0) > 0) == bool(n_apps),
+          f"{tag} silu_mul_2d launched {c.get('silu_mul_2d', 0)} times")
+    log(f"[time] {tag} traffic: {time.perf_counter() - t0:.1f} s")
+    if "slstm" in cfg.block_pattern:
+        n_ops, n_launch = slstm_host_ops(torch, build, cfg, model)
+        n_sl = cfg.block_pattern.count("slstm")
+        log(f"{tag} the sLSTM time loop: {n_ops} host operations ({n_launch} kernel "
+            f"launches) a token and layer, {n_ops * n_sl} a prefill token over its "
+            f"{n_sl} sLSTM layers")
+        st["slstm_ops_per_token_layer"] = n_ops
+    t0 = time.perf_counter()
+    same = 0
+    for r in reqs:
+        want = manual_tokens(torch, cfg, model, r.prompt, len(r.out))
+        same += sum(a == b for a, b in zip(r.out, want))
+        check(r.out == want, f"{tag} request {r.rid}: engine {r.out} vs manual "
+              f"exact-length prefill and decode {want}")
+    log(f"{tag} engine tokens == each request's manual exact-length prefill and "
+        f"decode loop: {same}/{st['tokens']} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    prof = profile_steps(torch, eng, cfg, ("act_kernel", "silu_mul_kernel",
+                                           "softmax_kernel", "nvjet"), 4)
+    log(f"[time] {tag} profile: {time.perf_counter() - t0:.1f} s")
+    del eng
+    torch.cuda.empty_cache()
+    # the paper-faithful datapath on the same model: no row kernel
+    t0 = time.perf_counter()
+    fcfg = dataclasses.replace(cfg, act_impl="cordic_fixed", softmax_impl="cordic_fixed")
+    _, counts["cordic_fixed"], fst, eng = launcher_serve(
+        torch, build, fcfg, model, FIXED_REQUESTS, FIXED_MAX_NEW, warm=False,
+        kv_impl="dense")
+    log(serve_line(f"{tag} cordic_fixed/cordic_fixed dense ({FIXED_REQUESTS} requests x "
+                   f"{FIXED_MAX_NEW} tokens, cut for the time limit):", fst,
+                   counts["cordic_fixed"]))
+    log(f"{tag} cordic_fixed tokens {json.dumps(fst['out'])}; greedy match against "
+        f"cordic_pallas {match_count(fst['out'], st['out'])}/{fst['tokens']} "
+        "(reported, not gated)")
+    for k in ("act_2d", "silu_mul_2d", "softmax_2d"):
+        check(counts["cordic_fixed"].get(k, 0) == 0, f"{tag} cordic_fixed launched {k}")
+    log(f"[time] {tag} cordic_fixed: {time.perf_counter() - t0:.1f} s")
+    del eng, model
+    torch.cuda.empty_cache()
+    state_continuation(torch, cfg)
+    RESULTS[arch] = dict(st, out=None, profile=prof, fixed_tok_s=fst["tok_s"],
+                         fixed_step_ms_p50=fst["step_ms_p50"])
+    return counts
+
+
+#: per-arch summaries of phase 4j-4k, logged at the end
+RESULTS = {}
+
+
+def archs_paths(torch, build, card, records, ops):
+    """(j) and (k): the recurrent pair, then the attention archs, each
+    checked for the kernels its path must launch. Returns ({arch: {datapath:
+    launch counts}}, {arch: launch counts})."""
+    rec = {}
+    for arch in RECURRENT_ARCHS:
+        rec[arch] = recurrent_path(torch, build, arch)
+        phase_done(f"path recurrent {arch}")
+    att = attention_archs_path(torch, build, card, records, ops)
+    phase_done("path attention archs")
+    return rec, att
+
+
+def group_of_five(torch, card, records, cfg, ops):
+    """gqa_decode at qwen2.5-32b's decode shape (B 4, KH 8, G 5, hd 128, L 16,
+    M 8: a group width no earlier arch had) on the launcher's ragged tables,
+    against its plain version: bit-equal on the kernels' datapath."""
+    from repro_torch.kernels import paged_attention as PA
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, KH, L, M = SLOTS, cfg.num_kv_heads, BLOCK_LEN, MAX_LEN // BLOCK_LEN
+    G, hd = cfg.num_heads // KH, cfg.head_dim
+    klens = [37, 0, MAX_LEN, 5]
+    N = 1 + B * M
+    q = torch.randn(B, KH, G, hd, generator=gen, device=dev).bfloat16()
+    kp = torch.randn(N, L, KH, hd, generator=gen, device=dev)
+    vp = torch.randn(N, L, KH, hd, generator=gen, device=dev)
+    tables = torch.zeros(B, M, dtype=torch.int32, device=dev)
+    nxt = 1
+    for r, k in enumerate(klens):
+        for c in range(-(-k // L)):
+            tables[r, c] = nxt
+            nxt += 1
+    k_len = torch.tensor([max(k, 1) for k in klens], dtype=torch.int32, device=dev)
+    kw = dict(scale=1.0 / math.sqrt(hd), kv_dtype=torch.bfloat16,
+              softmax_impl="cordic_pallas")
+    a = PA.gqa_decode(q, kp, vp, tables, k_len, **kw)
+    b = PA.gqa_decode_plain(q, kp, vp, tables, k_len, **kw)
+    err = float((a - b).abs().max())
+    check(bool(torch.isfinite(a).all()) and err == 0.0,
+          f"gqa_decode G={G}: |kernel - plain| {err} (bit-equal)")
+    live_blocks = sum(-(-max(k, 1) // L) for k in klens)
+    lanes = sum(max(k, 1) for k in klens) * KH * G
+    nbytes = (q.numel() * 2 + 2 * live_blocks * L * KH * hd * 4 + tables.numel() * 4
+              + k_len.numel() * 4 + a.numel() * 4)
+    bound, by = card.bound(nbytes, ops["decode_lane"] * lanes, 4 * hd * lanes)
+    rec = timed(dict(shape=[B, KH, G, hd, L, M], impl="cordic_pallas", klens=klens,
+                     max_abs_err=err, bit_equal=True, bound_ms=bound, bound_by=by),
+                kernel=times(torch, lambda: PA.gqa_decode(q, kp, vp, tables, k_len, **kw),
+                             "gqa_decode_kernel"),
+                plain=times(torch, lambda: PA.gqa_decode_plain(
+                    q, kp, vp, tables, k_len, **kw), None, 2, 1))
+    log(f"[gqa_decode] {cfg.name} B={B} KH={KH} G={G} hd={hd} L={L} M={M}: max "
+        f"|kernel - plain| {err:.3e} (bit-equal); {fmt_times(rec)}")
+    records["gqa_decode[G5]"] = rec
+
+
+def attention_archs_path(torch, build, card, records, ops):
+    """(k) The attention archs of the slice at full width (depth cut where
+    one card cannot hold the weights: ATTENTION_ARCHS), random weights from
+    seed 0, the kernels' datapath: the launcher traffic on the paged plane
+    with the decode kernel (gqa_decode a layer every decode step), with the
+    table gather and on the dense plane; kernel tokens set beside the
+    gather's and the dense plane's (match counts, reported). Qwen's group
+    of 5 held against plain first. Returns {arch: launch counts of the
+    kernel run}."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+
+    out = {}
+    for arch, layers in ATTENTION_ARCHS.items():
+        t_arch = time.perf_counter()
+        full = configs.get_config(arch, act_impl="cordic_pallas")
+        cfg = dataclasses.replace(full, softmax_impl="cordic_pallas")
+        cut = "nothing cut"
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers,
+                                      block_pattern=cfg.block_pattern[:layers])
+            cut = (f"depth cut {full.num_layers} -> {layers} layers "
+                   f"({full.param_counts()['total'] / 1e9:.1f}B params do not fit one card)")
+        tag = f"[path attention {arch}]"
+        if cfg.num_heads // cfg.num_kv_heads == 5:
+            group_of_five(torch, card, records, cfg, ops)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = tf.init(cfg, seed=0, device=DEV)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        moe = (f", {cfg.moe.num_experts} experts x {cfg.moe.d_ff_expert} top-"
+               f"{cfg.moe.top_k}" if cfg.moe else "")
+        log(f"{tag} {cfg.num_layers} layers {sorted(set(cfg.block_pattern))}, d_model "
+            f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads (group "
+            f"{cfg.num_heads // cfg.num_kv_heads}), d_ff {cfg.d_ff}{moe}, vocab "
+            f"{cfg.vocab_size}, qkv_bias {cfg.qkv_bias}, {cfg.dtype}; {n_params / 1e9:.2f}B "
+            f"params, weights {torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+            f"{time.perf_counter() - t0:.1f} s; {cut}")
+        runs = {}
+        for name, kw in (("paged kernel", dict(kv_impl="paged", paged_attend_impl="pallas")),
+                         ("paged gather", dict(kv_impl="paged", paged_attend_impl="gather")),
+                         ("dense", dict(kv_impl="dense"))):
+            _, c, st, eng = launcher_serve(torch, build, cfg, model, **kw)
+            del eng
+            torch.cuda.empty_cache()
+            runs[name] = (c, st)
+            log(serve_line(f"{tag} {name}:", st, c))
+        c, st = runs["paged kernel"]
+        check(c.get("gqa_decode", 0) == cfg.num_layers * st["decode_steps"],
+              f"{tag} gqa_decode launched {c.get('gqa_decode', 0)} times, not "
+              f"{cfg.num_layers} x {st['decode_steps']} decode steps")
+        check(c.get("softmax_2d", 0) > 0, f"{tag} the prefill never launched softmax_2d")
+        check(c.get("act_2d" if cfg.moe else "silu_mul_2d", 0) > 0,
+              f"{tag} the FFN never launched its kernel")
+        log(f"{tag} tokens (paged kernel) {json.dumps(st['out'])}")
+        for name in ("paged gather", "dense"):
+            log(f"{tag} greedy match, paged kernel against {name}: "
+                f"{match_count(st['out'], runs[name][1]['out'])}/{st['tokens']} "
+                "(reported, not gated: the card's products differ by attend path)")
+        out[arch] = c
+        RESULTS[arch] = dict(st, out=None, cut=cut)
+        del model
+        torch.cuda.empty_cache()
+        log(f"[time] {tag}: {time.perf_counter() - t_arch:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 4c: the train path
 # ---------------------------------------------------------------------------
 def train_cfg(configs):
@@ -2405,6 +2868,9 @@ KERNELS = {
                          "src/repro/kernels/paged_attention.py:291"),
     "gqa_decode[q2_14]": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
                           "src/repro/kernels/paged_attention.py:291"),
+    # qwen2.5-32b's group of 5 query heads a KV head (attention_archs_path)
+    "gqa_decode[G5]": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
+                       "src/repro/kernels/paged_attention.py:291"),
 }
 # the decode kernels at the long-context shape (long_decode_kernels)
 for _name in ("gqa_decode[long]", "gqa_decode[cordic_fixed,long]",
@@ -2574,6 +3040,9 @@ def main(argv=None) -> int:
     ap.add_argument("--row-kernels", action="store_true",
                     help="only act_2d's, silu_mul_2d's, softmax_2d's, "
                     "log_softmax_2d's and act_q_2d's checks and times")
+    ap.add_argument("--archs", action="store_true",
+                    help="only the build and the recurrent and attention archs' "
+                    "paths (4j-4k)")
     ap.add_argument("--src", default=str(SRC),
                     help="the tree whose repro_torch --decode-kernels or "
                     "--row-kernels runs")
@@ -2624,10 +3093,20 @@ def main(argv=None) -> int:
 
     from repro_torch import configs
 
+    from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE
+
     ycfg = configs.get_config("yi-9b", act_impl="cordic_pallas")
     dcfg = configs.get_config(DEEPSEEK, act_impl="cordic_pallas")
     records = {}
     phase_done("device and build")
+    if args.archs:
+        rec_counts, att_counts = archs_paths(torch, build, card, records,
+                                             pipeline_ops(PAPER_SCHEDULE))
+        log(f"[archs] launches: recurrent {rec_counts}, attention {att_counts}")
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(card_line)
+        log(json.dumps({"archs": RESULTS}))
+        return 0
     kernel_phase(torch, card, records, ycfg, dcfg)
     phase_done("kernels")
     sigmoid_counts, gelu_counts = sigmoid_path(torch, build, ycfg)
@@ -2674,13 +3153,18 @@ def main(argv=None) -> int:
         for k in ("act_2d", "silu_mul_2d", "softmax_2d"):
             check(c.get(k, 0) == 0, f"{name} cordic_fixed launched {k}")
     check(ds_fixed.get("gqa_decode", 0) == 0, "DeepSeek cordic_fixed launched gqa_decode")
+    rec_counts, att_counts = archs_paths(torch, build, card, records,
+                                         pipeline_ops(PAPER_SCHEDULE))
     train_counts, _ = train_path(torch, build)
     phase_done("path train")
     # launches of each kernel summed over the main paths' runs; a branch
-    # ported later counts on its own path
+    # (or qwen2.5-32b's group of 5) ported later counts on its own path
     paths = (sigmoid_counts, serve_counts, ds_counts, train_counts, yi_chunked, yi_score,
-             ds_chunked, yi_dense, yi_dense_long, ds_dense)
+             ds_chunked, yi_dense, yi_dense_long, ds_dense,
+             *(c["cordic_pallas"] for c in rec_counts.values()), *att_counts.values())
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNELS}
+    launches["gqa_decode[G5]"] = att_counts["qwen2.5-32b"].get("gqa_decode", 0)
+    launches["gqa_decode"] -= launches["gqa_decode[G5]"]
     launches["act_2d[gelu_erf]"] = gelu_counts.get("act_2d", 0)
     launches["gqa_decode[cordic_fixed]"] = yi_fixed.get("gqa_decode", 0)
     launches["mla_decode[cordic_fixed]"] = ds_fixed.get("mla_decode", 0)
@@ -2705,7 +3189,8 @@ def main(argv=None) -> int:
         f"{ds_counts}, cordic_fixed {ds_fixed}, train loop {train_counts}, chunked "
         f"yi-9b {yi_chunked}, score {yi_score}, chunked {DEEPSEEK} {ds_chunked}, dense "
         f"yi-9b {yi_dense}, long {yi_dense_long}, dense {DEEPSEEK} {ds_dense}, sampling "
-        f"yi-9b {yi['sampling']}, obs yi-9b {yi['obs']}; per kernel {launches}")
+        f"yi-9b {yi['sampling']}, obs yi-9b {yi['obs']}, recurrent {rec_counts}, "
+        f"attention archs {att_counts}; per kernel {launches}")
     for arch in ("yi-9b", DEEPSEEK):
         for impl in ("cordic_pallas", "cordic_fixed"):
             identity_phase(torch, arch, impl)
@@ -2732,6 +3217,7 @@ def main(argv=None) -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"archs": RESULTS}))
     log(card_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,19 +1,31 @@
 """Architecture registry of the port: ``get_config(arch_id)`` /
 ``get_smoke(arch_id)`` over the archs the PyTorch port runs.
 
-Served so far: ``yi-9b`` (dense GQA) and ``deepseek-v2-lite-16b`` (MLA
-attention, a dense first layer, then GShard MoE layers). The other archs of
-``repro.configs`` (``phi3.5-moe``'s ``gqa_moe``, the recurrent families)
-come with ROADMAP A.10.
+Served: ``yi-9b``, ``qwen2.5-32b`` (QKV bias), ``deepseek-coder-33b`` and
+``command-r-plus-104b`` (dense GQA), ``deepseek-v2-lite-16b`` (MLA
+attention, a dense first layer, then GShard MoE layers),
+``phi3.5-moe-42b-a6.6b`` (GQA + GShard MoE), and the recurrent families
+``xlstm-1.3b`` (mLSTM / sLSTM) and ``zamba2-1.2b`` (Mamba2 with a shared
+attention block), which serve on the dense plane only. The two
+``input_mode="embeds"`` archs of ``repro.configs`` (musicgen-large,
+internvl2-1b) come with ROADMAP A.10.
 """
 from __future__ import annotations
 
-from repro_torch.configs import deepseek_v2_lite_16b, yi_9b
+from repro_torch.configs import (command_r_plus_104b, deepseek_coder_33b,
+                                 deepseek_v2_lite_16b, phi3_5_moe_42b,
+                                 qwen2_5_32b, xlstm_1_3b, yi_9b, zamba2_1_2b)
 from repro_torch.configs.base import ModelConfig, SHAPES, ShapeConfig  # noqa: F401
 
 _MODULES = {
     "yi-9b": yi_9b,
     "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
+    "xlstm-1.3b": xlstm_1_3b,
+    "zamba2-1.2b": zamba2_1_2b,
+    "qwen2.5-32b": qwen2_5_32b,
+    "phi3.5-moe-42b-a6.6b": phi3_5_moe_42b,
+    "deepseek-coder-33b": deepseek_coder_33b,
+    "command-r-plus-104b": command_r_plus_104b,
 }
 
 ARCH_IDS = tuple(_MODULES.keys())

@@ -462,10 +462,13 @@ __host__ __forceinline__ int fold_threads(int width) {
   return width >= kFoldThreads ? kFoldThreads : (width + 31) / 32 * 32;
 }
 
-// A launch that may need more than the default 48 KB of dynamic shared memory.
+// A launch that may need more than the default 48 KB of shared memory, its
+// static arrays included (at most kStaticSmem bytes in these kernels: a
+// dynamic 48 KB beside them needs the attribute too).
+constexpr size_t kStaticSmem = 1024;
 template <typename K>
 __host__ int smem_ok(K kern, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
+  if (bytes + kStaticSmem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes);
 }
@@ -748,27 +751,29 @@ extern "C" int paged_gqa_decode(const void* q, int q_dtype, const void* k_pool,
 //
 //   score    grid (ceil(M / chunk), ceil(H / HG), B): HG heads of a slot a
 //            CTA, its `chunk` blocks staged one after another; a score's
-//            two sums (R and P products) each take 16 strided partials,
-//            thread t summing partial t for 8 heads at once, then one
+//            two sums (R and P products) each take 4 strided partials,
+//            thread t summing partial t for 2 heads at once, then one
 //            thread a score adds the partials
 //   softmax  grid (H, B), one head a CTA (the GQA phase's code)
 //   pv       grid (ceil(M / chunk), ceil(R / 128), B): 128 latent columns
 //            of `chunk` blocks a CTA, every head's P.V sums
 //   fold     grid (H * ceil(R / 128), B), 128 latent columns of a head a CTA
 //
-// Order, shared with mla_decode_plain: partial t of a score sum adds
-// elements t, t + 16, ... left to right; the 16 partials are added left to
-// right, the latent sum and the rope sum separately; score = (sum_R +
-// sum_P) * scale,
-// as _mla_kernel writes it. Block and latent sums run left to right over the
+// Order, shared with mla_decode_plain: jitted XLA:CPU's order for the JAX
+// kernel's two dots (ROADMAP C.4): partial t of a score sum adds the
+// products of elements t, t + 4, ... left to right as fused multiply-adds;
+// the 4 partials are added (p0 + p1) + (p2 + p3), the latent sum and the
+// rope sum separately; score = (sum_R + sum_P) * scale, as _mla_kernel
+// writes it. Block and latent sums run left to right over the
 // lanes, folded in table order as above.
 // ---------------------------------------------------------------------------
 namespace {
 
 constexpr int kMlaThreads = 512;
-constexpr int kSplit = 16;  // MLA_SPLIT: strided partials per score sum
-// heads whose partial t of one lane's score one thread sums at once
-constexpr int kMlaHeads = 8;
+constexpr int kSplit = 4;  // MLA_SPLIT: strided partials per score sum
+// heads whose partial t of one lane's score one thread sums at once (with
+// 4 partials a score, 2 heads a thread keep all 512 threads busy at H 16)
+constexpr int kMlaHeads = 2;
 
 template <typename TQ>
 __global__ void __launch_bounds__(kMlaThreads)
@@ -779,7 +784,7 @@ __global__ void __launch_bounds__(kMlaThreads)
                             int chunk, float scale) {
   extern __shared__ float smem[];
   __shared__ long long blk[kMaxChunk];
-  // latent and rope rows padded by 16: the two score groups of a warp read
+  // latent and rope rows padded by kSplit: the score groups of a warp read
   // neighbouring lanes' rows on other banks
   const int cst = R + kSplit, rst = P + kSplit;
   float* qe = smem;               // (hg, R) latent queries, then (hg, P) rope ones
@@ -843,14 +848,14 @@ __global__ void __launch_bounds__(kMlaThreads)
         const float c = cr[i];
 #pragma unroll
         for (int u = 0; u < kMlaHeads; ++u)
-          if (h0 + u < hg) pr[u] = pr[u] + qe[(h0 + u) * R + i] * c;
+          if (h0 + u < hg) pr[u] = fmaf(qe[(h0 + u) * R + i], c, pr[u]);
       }
       const float* rr = rs + l * rst;
       for (int i = t; i < P; i += kSplit) {
         const float r = rr[i];
 #pragma unroll
         for (int u = 0; u < kMlaHeads; ++u)
-          if (h0 + u < hg) pp[u] = pp[u] + qrh[(h0 + u) * P + i] * r;
+          if (h0 + u < hg) pp[u] = fmaf(qrh[(h0 + u) * P + i], r, pp[u]);
       }
 #pragma unroll
       for (int u = 0; u < kMlaHeads; ++u) {
@@ -864,11 +869,8 @@ __global__ void __launch_bounds__(kMlaThreads)
     for (int si = tid; si < hg * L; si += kMlaThreads) {  // si = h * L + l
       const float* a = part + si * pst;
       const float* c = part + (HG * L + si) * pst;
-      float sr = a[0], sp = c[0];
-      for (int k = 1; k < kSplit; ++k) {
-        sr = sr + a[k];
-        sp = sp + c[k];
-      }
+      const float sr = (a[0] + a[1]) + (a[2] + a[3]);
+      const float sp = (c[0] + c[1]) + (c[2] + c[3]);
       const int h = si / L, l = si - h * L;
       const float v = (sr + sp) * scale;
       ws[(row0 + h) * ml + base + l] = (base + l < klen) ? v : kNegInf;

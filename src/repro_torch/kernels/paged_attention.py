@@ -38,9 +38,10 @@ Softmax (``softmax_impl``):
 Summation orders are fixed per output row and shared by the kernels and
 the plain versions: a GQA score is a left-to-right sum over head_dim, times
 the scale, then the mask; an MLA score is
-``(sum_R qe*c + sum_P qr*r) * scale``, each sum taken as ``MLA_SPLIT``
-strided partials (partial t sums elements t, t + MLA_SPLIT, ... left to
-right, one thread each) added left to right; block sums and P.V sums run
+``(sum_R qe*c + sum_P qr*r) * scale``, each sum in jitted XLA:CPU's dot
+order (ROADMAP C.4): ``MLA_SPLIT`` = 4 strided partials of fused
+multiply-adds (partial t adds elements t, t + 4, ... left to right, one
+thread each), then (p0 + p1) + (p2 + p3); block sums and P.V sums run
 left to right over a block's lanes; the row sum and the accumulator fold
 block by block in table order (``exact``: ``l = l * alpha + bs``, ``acc =
 acc * alpha + pv``, alpha from the running max). The row max is
@@ -257,7 +258,7 @@ SOFTMAX_TILE_LANES = 8192
 #: (csrc ``workspace_floats``), and a launch past the shared memory limit
 #: fails, so a drift between the two sides raises rather than writes out
 #: of bounds.
-_PV_COLS, _FOLD_COLS, _SPLIT = 128, 128, 16
+_PV_COLS, _FOLD_COLS, _SPLIT = 128, 128, 4
 #: dynamic shared memory a CTA may have on Hopper (bytes)
 _SMEM_MAX = 232448
 
@@ -448,24 +449,24 @@ def gqa_decode(q, k_pool, v_pool, tables, k_len, *, scale: float,
 # MLA decode (absorbed form)
 # ---------------------------------------------------------------------------
 #: strided partials of an MLA score sum (the kernel's threads per score)
-MLA_SPLIT = 16
+MLA_SPLIT = 4
 
 
 def _split_dot(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """q (B,H,n) . c (B,L,n) -> (B,H,L) in the kernel's order: MLA_SPLIT
-    strided partials, partial t summing elements t, t + MLA_SPLIT, ... left
-    to right, then the partials added left to right."""
+    """q (B,H,n) . c (B,L,n) -> (B,H,L), n a multiple of MLA_SPLIT, in
+    jitted XLA:CPU's order for the JAX kernel's dots (ROADMAP C.4), which
+    the kernel replays: MLA_SPLIT strided partials, partial t adding the
+    products of elements t, t + MLA_SPLIT, ... left to right as fused
+    multiply-adds (one rounding each; a float32 product is exact in
+    float64), then (p0 + p1) + (p2 + p3)."""
     B, H, n = q.shape
-    part = torch.zeros((B, H, c.shape[1], MLA_SPLIT), dtype=torch.float32,
-                       device=q.device)
-    for i in range(0, n, MLA_SPLIT):
-        w = min(MLA_SPLIT, n - i)
-        part[..., :w] = part[..., :w] + (q[:, :, None, i:i + w]
-                                         * c[:, None, :, i:i + w])
-    s = part[..., 0]
-    for t in range(1, MLA_SPLIT):
-        s = s + part[..., t]
-    return s
+    L = c.shape[1]
+    prod = (q.double()[:, :, None, :] * c.double()[:, None, :, :]).reshape(
+        B, H, L, n // MLA_SPLIT, MLA_SPLIT)
+    part = torch.zeros((B, H, L, MLA_SPLIT), dtype=torch.float32, device=q.device)
+    for j in range(n // MLA_SPLIT):
+        part = (part.double() + prod[..., j, :]).to(torch.float32)
+    return (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
 
 
 def _seq_latent(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

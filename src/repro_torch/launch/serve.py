@@ -11,6 +11,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
         --smoke --device cpu --kv-impl dense --temperature 0.8 --top-k 40 \
         --metrics-json metrics.json --trace-out trace.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+        --smoke --device cpu
 
 Boots the continuous-batching engine for a registered arch with random
 weights from a seed, on the card (``--device cuda``, the default) or on the
@@ -23,7 +25,10 @@ the CORDIC kernel (``softmax_impl="cordic_pallas"``); other softmax impls
 are set through ``ServeEngine(softmax_impl=...)``.
 
 ``--kv-impl`` stays ``paged`` by default here (the JAX launcher's is
-``dense``); ``--kv-impl dense`` serves from one max_len buffer per slot.
+``dense``) for attention-only archs; ``--kv-impl dense`` serves from one
+max_len buffer per slot, the default for the recurrent archs (xlstm-1.3b,
+zamba2-1.2b), which prefill at exact length and have no other plane: an
+explicit ``--kv-impl paged`` raises there, as in JAX.
 ``--paged-attend-impl`` defaults to the decode kernel (``pallas``) on the
 paged plane and to ``gather`` on the dense one, which has no block tables:
 an explicit ``pallas`` with ``--kv-impl dense`` raises, as in JAX.
@@ -74,9 +79,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (CORDIC datapath); 0 = greedy")
     ap.add_argument("--top-k", type=int, default=0)
-    ap.add_argument("--kv-impl", default="paged", choices=["dense", "paged"],
+    ap.add_argument("--kv-impl", default=None, choices=["dense", "paged"],
                     help="decode KV layout: the global block pool or one "
-                         "max_len buffer per slot")
+                         "max_len buffer per slot (default: paged, and dense "
+                         "for an arch with recurrent blocks, which has no "
+                         "other)")
     ap.add_argument("--block-len", type=int, default=16)
     ap.add_argument("--num-blocks", type=int, default=0,
                     help="paged pool size incl. scratch (0 = worst case)")
@@ -108,12 +115,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    cfg = (configs.get_smoke(args.arch, act_impl=args.act_impl) if args.smoke
+           else configs.get_config(args.arch, act_impl=args.act_impl))
+    # the recurrent archs have the dense plane only
+    args.kv_impl = args.kv_impl or ("paged" if tf.attention_only(cfg) else "dense")
     attend = args.paged_attend_impl or (
         "pallas" if args.kv_impl == "paged" else "gather")
     obs = (obs_lib.Observability(trace=args.trace_out is not None)
            if (args.metrics_json or args.trace_out) else None)
-    cfg = (configs.get_smoke(args.arch, act_impl=args.act_impl) if args.smoke
-           else configs.get_config(args.arch, act_impl=args.act_impl))
     print(f"[serve] arch={cfg.name} slots={args.slots} kv={args.kv_impl} "
           f"kv_quant={args.kv_quant} attend={attend} "
           f"temperature={args.temperature} top_k={args.top_k} "

@@ -9,7 +9,8 @@ the kernels (``--device cpu``, with ``--smoke`` for a config the CPU can
 run). Takes the JAX launcher's flags; ``--compress`` raises until ROADMAP
 A.12. The activations, the attention softmax and the loss log-softmax run
 on the CORDIC kernels (``act_impl``, ``softmax_impl`` and ``loss_impl`` all
-``"cordic_pallas"``).
+``"cordic_pallas"``). The archs with MLA, MoE or recurrent blocks are
+served only: training them raises (ROADMAP A.11).
 """
 from __future__ import annotations
 

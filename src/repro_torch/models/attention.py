@@ -299,14 +299,15 @@ def _slot_rows(slots, max_blocks, device, tables, lens) -> Dict[str, torch.Tenso
 # GQA
 # ---------------------------------------------------------------------------
 class GQAttention(nn.Module):
-    """wq (d,H,hd), wk/wv (d,KH,hd), wo (H,hd,d), as the JAX spec."""
+    """wq (d,H,hd), wk/wv (d,KH,hd), wo (H,hd,d) and, with ``cfg.qkv_bias``,
+    bq (H,hd), bk/bv (KH,hd), as the JAX spec."""
 
     def __init__(self, cfg, *, dtype: torch.dtype, device: torch.device,
                  gen: torch.Generator = None):
         super().__init__()
-        if cfg.qkv_bias or cfg.pad_heads_to:
+        if cfg.pad_heads_to:
             raise NotImplementedError(
-                "qkv_bias and pad_heads_to are not ported yet (ROADMAP A.10)")
+                "pad_heads_to is not ported yet (ROADMAP A.14)")
         d, hd = cfg.d_model, cfg.head_dim
         H, KH = cfg.num_heads, cfg.num_kv_heads
         for name, shape in (("wq", (d, H, hd)), ("wk", (d, KH, hd)),
@@ -314,6 +315,12 @@ class GQAttention(nn.Module):
             w = (cm.init_normal(shape, gen, dtype, device) if gen is not None
                  else torch.empty(shape, dtype=dtype, device=device))
             setattr(self, name, nn.Parameter(w, requires_grad=False))
+        if cfg.qkv_bias:
+            # zeros, as the JAX spec initialises them
+            for name, heads in (("bq", H), ("bk", KH), ("bv", KH)):
+                setattr(self, name, nn.Parameter(
+                    torch.zeros((heads, hd), dtype=dtype, device=device),
+                    requires_grad=False))
 
 
 def _project(x, w):
@@ -410,6 +417,11 @@ def gqa_apply(p: GQAttention, x, cfg, *, cache: Optional[dict] = None):
     q = _project(x, p.wq)
     k = _project(x, p.wk)
     v = _project(x, p.wv)
+    if cfg.qkv_bias:
+        # after the projections, before RoPE, on every path
+        q = q + p.bq.to(x.dtype)
+        k = k + p.bk.to(x.dtype)
+        v = v + p.bv.to(x.dtype)
     if cache is not None:
         if "k_pool" in cache:
             return _gqa_paged_apply(p, x, cfg, cache, q, k, v)

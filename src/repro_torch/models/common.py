@@ -78,3 +78,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The recurrent blocks' shared pieces (models/xlstm.py, models/ssm.py)
+# ---------------------------------------------------------------------------
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)),
+    op by op in x.dtype."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -softplus(-x)
+
+
+def causal_conv(xs: torch.Tensor, w: torch.Tensor,
+                state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv of width W = w.shape[0] over ``xs`` (B, S, C),
+    after the cached last W-1 inputs ``state`` (or zeros): the sum of the W
+    shifted products, first to last, as the reference's Python ``sum``.
+    Returns (y, new state: the context's last W-1 rows, or None without a
+    state)."""
+    Wd, S = w.shape[0], xs.shape[1]
+    if state is not None:
+        ctx = torch.cat([state.to(xs.dtype), xs], dim=1)
+        new = ctx[:, -(Wd - 1):]
+    else:
+        ctx, new = torch.nn.functional.pad(xs, (0, 0, Wd - 1, 0)), None
+    out = ctx[:, 0:S] * w[0]
+    for i in range(1, Wd):
+        out = out + ctx[:, i:i + S] * w[i]
+    return out, new

@@ -1,6 +1,8 @@
 """Decoder over ``cfg.block_pattern`` (port of ``repro/models/transformer.py``
-for the block kinds ``dense`` (GQA + SwiGLU), ``mla_dense`` (MLA + SwiGLU of
-width ``d_ff_dense``) and ``mla_moe`` (MLA + GShard MoE)).
+for the block kinds ``dense`` (GQA + SwiGLU), ``gqa_moe`` (GQA + GShard
+MoE), ``mla_dense`` (MLA + SwiGLU of width ``d_ff_dense``), ``mla_moe``
+(MLA + GShard MoE), ``mamba2`` (models/ssm.py), ``mlstm`` and ``slstm``
+(models/xlstm.py), and Zamba2's shared ``dense`` block).
 
 Public API, with the JAX names:
     init(cfg, seed, device, dtype)             -> Transformer (random weights)
@@ -8,6 +10,7 @@ Public API, with the JAX names:
     flatten_params(tree)                       -> the bridge's flat input
     jax_tree(cfg, named) / from_jax_flat(cfg, flat)
                                                -> the JAX param layout
+    execution_plan(cfg) / num_shared_apps(cfg)
     init_paged_cache(cfg, slots, num_blocks, block_len, max_blocks, ...)
     init_cache(cfg, batch, max_len, ...)       -> DenseCache (kv_impl="dense")
     override_cache_length(cache, length)       pins the positions, in place
@@ -17,9 +20,16 @@ Public API, with the JAX names:
 
 The JAX tree groups runs of equal block kinds into segments
 (``execution_plan``: DeepSeek-V2-Lite has ``seg0`` = one ``mla_dense``
-block, unstacked, and ``seg1`` = 26 ``mla_moe`` blocks stacked); the port
-keeps one module per layer, and ``jax_layout`` maps each parameter to its
-segment path and index.
+block, unstacked, and ``seg1`` = 26 ``mla_moe`` blocks stacked; xLSTM's 7:1
+pattern gives 12 segments, runs of seven ``mlstm`` blocks each followed by
+one ``slstm``); a shared-block application ends a run, and the shared
+block's weights are the top-level ``shared`` subtree. The port keeps one
+module per layer (and ``shared`` once), and ``jax_layout`` maps each
+parameter to its segment path and index.
+
+Zamba2's shared block (``cfg.shared_block="dense"``) is applied after every
+``shared_period``-th layer with the same weights, each application with a
+KV cache of its own (the DenseCache's layers after the blocks' own).
 
 Storage. With ``dtype=None`` (serving) each weight is stored in the dtype the
 JAX ``apply`` casts it to where it is used: block weights, norm scales and
@@ -29,8 +39,9 @@ about 18 GB on the card; the weights do not require grad. With a ``dtype``
 (training: ``torch.float32`` master weights, as JAX ``init(cfg, key,
 dtype)``) every leaf is stored in it and requires grad; every use casts to
 the compute dtype (``.to(x.dtype)``, as JAX ``astype``), a no-op for
-serving storage. ``gqa_moe``, the recurrent blocks and shared blocks come
-with ROADMAP A.10.
+serving storage. The recurrent caches hold float32 state whatever cache
+dtype is asked for, as the JAX ``_mamba_cache`` / ``_mlstm_cache`` /
+``_slstm_cache``.
 """
 from __future__ import annotations
 
@@ -45,21 +56,43 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
+from repro_torch.models import ssm as ssmm
+from repro_torch.models import xlstm as xlm
 
-#: block kinds the port runs
-BLOCK_KINDS = ("dense", "mla_dense", "mla_moe")
+#: block kinds with an attention KV cache (the paged plane's), and the
+#: recurrent ones, whose O(1) state rides on the dense plane only
+ATTENTION_KINDS = ("dense", "gqa_moe", "mla_dense", "mla_moe")
+RECURRENT_KINDS = ("mamba2", "mlstm", "slstm")
+BLOCK_KINDS = ATTENTION_KINDS + RECURRENT_KINDS
+MOE_KINDS = ("gqa_moe", "mla_moe")
+
+
+def attention_only(cfg) -> bool:
+    """Every block kind (the shared block's too) has an attention KV cache:
+    the archs the paged plane and bucket-padded prefill serve. A recurrent
+    scan folds every pad token into its state, so the others prefill at
+    exact length on the dense plane."""
+    kinds = set(cfg.block_pattern) | ({cfg.shared_block} if cfg.shared_block
+                                      else set())
+    return kinds <= set(ATTENTION_KINDS)
 
 
 def _check_cfg(cfg) -> None:
     kinds = set(cfg.block_pattern)
-    if not kinds <= set(BLOCK_KINDS) or cfg.shared_block is not None:
+    if not kinds <= set(BLOCK_KINDS) or cfg.shared_block not in (None, "dense"):
         raise NotImplementedError(
-            f"block pattern {sorted(kinds)} is not ported yet; the port runs "
-            f"{', '.join(BLOCK_KINDS)} blocks (ROADMAP A.10)")
+            f"block pattern {sorted(kinds)} (shared block "
+            f"{cfg.shared_block!r}) is not ported yet; the port runs "
+            f"{', '.join(BLOCK_KINDS)} blocks and a shared dense block "
+            "(ROADMAP A.10)")
     if kinds & {"mla_dense", "mla_moe"} and cfg.mla is None:
         raise ValueError("MLA blocks need cfg.mla")
-    if "mla_moe" in kinds and cfg.moe is None:
+    if kinds & set(MOE_KINDS) and cfg.moe is None:
         raise ValueError("MoE blocks need cfg.moe")
+    if "mamba2" in kinds and cfg.ssm is None:
+        raise ValueError("mamba2 blocks need cfg.ssm")
+    if kinds & {"mlstm", "slstm"} and cfg.xlstm is None:
+        raise ValueError("xLSTM blocks need cfg.xlstm")
     if cfg.mlp_kind != "swiglu" or cfg.tie_embeddings:
         raise NotImplementedError(
             "the port runs untied SwiGLU models (ROADMAP A.10)")
@@ -71,22 +104,56 @@ def _check_cfg(cfg) -> None:
             "activation checkpointing)")
 
 
+def _norm(d, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.ones(d, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
 class DenseBlock(nn.Module):
-    def __init__(self, cfg, *, dtype, device, gen=None):
+    """``dense`` (ffn: SwiGLU of width d_ff) or ``gqa_moe`` (ffn: the GShard
+    MoE), both on GQA attention."""
+
+    def __init__(self, cfg, kind: str = "dense", *, dtype, device, gen=None):
         super().__init__()
         d = cfg.d_model
-        self.ln1 = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
-                                requires_grad=False)
+        self.ln1 = _norm(d, dtype, device)
         self.attn = attn.GQAttention(cfg, dtype=dtype, device=device, gen=gen)
-        self.ln2 = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
-                                requires_grad=False)
-        self.mlp = mlpm.SwiGLU(d, cfg.d_ff, dtype=dtype, device=device, gen=gen)
+        self.ln2 = _norm(d, dtype, device)
+        self.is_moe = kind == "gqa_moe"
+        if self.is_moe:
+            self.ffn = moem.MoE(cfg, dtype=dtype, device=device, gen=gen)
+        else:
+            self.mlp = mlpm.SwiGLU(d, cfg.d_ff, dtype=dtype, device=device, gen=gen)
 
     def forward_block(self, x, cfg, cache):
         x = x + attn.gqa_apply(self.attn, cm.rmsnorm(self.ln1, x, cfg.norm_eps),
                                cfg, cache=cache)
         h_in = cm.rmsnorm(self.ln2, x, cfg.norm_eps)
+        if self.is_moe:
+            h, aux = moem.moe_apply(self.ffn, h_in, cfg)
+            return x + h, aux
         return x + mlpm.swiglu_apply(self.mlp, h_in, cfg), None
+
+
+#: the recurrent mixers: (module, apply)
+MIXERS = {"mamba2": (ssmm.Mamba2, ssmm.mamba2_apply),
+          "mlstm": (xlm.MLSTM, xlm.mlstm_apply),
+          "slstm": (xlm.SLSTM, xlm.slstm_apply)}
+
+
+class RecurrentBlock(nn.Module):
+    """``mamba2``, ``mlstm`` or ``slstm``: x + mixer(rmsnorm(x)), as the JAX
+    ``_mamba_apply`` / ``_mlstm_apply`` / ``_slstm_apply``."""
+
+    def __init__(self, cfg, kind: str, *, dtype, device, gen=None):
+        super().__init__()
+        self.ln = _norm(cfg.d_model, dtype, device)
+        module, self._apply = MIXERS[kind]
+        self.mixer = module(cfg, dtype=dtype, device=device, gen=gen)
+
+    def forward_block(self, x, cfg, cache):
+        return x + self._apply(self.mixer, cm.rmsnorm(self.ln, x, cfg.norm_eps),
+                               cfg, cache), None
 
 
 class MLABlock(nn.Module):
@@ -96,11 +163,9 @@ class MLABlock(nn.Module):
     def __init__(self, cfg, kind: str, *, dtype, device, gen=None):
         super().__init__()
         d = cfg.d_model
-        self.ln1 = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
-                                requires_grad=False)
+        self.ln1 = _norm(d, dtype, device)
         self.attn = attn.MLAttention(cfg, dtype=dtype, device=device, gen=gen)
-        self.ln2 = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
-                                requires_grad=False)
+        self.ln2 = _norm(d, dtype, device)
         self.is_moe = kind == "mla_moe"
         self.ffn = (moem.MoE(cfg, dtype=dtype, device=device, gen=gen) if self.is_moe
                     else mlpm.SwiGLU(d, cfg.d_ff_dense, dtype=dtype,
@@ -117,7 +182,42 @@ class MLABlock(nn.Module):
 
 
 def _block(cfg, kind, **kw) -> nn.Module:
-    return DenseBlock(cfg, **kw) if kind == "dense" else MLABlock(cfg, kind, **kw)
+    if kind in ("dense", "gqa_moe"):
+        return DenseBlock(cfg, kind, **kw)
+    if kind in RECURRENT_KINDS:
+        return RecurrentBlock(cfg, kind, **kw)
+    return MLABlock(cfg, kind, **kw)
+
+
+def execution_plan(cfg) -> List[Tuple[str, object]]:
+    """The JAX ``execution_plan``: [("seg", (seg_idx, kind, count)) |
+    ("shared", app_idx)]: runs of equal block kinds, each run ended by a
+    shared-block application."""
+    plan, seg_idx, app_idx, i = [], 0, 0, 0
+    pattern = cfg.block_pattern
+    while i < len(pattern):
+        j = i
+        while j < len(pattern) and pattern[j] == pattern[i]:
+            j += 1
+            if _shared_after(cfg, j - 1):
+                break
+        plan.append(("seg", (seg_idx, pattern[i], j - i)))
+        seg_idx += 1
+        if _shared_after(cfg, j - 1):
+            plan.append(("shared", app_idx))
+            app_idx += 1
+        i = j
+    return plan
+
+
+def _shared_after(cfg, layer: int) -> bool:
+    return cfg.shared_block is not None and (layer + 1) % cfg.shared_period == 0
+
+
+def num_shared_apps(cfg) -> int:
+    if cfg.shared_block is None:
+        return 0
+    return sum(1 for i in range(cfg.num_layers) if _shared_after(cfg, i))
 
 
 class Transformer(nn.Module):
@@ -143,8 +243,9 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(
             _block(cfg, kind, dtype=dtype, device=device, gen=gen)
             for kind in cfg.block_pattern)
-        self.final_norm = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
-                                       requires_grad=False)
+        self.shared = (DenseBlock(cfg, dtype=dtype, device=device, gen=gen)
+                       if cfg.shared_block is not None else None)
+        self.final_norm = _norm(d, dtype, device)
         self.lm_head = leaf((V, d), head_dtype, 0.02)
         self.requires_grad_(trainable)
 
@@ -175,22 +276,39 @@ def flatten_params(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 _SWIGLU = ("w_gate", "w_up", "w_down")
-_NORMS = ("ln1", "ln2", "kv_norm")
+_NORMS = ("ln1", "ln2", "kv_norm", "ln", "norm")
+#: each recurrent mixer's leaves, in the JAX spec's order
+_MIXER_LEAVES = {
+    "mamba2": ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log", "D", "norm",
+               "out_proj"),
+    "mlstm": ("up_proj", "conv_w", "conv_b", "wq", "wk", "wv", "w_if", "b_if",
+              "norm", "down_proj"),
+    "slstm": ("w", "b", "r", "norm") + tuple(f"ffn.{w}" for w in _SWIGLU),
+}
+
+
+def _moe_leaves(cfg) -> Tuple[str, ...]:
+    out = ("ffn.router",) + tuple(f"ffn.{w}" for w in _SWIGLU)
+    if cfg.moe.num_shared_experts:
+        out += tuple(f"ffn.shared.{w}" for w in _SWIGLU)
+    return out
 
 
 def _block_leaves(cfg, kind: str) -> Tuple[str, ...]:
     """A block's parameter names, relative to the block module."""
-    if kind == "dense":
-        return (("ln1", "ln2") + tuple(f"attn.{w}" for w in ("wq", "wk", "wv", "wo"))
-                + tuple(f"mlp.{w}" for w in _SWIGLU))
+    if kind in RECURRENT_KINDS:
+        return ("ln",) + tuple(f"mixer.{w}" for w in _MIXER_LEAVES[kind])
+    if kind in ("dense", "gqa_moe"):
+        out = ("ln1", "ln2") + tuple(f"attn.{w}" for w in ("wq", "wk", "wv", "wo"))
+        if cfg.qkv_bias:
+            out += tuple(f"attn.{w}" for w in ("bq", "bk", "bv"))
+        return out + (_moe_leaves(cfg) if kind == "gqa_moe"
+                      else tuple(f"mlp.{w}" for w in _SWIGLU))
     out = (("ln1", "ln2")
            + tuple(f"attn.{w}" for w in ("wq", "wkv_a", "kv_norm", "wkv_b", "wo")))
     if kind == "mla_dense":
         return out + tuple(f"ffn.{w}" for w in _SWIGLU)
-    out += ("ffn.router",) + tuple(f"ffn.{w}" for w in _SWIGLU)
-    if cfg.moe.num_shared_experts:
-        out += tuple(f"ffn.shared.{w}" for w in _SWIGLU)
-    return out
+    return out + _moe_leaves(cfg)
 
 
 def _jax_leaf_path(mod: str) -> str:
@@ -200,23 +318,23 @@ def _jax_leaf_path(mod: str) -> str:
 
 
 def segments(cfg) -> List[Tuple[int, str, int, int]]:
-    """The JAX ``execution_plan`` without shared blocks: runs of equal block
-    kinds as (segment index, kind, first layer, count)."""
-    out, i = [], 0
-    pattern = cfg.block_pattern
-    while i < len(pattern):
-        j = i
-        while j < len(pattern) and pattern[j] == pattern[i]:
-            j += 1
-        out.append((len(out), pattern[i], i, j - i))
-        i = j
+    """The JAX ``execution_plan``'s segments: runs of equal block kinds
+    (ended early by a shared-block application) as (segment index, kind,
+    first layer, count)."""
+    out, first = [], 0
+    for item, payload in execution_plan(cfg):
+        if item == "seg":
+            seg_idx, kind, count = payload
+            out.append((seg_idx, kind, first, count))
+            first += count
     return out
 
 
 def jax_layout(cfg) -> List[Tuple[str, str, Optional[int]]]:
     """(parameter name of the port's module, JAX flat path, index or None):
     layer i of segment k maps to ``seg{k}/...``, stacked at index i - first
-    when the segment has more than one layer (a ``lax.scan`` segment)."""
+    when the segment has more than one layer (a ``lax.scan`` segment); the
+    shared block's leaves to ``shared/...``."""
     out = [("embed", "embed/table", None)]
     for k, kind, first, count in segments(cfg):
         leaves = _block_leaves(cfg, kind)
@@ -225,6 +343,9 @@ def jax_layout(cfg) -> List[Tuple[str, str, Optional[int]]]:
                      i - first if count > 1 else None) for mod in leaves]
     out += [("final_norm", "final_norm/scale", None),
             ("lm_head", "lm_head/table", None)]
+    if cfg.shared_block is not None:
+        out += [(f"shared.{mod}", f"shared/{_jax_leaf_path(mod)}", None)
+                for mod in _block_leaves(cfg, cfg.shared_block)]
     return out
 
 
@@ -301,8 +422,10 @@ def _pools(layer: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 class DenseCache:
     """The dense KV plane of the whole model: per-layer max_len buffers
-    (K/V for GQA, compressed latent and rope key for MLA), one row per
-    slot, and one (slots,) position vector ``idx`` shared by every layer
+    (K/V for GQA, compressed latent and rope key for MLA) or recurrent
+    state (a layer without ``idx``: Mamba2 / mLSTM / sLSTM, float32), one
+    row per slot, then the shared block's applications' K/V (Zamba2), and
+    one (slots,) position vector ``idx`` shared by every attention layer
     (the JAX stacked cache's per-slot ``idx`` leaves). Updated in place."""
 
     def __init__(self, layers, idx: torch.Tensor):
@@ -316,8 +439,8 @@ class DenseCache:
     def rows(self, lo: int, hi: int) -> "DenseCache":
         """Slots [lo, hi) as a view: writes through it land here."""
         idx = self.idx[lo:hi]
-        return DenseCache([{**{k: v[lo:hi] for k, v in c.items() if k != "idx"},
-                            "idx": idx} for c in self.layers], idx)
+        return DenseCache([{k: (idx if k == "idx" else v[lo:hi])
+                            for k, v in c.items()} for c in self.layers], idx)
 
     def copy_from(self, other: "DenseCache") -> None:
         """Copy another cache of the same row count into this one."""
@@ -327,8 +450,19 @@ class DenseCache:
                     v.copy_(src[k])
         self.idx.copy_(other.idx)
 
+    def reset_state(self) -> None:
+        """Every recurrent layer's state back to its initial value (m at
+        -1e30, the rest zeros), in place: a request admitted to a slot
+        starts from fresh state, never from the previous occupant's, as the
+        JAX engine's fresh per-request cache. Attention buffers need no
+        reset: positions past ``idx`` are masked."""
+        for c in self.layers:
+            if "idx" not in c:
+                for k, v in c.items():
+                    v.fill_(xlm.NEG if k == "m" else 0.0)
+
     def nbytes(self) -> int:
-        """Resident bytes of every layer's buffers."""
+        """Resident bytes of every layer's buffers and states."""
         return sum(v.numel() * v.element_size()
                    for c in self.layers for k, v in c.items() if k != "idx")
 
@@ -360,9 +494,10 @@ class PagedCache:
                    for c in self.layers for t in _pools(c).values())
 
 
-#: per-layer paged cache of each block kind
+#: per-layer paged cache of each attention block kind
 PAGED_CACHE_FNS = {
     "dense": attn.gqa_init_paged_cache,
+    "gqa_moe": attn.gqa_init_paged_cache,
     "mla_dense": attn.mla_init_paged_cache,
     "mla_moe": attn.mla_init_paged_cache,
 }
@@ -370,8 +505,12 @@ PAGED_CACHE_FNS = {
 
 def init_paged_cache(cfg, slots: int, num_blocks: int, block_len: int,
                      max_blocks: int, dtype=torch.float32, device=None) -> PagedCache:
-    """Paged decode cache for kv_impl="paged" (block 0 is scratch)."""
+    """Paged decode cache for kv_impl="paged" (block 0 is scratch);
+    attention-only archs (the engine refuses the others first)."""
     _check_cfg(cfg)
+    if not attention_only(cfg) or cfg.shared_block:
+        raise ValueError("paged KV requires an attention-cache-only arch "
+                         "without a shared block")
     dev = resolve_device(device)
     tables = torch.zeros((slots, max_blocks), dtype=torch.int32, device=dev)
     lens = torch.zeros((slots,), dtype=torch.int32, device=dev)
@@ -382,25 +521,39 @@ def init_paged_cache(cfg, slots: int, num_blocks: int, block_len: int,
     return PagedCache(layers, tables, lens)
 
 
-#: per-layer dense cache of each block kind (the JAX ``_gqa_cache`` /
-#: ``_mla_cache`` of ``BLOCKS``)
+def _recurrent_cache(init):
+    """A recurrent kind's cache: float32 state, whatever max_len and dtype
+    (the JAX ``_mamba_cache`` / ``_mlstm_cache`` / ``_slstm_cache``)."""
+    return lambda cfg, batch, max_len, dtype, *, device, idx: init(
+        cfg, batch, device=device)
+
+
+#: per-layer dense cache of each block kind (the third entry of the JAX
+#: ``BLOCKS``)
 CACHE_FNS = {
     "dense": attn.gqa_init_cache,
+    "gqa_moe": attn.gqa_init_cache,
     "mla_dense": attn.mla_init_cache,
     "mla_moe": attn.mla_init_cache,
+    "mamba2": _recurrent_cache(ssmm.mamba2_init_cache),
+    "mlstm": _recurrent_cache(xlm.mlstm_init_cache),
+    "slstm": _recurrent_cache(xlm.slstm_init_cache),
 }
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
                device=None) -> DenseCache:
     """Dense decode cache for kv_impl="dense": every layer's buffers for
-    ``batch`` rows of ``max_len`` positions, zeros, positions 0."""
+    ``batch`` rows of ``max_len`` positions (or its recurrent state), then
+    one GQA cache per shared-block application; zeros (m at -1e30),
+    positions 0."""
     _check_cfg(cfg)
     dev = resolve_device(device)
     idx = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    kinds = list(cfg.block_pattern) + [cfg.shared_block] * num_shared_apps(cfg)
     return DenseCache([CACHE_FNS[kind](cfg, batch, max_len, dtype, device=dev,
                                        idx=idx)
-                       for kind in cfg.block_pattern], idx)
+                       for kind in kinds], idx)
 
 
 def override_cache_length(cache, length) -> None:
@@ -413,8 +566,8 @@ def override_cache_length(cache, length) -> None:
 def stack_caches(caches: List[DenseCache]) -> DenseCache:
     """Per-request dense caches -> one cache with a row per request."""
     idx = torch.cat([c.idx for c in caches])
-    layers = [{**{k: torch.cat([c.layers[i][k] for c in caches])
-                  for k in layer if k != "idx"}, "idx": idx}
+    layers = [{k: (idx if k == "idx" else torch.cat([c.layers[i][k] for c in caches]))
+               for k in layer}
               for i, layer in enumerate(caches[0].layers)]
     return DenseCache(layers, idx)
 
@@ -445,11 +598,16 @@ def apply(params: Transformer, batch: Dict[str, torch.Tensor], cfg=None,
     x = cm.embed(params.embed, batch["tokens"]).to(cm.dtype_of(cfg.dtype))
     S = x.shape[1]
     aux_total = 0.0
+    n_layers, app = len(params.blocks), 0
     for i, blk in enumerate(params.blocks):
         c = cache.layers[i] if cache is not None else None
         x, aux = blk.forward_block(x, cfg, c)
         if aux is not None:
             aux_total = aux_total + aux
+        if _shared_after(cfg, i):
+            c = cache.layers[n_layers + app] if cache is not None else None
+            x, _ = params.shared.forward_block(x, cfg, c)
+            app += 1
     if cache is not None:
         cache.positions.add_(S)
     x = cm.rmsnorm(params.final_norm, x, cfg.norm_eps)

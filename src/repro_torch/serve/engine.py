@@ -1,6 +1,8 @@
 """Slot-based continuous batching over a dense or paged KV plane (port of
-``repro/serve/engine.py``), for dense GQA models and MLA/MoE ones
-(DeepSeek-V2-Lite: compressed-latent and rope-key caches).
+``repro/serve/engine.py``), for dense GQA models (with or without a QKV
+bias), GQA/MoE and MLA/MoE ones (DeepSeek-V2-Lite: compressed-latent and
+rope-key caches), and the recurrent families (xLSTM, Zamba2's Mamba2 with
+its shared attention block), which serve on the dense plane only.
 
 Every ``step()`` runs the iteration scheduler's prefill phase
 (serve/scheduler.py: chunk continuations first, then FIFO admissions, under
@@ -38,6 +40,13 @@ Two knobs shape the prefill phase, as in the JAX engine:
     all-scratch rows. Defaults to ``slots`` when chunking, else 1; under
     the prefix cache on a model without MoE layers it is 1 (below). The
     dense plane prefills one row a dispatch, whatever R.
+
+A recurrent scan has no mask to hide a pad tail, so an arch with a
+recurrent block prefills each prompt at its exact length (``_bucketed``
+false: the scheduler without buckets), starting from fresh state in its
+slot's rows, as the JAX engine does; ``kv_impl="paged"``,
+``prefill_chunk`` and the prefix cache are refused there with the JAX
+engine's errors.
 
 Prefill runs at the bucket (or chunk) width, pad tokens included, as the
 JAX engine does: a GShard MoE layer's expert capacity follows the dispatch
@@ -112,17 +121,34 @@ from repro_torch.serve.scheduler import IterationScheduler, PrefillRow
 
 
 def make_bucketed_prefill_step(cfg) -> Callable:
-    """Dense prefill of one bucket- or chunk-padded row into its slot's
-    rows (``cache``, a one-row view): positions start at ``start``, then
-    the row is pinned to ``pin`` (the true length on a final row, the chunk
-    frontier mid-prompt: the pad tail advanced it further) and the (1, V)
-    logits at ``logit_idx`` come back."""
+    """Dense prefill of one bucket- or chunk-padded row (a recurrent arch's
+    rows are exact-length: no pad token may reach its state) into its
+    slot's rows (``cache``, a one-row view): a fresh row (``start`` 0)
+    first resets the rows' recurrent state, so a request never sees the
+    previous occupant's; positions start at ``start``, then the row is
+    pinned to ``pin`` (the true length on a final row, the chunk frontier
+    mid-prompt: the pad tail advanced it further) and the (1, V) logits at
+    ``logit_idx`` come back."""
     def prefill(params, cache: tf.DenseCache, tokens, start: int, pin: int,
                 logit_idx: int):
+        if start == 0:
+            cache.reset_state()
         tf.override_cache_length(cache, start)
         logits, _, _ = tf.apply(params, {"tokens": tokens}, cfg, cache=cache)
         tf.override_cache_length(cache, pin)
         return logits[:, logit_idx]
+    return prefill
+
+
+def make_prefill_step(cfg) -> Callable:
+    """The JAX ``make_prefill_step``: a whole prompt at its exact length
+    into fresh rows (recurrent state reset, positions 0); returns the
+    (1, V) logits of its last position."""
+    step = make_bucketed_prefill_step(cfg)
+
+    def prefill(params, cache: tf.DenseCache, tokens):
+        S = tokens.shape[1]
+        return step(params, cache, tokens, 0, S, S - 1)
     return prefill
 
 
@@ -308,11 +334,6 @@ class ServeEngine:
                 raise ValueError(
                     "kv_quant applies to GQA paged pools only; MLA layers "
                     "store the compressed latent unquantized")
-        if prefix_cache and not paged:
-            raise ValueError(
-                "prefix_cache shares KV pool blocks through the block-"
-                "table indirection; serve it with kv_impl='paged' (the "
-                "dense plane has per-slot buffers, nothing to share)")
         if (tp or 1) > 1 or mesh is not None:
             raise _unported("tensor parallelism", "A.12")
         self.default_sampling = (sampling if sampling is not None
@@ -330,12 +351,28 @@ class ServeEngine:
         self.max_len = max_len
         self.eos = eos_token
         self.buckets = kvp.bucket_lengths(max_len, self.block_len)
+        # bucket padding is output-neutral for attention only: a recurrent
+        # scan (mamba2 / xlstm) folds every pad token into its state, so
+        # those archs prefill at exact length, dense plane only
+        self._bucketed = tf.attention_only(cfg)
         self.scheduler = IterationScheduler(
-            buckets=self.buckets, block_len=self.block_len, max_len=max_len,
+            buckets=self.buckets if self._bucketed else None,
+            block_len=self.block_len, max_len=max_len,
             prefill_chunk=prefill_chunk, max_prefill_tokens=max_prefill_tokens)
+        if paged and not self._bucketed:
+            blk_kinds = set(cfg.block_pattern) | {cfg.shared_block} - {None}
+            raise ValueError(
+                "paged KV requires an attention-cache-only arch "
+                f"(block pattern {sorted(blk_kinds)} includes recurrent "
+                "blocks); serve it with kv_impl='dense'")
+        if prefix_cache and not paged:
+            raise ValueError(
+                "prefix_cache shares KV pool blocks through the block-"
+                "table indirection; serve it with kv_impl='paged' (the "
+                "dense plane has per-slot buffers, nothing to share)")
         #: piece width of a prefill (module docstring), None for whole rows
-        self.prefill_piece = (self.block_len if prefix_cache and
-                              "mla_moe" not in cfg.block_pattern else None)
+        self.prefill_piece = (self.block_len if prefix_cache and not
+                              set(tf.MOE_KINDS) & set(cfg.block_pattern) else None)
         if prefill_batch is None:
             prefill_batch = (slots if prefill_chunk is not None and paged
                              and not self.prefill_piece else 1)
@@ -533,8 +570,10 @@ class ServeEngine:
         if self.pager is not None:
             need = self._blocks_for(req)
             if need > self.pager.capacity:
-                return (f"needs {need} KV blocks worst-case but the pool has "
-                        f"{self.pager.capacity} allocatable")
+                return (f"needs {need} KV blocks worst-case — admission "
+                        f"budgets the unshared footprint, which with no "
+                        f"prefix hit is the whole request — but the pool "
+                        f"has {self.pager.capacity} allocatable")
         return None
 
     def submit(self, req: Request) -> None:

@@ -36,11 +36,15 @@ def _no_compress(compress: bool) -> None:
 
 
 def _check_trainable(cfg) -> None:
-    if set(cfg.block_pattern) != {"dense"}:
+    """The port trains dense GQA models; MLA, MoE (gqa_moe, mla_moe) and
+    the recurrent kinds (mamba2, mlstm, slstm, Zamba2's shared block) are
+    served only."""
+    if set(cfg.block_pattern) != {"dense"} or cfg.shared_block is not None:
         raise NotImplementedError(
-            f"training block pattern {sorted(set(cfg.block_pattern))} is not "
-            "ported yet (ROADMAP A.11: MLA/MoE training); the port trains "
-            "dense GQA models and serves MLA/MoE ones")
+            f"training block pattern {sorted(set(cfg.block_pattern))} "
+            f"(shared block {cfg.shared_block!r}) is not ported yet (ROADMAP "
+            "A.11: MLA, MoE and recurrent training); the port trains dense "
+            "GQA models and serves the others")
 
 
 def named_params(params) -> Dict[str, torch.Tensor]:
