@@ -16,7 +16,8 @@ change, change, parent; each run appends one JSON line to ``--out``, and
 ``--save`` writes the kernels' outputs for a bit-for-bit comparison. The
 third form does the same for the row kernels: act_2d (each op at its
 shapes), silu_mul_2d, softmax_2d, log_softmax_2d and act_q_2d. The fourth
-runs the build and phases 4 (j)-(k) alone.
+runs the build, phases 4 (j)-(l) and the train identities of (l)'s block
+kinds alone.
 
 Phases of the first form, each of which must pass (the script exits non-zero otherwise):
 
@@ -101,17 +102,30 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             layers and command-r-plus to 8 (the weights one card holds),
             each on the paged plane with the decode kernel (gqa_decode a
             layer every decode step), with the gather and on the dense
-            plane, match counts reported. Every kernel of a path must have
-            launched, and under grad the fused SwiGLU kernel must not (the
-            JAX rule's primal).
+            plane, match counts reported; also musicgen-large
+            (48 layers, GELU MLP, MHA: gqa_decode's G 1 at hd 64) and
+            internvl2-1b (24 layers, G 7, hd 64, vocab 151,655) at full
+            depth on token ids, each group width held against plain first;
+            (l) log_softmax_2d at each trained arch's vocabulary (2,048 to
+            151,655 lanes) against plain, then training every block kind at
+            full width, depth cut (TRAIN_ARCHS: deepseek-v2-lite 3 layers,
+            phi3.5-moe 2, xlstm 8, zamba2 12, musicgen-large 4, internvl2-1b
+            4), float32 master weights, 8 x 32 tokens: remat "full" and
+            "dots" gradients bit-equal to "none" (each forward kernel
+            launched twice), 4 steps with the loss falling, an eval step, a
+            step with int8 error-feedback compression, 3 profiled steps.
+            Every kernel of a path must have launched, and under grad the
+            fused SwiGLU kernel must not (the JAX rule's primal).
 5. identity the Yi and DeepSeek-V2-Lite smoke configs in float32, on both
             datapaths, and Yi's on int8 and Q2.14 pools and with the prefix
             cache: tokens served on the card with the kernels equal the
             CPU's tokens with the plain versions (and, on int8, the card's
             gather attend's); both archs with chunked, multi-row prefill
             (and their ``score``) too; both archs on the dense plane, all
-            greedy and with the sampling mix; 5 Yi train steps' losses on
-            the card agree with the CPU's.
+            greedy and with the sampling mix; 5 train steps' losses on the
+            card agree with the CPU's, for Yi, DeepSeek-V2-Lite,
+            Phi-3.5-MoE, xLSTM and Zamba2, each beside the CPU's own spread
+            from weights one ulp up.
 
 The line before the last holds {"kernels": [...]} (one entry per kernel:
 launches on its path, max error against plain, times, bound); the last line
@@ -396,6 +410,32 @@ def times(torch, fn, kernel=None, iters: int = 20, warmup: int = 2, parts=None):
             host_ms(torch, fn, iters, warmup))
 
 
+def plain_call(torch, plain):
+    """The plain version's output for a check, and that one call's time:
+    CUDA events around it, queued behind a device sleep (host gaps
+    included), as ``device_ms`` falls back to for a window of thousands of
+    launches. Returns (output, (ms, None)): no call beyond the check's, and
+    no host-to-host figure."""
+    if DEV != "cuda":                       # rehearsal on the CPU
+        t0 = time.perf_counter()
+        out = plain()
+        return out, ((time.perf_counter() - t0) * 1e3, None)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    out = plain()
+    end.record()
+    torch.cuda.synchronize()
+    return out, (start.elapsed_time(end), None)
+
+
+def sub_phase(name: str, t0: list) -> None:
+    """Log the wall time of a part of a phase since ``t0[0]``; resets it."""
+    now = time.perf_counter()
+    log(f"[time]   {name}: {now - t0[0]:.1f} s")
+    t0[0] = now
+
+
 class Card:
     def __init__(self, torch):
         props = torch.cuda.get_device_properties(0)
@@ -446,6 +486,8 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
         f"{build_ms:.2f} ms (first use, host clock, synchronized): equal to "
         f"the plain builders {same}")
     check(same, "the card's code tables differ from the plain builders")
+    t_sub = [time.perf_counter()]
+    sub_phase("kernels (0) code tables", t_sub)
 
     # (1) act_2d: every Q2.14 code in [-1, 1] against the golden file, then
     # a (d_model, d_ff) = (4096, 11008) map bit-exact against plain
@@ -483,6 +525,7 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
         kernel=times(torch, lambda: K.act_2d(big, "sigmoid"), "act_kernel"),
         plain=times(torch, lambda: K.act_2d_plain(big, "sigmoid"), None, 3, 1),
         library=times(torch, lambda: torch.sigmoid(big)))
+    sub_phase("kernels (1) act_2d sigmoid", t_sub)
 
     # (2) silu_mul_2d at the decode (4 x d_ff), prefill (16 x d_ff) and
     # eval-step (B*S x d_ff = 256 x d_ff) shapes, bfloat16 (timed) and
@@ -515,6 +558,7 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
             f"aligned and not, and in Q2.20); {fmt_times(rec)}")
         if name == "decode":
             records["silu_mul_2d"] = rec
+    sub_phase("kernels (2) silu_mul_2d", t_sub)
 
     # (3) softmax_2d at the prefill attend shape: rows H*S = 32*16, cols
     # M*L = 128, causal mask of an 11-token prompt in a 16-wide bucket
@@ -575,9 +619,12 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
     log(f"[softmax_2d] long prefill attend {rec['shape']} causal: bit-exact, and in "
         f"Q2.20; {fmt_times(rec)}")
     del sl, a, b
+    sub_phase("kernels (3) softmax_2d", t_sub)
     dense_decode_softmax(torch, card, SM, ycfg, gen, ops)
+    sub_phase("kernels (3b) softmax_2d dense decode", t_sub)
 
     decode_kernels(torch, card, records, ycfg, dcfg, ops)
+    t_sub[0] = time.perf_counter()
     # (5) log_softmax_2d at the loss shape: (B*S, V) = (256, 64000) float32
     # logits with a masked tail (-1e30) on some rows, bit-exact
     rows, V = TRAIN_BATCH * TRAIN_SEQ, ycfg.vocab_size
@@ -608,6 +655,7 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
         plain=times(torch, lambda: SM.log_softmax_2d_plain(z), None, 3, 1),
         library=times(torch, lambda: torch.log_softmax(z, dim=-1)))
     del z, zo, a, b
+    sub_phase("kernels (5) log_softmax_2d", t_sub)
 
     # (6) act_2d exp, log, softplus, elu at the train path's MLP shape
     # (B*S, d_ff) = (256, 11008), float32 and bfloat16, bit-exact
@@ -636,6 +684,7 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
                 library=times(torch, lambda: torch.sigmoid(xg)))
     log(f"[act_2d] sigmoid_wide {rec['shape']} bf16 (a train step's launch): "
         f"{fmt_times(rec)}")
+    sub_phase("kernels (6) act_2d exp, log, softplus, elu, gelu_erf, sigmoid_wide", t_sub)
 
     # (7) the exp and log cores against their Q2.14 golden codes, as
     # tests/test_golden_vectors.py reads them
@@ -654,9 +703,11 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
         f"from tests/golden/exp_q2_14.npz; log over {mq.numel()} mantissa codes: "
         f"{n_log} differ from tests/golden/log_q2_14.npz")
     check(n_exp == 0 and n_log == 0, "exp/log codes differ from the golden vectors")
+    sub_phase("kernels (7) golden exp, log", t_sub)
 
     # (8) act_q_2d: the table route and the pipeline (act_q_phase)
     act_q_phase(torch, card, records, ycfg, ops, q20)
+    sub_phase("kernels (8) act_q_2d", t_sub)
 
     # (10) the reused kernels at DeepSeek-V2-Lite's serve shapes, bit-exact:
     # act_2d sigmoid_wide of the MoE experts' gate at decode, (G, E, C, f)
@@ -691,6 +742,7 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
     log(f"[deepseek shapes] silu_mul_2d {list(g.shape)} bf16 bit-exact; "
         f"softmax_2d {list(sd.shape)} max |kernel - plain| "
         f"{float((a - b).abs().max()):.3e} (bit-equal {bool(torch.equal(a, b))})")
+    sub_phase("kernels (10) DeepSeek shapes", t_sub)
 
     # (11) act_2d gelu_erf (the registry's get_activation("gelu_erf",
     # "cordic_pallas")) on the (d_model, d_ff) = (4096, 11008) map of (1),
@@ -714,6 +766,7 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
         library=times(torch, lambda: torch.nn.functional.gelu(xe, approximate="none")))
     log(f"[act_2d] gelu_erf {list(xe.shape)} float32 and bfloat16: bit-exact "
         "against plain")
+    sub_phase("kernels (11) act_2d gelu_erf", t_sub)
 
     for name in ("act_2d", "softmax_2d", "log_softmax_2d", "act_q_2d",
                  "act_2d[gelu_erf]"):
@@ -880,6 +933,7 @@ def decode_kernels(torch, card, records, ycfg, dcfg, ops):
 
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(0)
+    t_sub = [time.perf_counter()]
     # (4) gqa_decode at Yi's decode shape, ragged and vacant slots
     B, KH, L, M = SLOTS, ycfg.num_kv_heads, BLOCK_LEN, MAX_LEN // BLOCK_LEN
     G, hd = ycfg.num_heads // KH, ycfg.head_dim
@@ -901,7 +955,8 @@ def decode_kernels(torch, card, records, ycfg, dcfg, ops):
     for impl in ("cordic_pallas", "exact", "cordic_fixed"):
         a = PA.gqa_decode(q, kp, vp, tables, k_len, softmax_impl=impl, **kw)
         DECODE_OUTPUTS[f"gqa_decode[{impl}]"] = a.cpu()
-        b = PA.gqa_decode_plain(q, kp, vp, tables, k_len, softmax_impl=impl, **kw)
+        b, plain_t = plain_call(torch, lambda: PA.gqa_decode_plain(
+            q, kp, vp, tables, k_len, softmax_impl=impl, **kw))
         err = float((a - b).abs().max())
         # stated tolerance: the reference's own ATOL 2e-5 and argmax
         # identity; the CORDIC impls (one summation order per output row,
@@ -925,13 +980,14 @@ def decode_kernels(torch, card, records, ycfg, dcfg, ops):
             kernel=times(torch, lambda: PA.gqa_decode(
                 q, kp, vp, tables, k_len, softmax_impl=impl, **kw),
                 "gqa_decode_kernel", parts=phases),
-            plain=times(torch, lambda: PA.gqa_decode_plain(
-                q, kp, vp, tables, k_len, softmax_impl=impl, **kw), None, 2, 1))
+            plain=plain_t)
         log(f"[gqa_decode] {impl} B={B} KH={KH} G={G} hd={hd} L={L} M={M} "
             f"k_len={[max(k, 1) for k in klens]}: max |kernel - plain| {err:.3e} "
             f"(bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
         records["gqa_decode" + ("" if impl == "cordic_pallas" else f"[{impl}]")] = rec
+    sub_phase("kernels (4) gqa_decode", t_sub)
     quant_decode_kernel(torch, card, records, q, tables, k_len, klens, gen, ops)
+    sub_phase("kernels (4b) gqa_decode kv_quant", t_sub)
 
     # (9) mla_decode at DeepSeek-V2-Lite's decode shape: B 4 slots, H 16,
     # R 512 (kv_lora), P 64 (rope), L 16, M 8; the block tables and
@@ -948,7 +1004,8 @@ def decode_kernels(torch, card, records, ycfg, dcfg, ops):
     for impl in ("cordic_pallas", "exact", "cordic_fixed"):
         a = PA.mla_decode(*args, softmax_impl=impl, **kw)
         DECODE_OUTPUTS[f"mla_decode[{impl}]"] = a.cpu()
-        b = PA.mla_decode_plain(*args, softmax_impl=impl, **kw)
+        b, plain_t = plain_call(torch, lambda: PA.mla_decode_plain(
+            *args, softmax_impl=impl, **kw))
         err = float((a - b).abs().max())
         # stated tolerance: one summation order on both sides, so equal on
         # the CORDIC path; the exact path's expf may differ from torch.exp
@@ -970,14 +1027,15 @@ def decode_kernels(torch, card, records, ycfg, dcfg, ops):
                  bound_ms=bound, bound_by=by, phases=phases),
             kernel=times(torch, lambda: PA.mla_decode(*args, softmax_impl=impl, **kw),
                          "mla_decode_kernel", parts=phases),
-            plain=times(torch, lambda: PA.mla_decode_plain(
-                *args, softmax_impl=impl, **kw), None, 2, 1))
+            plain=plain_t)
         log(f"[mla_decode] {impl} B={B} H={H} R={R} P={P} L={L} M={M} "
             f"k_len={[max(k, 1) for k in klens]}: max |kernel - plain| {err:.3e} "
             f"(bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
         records["mla_decode" + ("" if impl == "cordic_pallas" else f"[{impl}]")] = rec
+    sub_phase("kernels (9) mla_decode", t_sub)
 
     long_decode_kernels(torch, card, records, ycfg, dcfg, gen, ops)
+    sub_phase("kernels (9b) decode kernels at the long shape", t_sub)
 
 
 def quant_decode_kernel(torch, card, records, q, tables, k_len, klens, gen, ops):
@@ -1007,13 +1065,16 @@ def quant_decode_kernel(torch, card, records, q, tables, k_len, klens, gen, ops)
         kq, vq = kvq.quantize(kf, spec, ks), kvq.quantize(vf, spec, vs)
         qkw = dict(scale=1.0 / math.sqrt(hd), kv_quant=fmt, k_scale_pool=ks,
                    v_scale_pool=vs)
-        errs = {}
+        errs, plain_t = {}, None
         for impl in ("exact", "cordic_fixed", "cordic_pallas"):
             for dt in (torch.float32, torch.bfloat16):
                 args = (q32.to(dt), kq, vq, tables, k_len)
                 a = PA.gqa_decode(*args, softmax_impl=impl, kv_dtype=dt, **qkw)
-                b = PA.gqa_decode_plain(*args, softmax_impl=impl, kv_dtype=dt,
-                                        **qkw)
+                # the serving instantiation's plain call is also its timing
+                b, t = plain_call(torch, lambda: PA.gqa_decode_plain(
+                    *args, softmax_impl=impl, kv_dtype=dt, **qkw))
+                if (impl, dt) == ("cordic_pallas", torch.bfloat16):
+                    plain_t, b_serve = t, b
                 err = float((a - b).abs().max())
                 errs[(impl, str(dt)[6:])] = err
                 check(bool(torch.isfinite(a).all()), f"gqa_decode[{fmt}] finite")
@@ -1035,7 +1096,7 @@ def quant_decode_kernel(torch, card, records, q, tables, k_len, klens, gen, ops)
         kw = dict(qkw, softmax_impl="cordic_pallas", kv_dtype=torch.bfloat16)
         a = PA.gqa_decode(qb, kq, vq, tables, k_len, **kw)
         DECODE_OUTPUTS[f"gqa_decode[{fmt}]"] = a.cpu()
-        b = PA.gqa_decode_plain(qb, kq, vq, tables, k_len, **kw)
+        b = b_serve
         code_bytes = kq.element_size()
         nbytes = (qb.numel() * 2 + 2 * live_blocks * L * KH * hd * code_bytes
                   + 2 * live_blocks * KH * 4 + tables.numel() * 4
@@ -1050,8 +1111,7 @@ def quant_decode_kernel(torch, card, records, q, tables, k_len, klens, gen, ops)
                  phases=phases),
             kernel=times(torch, lambda: PA.gqa_decode(qb, kq, vq, tables, k_len, **kw),
                          "gqa_decode_kernel", parts=phases),
-            plain=times(torch, lambda: PA.gqa_decode_plain(
-                qb, kq, vq, tables, k_len, **kw), None, 2, 1))
+            plain=plain_t)
         log(f"[gqa_decode[{fmt}]] cordic_pallas bf16 B={B} KH={KH} G={G} hd={hd} "
             f"L={L} M={M} k_len={[max(k, 1) for k in klens]}: max |kernel - "
             f"plain| {rec['max_abs_err']:.3e}; {fmt_times(rec)}")
@@ -1158,11 +1218,7 @@ def long_decode_kernels(torch, card, records, ycfg, dcfg, gen, ops):
         if tiled:
             check(torch.equal(fn(plan=tiled[kernel.removesuffix('_kernel')]), a),
                   f"{name}: 16-block softmax tiles differ from one tile")
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        b = plain()
-        end.record()
-        torch.cuda.synchronize()
+        b, (plain_ms, _) = plain_call(torch, plain)
         err = float((a - b).abs().max())
         check(bool(torch.isfinite(a).all()), f"{name}: finite")
         check(err == 0.0 if impl != "exact" else err < 2e-5,
@@ -1171,11 +1227,11 @@ def long_decode_kernels(torch, card, records, ycfg, dcfg, gen, ops):
               f"{name}: argmax moved against plain")
         bound, by = card.bound(nbytes, int_ops, flops)
         phases = {}
-        ms, hms = times(torch, fn, kernel, 10, 200, phases)
+        ms, hms = times(torch, fn, kernel, 10, 20, phases)
         rec = dict(shape=[B, M, N], impl=impl, klens=LONG_KLENS, max_abs_err=err,
                    phases=phases,
                    bit_equal=bool(torch.equal(a, b)), bound_ms=bound, bound_by=by,
-                   ms=ms, host_ms=hms, plain_ms=start.elapsed_time(end),
+                   ms=ms, host_ms=hms, plain_ms=plain_ms,
                    plain_host_ms=None, library_ms=None, library_host_ms=None)
         records[name] = rec
         log(f"[{name}] rows {rows}, k_len {LONG_KLENS}: max |kernel - plain| "
@@ -1197,9 +1253,11 @@ def timed(rec, kernel, plain, library=None):
 def fmt_times(r) -> str:
     lib = (f", library {r['library_ms']:.4f} ms (host {r['library_host_ms']:.4f})"
            if r["library_ms"] is not None else "")
+    plain = (f"plain {r['plain_ms']:.4f} ms (host {r['plain_host_ms']:.2f})"
+             if r["plain_host_ms"] is not None else
+             f"plain, one check call {r['plain_ms']:.1f} ms (CUDA events)")
     return (f"device {r['ms']:.4f} ms per call (host-to-host {r['host_ms']:.4f} "
-            f"ms); plain {r['plain_ms']:.4f} ms (host {r['plain_host_ms']:.2f})"
-            f"{lib}; bound {r['bound_ms']:.5f} ms by {r['bound_by']}")
+            f"ms); {plain}{lib}; bound {r['bound_ms']:.5f} ms by {r['bound_by']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1385,9 +1443,9 @@ def serve_path(torch, build, arch):
 def serve_run(torch, build, arch, cfg, model, kv_quant="none", n_prof=None):
     """The launcher's traffic through one engine, launch counts zeroed just
     before and read just after; step times, TTFT, memory, a profile of
-    ``n_prof`` decode steps (None: 6 on the kernels' datapath, 1 on the
-    plain one, whose ~40,000 launches a step the profiler books slowly; 0:
-    none)."""
+    ``n_prof`` decode steps (None: 6 on the kernels' datapath, none on the
+    plain one, whose ~40,000 launches a step the profiler booked in ~27 s a
+    step; 0: none)."""
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import transformer as tf
     from repro_torch.serve.engine import ServeEngine
@@ -1452,10 +1510,10 @@ def serve_run(torch, build, arch, cfg, model, kv_quant="none", n_prof=None):
         f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     log(f"{tag} tokens " + json.dumps({r.rid: r.out for r in done}))
     # the plain datapath issues ~40,000 launches a step; the profiler's
-    # bookkeeping of them is slow, so it profiles fewer steps
+    # bookkeeping of them is slow, so it is not profiled
     t0 = time.perf_counter()
     if n_prof is None:
-        n_prof = 6 if cfg.act_impl == "cordic_pallas" else 1
+        n_prof = 6 if cfg.act_impl == "cordic_pallas" else 0
     stats["profile"] = (profile_steps(torch, eng, cfg, SERVE_PROFILE[arch], n_prof)
                         if n_prof else None)
     log(f"[time] {tag} profile of {n_prof} steps: {time.perf_counter() - t0:.1f} s")
@@ -2078,7 +2136,13 @@ RECURRENT_ARCHS = ("xlstm-1.3b", "zamba2-1.2b")
 #: GB and deepseek-coder-33b 67.2 GB whole; phi3.5-moe's 32 layers are 84
 #: GB of experts alone and command-r-plus's 64 layers 201 GB
 ATTENTION_ARCHS = {"qwen2.5-32b": None, "deepseek-coder-33b": None,
-                   "phi3.5-moe-42b-a6.6b": 16, "command-r-plus-104b": 8}
+                   "phi3.5-moe-42b-a6.6b": 16, "command-r-plus-104b": 8,
+                   # the embeds archs, served on token ids as the
+                   # launcher serves them, at full depth
+                   "musicgen-large": None, "internvl2-1b": None}
+#: gqa_decode's record of each arch whose decode shape is a new group width
+#: (held against plain in group_check)
+GROUP_RECORDS = {"qwen2.5-32b": "G5", "musicgen-large": "G1", "internvl2-1b": "G7"}
 #: the recurrent pair's cordic_fixed serve, cut to fit the time limit
 #: (plain Q2.14 SiLUs: ~850 host operations a call, ~0.8 s a decode step)
 FIXED_REQUESTS, FIXED_MAX_NEW = 4, 8
@@ -2384,22 +2448,30 @@ RESULTS = {}
 
 
 def archs_paths(torch, build, card, records, ops):
-    """(j) and (k): the recurrent pair, then the attention archs, each
-    checked for the kernels its path must launch. Returns ({arch: {datapath:
-    launch counts}}, {arch: launch counts})."""
+    """(j), (k) and (l): the recurrent pair, then the attention archs, each
+    checked for the kernels its path must launch, then log_softmax_2d at
+    each trained vocabulary and the train path of every block kind. Returns
+    ({arch: {datapath: launch counts}}, {arch: launch counts}, {arch: launch
+    counts of its train steps})."""
     rec = {}
     for arch in RECURRENT_ARCHS:
         rec[arch] = recurrent_path(torch, build, arch)
         phase_done(f"path recurrent {arch}")
     att = attention_archs_path(torch, build, card, records, ops)
     phase_done("path attention archs")
-    return rec, att
+    vocab_log_softmax(torch, card, records, ops)
+    phase_done("kernels log_softmax_2d at the trained vocabularies")
+    train = train_archs_path(torch, build)
+    phase_done("path train archs")
+    return rec, att, train
 
 
-def group_of_five(torch, card, records, cfg, ops):
-    """gqa_decode at qwen2.5-32b's decode shape (B 4, KH 8, G 5, hd 128, L 16,
-    M 8: a group width no earlier arch had) on the launcher's ragged tables,
-    against its plain version: bit-equal on the kernels' datapath."""
+def group_check(torch, card, records, cfg, ops, name):
+    """gqa_decode at an arch's decode shape on the launcher's ragged tables
+    (B 4, L 16, M 8; qwen2.5-32b: KH 8, G 5, hd 128; musicgen-large: KH 32,
+    G 1, hd 64; internvl2-1b: KH 2, G 7, hd 64: group widths and head dims
+    no earlier record had), against its plain version: bit-equal on the
+    kernels' datapath. Recorded as ``gqa_decode[<name>]``."""
     from repro_torch.kernels import paged_attention as PA
 
     dev = torch.device(DEV)
@@ -2421,7 +2493,7 @@ def group_of_five(torch, card, records, cfg, ops):
     kw = dict(scale=1.0 / math.sqrt(hd), kv_dtype=torch.bfloat16,
               softmax_impl="cordic_pallas")
     a = PA.gqa_decode(q, kp, vp, tables, k_len, **kw)
-    b = PA.gqa_decode_plain(q, kp, vp, tables, k_len, **kw)
+    b, plain_t = plain_call(torch, lambda: PA.gqa_decode_plain(q, kp, vp, tables, k_len, **kw))
     err = float((a - b).abs().max())
     check(bool(torch.isfinite(a).all()) and err == 0.0,
           f"gqa_decode G={G}: |kernel - plain| {err} (bit-equal)")
@@ -2434,11 +2506,10 @@ def group_of_five(torch, card, records, cfg, ops):
                      max_abs_err=err, bit_equal=True, bound_ms=bound, bound_by=by),
                 kernel=times(torch, lambda: PA.gqa_decode(q, kp, vp, tables, k_len, **kw),
                              "gqa_decode_kernel"),
-                plain=times(torch, lambda: PA.gqa_decode_plain(
-                    q, kp, vp, tables, k_len, **kw), None, 2, 1))
+                plain=plain_t)
     log(f"[gqa_decode] {cfg.name} B={B} KH={KH} G={G} hd={hd} L={L} M={M}: max "
         f"|kernel - plain| {err:.3e} (bit-equal); {fmt_times(rec)}")
-    records["gqa_decode[G5]"] = rec
+    records[f"gqa_decode[{name}]"] = rec
 
 
 def attention_archs_path(torch, build, card, records, ops):
@@ -2459,7 +2530,8 @@ def attention_archs_path(torch, build, card, records, ops):
     for arch, layers in ATTENTION_ARCHS.items():
         t_arch = time.perf_counter()
         full = configs.get_config(arch, act_impl="cordic_pallas")
-        cfg = dataclasses.replace(full, softmax_impl="cordic_pallas")
+        # the launcher's switch: the embeds archs serve on token ids
+        cfg = dataclasses.replace(full, softmax_impl="cordic_pallas", input_mode="tokens")
         cut = "nothing cut"
         if layers:
             cfg = dataclasses.replace(cfg, num_layers=layers,
@@ -2467,15 +2539,15 @@ def attention_archs_path(torch, build, card, records, ops):
             cut = (f"depth cut {full.num_layers} -> {layers} layers "
                    f"({full.param_counts()['total'] / 1e9:.1f}B params do not fit one card)")
         tag = f"[path attention {arch}]"
-        if cfg.num_heads // cfg.num_kv_heads == 5:
-            group_of_five(torch, card, records, cfg, ops)
+        if arch in GROUP_RECORDS:
+            group_check(torch, card, records, cfg, ops, GROUP_RECORDS[arch])
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         model = tf.init(cfg, seed=0, device=DEV)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in model.parameters())
         moe = (f", {cfg.moe.num_experts} experts x {cfg.moe.d_ff_expert} top-"
-               f"{cfg.moe.top_k}" if cfg.moe else "")
+               f"{cfg.moe.top_k}" if cfg.moe else f", {cfg.mlp_kind} MLP")
         log(f"{tag} {cfg.num_layers} layers {sorted(set(cfg.block_pattern))}, d_model "
             f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads (group "
             f"{cfg.num_heads // cfg.num_kv_heads}), d_ff {cfg.d_ff}{moe}, vocab "
@@ -2496,8 +2568,10 @@ def attention_archs_path(torch, build, card, records, ops):
               f"{tag} gqa_decode launched {c.get('gqa_decode', 0)} times, not "
               f"{cfg.num_layers} x {st['decode_steps']} decode steps")
         check(c.get("softmax_2d", 0) > 0, f"{tag} the prefill never launched softmax_2d")
-        check(c.get("act_2d" if cfg.moe else "silu_mul_2d", 0) > 0,
-              f"{tag} the FFN never launched its kernel")
+        # the MoE's SiLU (F2) and the GELU MLP's tanh run act_2d, the SwiGLU
+        # silu_mul_2d
+        ffn_kernel = "silu_mul_2d" if cfg.moe is None and cfg.mlp_kind == "swiglu" else "act_2d"
+        check(c.get(ffn_kernel, 0) > 0, f"{tag} the FFN never launched {ffn_kernel}")
         log(f"{tag} tokens (paged kernel) {json.dumps(st['out'])}")
         for name in ("paged gather", "dense"):
             log(f"{tag} greedy match, paged kernel against {name}: "
@@ -2665,6 +2739,227 @@ def train_path(torch, build):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4l: the train path of every block kind
+# ---------------------------------------------------------------------------
+#: each arch at full width, depth cut to what one card holds beside float32
+#: master weights, AdamW's moments, the error-feedback buffers and a second
+#: set of gradients (the remat comparison): layers kept. deepseek: 1
+#: mla_dense + 2 mla_moe; xlstm: 7 mLSTM + 1 sLSTM; zamba2: 12 Mamba2 layers,
+#: the shared block applied twice
+TRAIN_ARCHS = {"deepseek-v2-lite-16b": 3, "phi3.5-moe-42b-a6.6b": 2,
+               "xlstm-1.3b": 8, "zamba2-1.2b": 12, "musicgen-large": 4,
+               "internvl2-1b": 4}
+#: their vocabularies: log_softmax_2d's widths on the loss
+TRAIN_VOCABS = {"deepseek-v2-lite-16b": 102400, "phi3.5-moe-42b-a6.6b": 32064,
+                "xlstm-1.3b": 50304, "zamba2-1.2b": 32000, "musicgen-large": 2048,
+                "internvl2-1b": 151655}
+#: steps on one batch, the loss falling; steps under the profiler
+TRAIN_ARCH_STEPS, TRAIN_PROFILE_STEPS = 4, 3
+
+
+def vocab_log_softmax(torch, card, records, ops):
+    """log_softmax_2d at each trained arch's vocabulary (TRAIN_VOCABS): the
+    loss's (B*S, V) = (256, V) float32 logits, a masked tail on some rows,
+    against its plain version, bit-equal, timed beside torch.log_softmax.
+    151,655 lanes (internvl2-1b) is the first odd width on a main path: the
+    scalar route, not the 16-byte one."""
+    from repro_torch.kernels import softmax_cordic as SM
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    for V in sorted(set(TRAIN_VOCABS.values())):
+        z = torch.randn(rows, V, generator=gen, device=dev) * 3
+        z[:8, V - V // 64:] = -1e30
+        a = SM.log_softmax_2d(z)
+        b, plain_t = plain_call(torch, lambda: SM.log_softmax_2d_plain(z))
+        err = float((a - b).abs().max())
+        check(torch.equal(a, b) and math.isfinite(err),
+              f"log_softmax_2d at {V} lanes differs from its plain version")
+        live = int((z - z.amax(-1, keepdim=True) >= -20.0).sum())
+        bound, by = card.bound(8 * z.numel(), ops["log_softmax_lane_tab"] * live
+                               + ops["log_row"] * rows, 3 * z.numel())
+        rec = timed(dict(shape=[rows, V], dtype="float32", max_abs_err=err,
+                         bound_ms=bound, bound_by=by),
+                    kernel=times(torch, lambda: SM.log_softmax_2d(z), "log_softmax_"),
+                    plain=plain_t,
+                    library=times(torch, lambda: torch.log_softmax(z, dim=-1)))
+        records[f"log_softmax_2d[V{V}]"] = rec
+        log(f"[log_softmax_2d] {[rows, V]}: bit-exact; plan {SM.log_softmax_plan(V)}; "
+            f"{fmt_times(rec)}")
+        del z, a, b
+
+
+def train_arch_cfg(configs, arch):
+    """(full config, the trained one): TRAIN_ARCHS[arch] layers, float32
+    master weights over the config's compute dtype, every datapath on the
+    CORDIC kernels, token inputs (the launcher's switch for the embeds
+    archs)."""
+    import dataclasses
+
+    full = configs.get_config(arch, act_impl="cordic_pallas")
+    n = min(TRAIN_ARCHS[arch], full.num_layers)
+    return full, dataclasses.replace(
+        full, num_layers=n, block_pattern=full.block_pattern[:n], input_mode="tokens",
+        softmax_impl="cordic_pallas", loss_impl="cordic_pallas")
+
+
+def train_archs_path(torch, build):
+    """(l) Each arch of TRAIN_ARCHS trained at full width (train_arch).
+    Returns {arch: launch counts of its TRAIN_ARCH_STEPS steps}."""
+    out = {}
+    for arch in TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = train_arch(torch, build, arch)
+        log(f"[time] [path train {arch}]: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def train_arch(torch, build, arch):
+    """One arch through the train step a user runs (train/step.py), random
+    weights from seed 0, on batch_at(0) of the loop's pipeline (8 x 32
+    tokens): (1) the gradients of the initial weights under remat "full"
+    and "dots", bit-equal to "none" (deterministic algorithms on), each
+    forward kernel launched twice under "full" (once where the shared block
+    runs: it is not wrapped, as in JAX); (2) TRAIN_ARCH_STEPS steps, the
+    loss falling, every gradient norm finite, the launches checked: act_2d
+    and log_softmax_2d always, softmax_2d where the arch has attention,
+    silu_mul_2d never (F1); (3) an eval step; (4) one step with int8
+    error-feedback compression; (5) TRAIN_PROFILE_STEPS steps under the
+    profiler: the device's idle share. Step p50 (host clock, ending in
+    loss.item()) and peak memory of (2)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.distributed import compression as comp
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as loop_lib
+    from repro_torch.train import step as step_lib
+
+    full, cfg = train_arch_cfg(configs, arch)
+    tag = f"[path train {arch}]"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw.AdamWConfig(lr=DESCENT_LR)
+    state = step_lib.init_state(cfg, 0, opt, device=DEV)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    kinds = {k: cfg.block_pattern.count(k) for k in sorted(set(cfg.block_pattern))}
+    log(f"{tag} {cfg.num_layers} of {full.num_layers} layers {kinds}"
+        + (f" + {tf.num_shared_apps(cfg)} applications of the shared block"
+           if cfg.shared_block else "")
+        + f", d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
+        f"{cfg.vocab_size}, compute {cfg.dtype}, float32 master weights: "
+        f"{n_params / 1e9:.3f}B params; batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    batch = loop_lib.to_device(SyntheticLMDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=0)).batch_at(0), DEV)
+    attends = bool(set(cfg.block_pattern) & set(tf.ATTENTION_KINDS)) or cfg.shared_block
+
+    # (1) remat: the same gradients, the forward kernels launched twice
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        build.reset_launches()
+        _, _, g_none = step_lib.grads_of(state.params, batch, cfg)
+        torch.cuda.synchronize()
+        base = dict(build.LAUNCHES)
+        for mode in ("full", "dots"):
+            build.reset_launches()
+            _, _, g = step_lib.grads_of(state.params, batch,
+                                        dataclasses.replace(cfg, remat=mode))
+            torch.cuda.synchronize()
+            counts = dict(build.LAUNCHES)
+            same = [k for k in g_none if not torch.equal(g[k], g_none[k])]
+            log(f"{tag} remat={mode}: gradients bit-equal to remat=none on "
+                f"{len(g_none) - len(same)} of {len(g_none)} leaves; launches {counts} "
+                f"(none: {base})")
+            check(not same, f"{tag} remat={mode} gradients differ from none: {same[:5]}")
+            # each block's forward kernels run again in the backward; the
+            # shared block's (unwrapped) once
+            for k in ("act_2d", "softmax_2d"):
+                n0, n1 = base.get(k, 0), counts.get(k, 0)
+                check(n1 == 2 * n0 if cfg.shared_block is None else n0 <= n1 <= 2 * n0,
+                      f"{tag} remat={mode}: {k} launched {n1} times against {n0}")
+            check(counts["act_2d"] > base["act_2d"], f"{tag} remat={mode}: no recompute")
+            check(counts.get("log_softmax_2d", 0) == base.get("log_softmax_2d", 0),
+                  f"{tag} remat={mode}: the loss is outside the blocks")
+            del g
+        del g_none
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # (2) steps on one batch: the loss falls
+    train_step = step_lib.make_train_step(cfg, opt, warmup_steps=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    losses, gns, dts = [], [], []
+    for _ in range(TRAIN_ARCH_STEPS):
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        losses.append(m["loss"].item())
+        dts.append(time.perf_counter() - t0)
+        gns.append(float(m["grad_norm"]))
+    counts = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag} {TRAIN_ARCH_STEPS} steps on batch_at(0), lr {DESCENT_LR} (warmup 0): "
+        f"losses {[round(x, 5) for x in losses]}; grad norms "
+        f"{[round(x, 4) for x in gns]}; launches {counts}")
+    check(all(math.isfinite(x) for x in losses + gns), f"{tag} finite losses and grad norms")
+    check(losses[-1] < losses[0], f"{tag} the loss does not fall on a fixed batch")
+    must = ["act_2d", "log_softmax_2d"] + (["softmax_2d"] if attends else [])
+    for k in must:
+        check(counts.get(k, 0) > 0, f"{tag} a train step never launched {k}")
+    check(counts.get("silu_mul_2d", 0) == 0,
+          f"{tag} silu_mul_2d launched under grad (F1: the JAX rule's primal)")
+
+    # (3) one eval step
+    build.reset_launches()
+    em = step_lib.make_eval_step(cfg)(state.params, batch)
+    eval_loss = em["loss"].item()
+    eval_counts = dict(build.LAUNCHES)
+    check(math.isfinite(eval_loss), f"{tag} finite eval loss")
+    log(f"{tag} eval step: loss {eval_loss:.5f}; launches {eval_counts}")
+
+    # (4) one step with int8 error-feedback compression
+    state = state._replace(err=comp.init_error_state(step_lib.named_params(state.params)))
+    cstep = step_lib.make_train_step(cfg, opt, warmup_steps=0, compress=True)
+    state, m = cstep(state, batch)
+    closs = m["loss"].item()
+    err_abs = max(float(e.abs().max()) for e in state.err.values())
+    log(f"{tag} compressed step: loss {closs:.5f}, grad norm {float(m['grad_norm']):.4f}, "
+        f"largest error-feedback entry {err_abs:.3e}; peak memory with the buffers "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(math.isfinite(closs) and math.isfinite(err_abs) and err_abs > 0,
+          f"{tag} the compressed step")
+    state = state._replace(err=None)
+    torch.cuda.empty_cache()
+
+    # (5) the device's idle share over a few steps
+    def steps():
+        nonlocal state
+        for _ in range(TRAIN_PROFILE_STEPS):
+            state, mm = train_step(state, batch)
+            mm["loss"].item()
+
+    prof = profile_window(torch, steps, TRAIN_PROFILE_STEPS, f"{arch} train steps",
+                          ("act_kernel", "softmax_kernel", "log_softmax_", "nvjet", "gemm"))
+    p50 = statistics.median(dts)
+    RESULTS[f"train {arch}"] = dict(
+        layers=cfg.num_layers, params=n_params, step_ms_p50=p50 * 1e3,
+        tok_s=TRAIN_BATCH * TRAIN_SEQ / p50, peak_gib=peak / 2**30,
+        idle=prof["idle"] if prof else None, losses=losses, launches=counts)
+    idle = "not measured" if prof is None else f"{100 * prof['idle']:.1f}%"
+    log(f"{tag} step p50 {p50 * 1e3:.2f} ms over {TRAIN_ARCH_STEPS} steps "
+        f"({TRAIN_BATCH * TRAIN_SEQ / p50:.0f} tokens/s); peak memory "
+        f"{peak / 2**30:.2f} GiB; device idle {idle} over {TRAIN_PROFILE_STEPS} steps")
+    del state, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: identity on the smoke config
 # ---------------------------------------------------------------------------
 def identity_phase(torch, arch, impl, kv_quant="none", prefix_cache=False):
@@ -2795,12 +3090,28 @@ def dense_identity_phase(torch, arch):
 #: that. The recipe can amplify an ulp: JAX against itself with its
 #: weights nudged one ulp spreads by up to 9e-5 (tests/test_torch_train.py)
 TRAIN_ID_RTOL = (1e-6, 2e-5)          # step 0, later steps
+#: later steps' bound of the archs whose recipe spreads wider: the
+#: port on the CPU against itself with every weight nudged one float32 ulp
+#: (logged beside each arch's check as the recipe's own spread) moved the
+#: smoke losses by up to 3.1e-4 (deepseek-v2-lite: the nudge moves its MoE
+#: routing), 9.9e-5 (xlstm) and 7.9e-6 (zamba2) at steps 2-4, where the
+#: card moved deepseek's by 4.1e-4 (an H100, torch 2.11); about five times the
+#: spread. Step 0 keeps TRAIN_ID_RTOL[0] on every arch
+TRAIN_ID_LATER = {"deepseek-v2-lite-16b": 2e-3, "xlstm-1.3b": 5e-4,
+                  "zamba2-1.2b": 5e-5}
 
 
-def train_identity_phase(torch):
-    """The Yi smoke config in float32, 5 steps (lr 1e-2, warmup 2, total 5,
-    batch_at(0)) from the same weights: on the card with the kernels and
-    on the CPU with the plain versions."""
+#: the train identity's smoke configs: the dense model, then one
+#: of each other block kind: MLA with MoE, GQA with MoE, both recurrent
+TRAIN_ID_ARCHS = ("yi-9b", "deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b",
+                  "xlstm-1.3b", "zamba2-1.2b")
+
+
+def train_identity_phase(torch, archs=TRAIN_ID_ARCHS):
+    """Each arch's smoke config in float32, 5 steps (lr 1e-2, warmup 2,
+    total 5, batch_at(0)) from the same weights: on the card with the
+    kernels and on the CPU with the plain versions; and on the CPU from
+    the weights nudged one ulp, whose spread is logged beside the check."""
     import dataclasses
 
     from repro_torch import configs
@@ -2810,31 +3121,39 @@ def train_identity_phase(torch):
     from repro_torch.train import loop as loop_lib
     from repro_torch.train import step as step_lib
 
-    cfg = dataclasses.replace(configs.get_smoke("yi-9b", act_impl="cordic_pallas"),
-                              softmax_impl="cordic_pallas", loss_impl="cordic_pallas")
-    batch = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
-                                          global_batch=8, seed=0)).batch_at(0)
-    init = tf.init(cfg, 0, "cpu", dtype=torch.float32).state_dict()
-    losses = {}
-    for dev in ("cpu", DEV):
-        params = tf.Transformer(cfg, device=torch.device(dev), dtype=torch.float32)
-        params.load_state_dict(init)
-        state = step_lib.TrainState(
-            params, adamw.init(step_lib.named_params(params)), None)
-        train_step = step_lib.make_train_step(
-            cfg, adamw.AdamWConfig(lr=1e-2), warmup_steps=2, total_steps=5)
-        b = loop_lib.to_device(batch, dev)
-        losses[dev] = []
-        for _ in range(5):
-            state, m = train_step(state, b)
-            losses[dev].append(m["loss"].item())
-    rel = [abs(a - c) / abs(c) for a, c in zip(losses[DEV], losses["cpu"])]
-    log(f"[identity] {cfg.name} float32 train, 5 steps: card (kernels) "
-        f"{losses[DEV]} vs CPU (plain) {losses['cpu']}; relative differences "
-        f"{[f'{r:.2e}' for r in rel]} (tolerance {TRAIN_ID_RTOL[0]} at step 0, "
-        f"{TRAIN_ID_RTOL[1]} after)")
-    check(rel[0] <= TRAIN_ID_RTOL[0] and max(rel[1:]) <= TRAIN_ID_RTOL[1],
-          "card train losses differ from the CPU run")
+    for arch in archs:
+        cfg = dataclasses.replace(configs.get_smoke(arch, act_impl="cordic_pallas"),
+                                  softmax_impl="cordic_pallas", loss_impl="cordic_pallas")
+        batch = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                              global_batch=8, seed=0)).batch_at(0)
+        init = tf.init(cfg, 0, "cpu", dtype=torch.float32).state_dict()
+        # the recipe's own spread: the CPU run from weights one ulp up
+        nudged = {k: torch.nextafter(v, torch.full_like(v, math.inf))
+                  for k, v in init.items()}
+        losses = {}
+        for dev, weights in (("cpu", init), (DEV, init), ("nudged", nudged)):
+            params = tf.Transformer(cfg, device=torch.device(
+                "cpu" if dev == "nudged" else dev), dtype=torch.float32)
+            params.load_state_dict(weights)
+            state = step_lib.TrainState(
+                params, adamw.init(step_lib.named_params(params)), None)
+            train_step = step_lib.make_train_step(
+                cfg, adamw.AdamWConfig(lr=1e-2), warmup_steps=2, total_steps=5)
+            b = loop_lib.to_device(batch, params.embed.device)
+            losses[dev] = []
+            for _ in range(5):
+                state, m = train_step(state, b)
+                losses[dev].append(m["loss"].item())
+        rel = [abs(a - c) / abs(c) for a, c in zip(losses[DEV], losses["cpu"])]
+        spread = [abs(a - c) / abs(c) for a, c in zip(losses["nudged"], losses["cpu"])]
+        later = TRAIN_ID_LATER.get(arch, TRAIN_ID_RTOL[1])
+        log(f"[identity] {cfg.name} float32 train, 5 steps: card (kernels) "
+            f"{losses[DEV]} vs CPU (plain) {losses['cpu']}; relative differences "
+            f"{[f'{r:.2e}' for r in rel]} (tolerance {TRAIN_ID_RTOL[0]} at step 0, "
+            f"{later} after; the CPU from weights one ulp up: "
+            f"{[f'{r:.2e}' for r in spread]})")
+        check(rel[0] <= TRAIN_ID_RTOL[0] and max(rel[1:]) <= later,
+              f"{cfg.name}: card train losses differ from the CPU run")
 
 
 # ---------------------------------------------------------------------------
@@ -2868,10 +3187,15 @@ KERNELS = {
                          "src/repro/kernels/paged_attention.py:291"),
     "gqa_decode[q2_14]": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
                           "src/repro/kernels/paged_attention.py:291"),
-    # qwen2.5-32b's group of 5 query heads a KV head (attention_archs_path)
-    "gqa_decode[G5]": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
-                       "src/repro/kernels/paged_attention.py:291"),
 }
+# the query-head groups of the attention archs' decode shapes
+# (attention_archs_path): qwen2.5-32b's 5, musicgen-large's 1 (MHA, hd 64)
+# and internvl2-1b's 7 (hd 64)
+for _g in GROUP_RECORDS.values():
+    KERNELS[f"gqa_decode[{_g}]"] = KERNELS["gqa_decode"]
+# the loss's log-softmax at each trained arch's vocabulary (vocab_log_softmax)
+for _v in sorted(set(TRAIN_VOCABS.values())):
+    KERNELS[f"log_softmax_2d[V{_v}]"] = KERNELS["log_softmax_2d"]
 # the decode kernels at the long-context shape (long_decode_kernels)
 for _name in ("gqa_decode[long]", "gqa_decode[cordic_fixed,long]",
               "gqa_decode[int8,long]", "gqa_decode[q2_14,long]"):
@@ -3041,8 +3365,8 @@ def main(argv=None) -> int:
                     help="only act_2d's, silu_mul_2d's, softmax_2d's, "
                     "log_softmax_2d's and act_q_2d's checks and times")
     ap.add_argument("--archs", action="store_true",
-                    help="only the build and the recurrent and attention archs' "
-                    "paths (4j-4k)")
+                    help="only the build, the recurrent and attention archs' "
+                    "paths and the train archs' (4j-4l), and their train identities")
     ap.add_argument("--src", default=str(SRC),
                     help="the tree whose repro_torch --decode-kernels or "
                     "--row-kernels runs")
@@ -3100,9 +3424,12 @@ def main(argv=None) -> int:
     records = {}
     phase_done("device and build")
     if args.archs:
-        rec_counts, att_counts = archs_paths(torch, build, card, records,
-                                             pipeline_ops(PAPER_SCHEDULE))
-        log(f"[archs] launches: recurrent {rec_counts}, attention {att_counts}")
+        rec_counts, att_counts, tr_counts = archs_paths(
+            torch, build, card, records, pipeline_ops(PAPER_SCHEDULE))
+        train_identity_phase(torch, TRAIN_ID_ARCHS[1:])
+        phase_done("identity train archs")
+        log(f"[archs] launches: recurrent {rec_counts}, attention {att_counts}, "
+            f"train {tr_counts}")
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
         log(card_line)
         log(json.dumps({"archs": RESULTS}))
@@ -3153,18 +3480,25 @@ def main(argv=None) -> int:
         for k in ("act_2d", "silu_mul_2d", "softmax_2d"):
             check(c.get(k, 0) == 0, f"{name} cordic_fixed launched {k}")
     check(ds_fixed.get("gqa_decode", 0) == 0, "DeepSeek cordic_fixed launched gqa_decode")
-    rec_counts, att_counts = archs_paths(torch, build, card, records,
-                                         pipeline_ops(PAPER_SCHEDULE))
+    rec_counts, att_counts, tr_counts = archs_paths(torch, build, card, records,
+                                                    pipeline_ops(PAPER_SCHEDULE))
     train_counts, _ = train_path(torch, build)
     phase_done("path train")
     # launches of each kernel summed over the main paths' runs; a branch
     # (or qwen2.5-32b's group of 5) ported later counts on its own path
     paths = (sigmoid_counts, serve_counts, ds_counts, train_counts, yi_chunked, yi_score,
              ds_chunked, yi_dense, yi_dense_long, ds_dense,
-             *(c["cordic_pallas"] for c in rec_counts.values()), *att_counts.values())
+             *(c["cordic_pallas"] for c in rec_counts.values()), *att_counts.values(),
+             *tr_counts.values())
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNELS}
-    launches["gqa_decode[G5]"] = att_counts["qwen2.5-32b"].get("gqa_decode", 0)
-    launches["gqa_decode"] -= launches["gqa_decode[G5]"]
+    for arch, g in GROUP_RECORDS.items():
+        launches[f"gqa_decode[{g}]"] = att_counts[arch].get("gqa_decode", 0)
+        launches["gqa_decode"] -= launches[f"gqa_decode[{g}]"]
+    # the trained archs' loss launches, by vocabulary
+    for V in set(TRAIN_VOCABS.values()):
+        launches[f"log_softmax_2d[V{V}]"] = sum(
+            tr_counts[a].get("log_softmax_2d", 0) for a, v in TRAIN_VOCABS.items() if v == V)
+        launches["log_softmax_2d"] -= launches[f"log_softmax_2d[V{V}]"]
     launches["act_2d[gelu_erf]"] = gelu_counts.get("act_2d", 0)
     launches["gqa_decode[cordic_fixed]"] = yi_fixed.get("gqa_decode", 0)
     launches["mla_decode[cordic_fixed]"] = ds_fixed.get("mla_decode", 0)
@@ -3190,7 +3524,7 @@ def main(argv=None) -> int:
         f"yi-9b {yi_chunked}, score {yi_score}, chunked {DEEPSEEK} {ds_chunked}, dense "
         f"yi-9b {yi_dense}, long {yi_dense_long}, dense {DEEPSEEK} {ds_dense}, sampling "
         f"yi-9b {yi['sampling']}, obs yi-9b {yi['obs']}, recurrent {rec_counts}, "
-        f"attention archs {att_counts}; per kernel {launches}")
+        f"attention archs {att_counts}, train archs {tr_counts}; per kernel {launches}")
     for arch in ("yi-9b", DEEPSEEK):
         for impl in ("cordic_pallas", "cordic_fixed"):
             identity_phase(torch, arch, impl)

@@ -1,0 +1,85 @@
+"""Int8 error-feedback gradient compression (port of
+``repro/distributed/compression.py``).
+
+Gradients are quantized to int8 with a per-tensor scale before the
+data-parallel reduction; the quantization residual is carried in an
+error-feedback buffer and added back the next step (EF-SGD / 1-bit-Adam
+lineage), which keeps convergence unbiased to first order. On one device
+the reduction is the identity, so ``compress_grads`` models the end-to-end
+numerics of a compressed reduction: quantize -> dequantize with error
+feedback, applied to the gradients right before the optimizer (what the
+trainer's ``compress`` flag runs). The explicit collective,
+``psum_compressed``, waits for tensor parallelism (ROADMAP A.12).
+
+Rounding, as jitted XLA:CPU computes the JAX functions (held bit for bit by
+tests/test_torch_train_archs.py): ``max|x| / 127 + 1e-30`` is a multiply by
+float32(1/127) fused with the add (one rounding); the codes are
+``round(x / scale)``, a true division (the scale is computed, not a
+constant), half to even, clipped to +-127; the residual ``gf - q * scale``
+is fused (one rounding).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import numerics as nx
+
+Tensors = Dict[str, torch.Tensor]
+
+#: float32(1/127): XLA's rewrite of the division by the constant 127
+_INV_127 = float(np.float32(1.0 / 127.0))
+#: elements a piece of the fused residual: its float64 temporaries stay
+#: ~0.5 GB for a full-width expert weight of ~420M elements
+_PIECE = 1 << 24
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x float32 -> (int8 codes, float32 scalar scale)."""
+    scale = nx.fma(x.abs().amax(), _INV_127, 1e-30)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def _residual(q: torch.Tensor, s: torch.Tensor, gf: torch.Tensor) -> torch.Tensor:
+    """gf - q * s with one rounding (the fused multiply-add), in pieces."""
+    out = torch.empty_like(gf)
+    qv, gv, ov = q.view(-1), gf.view(-1), out.view(-1)
+    for lo in range(0, qv.numel(), _PIECE):
+        sl = slice(lo, lo + _PIECE)
+        ov[sl] = nx.fma(qv[sl].to(torch.float32), -s, gv[sl])
+    return out
+
+
+def init_error_state(params: Tensors) -> Tensors:
+    """Zero float32 error-feedback buffers, one per parameter."""
+    return {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+
+
+def _one(g: torch.Tensor, e: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    gf = (g.to(torch.float32) + e).contiguous()
+    q, s = quantize_int8(gf)
+    return dequantize_int8(q, s).to(g.dtype), _residual(q, s, gf)
+
+
+def compress_grads(grads: Tensors, err_state: Tensors) -> Tuple[Tensors, Tensors]:
+    """Error-feedback int8 round trip. Returns (grads', new error state)."""
+    out = {k: _one(g, err_state[k]) for k, g in grads.items()}
+    return {k: v[0] for k, v in out.items()}, {k: v[1] for k, v in out.items()}
+
+
+@torch.no_grad()
+def compress_grads_(grads: Tensors, err_state: Tensors) -> None:
+    """``compress_grads`` written into the given tensors, leaf by leaf: the
+    train step's form, which at full width holds no second copy of the
+    gradients and the buffers (8 bytes a parameter)."""
+    for k, g in grads.items():
+        deq, err = _one(g, err_state[k])
+        g.copy_(deq)
+        err_state[k].copy_(err)

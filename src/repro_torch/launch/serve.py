@@ -13,6 +13,8 @@
         --metrics-json metrics.json --trace-out trace.json
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \
+        --smoke --device cpu
 
 Boots the continuous-batching engine for a registered arch with random
 weights from a seed, on the card (``--device cuda``, the default) or on the
@@ -37,7 +39,9 @@ JAX sampler's keys. ``--kv-quant`` stores the GQA pools as int8 or Q2.14
 codes with per-block scales; ``--prefix-cache`` turns on the radix prefix
 cache and, as the JAX launcher does, prepends one shared system prompt of
 two blocks to every request so that later admissions hit it.
-``--prefill-chunk`` streams long prompts in block-aligned chunks
+musicgen-large and internvl2-1b, whose frontends are stubs
+(``input_mode="embeds"``), are served on token ids, as the JAX launcher
+serves them. ``--prefill-chunk`` streams long prompts in block-aligned chunks
 interleaved with decode steps, ``--prefill-batch`` packs that many prefill
 rows into one dispatch (default: ``--slots`` when chunking the paged
 plane, else 1; with ``--prefix-cache`` on a model without MoE layers only
@@ -49,6 +53,7 @@ metrics snapshot / the Chrome trace.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -117,6 +122,10 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = (configs.get_smoke(args.arch, act_impl=args.act_impl) if args.smoke
            else configs.get_config(args.arch, act_impl=args.act_impl))
+    if cfg.input_mode != "tokens":
+        # the embeds archs' frontends are stubs: serve their backbone on
+        # token ids, as the JAX launcher does (the engine serves token LMs)
+        cfg = dataclasses.replace(cfg, input_mode="tokens")
     # the recurrent archs have the dense plane only
     args.kv_impl = args.kv_impl or ("paged" if tf.attention_only(cfg) else "dense")
     attend = args.paged_attend_impl or (

@@ -71,8 +71,8 @@ def _softmax_fn(impl: Optional[str]):
 def _check_score_dtype(score_dtype: str) -> None:
     if score_dtype != "f32":
         raise NotImplementedError(
-            f"score_dtype={score_dtype!r} is not ported; the port scores in "
-            "float32 (score_dtype='f32')")
+            f"score_dtype={score_dtype!r} is not ported yet (ROADMAP A.14); the "
+            "port scores in float32 (score_dtype='f32')")
 
 
 # ---------------------------------------------------------------------------

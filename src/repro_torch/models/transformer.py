@@ -1,8 +1,9 @@
 """Decoder over ``cfg.block_pattern`` (port of ``repro/models/transformer.py``
-for the block kinds ``dense`` (GQA + SwiGLU), ``gqa_moe`` (GQA + GShard
-MoE), ``mla_dense`` (MLA + SwiGLU of width ``d_ff_dense``), ``mla_moe``
-(MLA + GShard MoE), ``mamba2`` (models/ssm.py), ``mlstm`` and ``slstm``
-(models/xlstm.py), and Zamba2's shared ``dense`` block).
+for the block kinds ``dense`` (GQA + SwiGLU, or the GELU MLP under
+``cfg.mlp_kind="gelu"``), ``gqa_moe`` (GQA + GShard MoE), ``mla_dense``
+(MLA + SwiGLU of width ``d_ff_dense``), ``mla_moe`` (MLA + GShard MoE),
+``mamba2`` (models/ssm.py), ``mlstm`` and ``slstm`` (models/xlstm.py), and
+a shared block).
 
 Public API, with the JAX names:
     init(cfg, seed, device, dtype)             -> Transformer (random weights)
@@ -27,9 +28,24 @@ block's weights are the top-level ``shared`` subtree. The port keeps one
 module per layer (and ``shared`` once), and ``jax_layout`` maps each
 parameter to its segment path and index.
 
-Zamba2's shared block (``cfg.shared_block="dense"``) is applied after every
-``shared_period``-th layer with the same weights, each application with a
-KV cache of its own (the DenseCache's layers after the blocks' own).
+A shared block (``cfg.shared_block``, any block kind; Zamba2's is
+``"dense"``) is applied after every ``shared_period``-th layer with the same
+weights, each application with a cache of its own (the DenseCache's layers
+after the blocks' own).
+
+Inputs are token ids (``batch["tokens"]``) or, under
+``cfg.input_mode="embeds"``, precomputed (B,S,d) embeddings
+(``batch["embeds"]``, models/frontends.py), prefill and decode alike; the
+``embed`` table then stays a leaf of the tree and is not read. With
+``cfg.tie_embeddings`` the logits come from the ``embed`` table and there
+is no ``lm_head`` leaf. ``cfg.remat`` rematerialises each block of the
+blocks' runs in the backward pass (``torch.utils.checkpoint``): ``"full"``
+recomputes the whole block, ``"dots"`` keeps the outputs of the matrix
+products without batch dims (``aten.mm`` / ``aten.addmm``, the counterpart
+of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``) and
+recomputes the rest; as in JAX, the shared block's applications are not
+wrapped. Only a forward without a cache and with grad mode on is wrapped:
+the values, and so the gradients, are those of ``remat="none"`` bit for bit.
 
 Storage. With ``dtype=None`` (serving) each weight is stored in the dtype the
 JAX ``apply`` casts it to where it is used: block weights, norm scales and
@@ -45,11 +61,13 @@ dtype is asked for, as the JAX ``_mamba_cache`` / ``_mlstm_cache`` /
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn
@@ -65,6 +83,9 @@ ATTENTION_KINDS = ("dense", "gqa_moe", "mla_dense", "mla_moe")
 RECURRENT_KINDS = ("mamba2", "mlstm", "slstm")
 BLOCK_KINDS = ATTENTION_KINDS + RECURRENT_KINDS
 MOE_KINDS = ("gqa_moe", "mla_moe")
+MLP_KINDS = ("swiglu", "gelu")
+INPUT_MODES = ("tokens", "embeds")
+REMAT_MODES = ("none", "full", "dots")
 
 
 def attention_only(cfg) -> bool:
@@ -78,13 +99,10 @@ def attention_only(cfg) -> bool:
 
 
 def _check_cfg(cfg) -> None:
-    kinds = set(cfg.block_pattern)
-    if not kinds <= set(BLOCK_KINDS) or cfg.shared_block not in (None, "dense"):
-        raise NotImplementedError(
-            f"block pattern {sorted(kinds)} (shared block "
-            f"{cfg.shared_block!r}) is not ported yet; the port runs "
-            f"{', '.join(BLOCK_KINDS)} blocks and a shared dense block "
-            "(ROADMAP A.10)")
+    kinds = set(cfg.block_pattern) | ({cfg.shared_block} if cfg.shared_block else set())
+    if not kinds <= set(BLOCK_KINDS):
+        raise ValueError(f"block kinds {sorted(kinds - set(BLOCK_KINDS))} not in "
+                         f"{BLOCK_KINDS}")
     if kinds & {"mla_dense", "mla_moe"} and cfg.mla is None:
         raise ValueError("MLA blocks need cfg.mla")
     if kinds & set(MOE_KINDS) and cfg.moe is None:
@@ -93,15 +111,12 @@ def _check_cfg(cfg) -> None:
         raise ValueError("mamba2 blocks need cfg.ssm")
     if kinds & {"mlstm", "slstm"} and cfg.xlstm is None:
         raise ValueError("xLSTM blocks need cfg.xlstm")
-    if cfg.mlp_kind != "swiglu" or cfg.tie_embeddings:
-        raise NotImplementedError(
-            "the port runs untied SwiGLU models (ROADMAP A.10)")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError("the port takes token inputs")
-    if cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet (ROADMAP A.11: per-layer "
-            "activation checkpointing)")
+    if cfg.mlp_kind not in MLP_KINDS:
+        raise ValueError(f"mlp_kind {cfg.mlp_kind!r} not in {MLP_KINDS}")
+    if cfg.input_mode not in INPUT_MODES:
+        raise ValueError(f"input_mode {cfg.input_mode!r} not in {INPUT_MODES}")
+    if cfg.remat not in REMAT_MODES:
+        raise ValueError(f"remat {cfg.remat!r} not in {REMAT_MODES}")
 
 
 def _norm(d, dtype, device) -> nn.Parameter:
@@ -110,8 +125,9 @@ def _norm(d, dtype, device) -> nn.Parameter:
 
 
 class DenseBlock(nn.Module):
-    """``dense`` (ffn: SwiGLU of width d_ff) or ``gqa_moe`` (ffn: the GShard
-    MoE), both on GQA attention."""
+    """``dense`` (ffn: SwiGLU of width d_ff, or the GELU MLP under
+    ``cfg.mlp_kind="gelu"``) or ``gqa_moe`` (ffn: the GShard MoE), both on
+    GQA attention."""
 
     def __init__(self, cfg, kind: str = "dense", *, dtype, device, gen=None):
         super().__init__()
@@ -123,7 +139,8 @@ class DenseBlock(nn.Module):
         if self.is_moe:
             self.ffn = moem.MoE(cfg, dtype=dtype, device=device, gen=gen)
         else:
-            self.mlp = mlpm.SwiGLU(d, cfg.d_ff, dtype=dtype, device=device, gen=gen)
+            mlp = mlpm.SwiGLU if cfg.mlp_kind == "swiglu" else mlpm.GeluMLP
+            self.mlp = mlp(d, cfg.d_ff, dtype=dtype, device=device, gen=gen)
 
     def forward_block(self, x, cfg, cache):
         x = x + attn.gqa_apply(self.attn, cm.rmsnorm(self.ln1, x, cfg.norm_eps),
@@ -132,7 +149,9 @@ class DenseBlock(nn.Module):
         if self.is_moe:
             h, aux = moem.moe_apply(self.ffn, h_in, cfg)
             return x + h, aux
-        return x + mlpm.swiglu_apply(self.mlp, h_in, cfg), None
+        mlp_apply = (mlpm.swiglu_apply if cfg.mlp_kind == "swiglu"
+                     else mlpm.gelu_mlp_apply)
+        return x + mlp_apply(self.mlp, h_in, cfg), None
 
 
 #: the recurrent mixers: (module, apply)
@@ -243,10 +262,12 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(
             _block(cfg, kind, dtype=dtype, device=device, gen=gen)
             for kind in cfg.block_pattern)
-        self.shared = (DenseBlock(cfg, dtype=dtype, device=device, gen=gen)
+        self.shared = (_block(cfg, cfg.shared_block, dtype=dtype, device=device, gen=gen)
                        if cfg.shared_block is not None else None)
         self.final_norm = _norm(d, dtype, device)
-        self.lm_head = leaf((V, d), head_dtype, 0.02)
+        # tied: the logits come from ``embed``, and there is no lm_head leaf
+        self.lm_head = (None if cfg.tie_embeddings
+                        else leaf((V, d), head_dtype, 0.02))
         self.requires_grad_(trainable)
 
 
@@ -276,6 +297,7 @@ def flatten_params(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 _SWIGLU = ("w_gate", "w_up", "w_down")
+_GELU_MLP = ("w_in", "b_in", "w_out", "b_out")
 _NORMS = ("ln1", "ln2", "kv_norm", "ln", "norm")
 #: each recurrent mixer's leaves, in the JAX spec's order
 _MIXER_LEAVES = {
@@ -302,8 +324,9 @@ def _block_leaves(cfg, kind: str) -> Tuple[str, ...]:
         out = ("ln1", "ln2") + tuple(f"attn.{w}" for w in ("wq", "wk", "wv", "wo"))
         if cfg.qkv_bias:
             out += tuple(f"attn.{w}" for w in ("bq", "bk", "bv"))
+        mlp = _SWIGLU if cfg.mlp_kind == "swiglu" else _GELU_MLP
         return out + (_moe_leaves(cfg) if kind == "gqa_moe"
-                      else tuple(f"mlp.{w}" for w in _SWIGLU))
+                      else tuple(f"mlp.{w}" for w in mlp))
     out = (("ln1", "ln2")
            + tuple(f"attn.{w}" for w in ("wq", "wkv_a", "kv_norm", "wkv_b", "wo")))
     if kind == "mla_dense":
@@ -341,8 +364,9 @@ def jax_layout(cfg) -> List[Tuple[str, str, Optional[int]]]:
         for i in range(first, first + count):
             out += [(f"blocks.{i}.{mod}", f"seg{k}/{_jax_leaf_path(mod)}",
                      i - first if count > 1 else None) for mod in leaves]
-    out += [("final_norm", "final_norm/scale", None),
-            ("lm_head", "lm_head/table", None)]
+    out += [("final_norm", "final_norm/scale", None)]
+    if not cfg.tie_embeddings:
+        out += [("lm_head", "lm_head/table", None)]
     if cfg.shared_block is not None:
         out += [(f"shared.{mod}", f"shared/{_jax_leaf_path(mod)}", None)
                 for mod in _block_leaves(cfg, cfg.shared_block)]
@@ -585,23 +609,50 @@ def take_slot(stacked: DenseCache, slot: int) -> DenseCache:
     return stacked.rows(slot, slot + 1)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of the matrix products without
+    batch dims, recompute everything else (``bmm``, the attention products
+    with batch dims, included)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, cfg):
+    """A block's ``forward_block`` under ``cfg.remat`` (the JAX
+    ``_remat_wrap``)."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return lambda x, cfg, cache: ckpt.checkpoint(fn, x, cfg, cache,
+                                                 use_reentrant=False, **kw)
+
+
 def apply(params: Transformer, batch: Dict[str, torch.Tensor], cfg=None,
           cache=None):
-    """batch {"tokens": (B,S) int}. Returns (logits f32, aux, cache): aux is
-    the MoE layers' load-balancing losses summed (a float32 scalar tensor),
-    0.0 for a model without MoE layers.
+    """batch {"tokens": (B,S) int} or, under ``cfg.input_mode="embeds"``,
+    {"embeds": (B,S,d)}. Returns (logits f32, aux, cache): aux is the MoE
+    layers' load-balancing losses summed (a float32 scalar tensor), 0.0 for
+    a model without MoE layers.
 
     With a cache (PagedCache or DenseCache), positions start at each row's
     ``cache.positions`` (``lens`` / ``idx``) and advance by S, in place,
     after the last layer."""
     cfg = params.cfg if cfg is None else cfg
-    x = cm.embed(params.embed, batch["tokens"]).to(cm.dtype_of(cfg.dtype))
+    x = (cm.embed(params.embed, batch["tokens"]) if cfg.input_mode == "tokens"
+         else batch["embeds"])
+    x = x.to(cm.dtype_of(cfg.dtype))
     S = x.shape[1]
     aux_total = 0.0
     n_layers, app = len(params.blocks), 0
+    remat = cache is None and torch.is_grad_enabled()
     for i, blk in enumerate(params.blocks):
         c = cache.layers[i] if cache is not None else None
-        x, aux = blk.forward_block(x, cfg, c)
+        fwd = _remat_wrap(blk.forward_block, cfg) if remat else blk.forward_block
+        x, aux = fwd(x, cfg, c)
         if aux is not None:
             aux_total = aux_total + aux
         if _shared_after(cfg, i):
@@ -611,7 +662,8 @@ def apply(params: Transformer, batch: Dict[str, torch.Tensor], cfg=None,
     if cache is not None:
         cache.positions.add_(S)
     x = cm.rmsnorm(params.final_norm, x, cfg.norm_eps)
-    logits = cm.unembed(params.lm_head, x.to(torch.float32))
+    head = params.embed if cfg.tie_embeddings else params.lm_head
+    logits = cm.unembed(head.to(torch.float32), x.to(torch.float32))
     return logits, aux_total, cache
 
 

@@ -184,15 +184,24 @@ def test_launcher_refuses_an_explicit_paged_plane(arch):
 
 @pytest.mark.parametrize("arch", RECURRENT + ["phi3.5-moe-42b-a6.6b"])
 def test_training_the_served_only_kinds_raises(arch, tmp_path):
+    """These kinds were served only until ROADMAP A.11 closed: they train
+    now, through the step and the launcher (their gradients against JAX:
+    tests/test_torch_train_archs.py)."""
     from repro_torch.launch import train as launch_train
     from repro_torch.optim import adamw
+    from repro_torch.train import loop as loop_lib
     from repro_torch.train import step as step_lib
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        step_lib.make_train_step(configs.get_smoke(arch), adamw.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        launch_train.main(["--arch", arch, "--smoke", "--device", "cpu",
-                           "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    cfg = configs.get_smoke(arch)
+    state = step_lib.init_state(cfg, 0, adamw.AdamWConfig(), device="cpu")
+    batch = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                          global_batch=2)).batch_at(0)
+    _, m = step_lib.make_train_step(cfg, adamw.AdamWConfig())(
+        state, loop_lib.to_device(batch, "cpu"))
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+    assert launch_train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                              "--steps", "1", "--ckpt-dir", str(tmp_path)]) == 0
 
 
 def test_qwen_bias_leaves_bridge():

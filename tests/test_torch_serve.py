@@ -171,12 +171,23 @@ def test_kv_quant_with_mla_is_rejected_as_in_jax():
 
 
 def test_mla_moe_training_is_not_ported_yet():
+    """MLA/MoE training was not ported until ROADMAP A.11 closed: one step
+    of DeepSeek-V2-Lite's smoke config trains now, the router included
+    (its gradients against JAX: tests/test_torch_train_archs.py)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
     from repro_torch.optim import adamw
+    from repro_torch.train import loop as loop_lib
     from repro_torch.train import step as step_lib
 
     cfg = configs.get_smoke(DS, act_impl="cordic_pallas")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        step_lib.make_train_step(cfg, adamw.AdamWConfig())
+    state = step_lib.init_state(cfg, 0, adamw.AdamWConfig(), device="cpu")
+    router = state.params.blocks[1].ffn.router.detach().clone()
+    batch = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                          global_batch=2)).batch_at(0)
+    state, m = step_lib.make_train_step(cfg, adamw.AdamWConfig(), warmup_steps=0)(
+        state, loop_lib.to_device(batch, "cpu"))
+    assert np.isfinite(float(m["loss"])) and float(m["aux"]) > 0
+    assert not torch.equal(state.params.blocks[1].ffn.router, router)
 
 
 def test_launcher_serves_on_the_cpu(capsys):
