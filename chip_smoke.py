@@ -116,6 +116,14 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             step with int8 error-feedback compression, 3 profiled steps.
             Every kernel of a path must have launched, and under grad the
             fused SwiGLU kernel must not (the JAX rule's primal).
+            (m) tensor-parallel serving, every rank a spawned process on
+            the one card (gloo): Yi-9B at tp 2 and 4, DeepSeek-V2-Lite at
+            tp 2, full width and depth, the launcher traffic; each rank's
+            attention and MLP/MoE of blocks 0 and 1 within TP_PROBE_TOL of
+            tp 1's on one input, and outside it with its reductions
+            skipped; equal tokens on every rank, each rank's first decode
+            kernel call bit-equal to plain on its head slice, Yi's pools
+            1/tp; token matches against tp 1, steps and memory reported.
 5. identity the Yi and DeepSeek-V2-Lite smoke configs in float32, on both
             datapaths, and Yi's on int8 and Q2.14 pools and with the prefix
             cache: tokens served on the card with the kernels equal the
@@ -163,9 +171,11 @@ DEV = "cuda"
 SLOTS, MAX_NEW, MAX_LEN, BLOCK_LEN, REQUESTS = 4, 16, 128, 16, 8
 #: the MLA/MoE arch served at full width
 DEEPSEEK = "deepseek-v2-lite-16b"
-#: the train path: Yi-9B widths, depth cut to fit one card with float32
-#: master weights and AdamW moments (16 B per parameter); the loop's batches
-TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 32
+#: the train path: Yi-9B widths, depth cut to one block: its two
+#: checkpoints of float32 master weights and AdamW moments (8.4 GB each at
+#: one block, 14.6 GB at four) are written to and read from $TMPDIR, whose
+#: disk the run does not choose; the loop's batches
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 1, 8, 32
 #: the fixed-batch descent check: steps and learning rate
 DESCENT_STEPS, DESCENT_LR = 6, 1e-4
 #: the quantized pool formats served, and the prefix trace: a shared
@@ -191,6 +201,15 @@ LONG_CHUNK, LONG_SHORTS = 512, 3
 SCORE_LEN = 128
 #: the sampling mix: even rids at this (temperature, top_k), odd rids greedy
 MIX = (0.8, 40)
+#: the depth of the serves beside each arch's main one (the cordic_fixed
+#: datapath, Yi's prefix and chunked traces, the recurrent pair's
+#: cordic_fixed serve): a view of the served model's first blocks
+#: (``depth_view``), cut for the time limit. The kernels' datapath serve,
+#: every run compared with it and the tp runs keep full depth
+SIDE_LAYERS = {"yi-9b": 12, DEEPSEEK: 6, "xlstm-1.3b": 8, "zamba2-1.2b": 12}
+#: decode steps under the profiler in each serve profile: its bookkeeping
+#: of a full-depth step's host operations takes seconds
+PROFILE_STEPS = 3
 
 
 #: the long-context serves' decode step p50 (ms) and tokens, by (arch,
@@ -923,6 +942,41 @@ def log_softmax_wide_rows(torch, SM, gen, q20) -> str:
     return f"{list(w.shape)} from global memory ({plan}): bit-exact, and in Q2.20; {len(bad)} bad splits refused"
 
 
+def sdpa_library(torch, what, q, pools, tables, k_len, scale):
+    """The library call computing a decode attend's function: one
+    ``scaled_dot_product_attention`` (exact softmax) on the dense K/V the
+    table already gathered (the gather is not timed), keys past each row's
+    k_len masked. GQA: q (B,KH,G,hd) against (B,KH,T,hd), ``enable_gqa``.
+    MLA: one KV head, q = [q_eff | q_rope] (B,H,1,R+P) against k = [c | r],
+    v = c. In q's dtype. Returns ((device ms, host ms), the output as the
+    kernel lays it out, float32)."""
+    import torch.nn.functional as Fn
+
+    B, M = tables.shape
+    L = pools[0].shape[1]
+    T = M * L
+    idx = tables.long()
+    mask = (torch.arange(T, device=k_len.device)[None, :] < k_len[:, None])[:, None, None, :]
+    if what == "gqa":
+        KH, G, hd = q.shape[1:]
+        k, v = (p[idx].reshape(B, T, KH, hd).transpose(1, 2).to(q.dtype).contiguous()
+                for p in pools)
+        qq = q.reshape(B, KH * G, 1, hd)
+    else:
+        qe, qr = q
+        c = pools[0][idx].reshape(B, 1, T, -1).to(qe.dtype)
+        r = pools[1][idx].reshape(B, 1, T, -1).to(qe.dtype)
+        qq = torch.cat([qe, qr], dim=-1)[:, :, None, :].contiguous()
+        k, v = torch.cat([c, r], dim=-1).contiguous(), c.contiguous()
+
+    def call():
+        return Fn.scaled_dot_product_attention(qq, k, v, attn_mask=mask, scale=scale,
+                                               enable_gqa=True)
+    out = call().float()
+    out = out.reshape(B, *q.shape[1:]) if what == "gqa" else out[:, :, 0]
+    return times(torch, call), out
+
+
 def decode_kernels(torch, card, records, ycfg, dcfg, ops):
     """(4) and (9): the decode kernels, gqa_decode at Yi-9B's decode shape
     (with its kv_quant branch) and mla_decode at DeepSeek-V2-Lite's, on the
@@ -952,6 +1006,11 @@ def decode_kernels(torch, card, records, ycfg, dcfg, ops):
     live_blocks = sum(-(-max(k, 1) // L) for k in klens)
     live_keys = sum(max(k, 1) for k in klens)
     kw = dict(scale=1.0 / math.sqrt(hd), kv_dtype=torch.bfloat16)
+    lib_t, lib_out = sdpa_library(torch, "gqa", q, (kp, vp), tables, k_len, kw["scale"])
+    log(f"[gqa_decode] library: scaled_dot_product_attention on the gathered "
+        f"bfloat16 K/V (the gather not timed): {lib_t[0]:.4f} ms device, "
+        f"{lib_t[1]:.4f} ms host-to-host; max |sdpa - exact kernel| "
+        f"{float((lib_out - PA.gqa_decode(q, kp, vp, tables, k_len, softmax_impl='exact', **kw)).abs().max()):.3e}")
     for impl in ("cordic_pallas", "exact", "cordic_fixed"):
         a = PA.gqa_decode(q, kp, vp, tables, k_len, softmax_impl=impl, **kw)
         DECODE_OUTPUTS[f"gqa_decode[{impl}]"] = a.cpu()
@@ -980,7 +1039,7 @@ def decode_kernels(torch, card, records, ycfg, dcfg, ops):
             kernel=times(torch, lambda: PA.gqa_decode(
                 q, kp, vp, tables, k_len, softmax_impl=impl, **kw),
                 "gqa_decode_kernel", parts=phases),
-            plain=plain_t)
+            plain=plain_t, library=lib_t)
         log(f"[gqa_decode] {impl} B={B} KH={KH} G={G} hd={hd} L={L} M={M} "
             f"k_len={[max(k, 1) for k in klens]}: max |kernel - plain| {err:.3e} "
             f"(bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
@@ -1001,6 +1060,12 @@ def decode_kernels(torch, card, records, ycfg, dcfg, ops):
     rp = torch.randn(N, L, P, generator=gen, device=dev)
     kw = dict(scale=1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim))
     args = (qe, qr, cp, rp, tables, k_len)
+    lib_t, lib_out = sdpa_library(torch, "mla", (qe, qr), (cp, rp), tables, k_len,
+                                  kw["scale"])
+    log(f"[mla_decode] library: scaled_dot_product_attention, one KV head of "
+        f"[c | r] (the gather not timed): {lib_t[0]:.4f} ms device, "
+        f"{lib_t[1]:.4f} ms host-to-host; max |sdpa - exact kernel| "
+        f"{float((lib_out - PA.mla_decode(*args, softmax_impl='exact', **kw)).abs().max()):.3e}")
     for impl in ("cordic_pallas", "exact", "cordic_fixed"):
         a = PA.mla_decode(*args, softmax_impl=impl, **kw)
         DECODE_OUTPUTS[f"mla_decode[{impl}]"] = a.cpu()
@@ -1027,7 +1092,7 @@ def decode_kernels(torch, card, records, ycfg, dcfg, ops):
                  bound_ms=bound, bound_by=by, phases=phases),
             kernel=times(torch, lambda: PA.mla_decode(*args, softmax_impl=impl, **kw),
                          "mla_decode_kernel", parts=phases),
-            plain=plain_t)
+            plain=plain_t, library=lib_t)
         log(f"[mla_decode] {impl} B={B} H={H} R={R} P={P} L={L} M={M} "
             f"k_len={[max(k, 1) for k in klens]}: max |kernel - plain| {err:.3e} "
             f"(bit-equal {rec['bit_equal']}); {fmt_times(rec)}")
@@ -1173,6 +1238,13 @@ def long_decode_kernels(torch, card, records, ycfg, dcfg, gen, ops):
             f"score CTAs with live blocks {mplan.live_score_ctas(LONG_KLENS, L)}, "
             f"workspace {4 * mplan.workspace_floats} bytes")
     meta = tables.numel() * 4 + k_len.numel() * 4
+    # the library call on the float32 pools' function, per kernel
+    lib = {"gqa_decode": sdpa_library(torch, "gqa", q, (kf, vf), tables, k_len,
+                                      1.0 / math.sqrt(hd))[0],
+           "mla_decode": sdpa_library(torch, "mla", (qe, qr), (cp, rp), tables, k_len,
+                                      1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim))[0]}
+    log(f"[long decode] library: scaled_dot_product_attention on the gathered "
+        f"bfloat16 K/V (the gather not timed): {lib}")
     cases = []
     for impl, fmt in (("cordic_pallas", "none"), ("exact", "none"),
                       ("cordic_fixed", "none"), ("cordic_pallas", "int8"),
@@ -1228,11 +1300,13 @@ def long_decode_kernels(torch, card, records, ycfg, dcfg, gen, ops):
         bound, by = card.bound(nbytes, int_ops, flops)
         phases = {}
         ms, hms = times(torch, fn, kernel, 10, 20, phases)
+        lib_t = (lib[kernel.removesuffix("_kernel")]
+                 if "int8" not in name and "q2_14" not in name else (None, None))
         rec = dict(shape=[B, M, N], impl=impl, klens=LONG_KLENS, max_abs_err=err,
                    phases=phases,
                    bit_equal=bool(torch.equal(a, b)), bound_ms=bound, bound_by=by,
                    ms=ms, host_ms=hms, plain_ms=plain_ms,
-                   plain_host_ms=None, library_ms=None, library_host_ms=None)
+                   plain_host_ms=None, library_ms=lib_t[0], library_host_ms=lib_t[1])
         records[name] = rec
         log(f"[{name}] rows {rows}, k_len {LONG_KLENS}: max |kernel - plain| "
             f"{err:.3e} (bit-equal {rec['bit_equal']}); device {ms:.4f} ms per "
@@ -1352,11 +1426,41 @@ def arch_line(cfg) -> str:
 SERVE_IMPLS = (("cordic_pallas", "cordic_pallas"), ("cordic_fixed", "cordic_fixed"))
 
 
+def depth_view(cfg, model, layers):
+    """``cfg`` and ``model`` cut to their first ``layers`` blocks: a view
+    whose blocks, embedding, final norm and head are ``model``'s own
+    tensors (nothing is copied; ``model`` keeps all its blocks). Returns
+    (cut cfg, view)."""
+    import copy
+    import dataclasses
+
+    from torch import nn
+
+    cut = dataclasses.replace(cfg, num_layers=layers,
+                              block_pattern=cfg.block_pattern[:layers])
+    view = copy.copy(model)
+    view._modules = dict(model._modules)
+    view._modules["blocks"] = nn.ModuleList(list(model.blocks)[:layers])
+    view.cfg = cut
+    return cut, view
+
+
+def side_view(cfg, model):
+    """``depth_view`` at SIDE_LAYERS, and the log's note of the cut."""
+    layers = SIDE_LAYERS[cfg.name.removesuffix("-smoke")]
+    if layers >= cfg.num_layers:
+        return cfg, model, "full depth"
+    cut, view = depth_view(cfg, model, layers)
+    return cut, view, (f"depth cut {cfg.num_layers} -> {layers} layers (a view of "
+                       "the model's first blocks, for the time limit)")
+
+
 def serve_path(torch, build, arch):
     """An arch at full width through ServeEngine: paged KV, decode kernel,
     greedy, the launcher's traffic; served once per datapath of
-    SERVE_IMPLS on one model (the weights do not depend on the datapath).
-    Returns {act_impl: (launch counts, stats)}."""
+    SERVE_IMPLS on one model (the weights do not depend on the datapath;
+    cordic_fixed on its first SIDE_LAYERS blocks). Returns {act_impl:
+    (launch counts, stats)}."""
     import dataclasses
 
     from repro_torch import configs
@@ -1376,8 +1480,12 @@ def serve_path(torch, build, arch):
     out = {}
     for act_impl, softmax_impl in SERVE_IMPLS:
         cfg = dataclasses.replace(base, act_impl=act_impl, softmax_impl=softmax_impl)
+        served = model
+        if act_impl == "cordic_fixed":
+            cfg, served, cut = side_view(cfg, model)
+            log(f"[path serve {arch} {act_impl}/{softmax_impl}] {cut}")
         t0 = time.perf_counter()
-        out[act_impl] = serve_run(torch, build, arch, cfg, model)
+        out[act_impl] = serve_run(torch, build, arch, cfg, served)
         log(f"[time] serve {arch} {act_impl}: {time.perf_counter() - t0:.1f} s "
             "(warm-up, traffic, logits check, profile)")
         # the long-context serve on this datapath (Yi's kernel datapath also
@@ -1385,7 +1493,7 @@ def serve_path(torch, build, arch):
         t0 = time.perf_counter()
         formats = ("none",) + (KV_FORMATS if arch == "yi-9b"
                                and act_impl == "cordic_pallas" else ())
-        out[f"long {act_impl}"] = long_context_pools(torch, build, cfg, model, formats)
+        out[f"long {act_impl}"] = long_context_pools(torch, build, cfg, served, formats)
         log(f"[time] long-context path {arch} {act_impl}: "
             f"{time.perf_counter() - t0:.1f} s")
     if arch == "yi-9b":
@@ -1393,9 +1501,9 @@ def serve_path(torch, build, arch):
         ref = out["cordic_pallas"][1]
         for fmt in KV_FORMATS:
             t0 = time.perf_counter()
-            # the profile of int8 only (4 steps), within the time limit
+            # the profile of int8 only, within the time limit
             out[fmt] = serve_run(torch, build, arch, cfg, model, kv_quant=fmt,
-                                 n_prof=4 if fmt == "int8" else 0)
+                                 n_prof=PROFILE_STEPS if fmt == "int8" else 0)
             st = out[fmt][1]
             same = sum(a == b for rid, toks in ref["out"].items()
                        for a, b in zip(toks, st["out"][rid]))
@@ -1409,10 +1517,13 @@ def serve_path(torch, build, arch):
                 f"{st['ttft_ms_p50'] / ref['ttft_ms_p50']:.3f}x the float32 run's")
             log(f"[time] serve {arch} kv_quant={fmt}: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        out["prefix"] = prefix_path(torch, build, cfg, model)
+        side_cfg, side, cut = side_view(cfg, model)
+        log(f"[path serve {arch}] the prefix and chunked traces: {cut}")
+        out["prefix"] = prefix_path(torch, build, side_cfg, side)
         log(f"[time] prefix path: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        out["chunked"] = chunked_path(torch, build, cfg, model)
+        out["chunked"] = chunked_path(torch, build, side_cfg, side)
+        del side
         log(f"[time] chunked path: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         out["dense"] = dense_path(torch, build, cfg, model, ref)
@@ -1443,7 +1554,7 @@ def serve_path(torch, build, arch):
 def serve_run(torch, build, arch, cfg, model, kv_quant="none", n_prof=None):
     """The launcher's traffic through one engine, launch counts zeroed just
     before and read just after; step times, TTFT, memory, a profile of
-    ``n_prof`` decode steps (None: 6 on the kernels' datapath, none on the
+    ``n_prof`` decode steps (None: PROFILE_STEPS on the kernels' datapath, none on the
     plain one, whose ~40,000 launches a step the profiler booked in ~27 s a
     step; 0: none)."""
     from repro_torch.launch.serve import make_requests
@@ -1513,7 +1624,7 @@ def serve_run(torch, build, arch, cfg, model, kv_quant="none", n_prof=None):
     # bookkeeping of them is slow, so it is not profiled
     t0 = time.perf_counter()
     if n_prof is None:
-        n_prof = 6 if cfg.act_impl == "cordic_pallas" else 0
+        n_prof = PROFILE_STEPS if cfg.act_impl == "cordic_pallas" else 0
     stats["profile"] = (profile_steps(torch, eng, cfg, SERVE_PROFILE[arch], n_prof)
                         if n_prof else None)
     log(f"[time] {tag} profile of {n_prof} steps: {time.perf_counter() - t0:.1f} s")
@@ -2068,7 +2179,7 @@ def obs_path(torch, build, cfg, model, ref):
     return counts
 
 
-def profile_steps(torch, eng, cfg, kernels, n_steps: int = 6):
+def profile_steps(torch, eng, cfg, kernels, n_steps: int = PROFILE_STEPS):
     """Device busy share and kernel time by name over a few engine steps
     (4 fresh requests: their prefills, then decode steps), from
     torch.profiler's CUDA activity. Outside the launch counts."""
@@ -2096,7 +2207,10 @@ def profile_window(torch, run, n_steps, what, kernels):
     profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity alone: the host ops' events are not read here, and
+    # booking them took ~1.8 s more a window of 12,000 launches on an H100
+    # machine's host
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2131,15 +2245,18 @@ def profile_window(torch, run, n_steps, what, kernels):
 # ---------------------------------------------------------------------------
 #: the recurrent pair, served on the dense plane at full width and depth
 RECURRENT_ARCHS = ("xlstm-1.3b", "zamba2-1.2b")
-#: the attention archs at full width, with the depth one card holds (None:
-#: full depth). Weights in bf16, the lm_head in float32: qwen2.5-32b 67.1
-#: GB and deepseek-coder-33b 67.2 GB whole; phi3.5-moe's 32 layers are 84
-#: GB of experts alone and command-r-plus's 64 layers 201 GB
-ATTENTION_ARCHS = {"qwen2.5-32b": None, "deepseek-coder-33b": None,
+#: the attention archs at full width, with the depth one card holds, cut
+#: further for the time limit (None: full depth). Weights in bf16, the
+#: lm_head in float32: qwen2.5-32b 67.1 GB and deepseek-coder-33b 67.2 GB
+#: whole; phi3.5-moe's 32 layers are 84 GB of experts alone and
+#: command-r-plus's 64 layers 201 GB
+ATTENTION_ARCHS = {"qwen2.5-32b": 16, "deepseek-coder-33b": 16,
                    "phi3.5-moe-42b-a6.6b": 16, "command-r-plus-104b": 8,
                    # the embeds archs, served on token ids as the
-                   # launcher serves them, at full depth
-                   "musicgen-large": None, "internvl2-1b": None}
+                   # launcher serves them
+                   "musicgen-large": 16, "internvl2-1b": None}
+#: the weight bytes one card holds beside the serves' pools and workspaces
+CARD_WEIGHT_BYTES = 75e9
 #: gqa_decode's record of each arch whose decode shape is a new group width
 #: (held against plain in group_check)
 GROUP_RECORDS = {"qwen2.5-32b": "G5", "musicgen-large": "G1", "internvl2-1b": "G7"}
@@ -2330,8 +2447,8 @@ def recurrent_path(torch, build, arch):
     logits of a launcher prompt against the plain versions' on the same
     model, (2) the launcher traffic, whose greedy tokens must equal each
     request's manual exact-length prefill and decode loop, with a short
-    profile; then the same model on cordic_fixed (FIXED_REQUESTS x
-    FIXED_MAX_NEW); (3) decode after prefill of the arch's mLSTM / Mamba2
+    profile; then the model's first SIDE_LAYERS blocks on cordic_fixed
+    (FIXED_REQUESTS x FIXED_MAX_NEW); (3) decode after prefill of the arch's mLSTM / Mamba2
     block. Returns {run: launch counts}."""
     import dataclasses
 
@@ -2416,26 +2533,25 @@ def recurrent_path(torch, build, arch):
         f"decode loop: {same}/{st['tokens']} ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     prof = profile_steps(torch, eng, cfg, ("act_kernel", "silu_mul_kernel",
-                                           "softmax_kernel", "nvjet"), 4)
+                                           "softmax_kernel", "nvjet"), PROFILE_STEPS)
     log(f"[time] {tag} profile: {time.perf_counter() - t0:.1f} s")
     del eng
     torch.cuda.empty_cache()
-    # the paper-faithful datapath on the same model: no row kernel
+    # the paper-faithful datapath on the model's first blocks: no row kernel
     t0 = time.perf_counter()
-    fcfg = dataclasses.replace(cfg, act_impl="cordic_fixed", softmax_impl="cordic_fixed")
+    fcfg, fmodel, cut = side_view(
+        dataclasses.replace(cfg, act_impl="cordic_fixed", softmax_impl="cordic_fixed"),
+        model)
     _, counts["cordic_fixed"], fst, eng = launcher_serve(
-        torch, build, fcfg, model, FIXED_REQUESTS, FIXED_MAX_NEW, warm=False,
+        torch, build, fcfg, fmodel, FIXED_REQUESTS, FIXED_MAX_NEW, warm=False,
         kv_impl="dense")
     log(serve_line(f"{tag} cordic_fixed/cordic_fixed dense ({FIXED_REQUESTS} requests x "
-                   f"{FIXED_MAX_NEW} tokens, cut for the time limit):", fst,
-                   counts["cordic_fixed"]))
-    log(f"{tag} cordic_fixed tokens {json.dumps(fst['out'])}; greedy match against "
-        f"cordic_pallas {match_count(fst['out'], st['out'])}/{fst['tokens']} "
-        "(reported, not gated)")
+                   f"{FIXED_MAX_NEW} tokens, {cut}):", fst, counts["cordic_fixed"]))
+    log(f"{tag} cordic_fixed tokens {json.dumps(fst['out'])}")
     for k in ("act_2d", "silu_mul_2d", "softmax_2d"):
         check(counts["cordic_fixed"].get(k, 0) == 0, f"{tag} cordic_fixed launched {k}")
     log(f"[time] {tag} cordic_fixed: {time.perf_counter() - t0:.1f} s")
-    del eng, model
+    del eng, model, fmodel
     torch.cuda.empty_cache()
     state_continuation(torch, cfg)
     RESULTS[arch] = dict(st, out=None, profile=prof, fixed_tok_s=fst["tok_s"],
@@ -2536,8 +2652,10 @@ def attention_archs_path(torch, build, card, records, ops):
         if layers:
             cfg = dataclasses.replace(cfg, num_layers=layers,
                                       block_pattern=cfg.block_pattern[:layers])
-            cut = (f"depth cut {full.num_layers} -> {layers} layers "
-                   f"({full.param_counts()['total'] / 1e9:.1f}B params do not fit one card)")
+            n_full = full.param_counts()["total"]
+            why = (f"{n_full / 1e9:.1f}B params do not fit one card"
+                   if 2 * n_full > CARD_WEIGHT_BYTES else "for the time limit")
+            cut = f"depth cut {full.num_layers} -> {layers} layers ({why})"
         tag = f"[path attention {arch}]"
         if arch in GROUP_RECORDS:
             group_check(torch, card, records, cfg, ops, GROUP_RECORDS[arch])
@@ -3157,6 +3275,287 @@ def train_identity_phase(torch, archs=TRAIN_ID_ARCHS):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4 (m): tensor parallelism, every rank on the one card
+# ---------------------------------------------------------------------------
+#: the tensor-parallel runs: (arch, tp); tp 1 is the serve path's run of
+#: the same traffic, model and engine knobs
+TP_RUNS = (("yi-9b", 2), ("yi-9b", 4), (DEEPSEEK, 2))
+#: the kernels each arch's ranks must launch
+TP_KERNELS = {"yi-9b": ("gqa_decode", "silu_mul_2d", "softmax_2d"),
+              DEEPSEEK: ("mla_decode", "act_2d", "silu_mul_2d", "softmax_2d")}
+
+
+#: the sublayer probe's bound: max |tp n - tp 1| over max |tp 1| of each
+#: sublayer's output (set from a sound run: see PERF.md); a rank that skips
+#: its reduction must land above it
+TP_PROBE_TOL = 2 ** -5
+
+
+def tp_cfg(arch, smoke=False):
+    """The config every tp run of ``arch`` serves (``smoke``: the smoke one,
+    Yi's one KV head padded to 4 so that it divides tp)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    get = configs.get_smoke if smoke else configs.get_config
+    cfg = dataclasses.replace(get(arch, act_impl="cordic_pallas"),
+                              softmax_impl="cordic_pallas")
+    if smoke and cfg.mla is None:
+        cfg = dataclasses.replace(cfg, pad_heads_to=4)
+    return cfg
+
+
+def tp_probe(model, cfg, mesh, dev, reduce=True):
+    """Each sublayer of blocks 0 and 1 (attention, then the MLP or MoE) on
+    one seeded input, without a cache: {name: float32 output on the host}.
+    Every sublayer gets the same input at every tp, so the MoE's routing
+    is the same and only the partial sums' rounding may differ.
+    ``reduce=False``: the rank's reductions skipped (each output its
+    partial sum), the error the probe's bound must catch."""
+    import torch
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import attention as attn
+    from repro_torch.models import common as cm
+    from repro_torch.models import mlp as mlpm
+    from repro_torch.models import moe as moem
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(2, 12, cfg.d_model, generator=g, device=dev).to(cm.dtype_of(cfg.dtype))
+    apply_attn = attn.mla_apply if cfg.mla is not None else attn.gqa_apply
+    out, red = {}, shd.all_reduce_
+    if not reduce:
+        shd.all_reduce_ = lambda t, mesh=None: t
+    try:
+        with torch.no_grad(), shd.serving_mesh(mesh):
+            for i, blk in enumerate(model.blocks[:2]):
+                out[f"block {i} attention"] = apply_attn(
+                    blk.attn, cm.rmsnorm(blk.ln1, x, cfg.norm_eps), cfg, cache=None)
+                h = cm.rmsnorm(blk.ln2, x, cfg.norm_eps)
+                if blk.is_moe:
+                    out[f"block {i} moe"] = moem.moe_apply(blk.ffn, h, cfg)[0]
+                else:
+                    ffn = getattr(blk, "ffn", None) or blk.mlp
+                    out[f"block {i} mlp"] = mlpm.swiglu_apply(ffn, h, cfg)
+    finally:
+        shd.all_reduce_ = red
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def tp_probe_ref(arch, smoke=False):
+    """``tp_probe`` at tp 1 on the arch cut to its first two blocks: the
+    weights are drawn leaf by leaf from one generator, embedding first,
+    so blocks 0 and 1 are the full model's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    cfg = tp_cfg(arch, smoke)
+    cfg = dataclasses.replace(cfg, num_layers=2, block_pattern=cfg.block_pattern[:2])
+    model = tf.init(cfg, seed=0, device=DEV)
+    out = tp_probe(model, cfg, None, DEV)
+    del model
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(job):
+    """One rank of ``tp_path`` (a ``run_ranks`` target; spawned ranks import
+    it from this script): the arch at full width on this rank's mesh, its
+    shard of the seed-0 weights built leaf by leaf, the launcher traffic
+    (REQUESTS greedy requests, SLOTS slots, MAX_LEN, BLOCK_LEN, the decode
+    kernel) after a warm-up request, launch counts and the mesh's
+    collective counts zeroed just before. The first decode step's decode
+    kernel call is kept and held against its plain version on the same
+    head slice after the run. Then ``tp_probe`` on the rank's shard, with
+    its reductions and without."""
+    import torch
+
+    from repro_torch import obs as obs_lib
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServeEngine
+
+    dev = job.get("device", "cuda")
+    cuda = dev == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tp_cfg(job["arch"], job.get("smoke", False))
+    mesh = mesh_lib.mesh_or_none(job["tp"])
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tf.init(cfg, seed=0, device=dev, mesh=mesh)
+    if cuda:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, kv_impl="paged",
+                      block_len=BLOCK_LEN, paged_attend_impl="pallas", mesh=mesh,
+                      device=dev)
+    for r in make_requests(cfg, 1, 2, seed=99):
+        eng.submit(r)
+    eng.run()
+    mla = cfg.mla is not None
+    attr = "paged_attend_mla" if mla else "paged_attend_gqa"
+    orig, first = getattr(kops, attr), {}
+
+    def keep(t):
+        return t.clone() if torch.is_tensor(t) else t
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        if not first:
+            first.update(args=[keep(t) for t in a],
+                         kw={k: keep(v) for k, v in kw.items()}, out=out.clone())
+        return out
+
+    setattr(kops, attr, spy)
+    obs = obs_lib.Observability()
+    eng.attach_obs(obs)
+    reqs = make_requests(cfg, REQUESTS, MAX_NEW, seed=0)
+    if cuda:
+        torch.cuda.synchronize()
+    if mesh is not None:
+        mesh.stats.clear()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    steps = []
+    while eng.has_work:
+        ts = time.perf_counter()
+        eng.step()
+        steps.append(time.perf_counter() - ts)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES)
+    setattr(kops, attr, orig)
+    plain = PA.mla_decode_plain if mla else PA.gqa_decode_plain
+    ref = plain(*first["args"], **first["kw"])
+    err = float((first["out"] - ref).abs().max())
+    coll = obs.metrics.get("engine.phase.collective_ms")
+    n_tok = sum(len(r.out) for r in reqs)
+    stats = dict(mesh.stats) if mesh is not None else {}
+    probe = {"sound": tp_probe(model, cfg, mesh, dev),
+             "unreduced": tp_probe(model, cfg, mesh, dev, reduce=False)}
+    res = dict(probe=probe, rank=mesh.model_rank if mesh is not None else 0,
+               done=all(r.done and r.error is None and len(r.out) == MAX_NEW for r in reqs),
+               out={r.rid: list(r.out) for r in reqs}, tokens=n_tok,
+               step_ms_p50=statistics.median(steps) * 1e3, steps=len(steps),
+               tok_s=n_tok / wall, wall_s=wall, init_s=init_s,
+               collective_ms_p50=coll.quantile(0.5) if coll is not None else None,
+               peak_gib=(torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0),
+               pool_bytes=eng.kv_pool_bytes(), launches=counts,
+               kernel_q_shape=list(first["args"][0].shape),
+               kernel_pool_shape=list(first["args"][2].shape),
+               kernel_err=err, kernel_bit_equal=bool(torch.equal(first["out"], ref)),
+               backend=mesh.backend if mesh is not None else "none",
+               staged=bool(mesh is not None and mesh.staged and cuda),
+               all_reduces=stats.get("all_reduce", 0),
+               collective_bytes=stats.get("bytes", 0))
+    del eng, model, first
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def tp_path(torch, build, ref, smoke=False):
+    """(m) tensor-parallel serving on the one card: Yi-9B at full width and
+    depth at tp 2 and 4, DeepSeek-V2-Lite at full width and depth at tp 2,
+    one process per rank (gloo: NCCL refuses two ranks on one device; CUDA
+    tensors staged through host memory), the same traffic as the serve
+    path's tp 1 run (``ref``: {arch: its stats}). Gates: each sublayer of
+    blocks 0 and 1 on every rank's shard computes tp 1's output on the same
+    input within TP_PROBE_TOL, and lands outside it with the rank's
+    reductions skipped (``tp_probe``: a wrong cut, slice or reduction
+    fails it); every rank emits the same tokens, each rank's first
+    decode-kernel call on its head slice is bit-equal to the plain
+    version, each Yi rank's pools hold 1/tp of tp 1's bytes, every rank
+    launched its arch's kernels. Reported: token
+    matches against tp 1, step p50, tok/s, the collective span's p50, each
+    rank's peak memory. ``smoke``: the smoke configs (a CPU rehearsal).
+    Returns {(arch, tp): [each rank's launch counts]}."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    if DEV == "cuda":
+        build.build_all()                 # built already: no rank runs nvcc
+        torch.cuda.empty_cache()
+    out, probe_ref = {}, {}
+    for arch, tp in TP_RUNS:
+        t0 = time.perf_counter()
+        if arch not in probe_ref:
+            probe_ref[arch] = tp_probe_ref(arch, smoke)
+        backend = mesh_lib.pick_backend(tp, DEV)
+        job = dict(arch=arch, tp=tp, device=DEV, smoke=smoke)
+        # each run took 19-46 s on the card (PERF.md): a rank that takes
+        # several times that fails the phase inside the script's time limit
+        res = mesh_lib.run_ranks(tp_rank, tp, job, backend=backend, timeout=240)
+        tag = f"[path tp {arch} tp={tp}]"
+        base = ref[arch]
+        check(all(r["done"] for r in res), f"{tag} every request finishes on every rank")
+        check(all(r["out"] == res[0]["out"] for r in res),
+              f"{tag} every rank emits the same tokens")
+        for name, want in probe_ref[arch].items():
+            scale = float(want.abs().max())
+            errs = {k: [float((r["probe"][k][name] - want).abs().max()) / scale
+                        for r in res] for k in ("sound", "unreduced")}
+            log(f"{tag} {name}: max |tp {tp} - tp 1| / max |tp 1| ({scale:.4g}) per rank "
+                f"{[f'{e:.3e}' for e in errs['sound']]}; reductions skipped "
+                f"{[f'{e:.3e}' for e in errs['unreduced']]} (bound {TP_PROBE_TOL})")
+            check(max(errs["sound"]) <= TP_PROBE_TOL,
+                  f"{tag} {name}: a rank's shard computes otherwise than tp 1")
+            check(min(errs["unreduced"]) > TP_PROBE_TOL,
+                  f"{tag} {name}: the probe cannot tell a skipped reduction")
+        for r in res:
+            check(r["kernel_bit_equal"], f"{tag} rank {r['rank']}: the first decode "
+                  f"step's kernel on its head slice {r['kernel_q_shape']} differs from "
+                  f"plain by {r['kernel_err']}")
+            if DEV == "cuda":
+                for k in TP_KERNELS[arch]:
+                    check(r["launches"].get(k, 0) > 0,
+                          f"{tag} rank {r['rank']} never launched {k}")
+            if arch == "yi-9b":
+                check(r["pool_bytes"] * tp == base["pool_bytes"],
+                      f"{tag} rank {r['rank']}: pool bytes {r['pool_bytes']} are not "
+                      f"1/{tp} of tp 1's {base['pool_bytes']}")
+        same = sum(a == b for rid, toks in base["out"].items()
+                   for a, b in zip(toks, res[0]["out"][rid]))
+        r0 = res[0]
+        log(f"{tag} backend {r0['backend']}, CUDA tensors staged through host memory: "
+            f"{'yes' if r0['staged'] else 'no'}; {tp} ranks on one card; init "
+            f"{[round(r['init_s'], 1) for r in res]} s")
+        log(f"{tag} token match against tp 1: {same}/{base['tokens']} (reported, not "
+            f"gated: row-parallel sums of bfloat16 partials round otherwise); step p50 "
+            f"{r0['step_ms_p50']:.2f} ms over {r0['steps']} steps (tp 1: "
+            f"{base['step_ms_p50']:.2f}), {r0['tok_s']:.2f} tok/s (tp 1: "
+            f"{base['tok_s']:.2f}), collective span p50 {r0['collective_ms_p50']:.3f} ms; "
+            f"{r0['all_reduces']} all-reduces of {r0['collective_bytes']} bytes on rank 0")
+        log(f"{tag} per rank: peak memory GiB "
+            f"{[round(r['peak_gib'], 2) for r in res]}, pool bytes "
+            f"{[r['pool_bytes'] for r in res]} (tp 1: {base['pool_bytes']}), first "
+            f"decode kernel q {r0['kernel_q_shape']} pool {r0['kernel_pool_shape']}: "
+            f"|kernel - plain| {[r['kernel_err'] for r in res]}; launches "
+            f"{[r['launches'] for r in res]}")
+        RESULTS[f"tp {arch} tp={tp}"] = dict(
+            match=same, of=base["tokens"], step_ms_p50=r0["step_ms_p50"],
+            tok_s=r0["tok_s"], collective_ms_p50=r0["collective_ms_p50"],
+            peak_gib=[r["peak_gib"] for r in res], backend=r0["backend"],
+            staged=r0["staged"], all_reduces=r0["all_reduces"],
+            tp1_step_ms_p50=base["step_ms_p50"], tp1_tok_s=base["tok_s"])
+        out[(arch, tp)] = [r["launches"] for r in res]
+        log(f"[time] {tag}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 KERNELS = {
     # name: (route, source, replaces)
     "act_2d": ("cuda", "src/repro_torch/kernels/csrc/act.cu",
@@ -3480,6 +3879,9 @@ def main(argv=None) -> int:
         for k in ("act_2d", "silu_mul_2d", "softmax_2d"):
             check(c.get(k, 0) == 0, f"{name} cordic_fixed launched {k}")
     check(ds_fixed.get("gqa_decode", 0) == 0, "DeepSeek cordic_fixed launched gqa_decode")
+    tp_counts = tp_path(torch, build, {"yi-9b": yi["cordic_pallas"][1],
+                                       DEEPSEEK: ds["cordic_pallas"][1]})
+    phase_done("path tp")
     rec_counts, att_counts, tr_counts = archs_paths(torch, build, card, records,
                                                     pipeline_ops(PAPER_SCHEDULE))
     train_counts, _ = train_path(torch, build)
@@ -3489,7 +3891,7 @@ def main(argv=None) -> int:
     paths = (sigmoid_counts, serve_counts, ds_counts, train_counts, yi_chunked, yi_score,
              ds_chunked, yi_dense, yi_dense_long, ds_dense,
              *(c["cordic_pallas"] for c in rec_counts.values()), *att_counts.values(),
-             *tr_counts.values())
+             *tr_counts.values(), *(c for ranks in tp_counts.values() for c in ranks))
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNELS}
     for arch, g in GROUP_RECORDS.items():
         launches[f"gqa_decode[{g}]"] = att_counts[arch].get("gqa_decode", 0)
@@ -3524,7 +3926,8 @@ def main(argv=None) -> int:
         f"yi-9b {yi_chunked}, score {yi_score}, chunked {DEEPSEEK} {ds_chunked}, dense "
         f"yi-9b {yi_dense}, long {yi_dense_long}, dense {DEEPSEEK} {ds_dense}, sampling "
         f"yi-9b {yi['sampling']}, obs yi-9b {yi['obs']}, recurrent {rec_counts}, "
-        f"attention archs {att_counts}, train archs {tr_counts}; per kernel {launches}")
+        f"attention archs {att_counts}, train archs {tr_counts}, tensor-parallel "
+        f"ranks {tp_counts}; per kernel {launches}")
     for arch in ("yi-9b", DEEPSEEK):
         for impl in ("cordic_pallas", "cordic_fixed"):
             identity_phase(torch, arch, impl)

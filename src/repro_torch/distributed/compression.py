@@ -8,8 +8,9 @@ lineage), which keeps convergence unbiased to first order. On one device
 the reduction is the identity, so ``compress_grads`` models the end-to-end
 numerics of a compressed reduction: quantize -> dequantize with error
 feedback, applied to the gradients right before the optimizer (what the
-trainer's ``compress`` flag runs). The explicit collective,
-``psum_compressed``, waits for tensor parallelism (ROADMAP A.12).
+trainer's ``compress`` flag runs). ``psum_compressed`` is the explicit
+collective over ``torch.distributed`` (int8 payload held in int32, int32
+accumulation, one shared scale), for runtimes that own their reductions.
 
 Rounding, as jitted XLA:CPU computes the JAX functions (held bit for bit by
 tests/test_torch_train_archs.py): ``max|x| / 127 + 1e-30`` is a multiply by
@@ -83,3 +84,21 @@ def compress_grads_(grads: Tensors, err_state: Tensors) -> None:
         deq, err = _one(g, err_state[k])
         g.copy_(deq)
         err_state[k].copy_(err)
+
+
+def psum_compressed(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean over the ranks of ``group`` with an int8 payload and int32
+    accumulation (the JAX ``psum_compressed`` inside ``shard_map``): a MAX
+    all-reduce of each rank's amax gives every rank one scale, then the
+    codes ``clip(round(x / scale), -127, 127)`` (in int32) are summed and
+    ``total * scale / n`` comes back, float32. The scale rounds as
+    ``quantize_int8``'s does under jit (one fused multiply-add)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    amax = x.to(torch.float32).abs().amax().reshape(1)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = nx.fma(amax[0], _INV_127, 1e-30)
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127).to(torch.int32)
+    dist.all_reduce(q, group=group)
+    return q.to(torch.float32) * scale / n

@@ -4,8 +4,10 @@ CUDA kernels.
 Port of ``gqa_decode``, ``mla_decode`` and ``canonical_kv_dtype`` of
 ``repro/kernels/paged_attention.py``. One query row per slot walks its own
 block table up to ``k_len`` and attends the live blocks in place. The plain
-versions walk the blocks in table order, once per softmax pass, as the JAX
-kernels (``_gqa_kernel``, ``_mla_kernel``, ``_pass_update``) do. The CUDA
+versions compute what the JAX kernels (``_gqa_kernel``, ``_mla_kernel``,
+``_pass_update``) compute walking the blocks in table order once per
+softmax pass: every lane's score and probability at once, each sum that
+crosses blocks folded block by block in table order. The CUDA
 kernels (``csrc/paged_decode.cu``) keep each output row's arithmetic order
 but run everything except the folds in parallel, in four launches that
 share a workspace (``gqa_plan`` / ``mla_plan``: grids and workspace from
@@ -103,6 +105,11 @@ def canonical_kv_dtype(kv_dtype) -> Optional[torch.dtype]:
     return dt
 
 
+#: table columns the plain versions score and contract at once: bounds
+#: their transients (MLA's float64 products: B * H * PLAIN_COLS * L * R)
+PLAIN_COLS = 16
+
+
 def _seq_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """q (B,KH,G,hd) . k (B,L,KH,hd) -> (B,KH,G,L), summed left to right
     over head_dim."""
@@ -114,28 +121,15 @@ def _seq_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def _seq_pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """p (B,KH,G,L) . v (B,L,KH,hd) -> (B,KH,G,hd), summed left to right
-    over the block's lanes."""
-    acc = torch.zeros(p.shape[:3] + (v.shape[-1],), dtype=torch.float32,
-                      device=p.device)
-    for l in range(v.shape[1]):
-        acc = acc + p[..., l:l + 1] * v[:, l, :, None, :]
-    return acc
-
-
-def _walk(tables, k_len, L: int, impl: str):
-    """The block walk of both decodes: (pass, block ids (B,), live rows
-    (B,), valid lanes (B,L)) for every pass and every table column some row
-    still covers (c * L < k_len), in the kernels' order."""
+def _live_columns(tables, k_len, L: int):
+    """The walk's table columns, those some row still covers (c * L <
+    k_len): their block ids (B, C), each row's live columns (B, C) and
+    valid lanes (B, C, L)."""
     klen = k_len.to(torch.int64)
-    lane = torch.arange(L, device=tables.device)
-    for pas in range(1 if impl == "exact" else 3):
-        for c in range(tables.shape[1]):
-            live = c * L < klen
-            if bool(live.any()):
-                yield (pas, tables[:, c].to(torch.int64), live,
-                       (c * L + lane)[None, :] < klen[:, None])
+    C = min(tables.shape[1], max(0, -(-int(klen.max()) // L))) if klen.numel() else 0
+    lane = torch.arange(C * L, device=tables.device).view(C, L)
+    return (tables[:, :C].to(torch.int64), lane[None, :, 0] < klen[:, None],
+            lane[None] < klen[:, None, None])
 
 
 def _seq_sum(x: torch.Tensor) -> torch.Tensor:
@@ -147,35 +141,51 @@ def _seq_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _pass_update(s, live, pas, impl, state, contract, sched, cfg):
-    """One block of the softmax accumulation shared by both decodes (the
-    JAX ``_pass_update``). s (..., L) masked scores; live broadcastable to
-    s[..., :1]; state (running max, running sum, accumulator);
-    contract(p) -> the block's weighted-value sum. ``exact``: the online
-    (flash-decoding) recurrence; the CORDIC impls: pass 0 the row max,
-    pass 1 the CORDIC e^u row sum, pass 2 the lane-exact probabilities
+def _block_softmax(s, live, impl, contract, width, sched, cfg):
+    """The softmax accumulation of both decodes (the JAX ``_pass_update``
+    over the block walk) on every live lane's masked score s (lead..., C,
+    L); live (broadcastable to lead..., C): the row covers the column;
+    contract(p, c0, c1) -> the weighted-value sum of each block of columns
+    c0..c1 (lead..., c1 - c0, width), p (lead..., c1 - c0, L). ``exact``:
+    the online (flash-decoding) recurrence, block by block; the CORDIC
+    impls: the row max, the CORDIC e^u of every lane and the block sums
+    folded into the row sum in table order, then the lane-exact
+    probabilities, whose blocks' P.V sums fold in table order
     (``cordic_fixed`` through the function library, which takes the
-    reference's default schedules)."""
-    m, l_sum, acc = state
+    reference's default schedules). Returns the (lead..., width) output."""
+    lead, C = s.shape[:-2], s.shape[-2]
+    m = torch.full(lead + (1,), NEG_INF, dtype=torch.float32, device=s.device)
+    l_sum = torch.zeros_like(m)
+    acc = torch.zeros(lead + (width,), dtype=torch.float32, device=s.device)
     if impl == "exact":
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        ef = torch.exp(s - m_new)
-        return (torch.where(live, m_new, m),
-                torch.where(live, l_sum * alpha + _seq_sum(ef), l_sum),
-                torch.where(live, acc * alpha + contract(ef), acc))
-    if pas == 0:
-        return torch.where(live, torch.maximum(m, s.amax(dim=-1, keepdim=True)), m), \
-            l_sum, acc
-    if pas == 1:
-        e = (F.exp_fixed(s - m, cfg=cfg) if impl == "cordic_fixed"
-             else _lane_exp(s - m, sched, cfg))
-        return m, torch.where(live, l_sum + _seq_sum(e), l_sum), acc
+        for c in range(C):
+            lv, sc = live[..., c:c + 1], s[..., c, :]
+            m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            ef = torch.exp(sc - m_new)
+            l_sum = torch.where(lv, l_sum * alpha + _seq_sum(ef), l_sum)
+            acc = torch.where(lv, acc * alpha + contract(ef[..., None, :], c, c + 1)[..., 0, :],
+                              acc)
+            m = torch.where(lv, m_new, m)
+        return acc / l_sum
+    if C:                                # the row max: order-free
+        m = torch.maximum(m, s.amax(dim=(-2, -1))[..., None])
+    u = s - m[..., None]
+    e = (F.exp_fixed(u, cfg=cfg) if impl == "cordic_fixed"
+         else _lane_exp(u, sched, cfg))
+    bs = _seq_sum(e)
+    for c in range(C):
+        l_sum = torch.where(live[..., c:c + 1], l_sum + bs[..., c, :], l_sum)
     if impl == "cordic_fixed":
-        pr = F.divide_fixed(F.exp_fixed(s - m, cfg=cfg), l_sum, cfg=cfg)
+        pr = F.divide_fixed(e, l_sum[..., None], cfg=cfg)
     else:
-        pr = _lane_probs(s - m, l_sum, sched, cfg)
-    return m, l_sum, torch.where(live, acc + contract(pr), acc)
+        pr = _lane_probs(u, l_sum[..., None], sched, cfg)
+    for c0 in range(0, C, PLAIN_COLS):
+        c1 = min(C, c0 + PLAIN_COLS)
+        pv = contract(pr[..., c0:c1, :], c0, c1)
+        for c in range(c0, c1):
+            acc = torch.where(live[..., c:c + 1], acc + pv[..., c - c0, :], acc)
+    return acc
 
 
 def _kernel_sched(impl: str, sched: MRSchedule) -> MRSchedule:
@@ -184,12 +194,6 @@ def _kernel_sched(impl: str, sched: MRSchedule) -> MRSchedule:
     (HYP_ROTATION, LIN_VECTORING: PAPER_SCHEDULE's two halves), whatever
     ``sched`` the caller passed, as the reference does."""
     return PAPER_SCHEDULE if impl == "cordic_fixed" else sched
-
-
-def _init_state(lead, width, device):
-    m = torch.full(lead + (1,), NEG_INF, dtype=torch.float32, device=device)
-    return (m, torch.zeros_like(m),
-            torch.zeros(lead + (width,), dtype=torch.float32, device=device))
 
 
 def _quant_args(k_pool, kv_quant, k_scale_pool, v_scale_pool, kv_dtype):
@@ -221,22 +225,34 @@ def gqa_decode_plain(q, k_pool, v_pool, tables, k_len, *, scale: float,
     spec, kvd = _quant_args(k_pool, kv_quant, k_scale_pool, v_scale_pool,
                             kv_dtype)
 
-    def block(pool, scales, blk):
+    B, KH, G, hd = q.shape
+    L = k_pool.shape[1]
+    blks, live, valid = _live_columns(tables, k_len, L)
+
+    def blocks(pool, scales, c0, c1):
+        blk = blks[:, c0:c1]
         vals = (pool[blk] if spec is None
                 else kvq.dequantize(pool[blk], spec, scales[blk]))
-        return vals.to(kvd).to(torch.float32)                      # (B,L,KH,hd)
+        return vals.to(kvd).to(torch.float32)                  # (B,C',L,KH,hd)
 
-    B, KH, G, hd = q.shape
+    def pv(p, c0, c1):
+        """p (B,KH,G,C',L) . V -> (B,KH,G,C',hd), left to right over a
+        block's lanes."""
+        v = blocks(v_pool, v_scale_pool, c0, c1).permute(0, 3, 1, 2, 4)
+        acc = torch.zeros(p.shape[:-1] + (hd,), dtype=torch.float32, device=p.device)
+        for l in range(L):
+            acc = acc + p[..., l:l + 1] * v[:, :, None, :, l]
+        return acc
+
     qf = q.to(torch.float32)
-    state = _init_state((B, KH, G), hd, q.device)
-    for pas, blk, live, valid in _walk(tables, k_len, k_pool.shape[1], impl):
-        s = _seq_scores(qf, block(k_pool, k_scale_pool, blk)) * scale
-        s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
-        state = _pass_update(
-            s, live[:, None, None, None], pas, impl, state,
-            lambda p: _seq_pv(p, block(v_pool, v_scale_pool, blk)), sched, cfg)
-    _, l_sum, acc = state
-    return acc / l_sum if impl == "exact" else acc
+    C = blks.shape[1]
+    s = torch.cat([_seq_scores(qf, blocks(k_pool, k_scale_pool, c0, min(C, c0 + PLAIN_COLS))
+                               .flatten(1, 2))
+                   for c0 in range(0, C, PLAIN_COLS)], dim=-1) if C else \
+        torch.zeros((B, KH, G, 0), device=q.device)
+    s = s.view(B, KH, G, C, L) * scale
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    return _block_softmax(s, live[:, None, None], impl, pv, hd, sched, cfg)
 
 
 #: pool storage codes of the C interface: float32 pools, int8 and int16 codes
@@ -469,16 +485,6 @@ def _split_dot(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
 
 
-def _seq_latent(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """p (B,H,L) . c (B,L,R) -> (B,H,R), summed left to right over the
-    block's lanes."""
-    acc = torch.zeros(p.shape[:2] + (c.shape[-1],), dtype=torch.float32,
-                      device=p.device)
-    for l in range(c.shape[1]):
-        acc = acc + p[..., l:l + 1] * c[:, l, None, :]
-    return acc
-
-
 def mla_decode_plain(q_eff, q_rope, c_pool, r_pool, tables, k_len, *,
                      scale: float, softmax_impl: str = "exact",
                      sched: MRSchedule = PAPER_SCHEDULE,
@@ -487,18 +493,34 @@ def mla_decode_plain(q_eff, q_rope, c_pool, r_pool, tables, k_len, *,
     order, same sums as the kernel)."""
     impl = _impl(softmax_impl)
     B, H, R = q_eff.shape
+    L = c_pool.shape[1]
     qe = q_eff.to(torch.float32)
     qr = q_rope.to(torch.float32)
-    state = _init_state((B, H), R, qe.device)
-    for pas, blk, live, valid in _walk(tables, k_len, c_pool.shape[1], impl):
-        cb = c_pool[blk].to(torch.float32)                          # (B,L,R)
-        rb = r_pool[blk].to(torch.float32)                          # (B,L,P)
-        s = (_split_dot(qe, cb) + _split_dot(qr, rb)) * scale      # (B,H,L)
-        s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
-        state = _pass_update(s, live[:, None, None], pas, impl, state,
-                             lambda p: _seq_latent(p, cb), sched, cfg)
-    _, l_sum, acc = state
-    return acc / l_sum if impl == "exact" else acc
+    blks, live, valid = _live_columns(tables, k_len, L)
+
+    def latent(c0, c1):
+        return c_pool[blks[:, c0:c1]].to(torch.float32)        # (B,C',L,R)
+
+    def pv(p, c0, c1):
+        """p (B,H,C',L) . c -> (B,H,C',R), left to right over a block's
+        lanes."""
+        cb = latent(c0, c1)
+        acc = torch.zeros(p.shape[:-1] + (R,), dtype=torch.float32, device=p.device)
+        for l in range(L):
+            acc = acc + p[..., l:l + 1] * cb[:, None, :, l]
+        return acc
+
+    C = blks.shape[1]
+    parts = []
+    for c0 in range(0, C, PLAIN_COLS):
+        c1 = min(C, c0 + PLAIN_COLS)
+        rb = r_pool[blks[:, c0:c1]].to(torch.float32)           # (B,C',L,P)
+        parts.append(_split_dot(qe, latent(c0, c1).flatten(1, 2))
+                     + _split_dot(qr, rb.flatten(1, 2)))
+    s = torch.cat(parts, dim=-1) if parts else torch.zeros((B, H, 0), device=qe.device)
+    s = s.view(B, H, C, L) * scale
+    s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
+    return _block_softmax(s, live[:, None], impl, pv, R, sched, cfg)
 
 
 def mla_decode(q_eff, q_rope, c_pool, r_pool, tables, k_len, *, scale: float,

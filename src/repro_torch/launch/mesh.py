@@ -1,0 +1,271 @@
+"""Meshes over ``torch.distributed`` ranks (port of ``repro/launch/mesh.py``).
+
+The JAX package builds a ("data", "model") mesh over the devices one
+program sees. The port runs one process per rank: ``run_ranks`` spawns
+them and joins them to one process group, and ``make_host_mesh`` lays that
+group's world out as a ("data", "model") mesh whose model axis is
+``model_parallel`` ranks wide (the data axis takes the rest). Ranks
+``[d * tp, (d + 1) * tp)`` form data row d's model group, the one every
+collective of ``distributed/sharding.py`` runs on.
+
+Backend (``pick_backend``): NCCL when every rank has a card of its own;
+gloo when ranks share a card (NCCL refuses two ranks on one device) and on
+the CPU. Under gloo, CUDA tensors go through host memory
+(``Mesh.staged``).
+
+``run_ranks(target, world, payload)`` starts ``world`` processes with the
+``spawn`` method (never ``fork``: a parent may run threads, JAX's among
+them), each of which joins the group through a ``FileStore`` in a fresh
+temporary directory (never a fixed port: test files run side by side),
+calls ``target(payload)`` and sends its result back. The parent joins the
+children against a deadline and terminates them all when one fails or
+the deadline passes, so a stuck rank fails its caller and never hangs it.
+``target`` is a function the children can import (a module-level
+function of a package module, or of the ``__main__`` script) or its
+"module:function" name.
+
+``make_production_mesh`` (the 512-chip dry-run mesh) waits for the cost
+tooling (ROADMAP A.14).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import datetime
+import importlib
+import os
+import pickle
+import queue as queue_lib
+import shutil
+import sys
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Union
+
+import torch
+
+#: seconds a rank waits in a collective or a rendezvous before it fails
+GROUP_TIMEOUT_S = 60
+
+
+@dataclasses.dataclass
+class Mesh:
+    """A ("data", "model") layout of the process group's ranks, as this
+    rank sees it. ``group`` is this rank's model-axis process group;
+    ``stats`` counts the collectives run on it and their bytes."""
+    shape: Dict[str, int]
+    rank: int
+    group: Any
+    backend: str
+    stats: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+
+    axis_names = ("data", "model")
+
+    @property
+    def staged(self) -> bool:
+        """CUDA tensors go through host memory: gloo's collectives take
+        CPU tensors."""
+        return self.backend == "gloo"
+
+    @property
+    def size(self) -> int:
+        return self.shape["data"] * self.shape["model"]
+
+    @property
+    def tp(self) -> int:
+        return self.shape["model"]
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.tp
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def make_host_mesh(model_parallel: int = 1) -> Mesh:
+    """("data", "model") mesh over the ranks of the initialised process
+    group (one rank when there is none): the model axis is
+    ``model_parallel`` ranks wide, the data axis takes the rest."""
+    import torch.distributed as dist
+
+    n = _world()
+    if model_parallel < 1 or n % model_parallel != 0:
+        raise ValueError(
+            f"process-group world size {n} is not divisible by "
+            f"model_parallel={model_parallel}; pick a tensor-parallel degree "
+            "that divides the ranks of the process group (start more with "
+            "launch.mesh.run_ranks)")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    group = None
+    if dist.is_initialized():
+        data = n // model_parallel
+        if data == 1:
+            group = dist.group.WORLD
+        else:
+            # every rank creates every group, in the same order
+            for d in range(data):
+                g = dist.new_group(list(range(d * model_parallel,
+                                              (d + 1) * model_parallel)))
+                if d == rank // model_parallel:
+                    group = g
+    backend = dist.get_backend() if dist.is_initialized() else "none"
+    return Mesh(shape={"data": n // model_parallel, "model": model_parallel},
+                rank=rank, group=group, backend=backend)
+
+
+def mesh_or_none(model_parallel: Optional[int] = 1) -> Optional[Mesh]:
+    """``make_host_mesh`` for multi-rank runs, ``None`` for TP=1: a
+    one-rank path never builds a trivial mesh, and stays the single-device
+    datapath."""
+    if model_parallel in (None, 0, 1):
+        return None
+    return make_host_mesh(model_parallel)
+
+
+def pick_backend(world: int, device: str) -> str:
+    """NCCL when each of ``world`` ranks has a card of its own, else
+    gloo (ranks sharing a card, or the CPU)."""
+    if device.startswith("cuda") and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def _resolve(target: Union[str, Callable]) -> Callable:
+    if callable(target):
+        return target
+    mod, _, fn = target.partition(":")
+    return getattr(importlib.import_module(mod), fn)
+
+
+def _rank_entry(rank: int, world: int, store_path: str, backend: str,
+                target, payload, results, quiet: bool) -> None:
+    """One rank: join the group, run ``target(payload)``, send back
+    (rank, ok, result or traceback)."""
+    import torch.distributed as dist
+
+    if quiet and rank:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        # ranks share the host's cores: one intra-op thread each
+        torch.set_num_threads(1)
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
+        dist.init_process_group(
+            backend, store=dist.FileStore(store_path, world), rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        try:
+            out = _resolve(target)(payload)
+        finally:
+            dist.destroy_process_group()
+        # plain pickle: tensors travel as bytes, not as shared-memory
+        # handles that die with this process
+        results.put((rank, True, pickle.dumps(out)))
+    except BaseException:                                    # noqa: BLE001
+        results.put((rank, False, traceback.format_exc()))
+
+
+def rank_call(payload):
+    """A ``run_ranks`` target: payload (target, [per-rank argument tuple])
+    -> ``target(*args[rank])`` on each rank."""
+    import torch.distributed as dist
+
+    target, args = payload
+    return _resolve(target)(*args[dist.get_rank()])
+
+
+class RankGroup:
+    """``world`` spawned ranks of one process group running
+    ``target(payload)``, started at construction; ``join`` collects their
+    results. Lets a caller work while the ranks run (``run_ranks`` starts
+    and joins at once)."""
+
+    def __init__(self, target: Union[str, Callable], world: int, payload: Any = None, *,
+                 backend: str = "gloo", timeout: float = 300.0, quiet: bool = True):
+        import torch.multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.world, self.timeout = world, timeout
+        self._tmp = tempfile.mkdtemp(prefix="repro_ranks_")
+        self._results = ctx.Queue()
+        self._procs = [ctx.Process(target=_rank_entry,
+                                   args=(r, world, os.path.join(self._tmp, "store"),
+                                         backend, target, payload, self._results,
+                                         quiet), daemon=True)
+                       for r in range(world)]
+        self._deadline = time.monotonic() + timeout
+        try:
+            for p in self._procs:
+                p.start()
+        except BaseException:
+            self._stop()
+            raise
+
+    def join(self) -> List[Any]:
+        """The ranks' results in rank order. Raises RuntimeError (with the
+        failing rank's traceback) when a rank fails, dies or outlives the
+        timeout; every child is gone when it returns."""
+        out: Dict[int, Any] = {}
+        failure = None
+        procs, results = self._procs, self._results
+        try:
+            while len(out) < self.world and failure is None:
+                left = self._deadline - time.monotonic()
+                if left <= 0:
+                    failure = (f"ranks {sorted(set(range(self.world)) - set(out))} "
+                               f"did not finish within {self.timeout} s")
+                    break
+                try:
+                    rank, ok, res = results.get(timeout=min(left, 1.0))
+                except queue_lib.Empty:
+                    dead = [r for r, p in enumerate(procs)
+                            if r not in out and p.exitcode is not None]
+                    if not dead:
+                        continue
+                    # a last look: the result may have been sent just now
+                    try:
+                        rank, ok, res = results.get(timeout=2.0)
+                    except queue_lib.Empty:
+                        failure = (f"rank {dead[0]} exited with code "
+                                   f"{procs[dead[0]].exitcode} and no result")
+                        break
+                if ok:
+                    out[rank] = pickle.loads(res)
+                else:
+                    failure = f"rank {rank} failed:\n{res}"
+            if failure is None:
+                for p in procs:
+                    p.join(max(1.0, self._deadline - time.monotonic()))
+        finally:
+            self._stop()
+        if failure is not None:
+            raise RuntimeError(failure)
+        return [out[r] for r in range(self.world)]
+
+    def _stop(self) -> None:
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+        for p in self._procs:
+            if p.pid is None:
+                continue
+            p.join(5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(self._tmp, ignore_errors=True)
+
+
+def run_ranks(target: Union[str, Callable], world: int, payload: Any = None, *,
+              backend: str = "gloo", timeout: float = 300.0,
+              quiet: bool = True) -> List[Any]:
+    """Run ``target(payload)`` on ``world`` spawned ranks of one process
+    group; returns the ranks' results in rank order (``RankGroup``).
+    ``quiet`` silences the standard output of ranks other than 0."""
+    return RankGroup(target, world, payload, backend=backend, timeout=timeout,
+                     quiet=quiet).join()

@@ -15,12 +15,19 @@
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+        --smoke --device cpu --tp 2
 
 Boots the continuous-batching engine for a registered arch with random
 weights from a seed, on the card (``--device cuda``, the default) or on the
 CPU through the plain versions of the kernels (``--device cpu``, with
 ``--smoke`` for a config the CPU can run). Takes every flag of the JAX
-launcher; only ``--tp`` raises (ROADMAP A.12). ``--act-impl`` takes the
+launcher. ``--tp N`` serves tensor-parallel over N ranks, one process each
+(launch/mesh.py ``run_ranks``; NCCL when each rank has a card of its own,
+gloo when they share one or on the CPU; the kernels are built before the
+ranks start): every rank builds its shard of the same seeded weights and
+serves the same traffic, rank 0 prints, with one ``[serve] mesh:`` line.
+The recurrent archs raise there (ROADMAP A.12b). ``--act-impl`` takes the
 activation registry's four datapaths (``core/activations.ACT_IMPLS``;
 ``cordic_pallas``, the CUDA kernels, by default). The attention softmax is
 the CORDIC kernel (``softmax_impl="cordic_pallas"``); other softmax impls
@@ -109,7 +116,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "requests share a system prompt of two blocks")
     ap.add_argument("--prefix-eviction", default="lru", choices=["lru", "fifo"])
     ap.add_argument("--tp", type=int, default=0,
-                    help="tensor parallelism: not ported yet (ROADMAP A.12)")
+                    help="tensor-parallel ranks (one process each; 0/1: none)")
     ap.add_argument("--metrics-json", default=None,
                     help="write the metrics registry's snapshot here")
     ap.add_argument("--trace-out", default=None,
@@ -120,6 +127,31 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.tp > 1:
+        from repro_torch.launch import mesh as mesh_lib
+
+        backend = mesh_lib.pick_backend(args.tp, args.device)
+        if args.device.startswith("cuda"):
+            from repro_torch.kernels import build
+
+            build.build_all()          # once, before the ranks load it
+        mesh_lib.run_ranks(_rank_main, args.tp, argv, backend=backend,
+                           timeout=3600)
+        return 0
+    return serve(args)
+
+
+def _rank_main(argv):
+    """One rank of ``--tp``: the launcher over this rank's mesh."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    args = build_parser().parse_args(argv)
+    return serve(args, mesh_lib.make_host_mesh(args.tp))
+
+
+def serve(args, mesh=None):
+    """The launcher's serve of ``args`` (on one rank's ``mesh`` when
+    given)."""
     cfg = (configs.get_smoke(args.arch, act_impl=args.act_impl) if args.smoke
            else configs.get_config(args.arch, act_impl=args.act_impl))
     if cfg.input_mode != "tokens":
@@ -135,8 +167,8 @@ def main(argv=None):
     print(f"[serve] arch={cfg.name} slots={args.slots} kv={args.kv_impl} "
           f"kv_quant={args.kv_quant} attend={attend} "
           f"temperature={args.temperature} top_k={args.top_k} "
-          f"device={args.device}")
-    params = tf.init(cfg, seed=0, device=args.device)
+          f"device={args.device} tp={args.tp or 1}")
+    params = tf.init(cfg, seed=0, device=args.device, mesh=mesh)
     eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
                       sampling=SamplingParams(temperature=args.temperature,
                                               top_k=args.top_k),
@@ -150,7 +182,12 @@ def main(argv=None):
                       max_prefill_tokens=args.max_prefill_tokens or None,
                       prefix_cache=args.prefix_cache,
                       prefix_eviction=args.prefix_eviction,
-                      tp=args.tp or None, obs=obs, device=args.device)
+                      mesh=mesh, obs=obs, device=args.device)
+    if eng.mesh is not None:
+        print(f"[serve] mesh: {dict(eng.mesh.shape)} over {eng.mesh.size} "
+              f"ranks, backend {eng.mesh.backend}, CUDA tensors staged "
+              f"through host memory: "
+              f"{'yes' if eng.mesh.staged and eng.device.type == 'cuda' else 'no'}")
     prefix_len = 2 * args.block_len if args.prefix_cache else 0
     for r in make_requests(cfg, args.requests, args.max_new,
                            prefix_len=prefix_len):
@@ -195,6 +232,10 @@ def main(argv=None):
             obs.trace.export(args.trace_out)
             print(f"[serve] wrote Chrome trace -> {args.trace_out} "
                   "(load at ui.perfetto.dev)")
+    if eng.mesh is not None:
+        st = eng.mesh.stats
+        print(f"[serve] collectives on the model axis: {st['all_reduce']} "
+              f"all-reduces, {st['bytes']} bytes")
     assert len(done) == args.requests
     return 0
 
@@ -211,6 +252,62 @@ def make_requests(cfg, n: int, max_new: int, seed: int = 0, prefix_len: int = 0)
         reqs.append(Request(rid=i, prompt=np.concatenate([sys_prompt, tail]),
                             max_new_tokens=max_new))
     return reqs
+
+
+def rank_serve(job):
+    """A ``run_ranks`` target (tests, tools): serve request traces on this
+    rank; ``job`` a dict or a list of them (one result each). A dict:
+    {"cfg", "flat" (JAX-layout weights, ``load_jax_params``) or "seed",
+    "device", "tp", "cases": [{"engine": ServeEngine kwargs,
+    "requests": [(rid, prompt, max_new_tokens, SamplingParams or None)],
+    "scores": [prompts], "obs": bool}]}. Returns {"cases": [{"tokens": {rid:
+    out}, "tp", "pool_shapes", "kv_pool_bytes", "gauges", "collectives",
+    "scores", "prefix_hits"}]}, from this rank."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    if isinstance(job, list):
+        return [rank_serve(j) for j in job]
+    cfg, dev, tp = job["cfg"], job.get("device", "cpu"), job["tp"]
+    mesh = mesh_lib.mesh_or_none(tp)
+    if "flat" in job:
+        model = tf.load_jax_params(cfg, job["flat"], device=dev, mesh=mesh)
+    else:
+        model = tf.init(cfg, seed=job.get("seed", 0), device=dev, mesh=mesh)
+    out = []
+    for case in job["cases"]:
+        obs = obs_lib.Observability() if case.get("obs") else None
+        eng = ServeEngine(cfg, model, mesh=mesh, obs=obs, device=dev,
+                          **case["engine"])
+        n0 = dict(mesh.stats) if mesh is not None else {}
+        reqs = [Request(rid=rid, prompt=np.asarray(p, np.int32),
+                        max_new_tokens=n, sampling=samp)
+                for rid, p, n, samp in case["requests"]]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        assert all(r.done and r.error is None for r in reqs), \
+            [r.error for r in reqs]
+        layer = eng._caches.layers[0]
+        res = {"tokens": {r.rid: list(r.out) for r in reqs}, "tp": eng.tp,
+               "pool_shapes": {k: tuple(v.shape) for k, v in layer.items()
+                               if k.endswith("_pool") or k in ("k", "v")},
+               "kv_pool_bytes": eng.kv_pool_bytes(),
+               "scores": [eng.score(np.asarray(p, np.int32))
+                          for p in case.get("scores", ())],
+               "prefix_hits": (eng.prefix.hits, eng.prefix.hit_blocks)
+               if eng.prefix is not None else None,
+               "collectives": {k: v - n0.get(k, 0) for k, v in
+                               (mesh.stats.items() if mesh is not None else ())}}
+        if obs is not None:
+            m = obs.metrics
+            res["gauges"] = {"tp": m.get("engine.mesh.tp").last,
+                             "devices": m.get("engine.mesh.devices").last,
+                             "collective_count": (
+                                 m.get("engine.phase.collective_ms").count
+                                 if "engine.phase.collective_ms" in m.names()
+                                 else 0)}
+        out.append(res)
+    return {"cases": out}
 
 
 if __name__ == "__main__":

@@ -32,6 +32,25 @@ the buffer in place of the gathered table: ``_attend_rows`` with a per-row
 decode. One batched decode serves every slot, where the JAX engine
 ``vmap``s a batch-1 decode over them; each row computes what its batch-1
 decode does.
+
+``cfg.pad_heads_to`` pads the KV heads up to a multiple (``padded_heads``)
+and the query heads follow as H' = KH' * G, so head counts divide a wide
+model axis; leaves, caches and pools take the padded counts. Padded heads
+whose k/v projections are zero attend over zero values and add nothing
+through ``wo``, so the forward is exact.
+
+``cfg.score_dtype="bf16_mxu"`` keeps the attend's operands in their storage
+dtype and accumulates in float32 (the JAX ``preferred_element_type``):
+a bfloat16 product is exact in float32, so the port upcasts the operands
+and multiplies in float32 (TF32 off on the card), and casts the
+probabilities to the values' dtype before P.V. The paged decode kernels
+score in float32 only and refuse it.
+
+Under tensor parallelism (distributed/sharding.py) a rank holds its slice
+of the heads: it attends with its query heads (and its KV heads, or, when
+the KV heads do not divide tp, the whole KV heads' ones its query heads
+read), and its ``wo`` product is a partial sum, reduced over the model
+axis.
 """
 from __future__ import annotations
 
@@ -43,6 +62,7 @@ from torch import nn
 
 from repro_torch.cordic_engine import functions as F
 from repro_torch.core import kv_quant as kvq
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 
@@ -68,11 +88,31 @@ def _softmax_fn(impl: Optional[str]):
     raise ValueError(f"unknown softmax_impl {impl!r}")
 
 
-def _check_score_dtype(score_dtype: str) -> None:
-    if score_dtype != "f32":
-        raise NotImplementedError(
-            f"score_dtype={score_dtype!r} is not ported yet (ROADMAP A.14); the "
-            "port scores in float32 (score_dtype='f32')")
+SCORE_DTYPES = ("f32", "bf16_mxu")
+
+
+def _mxu(score_dtype: str) -> bool:
+    """True for "bf16_mxu" (storage-dtype operands, float32 accumulation),
+    False for "f32" (operands cast to float32)."""
+    if score_dtype not in SCORE_DTYPES:
+        raise ValueError(f"unknown score_dtype {score_dtype!r}, not in {SCORE_DTYPES}")
+    return score_dtype == "bf16_mxu"
+
+
+def _scores(q, k, scale, score_dtype):
+    """(B,S,KH,G,D) x (B,T,KH,D) -> (B,KH,G,S,T) float32 scores. Both
+    score dtypes multiply in float32: for bf16_mxu the float32 image of a
+    bfloat16 operand is exact, and so are its products."""
+    _mxu(score_dtype)
+    return torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+
+
+def _pv(p, v, score_dtype):
+    """Probabilities (B,KH,G,S,T) float32 against values (B,T,KH,Dv): under
+    bf16_mxu the probabilities are cast to v's dtype first."""
+    if _mxu(score_dtype):
+        p = p.to(v.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p.float(), v.float())
 
 
 # ---------------------------------------------------------------------------
@@ -81,13 +121,11 @@ def _check_score_dtype(score_dtype: str) -> None:
 def _attend_block(q, k, v, q_pos, k_pos, scale, score_dtype: str = "f32",
                   softmax_impl: str = "exact"):
     """q (B,c,KH,G,D), k/v (B,T,KH,D) -> (B,c,KH,G,D), full-row softmax."""
-    _check_score_dtype(score_dtype)
-    q32, k32, v32 = (t.to(torch.float32) for t in (q, k, v))
-    s = torch.einsum("bqhgd,bkhd->bhgqk", q32, k32) * scale
+    s = _scores(q, k, scale, score_dtype)
     mask = k_pos[None, :] <= q_pos[:, None]                    # (c, T)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = _softmax_fn(softmax_impl)(s, axis=-1)
-    return torch.einsum("bhgqk,bkhd->bqhgd", p, v32)
+    return _pv(p, v, score_dtype)
 
 
 def causal_attention(q, k, v, *, q_offset=0, k_len=None, chunk: int = 1024,
@@ -117,15 +155,13 @@ def _attend_rows(q, k, v, q_pos, k_len, scale, score_dtype: str = "f32",
                  softmax_impl: str = "exact"):
     """_attend_block with per-row positions: q (B,S,KH,G,D), k/v
     (B,T,KH,Dv), q_pos (B,S), k_len (B,)."""
-    _check_score_dtype(score_dtype)
-    q32, k32, v32 = (t.to(torch.float32) for t in (q, k, v))
-    s = torch.einsum("bqhgd,bkhd->bhgqk", q32, k32) * scale
+    s = _scores(q, k, scale, score_dtype)
     k_pos = torch.arange(k.shape[1], device=q.device)
     mask = ((k_pos[None, None, :] < k_len[:, None, None])
             & (k_pos[None, None, :] <= q_pos[:, :, None]))      # (B,S,T)
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     p = _softmax_fn(softmax_impl)(s, axis=-1)
-    return torch.einsum("bhgqk,bkhd->bqhgd", p, v32)
+    return _pv(p, v, score_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +174,8 @@ def _paged_attend_impl(cfg) -> str:
     if impl == "pallas" and cfg.score_dtype != "f32":
         raise ValueError(
             "paged_attend_impl='pallas' supports score_dtype='f32' only "
-            f"(got {cfg.score_dtype!r})")
+            f"(got {cfg.score_dtype!r}); use the gather path for "
+            "bf16_mxu scoring")
     return impl
 
 
@@ -247,12 +284,12 @@ def _dense_idx(batch: int, device, idx) -> torch.Tensor:
 
 
 def gqa_init_cache(cfg, batch: int, max_len: int, dtype=torch.float32, *,
-                   device, idx: Optional[torch.Tensor] = None
-                   ) -> Dict[str, torch.Tensor]:
+                   device, idx: Optional[torch.Tensor] = None,
+                   kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """One GQA layer's dense cache: (batch, max_len, KH, hd) K/V buffers
-    and the (batch,) positions ``idx``, which the caller may share across
-    layers."""
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    (KH padded, or ``kv_heads``: a rank's share) and the (batch,) positions
+    ``idx``, which the caller may share across layers."""
+    shape = (batch, max_len, kv_heads or padded_heads(cfg)[1], cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "idx": _dense_idx(batch, device, idx)}
@@ -261,15 +298,17 @@ def gqa_init_cache(cfg, batch: int, max_len: int, dtype=torch.float32, *,
 def gqa_init_paged_cache(cfg, slots: int, num_blocks: int, block_len: int,
                          max_blocks: int, dtype=torch.float32, *, device,
                          tables: Optional[torch.Tensor] = None,
-                         lens: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                         lens: Optional[torch.Tensor] = None,
+                         kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """One layer's paged cache: (num_blocks, block_len, KH, hd) K/V pools
-    (block 0 is scratch) plus the per-slot tables and lengths, which the
-    caller may share across layers. Under ``cfg.kv_quant`` the pools hold
-    codes in the format's lane dtype, and "k_scale_pool"/"v_scale_pool"
-    (num_blocks, 1, KH, 1) float32 hold the per-block per-head scales,
-    starting at 1.0."""
+    (block 0 is scratch; KH padded, or ``kv_heads``: a rank's share) plus
+    the per-slot tables and lengths, which the caller may share across
+    layers. Under ``cfg.kv_quant`` the pools hold codes in the format's
+    lane dtype, and "k_scale_pool"/"v_scale_pool" (num_blocks, 1, KH, 1)
+    float32 hold the per-block per-head scales, starting at 1.0: a rank's
+    scales follow its codes' heads."""
     spec = kvq.spec_for(getattr(cfg, "kv_quant", "none"))
-    KH, hd = cfg.num_kv_heads, cfg.head_dim
+    KH, hd = kv_heads or padded_heads(cfg)[1], cfg.head_dim
     shape = (num_blocks, block_len, KH, hd)
     pool_dtype = dtype if spec is None else spec.code_dtype
     cache = {
@@ -298,18 +337,28 @@ def _slot_rows(slots, max_blocks, device, tables, lens) -> Dict[str, torch.Tenso
 # ---------------------------------------------------------------------------
 # GQA
 # ---------------------------------------------------------------------------
+def padded_heads(cfg):
+    """(H', KH') after ``cfg.pad_heads_to``: the KV heads pad up to the
+    multiple and the query heads follow as H' = KH' * G (G the arch's group
+    size), which keeps the kv-major q -> kv mapping of the real heads."""
+    H, KH = cfg.num_heads, cfg.num_kv_heads
+    p = cfg.pad_heads_to
+    if p and p > 1:
+        G = H // KH
+        KH = -(-KH // p) * p
+        H = KH * G
+    return H, KH
+
+
 class GQAttention(nn.Module):
     """wq (d,H,hd), wk/wv (d,KH,hd), wo (H,hd,d) and, with ``cfg.qkv_bias``,
-    bq (H,hd), bk/bv (KH,hd), as the JAX spec."""
+    bq (H,hd), bk/bv (KH,hd), as the JAX spec (H, KH padded)."""
 
     def __init__(self, cfg, *, dtype: torch.dtype, device: torch.device,
                  gen: torch.Generator = None):
         super().__init__()
-        if cfg.pad_heads_to:
-            raise NotImplementedError(
-                "pad_heads_to is not ported yet (ROADMAP A.14)")
         d, hd = cfg.d_model, cfg.head_dim
-        H, KH = cfg.num_heads, cfg.num_kv_heads
+        H, KH = padded_heads(cfg)
         for name, shape in (("wq", (d, H, hd)), ("wk", (d, KH, hd)),
                             ("wv", (d, KH, hd)), ("wo", (H, hd, d))):
             w = (cm.init_normal(shape, gen, dtype, device) if gen is not None
@@ -335,6 +384,38 @@ def _out_project(o, wo):
     return o.reshape(B, S, -1) @ wo.to(o.dtype).reshape(-1, wo.shape[-1])
 
 
+def _row_parallel(p, y):
+    """``y`` of a ``wo`` product: summed over the model axis when the rank
+    holds a slice of the heads (a partial sum), else as it is."""
+    return shd.all_reduce_(y) if shd.is_cut(p, "wo") else y
+
+
+def _gqa_groups(p: GQAttention, cfg):
+    """(G, kv) of this rank's attend: G query heads per attended KV head,
+    and ``kv`` None when the rank's K/V heads are its own (whole, or cut
+    with the query heads), else the index (a slice, or per query head a
+    tensor) of the whole K/V heads its query heads read."""
+    Hp, KHp = padded_heads(cfg)
+    G = cfg.num_heads // cfg.num_kv_heads
+    Hl = p.wq.shape[1]
+    if Hl == Hp or p.wk.shape[1] < KHp:
+        return G, None
+    first = shd.active_serving_mesh().model_rank * Hl
+    lo, hi = first // G, (first + Hl - 1) // G
+    if Hl % G == 0:
+        return G, slice(lo, hi + 1)
+    if G % Hl == 0:
+        return Hl, slice(lo, lo + 1)
+    return 1, torch.tensor([(first + j) // G for j in range(Hl)])
+
+
+def _kv_heads_for(t, kv):
+    """The KV heads (dim 2) of ``t`` that this rank's query heads read."""
+    if kv is None:
+        return t
+    return t[:, :, kv] if isinstance(kv, slice) else t.index_select(2, kv.to(t.device))
+
+
 def _gqa_paged_apply(p: GQAttention, x, cfg, cache, q, k, v):
     """Paged continuation of gqa_apply. Writes the S new K/V positions into
     the pools in place, then attends: decode (S == 1) through the decode
@@ -343,8 +424,8 @@ def _gqa_paged_apply(p: GQAttention, x, cfg, cache, q, k, v):
     caller advances ``cache["lens"]``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    KH = k.shape[2]
-    G = q.shape[2] // KH
+    G, kv = _gqa_groups(p, cfg)
+    KH = q.shape[2] // G
     lens, tables = cache["lens"], cache["tables"]
 
     positions = lens.to(torch.int64)[:, None] + torch.arange(S, device=x.device)[None, :]
@@ -364,6 +445,7 @@ def _gqa_paged_apply(p: GQAttention, x, cfg, cache, q, k, v):
     qg = q.reshape(B, S, KH, G, hd)
 
     if S == 1 and _paged_attend_impl(cfg) == "pallas":
+        assert kv is None, "the decode kernel attends a rank's own KV heads"
         o = kops.paged_attend_gqa(
             qg[:, 0].contiguous(), kp, vp, tables, (lens + 1).to(torch.int32),
             scale=1.0 / math.sqrt(hd),
@@ -377,11 +459,12 @@ def _gqa_paged_apply(p: GQAttention, x, cfg, cache, q, k, v):
         else:
             k_full = _pool_gather_dequant(kp, ks, tables, spec).to(x.dtype)
             v_full = _pool_gather_dequant(vp, vs, tables, spec).to(x.dtype)
+        k_full, v_full = _kv_heads_for(k_full, kv), _kv_heads_for(v_full, kv)
         o = _attend_rows(qg, k_full, v_full, positions, lens.to(torch.int64) + S,
                          1.0 / math.sqrt(hd), cfg.score_dtype,
                          getattr(cfg, "softmax_impl", "exact"))
     o = o.to(qg.dtype).reshape(B, S, KH * G, hd)
-    return _out_project(o, p.wo)
+    return _row_parallel(p, _out_project(o, p.wo))
 
 
 def _gqa_dense_apply(p: GQAttention, x, cfg, cache, q, k, v):
@@ -391,8 +474,8 @@ def _gqa_dense_apply(p: GQAttention, x, cfg, cache, q, k, v):
     of the gather). The caller advances ``cache["idx"]``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    KH = k.shape[2]
-    G = q.shape[2] // KH
+    G, kv = _gqa_groups(p, cfg)
+    KH = q.shape[2] // G
     idx = cache["idx"].to(torch.int64)
     positions = idx[:, None] + torch.arange(S, device=x.device)[None, :]
     q = cm.apply_rope(q, positions, cfg.rope_theta)
@@ -400,11 +483,12 @@ def _gqa_dense_apply(p: GQAttention, x, cfg, cache, q, k, v):
     _dense_write(cache["k"], cache["idx"], k)
     _dense_write(cache["v"], cache["idx"], v)
     qg = q.reshape(B, S, KH, G, hd)
-    o = _attend_rows(qg, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
+    o = _attend_rows(qg, _kv_heads_for(cache["k"], kv).to(x.dtype),
+                     _kv_heads_for(cache["v"], kv).to(x.dtype),
                      positions, idx + S, 1.0 / math.sqrt(hd), cfg.score_dtype,
                      getattr(cfg, "softmax_impl", "exact"))
     o = o.to(qg.dtype).reshape(B, S, KH * G, hd)
-    return _out_project(o, p.wo)
+    return _row_parallel(p, _out_project(o, p.wo))
 
 
 def gqa_apply(p: GQAttention, x, cfg, *, cache: Optional[dict] = None):
@@ -412,8 +496,6 @@ def gqa_apply(p: GQAttention, x, cfg, *, cache: Optional[dict] = None):
     With a paged cache: see _gqa_paged_apply; a dense one: _gqa_dense_apply."""
     B, S, d = x.shape
     hd = cfg.head_dim
-    H, KH = cfg.num_heads, cfg.num_kv_heads
-    G = H // KH
     q = _project(x, p.wq)
     k = _project(x, p.wk)
     v = _project(x, p.wv)
@@ -429,10 +511,13 @@ def gqa_apply(p: GQAttention, x, cfg, *, cache: Optional[dict] = None):
     positions = torch.arange(S, device=x.device)[None, :]
     q = cm.apply_rope(q, positions, cfg.rope_theta)
     k = cm.apply_rope(k, positions, cfg.rope_theta)
-    o = causal_attention(q.reshape(B, S, KH, G, hd), k, v, chunk=cfg.attn_chunk,
+    G, kv = _gqa_groups(p, cfg)
+    H = q.shape[2]
+    o = causal_attention(q.reshape(B, S, H // G, G, hd), _kv_heads_for(k, kv),
+                         _kv_heads_for(v, kv), chunk=cfg.attn_chunk,
                          score_dtype=cfg.score_dtype,
                          softmax_impl=getattr(cfg, "softmax_impl", "exact"))
-    return _out_project(o.reshape(B, S, H, hd), p.wo)
+    return _row_parallel(p, _out_project(o.reshape(B, S, H, hd), p.wo))
 
 
 # ---------------------------------------------------------------------------
@@ -527,16 +612,22 @@ def _mla_absorbed_decode(q_nope, q_rope, cc, cr, wk_b, wv_b, scale, valid,
                          score_dtype, softmax_impl):
     """Absorbed-form single-query MLA decode against a compressed buffer:
     q_nope/q_rope (B,1,H,.), cc/cr (B,T,.), ``valid`` broadcastable to the
-    (B,H,1,T) score mask. Returns o (B,1,H,v_dim) float32."""
-    _check_score_dtype(score_dtype)
+    (B,H,1,T) score mask. Returns o (B,1,H,v_dim) float32. Under bf16_mxu
+    the buffers take the queries' dtype for the scores and the
+    probabilities the latent buffer's for P.C, as in JAX."""
+    mxu = _mxu(score_dtype)
     q_eff = torch.einsum("bshk,lhk->bshl", q_nope, wk_b)          # (B,1,H,R)
-    cc32 = cc.to(torch.float32)
-    s = (torch.einsum("bshl,btl->bhst", q_eff.to(torch.float32), cc32)
-         + torch.einsum("bshk,btk->bhst", q_rope.to(torch.float32),
-                        cr.to(torch.float32))) * scale
+    if mxu:
+        cc_s, cr_s = cc.to(q_eff.dtype), cr.to(q_rope.dtype)
+    else:
+        cc_s, cr_s = cc, cr
+    s = (torch.einsum("bshl,btl->bhst", q_eff.float(), cc_s.float())
+         + torch.einsum("bshk,btk->bhst", q_rope.float(), cr_s.float())) * scale
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     pr = _softmax_fn(softmax_impl)(s, axis=-1)
-    o_lat = torch.einsum("bhst,btl->bshl", pr, cc32)
+    if mxu:
+        pr = pr.to(cc.dtype)
+    o_lat = torch.einsum("bhst,btl->bshl", pr.float(), cc.float())
     return torch.einsum("bshl,lhv->bshv", o_lat, wv_b.to(torch.float32))
 
 
@@ -562,7 +653,7 @@ def _mla_paged_apply(p: MLAttention, x, cfg, cache):
     decompress plus ``_attend_rows`` over the gathered buffer. The caller
     advances ``cache["lens"]``."""
     B, S, _ = x.shape
-    m, H = cfg.mla, cfg.num_heads
+    m, H = cfg.mla, p.wq.shape[1]               # the rank's heads
     lens, tables = cache["lens"], cache["tables"]
     positions = lens.to(torch.int64)[:, None] + torch.arange(S, device=x.device)[None, :]
 
@@ -603,7 +694,7 @@ def _mla_paged_apply(p: MLAttention, x, cfg, cache):
         o = _attend_rows(qg, k, v, positions, k_len, scale,
                          softmax_impl=softmax_impl)
         o = o.to(qg.dtype).reshape(B, S, H, m.v_dim)
-    return _out_project(o.to(x.dtype), p.wo)
+    return _row_parallel(p, _out_project(o.to(x.dtype), p.wo))
 
 
 def _mla_dense_apply(p: MLAttention, x, cfg, cache):
@@ -612,7 +703,7 @@ def _mla_dense_apply(p: MLAttention, x, cfg, cache):
     ``_attend_rows`` (prefill) over the whole buffer, masked past
     ``idx + S``. The caller advances ``cache["idx"]``."""
     B, S, _ = x.shape
-    m, H = cfg.mla, cfg.num_heads
+    m, H = cfg.mla, p.wq.shape[1]               # the rank's heads
     idx = cache["idx"].to(torch.int64)
     positions = idx[:, None] + torch.arange(S, device=x.device)[None, :]
     q_nope, q_rope = _mla_project_q(p, x, cfg, positions)
@@ -634,7 +725,7 @@ def _mla_dense_apply(p: MLAttention, x, cfg, cache):
         o = _attend_rows(qg, k, v, positions, k_len, scale,
                          softmax_impl=softmax_impl)
         o = o.to(qg.dtype).reshape(B, S, H, m.v_dim)
-    return _out_project(o.to(x.dtype), p.wo)
+    return _row_parallel(p, _out_project(o.to(x.dtype), p.wo))
 
 
 def mla_apply(p: MLAttention, x, cfg, *, cache: Optional[dict] = None):
@@ -642,7 +733,7 @@ def mla_apply(p: MLAttention, x, cfg, *, cache: Optional[dict] = None):
     chunked causal core. With a paged cache: see _mla_paged_apply; a dense
     one: _mla_dense_apply."""
     B, S, _ = x.shape
-    m, H = cfg.mla, cfg.num_heads
+    m, H = cfg.mla, p.wq.shape[1]               # the rank's heads
     if cache is not None:
         if "c_kv_pool" in cache:
             return _mla_paged_apply(p, x, cfg, cache)
@@ -654,4 +745,4 @@ def mla_apply(p: MLAttention, x, cfg, *, cache: Optional[dict] = None):
     k, v, qg = _mla_decompress_kq(q_nope, q_rope, c_kv, k_rope, m, H, wk_b, wv_b)
     o = causal_attention(qg, k, v, chunk=cfg.attn_chunk,
                          softmax_impl=getattr(cfg, "softmax_impl", "exact"))
-    return _out_project(o.reshape(B, S, H, m.v_dim), p.wo)
+    return _row_parallel(p, _out_project(o.reshape(B, S, H, m.v_dim), p.wo))

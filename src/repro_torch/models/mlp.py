@@ -5,6 +5,11 @@ of ``repro/models/mlp.py``).
 evaluated (``core/activations.py``): "exact", "cordic_float",
 "cordic_fixed" (paper-faithful Q2.14, plain torch) or "cordic_pallas" (the
 CUDA kernels, which also run the fused ``silu_mul`` epilogue of the SwiGLU).
+
+Under tensor parallelism (distributed/sharding.py) a rank holds a column
+slice of ``w_gate/w_up`` (``w_in/b_in``) and the matching row slice of
+``w_down`` (``w_out``): its down product is a partial sum, reduced over
+the model axis (``b_out`` added once, after the sum).
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.activations import get_activation
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 
@@ -42,7 +48,8 @@ def swiglu_apply(p: SwiGLU, x: torch.Tensor, cfg) -> torch.Tensor:
         h = kops.silu_mul(g, u)
     else:
         h = get_activation("silu", cfg.act_impl, range_mode="reduce")(g) * u
-    return h @ p.w_down.to(x.dtype)
+    y = h @ p.w_down.to(x.dtype)
+    return shd.all_reduce_(y) if shd.is_cut(p, "w_down") else y
 
 
 class GeluMLP(nn.Module):
@@ -66,4 +73,7 @@ def gelu_mlp_apply(p: GeluMLP, x: torch.Tensor, cfg) -> torch.Tensor:
     act = get_activation("gelu_tanh" if cfg.act_impl != "exact" else "gelu",
                          cfg.act_impl, range_mode="reduce")
     h = act(x @ p.w_in.to(x.dtype) + p.b_in.to(x.dtype))
-    return h @ p.w_out.to(x.dtype) + p.b_out.to(x.dtype)
+    y = h @ p.w_out.to(x.dtype)
+    if shd.is_cut(p, "w_out"):
+        shd.all_reduce_(y)
+    return y + p.b_out.to(x.dtype)

@@ -20,6 +20,13 @@ registry's ``silu`` of ``cfg.act_impl``: for ``cordic_pallas`` that is ``x *
 sigmoid_wide(x)`` through ``act_2d`` with sigma rounded to ``x.dtype``
 before the product, neither the fused ``silu_mul_2d`` nor ``act_2d``'s
 ``silu`` op, which round differently in bfloat16.
+
+Under tensor parallelism (distributed/sharding.py) a rank holds a
+contiguous run of the experts (or, when the experts do not divide tp,
+every expert's FFN columns) and the whole router: it routes every token,
+runs its experts on the tokens dispatched to them, and its combine is a
+partial sum, reduced over the model axis once, with the shared experts'
+partial sum when those are cut too.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.activations import get_activation
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import mlp as mlpm
 
 
@@ -115,13 +123,20 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]
     disp_t = disp.sum(dim=2)                                  # (G,S,E,C)
     combine_t = combine.sum(dim=2)
 
-    xe = torch.einsum("gsec,gsd->gecd", disp_t, x)            # (G,E,C,d)
+    El = p.w_gate.shape[0]
+    if El < E:                                   # this rank's experts
+        lo = shd.active_serving_mesh().model_rank * El
+        disp_l, comb_l = disp_t[:, :, lo:lo + El], combine_t[:, :, lo:lo + El]
+    else:
+        disp_l, comb_l = disp_t, combine_t
+    xe = torch.einsum("gsec,gsd->gecd", disp_l, x)            # (G,E,C,d)
     act = get_activation("silu", cfg.act_impl, range_mode="reduce")
     g = torch.einsum("gecd,edf->gecf", xe, p.w_gate.to(dt))
     u = torch.einsum("gecd,edf->gecf", xe, p.w_up.to(dt))
     h = act(g) * u
     ye = torch.einsum("gecf,efd->gecd", h, p.w_down.to(dt))
-    y = torch.einsum("gsec,gecd->gsd", combine_t, ye)         # (G,S,d)
+    y = torch.einsum("gsec,gecd->gsd", comb_l, ye)            # (G,S,d)
+    y_partial = El < E or shd.is_cut(p, "w_down")
 
     # load-balancing aux loss (Switch/GShard form); jnp.mean of x.dtype
     # sums in float32 and rounds the mean back to x.dtype
@@ -133,5 +148,13 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]
         sp = p.shared
         gs = x @ sp.w_gate.to(dt)
         us = x @ sp.w_up.to(dt)
-        y = y + (act(gs) * us) @ sp.w_down.to(dt)
-    return y, aux
+        ys = (act(gs) * us) @ sp.w_down.to(dt)
+        s_partial = shd.is_cut(sp, "w_down")
+        if y_partial and s_partial:           # one reduction of the combine
+            return shd.all_reduce_(y + ys), aux
+        if y_partial:
+            y = shd.all_reduce_(y)
+        elif s_partial:
+            ys = shd.all_reduce_(ys)
+        return y + ys, aux
+    return (shd.all_reduce_(y) if y_partial else y), aux

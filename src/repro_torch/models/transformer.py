@@ -6,8 +6,9 @@ for the block kinds ``dense`` (GQA + SwiGLU, or the GELU MLP under
 a shared block).
 
 Public API, with the JAX names:
-    init(cfg, seed, device, dtype)             -> Transformer (random weights)
-    load_jax_params(cfg, flat, device, dtype)  -> Transformer (the weight bridge)
+    init(cfg, seed, device, dtype, mesh)       -> Transformer (random weights)
+    load_jax_params(cfg, flat, device, dtype, mesh)
+                                               -> Transformer (the weight bridge)
     flatten_params(tree)                       -> the bridge's flat input
     jax_tree(cfg, named) / from_jax_flat(cfg, flat)
                                                -> the JAX param layout
@@ -58,9 +59,20 @@ the compute dtype (``.to(x.dtype)``, as JAX ``astype``), a no-op for
 serving storage. The recurrent caches hold float32 state whatever cache
 dtype is asked for, as the JAX ``_mamba_cache`` / ``_mlstm_cache`` /
 ``_slstm_cache``.
+
+Tensor parallelism. ``init`` and ``load_jax_params`` with a ``mesh``
+(launch/mesh.py) build one rank's shard (distributed/sharding.py): each
+leaf is drawn or loaded whole, then cut to the rank's slice, so the shard
+holds the tp = 1 weights exactly and a rank's peak is its shard plus the
+largest leaf. The model keeps its mesh (``model.mesh``); ``apply`` enters
+it for the blocks' reductions and gathers the vocabulary-parallel logits
+(``gather_logits=False`` returns the rank's slice, for a caller that
+gathers them itself). The caches take a rank's KV heads
+(``kv_heads``).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, List, Optional, Tuple
 
@@ -70,6 +82,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlpm
@@ -271,16 +284,25 @@ class Transformer(nn.Module):
         self.requires_grad_(trainable)
 
 
-def init(cfg, seed: int = 0, device=None, dtype: Optional[torch.dtype] = None
-         ) -> Transformer:
+def _sharding(mesh):
+    """The leaf-slicing context of a rank's model (none without a mesh)."""
+    return shd.slicing_leaves(mesh) if mesh is not None else contextlib.nullcontext()
+
+
+def init(cfg, seed: int = 0, device=None, dtype: Optional[torch.dtype] = None,
+         mesh=None) -> Transformer:
     """Random weights from a seeded ``torch.Generator`` on the target device
     (JAX spec scales: normal/sqrt(fan_in), embed 1.0, lm_head 0.02, norms 1).
     ``dtype``: None for serving storage, ``torch.float32`` for trainable
-    master weights."""
+    master weights. ``mesh``: this rank's shard of the same weights."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    with torch.no_grad():
-        return Transformer(cfg, device=dev, gen=gen, dtype=dtype)
+    if mesh is not None:
+        shd.check_servable(cfg)
+    with torch.no_grad(), _sharding(mesh):
+        model = Transformer(cfg, device=dev, gen=gen, dtype=dtype)
+    model.mesh = mesh
+    return model
 
 
 def flatten_params(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -414,14 +436,21 @@ def from_jax_flat(cfg, flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
             for name, path, i in jax_layout(cfg)}
 
 
-def copy_into(named: Dict[str, torch.Tensor], arrays: Dict[str, np.ndarray]) -> None:
+def copy_into(named: Dict[str, torch.Tensor], arrays: Dict[str, np.ndarray],
+              mesh=None, cuts: Optional[Dict[str, int]] = None) -> None:
     """Copy host arrays into tensors of the same names and shapes, each cast
     to its tensor's dtype (floating arrays by way of float32, which also
-    reads JAX's bfloat16)."""
+    reads JAX's bfloat16); with a ``mesh``, each array's slice along its
+    leaf's cut dim (``cuts``)."""
+    cuts = cuts or {}
     with torch.no_grad():
         for name, t in named.items():
             a = np.asarray(arrays[name], dtype=np.float32
                            if t.is_floating_point() else None)
+            if name in cuts:
+                n = a.shape[cuts[name]] // mesh.tp
+                a = np.take(a, range(mesh.model_rank * n, (mesh.model_rank + 1) * n),
+                            axis=cuts[name])
             a = torch.from_numpy(a if a.flags.writeable else a.copy())
             if tuple(a.shape) != tuple(t.shape):
                 raise ValueError(f"{name}: shape {tuple(a.shape)} != "
@@ -430,13 +459,18 @@ def copy_into(named: Dict[str, torch.Tensor], arrays: Dict[str, np.ndarray]) -> 
 
 
 def load_jax_params(cfg, flat: Dict[str, np.ndarray], device=None,
-                    dtype: Optional[torch.dtype] = None) -> Transformer:
+                    dtype: Optional[torch.dtype] = None, mesh=None) -> Transformer:
     """The weight bridge: JAX params flattened to "seg0/attn/wq"-style paths
     (a segment's leaves stacked over its layers when it has more than one) ->
     the port's modules, each leaf in its storage dtype (``dtype`` as in
-    ``init``)."""
-    model = Transformer(cfg, device=resolve_device(device), dtype=dtype)
-    copy_into(dict(model.named_parameters()), from_jax_flat(cfg, flat))
+    ``init``); with a ``mesh``, this rank's slice of each."""
+    if mesh is not None:
+        shd.check_servable(cfg)
+    with torch.no_grad(), _sharding(mesh):
+        model = Transformer(cfg, device=resolve_device(device), dtype=dtype)
+    copy_into(dict(model.named_parameters()), from_jax_flat(cfg, flat), mesh,
+              shd.leaf_cuts(model))
+    model.mesh = mesh
     return model
 
 
@@ -528,9 +562,12 @@ PAGED_CACHE_FNS = {
 
 
 def init_paged_cache(cfg, slots: int, num_blocks: int, block_len: int,
-                     max_blocks: int, dtype=torch.float32, device=None) -> PagedCache:
+                     max_blocks: int, dtype=torch.float32, device=None,
+                     kv_heads: Optional[int] = None) -> PagedCache:
     """Paged decode cache for kv_impl="paged" (block 0 is scratch);
-    attention-only archs (the engine refuses the others first)."""
+    attention-only archs (the engine refuses the others first). GQA pools
+    hold ``kv_heads`` heads (a rank's share; default all, padded); MLA's
+    latent pools are whole on every rank."""
     _check_cfg(cfg)
     if not attention_only(cfg) or cfg.shared_block:
         raise ValueError("paged KV requires an attention-cache-only arch "
@@ -540,9 +577,14 @@ def init_paged_cache(cfg, slots: int, num_blocks: int, block_len: int,
     lens = torch.zeros((slots,), dtype=torch.int32, device=dev)
     layers = [PAGED_CACHE_FNS[kind](cfg, slots, num_blocks, block_len,
                                     max_blocks, dtype, device=dev,
-                                    tables=tables, lens=lens)
+                                    tables=tables, lens=lens,
+                                    **_kv_kw(kind, kv_heads))
               for kind in cfg.block_pattern]
     return PagedCache(layers, tables, lens)
+
+
+def _kv_kw(kind: str, kv_heads: Optional[int]) -> dict:
+    return {"kv_heads": kv_heads} if kv_heads and kind in ("dense", "gqa_moe") else {}
 
 
 def _recurrent_cache(init):
@@ -566,17 +608,18 @@ CACHE_FNS = {
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
-               device=None) -> DenseCache:
+               device=None, kv_heads: Optional[int] = None) -> DenseCache:
     """Dense decode cache for kv_impl="dense": every layer's buffers for
     ``batch`` rows of ``max_len`` positions (or its recurrent state), then
     one GQA cache per shared-block application; zeros (m at -1e30),
-    positions 0."""
+    positions 0. GQA buffers hold ``kv_heads`` heads (as
+    ``init_paged_cache``)."""
     _check_cfg(cfg)
     dev = resolve_device(device)
     idx = torch.zeros((batch,), dtype=torch.int32, device=dev)
     kinds = list(cfg.block_pattern) + [cfg.shared_block] * num_shared_apps(cfg)
     return DenseCache([CACHE_FNS[kind](cfg, batch, max_len, dtype, device=dev,
-                                       idx=idx)
+                                       idx=idx, **_kv_kw(kind, kv_heads))
                        for kind in kinds], idx)
 
 
@@ -632,7 +675,7 @@ def _remat_wrap(fn, cfg):
 
 
 def apply(params: Transformer, batch: Dict[str, torch.Tensor], cfg=None,
-          cache=None):
+          cache=None, gather_logits: bool = True):
     """batch {"tokens": (B,S) int} or, under ``cfg.input_mode="embeds"``,
     {"embeds": (B,S,d)}. Returns (logits f32, aux, cache): aux is the MoE
     layers' load-balancing losses summed (a float32 scalar tensor), 0.0 for
@@ -640,8 +683,15 @@ def apply(params: Transformer, batch: Dict[str, torch.Tensor], cfg=None,
 
     With a cache (PagedCache or DenseCache), positions start at each row's
     ``cache.positions`` (``lens`` / ``idx``) and advance by S, in place,
-    after the last layer."""
-    cfg = params.cfg if cfg is None else cfg
+    after the last layer. A rank's shard (``params.mesh``) runs its slice
+    and reduces over the model axis; ``gather_logits=False`` returns its
+    vocabulary slice of the logits when the head is cut."""
+    with shd.serving_mesh(getattr(params, "mesh", None)):
+        return _apply(params, batch, params.cfg if cfg is None else cfg,
+                      cache, gather_logits)
+
+
+def _apply(params, batch, cfg, cache, gather_logits):
     x = (cm.embed(params.embed, batch["tokens"]) if cfg.input_mode == "tokens"
          else batch["embeds"])
     x = x.to(cm.dtype_of(cfg.dtype))
@@ -664,6 +714,8 @@ def apply(params: Transformer, batch: Dict[str, torch.Tensor], cfg=None,
     x = cm.rmsnorm(params.final_norm, x, cfg.norm_eps)
     head = params.embed if cfg.tie_embeddings else params.lm_head
     logits = cm.unembed(head.to(torch.float32), x.to(torch.float32))
+    if gather_logits and logits.shape[-1] < cfg.vocab_size:
+        logits = shd.gather_vocab(logits, cfg.vocab_size)
     return logits, aux_total, cache
 
 

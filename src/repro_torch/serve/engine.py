@@ -7,7 +7,7 @@ its shared attention block), which serve on the dense plane only.
 Every ``step()`` runs the iteration scheduler's prefill phase
 (serve/scheduler.py: chunk continuations first, then FIFO admissions, under
 a ``max_prefill_tokens`` budget), then ONE batched decode over all slots
-(``make_batched_decode_step``) and the sampling tail. ``cfg.kv_impl``
+(``make_decode_logits``) and the sampling tail. ``cfg.kv_impl``
 picks the KV layout, as in the JAX engine:
 
 ``dense``  one max_len buffer per slot (``tf.init_cache``, float32 as the
@@ -83,11 +83,14 @@ Observability (repro_torch/obs): ``obs=Observability()`` (``trace=True``
 for a Chrome trace) registers the metrics of ``docs/observability.md``
 (``_bind_obs_handles``, ``KVPager.attach_metrics``); everything recorded
 is host-side, so the tokens are the same with it on or off. The port
-compiles nothing, so ``engine.compiles.prefill`` / ``.decode`` stay 0, and
-it runs on one device, so ``engine.mesh.tp`` and ``.devices`` read 1. The
-spans time the host: on the card ``dispatch`` is the enqueue of a step's
-launches and ``host_sync`` the wait for the device, the copy of the step's
-tokens to the host.
+compiles nothing, so ``engine.compiles.prefill`` / ``.decode`` stay 0;
+``engine.mesh.tp`` and ``.devices`` read the mesh's model axis and ranks
+(1 and 1 without one). The spans time the host: on the card ``dispatch`` is
+the enqueue of the apply's launches and ``host_sync`` the sampling tail and
+the wait for the device, the copy of the step's tokens to the host; under
+tensor parallelism ``host_sync`` waits for the rank's datapath and
+``collective`` covers the rest: the logits gather, the sampling and the
+tokens' copy.
 
 ``score(prompt)`` returns the teacher-forced log-probs of a prompt through
 the log-softmax datapath of ``cfg.loss_impl`` (train/losses.py), as the
@@ -96,8 +99,19 @@ JAX engine's ``score``.
 The caches, block tables and positions live on the device and are updated
 in place (models/attention.py); the JAX engine's jitted pure functions
 over donated caches have no counterpart, since PyTorch runs eagerly.
-Tensor parallelism (``tp``, ``mesh``) is not ported yet and raises
-(ROADMAP A.12).
+
+Tensor parallelism (``tp=N`` / ``mesh=``): one engine per rank of a
+process group (launch/mesh.py ``run_ranks``), each over the rank's shard
+of the weights (``params`` whole, cut here by distributed/sharding.py, or
+a shard from ``tf.init(..., mesh=)``) and its slice of the KV plane: GQA
+pools and buffers of (N, L, KH/tp, hd) when KH divides tp (the whole KH
+else; scale pools follow their codes), MLA's latent pools whole. Every rank
+runs the same host scheduler, pager and prefix cache over the same
+requests (one block-id space: a rank holds a head slice of every block),
+reduces its row-parallel partial sums and gathers the vocabulary-parallel
+logits, so every rank samples the same tokens with the same keys. On the
+decode kernel's path the heads must divide tp: KH (padded) for GQA, H
+for MLA. The recurrent archs raise (ROADMAP A.12b).
 """
 from __future__ import annotations
 
@@ -111,6 +125,7 @@ import torch
 from repro_torch import obs as obs_lib
 from repro_torch import resolve_device
 from repro_torch.core import kv_quant as kvq
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer as tf
 from repro_torch.serve import kv_pager as kvp
 from repro_torch.serve import prng
@@ -207,22 +222,19 @@ def _sample_step(last, rids, steps, temps, top_ks, greedy, base_key,
     return sp.sample_batched(last, keys, temps, top_ks, greedy)
 
 
-def make_batched_decode_step(cfg, *, greedy_only: bool = False) -> Callable:
-    """One decode for ALL slots of a dense or paged cache (the JAX
-    ``make_batched_decode_step`` and ``make_paged_decode_step``): a
-    batch-``slots`` apply at per-row positions, then the sampling tail.
-
-    tokens (S, 1) the previous token per slot; rids, steps (S,) the request
-    id and token index of each slot, hashed into its key
-    fold_in(fold_in(base_key, rid), step); temps, top_ks, greedy (S,) its
-    SamplingParams (host tensors). Returns the (S,) next tokens on the
-    device; vacant and mid-prefill slots' tokens are garbage the engine
-    ignores."""
-    def decode(params, cache, tokens, rids, steps, temps, top_ks, greedy,
-               base_key):
-        logits, _, _ = tf.apply(params, {"tokens": tokens}, cfg, cache=cache)
-        return _sample_step(logits[:, -1], rids, steps, temps, top_ks, greedy,
-                            base_key, greedy_only)
+def make_decode_logits(cfg) -> Callable:
+    """The decode apply (the JAX ``make_batched_decode_step`` and
+    ``make_paged_decode_step`` without their sampling tail, which the
+    engine runs as ``_sample_step``): a batch-``slots`` apply at per-row
+    positions, tokens (S, 1) the previous token per slot -> the last
+    position's (S, V) logits; under a mesh the rank's (S, V/tp) slice
+    (the whole V with a tied or uncut head), which the engine gathers in
+    its ``collective`` span. Vacant and mid-prefill slots' rows are
+    garbage the engine ignores."""
+    def decode(params, cache, tokens):
+        logits, _, _ = tf.apply(params, {"tokens": tokens}, cfg, cache=cache,
+                                gather_logits=False)
+        return logits[:, -1]
     return decode
 
 
@@ -260,10 +272,6 @@ class Request:
     t_admit: float = dataclasses.field(default=-1.0, repr=False)
     t_first: float = dataclasses.field(default=-1.0, repr=False)
     t_finish: float = dataclasses.field(default=-1.0, repr=False)
-
-
-def _unported(what: str, entry: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {entry})")
 
 
 class ServeEngine:
@@ -334,8 +342,31 @@ class ServeEngine:
                 raise ValueError(
                     "kv_quant applies to GQA paged pools only; MLA layers "
                     "store the compressed latent unquantized")
+        # -- tensor parallelism (module docstring): tp=N resolves to a
+        # ("data", "model") mesh over the process group; tp=1 builds none
         if (tp or 1) > 1 or mesh is not None:
-            raise _unported("tensor parallelism", "A.12")
+            shd.check_servable(cfg)
+        if mesh is None and tp is not None:
+            from repro_torch.launch import mesh as mesh_lib
+
+            mesh = mesh_lib.mesh_or_none(tp)
+        self.mesh = mesh
+        self.tp = mesh.tp if mesh is not None else 1
+        if mesh is not None:
+            if self.paged_attend_impl == "pallas":
+                # the decode kernel attends a rank's own heads: no whole-KV
+                # fallback on this path
+                from repro_torch.models.attention import padded_heads
+
+                if getattr(cfg, "mla", None) is not None:
+                    n_heads, axis = cfg.num_heads, "num_heads"
+                else:
+                    n_heads, axis = padded_heads(cfg)[1], "kv heads (padded)"
+                if n_heads % self.tp:
+                    raise ValueError(
+                        f"paged_attend_impl='pallas' shards attention heads "
+                        f"over the model axis: {axis}={n_heads} is not "
+                        f"divisible by tp={self.tp}")
         self.default_sampling = (sampling if sampling is not None
                                  else SamplingParams(temperature=temperature,
                                                      greedy=greedy))
@@ -346,7 +377,15 @@ class ServeEngine:
         if params.embed.device.type != self.device.type:
             raise ValueError(f"params live on {params.embed.device}, the "
                              f"engine runs on {self.device}")
+        p_mesh = getattr(params, "mesh", None)
+        if p_mesh is not None and (mesh is None or p_mesh.tp != self.tp):
+            raise ValueError(f"params are a shard for tp={p_mesh.tp}, the "
+                             f"engine serves tp={self.tp}")
+        if mesh is not None and p_mesh is None:
+            params = shd.shard_model(params, mesh)
         self.params = params
+        #: GQA KV heads of this rank's pools and buffers
+        self._kv_heads = shd.local_kv_heads(cfg, mesh)
         self.slots = slots
         self.max_len = max_len
         self.eos = eos_token
@@ -408,7 +447,8 @@ class ServeEngine:
             # to cfg.dtype by the write)
             self._caches = tf.init_paged_cache(cfg, slots, num_blocks,
                                                self.block_len, self.max_blocks,
-                                               torch.float32, device=self.device)
+                                               torch.float32, device=self.device,
+                                               kv_heads=self._kv_heads)
             # device bytes per block across layers, whatever the pools hold
             self.pager.block_bytes = self.kv_pool_bytes() // num_blocks
             self._prefill = make_paged_prefill_step(cfg, self.prefill_piece)
@@ -417,10 +457,10 @@ class ServeEngine:
             self.prefix = None
             # float32 buffers, as the JAX engine's stacked per-slot caches
             self._caches = tf.init_cache(cfg, slots, max_len, torch.float32,
-                                         device=self.device)
+                                         device=self.device,
+                                         kv_heads=self._kv_heads)
             self._prefill = make_bucketed_prefill_step(cfg)
-        self._decode_sample = make_batched_decode_step(cfg)
-        self._decode_greedy = make_batched_decode_step(cfg, greedy_only=True)
+        self._decode_logits = make_decode_logits(cfg)
         self._score = make_score_step(cfg)
         self._done: List[Request] = []
         self._active: List[Optional[Request]] = [None] * slots
@@ -459,11 +499,11 @@ class ServeEngine:
         self._m_steps = m.counter("engine.steps", unit="steps")
         self._m_queue = m.gauge("engine.queue_depth", unit="requests")
         self._m_occ = m.gauge("engine.batch_occupancy", unit="slots")
-        # one device, no mesh: set once so every snapshot records it
+        # constant per engine: set once so every snapshot records them
         self._m_mesh_tp = m.gauge("engine.mesh.tp", unit="shards")
         self._m_mesh_dev = m.gauge("engine.mesh.devices", unit="devices")
-        self._m_mesh_tp.set(1)
-        self._m_mesh_dev.set(1)
+        self._m_mesh_tp.set(self.tp)
+        self._m_mesh_dev.set(self.mesh.size if self.mesh is not None else 1)
         self._m_kvq_bits = m.gauge("kv.quant.code_bits", unit="bits")
         self._m_kvq_bpt = m.gauge("kv.quant.bytes_per_token", unit="bytes")
         spec = self._kv_quant_spec
@@ -543,10 +583,10 @@ class ServeEngine:
         words = 0
         for kind in set(cfg.block_pattern):
             if kind.startswith("mla"):
-                plan = pa.mla_plan(B, cfg.num_heads, cfg.mla.kv_lora_rank,
+                plan = pa.mla_plan(B, cfg.num_heads // self.tp, cfg.mla.kv_lora_rank,
                                    cfg.mla.qk_rope_dim, L, M)
             else:
-                plan = pa.gqa_plan(B, cfg.num_kv_heads,
+                plan = pa.gqa_plan(B, self._kv_heads,
                                    cfg.num_heads // cfg.num_kv_heads,
                                    cfg.head_dim, L, M)
             words = max(words, plan.workspace_floats)
@@ -857,19 +897,26 @@ class ServeEngine:
             if n_rows and ob.enabled:
                 self._m_step.observe((time.perf_counter() - t_step) * 1e3)
             return n_rows
-        # dispatch: the decode's launches queued; host_sync: the copy of
-        # its tokens, where the host waits for the device
+        # dispatch: the apply's launches queued; host_sync: the sampling
+        # tail and the copy of its tokens, where the host waits for the device
+        greedy_only = bool(self._greedy.all())
+        knobs = (torch.from_numpy(self._rids), torch.from_numpy(self._steps),
+                 torch.from_numpy(self._temps), torch.from_numpy(self._top_ks),
+                 torch.from_numpy(self._greedy), self._base_key)
+        tokens = torch.from_numpy(self._next_tok).to(self.device, torch.int64)
         with ob.phase("dispatch"):
-            greedy_only = bool(self._greedy.all())
-            decode = self._decode_greedy if greedy_only else self._decode_sample
-            nxt = decode(self.params, self._caches,
-                         torch.from_numpy(self._next_tok).to(self.device,
-                                                             torch.int64),
-                         torch.from_numpy(self._rids), torch.from_numpy(self._steps),
-                         torch.from_numpy(self._temps), torch.from_numpy(self._top_ks),
-                         torch.from_numpy(self._greedy), self._base_key)
-        with ob.phase("host_sync"):
-            nxt = nxt.cpu().numpy()
+            last = self._decode_logits(self.params, self._caches, tokens)
+        if self.mesh is not None:
+            # host_sync waits for the rank's datapath (its row-parallel
+            # reductions included); collective covers the logits gather,
+            # the sampling and the tokens' copy
+            with ob.phase("host_sync"):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        with ob.phase("host_sync" if self.mesh is None else "collective"):
+            if last.shape[-1] < self.cfg.vocab_size:
+                last = shd.gather_vocab(last, self.cfg.vocab_size, self.mesh)
+            nxt = _sample_step(last, *knobs, greedy_only).cpu().numpy()
         with ob.phase("sample_copy"):
             for s in decodable:
                 req = self._active[s]

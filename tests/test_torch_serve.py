@@ -231,10 +231,13 @@ def test_engine_without_gpu_raises_unless_cpu_requested():
     (dict(tp=2), "A.12"),
 ])
 def test_unported_engine_options_raise(kw, entry):
-    cfg = configs.get_smoke("yi-9b", act_impl="cordic_pallas")
+    """Tensor parallelism serves the attention archs now
+    (tests/test_torch_tp.py); over recurrent blocks it names its entry,
+    A.12b."""
+    cfg = configs.get_smoke("xlstm-1.3b")
     model = T.init(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=entry):
-        E.ServeEngine(cfg, model, device="cpu", **{**ENGINE_KW, **kw})
+        E.ServeEngine(cfg, model, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("flags,want", [
@@ -245,7 +248,7 @@ def test_unported_engine_options_raise(kw, entry):
 ], ids=["kv-impl-dense", "temperature-top-k", "metrics-trace"])
 def test_launcher_takes_the_jax_launchers_flags(flags, want, tmp_path, capsys):
     """The dense plane, seeded sampling and observability through the
-    launcher on the smoke config (only --tp raises)."""
+    launcher on the smoke config."""
     import json
 
     from repro_torch.launch import serve as launch

@@ -338,13 +338,20 @@ def test_eval_step_runs_without_grad():
 
 
 def test_unported_options_raise(monkeypatch, tmp_path):
+    from repro_torch import configs as tconfigs
+    from repro_torch.launch import mesh as mesh_lib
+
     _, tcfg = _cfgs()
-    # compression and remat train now (tests/test_torch_train_archs.py);
-    # what the model still refuses names its queue entry (ROADMAP A.14),
-    # and a value outside the JAX options raises
-    with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
-        tf.init(dataclasses.replace(tcfg, pad_heads_to=8), 0, "cpu",
-                dtype=torch.float32)
+    # compression, remat and pad_heads_to build now; what the model still
+    # refuses names its queue entry (a rank's cut of the recurrent blocks,
+    # ROADMAP A.12b), and a value outside the JAX options raises
+    padded = tf.init(dataclasses.replace(tcfg, pad_heads_to=8), 0, "cpu",
+                     dtype=torch.float32)
+    assert padded.blocks[0].attn.wk.shape[1] % 8 == 0
+    mesh = mesh_lib.Mesh(shape={"data": 1, "model": 2}, rank=0, group=None,
+                         backend="none")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.12b"):
+        tf.init(tconfigs.get_smoke("xlstm-1.3b"), 0, "cpu", mesh=mesh)
     with pytest.raises(ValueError, match="remat"):
         tf.init(dataclasses.replace(tcfg, remat="everything"), 0, "cpu")
     # no card and no device: every entry point refuses rather than falling
