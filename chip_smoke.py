@@ -157,13 +157,6 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 OUT = ROOT / "chiprun_out"
 
-#: H100 SXM published rates (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
-#: outside the tensor cores. The INT32 rate is derived from the card
-#: (SMs x 64 INT32 lanes x max SM clock).
-HBM_BYTES_S = 3.35e12
-FP32_FLOP_S = 67e12
-INT32_LANES_PER_SM = 64
-
 #: the device every phase runs on
 DEV = "cuda"
 
@@ -256,69 +249,33 @@ def smi(query: str) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Operation counts of the integer pipeline, from the schedule: the least
-# INT32 work a stage needs, one operation per shift, compare, select,
-# add/sub and 16-bit wrap (a sign extension), with a conditional add or
-# subtract counted as a select of the operand's sign plus an add
+# The count of each kernel's work and the card's peak rates live in the
+# package (src/repro_torch/kernels/cost.py: ``pipeline_ops``,
+# ``dequant_flops``, ``HBM_BYTES_S``, ``FP32_FLOP_S``,
+# ``INT32_LANES_PER_SM``), which the dry run's cost reads too
 # ---------------------------------------------------------------------------
-def pipeline_ops(sched):
-    from repro_torch.kernels.cordic_act import _HYP_VEC_JS as HYP_VEC_JS
+def kcost():
+    """The package's kernels/cost.py: imported from the package on the
+    path, or, for a tree under ``--src`` that predates it, loaded from this
+    checkout's file (its counts import only what every tree has)."""
+    try:
+        from repro_torch.kernels import cost
+    except ImportError:
+        import importlib.util
 
-    wrap, cadd = 1, 2
-    r2 = 1 + 2 + 3 * (cadd + wrap)                 # sign, xs/ys, x/y/z: 12
-    r4 = 1 + 3 + 2 * (1 + 2 + cadd + wrap) + (2 + cadd + wrap)   # 21
-    lvc = 1 + 1 + 2 * (cadd + wrap)                # sign, xs, y/t: 8
-    rot = len(sched.r2_js) * r2 + len(sched.r4_js) * r4
-    div = len(sched.lvc_js) * lvc
-    boundary = 7 + 2 + 5 + 2     # quantize, input shr, 1/2 + t/2, dequantize
-    exp_codes = rot + 7 + 2      # quantize r, rotation, c + s
-    normalize = div + 2 + 4      # LVC divide and its boundary ops
-    # the table route (a 16-bit format): the stage is one load of its code,
-    # its index clamped to the table and offset (4); the dyadic reduction
-    # before the e^r stage is 4 (two fused multiply-adds, floor, max)
-    lookup = 4
-    exp_codes_tab = 4 + 7 + lookup
-    return {"sigmoid": rot + div + boundary,
-            # act_q_2d: integer codes in and out, no quantize/dequantize
-            "sigmoid_q": rot + div + 2 + 5,
-            # its table route: the index ((x >> 1) & 0xFFFF) ^ 0x8000 (3)
-            # and the lookup
-            "sigmoid_q_tab": 3 + 1,
-            "wide": rot + div + boundary + 6 + 2,  # doubling count, 2^-k
-            # log_softmax_2d: one rotation per live lane and its add into
-            # the row sum; the vectoring log runs once per row
-            "log_softmax_lane": exp_codes + 1,
-            "log_row": len(HYP_VEC_JS) * r2 + 7 + 7 + 8,
-            # softmax_2d: one rotation per lane, since the function it
-            # replaces keeps each lane's e^r codes for the divide (the CUDA
-            # kernel recomputes them, which is its own cost, not the work's)
-            "softmax_lane": exp_codes + normalize,
-            # gqa_decode / mla_decode cordic: the least work of the
-            # function, one rotation per lane (its e^r codes serve both the
-            # row sum and the divide) and the normalize, as softmax_lane;
-            # the TPU kernel rotates again in its normalize pass, and the
-            # CUDA kernels keep the codes
-            "decode_lane": exp_codes + normalize,
-            # act_2d gelu_erf: one e^r rotation with its dyadic boundary
-            # (the erf prefactor, sqrt and GELU product are float work)
-            "gelu_erf": exp_codes + 4,
-            # the same functions on the table route: its own operations
-            "sigmoid_tab": lookup + boundary,
-            "wide_tab": lookup + boundary + 6 + 2,
-            "exp_codes_tab": exp_codes_tab,
-            "log_softmax_lane_tab": exp_codes_tab + 1,
-            "softmax_lane_tab": exp_codes_tab + normalize,
-            "gelu_erf_tab": exp_codes_tab + 4}
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_kernel_cost", SRC / "repro_torch" / "kernels" / "cost.py")
+        cost = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cost)
+    return cost
+
+
+def pipeline_ops(sched):
+    return kcost().pipeline_ops(sched)
 
 
 def dequant_flops() -> int:
-    """FP32 operations of one KV dequant (functions.multiply_float over a
-    code): the code's scale to a value, three per linear-rotation stage
-    (the shifted product, the y and z updates), the sign product, the
-    sign and the 2^e scale."""
-    from repro_torch.cordic_engine.schedule import LIN_ROTATION
-
-    return 1 + 3 * len(LIN_ROTATION.r2_js) + 3
+    return kcost().dequant_flops()
 
 
 # ---------------------------------------------------------------------------
@@ -460,12 +417,13 @@ class Card:
         props = torch.cuda.get_device_properties(0)
         self.sms = props.multi_processor_count
         self.clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
-        self.int32_ops_s = self.sms * INT32_LANES_PER_SM * self.clock_hz
+        self.int32_ops_s = self.sms * kcost().INT32_LANES_PER_SM * self.clock_hz
 
     def bound(self, nbytes: float, int_ops: float = 0.0, flops: float = 0.0):
-        times = {"bytes": nbytes / HBM_BYTES_S,
+        c = kcost()
+        times = {"bytes": nbytes / c.HBM_BYTES_S,
                  "operations": max(int_ops / self.int32_ops_s,
-                                   flops / FP32_FLOP_S)}
+                                   flops / c.FP32_FLOP_S)}
         by = max(times, key=times.get)
         return times[by] * 1e3, by
 
@@ -1628,9 +1586,68 @@ def serve_run(torch, build, arch, cfg, model, kv_quant="none", n_prof=None):
     stats["profile"] = (profile_steps(torch, eng, cfg, SERVE_PROFILE[arch], n_prof)
                         if n_prof else None)
     log(f"[time] {tag} profile of {n_prof} steps: {time.perf_counter() - t0:.1f} s")
+    if (arch == "yi-9b" and cfg.act_impl == "cordic_pallas" and kv_quant == "none"
+            and n_prof):
+        t0 = time.perf_counter()
+        cost_line(torch, eng, cfg, stats["profile"], n_prof)
+        log(f"[time] {tag} cost line: {time.perf_counter() - t0:.1f} s")
     del eng, logits
     torch.cuda.empty_cache()
     return counts, stats
+
+
+#: the cost line's gate: the counted bound of a decode step may exceed the
+#: device time the profile measured for such a step by this factor at most
+COST_BOUND_SLACK = 1.05
+
+
+def cost_line(torch, eng, cfg, prof, n_prof):
+    """One Yi-9B launcher decode step counted by launch/op_cost.py (every
+    aten op's FLOPs and bytes, each kernel wrapper's booked work, against
+    the card's peaks: the data sheet's dense BF16, FP32, HBM and NVLink
+    rates and this card's INT32 rate) beside the device time per step that
+    the profile window just measured on the same engine (``prof``), and
+    their ratio. The counted step is the first decode step of the
+    profile's traffic again (SLOTS fresh requests). Gate: the bound is not
+    above the measured time by more than COST_BOUND_SLACK (a bound above
+    the measurement means the count is wrong). Reported only."""
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.serve import make_requests
+
+    if prof is None:
+        log("[cost] yi-9b decode step: the profiler saw no device time; not measured")
+        return None
+    for r in make_requests(cfg, SLOTS, n_prof + 2, seed=7):
+        eng.submit(r)
+    eng.step()                                 # prefills + a first decode
+    torch.cuda.synchronize()
+    with op_cost.OpCost() as oc:
+        eng.step()
+        torch.cuda.synchronize()
+    eng.run()
+    counts = oc.result()
+    card = Card(torch)
+    peaks = dict(kcost().PEAKS, int32_op_s=card.int32_ops_s)
+    terms = op_cost.roofline_terms(counts, peaks)
+    bound_ms = terms["bound_s"] * 1e3
+    measured_ms = prof["busy_ms"] / n_prof
+    ratio = bound_ms / measured_ms
+    log(f"[cost] yi-9b launcher decode step ({SLOTS} slots): counted "
+        f"{counts['product_flops']:.4g} product FLOPs, {counts['other_flops']:.4g} "
+        f"other FLOPs, {counts['kernel_int_ops']:.4g} kernel INT32 ops, "
+        f"{counts['hbm_bytes']:.4g} HBM bytes over {counts['aten_ops']} aten ops and "
+        f"kernel calls {counts['kernel_calls']}; terms compute "
+        f"{terms['compute_s'] * 1e3:.4f} ms, memory {terms['memory_s'] * 1e3:.4f} ms "
+        f"({terms['dominant']}); bound {bound_ms:.4f} ms vs device time "
+        f"{measured_ms:.4f} ms a step (profile window of {n_prof} steps): ratio "
+        f"{ratio:.4f} (gate <= {COST_BOUND_SLACK}); peaks {peaks}")
+    check(ratio <= COST_BOUND_SLACK, f"the counted bound of a Yi-9B decode step "
+          f"{bound_ms:.4f} ms exceeds its measured device time {measured_ms:.4f} ms")
+    RESULTS["cost yi-9b decode step"] = dict(
+        bound_ms=bound_ms, measured_ms=measured_ms, ratio=ratio,
+        dominant=terms["dominant"], hbm_bytes=counts["hbm_bytes"],
+        product_flops=counts["product_flops"], kernel_calls=counts["kernel_calls"])
+    return ratio
 
 
 def quant_logits(torch, model, cfg, prompt):
@@ -3277,12 +3294,17 @@ def train_identity_phase(torch, archs=TRAIN_ID_ARCHS):
 # ---------------------------------------------------------------------------
 # Phase 4 (m): tensor parallelism, every rank on the one card
 # ---------------------------------------------------------------------------
-#: the tensor-parallel runs: (arch, tp); tp 1 is the serve path's run of
-#: the same traffic, model and engine knobs
-TP_RUNS = (("yi-9b", 2), ("yi-9b", 4), (DEEPSEEK, 2))
+#: the tensor-parallel runs: (arch, tp). For the attention archs tp 1 is
+#: the serve path's run of the same traffic, model and engine knobs; the
+#: recurrent pair runs at full width cut to SIDE_LAYERS blocks on the dense
+#: plane, its tp 1 reference the same model served in this process
+TP_RUNS = (("yi-9b", 2), ("yi-9b", 4), (DEEPSEEK, 2),
+           ("xlstm-1.3b", 2), ("xlstm-1.3b", 4), ("zamba2-1.2b", 2))
 #: the kernels each arch's ranks must launch
 TP_KERNELS = {"yi-9b": ("gqa_decode", "silu_mul_2d", "softmax_2d"),
-              DEEPSEEK: ("mla_decode", "act_2d", "silu_mul_2d", "softmax_2d")}
+              DEEPSEEK: ("mla_decode", "act_2d", "silu_mul_2d", "softmax_2d"),
+              "xlstm-1.3b": ("act_2d",),
+              "zamba2-1.2b": ("act_2d", "silu_mul_2d", "softmax_2d")}
 
 
 #: the sublayer probe's bound: max |tp n - tp 1| over max |tp 1| of each
@@ -3293,7 +3315,10 @@ TP_PROBE_TOL = 2 ** -5
 
 def tp_cfg(arch, smoke=False):
     """The config every tp run of ``arch`` serves (``smoke``: the smoke one,
-    Yi's one KV head padded to 4 so that it divides tp)."""
+    Yi's one KV head padded to 4 so that it divides tp, the xLSTM's 2 heads
+    made 4). A recurrent arch is cut to its SIDE_LAYERS blocks (xLSTM: 7
+    mLSTMs and the sLSTM at index 7; Zamba2: two shared-block
+    applications)."""
     import dataclasses
 
     from repro_torch import configs
@@ -3301,18 +3326,25 @@ def tp_cfg(arch, smoke=False):
     get = configs.get_smoke if smoke else configs.get_config
     cfg = dataclasses.replace(get(arch, act_impl="cordic_pallas"),
                               softmax_impl="cordic_pallas")
-    if smoke and cfg.mla is None:
+    if smoke and arch == "xlstm-1.3b":
+        cfg = dataclasses.replace(cfg, num_heads=4, num_kv_heads=4)
+    elif smoke and cfg.mla is None and arch in ("yi-9b",):
         cfg = dataclasses.replace(cfg, pad_heads_to=4)
+    if arch in RECURRENT_ARCHS and not smoke:
+        n = SIDE_LAYERS[arch]
+        cfg = dataclasses.replace(cfg, num_layers=n, block_pattern=cfg.block_pattern[:n])
     return cfg
 
 
 def tp_probe(model, cfg, mesh, dev, reduce=True):
-    """Each sublayer of blocks 0 and 1 (attention, then the MLP or MoE) on
-    one seeded input, without a cache: {name: float32 output on the host}.
-    Every sublayer gets the same input at every tp, so the MoE's routing
-    is the same and only the partial sums' rounding may differ.
-    ``reduce=False``: the rank's reductions skipped (each output its
-    partial sum), the error the probe's bound must catch."""
+    """Sublayers on one seeded input, without a cache: {name: float32
+    output on the host}. Attention archs: the attention, then the MLP or
+    MoE, of blocks 0 and 1. Recurrent archs: the first block's mixer of
+    each kind (the mLSTM and the sLSTM, or Mamba2), and the shared block's
+    attention and MLP. Every sublayer gets the same input at every tp, so
+    the MoE's routing is the same and only the partial sums' rounding may
+    differ. ``reduce=False``: the rank's reductions skipped (each output
+    its partial sum), the error the probe's bound must catch."""
     import torch
 
     from repro_torch.distributed import sharding as shd
@@ -3329,7 +3361,16 @@ def tp_probe(model, cfg, mesh, dev, reduce=True):
         shd.all_reduce_ = lambda t, mesh=None: t
     try:
         with torch.no_grad(), shd.serving_mesh(mesh):
-            for i, blk in enumerate(model.blocks[:2]):
+            if cfg.block_pattern[0] in ("mlstm", "slstm", "mamba2"):
+                for kind in dict.fromkeys(cfg.block_pattern):
+                    i = cfg.block_pattern.index(kind)
+                    blk = model.blocks[i]
+                    out[f"block {i} {kind}"] = blk._apply(
+                        blk.mixer, cm.rmsnorm(blk.ln, x, cfg.norm_eps), cfg, None)
+                blocks = [("shared", model.shared)] if model.shared is not None else []
+            else:
+                blocks = list(enumerate(model.blocks[:2]))
+            for i, blk in blocks:
                 out[f"block {i} attention"] = apply_attn(
                     blk.attn, cm.rmsnorm(blk.ln1, x, cfg.norm_eps), cfg, cache=None)
                 h = cm.rmsnorm(blk.ln2, x, cfg.norm_eps)
@@ -3344,9 +3385,9 @@ def tp_probe(model, cfg, mesh, dev, reduce=True):
 
 
 def tp_probe_ref(arch, smoke=False):
-    """``tp_probe`` at tp 1 on the arch cut to its first two blocks: the
-    weights are drawn leaf by leaf from one generator, embedding first,
-    so blocks 0 and 1 are the full model's."""
+    """``tp_probe`` at tp 1 on an attention arch cut to its first two
+    blocks: the weights are drawn leaf by leaf from one generator,
+    embedding first, so blocks 0 and 1 are the full model's."""
     import dataclasses
 
     import torch
@@ -3365,14 +3406,18 @@ def tp_probe_ref(arch, smoke=False):
 
 def tp_rank(job):
     """One rank of ``tp_path`` (a ``run_ranks`` target; spawned ranks import
-    it from this script): the arch at full width on this rank's mesh, its
-    shard of the seed-0 weights built leaf by leaf, the launcher traffic
-    (REQUESTS greedy requests, SLOTS slots, MAX_LEN, BLOCK_LEN, the decode
-    kernel) after a warm-up request, launch counts and the mesh's
-    collective counts zeroed just before. The first decode step's decode
-    kernel call is kept and held against its plain version on the same
-    head slice after the run. Then ``tp_probe`` on the rank's shard, with
-    its reductions and without."""
+    it from this script), or, for a list of jobs, each in turn: the arch at
+    full width on this rank's mesh, its shard of the seed-0 weights built
+    leaf by leaf, the launcher traffic (REQUESTS greedy requests, SLOTS
+    slots, MAX_LEN; an attention arch on the paged plane with BLOCK_LEN and
+    the decode kernel, a recurrent one on the dense plane) after a warm-up
+    request, launch counts and the mesh's collective counts zeroed just
+    before. On the paged plane the first decode step's decode kernel call
+    is kept and held against its plain version on the same head slice after
+    the run. Then ``tp_probe`` on the rank's shard, with its reductions and
+    without."""
+    if isinstance(job, list):
+        return [tp_rank(j) for j in job]
     import torch
 
     from repro_torch import obs as obs_lib
@@ -3389,6 +3434,7 @@ def tp_rank(job):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = tp_cfg(job["arch"], job.get("smoke", False))
     mesh = mesh_lib.mesh_or_none(job["tp"])
+    paged = tf.attention_only(cfg)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3396,9 +3442,10 @@ def tp_rank(job):
     if cuda:
         torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, kv_impl="paged",
-                      block_len=BLOCK_LEN, paged_attend_impl="pallas", mesh=mesh,
-                      device=dev)
+    plane = (dict(kv_impl="paged", block_len=BLOCK_LEN, paged_attend_impl="pallas")
+             if paged else dict(kv_impl="dense"))
+    eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, mesh=mesh,
+                      device=dev, **plane)
     for r in make_requests(cfg, 1, 2, seed=99):
         eng.submit(r)
     eng.run()
@@ -3438,25 +3485,28 @@ def tp_rank(job):
     wall = time.perf_counter() - t0
     counts = dict(build.LAUNCHES)
     setattr(kops, attr, orig)
-    plain = PA.mla_decode_plain if mla else PA.gqa_decode_plain
-    ref = plain(*first["args"], **first["kw"])
-    err = float((first["out"] - ref).abs().max())
+    res = {}
+    if paged:
+        plain = PA.mla_decode_plain if mla else PA.gqa_decode_plain
+        ref = plain(*first["args"], **first["kw"])
+        res.update(kernel_q_shape=list(first["args"][0].shape),
+                   kernel_pool_shape=list(first["args"][2].shape),
+                   kernel_err=float((first["out"] - ref).abs().max()),
+                   kernel_bit_equal=bool(torch.equal(first["out"], ref)))
     coll = obs.metrics.get("engine.phase.collective_ms")
     n_tok = sum(len(r.out) for r in reqs)
     stats = dict(mesh.stats) if mesh is not None else {}
     probe = {"sound": tp_probe(model, cfg, mesh, dev),
              "unreduced": tp_probe(model, cfg, mesh, dev, reduce=False)}
-    res = dict(probe=probe, rank=mesh.model_rank if mesh is not None else 0,
+    res.update(probe=probe, rank=mesh.model_rank if mesh is not None else 0,
                done=all(r.done and r.error is None and len(r.out) == MAX_NEW for r in reqs),
                out={r.rid: list(r.out) for r in reqs}, tokens=n_tok,
                step_ms_p50=statistics.median(steps) * 1e3, steps=len(steps),
                tok_s=n_tok / wall, wall_s=wall, init_s=init_s,
                collective_ms_p50=coll.quantile(0.5) if coll is not None else None,
                peak_gib=(torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0),
-               pool_bytes=eng.kv_pool_bytes(), launches=counts,
-               kernel_q_shape=list(first["args"][0].shape),
-               kernel_pool_shape=list(first["args"][2].shape),
-               kernel_err=err, kernel_bit_equal=bool(torch.equal(first["out"], ref)),
+               pool_bytes=eng.kv_pool_bytes(), state_bytes=eng.state_bytes(),
+               cache_bytes=eng.kv_cache_bytes(), launches=counts,
                backend=mesh.backend if mesh is not None else "none",
                staged=bool(mesh is not None and mesh.staged and cuda),
                all_reduces=stats.get("all_reduce", 0),
@@ -3467,92 +3517,144 @@ def tp_rank(job):
     return res
 
 
-def tp_path(torch, build, ref, smoke=False):
+def tp_state_bytes(cfg, tp, base):
+    """A rank's recurrent state bytes from tp 1's ``base``: 1/tp, but for
+    each Mamba2 layer's whole B / C conv columns (2 G N channels over
+    d_conv - 1 positions a slot, float32), which every rank holds."""
+    if cfg.ssm is None:
+        return base // tp
+    s = cfg.ssm
+    whole = (cfg.block_pattern.count("mamba2") * SLOTS * (s.d_conv - 1)
+             * 2 * s.n_groups * s.d_state * 4)
+    return (base - whole) // tp + whole
+
+
+def tp_path(torch, build, ref, smoke=False, runs=TP_RUNS):
     """(m) tensor-parallel serving on the one card: Yi-9B at full width and
     depth at tp 2 and 4, DeepSeek-V2-Lite at full width and depth at tp 2,
-    one process per rank (gloo: NCCL refuses two ranks on one device; CUDA
-    tensors staged through host memory), the same traffic as the serve
-    path's tp 1 run (``ref``: {arch: its stats}). Gates: each sublayer of
-    blocks 0 and 1 on every rank's shard computes tp 1's output on the same
-    input within TP_PROBE_TOL, and lands outside it with the rank's
-    reductions skipped (``tp_probe``: a wrong cut, slice or reduction
-    fails it); every rank emits the same tokens, each rank's first
-    decode-kernel call on its head slice is bit-equal to the plain
-    version, each Yi rank's pools hold 1/tp of tp 1's bytes, every rank
-    launched its arch's kernels. Reported: token
-    matches against tp 1, step p50, tok/s, the collective span's p50, each
-    rank's peak memory. ``smoke``: the smoke configs (a CPU rehearsal).
-    Returns {(arch, tp): [each rank's launch counts]}."""
+    xLSTM-1.3B at tp 2 and 4 and Zamba2-1.2B at tp 2 at full width cut to
+    SIDE_LAYERS blocks (dense plane), one process per rank (gloo: NCCL
+    refuses two ranks on one device; CUDA tensors staged through host
+    memory); the runs of one tp share one group of ranks. The attention
+    archs serve the same traffic as the serve path's tp 1 run (``ref``:
+    {arch: its stats}); a recurrent arch's tp 1 reference is the same
+    model served here (``tp_rank`` at tp 1). Gates: each sublayer on every
+    rank's shard computes tp 1's output on the same input within
+    TP_PROBE_TOL, and lands outside it with the rank's reductions skipped
+    (``tp_probe``: a wrong cut, slice or reduction fails it); every rank
+    emits the same tokens, each rank's first decode-kernel call on its head
+    slice is bit-equal to the plain version (paged plane), each Yi rank's
+    pools hold 1/tp of tp 1's bytes, each recurrent rank's state 1/tp of
+    tp 1's but the stated Mamba2 B / C columns (``tp_state_bytes``), every
+    rank launched its arch's kernels. Reported: token matches against tp 1,
+    step p50, tok/s, the collective span's p50, each rank's peak memory.
+    ``smoke``: the smoke configs (a CPU rehearsal). Returns {(arch, tp):
+    [each rank's launch counts]}."""
     from repro_torch.launch import mesh as mesh_lib
 
     if DEV == "cuda":
         build.build_all()                 # built already: no rank runs nvcc
         torch.cuda.empty_cache()
-    out, probe_ref = {}, {}
-    for arch, tp in TP_RUNS:
-        t0 = time.perf_counter()
-        if arch not in probe_ref:
+    out, probe_ref, ref = {}, {}, dict(ref)
+    t0 = time.perf_counter()
+    for arch in dict.fromkeys(a for a, _ in runs):
+        if arch in RECURRENT_ARCHS:
+            base = tp_rank(dict(arch=arch, tp=1, device=DEV, smoke=smoke))
+            ref[arch], probe_ref[arch] = base, base["probe"]["sound"]
+            log(f"[path tp {arch} tp=1] {tp_cfg(arch, smoke).num_layers} layers, dense "
+                f"plane: step p50 {base['step_ms_p50']:.2f} ms, {base['tok_s']:.2f} tok/s, "
+                f"state bytes {base['state_bytes']}, peak {base['peak_gib']:.2f} GiB; "
+                f"launches {base['launches']}")
+        else:
             probe_ref[arch] = tp_probe_ref(arch, smoke)
+    log(f"[time] [path tp] references: {time.perf_counter() - t0:.1f} s")
+    for tp in dict.fromkeys(t for _, t in runs):
+        t0 = time.perf_counter()
+        archs = [a for a, t in runs if t == tp]
         backend = mesh_lib.pick_backend(tp, DEV)
-        job = dict(arch=arch, tp=tp, device=DEV, smoke=smoke)
+        jobs = [dict(arch=a, tp=tp, device=DEV, smoke=smoke) for a in archs]
         # each run took 19-46 s on the card (PERF.md): a rank that takes
         # several times that fails the phase inside the script's time limit
-        res = mesh_lib.run_ranks(tp_rank, tp, job, backend=backend, timeout=240)
-        tag = f"[path tp {arch} tp={tp}]"
-        base = ref[arch]
-        check(all(r["done"] for r in res), f"{tag} every request finishes on every rank")
-        check(all(r["out"] == res[0]["out"] for r in res),
-              f"{tag} every rank emits the same tokens")
-        for name, want in probe_ref[arch].items():
-            scale = float(want.abs().max())
-            errs = {k: [float((r["probe"][k][name] - want).abs().max()) / scale
-                        for r in res] for k in ("sound", "unreduced")}
-            log(f"{tag} {name}: max |tp {tp} - tp 1| / max |tp 1| ({scale:.4g}) per rank "
-                f"{[f'{e:.3e}' for e in errs['sound']]}; reductions skipped "
-                f"{[f'{e:.3e}' for e in errs['unreduced']]} (bound {TP_PROBE_TOL})")
-            check(max(errs["sound"]) <= TP_PROBE_TOL,
-                  f"{tag} {name}: a rank's shard computes otherwise than tp 1")
-            check(min(errs["unreduced"]) > TP_PROBE_TOL,
-                  f"{tag} {name}: the probe cannot tell a skipped reduction")
-        for r in res:
+        group = mesh_lib.run_ranks(tp_rank, tp, jobs, backend=backend,
+                                   timeout=200 * len(jobs))
+        for j, arch in enumerate(archs):
+            res = [g[j] for g in group]
+            tp_gates(arch, tp, res, ref[arch], probe_ref[arch], smoke)
+            out[(arch, tp)] = [r["launches"] for r in res]
+        log(f"[time] [path tp] tp={tp} group {archs}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def tp_gates(arch, tp, res, base, probe_ref, smoke):
+    """``tp_path``'s gates and report for one (arch, tp) run."""
+    tag = f"[path tp {arch} tp={tp}]"
+    check(all(r["done"] for r in res), f"{tag} every request finishes on every rank")
+    check(all(r["out"] == res[0]["out"] for r in res),
+          f"{tag} every rank emits the same tokens")
+    for name, want in probe_ref.items():
+        scale = float(want.abs().max())
+        errs = {k: [float((r["probe"][k][name] - want).abs().max()) / scale
+                    for r in res] for k in ("sound", "unreduced")}
+        log(f"{tag} {name}: max |tp {tp} - tp 1| / max |tp 1| ({scale:.4g}) per rank "
+            f"{[f'{e:.3e}' for e in errs['sound']]}; reductions skipped "
+            f"{[f'{e:.3e}' for e in errs['unreduced']]} (bound {TP_PROBE_TOL})")
+        check(max(errs["sound"]) <= TP_PROBE_TOL,
+              f"{tag} {name}: a rank's shard computes otherwise than tp 1")
+        check(min(errs["unreduced"]) > TP_PROBE_TOL,
+              f"{tag} {name}: the probe cannot tell a skipped reduction")
+    recurrent = arch in RECURRENT_ARCHS
+    cfg = tp_cfg(arch, smoke)
+    for r in res:
+        if not recurrent:
             check(r["kernel_bit_equal"], f"{tag} rank {r['rank']}: the first decode "
                   f"step's kernel on its head slice {r['kernel_q_shape']} differs from "
                   f"plain by {r['kernel_err']}")
-            if DEV == "cuda":
-                for k in TP_KERNELS[arch]:
-                    check(r["launches"].get(k, 0) > 0,
-                          f"{tag} rank {r['rank']} never launched {k}")
-            if arch == "yi-9b":
-                check(r["pool_bytes"] * tp == base["pool_bytes"],
-                      f"{tag} rank {r['rank']}: pool bytes {r['pool_bytes']} are not "
-                      f"1/{tp} of tp 1's {base['pool_bytes']}")
-        same = sum(a == b for rid, toks in base["out"].items()
-                   for a, b in zip(toks, res[0]["out"][rid]))
-        r0 = res[0]
-        log(f"{tag} backend {r0['backend']}, CUDA tensors staged through host memory: "
-            f"{'yes' if r0['staged'] else 'no'}; {tp} ranks on one card; init "
-            f"{[round(r['init_s'], 1) for r in res]} s")
-        log(f"{tag} token match against tp 1: {same}/{base['tokens']} (reported, not "
-            f"gated: row-parallel sums of bfloat16 partials round otherwise); step p50 "
-            f"{r0['step_ms_p50']:.2f} ms over {r0['steps']} steps (tp 1: "
-            f"{base['step_ms_p50']:.2f}), {r0['tok_s']:.2f} tok/s (tp 1: "
-            f"{base['tok_s']:.2f}), collective span p50 {r0['collective_ms_p50']:.3f} ms; "
-            f"{r0['all_reduces']} all-reduces of {r0['collective_bytes']} bytes on rank 0")
+        if DEV == "cuda":
+            for k in TP_KERNELS[arch]:
+                check(r["launches"].get(k, 0) > 0,
+                      f"{tag} rank {r['rank']} never launched {k}")
+        if arch == "yi-9b":
+            check(r["pool_bytes"] * tp == base["pool_bytes"],
+                  f"{tag} rank {r['rank']}: pool bytes {r['pool_bytes']} are not "
+                  f"1/{tp} of tp 1's {base['pool_bytes']}")
+        if recurrent:
+            want = tp_state_bytes(cfg, tp, base["state_bytes"])
+            check(r["state_bytes"] == want,
+                  f"{tag} rank {r['rank']}: state bytes {r['state_bytes']}, not "
+                  f"{want} (tp 1: {base['state_bytes']})")
+    same = sum(a == b for rid, toks in base["out"].items()
+               for a, b in zip(toks, res[0]["out"][rid]))
+    r0 = res[0]
+    log(f"{tag} backend {r0['backend']}, CUDA tensors staged through host memory: "
+        f"{'yes' if r0['staged'] else 'no'}; {tp} ranks on one card; init "
+        f"{[round(r['init_s'], 1) for r in res]} s")
+    log(f"{tag} token match against tp 1: {same}/{base['tokens']} (reported, not "
+        f"gated: row-parallel sums of bfloat16 partials round otherwise); step p50 "
+        f"{r0['step_ms_p50']:.2f} ms over {r0['steps']} steps (tp 1: "
+        f"{base['step_ms_p50']:.2f}), {r0['tok_s']:.2f} tok/s (tp 1: "
+        f"{base['tok_s']:.2f}), collective span p50 {r0['collective_ms_p50']:.3f} ms; "
+        f"{r0['all_reduces']} all-reduces of {r0['collective_bytes']} bytes on rank 0")
+    if recurrent:
+        extra = tp_state_bytes(cfg, tp, base["state_bytes"]) - base["state_bytes"] // tp
+        log(f"{tag} per rank: state bytes {[r['state_bytes'] for r in res]} (tp 1: "
+            f"{base['state_bytes']}; beyond 1/{tp} of it, the whole Mamba2 B / C conv "
+            f"columns' {extra} bytes), peak memory GiB "
+            f"{[round(r['peak_gib'], 2) for r in res]}; "
+            f"launches {[r['launches'] for r in res]}")
+    else:
         log(f"{tag} per rank: peak memory GiB "
             f"{[round(r['peak_gib'], 2) for r in res]}, pool bytes "
             f"{[r['pool_bytes'] for r in res]} (tp 1: {base['pool_bytes']}), first "
             f"decode kernel q {r0['kernel_q_shape']} pool {r0['kernel_pool_shape']}: "
             f"|kernel - plain| {[r['kernel_err'] for r in res]}; launches "
             f"{[r['launches'] for r in res]}")
-        RESULTS[f"tp {arch} tp={tp}"] = dict(
-            match=same, of=base["tokens"], step_ms_p50=r0["step_ms_p50"],
-            tok_s=r0["tok_s"], collective_ms_p50=r0["collective_ms_p50"],
-            peak_gib=[r["peak_gib"] for r in res], backend=r0["backend"],
-            staged=r0["staged"], all_reduces=r0["all_reduces"],
-            tp1_step_ms_p50=base["step_ms_p50"], tp1_tok_s=base["tok_s"])
-        out[(arch, tp)] = [r["launches"] for r in res]
-        log(f"[time] {tag}: {time.perf_counter() - t0:.1f} s")
-    return out
+    RESULTS[f"tp {arch} tp={tp}"] = dict(
+        match=same, of=base["tokens"], step_ms_p50=r0["step_ms_p50"],
+        tok_s=r0["tok_s"], collective_ms_p50=r0["collective_ms_p50"],
+        peak_gib=[r["peak_gib"] for r in res], backend=r0["backend"],
+        staged=r0["staged"], all_reduces=r0["all_reduces"],
+        state_bytes=[r["state_bytes"] for r in res],
+        tp1_step_ms_p50=base["step_ms_p50"], tp1_tok_s=base["tok_s"])
 
 
 # ---------------------------------------------------------------------------
@@ -3766,6 +3868,9 @@ def main(argv=None) -> int:
     ap.add_argument("--archs", action="store_true",
                     help="only the build, the recurrent and attention archs' "
                     "paths and the train archs' (4j-4l), and their train identities")
+    ap.add_argument("--tp", action="store_true",
+                    help="only the build, Yi-9B's serve run with its profile and "
+                    "cost line, and the tensor-parallel runs but DeepSeek's (4m)")
     ap.add_argument("--src", default=str(SRC),
                     help="the tree whose repro_torch --decode-kernels or "
                     "--row-kernels runs")
@@ -3801,9 +3906,10 @@ def main(argv=None) -> int:
     log(f"[device] matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     card = Card(torch)
-    log(f"[device] {card.sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x "
+    c = kcost()
+    log(f"[device] {card.sms} SMs x {c.INT32_LANES_PER_SM} INT32 lanes x "
         f"{card.clock_hz / 1e6:.0f} MHz = {card.int32_ops_s / 1e12:.2f} TOP/s "
-        f"INT32; {HBM_BYTES_S / 1e12} TB/s HBM; {FP32_FLOP_S / 1e12} TFLOP/s FP32")
+        f"INT32; {c.HBM_BYTES_S / 1e12} TB/s HBM; {c.FP32_FLOP_S / 1e12} TFLOP/s FP32")
 
     t0 = time.perf_counter()
     build.build_all(verbose=True)
@@ -3822,6 +3928,25 @@ def main(argv=None) -> int:
     dcfg = configs.get_config(DEEPSEEK, act_impl="cordic_pallas")
     records = {}
     phase_done("device and build")
+    if args.tp:
+        import dataclasses
+
+        from repro_torch.models import transformer as tf
+
+        cfg = dataclasses.replace(ycfg, softmax_impl="cordic_pallas")
+        model = tf.init(cfg, seed=0, device=DEV)
+        _, st = serve_run(torch, build, "yi-9b", cfg, model)
+        del model
+        torch.cuda.empty_cache()
+        phase_done("path serve yi-9b (its main run)")
+        tp_counts = tp_path(torch, build, {"yi-9b": st},
+                            runs=[r for r in TP_RUNS if r[0] != DEEPSEEK])
+        phase_done("path tp")
+        log(f"[tp] launches: {tp_counts}")
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(card_line)
+        log(json.dumps({"archs": RESULTS}))
+        return 0
     if args.archs:
         rec_counts, att_counts, tr_counts = archs_paths(
             torch, build, card, records, pipeline_ops(PAPER_SCHEDULE))

@@ -41,12 +41,37 @@ inside the datapath), and with it a tied head. A third is the port's: the
 MoE router is replicated (its (d, E) leaf would be cut on "experts"), so
 every rank routes every token without a gather.
 
+The recurrent mixers are cut by head (``mixer_layout``). Their leaves
+pack several tensors along the dim the rules cut: Mamba2's ``in_proj``
+columns are [z | x | B | C | dt] and its ``conv_w`` / ``conv_b`` [x | B |
+C], the mLSTM's ``up_proj`` [xm | z], the sLSTM's ``w`` / ``b`` the four
+gates [i | f | z | o]. GSPMD cuts such a leaf contiguously and reshards
+behind the program's back; the port has no partitioner, so a packed leaf
+is cut part by part (``take_slice`` with parts): each per-head part (z, x,
+dt, a gate, xm) into the rank's heads, Mamba2's B and C by group where the
+groups divide tp and whole otherwise (Zamba2 has one group, so every rank
+holds the whole B / C columns: 2 * G * N of the in_proj and conv columns,
+beyond the 1/tp the JAX rules give). The rows the rules cut (``out_proj``,
+``down_proj``, the mLSTM's ``wq/wk/wv/w_if``) are contiguous slices that
+line up with the rank's heads. ``dt_bias``, ``A_log``, ``D``, the norms
+and the sLSTM's block-diagonal ``r`` stay whole, as the rules leave them,
+and a rank reads its heads' entries. A mixer whose heads do not divide tp
+keeps every leaf whole and runs whole on every rank (as ``spec_for_axes``
+falls back for the attention archs). What a cut mixer computes is in
+models/ssm.py and models/xlstm.py: the gated RMSNorms over d_inner reduce
+their sums of squares, the row-parallel products are summed once, and the
+sLSTM gathers its hidden state (``gather_heads``) after its time loop.
+
 Collectives run on the process group's model axis (``Mesh.group``). The
 gloo backend takes CUDA tensors for ``all_reduce`` only through its own
 copies; the port stages them through host memory itself
 (``Mesh.staged``), and counts what it moved (``Mesh.stats``). A vocabulary
 gather is an ``all_reduce`` of a zero-filled full-width buffer, exact since
-x + 0 = x, so one collective serves every backend.
+x + 0 = x, so one collective serves every backend. On a dry mesh
+(``Mesh.dry``: ``make_production_mesh``, or a rank's view without a group)
+the collectives do not communicate: they book their kind and bytes in
+``Mesh.stats`` and return a tensor of the right shape, which is what the
+dry run (launch/dryrun.py) counts.
 """
 from __future__ import annotations
 
@@ -204,32 +229,89 @@ def _cut_dim(spec: Spec) -> Optional[int]:
     return spec.index("model") if "model" in spec else None
 
 
-def leaf_cut(mod_class: str, leaf: str, shape, mesh) -> Optional[int]:
-    """The dim the serving cut splits over the model axis for one leaf, or
-    None when the rank keeps it whole."""
+#: a packed leaf's parts along its cut dim: ((width, units), ...), each part
+#: cut into tp equal pieces when its units (heads or groups) divide tp,
+#: else kept whole on every rank
+Parts = Tuple[Tuple[int, int], ...]
+
+
+def mixer_layout(mod_class: str, cfg) -> Optional[Tuple[int, Dict[str, Tuple[int, Parts]]]]:
+    """(heads, {leaf: (cut dim, parts)}) of a recurrent mixer, whose cut
+    follows its heads (module docstring); None for any other module."""
+    if cfg is None:
+        return None
+    if mod_class == "Mamba2":
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        H = d_inner // s.head_dim
+        x, bc = (d_inner, H), (s.n_groups * s.d_state, s.n_groups)
+        return H, {"in_proj": (1, (x, x, bc, bc, (H, H))),
+                   "conv_w": (1, (x, bc, bc)), "conv_b": (0, (x, bc, bc))}
+    if mod_class == "MLSTM":
+        d_inner, H = int(cfg.d_model * cfg.xlstm.proj_factor), cfg.num_heads
+        return H, {"up_proj": (1, ((d_inner, H), (d_inner, H)))}
+    if mod_class == "SLSTM":
+        d, H = cfg.d_model, cfg.num_heads
+        return H, {"w": (1, ((d, H),) * 4), "b": (0, ((d, H),) * 4)}
+    return None
+
+
+def mixer_is_cut(heads: int, mesh) -> bool:
+    """A recurrent mixer is cut when its heads divide tp; else every leaf
+    of it stays whole and it runs whole on every rank."""
+    return mesh is not None and mesh.tp > 1 and heads % mesh.tp == 0
+
+
+def leaf_cut(mod_class: str, leaf: str, shape, mesh,
+             cfg=None) -> Optional[Tuple[int, Optional[Parts]]]:
+    """(dim, parts) the serving cut splits over the model axis for one
+    leaf (parts None: one contiguous slice), or None when the rank keeps it
+    whole. ``cfg``: the module's config, which a recurrent mixer's cut
+    reads."""
     if (mod_class, leaf) in SERVE_REPLICATED:
         return None
-    return _cut_dim(spec_for_axes(LEAF_AXES[(mod_class, leaf)], tuple(shape), mesh))
+    layout = mixer_layout(mod_class, cfg)
+    if layout is not None:
+        heads, packed = layout
+        if not mixer_is_cut(heads, mesh):
+            return None
+        if leaf in packed:
+            return packed[leaf]
+    dim = _cut_dim(spec_for_axes(LEAF_AXES[(mod_class, leaf)], tuple(shape), mesh))
+    return None if dim is None else (dim, None)
 
 
-def take_slice(t: torch.Tensor, dim: Optional[int], mesh) -> torch.Tensor:
-    """This rank's contiguous slice of ``t`` along ``dim``, or ``t`` itself
+def take_slice(t: torch.Tensor, dim: Optional[int], mesh,
+               parts: Optional[Parts] = None) -> torch.Tensor:
+    """This rank's slice of ``t`` along ``dim`` (one contiguous slice, or
+    with ``parts`` its piece of each part, concatenated), or ``t`` itself
     for a whole leaf. The slice is a copy even where the narrowed view is
     contiguous (a cut of dim 0), so the whole leaf's storage can go."""
     if dim is None:
         return t
-    n = t.shape[dim] // mesh.tp
-    return t.narrow(dim, mesh.model_rank * n, n).clone(memory_format=torch.contiguous_format)
+    if parts is None:
+        parts = ((t.shape[dim], mesh.tp),)
+    pieces, lo = [], 0
+    for w, units in parts:
+        if units % mesh.tp == 0:
+            n = w // mesh.tp
+            pieces.append(t.narrow(dim, lo + mesh.model_rank * n, n))
+        else:
+            pieces.append(t.narrow(dim, lo, w))
+        lo += w
+    if lo != t.shape[dim]:
+        raise ValueError(f"parts {parts} do not cover dim {dim} of {tuple(t.shape)}")
+    if len(pieces) == 1:
+        return pieces[0].clone(memory_format=torch.contiguous_format)
+    return torch.cat(pieces, dim=dim)
 
 
-def check_servable(cfg) -> None:
-    """Raises for an arch the port cannot cut yet: recurrent blocks
-    (ROADMAP A.12b; the JAX rules cut their ``mlp`` axes)."""
-    from repro_torch.models import transformer as tf
-
-    if not tf.attention_only(cfg):
-        raise NotImplementedError("tensor parallelism over recurrent blocks is "
-                                  "not ported yet (ROADMAP A.12b)")
+def head_range(heads: int, mesh=None) -> Tuple[int, int]:
+    """[lo, hi) of the heads a cut mixer's rank holds (the ambient mesh by
+    default)."""
+    mesh = active_serving_mesh() if mesh is None else mesh
+    n = heads // mesh.tp
+    return mesh.model_rank * n, (mesh.model_rank + 1) * n
 
 
 @contextlib.contextmanager
@@ -239,17 +321,21 @@ def slicing_leaves(mesh):
     seeded generator, which still draws each whole leaf, so the slices are
     the tp = 1 weights exactly) holds its shard plus, transiently, the
     largest leaf. Each module records the leaves cut in ``tp_cut`` {leaf:
-    dim}."""
+    dim} and a packed leaf's parts in ``tp_parts`` {leaf: parts}."""
     from torch.nn.modules import module as nn_module
 
     def hook(mod, name, param):
         if param is None:
             return None
-        dim = leaf_cut(type(mod).__name__, name, param.shape, mesh)
-        if dim is None:
+        cut = leaf_cut(type(mod).__name__, name, param.shape, mesh,
+                       getattr(mod, "cfg", None))
+        if cut is None:
             return None
+        dim, parts = cut
         mod.__dict__.setdefault("tp_cut", {})[name] = dim
-        return nn.Parameter(take_slice(param.data, dim, mesh),
+        if parts is not None:
+            mod.__dict__.setdefault("tp_parts", {})[name] = parts
+        return nn.Parameter(take_slice(param.data, dim, mesh, parts),
                             requires_grad=param.requires_grad)
 
     handle = nn_module.register_module_parameter_registration_hook(hook)
@@ -261,22 +347,21 @@ def slicing_leaves(mesh):
 
 def shard_model(model: nn.Module, mesh) -> nn.Module:
     """A new model holding this rank's slice of every leaf of ``model``
-    (the counterpart of ``serve_param_shardings``; ``model`` is untouched).
-    Raises for the recurrent archs (ROADMAP A.12b)."""
+    (the counterpart of ``serve_param_shardings``; ``model`` is untouched)."""
     from repro_torch.models import transformer as tf
 
     cfg = model.cfg
-    check_servable(cfg)
     with torch.no_grad(), slicing_leaves(mesh):
         out = tf.Transformer(cfg, device="meta", dtype=None)
     src = dict(model.named_parameters())
     with torch.no_grad():
         for mname, mod in out.named_modules():
             cut = mod.__dict__.get("tp_cut", {})
+            parts = mod.__dict__.get("tp_parts", {})
             for leaf, p in list(mod.named_parameters(recurse=False)):
                 full = src[f"{mname}.{leaf}" if mname else leaf]
                 # a whole leaf shares the source's storage
-                t = take_slice(full.detach(), cut.get(leaf), mesh)
+                t = take_slice(full.detach(), cut.get(leaf), mesh, parts.get(leaf))
                 setattr(mod, leaf, nn.Parameter(t, requires_grad=False))
     out.mesh = mesh
     return out
@@ -293,6 +378,13 @@ def leaf_cuts(model: nn.Module) -> Dict[str, int]:
             for leaf, dim in mod.__dict__.get("tp_cut", {}).items()}
 
 
+def leaf_parts(model: nn.Module) -> Dict[str, Parts]:
+    """{parameter name: parts} of a rank's model's packed cut leaves."""
+    return {(f"{m}.{leaf}" if m else leaf): parts
+            for m, mod in model.named_modules()
+            for leaf, parts in mod.__dict__.get("tp_parts", {}).items()}
+
+
 def local_kv_heads(cfg, mesh) -> int:
     """KV heads of one rank's GQA pools: KH' / tp when it divides, else
     the whole KH' (padded)."""
@@ -300,6 +392,53 @@ def local_kv_heads(cfg, mesh) -> int:
 
     kh = padded_heads(cfg)[1]
     return kh // mesh.tp if mesh is not None and kh % mesh.tp == 0 else kh
+
+
+# ---------------------------------------------------------------------------
+# Data-axis specs (the JAX ``batch_spec`` / ``cache_spec``)
+# ---------------------------------------------------------------------------
+def _dp_axes(mesh) -> Tuple[str, ...]:
+    sizes = _mesh_shape(mesh)
+    return tuple(a for a in ("pod", "data") if a in sizes)
+
+
+def dp_size(mesh) -> int:
+    """Ranks over the data axes ("pod" x "data")."""
+    sizes = _mesh_shape(mesh)
+    n = 1
+    for a in _dp_axes(mesh):
+        n *= sizes[a]
+    return n
+
+
+def batch_spec(mesh, global_batch: int, seq_len: int,
+               extra_dims: int = 0) -> Spec:
+    """The spec of (B, S, ...) activations and inputs: the batch over
+    ("pod", "data") when it divides, else the sequence (long-context decode
+    at batch 1), else whole: a mesh axis or a tuple of them per dim, as
+    the JAX PartitionSpec's."""
+    dp_axes = _dp_axes(mesh)
+    dp = dp_size(mesh)
+    # a one-axis group is its name, as a PartitionSpec normalises it
+    ax = dp_axes[0] if len(dp_axes) == 1 else dp_axes
+    if global_batch % dp == 0 and global_batch >= dp:
+        return (ax,) + (None,) * (1 + extra_dims)
+    if seq_len % dp == 0:
+        return (None, ax) + (None,) * extra_dims
+    return ()
+
+
+def cache_spec(mesh, batch: int, seq_len: int, kv_heads: int) -> dict:
+    """The axes of (B, S, KH, D) cache buffers: batch over the data axes
+    when it divides, else the sequence; KV heads over the model axis when
+    they divide."""
+    dp_axes = _dp_axes(mesh)
+    dp = dp_size(mesh)
+    model = _mesh_shape(mesh).get("model", 1)
+    kh = "model" if kv_heads % model == 0 else None
+    if batch % dp == 0 and batch >= dp:
+        return {"batch_axis": dp_axes, "seq_axis": None, "kv_axis": kh}
+    return {"batch_axis": None, "seq_axis": dp_axes, "kv_axis": kh}
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +456,10 @@ def all_reduce_(t: torch.Tensor, mesh=None) -> torch.Tensor:
     stats = mesh.stats
     stats["all_reduce"] += 1
     stats["bytes"] += t.numel() * t.element_size()
+    if mesh.dry:
+        # a layout without ranks (``make_production_mesh``, a dry mesh):
+        # booked, not communicated; ``t`` keeps its shape
+        return t
     if mesh.staged and t.device.type != "cpu":
         h = t.to("cpu")
         dist.all_reduce(h, group=mesh.group)
@@ -335,3 +478,16 @@ def gather_vocab(local: torch.Tensor, vocab: int, mesh=None) -> torch.Tensor:
     full = local.new_zeros(local.shape[:-1] + (vocab,))
     full[..., mesh.model_rank * n:(mesh.model_rank + 1) * n] = local
     return all_reduce_(full, mesh)
+
+
+def gather_heads(local: torch.Tensor, parts: int = 1, mesh=None) -> torch.Tensor:
+    """(..., parts * n) of this rank's heads -> (..., parts * n * tp) on
+    every rank: each of the ``parts`` equal slices (the sLSTM's four gates,
+    or one) placed at the rank's place in its part of a zero-filled buffer,
+    summed over the model axis (exact, as ``gather_vocab``)."""
+    mesh = active_serving_mesh() if mesh is None else mesh
+    local = local.unflatten(-1, (parts, local.shape[-1] // parts))
+    n, r = local.shape[-1], mesh.model_rank
+    full = local.new_zeros(local.shape[:-1] + (n * mesh.tp,))
+    full[..., r * n:(r + 1) * n] = local
+    return all_reduce_(full, mesh).flatten(-2)

@@ -44,6 +44,7 @@ from repro_torch.cordic_engine.schedule import (
 )
 from repro_torch.kernels import build
 from repro_torch.kernels import code_tables as CT
+from repro_torch.kernels import cost
 
 _I32 = torch.int32
 #: np.float32(log 2) and np.float32(1 / log 2), as float64 values
@@ -393,16 +394,21 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must share device and dtype")
 
 
+@cost.booked("act_2d", lambda x, op, sched=PAPER_SCHEDULE, cfg=PAPER_FIXED, **_:
+             cost.act_2d_work(x, op, sched, cfg))
 def act_2d(x: torch.Tensor, op: str, *, sched: MRSchedule = PAPER_SCHEDULE,
            cfg: FixedConfig = PAPER_FIXED, max_doublings: int = 3) -> torch.Tensor:
     """CORDIC activation over a tensor (the TPU kernel took 2D tiles; this
-    one runs over the flat elements of any shape)."""
+    one runs over the flat elements of any shape). A meta tensor (the dry
+    run) is checked and gets an output of its shape, its work booked."""
     if x.device.type == "cpu":
         return act_2d_plain(x, op, sched=sched, cfg=cfg,
                             max_doublings=max_doublings)
     _check_op(op)
     _check_cuda("act_2d", x)
     y = torch.empty_like(x)
+    if x.device.type == "meta":
+        return y                         # the dry run: checked, not launched
     tab, half = CT.table_args(_TABLE_ROW.get(op), sched, cfg, x.device)
     rc = build.library("act").cordic_act_2d(
         x.data_ptr(), y.data_ptr(), x.numel(), _OP_CODE[op],
@@ -413,6 +419,8 @@ def act_2d(x: torch.Tensor, op: str, *, sched: MRSchedule = PAPER_SCHEDULE,
     return y
 
 
+@cost.booked("silu_mul_2d", lambda gate, up, sched=PAPER_SCHEDULE, cfg=PAPER_FIXED, **_:
+             cost.silu_mul_2d_work(gate, sched, cfg))
 def silu_mul_2d(gate: torch.Tensor, up: torch.Tensor, *,
                 sched: MRSchedule = PAPER_SCHEDULE, cfg: FixedConfig = PAPER_FIXED,
                 max_doublings: int = 3) -> torch.Tensor:
@@ -424,6 +432,8 @@ def silu_mul_2d(gate: torch.Tensor, up: torch.Tensor, *,
                                  max_doublings=max_doublings)
     _check_cuda("silu_mul_2d", gate, up)
     y = torch.empty_like(gate)
+    if gate.device.type == "meta":
+        return y                         # the dry run: checked, not launched
     tab, half = CT.table_args(CT.TANH_ROW, sched, cfg, gate.device)
     rc = build.library("act").cordic_silu_mul_2d(
         gate.data_ptr(), up.data_ptr(), y.data_ptr(), gate.numel(),
@@ -438,6 +448,8 @@ def silu_mul_2d(gate: torch.Tensor, up: torch.Tensor, *,
 _INT_CODE = {torch.int16: 0, torch.int32: 1}
 
 
+@cost.booked("act_q_2d", lambda x_q, sched=PAPER_SCHEDULE, cfg=PAPER_FIXED, **_:
+             cost.act_q_2d_work(x_q, sched, cfg))
 def act_q_2d(x_q: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
              cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
     """Integer (Q2.14 int16/int32 codes) sigmoid over the flat elements of a
@@ -452,6 +464,8 @@ def act_q_2d(x_q: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
     if not x_q.is_contiguous():
         raise ValueError("act_q_2d: input must be contiguous")
     y = torch.empty_like(x_q)
+    if x_q.device.type == "meta":
+        return y                         # the dry run: checked, not launched
     tab = (CT.sigmoid_q_table(sched, cfg, x_q.device).data_ptr()
            if CT.table_route(cfg) else None)
     rc = build.library("act").cordic_act_q_2d(

@@ -72,6 +72,7 @@ from repro_torch.cordic_engine.core import PAPER_FIXED, FixedConfig
 from repro_torch.core import kv_quant as kvq
 from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE, MRSchedule
 from repro_torch.kernels import build
+from repro_torch.kernels import cost
 from repro_torch.kernels.softmax_cordic import _lane_exp, _lane_probs
 
 NEG_INF = -1e30
@@ -389,6 +390,9 @@ def _check_operands(what, device, ts, pools) -> None:
         raise ValueError(f"{what}: the pools must be 16-byte aligned")
 
 
+@cost.booked("gqa_decode", lambda q, k_pool, v_pool, tables, k_len, softmax_impl="exact",
+             sched=PAPER_SCHEDULE, k_scale_pool=None, **_: cost.gqa_decode_work(
+                 q, k_pool, tables, k_len, _impl(softmax_impl), sched, k_scale_pool))
 def gqa_decode(q, k_pool, v_pool, tables, k_len, *, scale: float,
                softmax_impl: str = "exact", kv_dtype=None,
                kv_quant: str = "none", k_scale_pool=None, v_scale_pool=None,
@@ -446,6 +450,8 @@ def gqa_decode(q, k_pool, v_pool, tables, k_len, *, scale: float,
     plan = plan or gqa_plan(B, KH, G, hd, L, M)
     out = torch.empty((B, KH, G, hd), dtype=torch.float32, device=q.device)
     ws = torch.empty(plan.workspace_floats, dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        return out                       # the dry run: checked, not launched
     rc = build.library("paged_decode").paged_gqa_decode(
         q.data_ptr(), build.DTYPE_CODE[q.dtype], k_pool.data_ptr(),
         v_pool.data_ptr(), POOL_CODE[pool_dtype],
@@ -523,6 +529,9 @@ def mla_decode_plain(q_eff, q_rope, c_pool, r_pool, tables, k_len, *,
     return _block_softmax(s, live[:, None], impl, pv, R, sched, cfg)
 
 
+@cost.booked("mla_decode", lambda q_eff, q_rope, c_pool, r_pool, tables, k_len,
+             softmax_impl="exact", sched=PAPER_SCHEDULE, **_: cost.mla_decode_work(
+                 q_eff, q_rope, c_pool, tables, k_len, _impl(softmax_impl), sched))
 def mla_decode(q_eff, q_rope, c_pool, r_pool, tables, k_len, *, scale: float,
                softmax_impl: str = "exact",
                sched: MRSchedule = PAPER_SCHEDULE,
@@ -566,6 +575,8 @@ def mla_decode(q_eff, q_rope, c_pool, r_pool, tables, k_len, *, scale: float,
     out = torch.empty((B, H, R), dtype=torch.float32, device=q_eff.device)
     ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
                      device=q_eff.device)
+    if q_eff.device.type == "meta":
+        return out                       # the dry run: checked, not launched
     rc = build.library("paged_decode").paged_mla_decode(
         q_eff.data_ptr(), q_rope.data_ptr(), build.DTYPE_CODE[q_eff.dtype],
         c_pool.data_ptr(), r_pool.data_ptr(), tables.data_ptr(),

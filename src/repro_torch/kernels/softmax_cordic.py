@@ -50,6 +50,7 @@ from repro_torch.cordic_engine.core import PAPER_FIXED, FixedConfig
 from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE, MRSchedule
 from repro_torch.kernels import build
 from repro_torch.kernels import code_tables as CT
+from repro_torch.kernels import cost
 from repro_torch.kernels.cordic_act import (
     _I32,
     _dequantize_f,
@@ -132,6 +133,8 @@ def softmax_2d_plain(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
     return _lane_probs(u, ssum, sched, cfg, tables)
 
 
+@cost.booked("softmax_2d", lambda x, sched=PAPER_SCHEDULE, cfg=PAPER_FIXED:
+             cost.softmax_2d_work(x, sched, cfg))
 def softmax_2d(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
                cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
     """CORDIC softmax over the last axis of a (rows, cols) float32 tensor."""
@@ -143,6 +146,8 @@ def softmax_2d(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
         raise ValueError("softmax_2d: the kernel takes contiguous float32")
     rows, cols = x.shape
     y = torch.empty_like(x)
+    if x.device.type == "meta":
+        return y                         # the dry run: checked, not launched
     tab, half = CT.table_args(CT.EXP_ROW, sched, cfg, x.device)
     rc = build.library("softmax").cordic_softmax_2d(
         x.data_ptr(), y.data_ptr(), rows, cols, build.params_ptr(sched, cfg),
@@ -220,6 +225,8 @@ def log_softmax_plan(cols: int) -> LogSoftmaxPlan:
     return LogSoftmaxPlan(cols, cs, wpc, _ls_smem(n1, wpc, True) <= SMEM_LIMIT)
 
 
+@cost.booked("log_softmax_2d", lambda x, sched=PAPER_SCHEDULE, cfg=PAPER_FIXED:
+             cost.log_softmax_2d_work(x, sched, cfg))
 def log_softmax_2d(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
                    cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
     """CORDIC log-softmax over the last axis of a (rows, cols) float32
@@ -233,6 +240,8 @@ def log_softmax_2d(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
     rows, cols = x.shape
     plan = log_softmax_plan(cols)
     y = torch.empty_like(x)
+    if x.device.type == "meta":
+        return y                         # the dry run: checked, not launched
     tab, half = CT.table_args(CT.EXP_ROW, sched, cfg, x.device)
     rc = build.library("softmax").cordic_log_softmax_2d(
         x.data_ptr(), y.data_ptr(), rows, cols, plan.cluster, plan.windows,

@@ -1,0 +1,255 @@
+"""Dry run of the serving steps on the production meshes (port of
+``repro/launch/dryrun.py``), on the host, without a card.
+
+For every (architecture x serving shape) cell it runs the port's real
+prefill or decode step (``prefill_step`` / ``decode_step``: the engine's
+dense-plane apply, the vocabulary gather and the greedy token) on meta
+tensors, for one rank of the cut, under ``op_cost.OpCost``:
+
+    * the single-pod production mesh  (16, 16)   ("data", "model")
+    * the two-pod mesh               (2, 16, 16) ("pod", "data", "model")
+
+and records the rank's FLOPs, HBM bytes and collective bytes, the
+roofline terms against the H100's peaks (``kernels/cost.PEAKS``), and the
+rank's param and cache bytes (``memory``, which replaces XLA's
+``memory_analysis``). The records keep the JAX record's keys where they
+mean the same thing. The seconds are a model against the named peaks, not
+a measurement.
+
+Train shapes (``train_4k``) are skipped: the port has no tensor- and
+data-parallel train step to lower (ROADMAP A.16). The JAX knobs the port
+serves are taken (``act_impl``, ``attn_chunk``, ``score_dtype``,
+``pad_heads_to``, ``slstm_state``, ``mixer_chunk``); the train-side ones
+and ``kv_shard`` raise ``NotImplementedError`` naming their entries.
+
+A meta tensor has no values, so the step's data-dependent answers take
+their shape-only form on it (models/ssm.py, models/xlstm.py: a time loop's
+step is counted once per step with its values unread; kernels/cost.py:
+every lane counts as live).
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b --shape decode_32k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out results/dryrun_torch.json
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+import traceback
+
+import torch
+
+from repro_torch import configs
+from repro_torch.configs.base import SHAPES, shape_applicable
+from repro_torch.launch import op_cost
+from repro_torch.launch import specs as sp
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.serve import engine as serve_engine
+from repro_torch.serve import sampling
+
+#: the ROADMAP entries of what the port does not lower yet
+TRAIN_ENTRY = "ROADMAP A.16 (the tensor- and data-parallel train step)"
+KV_SHARD_ENTRY = "ROADMAP A.17 (kv_shard=\"seq_model\")"
+
+
+def prefill_step(params, cache, tokens, cfg):
+    """The engine's dense prefill of whole rows (``make_prefill_step``):
+    fresh state, positions 0, the last position's logits, gathered over the
+    model axis. Returns the (rows, V) logits."""
+    return serve_engine.make_prefill_step(cfg)(params, cache, tokens)
+
+
+def decode_step(params, cache, tokens, cfg):
+    """One batched decode (``make_decode_logits``), the vocabulary gather
+    and the greedy token. Returns the (rows,) tokens."""
+    logits = serve_engine.make_decode_logits(cfg)(params, cache, tokens)
+    return sampling.greedy_tokens(serve_engine.gathered_logits(params, cfg, logits))
+
+
+def rank_steps(job):
+    """A ``run_ranks`` target (tests): ``prefill_step`` and ``decode_step``
+    of each smoke config of ``job["archs"]`` on real CPU tensors on this
+    rank's mesh (``job["tp"]``), each on a fresh cache of ``job["rows"]``
+    rows and ``job["seq"]`` positions, as ``lower_cell`` builds them.
+    Returns {arch: {"prefill" | "decode": the mesh stats it added}}."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as tf
+
+    mesh = mesh_lib.make_host_mesh(job["tp"])
+    B, S = job["rows"], job["seq"]
+    out = {}
+    for arch in job["archs"]:
+        cfg = cell_config(arch, smoke=True, act_impl=job.get("act_impl", "exact"))
+        model = tf.init(cfg, seed=0, device="cpu", mesh=mesh)
+        g = torch.Generator().manual_seed(0)
+        out[arch] = {}
+        for kind, step, width in (("prefill", prefill_step, S), ("decode", decode_step, 1)):
+            cache = tf.init_cache(cfg, B, S, torch.float32, device="cpu",
+                                  kv_heads=shd.local_kv_heads(cfg, mesh), mesh=mesh)
+            toks = torch.randint(0, cfg.vocab_size, (B, width), generator=g)
+            s0 = dict(mesh.stats)
+            with torch.no_grad():
+                step(model, cache, toks, cfg)
+            out[arch][kind] = {k: v - s0.get(k, 0) for k, v in mesh.stats.items()}
+    return out
+
+
+def _refuse(**kw) -> None:
+    if kw.get("kv_shard", "auto") != "auto":
+        raise NotImplementedError(f"kv_shard={kw['kv_shard']!r}: {KV_SHARD_ENTRY}")
+    for k, default in (("remat", "full"), ("accum", 1), ("zero1", False)):
+        if kw.get(k, default) != default:
+            raise NotImplementedError(f"{k}={kw[k]!r} is a train-side knob: {TRAIN_ENTRY}")
+
+
+def cell_config(arch: str, *, act_impl: str = "cordic_fixed", attn_chunk: int = 2048,
+                score_dtype: str = "f32", pad_heads_to: int = 0,
+                slstm_state: str = "auto", mixer_chunk: int = 0, smoke: bool = False):
+    """The arch's config with the cell's knobs, as the JAX ``lower_cell``
+    sets them."""
+    get = configs.get_smoke if smoke else configs.get_config
+    cfg = get(arch, act_impl=act_impl)
+    # the embeds archs are served on token ids, as the port's launcher
+    # serves them (the engine serves token LMs)
+    cfg = dataclasses.replace(cfg, input_mode="tokens", attn_chunk=attn_chunk, score_dtype=score_dtype,
+                              pad_heads_to=pad_heads_to, slstm_state=slstm_state)
+    if mixer_chunk:
+        if cfg.xlstm is not None:
+            cfg = dataclasses.replace(cfg, xlstm=dataclasses.replace(cfg.xlstm,
+                                                                     chunk=mixer_chunk))
+        if cfg.ssm is not None:
+            cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                                   chunk=mixer_chunk))
+    return cfg
+
+
+def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+               act_impl: str = "cordic_fixed", attn_chunk: int = 2048,
+               score_dtype: str = "f32", pad_heads_to: int = 0,
+               slstm_state: str = "auto", mixer_chunk: int = 0,
+               smoke: bool = False, mesh=None, shape=None, **train_kw) -> dict:
+    """Run one (arch x shape x mesh) cell's step on meta tensors; return the
+    record. ``smoke``/``mesh``/``shape``: a smoke config, another mesh, a
+    ShapeConfig of other sizes (tests)."""
+    _refuse(**train_kw)
+    cfg = cell_config(arch, act_impl=act_impl, attn_chunk=attn_chunk,
+                      score_dtype=score_dtype, pad_heads_to=pad_heads_to,
+                      slstm_state=slstm_state, mixer_chunk=mixer_chunk, smoke=smoke)
+    shape = SHAPES[shape_name] if shape is None else shape
+    ok, why = shape_applicable(cfg, shape)
+    if not ok:
+        return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
+                "status": "skipped", "reason": why}
+    if shape.kind == "train":
+        return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
+                "status": "skipped",
+                "reason": f"train shapes are not lowered: {TRAIN_ENTRY}"}
+    mesh = make_production_mesh(multi_pod=multi_pod) if mesh is None else mesh
+    t0 = time.time()
+    params = sp.abstract_params(cfg, mesh)
+    cache = sp.abstract_cache(cfg, mesh, shape)
+    if shape.kind == "prefill":
+        tokens = sp.prefill_input_specs(cfg, mesh, shape)
+        step = prefill_step
+    else:
+        tokens = sp.decode_input_specs(cfg, mesh, shape)
+        step = decode_step
+    mem = sp.memory(params, cache)
+    t_build = time.time() - t0
+    with torch.no_grad():
+        _, counts = op_cost.count(step, params, cache, tokens, cfg, mesh=mesh)
+    t_run = time.time() - t0 - t_build
+    terms = op_cost.roofline_terms(counts)
+    flops = counts["flops"]
+    pc = cfg.param_counts()
+    tokens_step = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
+    model_flops = 2 * pc["active"] * tokens_step             # forward only
+    rows = tokens.shape[0]
+    return {
+        "arch": arch, "shape": shape_name, "multi_pod": multi_pod,
+        "mesh": list(mesh.shape.values()), "devices": int(mesh.size),
+        "status": "ok", "kind": shape.kind,
+        "build_s": round(t_build, 2), "run_s": round(t_run, 2),
+        "rank_rows": rows,
+        "flops_per_chip": flops, "hbm_bytes_per_chip": counts["hbm_bytes"],
+        "collective": {
+            "per_kind_bytes": counts["collective_bytes_by_kind"],
+            "op_counts": counts["collective_op_counts"],
+            "weighted_bytes": counts["collective_weighted_bytes"],
+        },
+        "op_cost": {k: counts[k] for k in ("product_flops", "other_flops",
+                                            "kernel_int_ops", "kernel_bytes",
+                                            "kernel_calls", "aten_ops")},
+        "memory": mem,
+        "roofline": terms,
+        "params_total": pc["total"], "params_active": pc["active"],
+        "tokens_per_step": tokens_step,
+        "model_flops_global": model_flops,
+        "model_flops_per_chip": model_flops / mesh.size,
+        "useful_flops_ratio": (model_flops / mesh.size) / flops if flops else None,
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None, choices=list(SHAPES) + [None])
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--act-impl", default="cordic_fixed")
+    ap.add_argument("--out", default=None, help="JSON output path")
+    args = ap.parse_args(argv)
+
+    cells = []
+    if args.all:
+        for arch in configs.ARCH_IDS:
+            for shape in SHAPES:
+                cells.append((arch, shape))
+    else:
+        if not (args.arch and args.shape):
+            ap.error("--arch and --shape, or --all")
+        cells.append((args.arch, args.shape))
+
+    meshes = [False, True] if (args.both_meshes or args.all) else [args.multi_pod]
+    results = []
+    for arch, shape in cells:
+        for mp in meshes:
+            tag = f"{arch} x {shape} x {'2x16x16' if mp else '16x16'}"
+            try:
+                rec = lower_cell(arch, shape, multi_pod=mp, act_impl=args.act_impl)
+                if rec["status"] == "ok":
+                    r = rec["roofline"]
+                    print(f"[dryrun] OK   {tag}: run {rec['run_s']}s "
+                          f"compute {r['compute_s']:.3e}s memory {r['memory_s']:.3e}s "
+                          f"coll {r['collective_s']:.3e}s dom={r['dominant']}")
+                    print(f"         mem: {rec['memory']}")
+                else:
+                    print(f"[dryrun] SKIP {tag}: {rec['reason']}")
+            except Exception as e:                           # noqa: BLE001
+                rec = {"arch": arch, "shape": shape, "multi_pod": mp,
+                       "status": "error", "error": repr(e),
+                       "trace": traceback.format_exc()[-2000:]}
+                print(f"[dryrun] FAIL {tag}: {e!r}")
+            results.append(rec)
+            sys.stdout.flush()
+
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+        print(f"[dryrun] wrote {args.out}")
+    n_ok = sum(r["status"] == "ok" for r in results)
+    n_skip = sum(r["status"] == "skipped" for r in results)
+    n_err = sum(r["status"] == "error" for r in results)
+    print(f"[dryrun] done: {n_ok} ok, {n_skip} skipped, {n_err} errors")
+    return 0 if n_err == 0 else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

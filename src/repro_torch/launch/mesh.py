@@ -24,8 +24,12 @@ the deadline passes, so a stuck rank fails its caller and never hangs it.
 function of a package module, or of the ``__main__`` script) or its
 "module:function" name.
 
-``make_production_mesh`` (the 512-chip dry-run mesh) waits for the cost
-tooling (ROADMAP A.14).
+``make_production_mesh`` is the dry run's layout (launch/dryrun.py): the
+JAX shapes and axis names, (16, 16) ("data", "model") or (2, 16, 16)
+("pod", "data", "model"), as rank 0 sees them, with no process group. On
+it (and on any ``Mesh`` without a group) the collectives of
+distributed/sharding.py do not communicate: they book their kind and bytes
+in ``Mesh.stats`` and return a result of the right shape (``Mesh.dry``).
 """
 from __future__ import annotations
 
@@ -51,9 +55,11 @@ GROUP_TIMEOUT_S = 60
 
 @dataclasses.dataclass
 class Mesh:
-    """A ("data", "model") layout of the process group's ranks, as this
-    rank sees it. ``group`` is this rank's model-axis process group;
-    ``stats`` counts the collectives run on it and their bytes."""
+    """A ("data", "model") layout of the process group's ranks, or a
+    ("pod", "data", "model") one, as this rank sees it. ``group`` is this
+    rank's model-axis process group (None: a dry mesh, whose collectives
+    are booked and not run); ``stats`` counts the collectives run on it
+    and their bytes."""
     shape: Dict[str, int]
     rank: int
     group: Any
@@ -61,7 +67,9 @@ class Mesh:
     stats: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
 
-    axis_names = ("data", "model")
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
 
     @property
     def staged(self) -> bool:
@@ -70,8 +78,16 @@ class Mesh:
         return self.backend == "gloo"
 
     @property
+    def dry(self) -> bool:
+        """No process group: collectives book their bytes and return."""
+        return self.group is None
+
+    @property
     def size(self) -> int:
-        return self.shape["data"] * self.shape["model"]
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
 
     @property
     def tp(self) -> int:
@@ -117,6 +133,22 @@ def make_host_mesh(model_parallel: int = 1) -> Mesh:
     backend = dist.get_backend() if dist.is_initialized() else "none"
     return Mesh(shape={"data": n // model_parallel, "model": model_parallel},
                 rank=rank, group=group, backend=backend)
+
+
+def make_production_mesh(multi_pod: bool = False) -> Mesh:
+    """The JAX ``make_production_mesh`` layout: (16, 16) ("data", "model"),
+    or (2, 16, 16) ("pod", "data", "model") for the two-pod mesh; rank 0's
+    view with no process group (a dry mesh)."""
+    shape = ({"pod": 2, "data": 16, "model": 16} if multi_pod
+             else {"data": 16, "model": 16})
+    return Mesh(shape=shape, rank=0, group=None, backend="dry")
+
+
+def dry_mesh(model_parallel: int, rank: int = 0, data: int = 1) -> Mesh:
+    """A rank's view of a (data, model_parallel) mesh without a process
+    group: the cut it holds, its collectives booked and not run."""
+    return Mesh(shape={"data": data, "model": model_parallel}, rank=rank,
+                group=None, backend="dry")
 
 
 def mesh_or_none(model_parallel: Optional[int] = 1) -> Optional[Mesh]:
@@ -177,6 +209,12 @@ def rank_call(payload):
 
     target, args = payload
     return _resolve(target)(*args[dist.get_rank()])
+
+
+def rank_jobs(jobs):
+    """A ``run_ranks`` target: jobs [(target, payload)] -> [target(payload)]
+    on each rank, in order (one group of ranks serving several callers)."""
+    return [_resolve(target)(payload) for target, payload in jobs]
 
 
 class RankGroup:

@@ -27,7 +27,8 @@ launcher. ``--tp N`` serves tensor-parallel over N ranks, one process each
 gloo when they share one or on the CPU; the kernels are built before the
 ranks start): every rank builds its shard of the same seeded weights and
 serves the same traffic, rank 0 prints, with one ``[serve] mesh:`` line.
-The recurrent archs raise there (ROADMAP A.12b). ``--act-impl`` takes the
+The recurrent archs serve so too, on the dense plane (each rank runs its
+heads of every mixer whose heads divide N). ``--act-impl`` takes the
 activation registry's four datapaths (``core/activations.ACT_IMPLS``;
 ``cordic_pallas``, the CUDA kernels, by default). The attention softmax is
 the CORDIC kernel (``softmax_impl="cordic_pallas"``); other softmax impls
@@ -291,6 +292,9 @@ def rank_serve(job):
         res = {"tokens": {r.rid: list(r.out) for r in reqs}, "tp": eng.tp,
                "pool_shapes": {k: tuple(v.shape) for k, v in layer.items()
                                if k.endswith("_pool") or k in ("k", "v")},
+               "state_shapes": [{k: tuple(v.shape) for k, v in c.items() if k != "idx"}
+                                for c in getattr(eng._caches, "layers", [])],
+               "state_bytes": eng.state_bytes(),
                "kv_pool_bytes": eng.kv_pool_bytes(),
                "scores": [eng.score(np.asarray(p, np.int32))
                           for p in case.get("scores", ())],

@@ -41,6 +41,19 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Te
     return y * scale.to(x.dtype)
 
 
+def rmsnorm_cut(scale: torch.Tensor, x: torch.Tensor, width: int,
+                eps: float = 1e-5) -> torch.Tensor:
+    """``rmsnorm`` of a rank's slice ``x`` of a ``width``-wide row (its
+    ``scale`` slice): the float32 sum of squares reduced over the model
+    axis, then divided by ``width``."""
+    from repro_torch.distributed import sharding as shd
+
+    ss = x.to(torch.float32).square().sum(dim=-1, keepdim=True)
+    var = shd.all_reduce_(ss) / width
+    y = x * torch.rsqrt(var + eps).to(x.dtype)
+    return y * scale.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / LM head
 # ---------------------------------------------------------------------------

@@ -68,7 +68,8 @@ largest leaf. The model keeps its mesh (``model.mesh``); ``apply`` enters
 it for the blocks' reductions and gathers the vocabulary-parallel logits
 (``gather_logits=False`` returns the rank's slice, for a caller that
 gathers them itself). The caches take a rank's KV heads
-(``kv_heads``).
+(``kv_heads``) and, under a ``mesh``, a rank's recurrent state (a cut
+mixer's heads: models/ssm.py, models/xlstm.py).
 """
 from __future__ import annotations
 
@@ -297,8 +298,6 @@ def init(cfg, seed: int = 0, device=None, dtype: Optional[torch.dtype] = None,
     master weights. ``mesh``: this rank's shard of the same weights."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    if mesh is not None:
-        shd.check_servable(cfg)
     with torch.no_grad(), _sharding(mesh):
         model = Transformer(cfg, device=dev, gen=gen, dtype=dtype)
     model.mesh = mesh
@@ -437,21 +436,20 @@ def from_jax_flat(cfg, flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 
 def copy_into(named: Dict[str, torch.Tensor], arrays: Dict[str, np.ndarray],
-              mesh=None, cuts: Optional[Dict[str, int]] = None) -> None:
+              mesh=None, cuts: Optional[Dict[str, int]] = None,
+              parts: Optional[Dict[str, tuple]] = None) -> None:
     """Copy host arrays into tensors of the same names and shapes, each cast
     to its tensor's dtype (floating arrays by way of float32, which also
     reads JAX's bfloat16); with a ``mesh``, each array's slice along its
-    leaf's cut dim (``cuts``)."""
-    cuts = cuts or {}
+    leaf's cut dim (``cuts``), part by part for a packed leaf (``parts``)."""
+    cuts, parts = cuts or {}, parts or {}
     with torch.no_grad():
         for name, t in named.items():
             a = np.asarray(arrays[name], dtype=np.float32
                            if t.is_floating_point() else None)
-            if name in cuts:
-                n = a.shape[cuts[name]] // mesh.tp
-                a = np.take(a, range(mesh.model_rank * n, (mesh.model_rank + 1) * n),
-                            axis=cuts[name])
             a = torch.from_numpy(a if a.flags.writeable else a.copy())
+            if name in cuts:
+                a = shd.take_slice(a, cuts[name], mesh, parts.get(name))
             if tuple(a.shape) != tuple(t.shape):
                 raise ValueError(f"{name}: shape {tuple(a.shape)} != "
                                  f"{tuple(t.shape)}")
@@ -464,12 +462,10 @@ def load_jax_params(cfg, flat: Dict[str, np.ndarray], device=None,
     (a segment's leaves stacked over its layers when it has more than one) ->
     the port's modules, each leaf in its storage dtype (``dtype`` as in
     ``init``); with a ``mesh``, this rank's slice of each."""
-    if mesh is not None:
-        shd.check_servable(cfg)
     with torch.no_grad(), _sharding(mesh):
         model = Transformer(cfg, device=resolve_device(device), dtype=dtype)
     copy_into(dict(model.named_parameters()), from_jax_flat(cfg, flat), mesh,
-              shd.leaf_cuts(model))
+              shd.leaf_cuts(model), shd.leaf_parts(model))
     model.mesh = mesh
     return model
 
@@ -589,9 +585,10 @@ def _kv_kw(kind: str, kv_heads: Optional[int]) -> dict:
 
 def _recurrent_cache(init):
     """A recurrent kind's cache: float32 state, whatever max_len and dtype
-    (the JAX ``_mamba_cache`` / ``_mlstm_cache`` / ``_slstm_cache``)."""
-    return lambda cfg, batch, max_len, dtype, *, device, idx: init(
-        cfg, batch, device=device)
+    (the JAX ``_mamba_cache`` / ``_mlstm_cache`` / ``_slstm_cache``), at a
+    rank's width under a ``mesh``."""
+    return lambda cfg, batch, max_len, dtype, *, device, idx, mesh=None: init(
+        cfg, batch, device=device, mesh=mesh)
 
 
 #: per-layer dense cache of each block kind (the third entry of the JAX
@@ -608,18 +605,22 @@ CACHE_FNS = {
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
-               device=None, kv_heads: Optional[int] = None) -> DenseCache:
+               device=None, kv_heads: Optional[int] = None,
+               mesh=None) -> DenseCache:
     """Dense decode cache for kv_impl="dense": every layer's buffers for
     ``batch`` rows of ``max_len`` positions (or its recurrent state), then
     one GQA cache per shared-block application; zeros (m at -1e30),
     positions 0. GQA buffers hold ``kv_heads`` heads (as
-    ``init_paged_cache``)."""
+    ``init_paged_cache``); under a ``mesh`` the recurrent states are a
+    rank's (models/ssm.py, models/xlstm.py)."""
     _check_cfg(cfg)
     dev = resolve_device(device)
     idx = torch.zeros((batch,), dtype=torch.int32, device=dev)
     kinds = list(cfg.block_pattern) + [cfg.shared_block] * num_shared_apps(cfg)
     return DenseCache([CACHE_FNS[kind](cfg, batch, max_len, dtype, device=dev,
-                                       idx=idx, **_kv_kw(kind, kv_heads))
+                                       idx=idx, **_kv_kw(kind, kv_heads),
+                                       **({"mesh": mesh} if kind in RECURRENT_KINDS
+                                          else {}))
                        for kind in kinds], idx)
 
 

@@ -19,6 +19,30 @@ Caches are dicts of float32 tensors, (batch, ...) per leaf, updated in
 place: {"C", "n", "m", "conv"} (mLSTM) and {"c", "n", "m", "h"} (sLSTM).
 The JAX ``conv`` leaf comes back in the compute dtype; here it is stored in
 float32 and cast at use, which changes no value.
+
+Tensor parallelism (distributed/sharding.py), when the heads divide tp:
+
+- mLSTM: a rank holds its heads' share of ``up_proj``'s xm and z columns
+  and of the conv, and the matching rows of ``wq/wk/wv/w_if`` and
+  ``down_proj``. Its q, k, v and gate products are partial sums over
+  d_inner: they are reduced in one all-reduce of their concatenation, and
+  the rank keeps its heads of q/k/v and its heads' two gate columns, so the
+  state (C, n, m) is (B, H/tp, ...) (C is 16.8 MB a slot and layer at
+  xLSTM-1.3B's width in float32: whole on every rank it would be the
+  cut's largest waste). The RMSNorm over d_inner reduces its sum of
+  squares, then ``down_proj``'s partial product is summed once.
+- sLSTM: the gate columns of ``w``/``b`` are cut by head, and the
+  block-diagonal recurrent ``r`` stays whole (the rank reads its heads),
+  so the time loop runs on the rank's heads with no collective inside it.
+  After the loop one gather of h (B, S, d) feeds the post-norm, then the
+  FFN runs column- and row-parallel with one all-reduce. Under
+  ``cfg.slstm_state == "replicated"`` (the JAX setting that pins the scan's
+  state off the model axis) the rank gathers ``wx`` once before the loop
+  and runs every head with the whole state instead; both give tp 1's
+  tokens.
+
+A mixer whose heads do not divide tp runs whole on every rank (its leaves
+are whole).
 """
 from __future__ import annotations
 
@@ -30,6 +54,8 @@ import torch.nn.functional as tF
 from torch import nn
 
 from repro_torch.core.activations import get_activation
+from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import cost as kcost
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlpm
 
@@ -57,6 +83,7 @@ class MLSTM(nn.Module):
 
     def __init__(self, cfg, *, dtype, device, gen=None):
         super().__init__()
+        self.cfg = cfg                  # a rank's cut reads it (sharding)
         d = cfg.d_model
         d_inner, H, _ = mdims(cfg)
         x = cfg.xlstm
@@ -75,8 +102,15 @@ class MLSTM(nn.Module):
         self.down_proj = leaf((d_inner, d))
 
 
-def mlstm_init_cache(cfg, batch: int, *, device) -> Dict[str, torch.Tensor]:
-    d_inner, H, dk = mdims(cfg)
+def _local_heads(cfg, mesh) -> int:
+    H = cfg.num_heads
+    return H // mesh.tp if shd.mixer_is_cut(H, mesh) else H
+
+
+def mlstm_init_cache(cfg, batch: int, *, device, mesh=None) -> Dict[str, torch.Tensor]:
+    _, _, dk = mdims(cfg)
+    H = _local_heads(cfg, mesh)
+    d_inner = H * dk
     f32 = dict(dtype=torch.float32, device=device)
     return {"C": torch.zeros((batch, H, dk, dk), **f32),
             "n": torch.zeros((batch, H, dk), **f32),
@@ -166,22 +200,35 @@ def mlstm_apply(p: MLSTM, x: torch.Tensor, cfg,
                 cache: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """x (B,S,d) -> (B,S,d); a cache is read and then updated in place. S == 1
     with a cache is the decode update, anything else the chunked form
-    (continuing from the cache's state when one is given)."""
+    (continuing from the cache's state when one is given). A rank of a cut
+    mixer runs its heads (module docstring)."""
     B, S, _ = x.shape
     d_inner, H, dk = mdims(cfg)
+    cut = shd.is_cut(p, "down_proj")
+    lo, hi = shd.head_range(H) if cut else (0, H)
+    H_l, d_l = hi - lo, (hi - lo) * dk
     silu = get_activation("silu", cfg.act_impl, range_mode="reduce")
     dt = x.dtype
     up = x @ p.up_proj.to(dt)
-    xm, z = up[..., :d_inner], up[..., d_inner:]
+    xm, z = up[..., :d_l], up[..., d_l:]
     xc, new_conv = cm.causal_conv(xm, p.conv_w.to(dt),
                                   cache["conv"] if cache is not None else None)
     xc = silu(xc + p.conv_b.to(dt))
-    q = (xc @ p.wq.to(dt)).reshape(B, S, H, dk)
-    k = (xc @ p.wk.to(dt)).reshape(B, S, H, dk)
-    v = (xm @ p.wv.to(dt)).reshape(B, S, H, dk)
-    gif = xm @ p.w_if.to(dt) + p.b_if.to(dt)
-    li = gif[..., :H].to(torch.float32)                    # input gate preact
-    lf = cm.log_sigmoid(gif[..., H:].to(torch.float32))    # log forget gate
+    if cut:
+        # partial sums over the rank's d_inner rows: one all-reduce of the
+        # four, then the rank's heads of each
+        red = shd.all_reduce_(torch.cat(
+            [xc @ p.wq.to(dt), xc @ p.wk.to(dt), xm @ p.wv.to(dt),
+             xm @ p.w_if.to(dt)], dim=-1))
+        q, k, v = (red[..., i * d_inner + lo * dk:i * d_inner + hi * dk]
+                   for i in range(3))
+        gif = red[..., 3 * d_inner:] + p.b_if.to(dt)
+    else:
+        q, k, v = xc @ p.wq.to(dt), xc @ p.wk.to(dt), xm @ p.wv.to(dt)
+        gif = xm @ p.w_if.to(dt) + p.b_if.to(dt)
+    q, k, v = (t.reshape(B, S, H_l, dk) for t in (q, k, v))
+    li = gif[..., lo:hi].to(torch.float32)                 # input gate preact
+    lf = cm.log_sigmoid(gif[..., H + lo:H + hi].to(torch.float32))  # log forget
     f32 = lambda t: t.to(torch.float32)
     if cache is not None and S == 1:
         y, (C2, n2, m2) = mlstm_decode_step(
@@ -195,7 +242,10 @@ def mlstm_apply(p: MLSTM, x: torch.Tensor, cfg,
                                         cfg.xlstm.chunk, state)
     if cache is not None:
         _write(cache, {"C": C2, "n": n2, "m": m2, "conv": new_conv})
-    y = y.to(dt).reshape(B, S, d_inner)
+    y = y.to(dt).reshape(B, S, d_l)
+    if cut:
+        y = cm.rmsnorm_cut(p.norm[lo * dk:hi * dk], y, d_inner) * silu(z)
+        return shd.all_reduce_(y @ p.down_proj.to(dt))
     y = cm.rmsnorm(p.norm, y) * silu(z)
     return y @ p.down_proj.to(dt)
 
@@ -210,6 +260,7 @@ class SLSTM(nn.Module):
 
     def __init__(self, cfg, *, dtype, device, gen=None):
         super().__init__()
+        self.cfg = cfg                  # a rank's cut reads it (sharding)
         d, H = cfg.d_model, cfg.num_heads
         dh = d // H
         self.w = mlpm.leaf((d, 4 * d), gen, dtype, device)
@@ -222,21 +273,25 @@ class SLSTM(nn.Module):
                                device=device, gen=gen)
 
 
-def slstm_init_cache(cfg, batch: int, *, device) -> Dict[str, torch.Tensor]:
+def slstm_init_cache(cfg, batch: int, *, device, mesh=None) -> Dict[str, torch.Tensor]:
+    """The (batch, d) state; a rank of a cut sLSTM holds its heads' d/tp,
+    or the whole d under ``cfg.slstm_state == "replicated"``."""
     d = cfg.d_model
+    if cfg.slstm_state != "replicated":
+        d = _local_heads(cfg, mesh) * (cfg.d_model // cfg.num_heads)
     f32 = dict(dtype=torch.float32, device=device)
     return {"c": torch.zeros((batch, d), **f32), "n": torch.zeros((batch, d), **f32),
             "m": torch.full((batch, d), NEG, **f32), "h": torch.zeros((batch, d), **f32)}
 
 
-def slstm_cell(p: SLSTM, wx_t, state, cfg, sig, tanh):
+def slstm_cell(r, wx_t, state, sig, tanh):
     """One sLSTM step from the precomputed input preactivations wx_t
-    (B, 4d): exponential input and forget gates in the log domain."""
-    H, d = cfg.num_heads, cfg.d_model
+    (B, 4d) and the recurrent weights ``r`` (4, H, dh, dh) of the heads the
+    state holds: exponential input and forget gates in the log domain."""
+    H, dh = r.shape[1], r.shape[2]
     c, n, m, h = state
-    r = p.r.to(h.dtype)                                    # (4,H,dh,dh)
-    rh = torch.einsum("bhe,ghef->bghf", h.reshape(-1, H, d // H), r)
-    pre = wx_t + rh.reshape(-1, 4 * d)
+    rh = torch.einsum("bhe,ghef->bghf", h.reshape(-1, H, dh), r.to(h.dtype))
+    pre = wx_t + rh.reshape(-1, 4 * H * dh)
     pi, pf, pz, po = (t.to(torch.float32) for t in pre.chunk(4, dim=-1))
     m_new = torch.maximum(pf + m, pi)
     i = torch.exp(pi - m_new)
@@ -250,27 +305,47 @@ def slstm_cell(p: SLSTM, wx_t, state, cfg, sig, tanh):
 def slstm_apply(p: SLSTM, x: torch.Tensor, cfg,
                 cache: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """x (B,S,d) -> (B,S,d): the input preactivations hoisted out of a time
-    loop, then the post-norm and the gated FFN. ``cfg.slstm_state`` pins
-    the JAX scan's sharding only; on one device it changes nothing and is
-    ignored."""
+    loop, then the post-norm and the gated FFN. ``cfg.slstm_state`` matters
+    on a rank of a cut sLSTM only (module docstring): "auto" runs the
+    rank's heads and gathers h after the loop, "replicated" gathers the
+    preactivations before it and runs every head."""
     B, S, d = x.shape
+    H = cfg.num_heads
     sig = get_activation("sigmoid", cfg.act_impl, range_mode="reduce")
     tanh = get_activation("tanh", cfg.act_impl, range_mode="reduce")
     wx = x @ p.w.to(x.dtype) + p.b.to(x.dtype)             # (B,S,4d)
+    cut = shd.is_cut(p, "w")
+    replicated = cut and cfg.slstm_state == "replicated"
+    r = p.r
+    if replicated:
+        wx = shd.gather_heads(wx, 4)                       # every head's gates
+    elif cut:
+        lo, hi = shd.head_range(H)
+        r = r[:, lo:hi]
+    d_s = wx.shape[-1] // 4
     if cache is not None:
         st = (cache["c"], cache["n"], cache["m"], cache["h"])
     else:
-        zero = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+        zero = torch.zeros((B, d_s), dtype=torch.float32, device=x.device)
         st = (zero, zero, torch.full_like(zero, NEG), zero)
     hs = []
-    for t in range(S):
-        st = slstm_cell(p, wx[:, t], st, cfg, sig, tanh)
+    if wx.device.type == "meta":
+        # the dry run (launch/dryrun.py): a step's work, counted S times
+        with kcost.repeated(S):
+            st = slstm_cell(r, wx[:, 0], st, sig, tanh)
+        hs = [st[3]] * S
+    for t in range(len(hs), S):
+        st = slstm_cell(r, wx[:, t], st, sig, tanh)
         hs.append(st[3])
     if cache is not None:
         _write(cache, dict(zip(("c", "n", "m", "h"), st)))
-    y = cm.rmsnorm(p.norm, torch.stack(hs, dim=1).to(x.dtype))
+    h = torch.stack(hs, dim=1).to(x.dtype)
+    if cut and not replicated:
+        h = shd.gather_heads(h)                            # (B,S,d)
+    y = cm.rmsnorm(p.norm, h)
     silu = get_activation("silu", cfg.act_impl, range_mode="reduce")
     f = p.ffn
     g = y @ f.w_gate.to(x.dtype)
     u = y @ f.w_up.to(x.dtype)
-    return (silu(g) * u) @ f.w_down.to(x.dtype)
+    out = (silu(g) * u) @ f.w_down.to(x.dtype)
+    return shd.all_reduce_(out) if shd.is_cut(f, "w_down") else out

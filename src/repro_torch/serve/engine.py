@@ -111,7 +111,11 @@ requests (one block-id space: a rank holds a head slice of every block),
 reduces its row-parallel partial sums and gathers the vocabulary-parallel
 logits, so every rank samples the same tokens with the same keys. On the
 decode kernel's path the heads must divide tp: KH (padded) for GQA, H
-for MLA. The recurrent archs raise (ROADMAP A.12b).
+for MLA. The recurrent archs serve on the dense plane with each rank's
+cut of their mixers (models/ssm.py, models/xlstm.py) and its slice of
+their state (``state_bytes``); Zamba2's shared block is head-parallel as
+the attention archs' blocks, its per-application KV buffers cut by KV
+heads.
 """
 from __future__ import annotations
 
@@ -149,10 +153,21 @@ def make_bucketed_prefill_step(cfg) -> Callable:
         if start == 0:
             cache.reset_state()
         tf.override_cache_length(cache, start)
-        logits, _, _ = tf.apply(params, {"tokens": tokens}, cfg, cache=cache)
+        logits, _, _ = tf.apply(params, {"tokens": tokens}, cfg, cache=cache,
+                                gather_logits=False)
         tf.override_cache_length(cache, pin)
-        return logits[:, logit_idx]
+        return gathered_logits(params, cfg, logits[:, logit_idx])
     return prefill
+
+
+def gathered_logits(params, cfg, last):
+    """(R, V) logits rows: a rank's vocabulary slice of them (a shard with
+    a cut head) gathered over the model axis, so a prefill moves only the
+    rows it returns; the rows as they are otherwise."""
+    mesh = getattr(params, "mesh", None)
+    if mesh is not None and last.shape[-1] < cfg.vocab_size:
+        return shd.gather_vocab(last, cfg.vocab_size, mesh)
+    return last
 
 
 def make_prefill_step(cfg) -> Callable:
@@ -191,7 +206,7 @@ def make_paged_prefill_step(cfg, piece: Optional[int] = None) -> Callable:
         last = None
         for i in range(0, W, step):
             logits, _, _ = tf.apply(params, {"tokens": tokens[:, i:i + step]},
-                                    cfg, cache=view)
+                                    cfg, cache=view, gather_logits=False)
             if last is None:
                 last = logits.new_empty(R, logits.shape[-1])
             rows = np.flatnonzero((logit_idx >= i) & (logit_idx < i + step))
@@ -205,7 +220,7 @@ def make_paged_prefill_step(cfg, piece: Optional[int] = None) -> Callable:
         cache.tables[slots] = full_rows[live]
         cache.lens[slots] = torch.as_tensor(pins[valid], dtype=cache.lens.dtype,
                                             device=dev)
-        return last
+        return gathered_logits(params, cfg, last)
     return prefill
 
 
@@ -344,8 +359,6 @@ class ServeEngine:
                     "store the compressed latent unquantized")
         # -- tensor parallelism (module docstring): tp=N resolves to a
         # ("data", "model") mesh over the process group; tp=1 builds none
-        if (tp or 1) > 1 or mesh is not None:
-            shd.check_servable(cfg)
         if mesh is None and tp is not None:
             from repro_torch.launch import mesh as mesh_lib
 
@@ -458,7 +471,7 @@ class ServeEngine:
             # float32 buffers, as the JAX engine's stacked per-slot caches
             self._caches = tf.init_cache(cfg, slots, max_len, torch.float32,
                                          device=self.device,
-                                         kv_heads=self._kv_heads)
+                                         kv_heads=self._kv_heads, mesh=mesh)
             self._prefill = make_bucketed_prefill_step(cfg)
         self._decode_logits = make_decode_logits(cfg)
         self._score = make_score_step(cfg)
@@ -567,6 +580,16 @@ class ServeEngine:
         per-slot buffers (dense)."""
         return (self._caches.pool_bytes() if self.pager is not None
                 else self._caches.nbytes())
+
+    def state_bytes(self) -> int:
+        """Resident device bytes of this rank's recurrent state (Mamba2 /
+        mLSTM / sLSTM layers of the dense plane; 0 for an attention-only
+        arch): 1/tp of tp 1's under a cut, but for a Mamba2 layer's whole
+        B / C conv columns (distributed/sharding.py)."""
+        if self.pager is not None:
+            return 0
+        return sum(v.numel() * v.element_size() for c in self._caches.layers
+                   if "idx" not in c for v in c.values())
 
     def decode_workspace_bytes(self) -> int:
         """Device bytes of the float32 workspace one decode-attention kernel

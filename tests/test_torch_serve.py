@@ -228,16 +228,24 @@ def test_engine_without_gpu_raises_unless_cpu_requested():
 
 
 @pytest.mark.parametrize("kw,entry", [
-    (dict(tp=2), "A.12"),
+    (dict(tp=2), "run_ranks"),
 ])
 def test_unported_engine_options_raise(kw, entry):
-    """Tensor parallelism serves the attention archs now
-    (tests/test_torch_tp.py); over recurrent blocks it names its entry,
-    A.12b."""
+    """Tensor parallelism serves every arch now, the recurrent ones too
+    (tests/test_torch_tp.py): ``tp=2`` without a process group of two
+    ranks raises the mesh's ValueError, which names ``run_ranks``; within
+    one (here a rank's view of the mesh) the xLSTM engine builds and
+    serves."""
+    from repro_torch.launch import mesh as mesh_lib
+
     cfg = configs.get_smoke("xlstm-1.3b")
     model = T.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=entry):
+    with pytest.raises(ValueError, match=entry):
         E.ServeEngine(cfg, model, device="cpu", **kw)
+    eng = E.ServeEngine(cfg, model, device="cpu", mesh=mesh_lib.dry_mesh(2))
+    assert eng.tp == 2
+    eng.submit(E.Request(rid=0, prompt=np.arange(1, 7, dtype=np.int32), max_new_tokens=2))
+    assert len(eng.run()[0].out) == 2
 
 
 @pytest.mark.parametrize("flags,want", [

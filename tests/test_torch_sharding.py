@@ -136,10 +136,48 @@ def test_load_jax_params_with_mesh_slices_the_bridge():
         assert got.mesh is mesh
 
 
-def test_recurrent_archs_refuse_the_cut():
-    for arch in ("xlstm-1.3b", "zamba2-1.2b"):
-        with pytest.raises(NotImplementedError, match="A.12b"):
-            T.init(configs.get_smoke(arch), device="cpu", mesh=fake_mesh(2))
+#: the packed leaves' parts (sharding.mixer_layout) of the smoke configs
+PACKED = ("mixer.in_proj", "mixer.conv_w", "mixer.conv_b", "mixer.up_proj",
+          "mixer.w", "mixer.b")
+
+
+@pytest.mark.parametrize("arch,tp", [("xlstm-1.3b", 2), ("zamba2-1.2b", 2),
+                                     ("zamba2-1.2b", 4)])
+def test_recurrent_archs_refuse_the_cut(arch, tp):
+    """The recurrent archs take the cut now (ROADMAP A.12b closed): each
+    rank's packed leaves, built from the seed and cut from a whole model,
+    are the per-part slices of the whole tp 1 leaf (each part's rank piece,
+    Mamba2's one-group B / C whole), and the row-cut leaves the contiguous
+    slices that line up with the rank's heads."""
+    cfg = configs.get_smoke(arch)
+    full = _params(T.init(cfg, seed=5, device="cpu"))
+    whole = T.init(cfg, seed=5, device="cpu")
+    for rank in range(tp):
+        mesh = fake_mesh(tp, rank)
+        built = T.init(cfg, seed=5, device="cpu", mesh=mesh)
+        cut = shd.shard_model(whole, mesh)
+        parts = shd.leaf_parts(built)
+        assert parts == shd.leaf_parts(cut)
+        assert {n.split(".", 2)[2] for n in parts} <= set(PACKED) and parts
+        for name, t in _params(built).items():
+            assert torch.equal(t, _params(cut)[name]), name
+            if name not in parts:
+                continue
+            d = shd.leaf_cuts(built)[name]
+            lo, pieces = 0, []
+            for w, units in parts[name]:
+                seg = full[name].narrow(d, lo, w)
+                lo += w
+                if units % tp:
+                    pieces.append(seg)                     # whole part
+                else:
+                    pieces += [seg.chunk(tp, dim=d)[rank]]
+            assert torch.equal(t, torch.cat(pieces, dim=d)), name
+        # the rows follow the heads: out_proj / down_proj are row slices
+        for name, d in shd.leaf_cuts(built).items():
+            if name.endswith(("out_proj", "down_proj")):
+                assert d == 0 and torch.equal(
+                    _params(built)[name], full[name].chunk(tp, dim=0)[rank])
 
 
 def test_make_host_mesh_and_mesh_or_none():

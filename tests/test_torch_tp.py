@@ -3,6 +3,13 @@ process per rank under gloo) against its own tp = 1 engine and the JAX
 engine's tp = 1, then ``pad_heads_to`` and ``score_dtype="bf16_mxu"``
 against the JAX functions.
 
+The recurrent archs (xLSTM and Zamba2 smoke configs, the xLSTM one with 4
+heads so that tp 4 cuts it, under both ``slstm_state`` values) serve the
+same way on the dense plane, and the 2-head xLSTM at tp 4 falls back to
+whole mixers. The same rank groups also run the dry run's prefill and
+decode steps (launch/dryrun.py ``rank_steps``), whose collective counts
+and bytes the dry mesh must book identically.
+
 The traces are the JAX suite's (``tests/test_sharded_serving.py``): six
 requests, greedy and seeded sampling mixed, slots 3, max_len 64, block_len
 8, on the GQA test config (KH 4) and the DeepSeek-V2-Lite smoke config
@@ -31,6 +38,9 @@ from repro.serve.engine import ServeEngine as JEngine  # noqa: E402
 from repro.serve.sampling import SamplingParams as JSP  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as M  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
@@ -111,7 +121,54 @@ def _jobs(flats, tp):
             dict(engine=_variant(kv, "gather", None),
                  requests=_trace(yi.vocab_size, SamplingParams))
             for kv in ("dense", "paged")]))
+    for name in RECURRENT:
+        cfg = _rec_cfgs(name)[1]
+        job = dict(cfg=cfg, tp=tp, cases=[dict(engine=ENGINE,
+                                               requests=_rec_trace(cfg.vocab_size))])
+        jobs.append(dict(job, flat=flats[name]) if name in flats
+                    else dict(job, seed=6))
     return jobs
+
+
+#: the recurrent jobs, after the attention archs' (``_rec_job``): xLSTM
+#: with 4 heads under slstm_state "auto" and "replicated", Zamba2, the
+#: 2-head xLSTM smoke config (cut at tp 2, whole mixers at tp 4), and
+#: Zamba2 with two Mamba2 groups (B / C cut by group at tp 2, whole at tp
+#: 4 with each head reading its group's row)
+RECURRENT = ("xlstm4-auto", "xlstm4-replicated", "zamba2", "xlstm2", "zamba2-g2")
+#: the recurrent prompts: one length (the JAX engine compiles a prefill
+#: per length), greedy
+REC_PLENS = (7, 7, 7, 7)
+
+
+def _rec_cfgs(name):
+    """(JAX config, port config) of a recurrent job (float32, exact)."""
+    arch = "zamba2-1.2b" if name.startswith("zamba2") else "xlstm-1.3b"
+    jcfg = jconfigs.get_smoke(arch, act_impl="exact")
+    cfg = configs.get_smoke(arch, act_impl="exact")
+    if name.startswith("xlstm4"):
+        kw = dict(num_heads=4, num_kv_heads=4, slstm_state=name.split("-")[1])
+        jcfg, cfg = dataclasses.replace(jcfg, **kw), dataclasses.replace(cfg, **kw)
+    if name == "zamba2-g2":
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, n_groups=2))
+    return jcfg, cfg
+
+
+def _rec_trace(vocab):
+    rng = np.random.default_rng(5)
+    return [(i, rng.integers(0, vocab, n).astype(np.int32), 6, SamplingParams(greedy=True))
+            for i, n in enumerate(REC_PLENS)]
+
+
+def _rec_job(served, tp, name):
+    """The index of a recurrent job in a rank's results."""
+    return len(served[tp][0]) - len(RECURRENT) + RECURRENT.index(name)
+
+
+#: the dry run's steps held against the rank groups': smoke configs, rows
+#: and positions (``rank_steps``)
+STEP_ARCHS = ("yi-9b", "deepseek-v2-lite-16b", "xlstm-1.3b", "zamba2-1.2b")
+STEP_ROWS, STEP_SEQ = 2, 12
 
 
 @pytest.fixture(scope="module")
@@ -123,9 +180,20 @@ def served():
         jcfg, _ = _cfgs(arch)
         jparams[arch] = JT.init(jcfg, jax.random.PRNGKey(0))
         flats[arch] = T.flatten_params(jparams[arch])
+    for name in ("xlstm4-auto", "zamba2"):
+        # the port's seeded weights bridged to the JAX tree (skips JAX's
+        # init, seconds an arch)
+        cfg = _rec_cfgs(name)[1]
+        model = T.init(cfg, seed=1, device="cpu")
+        flats[name] = T.flatten_params(T.jax_tree(cfg, dict(model.named_parameters())))
+        jparams[name] = jax.tree.map(jnp.asarray, T._nest(flats[name]))
+    flats["xlstm4-replicated"] = flats["xlstm4-auto"]
     # the rank groups run while this process serves the references
-    groups = {tp: M.RankGroup(launcher.rank_serve, tp, _jobs(flats, tp), timeout=600)
-              for tp in (2, 4)}
+    steps = dict(archs=STEP_ARCHS, rows=STEP_ROWS, seq=STEP_SEQ, tp=2)
+    groups = {tp: M.RankGroup(M.rank_jobs, tp, [
+        ("repro_torch.launch.serve:rank_serve", _jobs(flats, tp))]
+        + ([("repro_torch.launch.dryrun:rank_steps", steps)] if tp == 2 else []),
+        timeout=600) for tp in (2, 4)}
     for arch in ("gqa", "mla"):
         jcfg, _ = _cfgs(arch)
         # a MoE routes by the dispatch width: chunking changes its tokens
@@ -139,9 +207,21 @@ def served():
             eng.run()
             out["jax"][arch, chunk] = ({r.rid: list(r.out) for r in reqs},
                                        np.asarray(eng.score(SCORE_PROMPT)))
+    for name in ("xlstm4-auto", "zamba2"):
+        jcfg = _rec_cfgs(name)[0]
+        eng = JEngine(jcfg, jparams[name], **ENGINE)
+        reqs = [JRequest(rid=r, prompt=p, max_new_tokens=n)
+                for r, p, n, _ in _rec_trace(jcfg.vocab_size)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        out["jax"][name] = {r.rid: list(r.out) for r in reqs}
     out[1] = [launcher.rank_serve(_jobs(flats, 1))]
     for tp, g in groups.items():
-        out[tp] = g.join()
+        res = g.join()
+        out[tp] = [r[0] for r in res]
+        if tp == 2:
+            out["steps"] = [r[1] for r in res]
     return out
 
 
@@ -245,10 +325,97 @@ def test_kernel_path_needs_heads_divisible_by_tp():
 
 
 def test_recurrent_archs_raise_naming_a12b():
+    """The recurrent archs no longer refuse a mesh (ROADMAP A.12b closed):
+    on a rank's view of a tp 2 mesh the engine builds with each mixer cut
+    by head and its state at the rank's width, and serves; at tp 8 the
+    xLSTM's 2 heads do not divide, so its mixers stay whole."""
     for arch in ("xlstm-1.3b", "zamba2-1.2b"):
         cfg = configs.get_smoke(arch)
-        with pytest.raises(NotImplementedError, match="A.12b"):
-            ServeEngine(cfg, T.init(cfg, device="cpu"), mesh=_fake_mesh(2), device="cpu")
+        model = T.init(cfg, device="cpu")
+        eng = ServeEngine(cfg, model, mesh=_fake_mesh(2), device="cpu")
+        whole = ServeEngine(cfg, model, device="cpu")
+        assert 0 < eng.state_bytes() < whole.state_bytes()
+        eng.submit(launcher.Request(rid=0, prompt=np.arange(1, 6, dtype=np.int32),
+                                    max_new_tokens=2))
+        assert len(eng.run()[0].out) == 2
+    cfg = configs.get_smoke("xlstm-1.3b")
+    shard = T.init(cfg, device="cpu", mesh=_fake_mesh(8))
+    cut = {n for n in shd.leaf_cuts(shard) if ".mixer." in n and ".ffn." not in n}
+    assert not cut
+    assert ServeEngine(cfg, shard, mesh=shard.mesh, device="cpu").state_bytes() == \
+        ServeEngine(cfg, T.init(cfg, device="cpu"), device="cpu").state_bytes()
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("name", RECURRENT[:3])
+def test_recurrent_tokens_equal_tp1_and_the_jax_engine(served, name, tp):
+    want = served["jax"]["zamba2" if name == "zamba2" else "xlstm4-auto"]
+    assert all(len(o) == 6 for o in want.values())
+    assert _case(served, 1, _rec_job(served, 1, name), 0)["tokens"] == want
+    for r in range(tp):
+        got = _case(served, tp, _rec_job(served, tp, name), 0, r)
+        assert got["tp"] == tp
+        assert got["tokens"] == want, f"{name} tp={tp} rank {r} tokens diverged"
+        assert got["collectives"]["all_reduce"] > 0
+
+
+def _state_bytes_want(name, cfg, tp, base):
+    """tp 1's state bytes over tp, but for Mamba2's whole B / C conv
+    columns and a replicated sLSTM state."""
+    rows = ENGINE["slots"]
+    if name == "zamba2":
+        s = cfg.ssm
+        extra = 2 * s.n_groups * s.d_state * (s.d_conv - 1) * rows * 4
+        n = cfg.block_pattern.count("mamba2")
+        return (base - n * extra) // tp + n * extra
+    if name == "xlstm4-replicated":
+        sl = 4 * rows * cfg.d_model * 4 * cfg.block_pattern.count("slstm")
+        return (base - sl) // tp + sl
+    return base // tp
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_recurrent_rank_state_and_whole_mixer_fallback(served, tp):
+    """Each rank's state is 1/tp of tp 1's (but the stated exceptions),
+    with the rank's shapes; the 2-head xLSTM is cut at tp 2 and whole at
+    tp 4, and serves tp 1's tokens either way, as Zamba2 with two groups
+    does with its B / C cut by group (tp 2) or whole (tp 4)."""
+    for name in RECURRENT[:3]:
+        cfg = _rec_cfgs(name)[1]
+        base = _case(served, 1, _rec_job(served, 1, name), 0)
+        for r in range(tp):
+            got = _case(served, tp, _rec_job(served, tp, name), 0, r)
+            assert got["state_bytes"] == _state_bytes_want(name, cfg, tp, base["state_bytes"])
+    groups = _case(served, tp, _rec_job(served, tp, "zamba2-g2"), 0)
+    assert groups["tokens"] == _case(served, 1, _rec_job(served, 1, "zamba2-g2"), 0)["tokens"]
+    fall = _rec_job(served, tp, "xlstm2")
+    want = _case(served, 1, _rec_job(served, 1, "xlstm2"), 0)
+    got = _case(served, tp, fall, 0)
+    assert got["tokens"] == want["tokens"]
+    if tp == 4:
+        assert got["state_bytes"] == want["state_bytes"]
+        assert got["state_shapes"] == want["state_shapes"]
+    else:
+        assert got["state_bytes"] * 2 == want["state_bytes"]
+
+
+@pytest.mark.parametrize("arch", STEP_ARCHS)
+def test_dry_mesh_books_the_gloo_collectives(served, arch):
+    """The dry run's prefill and decode steps on a dry tp 2 mesh (meta
+    tensors, no process group) book the collective counts and bytes that
+    the same steps record on two gloo ranks."""
+    for kind in ("prefill", "decode"):
+        rec = dryrun.lower_cell(arch, kind, smoke=True, act_impl="exact",
+                                mesh=M.dry_mesh(2),
+                                shape=ShapeConfig(kind, STEP_SEQ, STEP_ROWS, kind))
+        assert rec["status"] == "ok"
+        coll = rec["collective"]
+        for rank in range(2):
+            want = served["steps"][rank][arch][kind]
+            assert want["all_reduce"] > 0
+            assert coll["op_counts"]["all-reduce"] == want["all_reduce"], (kind, rank)
+            assert coll["per_kind_bytes"]["all-reduce"] == want["bytes"], (kind, rank)
+        assert coll["weighted_bytes"] == 2 * want["bytes"]
 
 
 def test_launcher_tp2(capfd):

@@ -342,16 +342,19 @@ def test_unported_options_raise(monkeypatch, tmp_path):
     from repro_torch.launch import mesh as mesh_lib
 
     _, tcfg = _cfgs()
-    # compression, remat and pad_heads_to build now; what the model still
-    # refuses names its queue entry (a rank's cut of the recurrent blocks,
-    # ROADMAP A.12b), and a value outside the JAX options raises
+    # compression, remat and pad_heads_to build now, and so does a rank's
+    # cut of the recurrent blocks (ROADMAP A.12b closed); a value outside
+    # the JAX options raises
     padded = tf.init(dataclasses.replace(tcfg, pad_heads_to=8), 0, "cpu",
                      dtype=torch.float32)
     assert padded.blocks[0].attn.wk.shape[1] % 8 == 0
     mesh = mesh_lib.Mesh(shape={"data": 1, "model": 2}, rank=0, group=None,
                          backend="none")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12b"):
-        tf.init(tconfigs.get_smoke("xlstm-1.3b"), 0, "cpu", mesh=mesh)
+    xcfg = tconfigs.get_smoke("xlstm-1.3b")
+    shard = tf.init(xcfg, 0, "cpu", mesh=mesh)
+    d_inner = int(xcfg.d_model * xcfg.xlstm.proj_factor)
+    assert shard.blocks[0].mixer.up_proj.shape == (xcfg.d_model, d_inner)
+    assert shard.blocks[0].mixer.down_proj.shape == (d_inner // 2, xcfg.d_model)
     with pytest.raises(ValueError, match="remat"):
         tf.init(dataclasses.replace(tcfg, remat="everything"), 0, "cpu")
     # no card and no device: every entry point refuses rather than falling
