@@ -124,6 +124,22 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             skipped; equal tokens on every rank, each rank's first decode
             kernel call bit-equal to plain on its head slice, Yi's pools
             1/tp; token matches against tp 1, steps and memory reported.
+            (n) the train step on a ("data", "model") mesh, every rank a
+            spawned process on the one card (gloo), 4 steps (2 with data
+            ranks) of launch/train.rank_train on 8 x 32 tokens, the CORDIC
+            kernels on: Yi-9B at full width cut to 2 layers on (1, 2), on
+            (2, 1) with ZeRO-1, on (2, 2) with ZeRO-1 and once more with
+            int8 compression; DeepSeek-V2-Lite (3 layers), Zamba2-1.2B (12
+            layers, two shared-block applications) and xLSTM-1.3B (8
+            layers) on (1, 2) in float32 compute; every rank's losses
+            equal, step 0 within 2^-7 of the one-rank step's, each
+            gradient leaf gathered whole within TP_PROBE_TOL of it, the
+            loss falling, each rank's first call of each kernel bit-equal
+            to plain, ZeRO-1's parameters bit-equal at every step to AdamW
+            with whole moments on the same gradients; step p50,
+            collectives, moment bytes and peak memory per rank reported.
+            (--mesh-train-witness: the recurrent pair's runs in bfloat16,
+            gates logged, against one rank's bfloat16-vs-float32 spread.)
 5. identity the Yi and DeepSeek-V2-Lite smoke configs in float32, on both
             datapaths, and Yi's on int8 and Q2.14 pools and with the prefix
             cache: tokens served on the card with the kernels equal the
@@ -199,7 +215,7 @@ MIX = (0.8, 40)
 #: cordic_fixed serve): a view of the served model's first blocks
 #: (``depth_view``), cut for the time limit. The kernels' datapath serve,
 #: every run compared with it and the tp runs keep full depth
-SIDE_LAYERS = {"yi-9b": 12, DEEPSEEK: 6, "xlstm-1.3b": 8, "zamba2-1.2b": 12}
+SIDE_LAYERS = {"yi-9b": 6, DEEPSEEK: 3, "xlstm-1.3b": 8, "zamba2-1.2b": 12}
 #: decode steps under the profiler in each serve profile: its bookkeeping
 #: of a full-depth step's host operations takes seconds
 PROFILE_STEPS = 3
@@ -3658,6 +3674,440 @@ def tp_gates(arch, tp, res, base, probe_ref, smoke):
 
 
 # ---------------------------------------------------------------------------
+# (n) the train step on a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+#: (arch, layers, (data, model), zero1, compress): each arch at full width,
+#: depth cut so that every rank's float32 master weights, AdamW moments
+#: and gradients fit the one card together
+MESH_TRAIN_RUNS = (
+    ("yi-9b", 2, (1, 2), False, False),
+    ("yi-9b", 2, (2, 1), True, False),
+    ("yi-9b", 2, (2, 2), True, False),
+    ("yi-9b", 2, (2, 2), True, True),
+    (DEEPSEEK, 3, (1, 2), False, False),
+    ("zamba2-1.2b", 12, (1, 2), False, False),
+    ("xlstm-1.3b", 8, (1, 2), False, False),
+)
+MESH_TRAIN_STEPS = 4
+#: the steps of a data-parallel run: each stages every gradient (3.48 GB
+#: for Yi at tp 1) and, under ZeRO-1, every parameter through the host
+MESH_TRAIN_DP_STEPS = 2
+#: archs trained on the mesh in float32 compute, so that the gradient gate
+#: reads the mesh and not bfloat16's rounding (ROADMAP F11): in bfloat16 a
+#: row-parallel partial sum one ulp off flips DeepSeek's top-6 of 64 random
+#: experts for some tokens (its router's leaf 0.307 from the one-rank
+#: step's); the recurrent pair's bfloat16 gradients are set to 0.2-0.6
+#: relative by their rounding alone: on one rank a leaf's bfloat16
+#: gradient lies as far from its float32 one as the mesh's from the one
+#: rank's (``--mesh-train-witness``: Zamba2 0.206 / 0.216 at
+#: ``blocks.9.mixer.conv_w``, xLSTM 0.621 / 0.513 at ``blocks.0.mixer.b_if``;
+#: 1.2e-3 and 8.9e-4 on the mesh in float32)
+MESH_TRAIN_F32 = (DEEPSEEK, "zamba2-1.2b", "xlstm-1.3b")
+#: step 0's loss against the one-rank step's (relative)
+MESH_TRAIN_LOSS_TOL = 2 ** -7
+#: the kernels of a train step on the CORDIC datapaths
+MESH_TRAIN_KERNELS = ("act_2d", "softmax_2d", "log_softmax_2d")
+#: per process: each kernel's first call on the path (args, kwargs, output)
+_MESH_FIRST = {}
+#: the ZeRO-1 gate's whole-moment AdamW (``zero1_shadow``) updates each
+#: leaf in flat pieces of this many elements: AdamW works element by
+#: element, so the pieces' update is bit for bit the whole leaf's, and its
+#: temporaries stay small beside the rank's own
+SHADOW_PIECE = 1 << 24
+#: per process: the whole-moment AdamW a ZeRO-1 run is held against
+_MESH_SHADOW = {}
+
+
+def zero1_shadow(state):
+    """On a ZeRO-1 rank: a copy of its parameters (whole over the data
+    axis) with whole moments, updated by AdamW without ZeRO-1 from the
+    gradients, global norm and learning rate the step hands its own AdamW,
+    and held against the step's parameters at every step.
+    ``adamw.apply_updates`` stays wrapped until ``zero1_shadow_end``."""
+    import torch
+
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+
+    params = {k: p.detach().clone() for k, p in step_lib.named_params(state.params).items()}
+    sh = _MESH_SHADOW
+    sh.update(params=params, opt=adamw.init(params), differ=set(), steps=0,
+              orig=adamw.apply_updates,
+              bytes=3 * sum(p.numel() * p.element_size() for p in params.values()))
+    orig = sh["orig"]
+
+    def flat(t):
+        return t.reshape(-1).split(SHADOW_PIECE)
+
+    def call(p, st, grads, cfg, lr_scale=1.0, *, gn=None, slices=None):
+        # the parameters the step starts from: ZeRO-1's gathered, the shadow's whole
+        sh["differ"].update(k for k, v in p.items() if not torch.equal(v, sh["params"][k]))
+        o = sh["opt"]
+        for k, w in sh["params"].items():
+            for a, m, v, g in zip(flat(w), flat(o.mu[k]), flat(o.nu[k]), flat(grads[k])):
+                orig({k: a}, adamw.AdamWState(o.step, {k: m}, {k: v}), {k: g}, cfg,
+                     lr_scale, gn=gn)
+        sh["opt"] = adamw.AdamWState(o.step + 1, o.mu, o.nu)
+        sh["steps"] += 1
+        return orig(p, st, grads, cfg, lr_scale, gn=gn, slices=slices)
+
+    adamw.apply_updates = call
+
+
+def zero1_shadow_end(state):
+    """``zero1_shadow``'s reading after the last step: (the leaves whose
+    parameters differed from the whole-moment AdamW's at any step, the
+    steps held); the wrapper removed and the copy freed."""
+    import torch
+
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+
+    sh = _MESH_SHADOW
+    adamw.apply_updates = sh["orig"]
+    final = step_lib.named_params(state.params)
+    sh["differ"].update(k for k, v in final.items() if not torch.equal(v, sh["params"][k]))
+    out = sorted(sh["differ"]), sh["steps"]
+    sh.clear()
+    return out
+
+
+def mesh_train_cfg(arch, layers, smoke=False):
+    """The arch at full width (``smoke``: its smoke config) cut to
+    ``layers`` blocks, every datapath on the CORDIC kernels, token inputs;
+    float32 compute for MESH_TRAIN_F32."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    get = configs.get_smoke if smoke else configs.get_config
+    cfg = get(arch, act_impl="cordic_pallas")
+    n = min(layers, cfg.num_layers)
+    return dataclasses.replace(cfg, num_layers=n, block_pattern=cfg.block_pattern[:n],
+                               input_mode="tokens", softmax_impl="cordic_pallas",
+                               loss_impl="cordic_pallas",
+                               dtype="float32" if arch in MESH_TRAIN_F32 else cfg.dtype)
+
+
+def mesh_train_batch(cfg):
+    """The loop pipeline's batch_at(0), 8 x 32 tokens (numpy)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+
+    return SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                         global_batch=TRAIN_BATCH, seed=0)).batch_at(0)
+
+
+def mesh_train_before(payload, state, batch, cfg, mesh):
+    """``rank_train``'s probe before the steps, on every rank: step 0's
+    reduced gradients gathered whole over the model axis leaf by leaf and
+    held against the one-rank step's (saved at ``payload["ref"]``) on model
+    rank 0 of data rank 0 (no ``ref``: checked by an earlier run on the
+    same mesh, whose step-0 gradients ZeRO-1 and compression do not
+    change); with ``payload["shadow"]`` the ZeRO-1 gate's whole-moment
+    AdamW installed (``zero1_shadow``); then the launch counts zeroed and
+    each kernel's first call on the steps kept. Returns {leaf: relative L2
+    error}."""
+    import torch
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import build
+    from repro_torch.kernels import cordic_act as K
+    from repro_torch.kernels import softmax_cordic as SM
+    from repro_torch.train import step as step_lib
+
+    errs = {}
+    if payload["ref"] is not None:
+        _, _, g = step_lib.grads_of(state.params, batch, cfg)
+        step_lib.reduce_grads(state.params, g, cfg, mesh)
+        ref = torch.load(payload["ref"], mmap=True) if mesh.rank == 0 else None
+        cuts, parts = shd.leaf_cuts(state.params), shd.leaf_parts(state.params)
+        for k in list(g):
+            full = shd.full_leaf(g.pop(k), mesh, cuts.get(k), parts.get(k))
+            if ref is not None:
+                r = ref[k].to(full.device, torch.float32)
+                errs[k] = float((full.float() - r).norm() / r.norm().clamp_min(1e-30))
+            del full
+        del ref
+    if payload.get("shadow"):
+        zero1_shadow(state)
+    if payload["device"] == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _MESH_FIRST.clear()
+
+    def spy(mod, name):
+        orig = getattr(mod, name)
+
+        def call(*a, **kw):
+            out = orig(*a, **kw)
+            if name not in _MESH_FIRST:
+                _MESH_FIRST[name] = ([t.clone() if torch.is_tensor(t) else t for t in a],
+                                     dict(kw), out.clone(), (mod, orig))
+            return out
+        setattr(mod, name, call)
+
+    for mod, name in ((K, "act_2d"), (SM, "softmax_2d"), (SM, "log_softmax_2d")):
+        spy(mod, name)
+    build.reset_launches()
+    return errs
+
+
+def mesh_train_after(payload, state, batch, cfg, mesh):
+    """``rank_train``'s probe after the steps: the launch counts and peak
+    memory of the steps (less the ZeRO-1 gate's copy of the parameters and
+    whole moments, which the steps hold beside their own), each kernel's
+    first call against its plain version, and under ``payload["shadow"]``
+    the ZeRO-1 gate's reading (``zero1_shadow_end``)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import cordic_act as K
+    from repro_torch.kernels import softmax_cordic as SM
+    from repro_torch.train import step as step_lib
+
+    counts = dict(build.LAUNCHES)
+    shadow_bytes = _MESH_SHADOW.get("bytes", 0)
+    peak = ((torch.cuda.max_memory_allocated() - shadow_bytes) / 2**30
+            if payload["device"] == "cuda" else 0.0)
+    plain = {"act_2d": K.act_2d_plain, "softmax_2d": SM.softmax_2d_plain,
+             "log_softmax_2d": SM.log_softmax_2d_plain}
+    first = {}
+    for name, (a, kw, out, (mod, orig)) in list(_MESH_FIRST.items()):
+        setattr(mod, name, orig)
+        want = plain[name](*a, **kw)
+        first[name] = dict(shape=list(a[0].shape), equal=bool(torch.equal(out, want)),
+                           err=float((out.float() - want.float()).abs().max()))
+    _MESH_FIRST.clear()
+    params = step_lib.named_params(state.params)
+    differ = zero1_shadow_end(state) if payload.get("shadow") else None
+    moments = list(state.opt.mu.values()) + list(state.opt.nu.values())
+    return dict(launches=counts, peak_gib=peak, first=first, differ=differ,
+                rank=mesh.rank, n_params=sum(p.numel() for p in params.values()),
+                opt_bytes=sum(t.numel() * t.element_size() for t in moments))
+
+
+def mesh_train_ref(torch, arch, layers, smoke=False):
+    """The one-rank step of the same depth, weights (seed 0) and global
+    batch in this process: step 0's loss and gradients (saved for the
+    ranks to read), the losses of MESH_TRAIN_STEPS steps."""
+    import os
+    import tempfile
+
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as loop_lib
+    from repro_torch.train import step as step_lib
+
+    cfg = mesh_train_cfg(arch, layers, smoke)
+    opt = adamw.AdamWConfig(lr=DESCENT_LR)
+    state = step_lib.init_state(cfg, 0, opt, device=DEV)
+    batch = loop_lib.to_device(mesh_train_batch(cfg), DEV)
+    loss, _, g = step_lib.grads_of(state.params, batch, cfg)
+    path = os.path.join(tempfile.gettempdir(), f"mesh_train_ref_{arch}_{os.getpid()}.pt")
+    torch.save({k: v.detach().cpu() for k, v in g.items()}, path)
+    del g
+    step = step_lib.make_train_step(cfg, opt, warmup_steps=0)
+    losses, dts = [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        dts.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if DEV == "cuda" else 0.0
+    del state, batch
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return dict(loss0=float(loss), losses=losses, path=path, step_ms_p50=
+                statistics.median(dts) * 1e3, peak_gib=peak)
+
+
+def mesh_train_path(torch, build, smoke=False, runs=MESH_TRAIN_RUNS):
+    """(n) The train step on a ("data", "model") mesh, every rank a process
+    on the one card (gloo, CUDA tensors staged through host memory), each
+    run MESH_TRAIN_STEPS steps (MESH_TRAIN_DP_STEPS with data ranks) of
+    rank_train (launch/train.py, the entry point a user calls through
+    launch/mesh.run_ranks) on the 8 x 32-token batch, the kernels' datapaths. The ranks of one world size share one
+    group. The reference of an arch is its one-rank step in this process
+    (``mesh_train_ref``). Gates per run: every rank's losses equal; step
+    0's loss within MESH_TRAIN_LOSS_TOL of the one-rank step's; each
+    gradient leaf gathered whole within TP_PROBE_TOL (relative L2) of the
+    one-rank step's; the loss falling; each rank's first call of each
+    kernel bit-equal to its plain version on that rank's shape, and every
+    kernel of the arch launched; ZeRO-1's parameters bit-equal, at every
+    step, to those of AdamW with whole moments on the same gradients
+    (``zero1_shadow``). Reported: step p50, the collectives and bytes of a
+    step, each rank's peak memory, ZeRO-1's moment bytes a rank. Returns
+    {run tag: [each rank's launch counts]}."""
+    import os
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.train import rank_train
+
+    if DEV == "cuda":
+        build.build_all()                 # built already: no rank runs nvcc
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    refs = {}
+    for arch, layers, *_ in runs:
+        if arch not in refs:
+            refs[arch] = mesh_train_ref(torch, arch, layers, smoke)
+            r = refs[arch]
+            log(f"[path mesh-train {arch}] one-rank reference, {layers} layers: losses "
+                f"{[round(x, 5) for x in r['losses']]}, step p50 {r['step_ms_p50']:.1f} "
+                f"ms, peak {r['peak_gib']:.2f} GiB")
+    log(f"[time] [path mesh-train] references: {time.perf_counter() - t0:.1f} s")
+    jobs_by_world, tags, checked = {}, {}, {}
+    for arch, layers, (dp, tp), zero1, compress in runs:
+        cfg = mesh_train_cfg(arch, layers, smoke)
+        tag = f"{arch} ({dp}, {tp})" + (" zero1" if zero1 else "") + (
+            " compress" if compress else "")
+        # the first run of (arch, mesh) checks the step-0 gradients
+        first = checked.setdefault((arch, dp, tp), tag) == tag
+        steps = MESH_TRAIN_STEPS if dp == 1 else MESH_TRAIN_DP_STEPS
+        job = dict(cfg=cfg, tp=tp, batch=mesh_train_batch(cfg), steps=steps,
+                   device=DEV, lr=DESCENT_LR, zero1=zero1, compress=compress,
+                   before=(mesh_train_before, {"ref": refs[arch]["path"] if first else None,
+                                               "device": DEV, "shadow": zero1}),
+                   after=(mesh_train_after, {"device": DEV, "shadow": zero1}))
+        jobs_by_world.setdefault(dp * tp, []).append(("repro_torch.launch.train:rank_train",
+                                                      job))
+        tags.setdefault(dp * tp, []).append((tag, arch, cfg, checked[arch, dp, tp]))
+    out = {}
+    try:
+        for world, jobs in jobs_by_world.items():
+            t1 = time.perf_counter()
+            backend = mesh_lib.pick_backend(world, DEV)
+            res = mesh_lib.run_ranks(mesh_lib.rank_jobs, world, jobs, backend=backend,
+                                     timeout=150 * len(jobs))
+            for j, (tag, arch, cfg, by) in enumerate(tags[world]):
+                ranks = [r[j] for r in res]
+                mesh_train_gates(tag, cfg, ranks, refs[arch], by)
+                out[tag] = [r["after"]["launches"] for r in ranks]
+            log(f"[time] [path mesh-train] {world} ranks, {len(jobs)} runs: "
+                f"{time.perf_counter() - t1:.1f} s")
+    finally:
+        for r in refs.values():
+            if os.path.exists(r["path"]):
+                os.remove(r["path"])
+    return out
+
+
+def mesh_train_gates(tag, cfg, ranks, ref, checked_by):
+    """``mesh_train_path``'s gates and report for one run (``checked_by``:
+    the run on the same mesh that checked the step-0 gradients)."""
+    name, tag = tag, f"[path mesh-train {tag}]"
+    losses = ranks[0]["losses"]
+    check(all(r["losses"] == losses for r in ranks), f"{tag} every rank's losses equal")
+    rel0 = abs(losses[0] / ref["loss0"] - 1)
+    check(rel0 <= MESH_TRAIN_LOSS_TOL, f"{tag} step 0's loss {losses[0]} against the "
+          f"one-rank step's {ref['loss0']}: {rel0:.3e} relative")
+    check(all(math.isfinite(x) for x in losses + ranks[0]["grad_norms"]),
+          f"{tag} finite losses and gradient norms")
+    check(losses[-1] < losses[0], f"{tag} the loss does not fall: {losses}")
+    errs = ranks[0]["before"]
+    if checked_by == name:
+        check(bool(errs), f"{tag} no gradient leaf was checked")
+        top = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+        worst = top[0]
+        check(worst[1] <= TP_PROBE_TOL, f"{tag} gradient leaf {worst[0]}: relative L2 "
+              f"{worst[1]:.3e} from the one-rank step's")
+        grad_note = (f"worst gradient leaves {[(k, f'{v:.3e}') for k, v in top]} (bound "
+                     f"{TP_PROBE_TOL})")
+    else:
+        top, worst = None, (None, RESULTS[f"mesh-train {checked_by}"]["worst_grad"])
+        grad_note = f"step-0 gradients those of {checked_by}"
+    attends = bool(set(cfg.block_pattern) & {"dense", "gqa_moe", "mla_dense", "mla_moe"}) \
+        or cfg.shared_block is not None
+    must = [k for k in MESH_TRAIN_KERNELS if k != "softmax_2d" or attends]
+    for r in ranks:
+        a = r["after"]
+        for k in must:
+            if DEV == "cuda":
+                check(a["launches"].get(k, 0) > 0, f"{tag} rank {a['rank']} never "
+                      f"launched {k}")
+            f = a["first"].get(k)
+            check(f is not None and f["equal"], f"{tag} rank {a['rank']}: {k}'s first "
+                  f"call differs from its plain version: {f}")
+        if a["differ"] is not None:
+            differ, held = a["differ"]
+            check(held == len(losses) and not differ, f"{tag} rank {a['rank']}: ZeRO-1's "
+                  f"parameters differ from whole-moment AdamW's on {differ[:5]} "
+                  f"({held} steps held)")
+    st = ranks[0]["stats"]
+    p50 = statistics.median(ranks[0]["step_ms"])
+    zero1_note = ("; ZeRO-1 parameters bit-equal to whole-moment AdamW's at every "
+                  "step" if ranks[0]["after"]["differ"] is not None else "")
+    log(f"{tag} losses {[round(x, 5) for x in losses]} (one rank: "
+        f"{[round(x, 5) for x in ref['losses']]}); step 0 {rel0:.3e} relative; "
+        f"{grad_note}{zero1_note}")
+    log(f"{tag} step p50 {p50:.1f} ms (one rank: {ref['step_ms_p50']:.1f} ms); a step's "
+        f"collectives {st}; AdamW moment bytes per rank "
+        f"{[r['after']['opt_bytes'] for r in ranks]}; peak memory GiB per rank "
+        f"{[round(r['after']['peak_gib'], 2) for r in ranks]} (one rank: "
+        f"{ref['peak_gib']:.2f}); first calls {ranks[0]['after']['first']}; launches "
+        f"{[r['after']['launches'] for r in ranks]}")
+    RESULTS[f"mesh-train {name}"] = dict(
+        losses=losses, step_ms_p50=p50, stats=st, worst_grad=worst[1], worst_leaves=top,
+        loss0_rel=rel0,
+        peak_gib=[r["after"]["peak_gib"] for r in ranks], ref_step_ms_p50=ref["step_ms_p50"],
+        n_params=[r["after"]["n_params"] for r in ranks],
+        opt_bytes=[r["after"]["opt_bytes"] for r in ranks])
+
+
+def mesh_train_witness(torch, build):
+    """``--mesh-train-witness``: the reading behind MESH_TRAIN_F32 for the
+    recurrent pair. Their (1, 2) runs in the configs' bfloat16, each gate
+    logged instead of raised; then, on one rank, each leaf's bfloat16
+    step-0 gradient against its float32 one (the same weights and batch):
+    a leaf whose bfloat16 gradient lies as far from its float32 one as the
+    mesh's lies from the one rank's is set by bfloat16's rounding, not by
+    the mesh. Returns the gates that failed."""
+    global MESH_TRAIN_F32, check
+    import dataclasses
+
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as loop_lib
+    from repro_torch.train import step as step_lib
+
+    runs = [r for r in MESH_TRAIN_RUNS if r[0] in RECURRENT_ARCHS]
+    failed, raising, kept = [], check, MESH_TRAIN_F32
+
+    def logged(ok, what):
+        if not ok:
+            failed.append(what)
+            log(f"[witness] gate failed: {what}")
+
+    MESH_TRAIN_F32, check = tuple(a for a in kept if a not in RECURRENT_ARCHS), logged
+    try:
+        mesh_train_path(torch, build, runs=runs)
+    finally:
+        MESH_TRAIN_F32, check = kept, raising
+    for arch, layers, *_ in runs:
+        grads = {}
+        for dt in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(mesh_train_cfg(arch, layers), dtype=dt)
+            state = step_lib.init_state(cfg, 0, adamw.AdamWConfig(lr=DESCENT_LR), device=DEV)
+            batch = loop_lib.to_device(mesh_train_batch(cfg), DEV)
+            _, _, g = step_lib.grads_of(state.params, batch, cfg)
+            grads[dt] = {k: v.detach().float().cpu() for k, v in g.items()}
+            del state, batch, g
+            torch.cuda.empty_cache()
+        f32 = grads["float32"]
+        rel = {k: float((v - f32[k]).norm() / f32[k].norm().clamp_min(1e-30))
+               for k, v in grads["bfloat16"].items()}
+        mesh = dict(RESULTS[f"mesh-train {arch} (1, 2)"]["worst_leaves"] or [])
+        top = sorted(rel.items(), key=lambda kv: -kv[1])[:6]
+        log(f"[witness {arch}] one rank, bfloat16 step-0 gradients against float32's "
+            f"(relative L2): worst {[(k, f'{v:.3e}') for k, v in top]}, median "
+            f"{statistics.median(rel.values()):.3e}; at the mesh's worst leaves "
+            f"{[(k, f'mesh {v:.3e}', f'bf16-f32 {rel[k]:.3e}') for k, v in mesh.items()]}")
+        RESULTS[f"witness {arch}"] = dict(bf16_vs_f32_top=top, mesh_bf16_top=mesh,
+                                          bf16_vs_f32_at_mesh={k: rel[k] for k in mesh})
+    return failed
+
+
+# ---------------------------------------------------------------------------
 KERNELS = {
     # name: (route, source, replaces)
     "act_2d": ("cuda", "src/repro_torch/kernels/csrc/act.cu",
@@ -3871,6 +4321,12 @@ def main(argv=None) -> int:
     ap.add_argument("--tp", action="store_true",
                     help="only the build, Yi-9B's serve run with its profile and "
                     "cost line, and the tensor-parallel runs but DeepSeek's (4m)")
+    ap.add_argument("--mesh-train", action="store_true",
+                    help="only the build and the train step on a mesh (4n)")
+    ap.add_argument("--mesh-train-witness", action="store_true",
+                    help="only the build and the recurrent pair's mesh runs in "
+                    "bfloat16, gates logged, with one rank's bfloat16 gradients "
+                    "against float32's (the reading behind MESH_TRAIN_F32)")
     ap.add_argument("--src", default=str(SRC),
                     help="the tree whose repro_torch --decode-kernels or "
                     "--row-kernels runs")
@@ -3947,6 +4403,20 @@ def main(argv=None) -> int:
         log(card_line)
         log(json.dumps({"archs": RESULTS}))
         return 0
+    if args.mesh_train_witness:
+        failed = mesh_train_witness(torch, build)
+        phase_done("mesh-train witness")
+        log(f"[witness] {len(failed)} gates failed in bfloat16")
+        log(json.dumps({"archs": RESULTS}))
+        return 1 if failed else 0
+    if args.mesh_train:
+        mesh_counts = mesh_train_path(torch, build)
+        phase_done("path mesh-train")
+        log(f"[mesh-train] launches: {mesh_counts}")
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(card_line)
+        log(json.dumps({"archs": RESULTS}))
+        return 0
     if args.archs:
         rec_counts, att_counts, tr_counts = archs_paths(
             torch, build, card, records, pipeline_ops(PAPER_SCHEDULE))
@@ -4007,6 +4477,8 @@ def main(argv=None) -> int:
     tp_counts = tp_path(torch, build, {"yi-9b": yi["cordic_pallas"][1],
                                        DEEPSEEK: ds["cordic_pallas"][1]})
     phase_done("path tp")
+    mesh_counts = mesh_train_path(torch, build)
+    phase_done("path mesh-train")
     rec_counts, att_counts, tr_counts = archs_paths(torch, build, card, records,
                                                     pipeline_ops(PAPER_SCHEDULE))
     train_counts, _ = train_path(torch, build)
@@ -4016,7 +4488,8 @@ def main(argv=None) -> int:
     paths = (sigmoid_counts, serve_counts, ds_counts, train_counts, yi_chunked, yi_score,
              ds_chunked, yi_dense, yi_dense_long, ds_dense,
              *(c["cordic_pallas"] for c in rec_counts.values()), *att_counts.values(),
-             *tr_counts.values(), *(c for ranks in tp_counts.values() for c in ranks))
+             *tr_counts.values(), *(c for ranks in tp_counts.values() for c in ranks),
+             *(c for ranks in mesh_counts.values() for c in ranks))
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNELS}
     for arch, g in GROUP_RECORDS.items():
         launches[f"gqa_decode[{g}]"] = att_counts[arch].get("gqa_decode", 0)
@@ -4052,7 +4525,7 @@ def main(argv=None) -> int:
         f"yi-9b {yi_dense}, long {yi_dense_long}, dense {DEEPSEEK} {ds_dense}, sampling "
         f"yi-9b {yi['sampling']}, obs yi-9b {yi['obs']}, recurrent {rec_counts}, "
         f"attention archs {att_counts}, train archs {tr_counts}, tensor-parallel "
-        f"ranks {tp_counts}; per kernel {launches}")
+        f"ranks {tp_counts}, mesh-train ranks {mesh_counts}; per kernel {launches}")
     for arch in ("yi-9b", DEEPSEEK):
         for impl in ("cordic_pallas", "cordic_fixed"):
             identity_phase(torch, arch, impl)

@@ -37,9 +37,10 @@ _INV_127 = float(np.float32(1.0 / 127.0))
 _PIECE = 1 << 24
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x float32 -> (int8 codes, float32 scalar scale)."""
-    scale = nx.fma(x.abs().amax(), _INV_127, 1e-30)
+def quantize_int8(x: torch.Tensor, amax=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x float32 -> (int8 codes, float32 scalar scale); ``amax``: the
+    whole leaf's max |x| when ``x`` is a rank's slice of it."""
+    scale = nx.fma(x.abs().amax() if amax is None else amax, _INV_127, 1e-30)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -76,14 +77,29 @@ def compress_grads(grads: Tensors, err_state: Tensors) -> Tuple[Tensors, Tensors
 
 
 @torch.no_grad()
-def compress_grads_(grads: Tensors, err_state: Tensors) -> None:
+def compress_grads_(grads: Tensors, err_state: Tensors, amax_max=None) -> None:
     """``compress_grads`` written into the given tensors, leaf by leaf: the
     train step's form, which at full width holds no second copy of the
-    gradients and the buffers (8 bytes a parameter)."""
-    for k, g in grads.items():
-        deq, err = _one(g, err_state[k])
-        g.copy_(deq)
-        err_state[k].copy_(err)
+    gradients and the buffers (8 bytes a parameter). On a mesh each
+    gradient is a rank's slice of the whole (reduced) leaf: ``amax_max``
+    takes the vector of every leaf's local max |g + e| and returns the
+    whole leaves' (a MAX all-reduce over the model axis, one for every
+    leaf: a whole leaf's is alike on every rank), so the scale, the codes
+    and the residuals are the whole leaf's. The gradients are float32 (the
+    master weights'): g + e is formed in them."""
+    if amax_max is None:
+        for k, g in grads.items():
+            deq, err = _one(g, err_state[k])
+            g.copy_(deq)
+            err_state[k].copy_(err)
+        return
+    for k, g in grads.items():          # g + e, in place (float32 leaves)
+        g.copy_(g.to(torch.float32) + err_state[k])
+    amax = amax_max(torch.stack([g.abs().amax() for g in grads.values()]))
+    for (k, g), a in zip(grads.items(), amax):
+        q, s = quantize_int8(g, a)
+        err_state[k].copy_(_residual(q, s, g))
+        g.copy_(dequantize_int8(q, s).to(g.dtype))
 
 
 def psum_compressed(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -62,16 +62,24 @@ models/ssm.py and models/xlstm.py: the gated RMSNorms over d_inner reduce
 their sums of squares, the row-parallel products are summed once, and the
 sLSTM gathers its hidden state (``gather_heads``) after its time loop.
 
-Collectives run on the process group's model axis (``Mesh.group``). The
-gloo backend takes CUDA tensors for ``all_reduce`` only through its own
-copies; the port stages them through host memory itself
-(``Mesh.staged``), and counts what it moved (``Mesh.stats``). A vocabulary
-gather is an ``all_reduce`` of a zero-filled full-width buffer, exact since
-x + 0 = x, so one collective serves every backend. On a dry mesh
-(``Mesh.dry``: ``make_production_mesh``, or a rank's view without a group)
-the collectives do not communicate: they book their kind and bytes in
+Collectives run on the process group's model axis (``Mesh.group``), and
+the train step's on its data axis (``Mesh.data_group``). The gloo backend
+takes CUDA tensors for ``all_reduce`` only through its own copies; the
+port stages them through host memory itself (``Mesh.staged``), and counts
+what it moved (``Mesh.stats``). A vocabulary gather is an ``all_reduce``
+of a zero-filled full-width buffer, exact since x + 0 = x, so one
+collective serves every backend. On a dry mesh (``Mesh.dry``:
+``make_production_mesh``, or a rank's view without a group) the
+collectives do not communicate: they book their kind and bytes in
 ``Mesh.stats`` and return a tensor of the right shape, which is what the
 dry run (launch/dryrun.py) counts.
+
+Training (train/step.py) takes the training cut (``TRAIN_REPLICATED``:
+the embedding vocabulary-cut, as the JAX ``params_shardings``) and the
+collectives' backward (``row_sum``, ``to_ranks``, ``shared_sum``,
+``data_sum``, the gathers); the whole leaves a rank reads only in part
+(``partial_leaves``) get partial gradients, summed over the model axis
+once; ZeRO-1 cuts the moments over the data axes (``zero1_slices``).
 """
 from __future__ import annotations
 
@@ -184,6 +192,10 @@ LEAF_AXES: Dict[Tuple[str, str], Tuple[Optional[str], ...]] = {
 
 #: leaves the serving cut keeps whole whatever the rules say (module doc)
 SERVE_REPLICATED = {("Transformer", "embed"), ("MoE", "router")}
+#: the training cut's: the JAX train state takes ``params_shardings``, so
+#: the embedding is vocabulary-cut there (and a tied head with it); the
+#: router stays whole
+TRAIN_REPLICATED = {("MoE", "router")}
 
 
 def param_axes(model: nn.Module) -> Dict[str, Tuple[Optional[str], ...]]:
@@ -262,13 +274,14 @@ def mixer_is_cut(heads: int, mesh) -> bool:
     return mesh is not None and mesh.tp > 1 and heads % mesh.tp == 0
 
 
-def leaf_cut(mod_class: str, leaf: str, shape, mesh,
-             cfg=None) -> Optional[Tuple[int, Optional[Parts]]]:
-    """(dim, parts) the serving cut splits over the model axis for one
-    leaf (parts None: one contiguous slice), or None when the rank keeps it
-    whole. ``cfg``: the module's config, which a recurrent mixer's cut
-    reads."""
-    if (mod_class, leaf) in SERVE_REPLICATED:
+def leaf_cut(mod_class: str, leaf: str, shape, mesh, cfg=None,
+             replicated=SERVE_REPLICATED) -> Optional[Tuple[int, Optional[Parts]]]:
+    """(dim, parts) the cut splits over the model axis for one leaf (parts
+    None: one contiguous slice), or None when the rank keeps it whole.
+    ``cfg``: the module's config, which a recurrent mixer's cut reads;
+    ``replicated``: the leaves kept whole whatever the rules say (the
+    serving cut's by default, ``TRAIN_REPLICATED`` for training)."""
+    if (mod_class, leaf) in replicated:
         return None
     layout = mixer_layout(mod_class, cfg)
     if layout is not None:
@@ -315,24 +328,29 @@ def head_range(heads: int, mesh=None) -> Tuple[int, int]:
 
 
 @contextlib.contextmanager
-def slicing_leaves(mesh):
+def slicing_leaves(mesh, train: bool = False):
     """Cut every parameter registered inside this block to this rank's
     slice as it is registered: a model built here (``tf.init`` with its
     seeded generator, which still draws each whole leaf, so the slices are
     the tp = 1 weights exactly) holds its shard plus, transiently, the
     largest leaf. Each module records the leaves cut in ``tp_cut`` {leaf:
-    dim} and a packed leaf's parts in ``tp_parts`` {leaf: parts}."""
+    dim}, their whole shapes in ``tp_full`` and a packed leaf's parts in
+    ``tp_parts`` {leaf: parts}. ``train``: the training cut
+    (``TRAIN_REPLICATED``), else the serving one."""
     from torch.nn.modules import module as nn_module
+
+    replicated = TRAIN_REPLICATED if train else SERVE_REPLICATED
 
     def hook(mod, name, param):
         if param is None:
             return None
         cut = leaf_cut(type(mod).__name__, name, param.shape, mesh,
-                       getattr(mod, "cfg", None))
+                       getattr(mod, "cfg", None), replicated)
         if cut is None:
             return None
         dim, parts = cut
         mod.__dict__.setdefault("tp_cut", {})[name] = dim
+        mod.__dict__.setdefault("tp_full", {})[name] = tuple(param.shape)
         if parts is not None:
             mod.__dict__.setdefault("tp_parts", {})[name] = parts
         return nn.Parameter(take_slice(param.data, dim, mesh, parts),
@@ -383,6 +401,169 @@ def leaf_parts(model: nn.Module) -> Dict[str, Parts]:
     return {(f"{m}.{leaf}" if m else leaf): parts
             for m, mod in model.named_modules()
             for leaf, parts in mod.__dict__.get("tp_parts", {}).items()}
+
+
+#: (dim, lo, hi): a range of a rank's leaf along one dim
+Range = Tuple[int, int, int]
+
+#: the leaf whose cut marks a module as cut (its computation rank-local),
+#: and the whole leaves of a cut module that a rank reads only in part
+#: (the rank's heads or KV heads, its slice of a norm): their gradients on
+#: a rank are partial sums
+_CUT_BY = {"GQAttention": "wo", "MLAttention": "wo", "Mamba2": "out_proj",
+           "MLSTM": "down_proj", "SLSTM": "w"}
+_PARTIAL_WHOLE = {"GQAttention": ("wk", "wv", "bk", "bv"),
+                  "MLAttention": ("wkv_a", "kv_norm"),
+                  "Mamba2": ("dt_bias", "A_log", "D", "norm"),
+                  "MLSTM": ("b_if", "norm"),
+                  "SLSTM": ("r",)}
+
+
+def _part_ranges(shape, dim: int, parts: Parts, tp: int):
+    """([cut ranges], [whole ranges]) of a rank's packed leaf along its cut
+    dim: each part cut into tp pieces when its units divide tp, else
+    whole."""
+    cut, whole, lo = [], [], 0
+    for w, units in parts:
+        n = w // tp if units % tp == 0 else w
+        (cut if units % tp == 0 else whole).append((dim, lo, lo + n))
+        lo += n
+    if lo != shape[dim]:
+        raise ValueError(f"parts {parts} do not cover dim {dim} of {tuple(shape)}")
+    return cut, whole
+
+
+def leaf_ranges(model: nn.Module) -> Dict[str, Tuple[list, list]]:
+    """{parameter name: ([cut ranges], [whole ranges])} of a rank's leaves:
+    the parts cut over the model axis and the parts every model rank
+    holds whole (a whole leaf: one whole range over its dim 0; a cut leaf:
+    one cut range; a packed leaf: its parts)."""
+    out = {}
+    for mname, mod in model.named_modules():
+        cut = mod.__dict__.get("tp_cut", {})
+        parts = mod.__dict__.get("tp_parts", {})
+        for leaf, p in mod.named_parameters(recurse=False):
+            name = f"{mname}.{leaf}" if mname else leaf
+            every = [(0, 0, p.shape[0])]
+            if leaf not in cut:
+                out[name] = ([], every)
+            elif leaf in parts:
+                out[name] = _part_ranges(p.shape, cut[leaf], parts[leaf],
+                                         model.mesh.tp)
+            else:
+                out[name] = (every, [])
+    return out
+
+
+def partial_leaves(model: nn.Module, cfg=None) -> Dict[str, list]:
+    """{parameter name: [ranges]} of a rank's gradients that are partial
+    sums over the model axis: the whole leaves of a cut module that the
+    rank reads in part (``_PARTIAL_WHOLE``; the sLSTM's ``r`` unless its
+    state is replicated, when every rank runs every head) and the whole
+    parts of a packed leaf (Mamba2's B / C columns when its groups do not
+    divide tp). Every other whole leaf's gradient is alike on every rank.
+    The train step sums these ranges over the model axis once."""
+    cfg = model.cfg if cfg is None else cfg
+    out = {}
+    for mname, mod in model.named_modules():
+        cls = type(mod).__name__
+        cut = mod.__dict__.get("tp_cut", {})
+        if cls not in _CUT_BY or _CUT_BY[cls] not in cut:
+            continue
+        pre = f"{mname}." if mname else ""
+        leaves = _PARTIAL_WHOLE[cls]
+        if cls == "SLSTM" and cfg.slstm_state == "replicated":
+            leaves = ()
+        for leaf in leaves:
+            p = getattr(mod, leaf, None)
+            if p is not None and leaf not in cut:
+                out[pre + leaf] = [(0, 0, p.shape[0])]
+        for leaf, parts in mod.__dict__.get("tp_parts", {}).items():
+            whole = _part_ranges(getattr(mod, leaf).shape, cut[leaf], parts,
+                                 model.mesh.tp)[1]
+            if whole:
+                out[pre + leaf] = whole
+    return out
+
+
+def full_leaf(t: torch.Tensor, mesh, dim: Optional[int],
+              parts: Optional[Parts] = None) -> torch.Tensor:
+    """The whole leaf of a rank's cut ``t`` (``dim`` None: ``t`` itself),
+    gathered over the model axis and put together part by part, as
+    ``take_slice`` cut it."""
+    if dim is None or mesh.tp == 1:
+        return t
+    pieces = all_gather(t, mesh, "model")
+    if parts is None:
+        return torch.cat(pieces, dim=dim)
+    out, lo = [], 0
+    for w, units in parts:
+        n = w // mesh.tp if units % mesh.tp == 0 else w
+        if units % mesh.tp == 0:
+            out += [p.narrow(dim, lo, n) for p in pieces]
+        else:
+            out.append(pieces[0].narrow(dim, lo, n))
+        lo += n
+    return torch.cat(out, dim=dim)
+
+
+def full_tensors(model: nn.Module, named: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``named`` (tensors shaped as the rank's leaves: its params, their
+    gradients or moments) as whole leaves, gathered over the model axis."""
+    cuts, parts = leaf_cuts(model), leaf_parts(model)
+    return {k: full_leaf(v, model.mesh, cuts.get(k), parts.get(k))
+            for k, v in named.items()}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1: the optimizer moments over the data axes (the JAX ``_zero1_extend``)
+# ---------------------------------------------------------------------------
+def zero1_spec(spec: Spec, shape, mesh) -> Spec:
+    """``spec`` of a leaf of ``shape`` extended over the data axes on the
+    first dim it leaves whole that they divide (unchanged when none does,
+    or over one data rank): the JAX ``_zero1_extend``."""
+    dp_axes, dpn = _dp_axes(mesh), dp_size(mesh)
+    if not dp_axes or dpn == 1:
+        return spec
+    s = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (dim, cur) in enumerate(zip(shape, s)):
+        if cur is None and dim % dpn == 0 and dim >= dpn:
+            s[i] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+            while s and s[-1] is None:
+                s.pop()
+            return tuple(s)
+    return spec
+
+
+def full_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """{parameter name: the whole leaf's shape} of a rank's model."""
+    out = {}
+    for mname, mod in model.named_modules():
+        full = mod.__dict__.get("tp_full", {})
+        for leaf, p in mod.named_parameters(recurse=False):
+            out[f"{mname}.{leaf}" if mname else leaf] = full.get(leaf, tuple(p.shape))
+    return out
+
+
+def zero1_slices(model: nn.Module, mesh) -> Dict[str, Range]:
+    """{parameter name: (dim, lo, hi)} of the slice of each leaf whose
+    moments this data rank keeps and updates under ZeRO-1 (``zero1_spec``
+    on the JAX param spec of the whole leaf); a leaf no data dim divides is
+    absent (its moments whole on every data rank)."""
+    if mesh is None or mesh.dp == 1:
+        return {}
+    axes, shapes = param_axes(model), full_shapes(model)
+    out = {}
+    for name, shape in shapes.items():
+        spec = spec_for_axes(axes[name], shape, mesh)
+        z = zero1_spec(spec, shape, mesh)
+        if z == spec:
+            continue
+        dim = next(i for i, (a, b) in enumerate(zip(
+            list(z), list(spec) + [None] * len(z))) if a != b)
+        n = shape[dim] // mesh.dp
+        out[name] = (dim, mesh.data_rank * n, (mesh.data_rank + 1) * n)
+    return out
 
 
 def local_kv_heads(cfg, mesh) -> int:
@@ -442,52 +623,201 @@ def cache_spec(mesh, batch: int, seq_len: int, kv_heads: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Collectives on the model axis
+# Collectives
 # ---------------------------------------------------------------------------
+def _book(mesh, kind: str, nbytes: int) -> None:
+    """Count one collective of ``kind`` ("all_reduce" or "all_gather") and
+    its buffer's bytes in ``mesh.stats`` (the all-reduce's bytes under
+    "bytes", as ever)."""
+    mesh.stats[kind] += 1
+    mesh.stats["bytes" if kind == "all_reduce" else f"{kind}_bytes"] += nbytes
+
+
+def _axis(mesh, axis: str):
+    """(ranks, process group) of ``mesh``'s "model" or "data" axis."""
+    if axis == "model":
+        return mesh.tp, mesh.group
+    return mesh.dp, mesh.data_group
+
+
+def reduce_(t: torch.Tensor, mesh, axis: str = "model",
+            op: str = "sum") -> torch.Tensor:
+    """``t`` summed (``op="max"``: its maximum) over ``mesh``'s ``axis``,
+    in place; booked and not run on a dry mesh, staged through host memory
+    where the backend cannot take the tensor's device. Returns ``t``."""
+    import torch.distributed as dist
+
+    n, group = _axis(mesh, axis) if mesh is not None else (1, None)
+    if n == 1:
+        return t
+    _book(mesh, "all_reduce", t.numel() * t.element_size())
+    if mesh.dry:
+        return t
+    rop = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+    if mesh.staged and t.device.type != "cpu":
+        h = t.to("cpu")
+        dist.all_reduce(h, op=rop, group=group)
+        t.copy_(h)
+    else:
+        dist.all_reduce(t, op=rop, group=group)
+    return t
+
+
 def all_reduce_(t: torch.Tensor, mesh=None) -> torch.Tensor:
     """Sum ``t`` over the model axis in place (the ambient mesh by
     default); through host memory when the backend cannot take the
-    tensor's device (``Mesh.staged``). Returns ``t``."""
+    tensor's device (``Mesh.staged``). Returns ``t``. On a dry mesh
+    (``make_production_mesh``, a rank's view without a group) it is booked,
+    not communicated, and ``t`` keeps its shape."""
+    mesh = active_serving_mesh() if mesh is None else mesh
+    return reduce_(t, mesh, "model")
+
+
+def all_gather(t: torch.Tensor, mesh, axis: str = "model") -> list:
+    """Every rank's ``t`` (equal shapes) over ``mesh``'s ``axis``, in rank
+    order; [t] over one rank, and ``t`` for every rank on a dry mesh."""
     import torch.distributed as dist
 
-    mesh = active_serving_mesh() if mesh is None else mesh
-    if mesh is None or mesh.tp == 1:
-        return t
-    stats = mesh.stats
-    stats["all_reduce"] += 1
-    stats["bytes"] += t.numel() * t.element_size()
+    n, group = _axis(mesh, axis)
+    if n == 1:
+        return [t]
+    _book(mesh, "all_gather", n * t.numel() * t.element_size())
     if mesh.dry:
-        # a layout without ranks (``make_production_mesh``, a dry mesh):
-        # booked, not communicated; ``t`` keeps its shape
-        return t
-    if mesh.staged and t.device.type != "cpu":
-        h = t.to("cpu")
-        dist.all_reduce(h, group=mesh.group)
-        t.copy_(h)
-    else:
-        dist.all_reduce(t, group=mesh.group)
+        return [t] * n
+    staged = mesh.staged and t.device.type != "cpu"
+    h = t.to("cpu") if staged else t.contiguous()
+    out = [torch.empty_like(h) for _ in range(n)]
+    dist.all_gather(out, h, group=group)
+    return [o.to(t.device) for o in out] if staged else out
+
+
+# -- the collectives under autograd -----------------------------------------
+# Under grad a collective's backward follows what consumes its output (the
+# Megatron f / g pair): a sum whose output feeds computation replicated on
+# every rank passes its gradient through (each rank's gradient is already
+# the whole one); a replicated value entering rank-local computation, or a
+# sum whose output each rank reads in part, sums its gradient. Without grad
+# (serving) each runs as before: ``all_reduce_`` in place, or nothing.
+def _grad_mode(t: torch.Tensor, mesh) -> bool:
+    return (mesh is not None and mesh.tp > 1 and torch.is_grad_enabled()
+            and t.requires_grad)
+
+
+class _Sum(torch.autograd.Function):
+    """Sum over an axis; backward the identity (``grad_sum=False``) or the
+    same sum (``grad_sum=True``)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, grad_sum):
+        ctx.mesh, ctx.axis, ctx.grad_sum = mesh, axis, grad_sum
+        return reduce_(t.clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad_sum:
+            g = reduce_(g.clone(), ctx.mesh, ctx.axis)
+        return g, None, None, None
+
+
+class _ToRanks(torch.autograd.Function):
+    """Identity forward; the gradient summed over the axis."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_(g.clone(), ctx.mesh, ctx.axis), None, None
+
+
+def row_sum(t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A row-parallel product's partial sum over the model axis, read whole
+    and alike by every rank after it: backward the identity."""
+    mesh = active_serving_mesh() if mesh is None else mesh
+    if _grad_mode(t, mesh):
+        return _Sum.apply(t, mesh, "model", False)
+    return all_reduce_(t, mesh)
+
+
+def shared_sum(t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A partial sum over the model axis that each rank reads only in part
+    after it (a cut norm's sum of squares, the mLSTM's reduced q/k/v and
+    gates): backward the same sum."""
+    mesh = active_serving_mesh() if mesh is None else mesh
+    if _grad_mode(t, mesh):
+        return _Sum.apply(t, mesh, "model", True)
+    return all_reduce_(t, mesh)
+
+
+def to_ranks(t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A replicated activation entering rank-local (column-parallel)
+    computation: the identity, with its gradient summed over the model
+    axis under grad (the rank-local consumers each give a partial one)."""
+    mesh = active_serving_mesh() if mesh is None else mesh
+    if _grad_mode(t, mesh):
+        return _ToRanks.apply(t, mesh, "model")
     return t
+
+
+def data_sum(t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``t`` summed over the data axes into a new tensor, the gradient
+    passed through: a reduction of the global batch (the loss's numerator
+    and count, the MoE aux loss's token means) computed alike on every data
+    rank, whose gradients the train step sums over the data axes."""
+    mesh = active_serving_mesh() if mesh is None else mesh
+    if mesh is None or mesh.dp == 1:
+        return t
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _Sum.apply(t, mesh, "data", False)
+    return reduce_(t.clone(), mesh, "data")
+
+
+class _Gather(torch.autograd.Function):
+    """(..., parts * n) of this rank's slices -> (..., parts * n * tp):
+    each part's slice at the rank's place of a zero-filled buffer, summed
+    over the model axis; backward the rank's own slices of the gradient."""
+
+    @staticmethod
+    def forward(ctx, local, parts, mesh):
+        ctx.parts, ctx.mesh = parts, mesh
+        return _gather(local, parts, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.unflatten(-1, (ctx.parts, g.shape[-1] // ctx.parts))
+        n, r = g.shape[-1] // ctx.mesh.tp, ctx.mesh.model_rank
+        return g[..., r * n:(r + 1) * n].flatten(-2), None, None
+
+
+def _gather(local: torch.Tensor, parts: int, mesh) -> torch.Tensor:
+    local = local.unflatten(-1, (parts, local.shape[-1] // parts))
+    n, r = local.shape[-1], mesh.model_rank
+    full = local.new_zeros(local.shape[:-1] + (n * mesh.tp,))
+    full[..., r * n:(r + 1) * n] = local
+    return all_reduce_(full, mesh).flatten(-2)
 
 
 def gather_vocab(local: torch.Tensor, vocab: int, mesh=None) -> torch.Tensor:
     """(..., V/tp) logits of this rank's vocabulary slice -> (..., V) on
     every rank: its slice written into a zero-filled full-width buffer,
-    summed over the model axis (exact: every other entry adds 0)."""
+    summed over the model axis (exact: every other entry adds 0). Under
+    grad the backward is the rank's slice of the gradient."""
     mesh = active_serving_mesh() if mesh is None else mesh
-    n = local.shape[-1]
-    full = local.new_zeros(local.shape[:-1] + (vocab,))
-    full[..., mesh.model_rank * n:(mesh.model_rank + 1) * n] = local
-    return all_reduce_(full, mesh)
+    if local.shape[-1] * mesh.tp != vocab:
+        raise ValueError(f"{local.shape[-1]} logits a rank at tp {mesh.tp} are not "
+                         f"a vocabulary of {vocab}")
+    return gather_heads(local, 1, mesh)
 
 
 def gather_heads(local: torch.Tensor, parts: int = 1, mesh=None) -> torch.Tensor:
     """(..., parts * n) of this rank's heads -> (..., parts * n * tp) on
     every rank: each of the ``parts`` equal slices (the sLSTM's four gates,
     or one) placed at the rank's place in its part of a zero-filled buffer,
-    summed over the model axis (exact, as ``gather_vocab``)."""
+    summed over the model axis (exact, as ``gather_vocab``); under grad the
+    backward is the rank's slices of the gradient."""
     mesh = active_serving_mesh() if mesh is None else mesh
-    local = local.unflatten(-1, (parts, local.shape[-1] // parts))
-    n, r = local.shape[-1], mesh.model_rank
-    full = local.new_zeros(local.shape[:-1] + (n * mesh.tp,))
-    full[..., r * n:(r + 1) * n] = local
-    return all_reduce_(full, mesh).flatten(-2)
+    if _grad_mode(local, mesh):
+        return _Gather.apply(local, parts, mesh)
+    return _gather(local, parts, mesh)

@@ -27,6 +27,8 @@ import contextlib
 import functools
 from typing import List
 
+import torch
+
 #: H100 SXM published rates: HBM3 bytes/s, FP32 FLOP/s outside the tensor
 #: cores, dense BF16 tensor-core FLOP/s, NVLink bytes/s a direction
 HBM_BYTES_S = 3.35e12
@@ -236,6 +238,40 @@ def repeated(n: int):
         yield
     finally:
         REPEAT[0] //= n
+
+
+class _RepeatedStep(torch.autograd.Function):
+    """``repeated_step`` under grad: the step's forward and its backward
+    each counted ``n`` times (the backward recomputes the step's graph
+    uncounted, then counts the gradient's ops)."""
+
+    @staticmethod
+    def forward(ctx, n, fn, *inputs):
+        ctx.n, ctx.fn = n, fn
+        ctx.needs = [t.requires_grad for t in inputs]
+        ctx.save_for_backward(*inputs)
+        with repeated(n):
+            return tuple(fn(*inputs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ins = [t.detach().requires_grad_(r) for t, r in zip(ctx.saved_tensors, ctx.needs)]
+        with torch.enable_grad(), _muted():
+            out = ctx.fn(*ins)
+        want = [t for t in ins if t.requires_grad]
+        with repeated(ctx.n):
+            got = iter(torch.autograd.grad(out, want, grads, allow_unused=True))
+        return (None, None) + tuple(next(got) if r else None for r in ctx.needs)
+
+
+def repeated_step(n: int, fn, *inputs):
+    """``fn(*inputs)`` (a tuple of tensors) run once with its ops counted
+    ``n`` times, and under grad its backward too: a loop of ``n`` steps
+    doing the same work, on meta tensors (the dry run's sLSTM time loop)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _RepeatedStep.apply(n, fn, *inputs)
+    with repeated(n):
+        return fn(*inputs)
 
 
 @contextlib.contextmanager

@@ -1,26 +1,32 @@
-"""Dry run of the serving steps on the production meshes (port of
-``repro/launch/dryrun.py``), on the host, without a card.
+"""Dry run of the train and serving steps on the production meshes (port
+of ``repro/launch/dryrun.py``), on the host, without a card.
 
-For every (architecture x serving shape) cell it runs the port's real
-prefill or decode step (``prefill_step`` / ``decode_step``: the engine's
-dense-plane apply, the vocabulary gather and the greedy token) on meta
-tensors, for one rank of the cut, under ``op_cost.OpCost``:
+For every (architecture x shape) cell it runs the port's real step on meta
+tensors, for one rank of the cut, under ``op_cost.OpCost``: the train step
+on a mesh (``train_4k``: train/step.py's ``make_train_step`` with
+``mesh=``, forward, backward through the collectives, the gradient
+reductions and AdamW, with ``remat`` "full" by default as the JAX
+``lower_cell``, and ``accum`` and ``zero1``), or the prefill or decode
+step (``prefill_step`` / ``decode_step``: the engine's dense-plane apply,
+the vocabulary gather and the greedy token):
 
     * the single-pod production mesh  (16, 16)   ("data", "model")
     * the two-pod mesh               (2, 16, 16) ("pod", "data", "model")
 
 and records the rank's FLOPs, HBM bytes and collective bytes, the
 roofline terms against the H100's peaks (``kernels/cost.PEAKS``), and the
-rank's param and cache bytes (``memory``, which replaces XLA's
-``memory_analysis``). The records keep the JAX record's keys where they
-mean the same thing. The seconds are a model against the named peaks, not
-a measurement.
+rank's param, cache, optimizer and error-feedback bytes (``memory``,
+which replaces XLA's ``memory_analysis``). The records keep the JAX
+record's keys where they mean the same thing. The seconds are a model
+against the named peaks, not a measurement. A train cell's collectives
+include the loss's gather of the vocabulary-parallel logits: the
+log-softmax runs on whole rows, as GSPMD runs the unpartitionable Pallas
+call.
 
-Train shapes (``train_4k``) are skipped: the port has no tensor- and
-data-parallel train step to lower (ROADMAP A.16). The JAX knobs the port
-serves are taken (``act_impl``, ``attn_chunk``, ``score_dtype``,
-``pad_heads_to``, ``slstm_state``, ``mixer_chunk``); the train-side ones
-and ``kv_shard`` raise ``NotImplementedError`` naming their entries.
+Every JAX knob is taken (``act_impl``, ``attn_chunk``, ``score_dtype``,
+``pad_heads_to``, ``slstm_state``, ``mixer_chunk``, ``remat``, ``accum``,
+``zero1``) but ``kv_shard``, which raises ``NotImplementedError`` naming
+its entry.
 
 A meta tensor has no values, so the step's data-dependent answers take
 their shape-only form on it (models/ssm.py, models/xlstm.py: a time loop's
@@ -48,11 +54,12 @@ from repro_torch.configs.base import SHAPES, shape_applicable
 from repro_torch.launch import op_cost
 from repro_torch.launch import specs as sp
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.optim import adamw
 from repro_torch.serve import engine as serve_engine
 from repro_torch.serve import sampling
+from repro_torch.train import step as step_lib
 
-#: the ROADMAP entries of what the port does not lower yet
-TRAIN_ENTRY = "ROADMAP A.16 (the tensor- and data-parallel train step)"
+#: the ROADMAP entry of what the port does not lower yet
 KV_SHARD_ENTRY = "ROADMAP A.17 (kv_shard=\"seq_model\")"
 
 
@@ -99,25 +106,56 @@ def rank_steps(job):
     return out
 
 
-def _refuse(**kw) -> None:
-    if kw.get("kv_shard", "auto") != "auto":
-        raise NotImplementedError(f"kv_shard={kw['kv_shard']!r}: {KV_SHARD_ENTRY}")
-    for k, default in (("remat", "full"), ("accum", 1), ("zero1", False)):
-        if kw.get(k, default) != default:
-            raise NotImplementedError(f"{k}={kw[k]!r} is a train-side knob: {TRAIN_ENTRY}")
+def _refuse(kv_shard: str = "auto") -> None:
+    if kv_shard != "auto":
+        raise NotImplementedError(f"kv_shard={kv_shard!r}: {KV_SHARD_ENTRY}")
+
+
+def train_step(state, batch, cfg, mesh, accum: int = 1, zero1: bool = False):
+    """One train step of a rank of ``mesh`` (train/step.py). Returns the
+    metrics."""
+    step = step_lib.make_train_step(cfg, adamw.AdamWConfig(), accum=accum,
+                                    mesh=mesh, zero1=zero1)
+    return step(state, batch)[1]
+
+
+def rank_train_steps(job):
+    """A ``run_ranks`` target (tests): ``train_step`` of each smoke config
+    of ``job["archs"]`` on real CPU tensors on this rank's mesh
+    (``job["tp"]``), on ``job["rows"]`` rows of ``job["seq"]`` positions
+    per data rank, as ``lower_cell`` builds them. Returns {arch: the mesh
+    stats it added}."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_host_mesh(job["tp"])
+    out = {}
+    for arch in job["archs"]:
+        cfg = cell_config(arch, smoke=True, act_impl=job.get("act_impl", "exact"),
+                          remat=job.get("remat", "full"))
+        state = step_lib.init_state(cfg, 0, adamw.AdamWConfig(), device="cpu",
+                                    mesh=mesh, zero1=job.get("zero1", False))
+        g = torch.Generator().manual_seed(0)
+        batch = {k: torch.randint(0, cfg.vocab_size, (job["rows"], job["seq"]),
+                                  generator=g) for k in ("tokens", "labels")}
+        s0 = dict(mesh.stats)
+        train_step(state, batch, cfg, mesh, job.get("accum", 1), job.get("zero1", False))
+        out[arch] = {k: v - s0.get(k, 0) for k, v in mesh.stats.items()}
+    return out
 
 
 def cell_config(arch: str, *, act_impl: str = "cordic_fixed", attn_chunk: int = 2048,
                 score_dtype: str = "f32", pad_heads_to: int = 0,
-                slstm_state: str = "auto", mixer_chunk: int = 0, smoke: bool = False):
+                slstm_state: str = "auto", mixer_chunk: int = 0, smoke: bool = False,
+                remat: str = "full"):
     """The arch's config with the cell's knobs, as the JAX ``lower_cell``
     sets them."""
     get = configs.get_smoke if smoke else configs.get_config
     cfg = get(arch, act_impl=act_impl)
-    # the embeds archs are served on token ids, as the port's launcher
-    # serves them (the engine serves token LMs)
+    # the embeds archs are served and trained on token ids, as the port's
+    # launchers take them (the engine serves token LMs)
     cfg = dataclasses.replace(cfg, input_mode="tokens", attn_chunk=attn_chunk, score_dtype=score_dtype,
-                              pad_heads_to=pad_heads_to, slstm_state=slstm_state)
+                              pad_heads_to=pad_heads_to, slstm_state=slstm_state,
+                              remat=remat)
     if mixer_chunk:
         if cfg.xlstm is not None:
             cfg = dataclasses.replace(cfg, xlstm=dataclasses.replace(cfg.xlstm,
@@ -132,44 +170,54 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                act_impl: str = "cordic_fixed", attn_chunk: int = 2048,
                score_dtype: str = "f32", pad_heads_to: int = 0,
                slstm_state: str = "auto", mixer_chunk: int = 0,
-               smoke: bool = False, mesh=None, shape=None, **train_kw) -> dict:
+               smoke: bool = False, mesh=None, shape=None, remat: str = "full",
+               accum: int = 1, zero1: bool = False, kv_shard: str = "auto") -> dict:
     """Run one (arch x shape x mesh) cell's step on meta tensors; return the
     record. ``smoke``/``mesh``/``shape``: a smoke config, another mesh, a
-    ShapeConfig of other sizes (tests)."""
-    _refuse(**train_kw)
+    ShapeConfig of other sizes (tests). ``remat``, ``accum`` and ``zero1``
+    shape the train step (``remat`` also the config of a serving cell, where
+    it changes nothing)."""
+    _refuse(kv_shard)
     cfg = cell_config(arch, act_impl=act_impl, attn_chunk=attn_chunk,
                       score_dtype=score_dtype, pad_heads_to=pad_heads_to,
-                      slstm_state=slstm_state, mixer_chunk=mixer_chunk, smoke=smoke)
+                      slstm_state=slstm_state, mixer_chunk=mixer_chunk, smoke=smoke,
+                      remat=remat)
     shape = SHAPES[shape_name] if shape is None else shape
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
                 "status": "skipped", "reason": why}
-    if shape.kind == "train":
-        return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
-                "status": "skipped",
-                "reason": f"train shapes are not lowered: {TRAIN_ENTRY}"}
     mesh = make_production_mesh(multi_pod=multi_pod) if mesh is None else mesh
     t0 = time.time()
-    params = sp.abstract_params(cfg, mesh)
-    cache = sp.abstract_cache(cfg, mesh, shape)
-    if shape.kind == "prefill":
-        tokens = sp.prefill_input_specs(cfg, mesh, shape)
-        step = prefill_step
+    if shape.kind == "train":
+        state = sp.abstract_train_state(cfg, mesh, zero1=zero1)
+        batch = sp.train_input_specs(cfg, mesh, shape)
+        mem = sp.memory(state.params, opt=state.opt, err=state.err)
+        t_build = time.time() - t0
+        _, counts = op_cost.count(train_step, state, batch, cfg, mesh, accum, zero1,
+                                  mesh=mesh)
+        rows = batch["tokens"].shape[0]
     else:
-        tokens = sp.decode_input_specs(cfg, mesh, shape)
-        step = decode_step
-    mem = sp.memory(params, cache)
-    t_build = time.time() - t0
-    with torch.no_grad():
-        _, counts = op_cost.count(step, params, cache, tokens, cfg, mesh=mesh)
+        params = sp.abstract_params(cfg, mesh)
+        cache = sp.abstract_cache(cfg, mesh, shape)
+        if shape.kind == "prefill":
+            tokens = sp.prefill_input_specs(cfg, mesh, shape)
+            step = prefill_step
+        else:
+            tokens = sp.decode_input_specs(cfg, mesh, shape)
+            step = decode_step
+        mem = sp.memory(params, cache)
+        t_build = time.time() - t0
+        with torch.no_grad():
+            _, counts = op_cost.count(step, params, cache, tokens, cfg, mesh=mesh)
+        rows = tokens.shape[0]
     t_run = time.time() - t0 - t_build
     terms = op_cost.roofline_terms(counts)
     flops = counts["flops"]
     pc = cfg.param_counts()
     tokens_step = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
-    model_flops = 2 * pc["active"] * tokens_step             # forward only
-    rows = tokens.shape[0]
+    # 6 N D for a train step (forward and backward), 2 N D forward only
+    model_flops = (6 if shape.kind == "train" else 2) * pc["active"] * tokens_step
     return {
         "arch": arch, "shape": shape_name, "multi_pod": multi_pod,
         "mesh": list(mesh.shape.values()), "devices": int(mesh.size),

@@ -5,8 +5,10 @@ program sees. The port runs one process per rank: ``run_ranks`` spawns
 them and joins them to one process group, and ``make_host_mesh`` lays that
 group's world out as a ("data", "model") mesh whose model axis is
 ``model_parallel`` ranks wide (the data axis takes the rest). Ranks
-``[d * tp, (d + 1) * tp)`` form data row d's model group, the one every
-collective of ``distributed/sharding.py`` runs on.
+``[d * tp, (d + 1) * tp)`` form data row d's model group, the one the
+model-axis collectives of ``distributed/sharding.py`` run on; the ranks
+``m, m + tp, m + 2 tp, ...`` of one model rank m form its data group, the
+one the train step reduces its gradients over (train/step.py).
 
 Backend (``pick_backend``): NCCL when every rank has a card of its own;
 gloo when ranks share a card (NCCL refuses two ranks on one device) and on
@@ -58,14 +60,16 @@ class Mesh:
     """A ("data", "model") layout of the process group's ranks, or a
     ("pod", "data", "model") one, as this rank sees it. ``group`` is this
     rank's model-axis process group (None: a dry mesh, whose collectives
-    are booked and not run); ``stats`` counts the collectives run on it
-    and their bytes."""
+    are booked and not run) and ``data_group`` its data-axis one ("pod" x
+    "data": the ranks of its model rank; None on a dry mesh or one data
+    rank); ``stats`` counts the collectives run on it and their bytes."""
     shape: Dict[str, int]
     rank: int
     group: Any
     backend: str
     stats: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
+    data_group: Any = None
 
     @property
     def axis_names(self) -> tuple:
@@ -97,6 +101,17 @@ class Mesh:
     def model_rank(self) -> int:
         return self.rank % self.tp
 
+    @property
+    def dp(self) -> int:
+        """Ranks over the data axes ("pod" x "data")."""
+        return self.size // self.tp
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's index over the data axes, pod-major (the order of
+        the JAX ("pod", "data") batch and ZeRO-1 specs)."""
+        return self.rank // self.tp
+
 
 def _world() -> int:
     import torch.distributed as dist
@@ -118,21 +133,29 @@ def make_host_mesh(model_parallel: int = 1) -> Mesh:
             "that divides the ranks of the process group (start more with "
             "launch.mesh.run_ranks)")
     rank = dist.get_rank() if dist.is_initialized() else 0
-    group = None
+    group = data_group = None
     if dist.is_initialized():
         data = n // model_parallel
+        # every rank creates every group, in the same order: the model
+        # axis's, then the data axis's
         if data == 1:
             group = dist.group.WORLD
         else:
-            # every rank creates every group, in the same order
             for d in range(data):
                 g = dist.new_group(list(range(d * model_parallel,
                                               (d + 1) * model_parallel)))
                 if d == rank // model_parallel:
                     group = g
+        if model_parallel == 1:
+            data_group = dist.group.WORLD if data > 1 else None
+        elif data > 1:
+            for m in range(model_parallel):
+                g = dist.new_group(list(range(m, n, model_parallel)))
+                if m == rank % model_parallel:
+                    data_group = g
     backend = dist.get_backend() if dist.is_initialized() else "none"
     return Mesh(shape={"data": n // model_parallel, "model": model_parallel},
-                rank=rank, group=group, backend=backend)
+                rank=rank, group=group, backend=backend, data_group=data_group)
 
 
 def make_production_mesh(multi_pod: bool = False) -> Mesh:

@@ -214,15 +214,19 @@ class OpCost(TorchDispatchMode):
     # -- the record -----------------------------------------------------------
     def collectives(self) -> dict:
         """hlo_cost's collective keys from the mesh's stats delta: the
-        port's collectives are all-reduces (a gather is an all-reduce of a
-        zero-filled buffer)."""
+        port's collectives are all-reduces (a gather of vocabulary or head
+        slices is an all-reduce of a zero-filled buffer) and the ZeRO-1
+        step's all-gathers of the parameters over the data axes."""
         if self.mesh is None:
             return {"per_kind_bytes": {}, "op_counts": {}, "weighted_bytes": 0.0}
         s0, s1 = self._stats0, getattr(self, "_stats1", dict(self.mesh.stats))
-        n = s1.get("all_reduce", 0) - s0.get("all_reduce", 0)
-        b = s1.get("bytes", 0) - s0.get("bytes", 0)
-        per_kind = {"all-reduce": float(b)} if n else {}
-        counts = {"all-reduce": float(n)} if n else {}
+        per_kind, counts = {}, {}
+        for kind, key, nkey in (("all-reduce", "all_reduce", "bytes"),
+                                ("all-gather", "all_gather", "all_gather_bytes")):
+            n = s1.get(key, 0) - s0.get(key, 0)
+            if n:
+                counts[kind] = float(n)
+                per_kind[kind] = float(s1.get(nkey, 0) - s0.get(nkey, 0))
         weighted = sum(COLL_FACTOR.get(k, 1.0) * v for k, v in per_kind.items())
         return {"per_kind_bytes": per_kind, "op_counts": counts,
                 "weighted_bytes": weighted}

@@ -14,6 +14,12 @@ rows ``batch_spec`` gives the rank. A batch that the data axes do not
 divide (long_500k's one row) is whole on every rank: the port has no
 sequence-parallel attention to split its positions (ROADMAP A.17,
 ``kv_shard="seq_model"``), so every data rank holds the whole row.
+
+The train state (``abstract_train_state``) is the training cut (the JAX
+``params_shardings``: the embedding vocabulary-cut) in float32 master
+weights, AdamW's moments (under ZeRO-1 the rank's data slice of each leaf:
+``state_specs``, the JAX ``state_shardings``) and, with ``compress``, the
+error-feedback buffers.
 """
 from __future__ import annotations
 
@@ -23,8 +29,11 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.distributed import compression as comp
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer as tf
+from repro_torch.optim import adamw
+from repro_torch.train import step as step_lib
 
 META = torch.device("meta")
 
@@ -37,6 +46,48 @@ def abstract_params(cfg, mesh=None) -> tf.Transformer:
         model = tf.Transformer(cfg, device=META, dtype=None)
     model.mesh = mesh
     return model
+
+
+def abstract_train_state(cfg, mesh=None, zero1: bool = False,
+                         compress: bool = False) -> step_lib.TrainState:
+    """The rank's train state on meta: float32 master weights at the
+    training cut of ``mesh``, the AdamW moments (under ``zero1`` the rank's
+    data slice of each leaf) and, with ``compress``, the error-feedback
+    buffers."""
+    cut = (shd.slicing_leaves(mesh, train=True) if mesh is not None
+           else contextlib.nullcontext())
+    with torch.no_grad(), cut:
+        model = tf.Transformer(cfg, device=META, dtype=torch.float32)
+    model.mesh = mesh
+    named = step_lib.named_params(model)
+    slices = shd.zero1_slices(model, mesh) if zero1 else {}
+    opt = adamw.init({k: step_lib._narrow(p, slices.get(k)) for k, p in named.items()})
+    return step_lib.TrainState(model, opt, comp.init_error_state(named) if compress
+                               else None)
+
+
+def state_specs(cfg, mesh, zero1: bool = False) -> Dict[str, tuple]:
+    """{parameter name: (param spec, moment spec)} of every leaf, the JAX
+    ``state_shardings`` specs (trailing whole dims dropped): the rules on
+    the whole leaf, and under ``zero1`` the moments extended over the data
+    axes (``shd.zero1_spec``)."""
+    with torch.no_grad():
+        model = tf.Transformer(cfg, device=META, dtype=torch.float32)
+    out = {}
+    for name, axes in shd.param_axes(model).items():
+        shape = tuple(model.get_parameter(name).shape)
+        spec = shd.spec_for_axes(axes, shape, mesh)
+        out[name] = (spec, shd.zero1_spec(spec, shape, mesh) if zero1 else spec)
+    return out
+
+
+def train_input_specs(cfg, mesh, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """{"tokens", "labels"}: (rows, seq_len) int64 on meta, the rank's rows
+    of the global batch (an embeds arch trains on token ids, as the
+    port's launcher trains it)."""
+    rows = rank_rows(mesh, shape)
+    return {k: torch.empty((rows, shape.seq_len), dtype=torch.int64, device=META)
+            for k in ("tokens", "labels")}
 
 
 def rank_rows(mesh, shape: ShapeConfig) -> int:
@@ -72,12 +123,17 @@ def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def memory(params: tf.Transformer, cache: tf.DenseCache) -> Dict[str, int]:
+def memory(params: tf.Transformer, cache: tf.DenseCache = None,
+           opt: adamw.AdamWState = None, err=None) -> Dict[str, int]:
     """The rank's resident bytes: params, cache (KV buffers and recurrent
-    state) and their sum. Replaces XLA's ``memory_analysis``."""
+    state), the optimizer's moments and the error-feedback buffers (a
+    train state), and their sum. Replaces XLA's ``memory_analysis``."""
     p = nbytes(params.parameters())
-    c = nbytes(v for layer in cache.layers for k, v in layer.items() if k != "idx")
-    state = nbytes(v for layer in cache.layers if "idx" not in layer
+    layers = cache.layers if cache is not None else []
+    c = nbytes(v for layer in layers for k, v in layer.items() if k != "idx")
+    state = nbytes(v for layer in layers if "idx" not in layer
                    for v in layer.values())
+    o = nbytes(list(opt.mu.values()) + list(opt.nu.values())) if opt is not None else 0
+    e = nbytes(err.values()) if err is not None else 0
     return {"params_bytes": p, "cache_bytes": c, "state_bytes": state,
-            "total_bytes": p + c}
+            "opt_bytes": o, "err_bytes": e, "total_bytes": p + c + o + e}

@@ -17,6 +17,10 @@ attention softmax and the loss log-softmax run on the CORDIC kernels
 (``softmax_impl`` and ``loss_impl`` ``"cordic_pallas"``); the config's
 ``remat`` applies. The embeds archs (musicgen-large, internvl2-1b), whose
 frontends are stubs, train on token ids, as the JAX launcher trains them.
+
+``rank_train`` is the train step on a ("data", "model") mesh of spawned
+ranks (``launch/mesh.run_ranks(rank_train, world, job)``); the launcher
+itself keeps the JAX launcher's flags, which have no mesh.
 """
 from __future__ import annotations
 
@@ -49,6 +53,91 @@ def build_parser() -> argparse.ArgumentParser:
                     help="int8 error-feedback gradient compression")
     ap.add_argument("--lr", type=float, default=3e-4)
     return ap
+
+
+def rank_train(job):
+    """A ``launch/mesh.run_ranks`` target: ``job["steps"]`` train steps of
+    one rank of a (world / tp, tp) ("data", "model") mesh (train/step.py).
+
+    job: ``cfg`` (a ModelConfig), ``tp``, ``batch`` {name: (B, S) numpy
+    array of the global batch; the rank takes its data rank's share of
+    each microbatch, ``step.rank_rows``},
+    ``steps``, and optionally ``seed`` (0), ``device`` ("cpu"), ``accum``
+    (1), ``compress`` / ``zero1`` (False), ``lr`` (3e-4), ``warmup_steps``
+    (0), ``total_steps`` (100), ``grads`` (also return step 0's reduced
+    gradients as whole leaves, before the update, and with ``compress``
+    their int8 round trip from zero buffers: "compressed", "residual"),
+    ``tree`` (also return the state after the steps,
+    ``step.gathered_tree``), ``before`` / ``after`` ((fn, payload): a
+    caller's probe run on every rank as ``fn(payload, state, batch, cfg,
+    mesh)`` before the first step and after the last, its result returned
+    under the same key).
+
+    Returns {"losses", "grad_norms", "step_ms", "stats": the mesh's
+    collective counts of the last step, "grads", "tree"}, the arrays on
+    data rank 0's model ranks only (None elsewhere)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import step as step_lib
+
+    mesh = mesh_lib.make_host_mesh(job["tp"])
+    cfg, dev = job["cfg"], job.get("device", "cpu")
+    if dev.startswith("cuda"):
+        torch.cuda.set_device(0)
+    state = step_lib.init_state(cfg, job.get("seed", 0), adamw.AdamWConfig(),
+                                compress=job.get("compress", False), device=dev,
+                                mesh=mesh, zero1=job.get("zero1", False))
+    accum = job.get("accum", 1)
+    rows = step_lib.rank_rows(next(iter(job["batch"].values())).shape[0], mesh, accum)
+    batch = {k: torch.as_tensor(np.ascontiguousarray(v[rows]), device=dev)
+             for k, v in job["batch"].items()}
+    step = step_lib.make_train_step(
+        cfg, adamw.AdamWConfig(lr=job.get("lr", 3e-4)), accum=accum,
+        compress=job.get("compress", False), mesh=mesh,
+        zero1=job.get("zero1", False), warmup_steps=job.get("warmup_steps", 0),
+        total_steps=job.get("total_steps", 100))
+    keep = mesh.data_rank == 0
+    out = {"losses": [], "grad_norms": [], "step_ms": [], "stats": None,
+           "grads": None, "tree": None, "before": None, "after": None}
+    host = lambda named: ({k: v.detach().to("cpu", copy=True).numpy()
+                           for k, v in shd.full_tensors(state.params, named).items()}
+                          if keep else None)
+    if job.get("grads"):
+        _, _, g = step_lib.grads_of(state.params, batch, cfg)
+        step_lib.reduce_grads(state.params, g, cfg, mesh)
+        out["grads"] = host(g)
+        if job.get("compress"):
+            # the round trip of these gradients from zero buffers
+            err = {k: torch.zeros_like(v) for k, v in g.items()}
+            step_lib.compress_(g, err, mesh)
+            out["compressed"], out["residual"] = host(g), host(err)
+    if job.get("before"):
+        fn, payload = job["before"]
+        out["before"] = fn(payload, state, batch, cfg, mesh)
+    for _ in range(job["steps"]):
+        s0 = dict(mesh.stats)
+        if dev.startswith("cuda"):
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["stats"] = {k: v - s0.get(k, 0) for k, v in mesh.stats.items()}
+    if dev.startswith("cuda"):
+        torch.cuda.synchronize()
+    if job.get("after"):
+        fn, payload = job["after"]
+        out["after"] = fn(payload, state, batch, cfg, mesh)
+    if job.get("tree"):
+        tree = step_lib.gathered_tree(state, mesh, job.get("zero1", False))
+        out["tree"] = tree if keep else None
+    return out
 
 
 def main(argv=None):

@@ -387,7 +387,13 @@ def _out_project(o, wo):
 def _row_parallel(p, y):
     """``y`` of a ``wo`` product: summed over the model axis when the rank
     holds a slice of the heads (a partial sum), else as it is."""
-    return shd.all_reduce_(y) if shd.is_cut(p, "wo") else y
+    return shd.row_sum(y) if shd.is_cut(p, "wo") else y
+
+
+def _column_parallel(p, x):
+    """The block's input as the rank's heads read it: under grad its
+    gradient is summed over the model axis when the heads are cut."""
+    return shd.to_ranks(x) if shd.is_cut(p, "wo") else x
 
 
 def _gqa_groups(p: GQAttention, cfg):
@@ -496,6 +502,7 @@ def gqa_apply(p: GQAttention, x, cfg, *, cache: Optional[dict] = None):
     With a paged cache: see _gqa_paged_apply; a dense one: _gqa_dense_apply."""
     B, S, d = x.shape
     hd = cfg.head_dim
+    x = _column_parallel(p, x)
     q = _project(x, p.wq)
     k = _project(x, p.wk)
     v = _project(x, p.wv)
@@ -734,6 +741,7 @@ def mla_apply(p: MLAttention, x, cfg, *, cache: Optional[dict] = None):
     one: _mla_dense_apply."""
     B, S, _ = x.shape
     m, H = cfg.mla, p.wq.shape[1]               # the rank's heads
+    x = _column_parallel(p, x)
     if cache is not None:
         if "c_kv_pool" in cache:
             return _mla_paged_apply(p, x, cfg, cache)

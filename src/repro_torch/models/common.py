@@ -45,11 +45,12 @@ def rmsnorm_cut(scale: torch.Tensor, x: torch.Tensor, width: int,
                 eps: float = 1e-5) -> torch.Tensor:
     """``rmsnorm`` of a rank's slice ``x`` of a ``width``-wide row (its
     ``scale`` slice): the float32 sum of squares reduced over the model
-    axis, then divided by ``width``."""
+    axis, then divided by ``width`` (under grad its gradient is summed
+    too: each rank reads the sum for its slice)."""
     from repro_torch.distributed import sharding as shd
 
     ss = x.to(torch.float32).square().sum(dim=-1, keepdim=True)
-    var = shd.all_reduce_(ss) / width
+    var = shd.shared_sum(ss) / width
     y = x * torch.rsqrt(var + eps).to(x.dtype)
     return y * scale.to(x.dtype)
 

@@ -9,7 +9,8 @@ CUDA kernels, which also run the fused ``silu_mul`` epilogue of the SwiGLU).
 Under tensor parallelism (distributed/sharding.py) a rank holds a column
 slice of ``w_gate/w_up`` (``w_in/b_in``) and the matching row slice of
 ``w_down`` (``w_out``): its down product is a partial sum, reduced over
-the model axis (``b_out`` added once, after the sum).
+the model axis (``b_out`` added once, after the sum). Under grad the
+input's gradient is summed over the model axis too (``shd.to_ranks``).
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ class SwiGLU(nn.Module):
 
 
 def swiglu_apply(p: SwiGLU, x: torch.Tensor, cfg) -> torch.Tensor:
+    cut = shd.is_cut(p, "w_down")
+    x = shd.to_ranks(x) if cut else x
     g = x @ p.w_gate.to(x.dtype)
     u = x @ p.w_up.to(x.dtype)
     if cfg.act_impl == "cordic_pallas":
@@ -49,7 +52,7 @@ def swiglu_apply(p: SwiGLU, x: torch.Tensor, cfg) -> torch.Tensor:
     else:
         h = get_activation("silu", cfg.act_impl, range_mode="reduce")(g) * u
     y = h @ p.w_down.to(x.dtype)
-    return shd.all_reduce_(y) if shd.is_cut(p, "w_down") else y
+    return shd.row_sum(y) if cut else y
 
 
 class GeluMLP(nn.Module):
@@ -72,8 +75,10 @@ def gelu_mlp_apply(p: GeluMLP, x: torch.Tensor, cfg) -> torch.Tensor:
     routes its tanh through the MR-HRC pipeline."""
     act = get_activation("gelu_tanh" if cfg.act_impl != "exact" else "gelu",
                          cfg.act_impl, range_mode="reduce")
+    cut = shd.is_cut(p, "w_out")
+    x = shd.to_ranks(x) if cut else x
     h = act(x @ p.w_in.to(x.dtype) + p.b_in.to(x.dtype))
     y = h @ p.w_out.to(x.dtype)
-    if shd.is_cut(p, "w_out"):
-        shd.all_reduce_(y)
+    if cut:
+        y = shd.row_sum(y)
     return y + p.b_out.to(x.dtype)

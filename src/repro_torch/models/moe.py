@@ -27,6 +27,15 @@ every expert's FFN columns) and the whole router: it routes every token,
 runs its experts on the tokens dispatched to them, and its combine is a
 partial sum, reduced over the model axis once, with the shared experts'
 partial sum when those are cut too.
+
+Under grad (the train step on a mesh) the experts read the block's input
+through ``shd.to_ranks`` and the combine reads the gate values so too:
+their gradients, partial on each rank, are summed over the model axis,
+while the router's own aux-loss gradient, alike on every rank, is not.
+Over the data axes the aux loss's two token means are of the global batch
+under grad:
+their sums are reduced before the product (``shd.data_sum``); dispatch
+groups are sequences, so routing and capacity do not change.
 """
 from __future__ import annotations
 
@@ -114,6 +123,13 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]
     scores = scores.reshape(B, S, E)
     gate_vals, gate_idx, pos_in_e, keep = route(scores, cfg)
     C = capacity(S, cfg)
+    El = p.w_gate.shape[0]
+    y_partial = El < E or shd.is_cut(p, "w_down")
+    if y_partial:
+        gate_vals = shd.to_ranks(gate_vals)
+        xr = shd.to_ranks(x)
+    else:
+        xr = x
 
     # dispatch/combine (G,S,K,E,C) one-hots in x.dtype, summed over K
     slot = torch.where(keep, pos_in_e, torch.full_like(pos_in_e, C)).long()
@@ -123,38 +139,46 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]
     disp_t = disp.sum(dim=2)                                  # (G,S,E,C)
     combine_t = combine.sum(dim=2)
 
-    El = p.w_gate.shape[0]
     if El < E:                                   # this rank's experts
         lo = shd.active_serving_mesh().model_rank * El
         disp_l, comb_l = disp_t[:, :, lo:lo + El], combine_t[:, :, lo:lo + El]
     else:
         disp_l, comb_l = disp_t, combine_t
-    xe = torch.einsum("gsec,gsd->gecd", disp_l, x)            # (G,E,C,d)
+    xe = torch.einsum("gsec,gsd->gecd", disp_l, xr)           # (G,E,C,d)
     act = get_activation("silu", cfg.act_impl, range_mode="reduce")
     g = torch.einsum("gecd,edf->gecf", xe, p.w_gate.to(dt))
     u = torch.einsum("gecd,edf->gecf", xe, p.w_up.to(dt))
     h = act(g) * u
     ye = torch.einsum("gecf,efd->gecd", h, p.w_down.to(dt))
     y = torch.einsum("gsec,gecd->gsd", comb_l, ye)            # (G,S,d)
-    y_partial = El < E or shd.is_cut(p, "w_down")
 
     # load-balancing aux loss (Switch/GShard form); jnp.mean of x.dtype
     # sums in float32 and rounds the mean back to x.dtype
-    me = scores.mean(dim=(0, 1))                              # (E,)
-    ce = disp_t.sum(dim=-1).to(torch.float32).mean(dim=(0, 1)).to(dt)
+    mesh = shd.active_serving_mesh()
+    counts = disp_t.sum(dim=-1).to(torch.float32)
+    if mesh is not None and mesh.dp > 1 and torch.is_grad_enabled():
+        # training: token means of the global batch (a serving step's aux
+        # loss is unused)
+        n = B * S * mesh.dp
+        me = shd.data_sum(scores.sum(dim=(0, 1)), mesh) / n
+        ce = (shd.data_sum(counts.sum(dim=(0, 1)), mesh) / n).to(dt)
+    else:
+        me = scores.mean(dim=(0, 1))                          # (E,)
+        ce = counts.mean(dim=(0, 1)).to(dt)
     aux = E * (me * ce.to(torch.float32)).sum() * m.aux_loss_coef
 
     if p.shared is not None:
         sp = p.shared
-        gs = x @ sp.w_gate.to(dt)
-        us = x @ sp.w_up.to(dt)
-        ys = (act(gs) * us) @ sp.w_down.to(dt)
         s_partial = shd.is_cut(sp, "w_down")
+        xs = shd.to_ranks(x) if s_partial else x
+        gs = xs @ sp.w_gate.to(dt)
+        us = xs @ sp.w_up.to(dt)
+        ys = (act(gs) * us) @ sp.w_down.to(dt)
         if y_partial and s_partial:           # one reduction of the combine
-            return shd.all_reduce_(y + ys), aux
+            return shd.row_sum(y + ys), aux
         if y_partial:
-            y = shd.all_reduce_(y)
+            y = shd.row_sum(y)
         elif s_partial:
-            ys = shd.all_reduce_(ys)
+            ys = shd.row_sum(ys)
         return y + ys, aux
-    return (shd.all_reduce_(y) if y_partial else y), aux
+    return (shd.row_sum(y) if y_partial else y), aux

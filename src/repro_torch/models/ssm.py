@@ -21,6 +21,11 @@ N) and the conv context (B, d_conv-1, its conv width). The gated RMSNorm
 spans every rank's heads: each rank reduces the float32 sum of squares of
 its slice over the model axis (B*S floats, where a gather of y would move
 B*S*d_inner/tp values), then ``out_proj``'s partial product is summed once.
+Under grad the block's input takes its gradient summed over the model axis
+(``shd.to_ranks``), so does the norm's sum of squares (``shd.shared_sum``),
+and the whole leaves a rank reads in part (``dt_bias``, ``A_log``, ``D``,
+``norm``, the whole B / C columns) get partial gradients, which the train
+step sums over the model axis once (``shd.partial_leaves``).
 """
 from __future__ import annotations
 
@@ -159,6 +164,8 @@ def mamba2_apply(p: Mamba2, x: torch.Tensor, cfg,
     GN_l = (p.conv_w.shape[1] - d_l) // 2
     silu = get_activation("silu", cfg.act_impl, range_mode="reduce")
     dtype = x.dtype
+    if cut:
+        x = shd.to_ranks(x)
     zxbcdt = x @ p.in_proj.to(dtype)
     z = zxbcdt[..., :d_l]
     xBC = zxbcdt[..., d_l:2 * d_l + 2 * GN_l]
@@ -198,6 +205,6 @@ def mamba2_apply(p: Mamba2, x: torch.Tensor, cfg,
     gated = y.reshape(B, S, d_l) * silu(z)
     if cut:
         yg = cm.rmsnorm_cut(p.norm[lo * Pd:hi * Pd], gated, d_inner)
-        return shd.all_reduce_(yg @ p.out_proj.to(dtype))
+        return shd.row_sum(yg @ p.out_proj.to(dtype))
     yg = cm.rmsnorm(p.norm, gated)
     return yg @ p.out_proj.to(dtype)

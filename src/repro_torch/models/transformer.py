@@ -70,6 +70,14 @@ it for the blocks' reductions and gathers the vocabulary-parallel logits
 gathers them itself). The caches take a rank's KV heads
 (``kv_heads``) and, under a ``mesh``, a rank's recurrent state (a cut
 mixer's heads: models/ssm.py, models/xlstm.py).
+
+Training on a mesh (train/step.py) takes the training cut (``train=True``:
+the JAX ``params_shardings``, so the embedding is vocabulary-cut, and a
+tied head with it): a rank looks up the tokens of its rows of the table,
+zeros elsewhere, and one sum over the model axis gives every rank the
+whole embedding; the head's input takes its gradient summed over the
+model axis, and the loss reads the gathered logits. Every collective of
+the blocks has its backward (distributed/sharding.py).
 """
 from __future__ import annotations
 
@@ -285,20 +293,22 @@ class Transformer(nn.Module):
         self.requires_grad_(trainable)
 
 
-def _sharding(mesh):
+def _sharding(mesh, train: bool = False):
     """The leaf-slicing context of a rank's model (none without a mesh)."""
-    return shd.slicing_leaves(mesh) if mesh is not None else contextlib.nullcontext()
+    return (shd.slicing_leaves(mesh, train) if mesh is not None
+            else contextlib.nullcontext())
 
 
 def init(cfg, seed: int = 0, device=None, dtype: Optional[torch.dtype] = None,
-         mesh=None) -> Transformer:
+         mesh=None, train: bool = False) -> Transformer:
     """Random weights from a seeded ``torch.Generator`` on the target device
     (JAX spec scales: normal/sqrt(fan_in), embed 1.0, lm_head 0.02, norms 1).
     ``dtype``: None for serving storage, ``torch.float32`` for trainable
-    master weights. ``mesh``: this rank's shard of the same weights."""
+    master weights. ``mesh``: this rank's shard of the same weights, the
+    serving cut or (``train``) the training one."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    with torch.no_grad(), _sharding(mesh):
+    with torch.no_grad(), _sharding(mesh, train):
         model = Transformer(cfg, device=dev, gen=gen, dtype=dtype)
     model.mesh = mesh
     return model
@@ -664,14 +674,22 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def _remat_wrap(fn, cfg):
     """A block's ``forward_block`` under ``cfg.remat`` (the JAX
-    ``_remat_wrap``)."""
+    ``_remat_wrap``). The recompute runs in the backward pass, outside
+    ``apply``'s mesh context: it enters the mesh again, so a rank's
+    recompute runs the same collectives as its forward."""
     if cfg.remat == "none":
         return fn
     kw = {}
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _dots_policy)
-    return lambda x, cfg, cache: ckpt.checkpoint(fn, x, cfg, cache,
+    mesh = shd.active_serving_mesh()
+
+    def run(x, cfg, cache):
+        with shd.serving_mesh(mesh):
+            return fn(x, cfg, cache)
+
+    return lambda x, cfg, cache: ckpt.checkpoint(run, x, cfg, cache,
                                                  use_reentrant=False, **kw)
 
 
@@ -692,8 +710,22 @@ def apply(params: Transformer, batch: Dict[str, torch.Tensor], cfg=None,
                       cache, gather_logits)
 
 
+def _embed(params, tokens):
+    """The embedding of ``tokens``; a vocabulary-cut table (the training
+    cut) looks up the rank's rows, zeros elsewhere, summed over the model
+    axis (exact: one rank holds each row)."""
+    table = params.embed
+    if not shd.is_cut(params, "embed"):
+        return cm.embed(table, tokens)
+    n = table.shape[0]
+    local = tokens - shd.active_serving_mesh().model_rank * n
+    hit = (local >= 0) & (local < n)
+    rows = cm.embed(table, local.clamp(0, n - 1))
+    return shd.row_sum(torch.where(hit[..., None], rows, torch.zeros_like(rows)))
+
+
 def _apply(params, batch, cfg, cache, gather_logits):
-    x = (cm.embed(params.embed, batch["tokens"]) if cfg.input_mode == "tokens"
+    x = (_embed(params, batch["tokens"]) if cfg.input_mode == "tokens"
          else batch["embeds"])
     x = x.to(cm.dtype_of(cfg.dtype))
     S = x.shape[1]
@@ -714,6 +746,8 @@ def _apply(params, batch, cfg, cache, gather_logits):
         cache.positions.add_(S)
     x = cm.rmsnorm(params.final_norm, x, cfg.norm_eps)
     head = params.embed if cfg.tie_embeddings else params.lm_head
+    if head.shape[0] < cfg.vocab_size:       # vocabulary-parallel logits
+        x = shd.to_ranks(x)
     logits = cm.unembed(head.to(torch.float32), x.to(torch.float32))
     if gather_logits and logits.shape[-1] < cfg.vocab_size:
         logits = shd.gather_vocab(logits, cfg.vocab_size)
@@ -732,5 +766,6 @@ def loss_fn(params: Transformer, batch: Dict[str, torch.Tensor], cfg=None):
     labels = batch["labels"]
     mask = batch.get("mask")
     loss = losses.cross_entropy(logits, labels, mask,
-                                impl=getattr(cfg, "loss_impl", "exact"))
+                                impl=getattr(cfg, "loss_impl", "exact"),
+                                mesh=getattr(params, "mesh", None))
     return loss + aux, {"loss": loss, "aux": aux, "ppl_proxy": loss}

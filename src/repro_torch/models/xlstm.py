@@ -43,6 +43,15 @@ Tensor parallelism (distributed/sharding.py), when the heads divide tp:
 
 A mixer whose heads do not divide tp runs whole on every rank (its leaves
 are whole).
+
+Under grad (the train step on a mesh) a cut mixer's input takes its
+gradient summed over the model axis (``shd.to_ranks``), the mLSTM's
+reduced products and the norms' sums of squares sum theirs too
+(``shd.shared_sum``), and ``gather_heads`` passes each rank its heads'
+slice of the gradient back. The whole leaves a rank reads in part (the
+mLSTM's ``b_if`` and ``norm``, the sLSTM's ``r`` unless its state is
+replicated) get partial gradients, which the train step sums over the
+model axis once (``shd.partial_leaves``).
 """
 from __future__ import annotations
 
@@ -209,6 +218,8 @@ def mlstm_apply(p: MLSTM, x: torch.Tensor, cfg,
     H_l, d_l = hi - lo, (hi - lo) * dk
     silu = get_activation("silu", cfg.act_impl, range_mode="reduce")
     dt = x.dtype
+    if cut:
+        x = shd.to_ranks(x)
     up = x @ p.up_proj.to(dt)
     xm, z = up[..., :d_l], up[..., d_l:]
     xc, new_conv = cm.causal_conv(xm, p.conv_w.to(dt),
@@ -217,7 +228,7 @@ def mlstm_apply(p: MLSTM, x: torch.Tensor, cfg,
     if cut:
         # partial sums over the rank's d_inner rows: one all-reduce of the
         # four, then the rank's heads of each
-        red = shd.all_reduce_(torch.cat(
+        red = shd.shared_sum(torch.cat(
             [xc @ p.wq.to(dt), xc @ p.wk.to(dt), xm @ p.wv.to(dt),
              xm @ p.w_if.to(dt)], dim=-1))
         q, k, v = (red[..., i * d_inner + lo * dk:i * d_inner + hi * dk]
@@ -245,7 +256,7 @@ def mlstm_apply(p: MLSTM, x: torch.Tensor, cfg,
     y = y.to(dt).reshape(B, S, d_l)
     if cut:
         y = cm.rmsnorm_cut(p.norm[lo * dk:hi * dk], y, d_inner) * silu(z)
-        return shd.all_reduce_(y @ p.down_proj.to(dt))
+        return shd.row_sum(y @ p.down_proj.to(dt))
     y = cm.rmsnorm(p.norm, y) * silu(z)
     return y @ p.down_proj.to(dt)
 
@@ -313,8 +324,8 @@ def slstm_apply(p: SLSTM, x: torch.Tensor, cfg,
     H = cfg.num_heads
     sig = get_activation("sigmoid", cfg.act_impl, range_mode="reduce")
     tanh = get_activation("tanh", cfg.act_impl, range_mode="reduce")
-    wx = x @ p.w.to(x.dtype) + p.b.to(x.dtype)             # (B,S,4d)
     cut = shd.is_cut(p, "w")
+    wx = (shd.to_ranks(x) if cut else x) @ p.w.to(x.dtype) + p.b.to(x.dtype)
     replicated = cut and cfg.slstm_state == "replicated"
     r = p.r
     if replicated:
@@ -331,8 +342,9 @@ def slstm_apply(p: SLSTM, x: torch.Tensor, cfg,
     hs = []
     if wx.device.type == "meta":
         # the dry run (launch/dryrun.py): a step's work, counted S times
-        with kcost.repeated(S):
-            st = slstm_cell(r, wx[:, 0], st, sig, tanh)
+        # (under grad its backward too)
+        st = kcost.repeated_step(S, lambda r, w, *s: slstm_cell(r, w, s, sig, tanh),
+                                 r, wx[:, 0], *st)
         hs = [st[3]] * S
     for t in range(len(hs), S):
         st = slstm_cell(r, wx[:, t], st, sig, tanh)
@@ -345,7 +357,9 @@ def slstm_apply(p: SLSTM, x: torch.Tensor, cfg,
     y = cm.rmsnorm(p.norm, h)
     silu = get_activation("silu", cfg.act_impl, range_mode="reduce")
     f = p.ffn
+    ffn_cut = shd.is_cut(f, "w_down")
+    y = shd.to_ranks(y) if ffn_cut else y
     g = y @ f.w_gate.to(x.dtype)
     u = y @ f.w_up.to(x.dtype)
     out = (silu(g) * u) @ f.w_down.to(x.dtype)
-    return shd.all_reduce_(out) if shd.is_cut(f, "w_down") else out
+    return shd.row_sum(out) if ffn_cut else out

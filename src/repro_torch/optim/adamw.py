@@ -58,10 +58,16 @@ def clip_by_global_norm(grads: Tensors, max_norm: float):
 
 @torch.no_grad()
 def apply_updates(params: Tensors, state: AdamWState, grads: Tensors,
-                  cfg: AdamWConfig, lr_scale=1.0):
+                  cfg: AdamWConfig, lr_scale=1.0, *, gn=None, slices=None):
     """One AdamW step. Returns (params, new state, {"grad_norm"}); params
-    and moments are updated in place (see the module docstring)."""
-    gn = global_norm(grads)
+    and moments are updated in place (see the module docstring). On a mesh
+    (train/step.py): ``gn`` the global norm of the whole gradients (each
+    rank's leaves are slices), and ``slices`` {name: (dim, lo, hi)} the
+    ZeRO-1 slice of a leaf whose moments this rank holds: it updates that
+    slice of the parameter alone. AdamW works element by element, so a
+    slice's update is bit for bit the whole one's."""
+    gn = global_norm(grads) if gn is None else gn
+    slices = slices or {}
     scale = _clip_scale(gn, cfg.grad_clip)
     step = state.step + 1
     stepf = step.to(torch.float32)
@@ -70,6 +76,9 @@ def apply_updates(params: Tensors, state: AdamWState, grads: Tensors,
     lr = cfg.lr * lr_scale
     for k, p in params.items():
         g = grads[k]
+        if k in slices:
+            dim, lo, hi = slices[k]
+            p, g = p.narrow(dim, lo, hi - lo), g.narrow(dim, lo, hi - lo)
         gf = (g * scale).to(g.dtype).to(torch.float32)
         m, v = state.mu[k], state.nu[k]
         m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)           # b1 m + (1-b1) g

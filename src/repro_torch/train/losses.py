@@ -83,9 +83,18 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor,
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
-                  impl: str = "exact") -> torch.Tensor:
-    """Masked-mean token cross entropy (the loss_fn reduction)."""
+                  impl: str = "exact", mesh=None) -> torch.Tensor:
+    """Masked-mean token cross entropy (the loss_fn reduction),
+    sum(nll * mask) / max(sum(mask), 1). On a ``mesh`` with several data
+    ranks the numerator and the count are summed over the data axes first
+    (the global batch's mean; a mean of the ranks' means would weigh their
+    masks wrong), the numerator's gradient passed through to each rank."""
     nll = token_nll(logits, labels, impl)
     if mask is None:
         mask = torch.ones_like(nll)
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    if mesh is None or mesh.dp == 1:
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    from repro_torch.distributed import sharding as shd
+
+    num = shd.data_sum((nll * mask).sum(), mesh)
+    return num / shd.data_sum(mask.sum(), mesh).clamp_min(1.0)

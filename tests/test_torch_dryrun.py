@@ -195,21 +195,89 @@ def test_lower_cell_per_serving_shape_on_a_smoke_config(shape):
 
 
 def test_skips_refusals_perf_and_roofline(tmp_path, capsys):
+    """long_500k stays skipped where it does not apply; kv_shard="seq_model"
+    raises naming ROADMAP A.17; the train-side variants run (a train cell
+    on a small dry mesh), the kv_shard one is refused; the roofline table
+    reads the records."""
     assert dryrun.lower_cell("yi-9b", "long_500k")["status"] == "skipped"
-    rec = dryrun.lower_cell("yi-9b", "train_4k")
-    assert rec["status"] == "skipped" and "ROADMAP A.16" in rec["reason"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.16"):
-        dryrun.lower_cell("yi-9b", "decode_32k", remat="dots")
     with pytest.raises(NotImplementedError, match="ROADMAP A.17"):
         dryrun.lower_cell("yi-9b", "decode_32k", kv_shard="seq_model")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.17"):
+        dryrun.lower_cell("yi-9b", "train_4k", kv_shard="seq_model")
     assert list(perf.VARIANTS) == list(jperf.VARIANTS)
-    recs = perf.run_variants("xlstm-1.3b", "decode", ["baseline", "slstm_rep", "zero1"],
-                             smoke=True, mesh=M.dry_mesh(2),
-                             shape=ShapeConfig("decode", 16, 2, "decode"))
-    assert [r["status"] for r in recs] == ["ok", "ok", "error"]
-    assert "A.16" in recs[2]["error"]
+    names = ["baseline", "no_remat", "remat_dots", "accum4", "accum4_dots", "zero1",
+             "zero1_dots", "accum4_fixed", "slstm_rep_dots", "kv_seq_shard"]
+    recs = perf.run_variants("xlstm-1.3b", "train", names, smoke=True,
+                             act_impl="exact", mesh=M.dry_mesh(2, data=2),
+                             shape=ShapeConfig("train", 16, 8, "train"))
+    assert [r["status"] for r in recs] == ["ok"] * 9 + ["error"]
+    assert "A.17" in recs[-1]["error"]
+    by = {r["variant"]: r for r in recs}
+    # remat "full" recomputes each block's forward: more FLOPs than none
+    assert by["baseline"]["flops_per_chip"] > by["no_remat"]["flops_per_chip"]
+    assert by["zero1"]["collective"]["op_counts"]["all-gather"] > 0
+    assert "all-gather" not in by["baseline"]["collective"]["op_counts"]
     path = tmp_path / "dryrun_torch_x.json"
-    path.write_text(json.dumps(recs[:2] + [rec]))
+    path.write_text(json.dumps(recs[:2]))
     assert roofline.main(["--glob", str(path)]) == 0
     out = capsys.readouterr().out
-    assert "H100 SXM data sheet" in out and "| xlstm-1.3b | decode |" in out
+    assert "H100 SXM data sheet" in out and "| xlstm-1.3b | train |" in out
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "deepseek-v2-lite-16b", "zamba2-1.2b"])
+def test_train_cell_lowers_ok_on_a_small_mesh(arch):
+    """A train cell (the rank's train step on meta: forward, backward
+    through the collectives, the reductions, AdamW) on a dry (2, 2) mesh:
+    "ok", 6 N D model FLOPs, the rank's optimizer bytes (2x its params,
+    halved under ZeRO-1, which adds the parameters' all-gathers), and the
+    loss's gather of the vocabulary-parallel logits among its all-reduces."""
+    shape = ShapeConfig("train", 16, 8, "train")
+    mesh = lambda: M.dry_mesh(2, data=2)
+    rec = dryrun.lower_cell(arch, "train", smoke=True, mesh=mesh(), shape=shape,
+                            act_impl="exact")
+    assert rec["status"] == "ok" and rec["kind"] == "train" and rec["rank_rows"] == 4
+    cfg = configs.get_smoke(arch)
+    assert rec["model_flops_global"] == 6 * cfg.param_counts()["active"] * 8 * 16
+    mem = rec["memory"]
+    assert mem["opt_bytes"] == 2 * mem["params_bytes"] and mem["cache_bytes"] == 0
+    assert mem["total_bytes"] == 3 * mem["params_bytes"]
+    counts = rec["collective"]["op_counts"]
+    assert counts["all-reduce"] > 2 * cfg.num_layers and "all-gather" not in counts
+    # the logits gather: rows x seq x vocab float32 among the bytes
+    assert rec["collective"]["per_kind_bytes"]["all-reduce"] > 4 * 16 * cfg.vocab_size * 4
+    z = dryrun.lower_cell(arch, "train", smoke=True, mesh=mesh(), shape=shape, zero1=True,
+                          accum=2, remat="dots", act_impl="exact")
+    assert z["status"] == "ok"
+    assert z["memory"]["opt_bytes"] < mem["opt_bytes"]
+    assert z["collective"]["op_counts"]["all-gather"] > 0
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_zero1_specs_equal_jax_zero1_extend(arch, multi_pod):
+    """Every leaf's param and ZeRO-1 moment spec on the production mesh
+    (specs.state_specs) equals JAX's spec_for_axes and _zero1_extend on
+    the same whole leaf."""
+    from jax.sharding import NamedSharding, PartitionSpec as PS
+
+    from repro.launch import specs as jsp
+
+    cfg = configs.get_config(arch)
+    mesh = M.make_production_mesh(multi_pod=multi_pod)
+    jm = AbstractMesh(tuple(mesh.shape.values()), mesh.axis_names)
+    specs = sp.state_specs(cfg, mesh, zero1=True)
+    jleaves = _jax_leaves(jconfigs.get_config(arch))
+    strip = lambda spec: tuple(spec)[:max([i + 1 for i, a in enumerate(spec)
+                                            if a is not None] or [0])]
+    n_ext = 0
+    for name, path, idx in T.jax_layout(cfg):
+        jaxes, jshape = jleaves[path]
+        if idx is not None:                      # the stacked layers dim
+            jaxes, jshape = jaxes[1:], jshape[1:]
+        jspec = tuple(jshd.spec_for_axes(jaxes, jshape, jm))
+        jz = jsp._zero1_extend(NamedSharding(jm, PS(*jspec)), jshape, jm).spec
+        got_p, got_z = specs[name]
+        assert got_p == strip(jspec), (name, got_p, jspec)
+        assert got_z == strip(jz), (name, got_z, jz)
+        n_ext += got_z != got_p
+    assert n_ext > 0

@@ -217,6 +217,50 @@ def test_mla_split_dot_order():
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(xla(q[0], c[0])))
 
 
+def _fma_orders(q, k):
+    """(4 strided fused multiply-add partials then (p0 + p1) + (p2 + p3),
+    one sequential fused multiply-add chain) of the dot of two float32
+    vectors, in numpy."""
+    fma = lambda a, b, c: np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+    part, acc = [np.float32(0.0)] * 4, np.float32(0.0)
+    for i in range(len(q)):
+        part[i % 4] = fma(q[i], k[i], part[i % 4])
+        acc = fma(q[i], k[i], acc)
+    return np.float32(np.float32(part[0] + part[1]) + np.float32(part[2] + part[3])), acc
+
+
+@pytest.mark.parametrize("geom,order", [
+    ((2, 2, 8, 16), 0),       # the test geometries: G 2, L 4 or 16
+    ((4, 8, 128, 16), 0),     # Yi-9B's decode block (block_len 16)
+    ((2, 7, 64, 16), 0),      # internvl2-1b's group of 7
+    ((32, 1, 64, 16), 1),     # musicgen-large's G 1: one chain
+    ((4, 8, 128, 32), 1),     # a block of 32 lanes: one chain
+], ids=["test-G2", "yi-G8", "internvl2-G7", "musicgen-G1", "yi-L32"])
+def test_gqa_score_dot_order_depends_on_the_geometry(geom, order):
+    """ROADMAP C.4's GQA trial: jitted XLA:CPU computes the JAX kernel's
+    score dot ``einsum("hgd,lhd->hgl")`` with 4 strided fused multiply-add
+    partials when G >= 2 and the block holds <= 16 lanes, and with one
+    sequential chain when G is 1 or the block 32 lanes or more. No one
+    order fits every geometry, so the port keeps its order and the
+    ``cordic_fixed`` code-step bound (``_tol``)."""
+    import jax
+
+    KH, G, hd, L = geom
+    rng = np.random.default_rng(1)
+    q = rng.normal(size=(KH, G, hd)).astype(np.float32)
+    k = rng.normal(size=(L, KH, hd)).astype(np.float32)
+    xla = np.asarray(jax.jit(lambda a, b: jnp.einsum(
+        "hgd,lhd->hgl", a, b, preferred_element_type=jnp.float32))(q, k))
+    hits = [0, 0]
+    for h in range(min(KH, 2)):
+        for g in range(G):
+            for l in range(min(L, 4)):
+                for i, v in enumerate(_fma_orders(q[h, g], k[l, h])):
+                    hits[i] += v == xla[h, g, l]
+    n = min(KH, 2) * G * min(L, 4)
+    assert hits[order] == n and hits[1 - order] < n, hits
+
+
 def test_mla_unported_branch_raises():
     """Every softmax impl of the reference is ported; an unknown one is
     refused."""
