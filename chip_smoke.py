@@ -117,13 +117,21 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             Every kernel of a path must have launched, and under grad the
             fused SwiGLU kernel must not (the JAX rule's primal).
             (m) tensor-parallel serving, every rank a spawned process on
-            the one card (gloo): Yi-9B at tp 2 and 4, DeepSeek-V2-Lite at
-            tp 2, full width and depth, the launcher traffic; each rank's
-            attention and MLP/MoE of blocks 0 and 1 within TP_PROBE_TOL of
-            tp 1's on one input, and outside it with its reductions
-            skipped; equal tokens on every rank, each rank's first decode
-            kernel call bit-equal to plain on its head slice, Yi's pools
-            1/tp; token matches against tp 1, steps and memory reported.
+            the one card (gloo): Yi-9B at tp 2 and 4 (full width,
+            SIDE_LAYERS depth, its tp 1 reference at that depth),
+            DeepSeek-V2-Lite at tp 2 (full width and depth), the launcher
+            traffic; each rank's attention and MLP/MoE of blocks 0 and 1
+            within TP_PROBE_TOL of tp 1's on one input, and outside it with
+            its reductions skipped; equal tokens on every rank, each rank's
+            first decode kernel call bit-equal to plain on its head slice,
+            Yi's pools 1/tp; token matches against tp 1, steps and memory
+            reported. In the tp 2 group, Yi-9B and DeepSeek-V2-Lite at
+            SIDE_LAYERS depth with kv_shard="seq_model" on the dense plane
+            (each rank T/tp positions of every KV head, the split CORDIC
+            softmax): the same probe and token gates, each rank's first
+            call of each split launch bit-equal to plain, the split result
+            bit-equal to whole-row softmax_2d on the rank's gathered
+            scores.
             (n) the train step on a ("data", "model") mesh, every rank a
             spawned process on the one card (gloo), 4 steps (2 with data
             ranks) of launch/train.rank_train on 8 x 32 tokens, the CORDIC
@@ -615,6 +623,8 @@ def kernel_phase(torch, card, records, ycfg, dcfg):
     sub_phase("kernels (3) softmax_2d", t_sub)
     dense_decode_softmax(torch, card, SM, ycfg, gen, ops)
     sub_phase("kernels (3b) softmax_2d dense decode", t_sub)
+    split_softmax_records(torch, card, records, SM, ycfg, gen)
+    sub_phase("kernels (3c) softmax_2d split form", t_sub)
 
     decode_kernels(torch, card, records, ycfg, dcfg, ops)
     t_sub[0] = time.perf_counter()
@@ -865,6 +875,75 @@ def dense_decode_softmax(torch, card, SM, ycfg, gen, ops):
             library=times(torch, lambda: torch.softmax(s, dim=-1)))
         log(f"[softmax_2d] dense decode attend {rec['shape']} (k_len "
             f"{k_len.tolist()} a slot): bit-exact; {fmt_times(rec)}")
+
+
+#: the split launches' records (kv_shard="seq_model"), profiler name parts
+SPLIT_LAUNCHES = ("softmax_split_max", "softmax_split_windows", "softmax_split_probs")
+
+
+def split_softmax_records(torch, card, records, SM, ycfg, gen):
+    """softmax_2d's split form (kv_shard="seq_model") at Yi's dense decode
+    spans: SLOTS x H rows of MAX_LEN lanes cut over tp 2 (the tp path's seq
+    run, recorded), then the dry run's decode_32k span, 8 x H rows of 32768
+    lanes cut over tp 16 (logged); each row masked past its slot's length
+    (ragged, one vacant slot). The three launches span by span, the max
+    and the concatenation between them here: the joined result bit-equal
+    to whole-row softmax_2d; each launch on rank 0's span bit-equal to its
+    plain version and timed beside its plain version and the PyTorch call
+    (torch.amax for the max, none for the window sums, torch.softmax on the
+    span for the probabilities); bounds from kernels/cost.py's work."""
+    from repro_torch.cordic_engine.core import PAPER_FIXED
+    from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE
+
+    c = kcost()
+    dev = torch.device(DEV)
+    H = ycfg.num_heads
+    for T, tp, slots, keep in ((MAX_LEN, 2, SLOTS, True), (32768, 16, 8, False)):
+        span = T // tp
+        k_len = torch.tensor([T, (3 * T) // 4, T // 3, 1] * (slots // 4), device=dev)
+        s = torch.randn(slots * H, T, generator=gen, device=dev) * 4
+        kpos = torch.arange(T, device=dev)[None, :]
+        s = torch.where(kpos < k_len.repeat_interleave(H)[:, None], s,
+                        torch.full_like(s, -1e30)).contiguous()
+        xs = [s[:, r * span:(r + 1) * span].contiguous() for r in range(tp)]
+        m = torch.stack([SM.softmax_split_max(x) for x in xs]).amax(0)
+        w = torch.cat([SM.softmax_split_windows(x, m) for x in xs], dim=-1)
+        p = torch.cat([SM.softmax_split_probs(x, m, w) for x in xs], dim=-1)
+        check(torch.equal(p, SM.softmax_2d(s)), f"the split softmax over {tp} spans of "
+              f"{list(s.shape)} differs from whole-row softmax_2d")
+        x0 = xs[0]
+        work = {"softmax_split_max": c.row_max_work(x0),
+                "softmax_split_windows": c.softmax_split_windows_work(
+                    x0, PAPER_SCHEDULE, PAPER_FIXED),
+                "softmax_split_probs": c.softmax_split_probs_work(
+                    x0, w, PAPER_SCHEDULE, PAPER_FIXED)}
+        calls = {"softmax_split_max": (lambda: SM.softmax_split_max(x0),
+                                       lambda: SM.softmax_split_max_plain(x0),
+                                       lambda: torch.amax(x0, dim=-1)),
+                 "softmax_split_windows": (lambda: SM.softmax_split_windows(x0, m),
+                                           lambda: SM.softmax_split_windows_plain(x0, m),
+                                           None),
+                 "softmax_split_probs": (lambda: SM.softmax_split_probs(x0, m, w),
+                                         lambda: SM.softmax_split_probs_plain(x0, m, w),
+                                         lambda: torch.softmax(x0, dim=-1))}
+        for name in SPLIT_LAUNCHES:
+            kern, plain, lib = calls[name]
+            a, b = kern(), plain()
+            check(torch.equal(a, b), f"{name} on {list(x0.shape)} differs from its "
+                  "plain version")
+            bound, by = card.bound(*work[name])
+            rec = timed(
+                dict(shape=list(x0.shape), max_abs_err=float((a - b).abs().max()),
+                     bound_ms=bound, bound_by=by),
+                kernel=times(torch, kern, name + "_kernel"),
+                plain=times(torch, plain, None, 3, 1),
+                library=times(torch, lib) if lib is not None else None)
+            if keep:
+                records[name] = rec
+            log(f"[{name}] span {rec['shape']} of {list(s.shape)} over tp {tp}: "
+                f"bit-exact; {fmt_times(rec)}")
+        log(f"[softmax_2d split] {list(s.shape)} over {tp} spans: bit-equal to "
+            "whole-row softmax_2d")
 
 
 def long_softmax_rows(torch, gen):
@@ -3310,17 +3389,25 @@ def train_identity_phase(torch, archs=TRAIN_ID_ARCHS):
 # ---------------------------------------------------------------------------
 # Phase 4 (m): tensor parallelism, every rank on the one card
 # ---------------------------------------------------------------------------
-#: the tensor-parallel runs: (arch, tp). For the attention archs tp 1 is
-#: the serve path's run of the same traffic, model and engine knobs; the
-#: recurrent pair runs at full width cut to SIDE_LAYERS blocks on the dense
-#: plane, its tp 1 reference the same model served in this process
+#: the tensor-parallel runs: (run, tp), a run an arch or an arch with
+#: " seq" (kv_shard="seq_model" on the dense plane). DeepSeek-V2-Lite's
+#: heads cut serves at full depth against the serve path's run of the same
+#: traffic, model and engine knobs; every other run is cut to SIDE_LAYERS
+#: blocks (the recurrent pair's on the dense plane) and its tp 1 reference
+#: is the same model served in this process
+SEQ = " seq"
 TP_RUNS = (("yi-9b", 2), ("yi-9b", 4), (DEEPSEEK, 2),
-           ("xlstm-1.3b", 2), ("xlstm-1.3b", 4), ("zamba2-1.2b", 2))
-#: the kernels each arch's ranks must launch
+           ("xlstm-1.3b", 2), ("xlstm-1.3b", 4), ("zamba2-1.2b", 2),
+           ("yi-9b" + SEQ, 2), (DEEPSEEK + SEQ, 2))
+#: the kernels each run's ranks must launch
 TP_KERNELS = {"yi-9b": ("gqa_decode", "silu_mul_2d", "softmax_2d"),
               DEEPSEEK: ("mla_decode", "act_2d", "silu_mul_2d", "softmax_2d"),
               "xlstm-1.3b": ("act_2d",),
-              "zamba2-1.2b": ("act_2d", "silu_mul_2d", "softmax_2d")}
+              "zamba2-1.2b": ("act_2d", "silu_mul_2d", "softmax_2d"),
+              "yi-9b" + SEQ: ("silu_mul_2d",) + SPLIT_LAUNCHES,
+              DEEPSEEK + SEQ: ("act_2d", "silu_mul_2d") + SPLIT_LAUNCHES}
+#: positions of the probe's dense cache under kv_shard="seq_model"
+PROBE_LEN = 128
 
 
 #: the sublayer probe's bound: max |tp n - tp 1| over max |tp 1| of each
@@ -3329,24 +3416,27 @@ TP_KERNELS = {"yi-9b": ("gqa_decode", "silu_mul_2d", "softmax_2d"),
 TP_PROBE_TOL = 2 ** -5
 
 
-def tp_cfg(arch, smoke=False):
-    """The config every tp run of ``arch`` serves (``smoke``: the smoke one,
+def tp_cfg(run, smoke=False):
+    """The config every tp run of ``run`` serves (``smoke``: the smoke one,
     Yi's one KV head padded to 4 so that it divides tp, the xLSTM's 2 heads
-    made 4). A recurrent arch is cut to its SIDE_LAYERS blocks (xLSTM: 7
-    mLSTMs and the sLSTM at index 7; Zamba2: two shared-block
-    applications)."""
+    made 4). Every run but DeepSeek-V2-Lite's heads cut is cut to its
+    SIDE_LAYERS blocks (xLSTM: 7 mLSTMs and the sLSTM at index 7; Zamba2:
+    two shared-block applications); a " seq" run sets
+    kv_shard="seq_model"."""
     import dataclasses
 
     from repro_torch import configs
 
+    arch, seq = run.removesuffix(SEQ), run.endswith(SEQ)
     get = configs.get_smoke if smoke else configs.get_config
     cfg = dataclasses.replace(get(arch, act_impl="cordic_pallas"),
-                              softmax_impl="cordic_pallas")
+                              softmax_impl="cordic_pallas",
+                              kv_shard="seq_model" if seq else "auto")
     if smoke and arch == "xlstm-1.3b":
         cfg = dataclasses.replace(cfg, num_heads=4, num_kv_heads=4)
     elif smoke and cfg.mla is None and arch in ("yi-9b",):
         cfg = dataclasses.replace(cfg, pad_heads_to=4)
-    if arch in RECURRENT_ARCHS and not smoke:
+    if run != DEEPSEEK and not smoke:
         n = SIDE_LAYERS[arch]
         cfg = dataclasses.replace(cfg, num_layers=n, block_pattern=cfg.block_pattern[:n])
     return cfg
@@ -3360,7 +3450,10 @@ def tp_probe(model, cfg, mesh, dev, reduce=True):
     attention and MLP. Every sublayer gets the same input at every tp, so
     the MoE's routing is the same and only the partial sums' rounding may
     differ. ``reduce=False``: the rank's reductions skipped (each output
-    its partial sum), the error the probe's bound must catch."""
+    its partial sum), the error the probe's bound must catch. Under
+    kv_shard="seq_model" on a mesh the attention runs through a fresh
+    dense cache of PROBE_LEN positions (the rank's span of them), as a
+    prefill from position 0: the position cut is a cache's."""
     import torch
 
     from repro_torch.distributed import sharding as shd
@@ -3368,10 +3461,18 @@ def tp_probe(model, cfg, mesh, dev, reduce=True):
     from repro_torch.models import common as cm
     from repro_torch.models import mlp as mlpm
     from repro_torch.models import moe as moem
+    from repro_torch.models import transformer as tf
 
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(2, 12, cfg.d_model, generator=g, device=dev).to(cm.dtype_of(cfg.dtype))
     apply_attn = attn.mla_apply if cfg.mla is not None else attn.gqa_apply
+
+    def cache(i):
+        if not shd.seq_cut(cfg, mesh):
+            return None
+        return tf.init_cache(cfg, x.shape[0], PROBE_LEN, device=dev, mesh=mesh,
+                             kv_heads=shd.local_kv_heads(cfg, mesh)).layers[i]
+
     out, red = {}, shd.all_reduce_
     if not reduce:
         shd.all_reduce_ = lambda t, mesh=None: t
@@ -3388,7 +3489,8 @@ def tp_probe(model, cfg, mesh, dev, reduce=True):
                 blocks = list(enumerate(model.blocks[:2]))
             for i, blk in blocks:
                 out[f"block {i} attention"] = apply_attn(
-                    blk.attn, cm.rmsnorm(blk.ln1, x, cfg.norm_eps), cfg, cache=None)
+                    blk.attn, cm.rmsnorm(blk.ln1, x, cfg.norm_eps), cfg,
+                    cache=cache(i) if isinstance(i, int) else None)
                 h = cm.rmsnorm(blk.ln2, x, cfg.norm_eps)
                 if blk.is_moe:
                     out[f"block {i} moe"] = moem.moe_apply(blk.ffn, h, cfg)[0]
@@ -3403,7 +3505,8 @@ def tp_probe(model, cfg, mesh, dev, reduce=True):
 def tp_probe_ref(arch, smoke=False):
     """``tp_probe`` at tp 1 on an attention arch cut to its first two
     blocks: the weights are drawn leaf by leaf from one generator,
-    embedding first, so blocks 0 and 1 are the full model's."""
+    embedding first, so blocks 0 and 1 are the full model's (and a
+    SIDE_LAYERS cut's: the reference of the arch's every run)."""
     import dataclasses
 
     import torch
@@ -3430,16 +3533,21 @@ def tp_rank(job):
     request, launch counts and the mesh's collective counts zeroed just
     before. On the paged plane the first decode step's decode kernel call
     is kept and held against its plain version on the same head slice after
-    the run. Then ``tp_probe`` on the rank's shard, with its reductions and
-    without."""
+    the run. A " seq" run (kv_shard="seq_model", dense plane) keeps each
+    split softmax launch's first call instead, held against its plain
+    version, and the first probabilities against whole-row softmax_2d on
+    the ranks' gathered scores. Then ``tp_probe`` on the rank's shard, with
+    its reductions and without."""
     if isinstance(job, list):
         return [tp_rank(j) for j in job]
     import torch
 
     from repro_torch import obs as obs_lib
+    from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import softmax_cordic as SM
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import transformer as tf
@@ -3450,7 +3558,8 @@ def tp_rank(job):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = tp_cfg(job["arch"], job.get("smoke", False))
     mesh = mesh_lib.mesh_or_none(job["tp"])
-    paged = tf.attention_only(cfg)
+    seq = shd.seq_cut(cfg, mesh)
+    paged = tf.attention_only(cfg) and cfg.kv_shard == "auto"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3480,6 +3589,21 @@ def tp_rank(job):
         return out
 
     setattr(kops, attr, spy)
+    split = {}
+
+    def split_spy(name):
+        fn = getattr(SM, name)
+
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            if name not in split:
+                split[name] = ([keep(t) for t in a], out.clone())
+            return out
+        return fn, call
+
+    split_orig = {n: split_spy(n) for n in SPLIT_LAUNCHES} if seq else {}
+    for n, (_, call) in split_orig.items():
+        setattr(SM, n, call)
     obs = obs_lib.Observability()
     eng.attach_obs(obs)
     reqs = make_requests(cfg, REQUESTS, MAX_NEW, seed=0)
@@ -3501,7 +3625,23 @@ def tp_rank(job):
     wall = time.perf_counter() - t0
     counts = dict(build.LAUNCHES)
     setattr(kops, attr, orig)
+    for n, (fn, _) in split_orig.items():
+        setattr(SM, n, fn)
     res = {}
+    if seq:
+        plains = {"softmax_split_max": SM.softmax_split_max_plain,
+                  "softmax_split_windows": SM.softmax_split_windows_plain,
+                  "softmax_split_probs": SM.softmax_split_probs_plain}
+        res["split_bit_equal"] = {
+            n: bool(torch.equal(plains[n](*split[n][0]), split[n][1]))
+            for n in SPLIT_LAUNCHES}
+        x, m, w = split["softmax_split_probs"][0]
+        whole = SM.softmax_2d(torch.cat(shd.all_gather(x, mesh), dim=-1))
+        span = x.shape[1]
+        res["split_shape"] = list(x.shape)
+        res["whole_bit_equal"] = bool(torch.equal(
+            whole[:, mesh.model_rank * span:(mesh.model_rank + 1) * span],
+            split["softmax_split_probs"][1]))
     if paged:
         plain = PA.mla_decode_plain if mla else PA.gqa_decode_plain
         ref = plain(*first["args"], **first["kw"])
@@ -3523,11 +3663,13 @@ def tp_rank(job):
                peak_gib=(torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0),
                pool_bytes=eng.kv_pool_bytes(), state_bytes=eng.state_bytes(),
                cache_bytes=eng.kv_cache_bytes(), launches=counts,
+               kv_shape=list(next((v.shape for k, v in eng._caches.layers[0].items()
+                                   if k in ("k", "c_kv", "k_pool", "c_kv_pool")), ())),
                backend=mesh.backend if mesh is not None else "none",
                staged=bool(mesh is not None and mesh.staged and cuda),
                all_reduces=stats.get("all_reduce", 0),
                collective_bytes=stats.get("bytes", 0))
-    del eng, model, first
+    del eng, model, first, split
     if cuda:
         torch.cuda.empty_cache()
     return res
@@ -3546,24 +3688,31 @@ def tp_state_bytes(cfg, tp, base):
 
 
 def tp_path(torch, build, ref, smoke=False, runs=TP_RUNS):
-    """(m) tensor-parallel serving on the one card: Yi-9B at full width and
-    depth at tp 2 and 4, DeepSeek-V2-Lite at full width and depth at tp 2,
-    xLSTM-1.3B at tp 2 and 4 and Zamba2-1.2B at tp 2 at full width cut to
-    SIDE_LAYERS blocks (dense plane), one process per rank (gloo: NCCL
-    refuses two ranks on one device; CUDA tensors staged through host
-    memory); the runs of one tp share one group of ranks. The attention
-    archs serve the same traffic as the serve path's tp 1 run (``ref``:
-    {arch: its stats}); a recurrent arch's tp 1 reference is the same
-    model served here (``tp_rank`` at tp 1). Gates: each sublayer on every
+    """(m) tensor-parallel serving on the one card: Yi-9B at full width cut
+    to SIDE_LAYERS blocks at tp 2 and 4, DeepSeek-V2-Lite at full width and
+    depth at tp 2, xLSTM-1.3B at tp 2 and 4 and Zamba2-1.2B at tp 2 at full
+    width cut to SIDE_LAYERS blocks (dense plane), and at tp 2 Yi-9B and
+    DeepSeek-V2-Lite cut to SIDE_LAYERS blocks with kv_shard="seq_model" on
+    the dense plane, one process per rank (gloo: NCCL refuses two ranks on
+    one device; CUDA tensors staged through host memory); the runs of one
+    tp share one group of ranks. DeepSeek-V2-Lite's heads cut serves the
+    same traffic as the serve path's tp 1 run (``ref``: {arch: its
+    stats}); every other run's tp 1 reference is the same model served here
+    (``tp_rank`` at tp 1; a " seq" run's is the whole dense cache). Gates:
+    each sublayer on every
     rank's shard computes tp 1's output on the same input within
     TP_PROBE_TOL, and lands outside it with the rank's reductions skipped
     (``tp_probe``: a wrong cut, slice or reduction fails it); every rank
     emits the same tokens, each rank's first decode-kernel call on its head
     slice is bit-equal to the plain version (paged plane), each Yi rank's
     pools hold 1/tp of tp 1's bytes, each recurrent rank's state 1/tp of
-    tp 1's but the stated Mamba2 B / C columns (``tp_state_bytes``), every
-    rank launched its arch's kernels. Reported: token matches against tp 1,
-    step p50, tok/s, the collective span's p50, each rank's peak memory.
+    tp 1's but the stated Mamba2 B / C columns (``tp_state_bytes``), each
+    " seq" rank's cache T/tp positions of every KV head and its first call
+    of each split launch bit-equal to plain, the split probabilities
+    bit-equal to whole-row softmax_2d on the gathered scores, every rank
+    launched its run's kernels. Reported: token matches against tp 1 (and
+    a " seq" run's against the heads cut's tp 2 run), step p50, tok/s, the
+    collective span's p50, each rank's peak memory.
     ``smoke``: the smoke configs (a CPU rehearsal). Returns {(arch, tp):
     [each rank's launch counts]}."""
     from repro_torch.launch import mesh as mesh_lib
@@ -3573,16 +3722,22 @@ def tp_path(torch, build, ref, smoke=False, runs=TP_RUNS):
         torch.cuda.empty_cache()
     out, probe_ref, ref = {}, {}, dict(ref)
     t0 = time.perf_counter()
-    for arch in dict.fromkeys(a for a, _ in runs):
-        if arch in RECURRENT_ARCHS:
-            base = tp_rank(dict(arch=arch, tp=1, device=DEV, smoke=smoke))
-            ref[arch], probe_ref[arch] = base, base["probe"]["sound"]
-            log(f"[path tp {arch} tp=1] {tp_cfg(arch, smoke).num_layers} layers, dense "
-                f"plane: step p50 {base['step_ms_p50']:.2f} ms, {base['tok_s']:.2f} tok/s, "
-                f"state bytes {base['state_bytes']}, peak {base['peak_gib']:.2f} GiB; "
-                f"launches {base['launches']}")
-        else:
-            probe_ref[arch] = tp_probe_ref(arch, smoke)
+    for run in dict.fromkeys(a for a, _ in runs):
+        arch = run.removesuffix(SEQ)
+        if run not in ref:
+            base = tp_rank(dict(arch=run, tp=1, device=DEV, smoke=smoke))
+            ref[run] = base
+            if arch in RECURRENT_ARCHS:
+                probe_ref[run] = base["probe"]["sound"]
+            cfg = tp_cfg(run, smoke)
+            log(f"[path tp {run} tp=1] {cfg.num_layers} layers, "
+                f"{'paged' if base['pool_bytes'] else 'dense'} plane: step p50 "
+                f"{base['step_ms_p50']:.2f} ms, {base['tok_s']:.2f} tok/s, state bytes "
+                f"{base['state_bytes']}, KV {base['kv_shape']}, peak "
+                f"{base['peak_gib']:.2f} GiB; launches {base['launches']}")
+        if run not in probe_ref:
+            probe_ref[run] = probe_ref.get(arch) or tp_probe_ref(arch, smoke)
+            probe_ref.setdefault(arch, probe_ref[run])
     log(f"[time] [path tp] references: {time.perf_counter() - t0:.1f} s")
     for tp in dict.fromkeys(t for _, t in runs):
         t0 = time.perf_counter()
@@ -3595,14 +3750,22 @@ def tp_path(torch, build, ref, smoke=False, runs=TP_RUNS):
                                    timeout=200 * len(jobs))
         for j, arch in enumerate(archs):
             res = [g[j] for g in group]
-            tp_gates(arch, tp, res, ref[arch], probe_ref[arch], smoke)
+            # a seq run's heads cut: the same arch's run in this group, where
+            # it serves the same depth
+            cut = arch.removesuffix(SEQ)
+            heads = (group[0][archs.index(cut)] if arch.endswith(SEQ) and cut in archs
+                     and tp_cfg(cut, smoke).num_layers == tp_cfg(arch, smoke).num_layers
+                     else None)
+            tp_gates(arch, tp, res, ref[arch], probe_ref[arch], smoke, heads)
             out[(arch, tp)] = [r["launches"] for r in res]
         log(f"[time] [path tp] tp={tp} group {archs}: {time.perf_counter() - t0:.1f} s")
     return out
 
 
-def tp_gates(arch, tp, res, base, probe_ref, smoke):
-    """``tp_path``'s gates and report for one (arch, tp) run."""
+def tp_gates(arch, tp, res, base, probe_ref, smoke, heads=None):
+    """``tp_path``'s gates and report for one (run, tp) run; ``heads``: a
+    " seq" run's heads-cut run of the same arch and tp (rank 0's result),
+    whose tokens are reported beside tp 1's."""
     tag = f"[path tp {arch} tp={tp}]"
     check(all(r["done"] for r in res), f"{tag} every request finishes on every rank")
     check(all(r["out"] == res[0]["out"] for r in res),
@@ -3619,9 +3782,21 @@ def tp_gates(arch, tp, res, base, probe_ref, smoke):
         check(min(errs["unreduced"]) > TP_PROBE_TOL,
               f"{tag} {name}: the probe cannot tell a skipped reduction")
     recurrent = arch in RECURRENT_ARCHS
+    seq = arch.endswith(SEQ)
     cfg = tp_cfg(arch, smoke)
     for r in res:
-        if not recurrent:
+        if seq:
+            for n, ok in r["split_bit_equal"].items():
+                check(ok, f"{tag} rank {r['rank']}: the first {n} call on "
+                      f"{r['split_shape']} differs from its plain version")
+            check(r["whole_bit_equal"], f"{tag} rank {r['rank']}: the split softmax "
+                  f"on {r['split_shape']} differs from whole-row softmax_2d on the "
+                  "ranks' gathered scores")
+            b = base["kv_shape"]
+            check(r["kv_shape"] == [b[0], b[1] // tp] + b[2:],
+                  f"{tag} rank {r['rank']}: KV buffer {r['kv_shape']} is not T/{tp} "
+                  f"positions of tp 1's {b}")
+        elif not recurrent:
             check(r["kernel_bit_equal"], f"{tag} rank {r['rank']}: the first decode "
                   f"step's kernel on its head slice {r['kernel_q_shape']} differs from "
                   f"plain by {r['kernel_err']}")
@@ -3641,6 +3816,15 @@ def tp_gates(arch, tp, res, base, probe_ref, smoke):
     same = sum(a == b for rid, toks in base["out"].items()
                for a, b in zip(toks, res[0]["out"][rid]))
     r0 = res[0]
+    if seq:
+        vs_heads = (sum(a == b for rid, toks in heads["out"].items()
+                        for a, b in zip(toks, r0["out"][rid])) if heads else None)
+        log(f"{tag} kv_shard=seq_model, dense plane: KV buffer per rank "
+            f"{r0['kv_shape']} (tp 1: {base['kv_shape']}); token match against the "
+            f"heads cut's tp {tp} run (paged plane): "
+            f"{f'{vs_heads}/' + str(base['tokens']) if heads else 'none at this depth'}; each "
+            f"rank's first split launches on {r0['split_shape']} bit-equal to plain, "
+            f"the split result bit-equal to whole-row softmax_2d")
     log(f"{tag} backend {r0['backend']}, CUDA tensors staged through host memory: "
         f"{'yes' if r0['staged'] else 'no'}; {tp} ranks on one card; init "
         f"{[round(r['init_s'], 1) for r in res]} s")
@@ -3657,6 +3841,10 @@ def tp_gates(arch, tp, res, base, probe_ref, smoke):
             f"columns' {extra} bytes), peak memory GiB "
             f"{[round(r['peak_gib'], 2) for r in res]}; "
             f"launches {[r['launches'] for r in res]}")
+    elif seq:
+        log(f"{tag} per rank: peak memory GiB {[round(r['peak_gib'], 2) for r in res]}, "
+            f"cache bytes {[r['cache_bytes'] for r in res]} (tp 1: "
+            f"{base['cache_bytes']}); launches {[r['launches'] for r in res]}")
     else:
         log(f"{tag} per rank: peak memory GiB "
             f"{[round(r['peak_gib'], 2) for r in res]}, pool bytes "
@@ -4124,6 +4312,9 @@ KERNELS = {
                  "src/repro/kernels/cordic_act.py:385"),
     "mla_decode": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
                    "src/repro/kernels/paged_attention.py:421"),
+    # softmax_2d's split form (kv_shard="seq_model"): its three launches
+    **{n: ("cuda", "src/repro_torch/kernels/csrc/softmax.cu",
+           "src/repro/kernels/softmax_cordic.py:161") for n in SPLIT_LAUNCHES},
     # the branches ported after their kernels, each on its own path
     "act_2d[gelu_erf]": ("cuda", "src/repro_torch/kernels/csrc/act.cu",
                          "src/repro/kernels/cordic_act.py:368"),
@@ -4391,12 +4582,12 @@ def main(argv=None) -> int:
 
         cfg = dataclasses.replace(ycfg, softmax_impl="cordic_pallas")
         model = tf.init(cfg, seed=0, device=DEV)
-        _, st = serve_run(torch, build, "yi-9b", cfg, model)
+        serve_run(torch, build, "yi-9b", cfg, model)
         del model
         torch.cuda.empty_cache()
         phase_done("path serve yi-9b (its main run)")
-        tp_counts = tp_path(torch, build, {"yi-9b": st},
-                            runs=[r for r in TP_RUNS if r[0] != DEEPSEEK])
+        tp_counts = tp_path(torch, build, {},
+                            runs=[r for r in TP_RUNS if not r[0].startswith(DEEPSEEK)])
         phase_done("path tp")
         log(f"[tp] launches: {tp_counts}")
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -4474,8 +4665,10 @@ def main(argv=None) -> int:
         for k in ("act_2d", "silu_mul_2d", "softmax_2d"):
             check(c.get(k, 0) == 0, f"{name} cordic_fixed launched {k}")
     check(ds_fixed.get("gqa_decode", 0) == 0, "DeepSeek cordic_fixed launched gqa_decode")
-    tp_counts = tp_path(torch, build, {"yi-9b": yi["cordic_pallas"][1],
-                                       DEEPSEEK: ds["cordic_pallas"][1]})
+    tp_counts = tp_path(torch, build, {DEEPSEEK: ds["cordic_pallas"][1]})
+    for k in SPLIT_LAUNCHES:
+        check(sum(c.get(k, 0) for run, ranks in tp_counts.items() if run[0].endswith(SEQ)
+                  for c in ranks) > 0, f"the kv_shard=seq_model runs never launched {k}")
     phase_done("path tp")
     mesh_counts = mesh_train_path(torch, build)
     phase_done("path mesh-train")

@@ -20,7 +20,10 @@ differently from a plain reading of the source (jax 0.9.0, measured):
 * **Row sums.** A float32 reduction of more than 32 elements is split into
   windows of 32, each summed left to right, then the window sums left to
   right; the row is padded to a whole number of windows with the smaller
-  half of the padding in front. ``xla_sum`` replays that order.
+  half of the padding in front. ``xla_sum`` replays that order;
+  ``window_sums`` is its first level over a row of whole windows, so a row
+  cut into spans of whole windows sums as the whole row does when the
+  spans' window sums are joined and ``xla_sum`` finishes them.
 
 ``log2`` is ``log(x) / log(2)`` in the input's dtype, as ``jnp.log2``.
 ``sqrt`` is correctly rounded, as XLA's (torch's float32 CPU sqrt is not:
@@ -150,6 +153,15 @@ def _seq(x: torch.Tensor) -> torch.Tensor:
     return s
 
 
+def window_sums(x: torch.Tensor) -> torch.Tensor:
+    """The first level of ``xla_sum`` over a last axis of whole windows:
+    (..., 32 w) -> (..., w), each window of 32 summed left to right."""
+    n = x.shape[-1]
+    if n % SUM_WINDOW:
+        raise ValueError(f"{n} lanes are not whole windows of {SUM_WINDOW}")
+    return _seq(x.reshape(x.shape[:-1] + (n // SUM_WINDOW, SUM_WINDOW)))
+
+
 def xla_sum(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
     """Sum along ``dim`` in XLA:CPU's order (see the module docstring)."""
     xm = torch.movedim(x, dim, -1)
@@ -161,6 +173,6 @@ def xla_sum(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tens
             lo = xm.new_zeros(xm.shape[:-1] + (pad // 2,))
             hi = xm.new_zeros(xm.shape[:-1] + (pad - pad // 2,))
             xm = torch.cat([lo, xm, hi], dim=-1)
-        xm = _seq(xm.reshape(xm.shape[:-1] + (w, SUM_WINDOW)))
+        xm = window_sums(xm)
     s = _seq(xm) if xm.shape[-1] else xm.sum(-1)
     return s.unsqueeze(dim) if keepdim else s

@@ -62,6 +62,13 @@ models/ssm.py and models/xlstm.py: the gated RMSNorms over d_inner reduce
 their sums of squares, the row-parallel products are summed once, and the
 sLSTM gathers its hidden state (``gather_heads``) after its time loop.
 
+``cfg.kv_shard="seq_model"`` cuts the dense KV caches by position over
+the model axis instead of by KV head (``seq_cut``; ``resolve_kv_shard``
+keeps the heads cut where the axis does not divide the length, and on the
+paged plane); the parameters keep their cut, and the attention step
+gathers the queries over the heads and reduces its softmax and P.V over
+the ranks (models/attention.py).
+
 Collectives run on the process group's model axis (``Mesh.group``), and
 the train step's on its data axis (``Mesh.data_group``). The gloo backend
 takes CUDA tensors for ``all_reduce`` only through its own copies; the
@@ -567,12 +574,62 @@ def zero1_slices(model: nn.Module, mesh) -> Dict[str, Range]:
 
 
 def local_kv_heads(cfg, mesh) -> int:
-    """KV heads of one rank's GQA pools: KH' / tp when it divides, else
-    the whole KH' (padded)."""
+    """KV heads of one rank's GQA pools and buffers: KH' / tp when it
+    divides, else the whole KH' (padded); every KV head when the dense
+    caches' positions are cut instead (``seq_cut``)."""
     from repro_torch.models.attention import padded_heads
 
     kh = padded_heads(cfg)[1]
+    if seq_cut(cfg, mesh):
+        return kh
     return kh // mesh.tp if mesh is not None and kh % mesh.tp == 0 else kh
+
+
+# ---------------------------------------------------------------------------
+# kv_shard: the dense caches' positions over the model axis
+# ---------------------------------------------------------------------------
+#: the values of ``cfg.kv_shard``
+KV_SHARDS = ("auto", "seq_model")
+#: the softmax datapaths whose split form keeps the whole row's sum order,
+#: which needs every rank's span to be whole 32-lane windows
+_WINDOWED = ("cordic_pallas", "cordic_fixed")
+
+
+def seq_cut(cfg, mesh=None) -> bool:
+    """Whether a dense KV cache on ``mesh`` (the ambient serving mesh by
+    default) holds a span of the positions with every KV head, rank r the
+    positions [r T / tp, (r + 1) T / tp) (the JAX ``kv_shard="seq_model"``
+    cache spec), rather than the heads cut: ``cfg.kv_shard == "seq_model"``
+    on more than one model rank. ``resolve_kv_shard`` has already turned
+    the knob off where the axis does not divide the length."""
+    mesh = active_serving_mesh() if mesh is None else mesh
+    return (getattr(cfg, "kv_shard", "auto") == "seq_model" and mesh is not None
+            and mesh.tp > 1)
+
+
+def resolve_kv_shard(cfg, mesh, max_len: int, dense: bool = True):
+    """``cfg`` as the KV plane of ``max_len`` positions on ``mesh`` serves
+    it. ``"seq_model"`` cuts the dense plane's positions where the model
+    axis divides ``max_len`` (the JAX spec's ``S % model == 0``); elsewhere,
+    and on the paged plane, which never reads the knob, the heads cut stays
+    and the knob reads ``"auto"``. A CORDIC softmax (``cordic_pallas``,
+    ``cordic_fixed``) whose span ``max_len / tp`` is not whole 32-lane
+    windows is refused: its split row sum would leave the whole row's
+    order. Raises ValueError on an unknown value."""
+    import dataclasses
+
+    kv = getattr(cfg, "kv_shard", "auto")
+    if kv not in KV_SHARDS:
+        raise ValueError(f"unknown kv_shard {kv!r}, not in {KV_SHARDS}")
+    if kv == "auto" or mesh is None or mesh.tp == 1:
+        return cfg
+    if not dense or max_len % mesh.tp:
+        return dataclasses.replace(cfg, kv_shard="auto")
+    if getattr(cfg, "softmax_impl", "exact") in _WINDOWED:
+        from repro_torch.kernels.softmax_cordic import check_span
+
+        check_span(max_len // mesh.tp)
+    return cfg
 
 
 # ---------------------------------------------------------------------------

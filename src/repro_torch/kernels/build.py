@@ -243,6 +243,12 @@ _SIGNATURES = {
         # (x, y, rows, cols, cluster, windows, smem, staged, params, table,
         #  half, stream)
         "cordic_log_softmax_2d": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P),
+        # the split form: (x, m, rows, cols, stream); (x, m, w, rows, cols,
+        # params, table, half, stream); (x, m, w, y, rows, cols, nw, params,
+        # table, half, stream)
+        "cordic_softmax_split_max": (_P, _P, _I, _I, _P),
+        "cordic_softmax_split_windows": (_P, _P, _P, _I, _I, _P, _P, _I, _P),
+        "cordic_softmax_split_probs": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P),
     },
     "paged_decode": {
         # (q, q_dtype, k_pool, v_pool, pool_dtype, k_scale, v_scale,

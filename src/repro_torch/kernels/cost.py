@@ -162,6 +162,31 @@ def softmax_2d_work(x, sched, fixed):
             _ops(sched, fixed, "softmax_lane") * _live(x), 0)
 
 
+def row_max_work(x):
+    """softmax_split_max: the span read, a float32 max a row written, one
+    compare a lane."""
+    return x.numel() * x.element_size() + 4 * x.shape[0], 0, x.numel()
+
+
+def softmax_split_windows_work(x, sched, fixed):
+    """softmax_split_windows: the span and the row max read, a window sum
+    per 32 lanes written; a rotation per live lane and its add into the
+    window sum."""
+    rows, cols = x.shape
+    nbytes = x.numel() * x.element_size() + 4 * rows + 4 * rows * (cols // 32)
+    return nbytes, _ops(sched, fixed, "log_softmax_lane") * _live(x), 0
+
+
+def softmax_split_probs_work(x, windows, sched, fixed):
+    """softmax_split_probs: the span, the row max and every span's window
+    sums read, the span written; the later levels' adds once a row, and a
+    rotation and the normalize per live lane (as softmax_2d's lane)."""
+    rows = x.shape[0]
+    nbytes = (2 * x.numel() * x.element_size() + 4 * rows
+              + windows.numel() * windows.element_size())
+    return nbytes, _ops(sched, fixed, "softmax_lane") * _live(x), windows.numel()
+
+
 def log_softmax_2d_work(x, sched, fixed):
     rows = x.shape[0]
     if x.device.type == "meta":

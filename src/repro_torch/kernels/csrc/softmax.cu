@@ -64,6 +64,22 @@
 // and one barrier fewer, was faster on the card.) The e^r lookups need the
 // table in L1, so the launch asks for a shared-memory carveout that leaves
 // L1 room for it (kLsCarveout).
+//
+// The split form (softmax_cordic.softmax_split_*; kv_shard="seq_model",
+// a row's positions cut into spans across ranks, each span whole 32-lane
+// windows) replaces no TPU kernel of its own: it is softmax_2d's function
+// taken apart at its two row reductions, so that a rank holds only its
+// span. Three launches a rank, a row per CTA each, built from this file's
+// device functions: softmax_split_max_kernel (block_row_max), then, given
+// the row max the ranks reduced, softmax_split_windows_kernel (the span's
+// e^u window sums by window_sums: level 1 of the row sum starts at the
+// span's first lane, a window edge of the row, so they are the whole row's
+// window sums), then, given every span's window sums, padded with zero
+// windows to the padded row's n1, softmax_split_probs_kernel
+// (xla_tree_sum and the span's normalisation). Bit for bit the whole
+// row's softmax_2d. What bounds it: integer operations, as softmax_2d (a
+// live lane rotates twice, once a launch, on either route); the window
+// sums add 1/32 of the scores' bytes.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -477,6 +493,79 @@ __global__ void __launch_bounds__(kLsThreads, kLsCtasPerSm)
   for (int l = 4 * nv + tid; l < lanes; l += kLsThreads) ys[l] = (lane_x(l) - m) - lns;
 }
 
+// The span's row max, a row per CTA.
+__global__ void __launch_bounds__(kWideThreads)
+    softmax_split_max_kernel(const float* __restrict__ x, float* __restrict__ m, int rows,
+                             int cols) {
+  __shared__ float warp_max[kWideWarps];
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const float v = block_row_max<kWideThreads>(x + (long long)row * cols, cols, warp_max);
+    if (threadIdx.x == 0) m[row] = v;
+    __syncthreads();  // warp_max is the next row's
+  }
+}
+
+// The span's e^(x - m) window sums, a row per CTA: each warp sums the
+// windows of its 1024-lane chunks into w (cols / 32 a row).
+template <bool kTab>
+__global__ void __launch_bounds__(kWideThreads)
+    softmax_split_windows_kernel(const float* __restrict__ x, const float* __restrict__ m,
+                                 float* __restrict__ w, int rows, int cols,
+                                 const CordicParams p, const short* __restrict__ tab,
+                                 int half) {
+  __shared__ float tiles[kWideWarps * kTile];
+  const auto st = RouteStages<kTab>::make(p, tab, half);
+  float* tile = tiles + (threadIdx.x >> 5) * kTile;
+  const int nw = cols / 32;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const float* xr = x + (long long)row * cols;
+    const float mr = m[row];
+    window_sums(cols, nw, tile, w + (long long)row * nw, kWideWarps, [&](int c) {
+      int eq, ki;
+      bool dead;
+      exp_codes(xr[c] - mr, p, st, eq, ki, dead);
+      return exp_value(eq, ki, dead, p);
+    });
+  }
+}
+
+// The span's probabilities, a row per CTA: the row's nw window sums (every
+// span's, in row order) and zero windows up to n1 into shared memory, the
+// later levels by one warp, then the span's lanes normalised.
+template <bool kTab>
+__global__ void __launch_bounds__(kWideThreads)
+    softmax_split_probs_kernel(const float* __restrict__ x, const float* __restrict__ m,
+                               const float* __restrict__ w, float* __restrict__ y, int rows,
+                               int cols, int nw, int n1, const CordicParams p,
+                               const short* __restrict__ tab, int half) {
+  extern __shared__ __align__(16) float f[];
+  const auto st = RouteStages<kTab>::make(p, tab, half);
+  float* part = f;
+  float* part2 = part + n1;
+  float* row_sum = part2 + n1 / 32 + 1;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const float* wr = w + (long long)row * nw;
+    for (int i = threadIdx.x; i < n1; i += kWideThreads) part[i] = i < nw ? wr[i] : 0.0f;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      const float s = xla_tree_sum(part, part2, n1);
+      if (threadIdx.x == 0) *row_sum = s;
+    }
+    __syncthreads();
+    const RowSum rs = row_sum_frexp(*row_sum, p);
+    const float mr = m[row];
+    const float* xr = x + (long long)row * cols;
+    float* yr = y + (long long)row * cols;
+    for (int c = threadIdx.x; c < cols; c += kWideThreads) {
+      int eq, ki;
+      bool dead;
+      exp_codes(xr[c] - mr, p, st, eq, ki, dead);
+      yr[c] = prob_codes(eq, ki, dead, rs, p);
+    }
+    __syncthreads();  // shared memory is the next row's
+  }
+}
+
 int sm_count() {
   static int sms = 0;
   if (sms == 0) {
@@ -568,7 +657,80 @@ int launch_log_softmax(const float* x, float* y, int rows, int cols, int cluster
   return (int)cudaGetLastError();
 }
 
+int launch_split_max(const float* x, float* m, int rows, int cols, cudaStream_t s) {
+  static int resident = 0;
+  if (resident == 0) resident = resident_ctas(softmax_split_max_kernel, kWideThreads, 0);
+  softmax_split_max_kernel<<<std::min(rows, resident), kWideThreads, 0, s>>>(x, m, rows, cols);
+  return (int)cudaGetLastError();
+}
+
+template <bool kTab>
+int launch_split_windows(const float* x, const float* m, float* w, int rows, int cols,
+                         const CordicParams& p, const short* tab, int half, cudaStream_t s) {
+  static int resident = 0;
+  if (resident == 0)
+    resident = resident_ctas(softmax_split_windows_kernel<kTab>, kWideThreads, 0);
+  softmax_split_windows_kernel<kTab><<<std::min(rows, resident), kWideThreads, 0, s>>>(
+      x, m, w, rows, cols, p, tab, half);
+  return (int)cudaGetLastError();
+}
+
+template <bool kTab>
+int launch_split_probs(const float* x, const float* m, const float* w, float* y, int rows,
+                       int cols, int nw, const CordicParams& p, const short* tab, int half,
+                       cudaStream_t s) {
+  const int n1 = cols_padded(32 * nw) / 32;
+  const size_t smem = (size_t)(n1 + n1 / 32 + 2) * sizeof(float);
+  static int allowed = 48 * 1024, resident = 0;
+  static size_t resident_smem = 0;
+  if (!allow_smem(softmax_split_probs_kernel<kTab>, smem, allowed)) {
+    const int e = (int)cudaGetLastError();
+    return e != 0 ? e : (int)cudaErrorInvalidValue;
+  }
+  if (resident == 0 || resident_smem != smem) {
+    resident = resident_ctas(softmax_split_probs_kernel<kTab>, kWideThreads, smem);
+    resident_smem = smem;
+  }
+  softmax_split_probs_kernel<kTab><<<std::min(rows, resident), kWideThreads, smem, s>>>(
+      x, m, w, y, rows, cols, nw, n1, p, tab, half);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The split form's three launches (softmax_cordic.softmax_split_*): x a
+// (rows, cols) span of float32 scores, m (rows,) its row max (the first
+// launch's output, then the ranks' maximum), w the window sums: the span's
+// (rows, cols / 32) from the second launch, every span's (rows, nw) into
+// the third. cols must be whole windows and the spans' windows cover at
+// least the span's, else the launch is refused.
+extern "C" int cordic_softmax_split_max(const void* x, void* m, int rows, int cols,
+                                        void* stream) {
+  if (rows <= 0 || cols <= 0) return (int)cudaGetLastError();
+  return launch_split_max((const float*)x, (float*)m, rows, cols, (cudaStream_t)stream);
+}
+
+extern "C" int cordic_softmax_split_windows(const void* x, const void* m, void* w, int rows,
+                                            int cols, const CordicParams* p, const void* tab,
+                                            int half, void* stream) {
+  if (rows <= 0 || cols <= 0) return (int)cudaGetLastError();
+  if (cols % 32 != 0) return (int)cudaErrorInvalidValue;
+  const short* t = (const short*)tab;
+  const auto launch = t ? launch_split_windows<true> : launch_split_windows<false>;
+  return launch((const float*)x, (const float*)m, (float*)w, rows, cols, *p, t, half,
+                (cudaStream_t)stream);
+}
+
+extern "C" int cordic_softmax_split_probs(const void* x, const void* m, const void* w, void* y,
+                                          int rows, int cols, int nw, const CordicParams* p,
+                                          const void* tab, int half, void* stream) {
+  if (rows <= 0 || cols <= 0) return (int)cudaGetLastError();
+  if (cols % 32 != 0 || 32LL * nw < cols) return (int)cudaErrorInvalidValue;
+  const short* t = (const short*)tab;
+  const auto launch = t ? launch_split_probs<true> : launch_split_probs<false>;
+  return launch((const float*)x, (const float*)m, (const float*)w, (float*)y, rows, cols, nw,
+                *p, t, half, (cudaStream_t)stream);
+}
 
 // tab: the exp-code table of a 16-bit format (null: the pipeline route),
 // its codes [-half, half].

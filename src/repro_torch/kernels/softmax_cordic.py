@@ -36,6 +36,19 @@ table (``code_tables.py``); ``tables`` makes the plain versions do the same.
 The log-softmax kernel splits a row over a thread-block cluster whose CTAs
 each hold whole 32-lane windows of it in shared memory; ``log_softmax_plan``
 chooses the split, so the CPU tests reach it.
+
+The split form (``kv_shard="seq_model"``: a row's positions cut into spans
+across ranks, models/attention.py) takes the same order apart. The max is
+exact in any order, so every lane's u, dyadic reduction and e^r code equal
+the whole row's once the spans' maxima are reduced. The row sum's first
+level is 32-lane windows of the padded row from lane 0, so a span of whole
+windows sums its own windows as the whole row does. Three launches, each
+with its plain version: ``softmax_split_max`` (the span's row max),
+``softmax_split_windows`` (given the row max, the span's e^u window sums)
+and ``softmax_split_probs`` (given every span's window sums, the later
+levels of the row sum and the span's probabilities). Between them the
+caller reduces the maxima and gathers the window sums; the result is bit
+for bit the whole row's ``softmax_2d``.
 """
 from __future__ import annotations
 
@@ -154,6 +167,127 @@ def softmax_2d(x: torch.Tensor, *, sched: MRSchedule = PAPER_SCHEDULE,
         tab, half, build.stream_ptr(x))
     build.check(rc, "softmax_2d")
     build.count("softmax_2d")
+    return y
+
+
+# ---------------------------------------------------------------------------
+# The split form: a row cut into spans of whole windows
+# ---------------------------------------------------------------------------
+def check_span(span: int) -> None:
+    """A span of the split softmax holds whole 32-lane windows."""
+    if span % nx.SUM_WINDOW:
+        raise ValueError(
+            f"a CORDIC softmax row cut into spans of {span} lanes: each span must "
+            f"be a multiple of {nx.SUM_WINDOW} lanes, so that its window sums are "
+            "the whole row's (kv_shard='seq_model' needs max_len / tp to be one)")
+
+
+def split_row_sum(windows: torch.Tensor, cols: int) -> torch.Tensor:
+    """(rows, cols / 32) window sums of the spans, in row order -> (rows, 1)
+    row sum: zero windows up to the padded row's, then the later levels in
+    XLA:CPU's order, as ``_xla_row_sum`` takes them."""
+    n1 = cols_padded(cols) // nx.SUM_WINDOW
+    w = torch.nn.functional.pad(windows, (0, n1 - windows.shape[-1]))
+    return nx.xla_sum(w, -1, keepdim=True)
+
+
+def softmax_split_max_plain(x: torch.Tensor) -> torch.Tensor:
+    """The span's row max: (rows, span) -> (rows,) float32."""
+    return x.to(torch.float32).amax(dim=-1)
+
+
+def softmax_split_windows_plain(x: torch.Tensor, m: torch.Tensor, *,
+                                sched: MRSchedule = PAPER_SCHEDULE,
+                                cfg: FixedConfig = PAPER_FIXED, tables=None) -> torch.Tensor:
+    """The span's e^(x - m) window sums given the whole row's max ``m``
+    (rows,): (rows, span) -> (rows, span / 32)."""
+    check_span(x.shape[-1])
+    u = x.to(torch.float32) - m[:, None]
+    return nx.window_sums(_lane_exp(u, sched, cfg, tables))
+
+
+def softmax_split_probs_plain(x: torch.Tensor, m: torch.Tensor, windows: torch.Tensor,
+                              *, sched: MRSchedule = PAPER_SCHEDULE,
+                              cfg: FixedConfig = PAPER_FIXED, tables=None) -> torch.Tensor:
+    """The span's probabilities given the row max ``m`` (rows,) and every
+    span's window sums ``windows`` (rows, cols / 32, spans in row order):
+    (rows, span) -> (rows, span)."""
+    u = x.to(torch.float32) - m[:, None]
+    ssum = split_row_sum(windows, nx.SUM_WINDOW * windows.shape[-1])
+    return _lane_probs(u, ssum, sched, cfg, tables)
+
+
+def _split_args(x: torch.Tensor, name: str, *others) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"{name} takes a 2D tensor, got {tuple(x.shape)}")
+    for t in (x, *others):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{name}: the kernel takes contiguous float32 on one device")
+
+
+@cost.booked("softmax_split_max", lambda x: cost.row_max_work(x))
+def softmax_split_max(x: torch.Tensor) -> torch.Tensor:
+    """The span's row max (rows,) of a (rows, span) float32 tensor."""
+    if x.device.type == "cpu":
+        return softmax_split_max_plain(x)
+    _split_args(x, "softmax_split_max")
+    rows, cols = x.shape
+    m = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        return m
+    rc = build.library("softmax").cordic_softmax_split_max(
+        x.data_ptr(), m.data_ptr(), rows, cols, build.stream_ptr(x))
+    build.check(rc, "softmax_split_max")
+    build.count("softmax_split_max")
+    return m
+
+
+@cost.booked("softmax_split_windows",
+             lambda x, m, sched=PAPER_SCHEDULE, cfg=PAPER_FIXED:
+             cost.softmax_split_windows_work(x, sched, cfg))
+def softmax_split_windows(x: torch.Tensor, m: torch.Tensor, *,
+                          sched: MRSchedule = PAPER_SCHEDULE,
+                          cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
+    """The span's e^(x - m) window sums (rows, span / 32), ``m`` the whole
+    row's max (rows,)."""
+    if x.device.type == "cpu":
+        return softmax_split_windows_plain(x, m, sched=sched, cfg=cfg)
+    _split_args(x, "softmax_split_windows", m)
+    rows, cols = x.shape
+    check_span(cols)
+    w = torch.empty((rows, cols // nx.SUM_WINDOW), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        return w
+    tab, half = CT.table_args(CT.EXP_ROW, sched, cfg, x.device)
+    rc = build.library("softmax").cordic_softmax_split_windows(
+        x.data_ptr(), m.data_ptr(), w.data_ptr(), rows, cols,
+        build.params_ptr(sched, cfg), tab, half, build.stream_ptr(x))
+    build.check(rc, "softmax_split_windows")
+    build.count("softmax_split_windows")
+    return w
+
+
+@cost.booked("softmax_split_probs",
+             lambda x, m, windows, sched=PAPER_SCHEDULE, cfg=PAPER_FIXED:
+             cost.softmax_split_probs_work(x, windows, sched, cfg))
+def softmax_split_probs(x: torch.Tensor, m: torch.Tensor, windows: torch.Tensor, *,
+                        sched: MRSchedule = PAPER_SCHEDULE,
+                        cfg: FixedConfig = PAPER_FIXED) -> torch.Tensor:
+    """The span's probabilities (rows, span) from the row max ``m`` (rows,)
+    and every span's window sums ``windows`` (rows, cols / 32)."""
+    if x.device.type == "cpu":
+        return softmax_split_probs_plain(x, m, windows, sched=sched, cfg=cfg)
+    _split_args(x, "softmax_split_probs", m, windows)
+    rows, cols = x.shape
+    y = torch.empty_like(x)
+    if x.device.type == "meta":
+        return y
+    tab, half = CT.table_args(CT.EXP_ROW, sched, cfg, x.device)
+    rc = build.library("softmax").cordic_softmax_split_probs(
+        x.data_ptr(), m.data_ptr(), windows.data_ptr(), y.data_ptr(), rows, cols,
+        windows.shape[-1], build.params_ptr(sched, cfg), tab, half, build.stream_ptr(x))
+    build.check(rc, "softmax_split_probs")
+    build.count("softmax_split_probs")
     return y
 
 

@@ -25,8 +25,12 @@ call.
 
 Every JAX knob is taken (``act_impl``, ``attn_chunk``, ``score_dtype``,
 ``pad_heads_to``, ``slstm_state``, ``mixer_chunk``, ``remat``, ``accum``,
-``zero1``) but ``kv_shard``, which raises ``NotImplementedError`` naming
-its entry.
+``zero1``, ``kv_shard``). ``kv_shard="seq_model"`` cuts a serving cell's
+dense caches by position over the model axis where it divides the length
+(``shd.resolve_kv_shard``, as the JAX spec's ``S % model == 0``): the
+rank's cache bytes fall by tp where the KV heads did not divide, and its
+step books the split attention's collectives (models/attention.py). A
+train cell has no cache, so the knob changes nothing there.
 
 A meta tensor has no values, so the step's data-dependent answers take
 their shape-only form on it (models/ssm.py, models/xlstm.py: a time loop's
@@ -51,6 +55,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.configs.base import SHAPES, shape_applicable
+from repro_torch.distributed import sharding as shd
 from repro_torch.launch import op_cost
 from repro_torch.launch import specs as sp
 from repro_torch.launch.mesh import make_production_mesh
@@ -58,10 +63,6 @@ from repro_torch.optim import adamw
 from repro_torch.serve import engine as serve_engine
 from repro_torch.serve import sampling
 from repro_torch.train import step as step_lib
-
-#: the ROADMAP entry of what the port does not lower yet
-KV_SHARD_ENTRY = "ROADMAP A.17 (kv_shard=\"seq_model\")"
-
 
 def prefill_step(params, cache, tokens, cfg):
     """The engine's dense prefill of whole rows (``make_prefill_step``):
@@ -106,11 +107,6 @@ def rank_steps(job):
     return out
 
 
-def _refuse(kv_shard: str = "auto") -> None:
-    if kv_shard != "auto":
-        raise NotImplementedError(f"kv_shard={kv_shard!r}: {KV_SHARD_ENTRY}")
-
-
 def train_step(state, batch, cfg, mesh, accum: int = 1, zero1: bool = False):
     """One train step of a rank of ``mesh`` (train/step.py). Returns the
     metrics."""
@@ -146,7 +142,7 @@ def rank_train_steps(job):
 def cell_config(arch: str, *, act_impl: str = "cordic_fixed", attn_chunk: int = 2048,
                 score_dtype: str = "f32", pad_heads_to: int = 0,
                 slstm_state: str = "auto", mixer_chunk: int = 0, smoke: bool = False,
-                remat: str = "full"):
+                remat: str = "full", kv_shard: str = "auto"):
     """The arch's config with the cell's knobs, as the JAX ``lower_cell``
     sets them."""
     get = configs.get_smoke if smoke else configs.get_config
@@ -155,7 +151,7 @@ def cell_config(arch: str, *, act_impl: str = "cordic_fixed", attn_chunk: int = 
     # launchers take them (the engine serves token LMs)
     cfg = dataclasses.replace(cfg, input_mode="tokens", attn_chunk=attn_chunk, score_dtype=score_dtype,
                               pad_heads_to=pad_heads_to, slstm_state=slstm_state,
-                              remat=remat)
+                              remat=remat, kv_shard=kv_shard)
     if mixer_chunk:
         if cfg.xlstm is not None:
             cfg = dataclasses.replace(cfg, xlstm=dataclasses.replace(cfg.xlstm,
@@ -176,12 +172,11 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     record. ``smoke``/``mesh``/``shape``: a smoke config, another mesh, a
     ShapeConfig of other sizes (tests). ``remat``, ``accum`` and ``zero1``
     shape the train step (``remat`` also the config of a serving cell, where
-    it changes nothing)."""
-    _refuse(kv_shard)
+    it changes nothing); ``kv_shard`` the serving cell's cache cut."""
     cfg = cell_config(arch, act_impl=act_impl, attn_chunk=attn_chunk,
                       score_dtype=score_dtype, pad_heads_to=pad_heads_to,
                       slstm_state=slstm_state, mixer_chunk=mixer_chunk, smoke=smoke,
-                      remat=remat)
+                      remat=remat, kv_shard=kv_shard)
     shape = SHAPES[shape_name] if shape is None else shape
     ok, why = shape_applicable(cfg, shape)
     if not ok:
@@ -198,6 +193,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                                   mesh=mesh)
         rows = batch["tokens"].shape[0]
     else:
+        cfg = shd.resolve_kv_shard(cfg, mesh, shape.seq_len)
         params = sp.abstract_params(cfg, mesh)
         cache = sp.abstract_cache(cfg, mesh, shape)
         if shape.kind == "prefill":
@@ -250,6 +246,7 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--remat", default="full", choices=["none", "full", "dots"])
     ap.add_argument("--act-impl", default="cordic_fixed")
     ap.add_argument("--out", default=None, help="JSON output path")
     args = ap.parse_args(argv)
@@ -270,7 +267,8 @@ def main(argv=None):
         for mp in meshes:
             tag = f"{arch} x {shape} x {'2x16x16' if mp else '16x16'}"
             try:
-                rec = lower_cell(arch, shape, multi_pod=mp, act_impl=args.act_impl)
+                rec = lower_cell(arch, shape, multi_pod=mp, remat=args.remat,
+                                 act_impl=args.act_impl)
                 if rec["status"] == "ok":
                     r = rec["roofline"]
                     print(f"[dryrun] OK   {tag}: run {rec['run_s']}s "

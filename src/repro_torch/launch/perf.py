@@ -6,10 +6,9 @@ deltas against the baseline.
         --variant baseline --variant bf16_scores --out results/perf_torch_yi.json
 
 ``VARIANTS`` keeps the JAX names. Every variant runs (the train-side
-ones, remat, accum and zero1, on a ``train_4k`` cell) but the
-``kv_shard`` ones, which raise ``NotImplementedError`` naming ROADMAP
-A.17 (launch/dryrun.py). The terms are a model against the H100's peaks
-(launch/op_cost.py).
+ones, remat, accum and zero1, on a ``train_4k`` cell; the ``kv_shard``
+ones cut a serving cell's dense caches by position, launch/dryrun.py).
+The terms are a model against the H100's peaks (launch/op_cost.py).
 
     PYTHONPATH=src python -m repro_torch.launch.perf --cell yi-9b:train_4k \
         --variant baseline --variant zero1 --variant accum4_dots

@@ -290,8 +290,10 @@ def rank_serve(job):
             [r.error for r in reqs]
         layer = eng._caches.layers[0]
         res = {"tokens": {r.rid: list(r.out) for r in reqs}, "tp": eng.tp,
+               "kv_shard": eng.cfg.kv_shard,
                "pool_shapes": {k: tuple(v.shape) for k, v in layer.items()
-                               if k.endswith("_pool") or k in ("k", "v")},
+                               if k.endswith("_pool")
+                               or k in ("k", "v", "c_kv", "k_rope")},
                "state_shapes": [{k: tuple(v.shape) for k, v in c.items() if k != "idx"}
                                 for c in getattr(eng._caches, "layers", [])],
                "state_bytes": eng.state_bytes(),
@@ -312,6 +314,45 @@ def rank_serve(job):
                                  else 0)}
         out.append(res)
     return {"cases": out}
+
+
+def rank_attend(job):
+    """A ``run_ranks`` target (tests, tools): each attention sublayer of a
+    seeded model on this rank's shard, through a fresh dense cache of
+    ``job["max_len"]`` positions (the rank's span of them under
+    ``kv_shard="seq_model"``): a prefill of ``job["x"]`` (B, S, d) at
+    positions 0, then one decode position ``job["x1"]`` (B, 1, d). job:
+    {"cfg", "seed", "tp", "x", "x1", "max_len"}. Returns [(name, prefill
+    output, decode output, the cache's K / latent shape)] as float32 numpy,
+    the blocks' attention in order, then the shared block's; for a list of
+    jobs, one such list each."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import attention as attn
+
+    if isinstance(job, list):
+        return [rank_attend(j) for j in job]
+    mesh = mesh_lib.mesh_or_none(job["tp"])
+    cfg = shd.resolve_kv_shard(job["cfg"], mesh, job["max_len"])
+    model = tf.init(cfg, seed=job.get("seed", 0), device="cpu", mesh=mesh)
+    apply = attn.mla_apply if cfg.mla is not None else attn.gqa_apply
+    x, x1 = (torch.as_tensor(job[k]).to(model.embed.dtype) for k in ("x", "x1"))
+    sites = [(f"block {i}", blk.attn, i) for i, blk in enumerate(model.blocks)
+             if hasattr(blk, "attn")]
+    if model.shared is not None:
+        sites.append(("shared", model.shared.attn, len(cfg.block_pattern)))
+    out = []
+    with torch.no_grad(), shd.serving_mesh(mesh):
+        for name, mod, layer in sites:
+            cache = tf.init_cache(cfg, x.shape[0], job["max_len"], device="cpu",
+                                  kv_heads=shd.local_kv_heads(cfg, mesh), mesh=mesh)
+            c = cache.layers[layer]
+            y = apply(mod, x, cfg, cache=c)
+            cache.idx += x.shape[1]
+            y1 = apply(mod, x1, cfg, cache=c)
+            kv = c["k"] if "k" in c else c["c_kv"]
+            out.append((name, y.float().numpy(), y1.float().numpy(), tuple(kv.shape)))
+    return out
 
 
 if __name__ == "__main__":

@@ -10,10 +10,13 @@ Mamba2's whole B / C columns (sharding.py's docstring). Caches are the
 engine's dense plane at the rank's width (KV heads over the model axis
 where they divide, the recurrent states of a cut mixer), float32 as the
 engine allocates them (the JAX dry run's caches are bfloat16), for the
-rows ``batch_spec`` gives the rank. A batch that the data axes do not
-divide (long_500k's one row) is whole on every rank: the port has no
-sequence-parallel attention to split its positions (ROADMAP A.17,
-``kv_shard="seq_model"``), so every data rank holds the whole row.
+rows ``batch_spec`` gives the rank. Under ``kv_shard="seq_model"`` the
+attention buffers hold the rank's span of the positions over the model
+axis, every KV head (the JAX spec's ``PS(b, "model", ...)``; the caller
+resolves the knob first, ``shd.resolve_kv_shard``). A batch that the data
+axes do not divide (long_500k's one row) is whole on every data rank: the
+JAX default spec cuts its positions over the data axes (``cache_spec``),
+which the port's split attention does not take yet (ROADMAP A.17b).
 
 The train state (``abstract_train_state``) is the training cut (the JAX
 ``params_shardings``: the embedding vocabulary-cut) in float32 master
@@ -101,7 +104,8 @@ def rank_rows(mesh, shape: ShapeConfig) -> int:
 
 def abstract_cache(cfg, mesh, shape: ShapeConfig) -> tf.DenseCache:
     """The dense plane's cache of the rank's rows at ``shape.seq_len``
-    positions, on meta."""
+    positions (the rank's span of them under ``kv_shard="seq_model"``), on
+    meta."""
     return tf.init_cache(cfg, rank_rows(mesh, shape), shape.seq_len, torch.float32,
                          device=META, kv_heads=shd.local_kv_heads(cfg, mesh),
                          mesh=mesh)

@@ -55,6 +55,20 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def rank_device(dev: str, rank: int, backend: str) -> str:
+    """The device of one rank of a group: under NCCL the rank's own card
+    (``launch/mesh._rank_entry`` made it current; NCCL refuses two ranks on
+    one card), under gloo on a card the one card every rank shares
+    (``cuda:0``), and the CPU as given."""
+    import torch
+
+    if not dev.startswith("cuda"):
+        return dev
+    card = rank if backend == "nccl" else 0
+    torch.cuda.set_device(card)
+    return f"cuda:{card}"
+
+
 def rank_train(job):
     """A ``launch/mesh.run_ranks`` target: ``job["steps"]`` train steps of
     one rank of a (world / tp, tp) ("data", "model") mesh (train/step.py).
@@ -86,9 +100,8 @@ def rank_train(job):
     from repro_torch.train import step as step_lib
 
     mesh = mesh_lib.make_host_mesh(job["tp"])
-    cfg, dev = job["cfg"], job.get("device", "cpu")
-    if dev.startswith("cuda"):
-        torch.cuda.set_device(0)
+    cfg = job["cfg"]
+    dev = rank_device(job.get("device", "cpu"), mesh.rank, mesh.backend)
     state = step_lib.init_state(cfg, job.get("seed", 0), adamw.AdamWConfig(),
                                 compress=job.get("compress", False), device=dev,
                                 mesh=mesh, zero1=job.get("zero1", False))

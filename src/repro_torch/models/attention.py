@@ -51,6 +51,21 @@ of the heads: it attends with its query heads (and its KV heads, or, when
 the KV heads do not divide tp, the whole KV heads' ones its query heads
 read), and its ``wo`` product is a partial sum, reduced over the model
 axis.
+
+``cfg.kv_shard="seq_model"`` cuts the dense caches by position instead
+(``shd.seq_cut``; the JAX flash-decode sequence parallelism): rank r holds
+the positions [r T/tp, (r+1) T/tp) of every row with every KV head (GQA's
+k/v, MLA's c_kv/k_rope, Zamba2's shared block). The parameters keep their
+head cut. A step (``_gqa_seq_apply``, ``_mla_seq_apply``) gathers the
+queries (and the new K/V, or MLA's absorbed queries) over the heads,
+writes each new position on the rank that owns it, scores every head
+against the rank's positions with the mask in global positions, takes the
+split softmax (``_split_softmax``: the max reduced, for the CORDIC
+datapaths the 32-lane window sums gathered, so the probabilities are the
+whole row's bit for bit), sums the rank's P.V partial over the model axis
+in float32, and keeps its own heads for the row-parallel ``wo``. MLA's
+prefill decompresses the rank's positions with every head's ``wkv_b``
+(gathered for the step), as tp 1 decompresses the whole buffer.
 """
 from __future__ import annotations
 
@@ -62,8 +77,10 @@ from torch import nn
 
 from repro_torch.cordic_engine import functions as F
 from repro_torch.core import kv_quant as kvq
+from repro_torch.core import numerics as nx
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import softmax_cordic as SM
 from repro_torch.models import common as cm
 
 NEG_INF = -1e30
@@ -85,6 +102,33 @@ def _softmax_fn(impl: Optional[str]):
         return lambda s, axis=-1: kops.softmax(s, axis)
     if impl == "cordic_fixed":
         return lambda s, axis=-1: F.softmax(s, axis)
+    raise ValueError(f"unknown softmax_impl {impl!r}")
+
+
+def _split_softmax(impl: Optional[str], s: torch.Tensor, mesh) -> torch.Tensor:
+    """``_softmax_fn(impl)`` over the last axis of rows whose positions are
+    cut over ``mesh``'s model axis, ``s`` (..., span) float32 this rank's
+    span (spans in rank order). The max is reduced exactly; "exact" sums
+    its partial sums over the axis (another order than the whole row's);
+    the CORDIC datapaths gather the spans' 32-lane window sums and finish
+    the row sum's later levels on every rank, which is the whole row's
+    order (kernels/softmax_cordic.py), so each probability is the whole
+    row's bit for bit."""
+    shape = s.shape
+    x = s.reshape(-1, shape[-1]).contiguous()
+    if impl in (None, "exact"):
+        m = shd.reduce_(x.amax(dim=-1, keepdim=True), mesh, op="max")
+        e = torch.exp(x - m)
+        return (e / shd.reduce_(e.sum(dim=-1, keepdim=True), mesh)).view(shape)
+    if impl == "cordic_pallas":
+        m = shd.reduce_(SM.softmax_split_max(x), mesh, op="max")
+        w = torch.cat(shd.all_gather(SM.softmax_split_windows(x, m), mesh), dim=-1)
+        return SM.softmax_split_probs(x, m, w).view(shape)
+    if impl == "cordic_fixed":
+        m = shd.reduce_(x.amax(dim=-1, keepdim=True), mesh, op="max")
+        e = F.exp_fixed(x - m)
+        w = torch.cat(shd.all_gather(nx.window_sums(e), mesh), dim=-1)
+        return F.divide_fixed(e, nx.xla_sum(w, -1, keepdim=True)).view(shape)
     raise ValueError(f"unknown softmax_impl {impl!r}")
 
 
@@ -266,16 +310,80 @@ def _pool_gather_dequant(pool, scale_pool, tables, spec):
     return kvq.dequantize(_pool_gather(pool, tables), spec, scales)
 
 
-def _dense_write(buf, idx, new) -> None:
+def _dense_write(buf, idx, new, lo: int = 0, total: Optional[int] = None) -> None:
     """Write S new positions per row into a dense buffer, in place: buf
     (B, T, *f), idx (B,) int32, new (B, S, *f). Row b lands at positions
     clamp(idx[b], 0, T - S) + [0, S), as ``dynamic_update_slice`` clamps
-    its start (a vacant slot's idx runs on past the buffer)."""
+    its start (a vacant slot's idx runs on past the buffer).
+
+    A span of the positions (``kv_shard="seq_model"``): ``buf`` holds the
+    global positions [lo, lo + T) of rows ``total`` long. The start clamps
+    in global positions, then each new position is written only where it
+    falls in the span. S <= T: the S positions land at their positions
+    modulo T, distinct slots, the ones outside the span rewritten with
+    their old values; a wider prefill rewrites the whole span, each slot
+    from its new position or its old value (no data-dependent shapes, so
+    no host sync and meta tensors pass)."""
     B, S = new.shape[:2]
-    start = idx.to(torch.int64).clamp(0, buf.shape[1] - S)
-    pos = start[:, None] + torch.arange(S, device=buf.device)[None, :]
-    rows = torch.arange(B, device=buf.device)[:, None].expand(B, S)
-    buf.index_put_((rows, pos), new.to(buf.dtype))
+    T = buf.shape[1]
+    total = T if total is None else total
+    dev = buf.device
+    start = idx.to(torch.int64).clamp(0, total - S)
+    new = new.to(buf.dtype)
+    if total == T:
+        pos = start[:, None] + torch.arange(S, device=dev)[None, :]
+        rows = torch.arange(B, device=dev)[:, None].expand(B, S)
+        buf.index_put_((rows, pos), new)
+        return
+    feat = (1,) * (new.dim() - 2)
+    if S <= T:
+        pos = start[:, None] + torch.arange(S, device=dev)[None, :] - lo
+        rows = torch.arange(B, device=dev)[:, None].expand(B, S)
+        slot = pos % T
+        own = ((pos >= 0) & (pos < T)).view((B, S) + feat)
+        buf.index_put_((rows, slot), torch.where(own, new, buf[rows, slot]))
+        return
+    j = lo + torch.arange(T, device=dev)[None, :] - start[:, None]          # (B, T)
+    own = ((j >= 0) & (j < S)).view((B, T) + feat)
+    rows = torch.arange(B, device=dev)[:, None].expand(B, T)
+    buf.copy_(torch.where(own, new[rows, j.clamp(0, S - 1)], buf))
+
+
+def _span(buf, mesh):
+    """(first global position, row length) of a rank's span ``buf`` (B, T/tp, ...)."""
+    return mesh.model_rank * buf.shape[1], buf.shape[1] * mesh.tp
+
+
+def _heads_gathered(t, dim: int, heads: int, mesh):
+    """``t`` with its ``dim`` (this rank's heads) gathered over the model
+    axis to ``heads`` (as it is when whole), in float32 on the wire (exact)."""
+    if t.shape[dim] == heads:
+        return t
+    moved = t.movedim(dim, -1)
+    full = shd.gather_heads(moved.float().contiguous(), 1, mesh)
+    return full.to(t.dtype).movedim(-1, dim)
+
+
+def _own_heads(o, heads_local: int, mesh):
+    """This rank's slice of a whole-heads activation (B, S, H, ...) (all of
+    it when the rank's heads are whole)."""
+    if o.shape[2] == heads_local:
+        return o
+    return o.narrow(2, mesh.model_rank * heads_local, heads_local)
+
+
+def _seq_attend(qg, k, v, positions, k_len, lo, scale, score_dtype, softmax_impl, mesh):
+    """``_attend_rows`` over a span of the positions: q (B,S,KH,G,D) every
+    head, k/v (B,Tl,KH,Dv) the rank's positions [lo, lo + Tl), the mask in
+    global positions; the rank's P.V partial summed over the model axis in
+    float32 -> (B,S,KH,G,Dv) float32."""
+    s = _scores(qg, k, scale, score_dtype)
+    k_pos = lo + torch.arange(k.shape[1], device=qg.device)
+    mask = ((k_pos[None, None, :] < k_len[:, None, None])
+            & (k_pos[None, None, :] <= positions[:, :, None]))   # (B,S,Tl)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = _split_softmax(softmax_impl, s, mesh)
+    return shd.all_reduce_(_pv(p, v, score_dtype).contiguous(), mesh)
 
 
 def _dense_idx(batch: int, device, idx) -> torch.Tensor:
@@ -478,6 +586,8 @@ def _gqa_dense_apply(p: GQAttention, x, cfg, cache, q, k, v):
     each row at its ``idx`` in place, then attends over the whole buffer
     masked past ``idx + S`` (the paged gather path with the buffer in place
     of the gather). The caller advances ``cache["idx"]``."""
+    if shd.seq_cut(cfg):
+        return _gqa_seq_apply(p, x, cfg, cache, q, k, v)
     B, S, _ = x.shape
     hd = cfg.head_dim
     G, kv = _gqa_groups(p, cfg)
@@ -494,6 +604,34 @@ def _gqa_dense_apply(p: GQAttention, x, cfg, cache, q, k, v):
                      positions, idx + S, 1.0 / math.sqrt(hd), cfg.score_dtype,
                      getattr(cfg, "softmax_impl", "exact"))
     o = o.to(qg.dtype).reshape(B, S, KH * G, hd)
+    return _row_parallel(p, _out_project(o, p.wo))
+
+
+def _gqa_seq_apply(p: GQAttention, x, cfg, cache, q, k, v):
+    """_gqa_dense_apply with the buffers' positions cut over the model axis
+    (``kv_shard="seq_model"``, module docstring): every head's queries and
+    new K/V gathered, the new positions written where they fall in the
+    rank's span, every head scored against the span, the split softmax,
+    the P.V partial summed over the axis in float32, the rank's heads
+    through the row-parallel ``wo``."""
+    mesh = shd.active_serving_mesh()
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    H, KH = padded_heads(cfg)
+    Hl = q.shape[2]
+    idx = cache["idx"].to(torch.int64)
+    positions = idx[:, None] + torch.arange(S, device=x.device)[None, :]
+    q = _heads_gathered(cm.apply_rope(q, positions, cfg.rope_theta), 2, H, mesh)
+    k = _heads_gathered(cm.apply_rope(k, positions, cfg.rope_theta), 2, KH, mesh)
+    v = _heads_gathered(v, 2, KH, mesh)
+    lo, total = _span(cache["k"], mesh)
+    _dense_write(cache["k"], cache["idx"], k, lo, total)
+    _dense_write(cache["v"], cache["idx"], v, lo, total)
+    o = _seq_attend(q.reshape(B, S, KH, H // KH, hd), cache["k"].to(x.dtype),
+                    cache["v"].to(x.dtype), positions, idx + S, lo,
+                    1.0 / math.sqrt(hd), cfg.score_dtype,
+                    getattr(cfg, "softmax_impl", "exact"), mesh)
+    o = _own_heads(o.to(x.dtype).reshape(B, S, H, hd), Hl, mesh)
     return _row_parallel(p, _out_project(o, p.wo))
 
 
@@ -622,20 +760,29 @@ def _mla_absorbed_decode(q_nope, q_rope, cc, cr, wk_b, wv_b, scale, valid,
     (B,H,1,T) score mask. Returns o (B,1,H,v_dim) float32. Under bf16_mxu
     the buffers take the queries' dtype for the scores and the
     probabilities the latent buffer's for P.C, as in JAX."""
-    mxu = _mxu(score_dtype)
     q_eff = torch.einsum("bshk,lhk->bshl", q_nope, wk_b)          # (B,1,H,R)
-    if mxu:
-        cc_s, cr_s = cc.to(q_eff.dtype), cr.to(q_rope.dtype)
-    else:
-        cc_s, cr_s = cc, cr
-    s = (torch.einsum("bshl,btl->bhst", q_eff.float(), cc_s.float())
-         + torch.einsum("bshk,btk->bhst", q_rope.float(), cr_s.float())) * scale
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    pr = _softmax_fn(softmax_impl)(s, axis=-1)
-    if mxu:
-        pr = pr.to(cc.dtype)
-    o_lat = torch.einsum("bhst,btl->bshl", pr.float(), cc.float())
+    s = _mla_absorbed_scores(q_eff, q_rope, cc, cr, scale, valid, score_dtype)
+    o_lat = _mla_pc(_softmax_fn(softmax_impl)(s, axis=-1), cc, score_dtype)
     return torch.einsum("bshl,lhv->bshv", o_lat, wv_b.to(torch.float32))
+
+
+def _mla_absorbed_scores(q_eff, q_rope, cc, cr, scale, valid, score_dtype):
+    """The absorbed form's masked scores (B,H,1,T) float32 of q_eff
+    (B,1,H,R) and q_rope against the latent and rope-key buffers."""
+    if _mxu(score_dtype):
+        cc, cr = cc.to(q_eff.dtype), cr.to(q_rope.dtype)
+    s = (torch.einsum("bshl,btl->bhst", q_eff.float(), cc.float())
+         + torch.einsum("bshk,btk->bhst", q_rope.float(), cr.float())) * scale
+    return torch.where(valid, s, torch.full_like(s, NEG_INF))
+
+
+def _mla_pc(pr, cc, score_dtype):
+    """P.C of the absorbed form: (B,H,1,T) probabilities against the latent
+    buffer -> (B,1,H,R) float32 (under bf16_mxu the probabilities take the
+    buffer's dtype first)."""
+    if _mxu(score_dtype):
+        pr = pr.to(cc.dtype)
+    return torch.einsum("bhst,btl->bshl", pr.float(), cc.float())
 
 
 def _mla_decompress_kq(q_nope, q_rope, cc, cr, m, H, wk_b, wv_b):
@@ -709,6 +856,8 @@ def _mla_dense_apply(p: MLAttention, x, cfg, cache):
     ``idx`` in place, then absorbed decode (S == 1) or decompress plus
     ``_attend_rows`` (prefill) over the whole buffer, masked past
     ``idx + S``. The caller advances ``cache["idx"]``."""
+    if shd.seq_cut(cfg):
+        return _mla_seq_apply(p, x, cfg, cache)
     B, S, _ = x.shape
     m, H = cfg.mla, p.wq.shape[1]               # the rank's heads
     idx = cache["idx"].to(torch.int64)
@@ -732,6 +881,50 @@ def _mla_dense_apply(p: MLAttention, x, cfg, cache):
         o = _attend_rows(qg, k, v, positions, k_len, scale,
                          softmax_impl=softmax_impl)
         o = o.to(qg.dtype).reshape(B, S, H, m.v_dim)
+    return _row_parallel(p, _out_project(o.to(x.dtype), p.wo))
+
+
+def _mla_seq_apply(p: MLAttention, x, cfg, cache):
+    """_mla_dense_apply with the latent buffers' positions cut over the
+    model axis (``kv_shard="seq_model"``): the latent is head-less, so each
+    rank writes its span of the new positions' latent and rope key. Decode
+    is the absorbed form with every head's absorbed query and rope query
+    gathered; prefill decompresses the rank's positions with every head's
+    ``wkv_b`` (gathered for the step) and takes ``_seq_attend``. The P.V
+    (or P.C) partial is summed over the axis in float32, and the rank's
+    heads go on through ``wv_b`` / ``wo``."""
+    mesh = shd.active_serving_mesh()
+    B, S, _ = x.shape
+    m, Hl, H = cfg.mla, p.wq.shape[1], cfg.num_heads
+    idx = cache["idx"].to(torch.int64)
+    positions = idx[:, None] + torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_project_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_compress(p, x, cfg, positions)
+    cc, cr = cache["c_kv"], cache["k_rope"]
+    lo, total = _span(cc, mesh)
+    _dense_write(cc, cache["idx"], c_kv, lo, total)
+    _dense_write(cr, cache["idx"], k_rope, lo, total)
+    wk_b, wv_b = _mla_split_wkv_b(p, cfg, x.dtype)
+    scale = _mla_scale(cfg)
+    k_len = idx + S
+    softmax_impl = getattr(cfg, "softmax_impl", "exact")
+    q_rope = _heads_gathered(q_rope, 2, H, mesh)
+    if S == 1:
+        q_eff = _heads_gathered(torch.einsum("bshk,lhk->bshl", q_nope, wk_b), 2, H, mesh)
+        valid = ((lo + torch.arange(cc.shape[1], device=x.device))[None, :]
+                 < k_len[:, None])[:, None, None, :]
+        s = _mla_absorbed_scores(q_eff, q_rope, cc, cr, scale, valid, cfg.score_dtype)
+        pr = _split_softmax(softmax_impl, s, mesh)
+        o_lat = shd.all_reduce_(_mla_pc(pr, cc, cfg.score_dtype).contiguous(), mesh)
+        o = torch.einsum("bshl,lhv->bshv", _own_heads(o_lat, Hl, mesh),
+                         wv_b.to(torch.float32))
+    else:
+        wk_b = _heads_gathered(wk_b, 1, H, mesh)
+        wv_b = _heads_gathered(wv_b, 1, H, mesh)
+        k, v, qg = _mla_decompress_kq(_heads_gathered(q_nope, 2, H, mesh), q_rope,
+                                      cc, cr, m, H, wk_b, wv_b)
+        o = _seq_attend(qg, k, v, positions, k_len, lo, scale, "f32", softmax_impl, mesh)
+        o = _own_heads(o.to(qg.dtype).reshape(B, S, H, m.v_dim), Hl, mesh)
     return _row_parallel(p, _out_project(o.to(x.dtype), p.wo))
 
 

@@ -622,9 +622,17 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
     one GQA cache per shared-block application; zeros (m at -1e30),
     positions 0. GQA buffers hold ``kv_heads`` heads (as
     ``init_paged_cache``); under a ``mesh`` the recurrent states are a
-    rank's (models/ssm.py, models/xlstm.py)."""
+    rank's (models/ssm.py, models/xlstm.py), and with ``cfg.kv_shard ==
+    "seq_model"`` (``shd.seq_cut``) the attention buffers hold the rank's
+    span of ``max_len / tp`` positions (a length the axis does not divide
+    raises: ``shd.resolve_kv_shard`` turns the knob off there first)."""
     _check_cfg(cfg)
     dev = resolve_device(device)
+    if shd.seq_cut(cfg, mesh):
+        if max_len % mesh.tp:
+            raise ValueError(f"kv_shard='seq_model' cuts {max_len} positions over "
+                             f"tp={mesh.tp}, which does not divide them")
+        max_len //= mesh.tp
     idx = torch.zeros((batch,), dtype=torch.int32, device=dev)
     kinds = list(cfg.block_pattern) + [cfg.shared_block] * num_shared_apps(cfg)
     return DenseCache([CACHE_FNS[kind](cfg, batch, max_len, dtype, device=dev,

@@ -116,6 +116,18 @@ cut of their mixers (models/ssm.py, models/xlstm.py) and its slice of
 their state (``state_bytes``); Zamba2's shared block is head-parallel as
 the attention archs' blocks, its per-application KV buffers cut by KV
 heads.
+
+``cfg.kv_shard="seq_model"`` (a config field, as in JAX) cuts the dense
+plane's positions instead of its KV heads where tp divides ``max_len``:
+each rank's buffers hold ``max_len / tp`` positions of every KV head (MLA's
+latent, Zamba2's shared block alike), and each attention step reduces its
+softmax and P.V over the ranks (models/attention.py), so the tokens are tp
+1's. Where tp does not divide ``max_len``, and on the paged plane, which
+never reads the knob (as the JAX paged attend), the heads cut stays and
+``engine.cfg.kv_shard`` reads "auto". A CORDIC softmax whose span is not
+whole 32-lane windows is refused at init (``shd.resolve_kv_shard``). The
+JAX engine itself has no partitioner at serving time, so it serves the
+knob with the heads cut: the same tokens.
 """
 from __future__ import annotations
 
@@ -380,6 +392,10 @@ class ServeEngine:
                         f"paged_attend_impl='pallas' shards attention heads "
                         f"over the model axis: {axis}={n_heads} is not "
                         f"divisible by tp={self.tp}")
+        # kv_shard="seq_model": the dense plane's positions cut over the
+        # model axis where tp divides max_len; the paged plane keeps the
+        # heads cut (module docstring)
+        cfg = self.cfg = shd.resolve_kv_shard(cfg, mesh, max_len, dense=not paged)
         self.default_sampling = (sampling if sampling is not None
                                  else SamplingParams(temperature=temperature,
                                                      greedy=greedy))

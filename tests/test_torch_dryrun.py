@@ -196,22 +196,27 @@ def test_lower_cell_per_serving_shape_on_a_smoke_config(shape):
 
 def test_skips_refusals_perf_and_roofline(tmp_path, capsys):
     """long_500k stays skipped where it does not apply; kv_shard="seq_model"
-    raises naming ROADMAP A.17; the train-side variants run (a train cell
-    on a small dry mesh), the kv_shard one is refused; the roofline table
-    reads the records."""
+    lowers (a serving cell cuts its dense caches by position: Yi's one KV
+    head, whole on every rank under the heads cut, becomes half the
+    positions at tp 2; a train cell has no cache); the train-side variants
+    and the kv_shard one run (a train cell on a small dry mesh); the
+    roofline table reads the records."""
     assert dryrun.lower_cell("yi-9b", "long_500k")["status"] == "skipped"
-    with pytest.raises(NotImplementedError, match="ROADMAP A.17"):
-        dryrun.lower_cell("yi-9b", "decode_32k", kv_shard="seq_model")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.17"):
-        dryrun.lower_cell("yi-9b", "train_4k", kv_shard="seq_model")
+    shape = ShapeConfig("decode", 64, 2, "decode")
+    cut, heads = (dryrun.lower_cell("yi-9b", "decode", smoke=True, act_impl="exact",
+                                    mesh=M.dry_mesh(2), shape=shape, kv_shard=kv)
+                  for kv in ("seq_model", "auto"))
+    assert cut["status"] == heads["status"] == "ok"
+    assert 2 * cut["memory"]["cache_bytes"] == heads["memory"]["cache_bytes"]
+    assert (cut["collective"]["op_counts"]["all-reduce"]
+            > heads["collective"]["op_counts"]["all-reduce"])
     assert list(perf.VARIANTS) == list(jperf.VARIANTS)
     names = ["baseline", "no_remat", "remat_dots", "accum4", "accum4_dots", "zero1",
              "zero1_dots", "accum4_fixed", "slstm_rep_dots", "kv_seq_shard"]
     recs = perf.run_variants("xlstm-1.3b", "train", names, smoke=True,
                              act_impl="exact", mesh=M.dry_mesh(2, data=2),
                              shape=ShapeConfig("train", 16, 8, "train"))
-    assert [r["status"] for r in recs] == ["ok"] * 9 + ["error"]
-    assert "A.17" in recs[-1]["error"]
+    assert [r["status"] for r in recs] == ["ok"] * 10
     by = {r["variant"]: r for r in recs}
     # remat "full" recomputes each block's forward: more FLOPs than none
     assert by["baseline"]["flops_per_chip"] > by["no_remat"]["flops_per_chip"]

@@ -10,6 +10,15 @@ whole mixers. The same rank groups also run the dry run's prefill and
 decode steps (launch/dryrun.py ``rank_steps``), whose collective counts
 and bytes the dry mesh must book identically.
 
+At tp 2 the same group serves ``kv_shard="seq_model"`` (the dense caches'
+positions cut over the ranks, models/attention.py): Yi's smoke config, the
+DeepSeek-V2-Lite smoke config and Zamba2's on the dense plane against tp 1
+and the JAX engine (which serves the knob with the heads cut, so its
+tokens are the reference), Yi on the CORDIC kernels' plain versions (the
+split softmax) against tp 1 and on the paged plane, where the knob changes
+nothing, and each attention sublayer's output (``launch/serve.rank_attend``)
+against tp 1's within ``SEQ_ATOL``.
+
 The traces are the JAX suite's (``tests/test_sharded_serving.py``): six
 requests, greedy and seeded sampling mixed, slots 3, max_len 64, block_len
 8, on the GQA test config (KH 4) and the DeepSeek-V2-Lite smoke config
@@ -121,12 +130,75 @@ def _jobs(flats, tp):
             dict(engine=_variant(kv, "gather", None),
                  requests=_trace(yi.vocab_size, SamplingParams))
             for kv in ("dense", "paged")]))
+    if tp < 4:
+        jobs += _seq_jobs(flats, tp)
     for name in RECURRENT:
         cfg = _rec_cfgs(name)[1]
         job = dict(cfg=cfg, tp=tp, cases=[dict(engine=ENGINE,
                                                requests=_rec_trace(cfg.vocab_size))])
         jobs.append(dict(job, flat=flats[name]) if name in flats
                     else dict(job, seed=6))
+    return jobs
+
+
+#: the kv_shard="seq_model" jobs at tp 1 and 2, after Yi's (``SEQ_JOB``):
+#: the exact-softmax smoke configs against the JAX engine, then Yi on the
+#: CORDIC softmax's plain versions, dense and paged
+SEQ_ARCHS = ("yi", "mla", "zamba2")
+SEQ_JOB = {name: 3 + i for i, name in enumerate(SEQ_ARCHS + ("yi-cordic",))}
+#: the rank_attend probe: each attention sublayer's prefill and decode
+#: output at tp 2 against tp 1's, over max |tp 1| (CPU float32, the P.V
+#: partials and the row-parallel sums reordered: ~3e-7 measured)
+SEQ_ATOL = 2e-6
+
+
+def _seq_cfg(name):
+    """(JAX config, port config) of a seq job: exact softmax, float32."""
+    if name == "mla":
+        return _cfgs("mla")
+    arch = "zamba2-1.2b" if name == "zamba2" else "yi-9b"
+    jcfg = dataclasses.replace(jconfigs.get_smoke(arch, act_impl="exact"),
+                               softmax_impl="exact")
+    cfg = dataclasses.replace(configs.get_smoke(arch, act_impl="exact"),
+                              softmax_impl="exact")
+    return jcfg, cfg
+
+
+def _seq_trace(name, vocab):
+    return _rec_trace(vocab) if name == "zamba2" else _trace(vocab, SamplingParams)
+
+
+def _seq_jobs(flats, tp):
+    """The seq jobs: every case on the dense plane (max_len 64: a span of
+    32 positions at tp 2) with the knob on."""
+    jobs = []
+    for name in SEQ_ARCHS:
+        cfg = dataclasses.replace(_seq_cfg(name)[1], kv_shard="seq_model")
+        jobs.append(dict(cfg=cfg, flat=flats[name], tp=tp, cases=[dict(
+            engine=dict(ENGINE, kv_impl="dense"),
+            requests=_seq_trace(name, cfg.vocab_size))]))
+    yi = dataclasses.replace(configs.get_smoke("yi-9b", act_impl="cordic_pallas"),
+                             softmax_impl="cordic_pallas", kv_shard="seq_model")
+    jobs.append(dict(cfg=yi, seed=4, tp=tp, cases=[
+        dict(engine=_variant(kv, "gather", None),
+             requests=_trace(yi.vocab_size, SamplingParams))
+        for kv in ("dense", "paged")]))
+    return jobs
+
+
+def _attend_jobs(tp):
+    """``rank_attend`` on each seq arch: Yi on the CORDIC softmax, DeepSeek
+    on cordic_fixed, Zamba2's shared block exact; 12 positions of prefill
+    and one decode position into a 64-position cache."""
+    rng = np.random.default_rng(9)
+    jobs = []
+    for arch, impl in (("yi-9b", "cordic_pallas"), ("deepseek-v2-lite-16b", "cordic_fixed"),
+                       ("zamba2-1.2b", "exact")):
+        cfg = dataclasses.replace(configs.get_smoke(arch, act_impl="exact"),
+                                  softmax_impl=impl, kv_shard="seq_model")
+        jobs.append(dict(cfg=cfg, seed=0, tp=tp, max_len=64,
+                         x=rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32),
+                         x1=rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)))
     return jobs
 
 
@@ -180,10 +252,10 @@ def served():
         jcfg, _ = _cfgs(arch)
         jparams[arch] = JT.init(jcfg, jax.random.PRNGKey(0))
         flats[arch] = T.flatten_params(jparams[arch])
-    for name in ("xlstm4-auto", "zamba2"):
+    for name in ("xlstm4-auto", "zamba2", "yi"):
         # the port's seeded weights bridged to the JAX tree (skips JAX's
         # init, seconds an arch)
-        cfg = _rec_cfgs(name)[1]
+        cfg = _seq_cfg(name)[1] if name == "yi" else _rec_cfgs(name)[1]
         model = T.init(cfg, seed=1, device="cpu")
         flats[name] = T.flatten_params(T.jax_tree(cfg, dict(model.named_parameters())))
         jparams[name] = jax.tree.map(jnp.asarray, T._nest(flats[name]))
@@ -192,7 +264,9 @@ def served():
     steps = dict(archs=STEP_ARCHS, rows=STEP_ROWS, seq=STEP_SEQ, tp=2)
     groups = {tp: M.RankGroup(M.rank_jobs, tp, [
         ("repro_torch.launch.serve:rank_serve", _jobs(flats, tp))]
-        + ([("repro_torch.launch.dryrun:rank_steps", steps)] if tp == 2 else []),
+        + ([("repro_torch.launch.dryrun:rank_steps", steps),
+            ("repro_torch.launch.serve:rank_attend", _attend_jobs(tp))]
+           if tp == 2 else []),
         timeout=600) for tp in (2, 4)}
     for arch in ("gqa", "mla"):
         jcfg, _ = _cfgs(arch)
@@ -216,12 +290,23 @@ def served():
             eng.submit(r)
         eng.run()
         out["jax"][name] = {r.rid: list(r.out) for r in reqs}
+    # Yi's smoke config on the dense plane: the seq jobs' reference
+    jcfg = _seq_cfg("yi")[0]
+    eng = JEngine(jcfg, jparams["yi"], kv_impl="dense", **ENGINE)
+    reqs = [JRequest(rid=r, prompt=p, max_new_tokens=n, sampling=s)
+            for r, p, n, s in _trace(jcfg.vocab_size, JSP)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    out["jax"]["yi"] = {r.rid: list(r.out) for r in reqs}
     out[1] = [launcher.rank_serve(_jobs(flats, 1))]
+    out["attend", 1] = launcher.rank_attend(_attend_jobs(1))
     for tp, g in groups.items():
         res = g.join()
         out[tp] = [r[0] for r in res]
         if tp == 2:
             out["steps"] = [r[1] for r in res]
+            out["attend", 2] = [r[2] for r in res]
     return out
 
 
@@ -416,6 +501,70 @@ def test_dry_mesh_books_the_gloo_collectives(served, arch):
             assert coll["op_counts"]["all-reduce"] == want["all_reduce"], (kind, rank)
             assert coll["per_kind_bytes"]["all-reduce"] == want["bytes"], (kind, rank)
         assert coll["weighted_bytes"] == 2 * want["bytes"]
+
+
+# ---------------------------------------------------------------------------
+# kv_shard="seq_model" at tp 2
+# ---------------------------------------------------------------------------
+def _seq_want(served, name):
+    if name == "mla":
+        return _jax(served, "mla", None)[0]
+    return served["jax"][name]
+
+
+@pytest.mark.parametrize("name", SEQ_ARCHS)
+def test_seq_model_tokens_equal_tp1_and_the_jax_engine(served, name):
+    """Yi's, DeepSeek-V2-Lite's and Zamba2's smoke configs with their dense
+    caches' positions cut over two ranks serve tp 1's tokens and the JAX
+    engine's, on every rank, each rank holding 32 of the 64 positions of
+    every KV head (of MLA's latent and rope key)."""
+    want = _seq_want(served, name)
+    assert any(len(o) > 1 for o in want.values())
+    base = _case(served, 1, SEQ_JOB[name], 0)
+    assert base["tokens"] == want
+    for r in range(2):
+        got = _case(served, 2, SEQ_JOB[name], 0, r)
+        assert got["tp"] == 2 and got["kv_shard"] == "seq_model"
+        assert got["tokens"] == want, f"{name} rank {r} tokens diverged"
+        for k, shape in base["pool_shapes"].items():
+            assert got["pool_shapes"][k] == (shape[0], shape[1] // 2) + shape[2:], k
+    if name == "zamba2":
+        return
+    assert set(base["pool_shapes"]) == ({"c_kv", "k_rope"} if name == "mla" else {"k", "v"})
+
+
+def test_seq_model_cordic_split_serves_tp1_tokens(served):
+    """Yi on the CORDIC softmax's plain versions: the split softmax (the
+    spans' window sums gathered) serves tp 1's tokens, those of the heads
+    cut; the paged plane never reads the knob: its tokens and pools are the
+    heads cut's and the engine's knob reads "auto"."""
+    job = SEQ_JOB["yi-cordic"]
+    dense1, paged1 = (_case(served, 1, 2, c) for c in range(2))
+    assert _case(served, 1, job, 0)["tokens"] == dense1["tokens"]
+    for r in range(2):
+        dense, paged = (_case(served, 2, job, c, r) for c in range(2))
+        assert dense["tokens"] == dense1["tokens"], r
+        assert dense["pool_shapes"]["k"][1] * 2 == dense1["pool_shapes"]["k"][1]
+        assert dense["collectives"]["all_gather"] > 0
+        assert paged["kv_shard"] == "auto" and dense["kv_shard"] == "seq_model"
+        assert paged["tokens"] == paged1["tokens"] == _case(served, 2, 2, 1, r)["tokens"]
+        assert paged["pool_shapes"] == _case(served, 2, 2, 1, r)["pool_shapes"]
+
+
+def test_seq_model_attention_sublayers_within_bound(served):
+    """Each attention sublayer (Yi cordic_pallas, DeepSeek cordic_fixed,
+    Zamba2's shared block exact) on each rank of the position cut: its
+    prefill and decode outputs against tp 1's within SEQ_ATOL of max |tp 1|,
+    its cache 32 of the 64 positions."""
+    base = served["attend", 1]
+    for r, ranks in enumerate(served["attend", 2]):
+        for job, want in zip(ranks, base):
+            assert len(job) == len(want) > 0
+            for (name, y, y1, shape), (_, w, w1, wshape) in zip(job, want):
+                assert shape == (wshape[0], wshape[1] // 2) + wshape[2:], name
+                for a, b in ((y, w), (y1, w1)):
+                    err = np.abs(a - b).max() / np.abs(b).max()
+                    assert err <= SEQ_ATOL, (r, name, err)
 
 
 def test_launcher_tp2(capfd):
