@@ -7,6 +7,7 @@
     python3 chip_smoke.py --row-kernels --src <tree>/src --label <name> \
         [--out chiprun_out/rows.jsonl] [--save chiprun_out/<name>.pt]
     python3 chip_smoke.py --archs
+    python3 chip_smoke.py --c7
 
 The second form runs only the decode kernels' part of phase 3 (every
 gqa_decode and mla_decode branch at the launcher and the long-context
@@ -36,7 +37,10 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             codes of sigmoid (float and integer paths), exp and log on the
             card; act_q_2d's sigmoid-code table (its build time) and its
             table route in both dtypes; softmax_2d also at the dense
-            decode attend (4 slots x 32 heads of 128 and of 4096 lanes).
+            decode attend (4 slots x 32 heads of 128 and of 4096 lanes);
+            (9c) every score-dot order of the decode kernels (a chain, 2,
+            4 and 8 strided partials, tree or halves; float32, int8 and
+            Q2.14 pools) bit-equal to its plain version.
 4. paths    the port's main paths through the entry points a user calls,
             with every launch count set to 0 just before and read just
             after: (a) the paper's unit, ``ops.sigmoid`` and its integer
@@ -135,7 +139,7 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             (n) the train step on a ("data", "model") mesh, every rank a
             spawned process on the one card (gloo), 4 steps (2 with data
             ranks) of launch/train.rank_train on 8 x 32 tokens, the CORDIC
-            kernels on: Yi-9B at full width cut to 2 layers on (1, 2), on
+            kernels on: Yi-9B at full width cut to 1 layer on (1, 2), on
             (2, 1) with ZeRO-1, on (2, 2) with ZeRO-1 and once more with
             int8 compression; DeepSeek-V2-Lite (3 layers), Zamba2-1.2B (12
             layers, two shared-block applications) and xLSTM-1.3B (8
@@ -148,6 +152,13 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             collectives, moment bytes and peak memory per rank reported.
             (--mesh-train-witness: the recurrent pair's runs in bfloat16,
             gates logged, against one rank's bfloat16-vs-float32 spread.)
+            (o) the data axes' position cut of the dense caches: Zamba2-1.2B
+            at SIDE_LAYERS depth, batch 1, on a (2, 1) mesh of two spawned
+            processes (gloo): each rank half of one rank's attention
+            buffers, the same tokens on both ranks, the data group's
+            collectives run; tokens against one rank's reported.
+            (--c7: only xLSTM's and Zamba2's tp 2 runs in bfloat16 and in
+            float32 compute, each against its own tp 1; ROADMAP C.7.)
 5. identity the Yi and DeepSeek-V2-Lite smoke configs in float32, on both
             datapaths, and Yi's on int8 and Q2.14 pools and with the prefix
             cache: tokens served on the card with the kernels equal the
@@ -1154,6 +1165,96 @@ def decode_kernels(torch, card, records, ycfg, dcfg, ops):
 
     long_decode_kernels(torch, card, records, ycfg, dcfg, gen, ops)
     sub_phase("kernels (9b) decode kernels at the long shape", t_sub)
+    order_decode_kernels(torch, records, ycfg, dcfg, gen)
+    sub_phase("kernels (9c) every score order", t_sub)
+
+
+#: the score-order sweep (9c): (kind, rows-or-heads geometry, block length
+#: L, kv_quant) for every order paged_attention.dot_order gives the kernels
+ORDER_CASES = (
+    ("gqa", dict(KH=4, G=8, hd=128), 16, "none"),      # 4 partials, tree
+    ("gqa", dict(KH=4, G=8, hd=128), 32, "none"),      # a chain (L >= 17)
+    ("gqa", dict(KH=32, G=1, hd=64), 16, "none"),      # a chain (G 1, musicgen)
+    ("gqa", dict(KH=4, G=8, hd=128), 1, "none"),       # 8 partials, tree
+    ("gqa", dict(KH=8, G=5, hd=128), 1, "none"),       # 8 partials, halves (Qwen)
+    ("gqa", dict(KH=4, G=8, hd=128), 32, "int8"),      # a chain on int8 codes
+    ("gqa", dict(KH=4, G=8, hd=128), 1, "q2_14"),      # 8 partials on Q2.14 codes
+    ("mla", dict(H=16), 16, "none"),                   # 4 partials
+    ("mla", dict(H=16), 32, "none"),                   # 2 partials
+    ("mla", dict(H=16), 64, "none"),                   # a chain
+    ("mla", dict(H=16), 1, "none"),                    # 8 partials, tree
+    ("mla", dict(H=4), 1, "none"),                     # 8 partials, halves
+)
+
+
+def order_decode_kernels(torch, records, ycfg, dcfg, gen):
+    """(9c) each score order of the decode kernels (``dot_order``: a chain,
+    2, 4 or 8 strided partials, tree or halves), on float32 and quantized
+    pools, against the plain version that replays it: cordic_pallas,
+    bfloat16 queries, B 4 slots at max_len MAX_LEN (k_len 37, vacant, 128,
+    5), bit-equal. Device ms of the whole call and its score phase (the
+    phase the order changes) go into the record. A tree without
+    ``dot_order`` (an older tree under --decode-kernels) skips it."""
+    from repro_torch.core import kv_quant as kvq
+    from repro_torch.kernels import paged_attention as PA
+
+    if not hasattr(PA, "dot_order"):
+        log("[decode orders] this tree has no dot_order: skipped")
+        return
+    dev = torch.device(DEV)
+    m = dcfg.mla
+    R, P = m.kv_lora_rank, m.qk_rope_dim
+    klens = [37, 0, MAX_LEN, 5]
+    for kind, geo, L, fmt in ORDER_CASES:
+        B, M = SLOTS, MAX_LEN // L
+        N = 1 + B * M
+        tables = torch.zeros(B, M, dtype=torch.int32)
+        nxt = 1
+        for r, k in enumerate(klens):
+            for c in range(-(-k // L)):
+                tables[r, c] = nxt
+                nxt += 1
+        tables = tables.to(dev)
+        k_len = torch.tensor([max(k, 1) for k in klens], dtype=torch.int32, device=dev)
+        if kind == "gqa":
+            KH, G, hd = geo["KH"], geo["G"], geo["hd"]
+            order = PA.gqa_plan(B, KH, G, hd, L, M).order
+            q = torch.randn(B, KH, G, hd, generator=gen, device=dev).bfloat16()
+            kf = torch.randn(N, L, KH, hd, generator=gen, device=dev)
+            vf = torch.randn(N, L, KH, hd, generator=gen, device=dev)
+            kw = dict(scale=1.0 / math.sqrt(hd), softmax_impl="cordic_pallas",
+                      kv_dtype=torch.bfloat16)
+            if fmt != "none":
+                spec = kvq.spec_for(fmt)
+                ks, vs = kvq.block_scale(kf, spec), kvq.block_scale(vf, spec)
+                kf, vf = kvq.quantize(kf, spec, ks), kvq.quantize(vf, spec, vs)
+                kw.update(kv_quant=fmt, k_scale_pool=ks, v_scale_pool=vs)
+            args, kernel, plain = (q, kf, vf, tables, k_len), PA.gqa_decode, PA.gqa_decode_plain
+            name = f"gqa_decode[KH{KH} G{G} hd{hd} L{L}{'' if fmt == 'none' else ' ' + fmt}]"
+        else:
+            H = geo["H"]
+            order = PA.mla_plan(B, H, R, P, L, M).order
+            args = (torch.randn(B, H, R, generator=gen, device=dev).bfloat16(),
+                    torch.randn(B, H, P, generator=gen, device=dev).bfloat16(),
+                    torch.randn(N, L, R, generator=gen, device=dev),
+                    torch.randn(N, L, P, generator=gen, device=dev), tables, k_len)
+            kw = dict(scale=1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim),
+                      softmax_impl="cordic_pallas")
+            kernel, plain = PA.mla_decode, PA.mla_decode_plain
+            name = f"mla_decode[H{H} R{R} P{P} L{L}]"
+        a = kernel(*args, **kw)
+        b = plain(*args, **kw)
+        DECODE_OUTPUTS[name] = a.cpu()
+        err = float((a - b).abs().max())
+        check(order.mapped, f"{name}: dot order {order} is not mapped")
+        check(bool(torch.isfinite(a).all()) and torch.equal(a, b),
+              f"{name} order {order}: |kernel - plain| {err} (bit-equal)")
+        phases = {}
+        t = times(torch, lambda: kernel(*args, **kw), f"{kind}_decode_kernel", parts=phases)
+        records[name] = dict(order=[order.partials, order.combine], max_abs_err=err,
+                             bit_equal=True, ms=t[0], host_ms=t[1], phases=phases)
+        log(f"[decode orders] {name}: {order.partials} partial(s), {order.combine}; "
+            f"bit-equal to plain; device {t[0]:.4f} ms a call, phases {phases}")
 
 
 def quant_decode_kernel(torch, card, records, q, tables, k_len, klens, gen, ops):
@@ -3396,6 +3497,15 @@ def train_identity_phase(torch, archs=TRAIN_ID_ARCHS):
 #: blocks (the recurrent pair's on the dense plane) and its tp 1 reference
 #: is the same model served in this process
 SEQ = " seq"
+#: a run computing in float32 (the flagged C.7 run, ``--c7``)
+F32 = " f32"
+C7_RUNS = (("xlstm-1.3b" + F32, 2), ("zamba2-1.2b" + F32, 2))
+
+
+def run_arch(run: str) -> str:
+    """The arch of a tp run's name (without " seq" / " f32")."""
+    return run.removesuffix(SEQ).removesuffix(F32)
+
 TP_RUNS = (("yi-9b", 2), ("yi-9b", 4), (DEEPSEEK, 2),
            ("xlstm-1.3b", 2), ("xlstm-1.3b", 4), ("zamba2-1.2b", 2),
            ("yi-9b" + SEQ, 2), (DEEPSEEK + SEQ, 2))
@@ -3422,16 +3532,18 @@ def tp_cfg(run, smoke=False):
     made 4). Every run but DeepSeek-V2-Lite's heads cut is cut to its
     SIDE_LAYERS blocks (xLSTM: 7 mLSTMs and the sLSTM at index 7; Zamba2:
     two shared-block applications); a " seq" run sets
-    kv_shard="seq_model"."""
+    kv_shard="seq_model", a " f32" run computes in float32 (``--c7``)."""
     import dataclasses
 
     from repro_torch import configs
 
-    arch, seq = run.removesuffix(SEQ), run.endswith(SEQ)
+    arch, seq = run_arch(run), run.endswith(SEQ)
     get = configs.get_smoke if smoke else configs.get_config
     cfg = dataclasses.replace(get(arch, act_impl="cordic_pallas"),
                               softmax_impl="cordic_pallas",
                               kv_shard="seq_model" if seq else "auto")
+    if run.endswith(F32):
+        cfg = dataclasses.replace(cfg, dtype="float32")
     if smoke and arch == "xlstm-1.3b":
         cfg = dataclasses.replace(cfg, num_heads=4, num_kv_heads=4)
     elif smoke and cfg.mla is None and arch in ("yi-9b",):
@@ -3723,7 +3835,7 @@ def tp_path(torch, build, ref, smoke=False, runs=TP_RUNS):
     out, probe_ref, ref = {}, {}, dict(ref)
     t0 = time.perf_counter()
     for run in dict.fromkeys(a for a, _ in runs):
-        arch = run.removesuffix(SEQ)
+        arch = run_arch(run)
         if run not in ref:
             base = tp_rank(dict(arch=run, tp=1, device=DEV, smoke=smoke))
             ref[run] = base
@@ -3781,7 +3893,7 @@ def tp_gates(arch, tp, res, base, probe_ref, smoke, heads=None):
               f"{tag} {name}: a rank's shard computes otherwise than tp 1")
         check(min(errs["unreduced"]) > TP_PROBE_TOL,
               f"{tag} {name}: the probe cannot tell a skipped reduction")
-    recurrent = arch in RECURRENT_ARCHS
+    recurrent = run_arch(arch) in RECURRENT_ARCHS
     seq = arch.endswith(SEQ)
     cfg = tp_cfg(arch, smoke)
     for r in res:
@@ -3801,7 +3913,7 @@ def tp_gates(arch, tp, res, base, probe_ref, smoke, heads=None):
                   f"step's kernel on its head slice {r['kernel_q_shape']} differs from "
                   f"plain by {r['kernel_err']}")
         if DEV == "cuda":
-            for k in TP_KERNELS[arch]:
+            for k in TP_KERNELS.get(arch, TP_KERNELS[run_arch(arch)]):
                 check(r["launches"].get(k, 0) > 0,
                       f"{tag} rank {r['rank']} never launched {k}")
         if arch == "yi-9b":
@@ -3866,12 +3978,14 @@ def tp_gates(arch, tp, res, base, probe_ref, smoke, heads=None):
 # ---------------------------------------------------------------------------
 #: (arch, layers, (data, model), zero1, compress): each arch at full width,
 #: depth cut so that every rank's float32 master weights, AdamW moments
-#: and gradients fit the one card together
+#: and gradients fit the one card together; Yi at one layer (a data-parallel
+#: step stages every gradient through the host, most of them the
+#: vocabulary's; the runs of one depth share a one-rank reference)
 MESH_TRAIN_RUNS = (
-    ("yi-9b", 2, (1, 2), False, False),
-    ("yi-9b", 2, (2, 1), True, False),
-    ("yi-9b", 2, (2, 2), True, False),
-    ("yi-9b", 2, (2, 2), True, True),
+    ("yi-9b", 1, (1, 2), False, False),
+    ("yi-9b", 1, (2, 1), True, False),
+    ("yi-9b", 1, (2, 2), True, False),
+    ("yi-9b", 1, (2, 2), True, True),
     (DEEPSEEK, 3, (1, 2), False, False),
     ("zamba2-1.2b", 12, (1, 2), False, False),
     ("xlstm-1.3b", 8, (1, 2), False, False),
@@ -4091,7 +4205,8 @@ def mesh_train_ref(torch, arch, layers, smoke=False):
     state = step_lib.init_state(cfg, 0, opt, device=DEV)
     batch = loop_lib.to_device(mesh_train_batch(cfg), DEV)
     loss, _, g = step_lib.grads_of(state.params, batch, cfg)
-    path = os.path.join(tempfile.gettempdir(), f"mesh_train_ref_{arch}_{os.getpid()}.pt")
+    path = os.path.join(tempfile.gettempdir(),
+                        f"mesh_train_ref_{arch}_{layers}_{os.getpid()}.pt")
     torch.save({k: v.detach().cpu() for k, v in g.items()}, path)
     del g
     step = step_lib.make_train_step(cfg, opt, warmup_steps=0)
@@ -4138,9 +4253,9 @@ def mesh_train_path(torch, build, smoke=False, runs=MESH_TRAIN_RUNS):
     t0 = time.perf_counter()
     refs = {}
     for arch, layers, *_ in runs:
-        if arch not in refs:
-            refs[arch] = mesh_train_ref(torch, arch, layers, smoke)
-            r = refs[arch]
+        if (arch, layers) not in refs:
+            refs[arch, layers] = mesh_train_ref(torch, arch, layers, smoke)
+            r = refs[arch, layers]
             log(f"[path mesh-train {arch}] one-rank reference, {layers} layers: losses "
                 f"{[round(x, 5) for x in r['losses']]}, step p50 {r['step_ms_p50']:.1f} "
                 f"ms, peak {r['peak_gib']:.2f} GiB")
@@ -4155,12 +4270,13 @@ def mesh_train_path(torch, build, smoke=False, runs=MESH_TRAIN_RUNS):
         steps = MESH_TRAIN_STEPS if dp == 1 else MESH_TRAIN_DP_STEPS
         job = dict(cfg=cfg, tp=tp, batch=mesh_train_batch(cfg), steps=steps,
                    device=DEV, lr=DESCENT_LR, zero1=zero1, compress=compress,
-                   before=(mesh_train_before, {"ref": refs[arch]["path"] if first else None,
+                   before=(mesh_train_before, {"ref": refs[arch, layers]["path"] if first
+                                               else None,
                                                "device": DEV, "shadow": zero1}),
                    after=(mesh_train_after, {"device": DEV, "shadow": zero1}))
         jobs_by_world.setdefault(dp * tp, []).append(("repro_torch.launch.train:rank_train",
                                                       job))
-        tags.setdefault(dp * tp, []).append((tag, arch, cfg, checked[arch, dp, tp]))
+        tags.setdefault(dp * tp, []).append((tag, (arch, layers), cfg, checked[arch, dp, tp]))
     out = {}
     try:
         for world, jobs in jobs_by_world.items():
@@ -4179,6 +4295,83 @@ def mesh_train_path(torch, build, smoke=False, runs=MESH_TRAIN_RUNS):
             if os.path.exists(r["path"]):
                 os.remove(r["path"])
     return out
+
+
+#: the data axes' position cut (o): Zamba2's shared block at SIDE_LAYERS
+#: depth (two applications), batch 1, a (2, 1) mesh; the prompt, the decode
+#: steps and the cache's positions (whole 32-lane windows a span)
+DATA_SEQ_ARCH, DATA_SEQ_PROMPT, DATA_SEQ_STEPS, DATA_SEQ_LEN = "zamba2-1.2b", 24, 8, 128
+
+
+def data_seq_rank(job):
+    """One rank of ``data_seq_path`` (a ``run_ranks`` target), or the one-rank
+    reference in this process: ``launch/dryrun.rank_decode`` with the launch
+    counts zeroed just before and read just after."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.LAUNCHES.clear()
+    out = dryrun.rank_decode(job)
+    out["launches"] = dict(build.LAUNCHES)
+    return out
+
+
+def data_seq_path(torch, build, smoke=False):
+    """(o) The data axes' position cut of the dense caches (ROADMAP A.17b)
+    on the card: Zamba2-1.2B at full width cut to SIDE_LAYERS blocks
+    (``tp_cfg``: cordic_pallas, two shared-block applications), one row
+    (batch 1, which the data axes do not divide: kv_shard resolves to
+    "seq_data"), on a (2, 1) mesh of two processes on the one card (gloo,
+    staged through host memory): a prefill of DATA_SEQ_PROMPT tokens and
+    DATA_SEQ_STEPS greedy decode steps (``launch/dryrun.rank_decode``, the
+    dry run's steps) at DATA_SEQ_LEN positions, against one rank in this
+    process. Gates: both ranks resolve "seq_data" and emit the same tokens,
+    each rank's attention buffers hold half of one rank's bytes, the data
+    group's collectives run, and each rank launched the split softmax's
+    three kernels and the activations. Reported: the tokens against one
+    rank's. Returns [each rank's launch counts]."""
+    import numpy as np
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    if DEV == "cuda":
+        build.build_all()                 # built already: no rank runs nvcc
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = tp_cfg(DATA_SEQ_ARCH, smoke)
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, (1, DATA_SEQ_PROMPT))
+    job = dict(cfg=cfg, prompt=prompt, steps=DATA_SEQ_STEPS, max_len=DATA_SEQ_LEN,
+               tp=1, device=DEV)
+    one = data_seq_rank(job)
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    res = mesh_lib.run_ranks(data_seq_rank, 2, job, backend=mesh_lib.pick_backend(2, DEV),
+                             timeout=300)
+    tag = f"[path data-seq {DATA_SEQ_ARCH} (2, 1)]"
+    for r in res:
+        check(r["kv_shard"] == "seq_data", f"{tag} kv_shard resolved to {r['kv_shard']}")
+        check(r["tokens"] == res[0]["tokens"], f"{tag} the ranks emit different tokens")
+        check(2 * r["cache_bytes"] == one["cache_bytes"],
+              f"{tag} a rank's attention buffers hold {r['cache_bytes']} bytes, not half "
+              f"of one rank's {one['cache_bytes']}")
+        check(r["stats"].get("data_all_reduce", 0) > 0
+              and r["stats"].get("data_all_gather", 0) > 0,
+              f"{tag} no collectives over the data group: {r['stats']}")
+        if DEV == "cuda":
+            for k in ("act_2d", "silu_mul_2d") + SPLIT_LAUNCHES:
+                check(r["launches"].get(k, 0) > 0, f"{tag} never launched {k}")
+    same = sum(a == b for a, b in zip(one["tokens"][0], res[0]["tokens"][0]))
+    log(f"{tag} {cfg.num_layers} layers, {DATA_SEQ_PROMPT}-token prompt, "
+        f"{DATA_SEQ_STEPS} decode steps at {DATA_SEQ_LEN} positions: attention buffers "
+        f"a rank {res[0]['cache_bytes']} bytes (one rank {one['cache_bytes']}); tokens "
+        f"{res[0]['tokens'][0]} against one rank's {one['tokens'][0]}: {same}/"
+        f"{DATA_SEQ_STEPS + 1} equal (reported: the split sums' float32 partials "
+        f"round otherwise); data-group collectives a rank {res[0]['stats']}; launches "
+        f"{[r['launches'] for r in res]}; {time.perf_counter() - t0:.1f} s")
+    return [r["launches"] for r in res]
 
 
 def mesh_train_gates(tag, cfg, ranks, ref, checked_by):
@@ -4518,6 +4711,10 @@ def main(argv=None) -> int:
                     help="only the build and the recurrent pair's mesh runs in "
                     "bfloat16, gates logged, with one rank's bfloat16 gradients "
                     "against float32's (the reading behind MESH_TRAIN_F32)")
+    ap.add_argument("--c7", action="store_true",
+                    help="only the build and xLSTM's and Zamba2's tp 2 runs in "
+                    "bfloat16 and in float32 compute, each against its tp 1 "
+                    "(ROADMAP C.7; tokens reported, not gated)")
     ap.add_argument("--src", default=str(SRC),
                     help="the tree whose repro_torch --decode-kernels or "
                     "--row-kernels runs")
@@ -4590,6 +4787,15 @@ def main(argv=None) -> int:
                             runs=[r for r in TP_RUNS if not r[0].startswith(DEEPSEEK)])
         phase_done("path tp")
         log(f"[tp] launches: {tp_counts}")
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(card_line)
+        log(json.dumps({"archs": RESULTS}))
+        return 0
+    if args.c7:
+        runs = [(a, 2) for a in RECURRENT_ARCHS] + list(C7_RUNS)
+        tp_counts = tp_path(torch, build, {}, runs=runs)
+        phase_done("path tp, C.7")
+        log(f"[c7] launches: {tp_counts}")
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
         log(card_line)
         log(json.dumps({"archs": RESULTS}))
@@ -4672,6 +4878,8 @@ def main(argv=None) -> int:
     phase_done("path tp")
     mesh_counts = mesh_train_path(torch, build)
     phase_done("path mesh-train")
+    seq_counts = data_seq_path(torch, build)
+    phase_done("path data-seq")
     rec_counts, att_counts, tr_counts = archs_paths(torch, build, card, records,
                                                     pipeline_ops(PAPER_SCHEDULE))
     train_counts, _ = train_path(torch, build)
@@ -4682,7 +4890,7 @@ def main(argv=None) -> int:
              ds_chunked, yi_dense, yi_dense_long, ds_dense,
              *(c["cordic_pallas"] for c in rec_counts.values()), *att_counts.values(),
              *tr_counts.values(), *(c for ranks in tp_counts.values() for c in ranks),
-             *(c for ranks in mesh_counts.values() for c in ranks))
+             *(c for ranks in mesh_counts.values() for c in ranks), *seq_counts)
     launches = {k: sum(c.get(k, 0) for c in paths) for k in KERNELS}
     for arch, g in GROUP_RECORDS.items():
         launches[f"gqa_decode[{g}]"] = att_counts[arch].get("gqa_decode", 0)
@@ -4718,7 +4926,8 @@ def main(argv=None) -> int:
         f"yi-9b {yi_dense}, long {yi_dense_long}, dense {DEEPSEEK} {ds_dense}, sampling "
         f"yi-9b {yi['sampling']}, obs yi-9b {yi['obs']}, recurrent {rec_counts}, "
         f"attention archs {att_counts}, train archs {tr_counts}, tensor-parallel "
-        f"ranks {tp_counts}, mesh-train ranks {mesh_counts}; per kernel {launches}")
+        f"ranks {tp_counts}, mesh-train ranks {mesh_counts}, data-seq ranks "
+        f"{seq_counts}; per kernel {launches}")
     for arch in ("yi-9b", DEEPSEEK):
         for impl in ("cordic_pallas", "cordic_fixed"):
             identity_phase(torch, arch, impl)

@@ -67,7 +67,13 @@ the model axis instead of by KV head (``seq_cut``; ``resolve_kv_shard``
 keeps the heads cut where the axis does not divide the length, and on the
 paged plane); the parameters keep their cut, and the attention step
 gathers the queries over the heads and reduces its softmax and P.V over
-the ranks (models/attention.py).
+the ranks (models/attention.py). Under the heads cut a batch the data
+axes do not divide (long_500k's one row) is whole on every data rank, and
+its dense caches' positions are cut over the data axes instead, the JAX
+default ``cache_spec``: ``resolve_kv_shard`` turns "auto" into
+"seq_data" for such a batch, and the attention step reduces its softmax
+and P.V over the data group, each rank keeping its own heads
+(``seq_axis``).
 
 Collectives run on the process group's model axis (``Mesh.group``), and
 the train step's on its data axis (``Mesh.data_group``). The gloo backend
@@ -586,10 +592,11 @@ def local_kv_heads(cfg, mesh) -> int:
 
 
 # ---------------------------------------------------------------------------
-# kv_shard: the dense caches' positions over the model axis
+# kv_shard: the dense caches' positions over the model or the data axes
 # ---------------------------------------------------------------------------
-#: the values of ``cfg.kv_shard``
-KV_SHARDS = ("auto", "seq_model")
+#: the values of ``cfg.kv_shard``: "seq_data" is what ``resolve_kv_shard``
+#: makes of "auto" for a batch the data axes do not divide
+KV_SHARDS = ("auto", "seq_model", "seq_data")
 #: the softmax datapaths whose split form keeps the whole row's sum order,
 #: which needs every rank's span to be whole 32-lane windows
 _WINDOWED = ("cordic_pallas", "cordic_fixed")
@@ -602,33 +609,61 @@ def seq_cut(cfg, mesh=None) -> bool:
     cache spec), rather than the heads cut: ``cfg.kv_shard == "seq_model"``
     on more than one model rank. ``resolve_kv_shard`` has already turned
     the knob off where the axis does not divide the length."""
+    return seq_axis(cfg, mesh) == "model"
+
+
+def seq_axis(cfg, mesh=None) -> Optional[str]:
+    """The mesh axis a dense KV cache's positions are cut over on ``mesh``
+    (the ambient serving mesh by default): "model" under
+    ``kv_shard="seq_model"`` on more than one model rank, "data" under
+    "seq_data" on more than one data rank (each rank then holds the
+    positions [d T / dp, (d + 1) T / dp) of its model rank's KV heads),
+    else None (the heads cut)."""
     mesh = active_serving_mesh() if mesh is None else mesh
-    return (getattr(cfg, "kv_shard", "auto") == "seq_model" and mesh is not None
-            and mesh.tp > 1)
+    kv = getattr(cfg, "kv_shard", "auto")
+    if mesh is None:
+        return None
+    if kv == "seq_model" and mesh.tp > 1:
+        return "model"
+    if kv == "seq_data" and mesh.dp > 1:
+        return "data"
+    return None
 
 
-def resolve_kv_shard(cfg, mesh, max_len: int, dense: bool = True):
+def resolve_kv_shard(cfg, mesh, max_len: int, dense: bool = True,
+                     batch: Optional[int] = None):
     """``cfg`` as the KV plane of ``max_len`` positions on ``mesh`` serves
     it. ``"seq_model"`` cuts the dense plane's positions where the model
     axis divides ``max_len`` (the JAX spec's ``S % model == 0``); elsewhere,
     and on the paged plane, which never reads the knob, the heads cut stays
-    and the knob reads ``"auto"``. A CORDIC softmax (``cordic_pallas``,
-    ``cordic_fixed``) whose span ``max_len / tp`` is not whole 32-lane
-    windows is refused: its split row sum would leave the whole row's
-    order. Raises ValueError on an unknown value."""
+    and the knob reads ``"auto"``. Under the heads cut a dense plane whose
+    ``batch`` rows the data axes do not divide (``cache_spec``) cuts its
+    positions over them where they divide ``max_len``: the knob then reads
+    ``"seq_data"`` (without a ``batch``, or where it does not apply,
+    "auto"). A CORDIC softmax (``cordic_pallas``, ``cordic_fixed``) whose
+    span is not whole 32-lane windows is refused: its split row sum would
+    leave the whole row's order. Raises ValueError on an unknown value."""
     import dataclasses
 
     kv = getattr(cfg, "kv_shard", "auto")
     if kv not in KV_SHARDS:
         raise ValueError(f"unknown kv_shard {kv!r}, not in {KV_SHARDS}")
-    if kv == "auto" or mesh is None or mesh.tp == 1:
+    if kv == "seq_model" and mesh is not None and mesh.tp > 1:
+        if not dense or max_len % mesh.tp:
+            return dataclasses.replace(cfg, kv_shard="auto")
+        span = max_len // mesh.tp
+    elif kv == "seq_model":
         return cfg
-    if not dense or max_len % mesh.tp:
-        return dataclasses.replace(cfg, kv_shard="auto")
+    else:
+        dp = mesh.dp if mesh is not None else 1
+        if (batch is None or not dense or dp == 1 or max_len % dp
+                or (batch % dp == 0 and batch >= dp)):
+            return dataclasses.replace(cfg, kv_shard="auto") if kv != "auto" else cfg
+        cfg, span = dataclasses.replace(cfg, kv_shard="seq_data"), max_len // dp
     if getattr(cfg, "softmax_impl", "exact") in _WINDOWED:
         from repro_torch.kernels.softmax_cordic import check_span
 
-        check_span(max_len // mesh.tp)
+        check_span(span)
     return cfg
 
 
@@ -682,12 +717,16 @@ def cache_spec(mesh, batch: int, seq_len: int, kv_heads: int) -> dict:
 # ---------------------------------------------------------------------------
 # Collectives
 # ---------------------------------------------------------------------------
-def _book(mesh, kind: str, nbytes: int) -> None:
+def _book(mesh, kind: str, nbytes: int, axis: str = "model") -> None:
     """Count one collective of ``kind`` ("all_reduce" or "all_gather") and
     its buffer's bytes in ``mesh.stats`` (the all-reduce's bytes under
-    "bytes", as ever)."""
+    "bytes", as ever); one over the data axes also under "data_<kind>" and
+    "data_<kind>_bytes"."""
     mesh.stats[kind] += 1
     mesh.stats["bytes" if kind == "all_reduce" else f"{kind}_bytes"] += nbytes
+    if axis == "data":
+        mesh.stats[f"data_{kind}"] += 1
+        mesh.stats[f"data_{kind}_bytes"] += nbytes
 
 
 def _axis(mesh, axis: str):
@@ -707,7 +746,7 @@ def reduce_(t: torch.Tensor, mesh, axis: str = "model",
     n, group = _axis(mesh, axis) if mesh is not None else (1, None)
     if n == 1:
         return t
-    _book(mesh, "all_reduce", t.numel() * t.element_size())
+    _book(mesh, "all_reduce", t.numel() * t.element_size(), axis)
     if mesh.dry:
         return t
     rop = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
@@ -738,7 +777,7 @@ def all_gather(t: torch.Tensor, mesh, axis: str = "model") -> list:
     n, group = _axis(mesh, axis)
     if n == 1:
         return [t]
-    _book(mesh, "all_gather", n * t.numel() * t.element_size())
+    _book(mesh, "all_gather", n * t.numel() * t.element_size(), axis)
     if mesh.dry:
         return [t] * n
     staged = mesh.staged and t.device.type != "cpu"

@@ -253,14 +253,14 @@ _SIGNATURES = {
     "paged_decode": {
         # (q, q_dtype, k_pool, v_pool, pool_dtype, k_scale, v_scale,
         #  code_res, tables, k_len, out, ws, ws_floats, B, KH, G, hd, L, M,
-        #  chunk, tile, scale, impl, kv_dtype, params, stream)
+        #  chunk, tile, order, scale, impl, kv_dtype, params, stream)
         "paged_gqa_decode": (_P, _I, _P, _P, _I, _P, _P, _F, _P, _P, _P, _P, _LL,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P),
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P),
         # (q_eff, q_rope, q_dtype, c_pool, r_pool, tables, k_len, out, ws,
-        #  ws_floats, B, H, R, P, L, M, score_heads, chunk, tile, scale, impl,
-        #  params, stream)
+        #  ws_floats, B, H, R, P, L, M, score_heads, chunk, tile, order,
+        #  scale, impl, params, stream)
         "paged_mla_decode": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P),
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P),
     },
 }
 

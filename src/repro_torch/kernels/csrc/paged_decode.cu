@@ -51,14 +51,17 @@
 //
 // Summation orders are fixed and shared with the plain PyTorch versions
 // (kernels/paged_attention.py), and they are the TPU kernel's walk per
-// output row: a score is a left-to-right sum over head_dim of q*k products,
-// then times the scale, then the mask; block sums and P.V sums run left to
-// right over a block's lanes; the row sum and the accumulator fold block by
-// block in table order (exact: l = l * alpha + bs, acc = acc * alpha + pv).
-// The row max and the running maxima are order-free. Compiled with
-// -fmad=false, so kernel and plain agree bit for bit on both CORDIC impls
-// and on quantized pools; XLA's dot orders differ, hence the reference's own
-// f32 tolerance against the JAX kernel.
+// output row: a score's dot runs in jitted XLA:CPU's order for the JAX
+// kernel's einsum at this geometry (paged_attention.dot_order, passed as
+// the launch's `order` = 2 * partials + halve: one fmaf chain, or 2, 4 or 8
+// strided fmaf partials combined as a tree or by halves), then times the
+// scale, then the mask; block sums and P.V sums run left to right over a
+// block's lanes; the row sum and the accumulator fold block by block in
+// table order (exact: l = l * alpha + bs, acc = acc * alpha + pv). The row
+// max and the running maxima are order-free. Compiled with -fmad=false, so
+// kernel and plain agree bit for bit on every impl and on quantized pools;
+// the scores equal the JAX kernel's where dot_order is mapped, and XLA's
+// P.V orders differ, hence the reference's own f32 tolerance on the output.
 //
 // Quantized pools (kv_quant, _gqa_kernel :260-275 with the scale-pool
 // operands :347-353): the pool type TP is int8_t or int16_t codes, and each
@@ -97,6 +100,32 @@ constexpr int kFoldBatch = 32;
 constexpr int kUnroll = 8;
 // ka[] marks a lane below the dead cutoff (probability exactly 0)
 constexpr int kDead = INT_MIN;
+// A launch's score-dot order (paged_attention.DotOrder.code: 2 * partials
+// + halve) is one the kernels instantiate: a chain, 2 or 4 partials as a
+// tree, 8 as a tree or by halves.
+__host__ __device__ __forceinline__ bool order_ok(int code) {
+  return code == 2 || code == 4 || code == 8 || code == 16 || code == 17;
+}
+
+// The dot of order ORDER (2 * partials + halve) from its partials p[0..
+// partials): a tree adds neighbours, ((p0 + p1) + (p2 + p3)) + ..., halving
+// adds the upper half onto the lower, ((p0 + p4) + (p2 + p6)) + ((p1 + p5)
+// + (p3 + p7)). P: a register array or a pointer into shared memory.
+template <int ORDER, typename P>
+__device__ __forceinline__ float combine_parts(const P& p) {
+  constexpr int kParts = ORDER >> 1;
+  if constexpr (kParts == 1) {
+    return p[0];
+  } else if constexpr (kParts == 2) {
+    return p[0] + p[1];
+  } else if constexpr (kParts == 4) {
+    return (p[0] + p[1]) + (p[2] + p[3]);
+  } else if constexpr (ORDER & 1) {
+    return ((p[0] + p[4]) + (p[2] + p[6])) + ((p[1] + p[5]) + (p[3] + p[7]));
+  } else {
+    return ((p[0] + p[1]) + (p[2] + p[3])) + ((p[4] + p[5]) + (p[6] + p[7]));
+  }
+}
 
 template <typename T>
 __device__ __forceinline__ float kv_round(float v);
@@ -479,13 +508,77 @@ __host__ int smem_ok(K kern, size_t bytes) {
 
 // TQ: query dtype; TKV: the kv_dtype cast replayed per element; TP: the
 // pool's storage (float, or int8_t/int16_t codes with per-block scales).
+// The scores of a GQA score CTA's staged blocks in order ORDER: thread item
+// i is score (g, l) of the blocks j = par, par + 2, ... (par = i / (G L)),
+// partial t adding the products of d = t, t + PARTS, ...
+template <int ORDER>
+__device__ __forceinline__ void gqa_scores(const float* qs, const float* ks, int hs, int G,
+                                           int hd, int L, int nc, int c0, int klen,
+                                           float* ws, long long row0, long long ml,
+                                           float scale) {
+  constexpr int PARTS = ORDER >> 1;
+  for (int i = threadIdx.x; i < 2 * G * L; i += kScoreThreads) {
+    const int par = i / (G * L), gl = i - par * G * L;
+    const int g = gl / L, l = gl - g * L;
+    if (par >= nc) continue;
+    const float* qr = qs + g * hs;
+    float sc[kMaxChunk / 2][PARTS];
+#pragma unroll
+    for (int u = 0; u < kMaxChunk / 2; ++u)
+#pragma unroll
+      for (int t = 0; t < PARTS; ++t) sc[u][t] = 0.0f;
+    for (int d = 0; d < hd; d += PARTS) {
+#pragma unroll
+      for (int t = 0; t < PARTS; ++t) {
+        const float qd = qr[d + t];
+#pragma unroll
+        for (int u = 0; u < kMaxChunk / 2; ++u) {
+          const int j = par + 2 * u;
+          if (j < nc) sc[u][t] = fmaf(qd, ks[(j * L + l) * hs + d + t], sc[u][t]);
+        }
+      }
+    }
+    float* o = ws + (row0 + g) * ml + (long long)c0 * L + l;
+#pragma unroll
+    for (int u = 0; u < kMaxChunk / 2; ++u) {
+      const int j = par + 2 * u;
+      if (j < nc) {
+        const float v = combine_parts<ORDER>(sc[u]) * scale;
+        o[j * L] = ((c0 + j) * L + l < klen) ? v : kNegInf;
+      }
+    }
+  }
+}
+
+// f(std::integral_constant<int, ORDER>) for a GQA launch's order (one
+// dot_order gives GQA: a chain, 4 partials, 8 as a tree or by halves; the
+// callers checked it). The score kernel switches on it uniformly, so each
+// order is compiled once per kernel and the staging, which dominates its
+// code, once for all orders.
+template <typename F>
+__device__ __forceinline__ void with_order(int order, F f) {
+  switch (order) {
+    case 2:
+      f(std::integral_constant<int, 2>{});
+      break;
+    case 16:
+      f(std::integral_constant<int, 16>{});
+      break;
+    case 17:
+      f(std::integral_constant<int, 17>{});
+      break;
+    default:
+      f(std::integral_constant<int, 8>{});
+  }
+}
+
 template <typename TQ, typename TKV, typename TP>
 __global__ void __launch_bounds__(kScoreThreads)
     gqa_decode_kernel_score(const TQ* __restrict__ q, const TP* __restrict__ k_pool,
                             const float* __restrict__ k_scale, float code_res,
                             const int* __restrict__ tables, const int* __restrict__ k_len,
                             float* __restrict__ ws, int KH, int G, int hd, int L, int M,
-                            int chunk, float scale, const CordicParams p) {
+                            int chunk, int order, float scale, const CordicParams p) {
   extern __shared__ float smem[];
   __shared__ long long blk[kMaxChunk];
   __shared__ float ksc[kMaxChunk];
@@ -525,33 +618,9 @@ __global__ void __launch_bounds__(kScoreThreads)
   __syncthreads();
   const long long ml = (long long)M * L;
   const long long row0 = ((long long)b * KH + h) * G;
-  // item i: score (g, l) of the blocks j = par, par + 2, ... (par = i / (G L))
-  for (int i = tid; i < 2 * G * L; i += kScoreThreads) {
-    const int par = i / (G * L), gl = i - par * G * L;
-    const int g = gl / L, l = gl - g * L;
-    if (par >= nc) continue;
-    const float* qr = qs + g * hs;
-    float sc[kMaxChunk / 2];
-#pragma unroll
-    for (int u = 0; u < kMaxChunk / 2; ++u) sc[u] = 0.0f;
-    for (int d = 0; d < hd; ++d) {
-      const float qd = qr[d];
-#pragma unroll
-      for (int u = 0; u < kMaxChunk / 2; ++u) {
-        const int j = par + 2 * u;
-        if (j < nc) sc[u] = sc[u] + qd * ks[(j * L + l) * hs + d];
-      }
-    }
-    float* o = ws + (row0 + g) * ml + (long long)c0 * L + l;
-#pragma unroll
-    for (int u = 0; u < kMaxChunk / 2; ++u) {
-      const int j = par + 2 * u;
-      if (j < nc) {
-        const float v = sc[u] * scale;
-        o[j * L] = ((c0 + j) * L + l < klen) ? v : kNegInf;
-      }
-    }
-  }
+  with_order(order, [&](auto o) {
+    gqa_scores<decltype(o)::value>(qs, ks, hs, G, hd, L, nc, c0, klen, ws, row0, ml, scale);
+  });
 }
 
 template <int IMPL>
@@ -623,7 +692,7 @@ struct GqaArgs {
   float code_res;
   const int *tables, *k_len;
   float *out, *ws;
-  int B, KH, G, hd, L, M, chunk, tile;
+  int B, KH, G, hd, L, M, chunk, tile, order;
   float scale;
 };
 
@@ -637,7 +706,7 @@ int launch(const GqaArgs& a, const CordicParams& p, cudaStream_t s) {
   if (rc) return rc;
   score<<<blocks, kScoreThreads, score_bytes, s>>>(
       (const TQ*)a.q, (const TP*)a.k_pool, a.k_scale, a.code_res, a.tables, a.k_len, a.ws,
-      a.KH, G, hd, L, M, a.chunk, a.scale, p);
+      a.KH, G, hd, L, M, a.chunk, a.order, a.scale, p);
   if ((rc = (int)cudaGetLastError())) return rc;
 
   auto softmax = gqa_decode_kernel_softmax<IMPL>;
@@ -698,19 +767,22 @@ int launch_pool(int pool_dtype, int impl, const GqaArgs& a, const CordicParams& 
 // per-head scale (k_scale / v_scale: (N, 1, KH, 1) float32). ws: the
 // workspace of paged_attention.gqa_plan, ws_floats float32 words (at least
 // workspace_floats(B * KH * G, M, L, hd)); chunk: blocks of a score / pv CTA
-// (1..4); tile: blocks a softmax CTA holds in shared memory at once.
+// (1..4); tile: blocks a softmax CTA holds in shared memory at once; order:
+// the score dot's order, 2 * partials + halve (paged_attention.DotOrder; a
+// chain, 4 partials, or 8 as a tree or by halves).
 extern "C" int paged_gqa_decode(const void* q, int q_dtype, const void* k_pool,
                                 const void* v_pool, int pool_dtype, const void* k_scale,
                                 const void* v_scale, float code_res, const void* tables,
                                 const void* k_len, void* out, void* ws, long long ws_floats,
                                 int B, int KH, int G, int hd, int L, int M, int chunk, int tile,
-                                float scale, int impl, int kv_dtype, const CordicParams* p,
+                                int order, float scale, int impl, int kv_dtype,
+                                const CordicParams* p,
                                 void* stream) {
   if (B == 0) return (int)cudaGetLastError();
   if (pool_dtype != 0 && (k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (chunk < 1 || chunk > kMaxChunk || tile < 1 || hd % 4 ||
-      ws_floats < workspace_floats((long long)B * KH * G, M, L, hd))
+  if (chunk < 1 || chunk > kMaxChunk || tile < 1 || hd % 4 || !order_ok(order) || order == 4 ||
+      hd % (order >> 1) || ws_floats < workspace_floats((long long)B * KH * G, M, L, hd))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const GqaArgs a{q,
@@ -731,6 +803,7 @@ extern "C" int paged_gqa_decode(const void* q, int q_dtype, const void* k_pool,
                   M,
                   chunk,
                   tile,
+                  order,
                   scale};
   const CordicParams& pp = *p;
   if (q_dtype == 0)
@@ -751,31 +824,54 @@ extern "C" int paged_gqa_decode(const void* q, int q_dtype, const void* k_pool,
 //
 //   score    grid (ceil(M / chunk), ceil(H / HG), B): HG heads of a slot a
 //            CTA, its `chunk` blocks staged one after another; a score's
-//            two sums (R and P products) each take 4 strided partials,
-//            thread t summing partial t for 2 heads at once, then one
-//            thread a score adds the partials
+//            two sums (R and P products) each take the order's strided
+//            partials (1, 2, 4 or 8), thread t summing partial t for 2
+//            heads at once, then one thread a score combines them
 //   softmax  grid (H, B), one head a CTA (the GQA phase's code)
 //   pv       grid (ceil(M / chunk), ceil(R / 128), B): 128 latent columns
 //            of `chunk` blocks a CTA, every head's P.V sums
 //   fold     grid (H * ceil(R / 128), B), 128 latent columns of a head a CTA
 //
 // Order, shared with mla_decode_plain: jitted XLA:CPU's order for the JAX
-// kernel's two dots (ROADMAP C.4): partial t of a score sum adds the
-// products of elements t, t + 4, ... left to right as fused multiply-adds;
-// the 4 partials are added (p0 + p1) + (p2 + p3), the latent sum and the
-// rope sum separately; score = (sum_R + sum_P) * scale, as _mla_kernel
-// writes it. Block and latent sums run left to right over the
+// kernel's two dots at this geometry (paged_attention.dot_order, the
+// launch's `order`): partial t of a score sum adds the products of elements
+// t, t + parts, ... left to right as fused multiply-adds (parts 1: one
+// chain), then the partials are combined as a tree or by halves, the latent
+// sum and the rope sum separately; score = (sum_R + sum_P) * scale, as
+// _mla_kernel writes it. Block and latent sums run left to right over the
 // lanes, folded in table order as above.
 // ---------------------------------------------------------------------------
 namespace {
 
 constexpr int kMlaThreads = 512;
-constexpr int kSplit = 4;  // MLA_SPLIT: strided partials per score sum
+// floats padding each staged latent and rope row of a score CTA
+constexpr int kPad = 4;
 // heads whose partial t of one lane's score one thread sums at once (with
 // 4 partials a score, 2 heads a thread keep all 512 threads busy at H 16)
 constexpr int kMlaHeads = 2;
 
-template <typename TQ>
+// f(std::integral_constant<int, ORDER>) for a launch's order on the host:
+// an MLA score kernel is instantiated per order (it has no dequantizing
+// staging to share).
+template <typename F>
+__host__ int launch_order(int order, F f) {
+  switch (order) {
+    case 2:
+      return f(std::integral_constant<int, 2>{});
+    case 4:
+      return f(std::integral_constant<int, 4>{});
+    case 8:
+      return f(std::integral_constant<int, 8>{});
+    case 16:
+      return f(std::integral_constant<int, 16>{});
+    case 17:
+      return f(std::integral_constant<int, 17>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename TQ, int ORDER>
 __global__ void __launch_bounds__(kMlaThreads)
     mla_decode_kernel_score(const TQ* __restrict__ q_eff, const TQ* __restrict__ q_rope,
                             const float* __restrict__ c_pool, const float* __restrict__ r_pool,
@@ -784,13 +880,14 @@ __global__ void __launch_bounds__(kMlaThreads)
                             int chunk, float scale) {
   extern __shared__ float smem[];
   __shared__ long long blk[kMaxChunk];
-  // latent and rope rows padded by kSplit: the score groups of a warp read
+  // latent and rope rows padded by kPad: the score groups of a warp read
   // neighbouring lanes' rows on other banks
-  const int cst = R + kSplit, rst = P + kSplit;
+  const int cst = R + kPad, rst = P + kPad;
+  constexpr int parts = ORDER >> 1;
   float* qe = smem;               // (hg, R) latent queries, then (hg, P) rope ones
   float* cs = qe + HG * (R + P);  // (L, cst) latent block
   float* rs = cs + L * cst;       // (L, rst) rope-key block
-  float* part = rs + L * rst;     // (2, HG, L, kSplit + 1) partials: latent, rope
+  float* part = rs + L * rst;     // (2, HG, L, parts + 1) partials: latent, rope
   const int b = blockIdx.z, h0 = blockIdx.y * HG, tid = threadIdx.x;
   const int klen = k_len[b];
   const int live = live_blocks(klen, L, M);
@@ -807,9 +904,9 @@ __global__ void __launch_bounds__(kMlaThreads)
         },
         [&](int i, float v) { qe[i] = v; });  // qr follows qe at hg * R
   // thread (task, t): partial t of lane l's scores for kMlaHeads heads
-  const int task = tid / kSplit, t = tid - task * kSplit;
+  const int task = tid / parts, t = tid - task * parts;
   const int tasks = L * ((hg + kMlaHeads - 1) / kMlaHeads);
-  const int pst = kSplit + 1;  // padded: the final sums read across banks
+  const int pst = parts + 1;  // padded: the final sums read across banks
   const int r4 = R / 4, p4 = P / 4;
   const long long ml = (long long)M * L;
   const long long row0 = (long long)b * H + h0;
@@ -838,20 +935,20 @@ __global__ void __launch_bounds__(kMlaThreads)
             dst[3] = v.w;
           });
     __syncthreads();
-    for (int k = task; k < tasks; k += kMlaThreads / kSplit) {
+    for (int k = task; k < tasks; k += kMlaThreads / parts) {
       const int l = k % L, h0 = k / L * kMlaHeads;
       float pr[kMlaHeads], pp[kMlaHeads];
 #pragma unroll
       for (int u = 0; u < kMlaHeads; ++u) pr[u] = pp[u] = 0.0f;
       const float* cr = cs + l * cst;
-      for (int i = t; i < R; i += kSplit) {
+      for (int i = t; i < R; i += parts) {
         const float c = cr[i];
 #pragma unroll
         for (int u = 0; u < kMlaHeads; ++u)
           if (h0 + u < hg) pr[u] = fmaf(qe[(h0 + u) * R + i], c, pr[u]);
       }
       const float* rr = rs + l * rst;
-      for (int i = t; i < P; i += kSplit) {
+      for (int i = t; i < P; i += parts) {
         const float r = rr[i];
 #pragma unroll
         for (int u = 0; u < kMlaHeads; ++u)
@@ -869,8 +966,8 @@ __global__ void __launch_bounds__(kMlaThreads)
     for (int si = tid; si < hg * L; si += kMlaThreads) {  // si = h * L + l
       const float* a = part + si * pst;
       const float* c = part + (HG * L + si) * pst;
-      const float sr = (a[0] + a[1]) + (a[2] + a[3]);
-      const float sp = (c[0] + c[1]) + (c[2] + c[3]);
+      const float sr = combine_parts<ORDER>(a);
+      const float sp = combine_parts<ORDER>(c);
       const int h = si / L, l = si - h * L;
       const float v = (sr + sp) * scale;
       ws[(row0 + h) * ml + base + l] = (base + l < klen) ? v : kNegInf;
@@ -938,18 +1035,23 @@ __global__ void __launch_bounds__(kFoldThreads)
 template <typename TQ, int IMPL>
 int launch_mla(const void* q_eff, const void* q_rope, const void* c_pool, const void* r_pool,
                const void* tables, const void* k_len, void* out, void* ws, int B, int H, int R,
-               int P, int L, int M, int HG, int chunk, int tile, float scale,
+               int P, int L, int M, int HG, int chunk, int tile, int order, float scale,
                const CordicParams& p, cudaStream_t s) {
-  auto score = mla_decode_kernel_score<TQ>;
-  const size_t score_bytes =
-      sizeof(float) * ((size_t)HG * (R + P) + (size_t)L * (R + kSplit + P + kSplit) +
-                       2 * (size_t)HG * L * (kSplit + 1));
-  int rc = smem_ok(score, score_bytes);
+  int rc = launch_order(order, [&](auto code) {
+    constexpr int kOrder = decltype(code)::value, kParts = kOrder >> 1;
+    auto score = mla_decode_kernel_score<TQ, kOrder>;
+    const size_t score_bytes =
+        sizeof(float) * ((size_t)HG * (R + P) + (size_t)L * (R + kPad + P + kPad) +
+                         2 * (size_t)HG * L * (kParts + 1));
+    int r = smem_ok(score, score_bytes);
+    if (r) return r;
+    score<<<dim3((M + chunk - 1) / chunk, (H + HG - 1) / HG, B), kMlaThreads, score_bytes,
+            s>>>((const TQ*)q_eff, (const TQ*)q_rope, (const float*)c_pool,
+                 (const float*)r_pool, (const int*)tables, (const int*)k_len, (float*)ws, H,
+                 R, P, L, M, HG, chunk, scale);
+    return (int)cudaGetLastError();
+  });
   if (rc) return rc;
-  score<<<dim3((M + chunk - 1) / chunk, (H + HG - 1) / HG, B), kMlaThreads, score_bytes, s>>>(
-      (const TQ*)q_eff, (const TQ*)q_rope, (const float*)c_pool, (const float*)r_pool,
-      (const int*)tables, (const int*)k_len, (float*)ws, H, R, P, L, M, HG, chunk, scale);
-  if ((rc = (int)cudaGetLastError())) return rc;
 
   auto softmax = mla_decode_kernel_softmax<IMPL>;
   const size_t softmax_bytes = softmax_smem(L, M, tile);
@@ -977,18 +1079,18 @@ int launch_mla(const void* q_eff, const void* q_rope, const void* c_pool, const 
 template <typename TQ>
 int launch_mla_impl(int impl, const void* qe, const void* qr, const void* cp, const void* rp,
                     const void* t, const void* kl, void* o, void* ws, int B, int H, int R,
-                    int P, int L, int M, int HG, int chunk, int tile, float scale,
+                    int P, int L, int M, int HG, int chunk, int tile, int order, float scale,
                     const CordicParams& p, cudaStream_t s) {
   switch (impl) {
     case kExact:
       return launch_mla<TQ, kExact>(qe, qr, cp, rp, t, kl, o, ws, B, H, R, P, L, M, HG, chunk,
-                                    tile, scale, p, s);
+                                    tile, order, scale, p, s);
     case kCordicPallas:
       return launch_mla<TQ, kCordicPallas>(qe, qr, cp, rp, t, kl, o, ws, B, H, R, P, L, M, HG,
-                                           chunk, tile, scale, p, s);
+                                           chunk, tile, order, scale, p, s);
     case kCordicFixed:
       return launch_mla<TQ, kCordicFixed>(qe, qr, cp, rp, t, kl, o, ws, B, H, R, P, L, M, HG,
-                                          chunk, tile, scale, p, s);
+                                          chunk, tile, order, scale, p, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1000,23 +1102,25 @@ int launch_mla_impl(int impl, const void* qe, const void* qr, const void* cp, co
 // (q_eff and q_rope alike). ws: the workspace of paged_attention.mla_plan,
 // ws_floats float32 words (at least workspace_floats(B * H, M, L, R)).
 // score_heads: heads of a score CTA; chunk: blocks of a score / pv CTA
-// (1..4); tile: blocks a softmax CTA holds in shared memory at once.
+// (1..4); tile: blocks a softmax CTA holds in shared memory at once; order:
+// the score dots' order, 2 * partials + halve (paged_attention.DotOrder).
 extern "C" int paged_mla_decode(const void* q_eff, const void* q_rope, int q_dtype,
                                 const void* c_pool, const void* r_pool, const void* tables,
                                 const void* k_len, void* out, void* ws, long long ws_floats,
                                 int B, int H, int R, int P, int L, int M, int score_heads,
-                                int chunk, int tile, float scale, int impl,
+                                int chunk, int tile, int order, float scale, int impl,
                                 const CordicParams* p, void* stream) {
   if (B == 0 || H == 0) return (int)cudaGetLastError();
   if (score_heads < 1 || chunk < 1 || chunk > kMaxChunk || tile < 1 || R % 4 || P % 4 ||
+      !order_ok(order) || R % (order >> 1) || P % (order >> 1) ||
       ws_floats < workspace_floats((long long)B * H, M, L, R))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return q_dtype == 0
              ? launch_mla_impl<float>(impl, q_eff, q_rope, c_pool, r_pool, tables, k_len, out,
-                                      ws, B, H, R, P, L, M, score_heads, chunk, tile, scale,
-                                      *p, s)
+                                      ws, B, H, R, P, L, M, score_heads, chunk, tile, order,
+                                      scale, *p, s)
              : launch_mla_impl<__nv_bfloat16>(impl, q_eff, q_rope, c_pool, r_pool, tables,
                                               k_len, out, ws, B, H, R, P, L, M, score_heads,
-                                              chunk, tile, scale, *p, s);
+                                              chunk, tile, order, scale, *p, s);
 }

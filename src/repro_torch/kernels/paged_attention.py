@@ -38,18 +38,20 @@ Softmax (``softmax_impl``):
                      lanes of a live block clip at e^-80, no lane flushes)
 
 Summation orders are fixed per output row and shared by the kernels and
-the plain versions: a GQA score is a left-to-right sum over head_dim, times
-the scale, then the mask; an MLA score is
-``(sum_R qe*c + sum_P qr*r) * scale``, each sum in jitted XLA:CPU's dot
-order (ROADMAP C.4): ``MLA_SPLIT`` = 4 strided partials of fused
-multiply-adds (partial t adds elements t, t + 4, ... left to right, one
-thread each), then (p0 + p1) + (p2 + p3); block sums and P.V sums run
-left to right over a block's lanes; the row sum and the accumulator fold
-block by block in table order (``exact``: ``l = l * alpha + bs``, ``acc =
-acc * alpha + pv``, alpha from the running max). The row max is
-order-free. With ``-fmad=false`` kernel and plain
-agree bit for bit on both CORDIC impls; against the JAX kernels, whose dots
-XLA orders, outputs agree to f32 round-off (the reference's own ATOL 2e-5).
+the plain versions. A score's dot runs in jitted XLA:CPU's order for the
+JAX kernel's einsum at this geometry (``dot_order``, ROADMAP C.4: one
+fused multiply-add chain, or 2, 4 or 8 strided partials of fused
+multiply-adds combined as a tree or by halves, picked by the rows, the
+block length and, for GQA, the KV heads); a GQA score is that dot times
+the scale, then the mask; an MLA score is ``(sum_R qe*c + sum_P qr*r) *
+scale``, each sum in that order. Block sums and P.V sums run left to right
+over a block's lanes; the row sum and the accumulator fold block by block
+in table order (``exact``: ``l = l * alpha + bs``, ``acc = acc * alpha +
+pv``, alpha from the running max). The row max is order-free. With
+``-fmad=false`` kernel and plain agree bit for bit on every impl; the
+scores equal the JAX kernel's at every mapped geometry, and the outputs
+agree to f32 round-off (the reference's own ATOL 2e-5): XLA orders the
+P.V dots otherwise.
 
 Quantized pools (``gqa_decode(kv_quant="int8" | "q2_14")``): the pools hold
 int8/int16 codes and ``k_scale_pool``/``v_scale_pool`` (N,1,KH,1) float32
@@ -111,15 +113,94 @@ def canonical_kv_dtype(kv_dtype) -> Optional[torch.dtype]:
 PLAIN_COLS = 16
 
 
-def _seq_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q (B,KH,G,hd) . k (B,L,KH,hd) -> (B,KH,G,L), summed left to right
-    over head_dim."""
-    kt = k.permute(0, 2, 1, 3)                                # (B,KH,L,hd)
-    s = torch.zeros(q.shape[:3] + (k.shape[1],), dtype=torch.float32,
-                    device=q.device)
-    for d in range(q.shape[-1]):
-        s = s + q[..., d:d + 1] * kt[:, :, None, :, d]
-    return s
+@dataclasses.dataclass(frozen=True)
+class DotOrder:
+    """How jitted XLA:CPU sums one decode score's dot (ROADMAP C.4), which
+    the plain versions and the kernels replay. ``partials`` 1: one
+    sequential chain of fused multiply-adds over the width; 2, 4 or 8:
+    that many strided partials, partial t adding the products of elements
+    t, t + partials, ... left to right as fused multiply-adds, then
+    combined: "tree" adds neighbours, ((p0 + p1) + (p2 + p3)) + ...,
+    "halve" the upper half onto the lower, ((p0 + p4) + (p2 + p6)) + ((p1
+    + p5) + (p3 + p7)). ``mapped`` False: a geometry whose order was not
+    found; it takes a chain, and its scores agree with the JAX kernel's to
+    f32 round-off only."""
+    partials: int
+    combine: str = "tree"
+    mapped: bool = True
+
+    @property
+    def code(self) -> int:
+        """The kernels' order argument: 2 * partials + (combine == "halve")."""
+        return 2 * self.partials + (self.combine == "halve")
+
+
+#: block lengths the dot orders were mapped over
+DOT_ORDER_MAX_L = 256
+
+
+def dot_order(kind: str, rows: int, width: int, L: int, heads: int = 2) -> DotOrder:
+    """The order jitted XLA:CPU takes for a decode kernel's score dot:
+    ``gqa``, ``einsum("hgd,lhd->hgl")`` with rows = G, width = head_dim and
+    ``heads`` = KH; ``mla``, ``einsum("hr,lr->hl")`` (and its rope twin)
+    with rows = H, width = the contraction. Mapped on the JAX kernels run
+    in interpret mode, eager and jitted, at every geometry the engine
+    reaches (tests/test_torch_paged_attention.py); the choice depends on
+    the dot's shape, not its values:
+
+      one row (G 1, MLA H 1): GQA over two or more KV heads a chain at
+          blocks of 1 and 4-128 lanes that are powers of two (at other
+          lengths the first KV head's last lane takes another order now
+          and then: unmapped); one KV head (a vector by a matrix, which
+          LLVM vectorizes and the backend reorders) a chain up to width
+          16, else unmapped, as MLA
+      L 1: 8 partials, "halve" below 8 rows, "tree" at 8 and 16 rows
+          (GQA over two or more KV heads), else unmapped
+      L 2-3: a chain up to 3 rows, else 4 partials
+      GQA, L 4-16: 4 partials; L >= 17: a chain
+      MLA, L 4-24: 4 partials; then by ceil(L / 16) mod 4: 1 and 3 give 4
+          partials, 2 gives 2, 0 a chain (L 25-32: 2, 33-48: 4, 49-64: a
+          chain, 65-80: 4, ...)
+
+    Past DOT_ORDER_MAX_L lanes a block is unmapped."""
+    if kind not in ("gqa", "mla"):
+        raise ValueError(f"unknown decode kind {kind!r}")
+    chain, unmapped = DotOrder(1), DotOrder(1, mapped=False)
+    if L > DOT_ORDER_MAX_L:
+        return unmapped
+    if rows == 1:
+        if kind == "gqa" and heads == 1 and width <= 16:
+            return chain
+        ok = kind == "gqa" and heads > 1 and L in (1, 4, 8, 16, 32, 64, 128)
+        return chain if ok else unmapped
+    if L == 1:
+        if (kind == "gqa" and heads == 1) or width % 8 or 8 < rows < 16 or rows > 16:
+            return unmapped
+        return DotOrder(8, "tree" if rows >= 8 else "halve")
+    if L <= 3:
+        return chain if rows <= 3 else DotOrder(4)
+    if kind == "gqa":
+        return DotOrder(4) if L <= 16 else chain
+    if L <= 24:
+        return DotOrder(4)
+    return (DotOrder(4), DotOrder(2), DotOrder(4), chain)[(-(-L // 16) - 1) % 4]
+
+
+def _xla_dot(q: torch.Tensor, k: torch.Tensor, order: DotOrder) -> torch.Tensor:
+    """sum(q * k) over the last axis (q and k broadcast) in ``order``: each
+    fused multiply-add in float64 and rounded once (a float32 product is
+    exact there), as ``kernels/cordic_act.py``'s ``_fma_*`` do."""
+    prod = q.double() * k.double()
+    n, P = prod.shape[-1], order.partials
+    prod = prod.reshape(prod.shape[:-1] + (n // P, P))
+    part = torch.zeros(prod.shape[:-2] + (P,), dtype=torch.float32, device=q.device)
+    for j in range(n // P):
+        part = (part.double() + prod[..., j, :]).to(torch.float32)
+    while part.shape[-1] > 1:
+        h = part.shape[-1] // 2
+        part = (part[..., :h] + part[..., h:] if order.combine == "halve"
+                else part[..., 0::2] + part[..., 1::2])
+    return part[..., 0]
 
 
 def _live_columns(tables, k_len, L: int):
@@ -245,10 +326,11 @@ def gqa_decode_plain(q, k_pool, v_pool, tables, k_len, *, scale: float,
             acc = acc + p[..., l:l + 1] * v[:, :, None, :, l]
         return acc
 
-    qf = q.to(torch.float32)
+    qf = q.to(torch.float32)[:, :, :, None, :]                  # (B,KH,G,1,hd)
+    order = dot_order("gqa", G, hd, L, heads=KH)
     C = blks.shape[1]
-    s = torch.cat([_seq_scores(qf, blocks(k_pool, k_scale_pool, c0, min(C, c0 + PLAIN_COLS))
-                               .flatten(1, 2))
+    s = torch.cat([_xla_dot(qf, blocks(k_pool, k_scale_pool, c0, min(C, c0 + PLAIN_COLS))
+                            .flatten(1, 2).permute(0, 2, 1, 3)[:, :, None], order)
                    for c0 in range(0, C, PLAIN_COLS)], dim=-1) if C else \
         torch.zeros((B, KH, G, 0), device=q.device)
     s = s.view(B, KH, G, C, L) * scale
@@ -270,12 +352,13 @@ MLA_SCORE_HEADS = (4, 16)
 #: tiles, once per softmax pass)
 SOFTMAX_TILE_LANES = 8192
 #: the kernels' fixed layout (csrc/paged_decode.cu): value columns of an
-#: MLA pv CTA and of a fold CTA, strided partials of an MLA score sum. The
+#: MLA pv CTA and of a fold CTA, the padding of an MLA score CTA's staged
+#: latent and rope rows. The
 #: entry points check the workspace they are given against their own size
 #: (csrc ``workspace_floats``), and a launch past the shared memory limit
 #: fails, so a drift between the two sides raises rather than writes out
 #: of bounds.
-_PV_COLS, _FOLD_COLS, _SPLIT = 128, 128, 4
+_PV_COLS, _FOLD_COLS, _PAD = 128, 128, 4
 #: dynamic shared memory a CTA may have on Hopper (bytes)
 _SMEM_MAX = 232448
 
@@ -286,9 +369,9 @@ class DecodePlan:
     static shapes alone (no host read of ``k_len``): each grid (x, y, z),
     the blocks of a score / pv CTA, the heads of a score CTA (GQA: the G
     rows of a kv head), the blocks a softmax CTA holds in shared memory at
-    once, the workspace in float32 words and each phase's dynamic shared
-    memory in bytes. Score and pv CTAs past a slot's live blocks exit at
-    once on the card."""
+    once, the workspace in float32 words, each phase's dynamic shared
+    memory in bytes, and the score dots' order (``dot_order``). Score and
+    pv CTAs past a slot's live blocks exit at once on the card."""
     score_grid: Tuple[int, int, int]
     chunk: int
     score_heads: int
@@ -298,6 +381,7 @@ class DecodePlan:
     fold_grid: Tuple[int, int, int]
     workspace_floats: int
     smem: Tuple[int, int, int, int]
+    order: DotOrder = DotOrder(1)
 
     @property
     def ctas(self) -> Tuple[int, int, int, int]:
@@ -357,7 +441,8 @@ def gqa_plan(B: int, KH: int, G: int, hd: int, L: int, M: int,
         pv_grid=blocks, fold_grid=(KH * G * -(-hd // _FOLD_COLS), B, 1),
         workspace_floats=_workspace(B * KH * G, M, L, hd),
         smem=(4 * (G + chunk * L) * (hd + 1), 4 * (tile * L + 3 * M),
-              4 * chunk * L * (hd + G), 4 * M)),
+              4 * chunk * L * (hd + G), 4 * M),
+        order=dot_order("gqa", G, hd, L, heads=KH)),
         "gqa_decode", (hd,))
 
 
@@ -369,15 +454,18 @@ def mla_plan(B: int, H: int, R: int, P: int, L: int, M: int,
     chunk = _chunk(M)
     tile = _softmax_tile(L, M, tile_lanes)
     hs = min(H, MLA_SCORE_HEADS[chunk > 1])
+    order = dot_order("mla", H, math.gcd(R, P), L)
     return _checked(DecodePlan(
         score_grid=(-(-M // chunk), -(-H // hs), B), chunk=chunk, score_heads=hs,
         softmax_tile=tile, softmax_grid=(H, B, 1),
         pv_grid=(-(-M // chunk), -(-R // _PV_COLS), B),
         fold_grid=(H * -(-R // _FOLD_COLS), B, 1),
         workspace_floats=_workspace(B * H, M, L, R),
-        smem=(4 * (hs * (R + P) + L * (R + P + 2 * _SPLIT) + 2 * hs * L * (_SPLIT + 1)),
+        smem=(4 * (hs * (R + P) + L * (R + P + 2 * _PAD)
+                   + 2 * hs * L * (order.partials + 1)),
               4 * (tile * L + 3 * M),
-              4 * chunk * L * (_PV_COLS + H), 4 * M)),
+              4 * chunk * L * (_PV_COLS + H), 4 * M),
+        order=order),
         "mla_decode", (R, P))
 
 
@@ -459,8 +547,8 @@ def gqa_decode(q, k_pool, v_pool, tables, k_len, *, scale: float,
         0 if spec is None else v_scale_pool.data_ptr(),
         1.0 if spec is None else float(spec.fmt.resolution),
         tables.data_ptr(), k_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        ws.numel(), B, KH, G, hd, L, M, plan.chunk, plan.softmax_tile, float(scale),
-        IMPLS.index(impl), build.DTYPE_CODE[kvd],
+        ws.numel(), B, KH, G, hd, L, M, plan.chunk, plan.softmax_tile, plan.order.code,
+        float(scale), IMPLS.index(impl), build.DTYPE_CODE[kvd],
         build.params_ptr(_kernel_sched(impl, sched), cfg), build.stream_ptr(q))
     build.check(rc, "gqa_decode")
     build.count("gqa_decode")
@@ -470,27 +558,6 @@ def gqa_decode(q, k_pool, v_pool, tables, k_len, *, scale: float,
 # ---------------------------------------------------------------------------
 # MLA decode (absorbed form)
 # ---------------------------------------------------------------------------
-#: strided partials of an MLA score sum (the kernel's threads per score)
-MLA_SPLIT = 4
-
-
-def _split_dot(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """q (B,H,n) . c (B,L,n) -> (B,H,L), n a multiple of MLA_SPLIT, in
-    jitted XLA:CPU's order for the JAX kernel's dots (ROADMAP C.4), which
-    the kernel replays: MLA_SPLIT strided partials, partial t adding the
-    products of elements t, t + MLA_SPLIT, ... left to right as fused
-    multiply-adds (one rounding each; a float32 product is exact in
-    float64), then (p0 + p1) + (p2 + p3)."""
-    B, H, n = q.shape
-    L = c.shape[1]
-    prod = (q.double()[:, :, None, :] * c.double()[:, None, :, :]).reshape(
-        B, H, L, n // MLA_SPLIT, MLA_SPLIT)
-    part = torch.zeros((B, H, L, MLA_SPLIT), dtype=torch.float32, device=q.device)
-    for j in range(n // MLA_SPLIT):
-        part = (part.double() + prod[..., j, :]).to(torch.float32)
-    return (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
-
-
 def mla_decode_plain(q_eff, q_rope, c_pool, r_pool, tables, k_len, *,
                      scale: float, softmax_impl: str = "exact",
                      sched: MRSchedule = PAPER_SCHEDULE,
@@ -516,13 +583,14 @@ def mla_decode_plain(q_eff, q_rope, c_pool, r_pool, tables, k_len, *,
             acc = acc + p[..., l:l + 1] * cb[:, None, :, l]
         return acc
 
+    order = dot_order("mla", H, math.gcd(R, qr.shape[-1]), L)
     C = blks.shape[1]
     parts = []
     for c0 in range(0, C, PLAIN_COLS):
         c1 = min(C, c0 + PLAIN_COLS)
         rb = r_pool[blks[:, c0:c1]].to(torch.float32)           # (B,C',L,P)
-        parts.append(_split_dot(qe, latent(c0, c1).flatten(1, 2))
-                     + _split_dot(qr, rb.flatten(1, 2)))
+        parts.append(_xla_dot(qe[:, :, None], latent(c0, c1).flatten(1, 2)[:, None], order)
+                     + _xla_dot(qr[:, :, None], rb.flatten(1, 2)[:, None], order))
     s = torch.cat(parts, dim=-1) if parts else torch.zeros((B, H, 0), device=qe.device)
     s = s.view(B, H, C, L) * scale
     s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
@@ -581,8 +649,8 @@ def mla_decode(q_eff, q_rope, c_pool, r_pool, tables, k_len, *, scale: float,
         q_eff.data_ptr(), q_rope.data_ptr(), build.DTYPE_CODE[q_eff.dtype],
         c_pool.data_ptr(), r_pool.data_ptr(), tables.data_ptr(),
         k_len.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(), B, H, R, P,
-        L, M, plan.score_heads, plan.chunk, plan.softmax_tile, float(scale),
-        IMPLS.index(impl),
+        L, M, plan.score_heads, plan.chunk, plan.softmax_tile, plan.order.code,
+        float(scale), IMPLS.index(impl),
         build.params_ptr(_kernel_sched(impl, sched), cfg),
         build.stream_ptr(q_eff))
     build.check(rc, "mla_decode")

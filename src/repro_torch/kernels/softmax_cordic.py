@@ -179,7 +179,8 @@ def check_span(span: int) -> None:
         raise ValueError(
             f"a CORDIC softmax row cut into spans of {span} lanes: each span must "
             f"be a multiple of {nx.SUM_WINDOW} lanes, so that its window sums are "
-            "the whole row's (kv_shard='seq_model' needs max_len / tp to be one)")
+            "the whole row's (a cut of the positions needs max_len / tp, or / dp under "
+            "the data axes' cut, to be one)")
 
 
 def split_row_sum(windows: torch.Tensor, cols: int) -> torch.Tensor:

@@ -30,7 +30,12 @@ dense caches by position over the model axis where it divides the length
 (``shd.resolve_kv_shard``, as the JAX spec's ``S % model == 0``): the
 rank's cache bytes fall by tp where the KV heads did not divide, and its
 step books the split attention's collectives (models/attention.py). A
-train cell has no cache, so the knob changes nothing there.
+train cell has no cache, so the knob changes nothing there. A serving
+cell whose batch the data axes do not divide (``long_500k``) cuts its
+dense caches' positions over them, the JAX default spec
+(``resolve_kv_shard(..., batch=)``, "seq_data"): the rank holds 1/dp of
+the cache, and the record's ``collective.data_op_counts`` counts the
+split attention's reductions over the data group.
 
 A meta tensor has no values, so the step's data-dependent answers take
 their shape-only form on it (models/ssm.py, models/xlstm.py: a time loop's
@@ -105,6 +110,48 @@ def rank_steps(job):
                 step(model, cache, toks, cfg)
             out[arch][kind] = {k: v - s0.get(k, 0) for k, v in mesh.stats.items()}
     return out
+
+
+def rank_decode(job):
+    """A ``run_ranks`` target (tests, chip_smoke), or a call on one process:
+    greedy decoding on this rank's mesh (``job["tp"]`` model ranks, the rest
+    of the world the data axis; no mesh on one process), served as
+    ``lower_cell`` serves a cell: ``kv_shard`` resolved for the batch (a
+    batch the data axes do not divide cuts its caches' positions over
+    them, ``shd.resolve_kv_shard(..., batch=)``), a fresh float32 cache of
+    ``job["max_len"]`` positions at the rank's cut, ``prefill_step`` on
+    ``job["prompt"]`` (B, S) ids, then ``job["steps"]`` ``decode_step``s.
+    job: {"cfg", "prompt", "steps", "max_len", "tp", "seed", "device"}; a
+    list of jobs gives one result each. Returns {"tokens": (B, steps + 1)
+    nested list, "kv_shard", "cache_bytes": the rank's attention buffers,
+    "stats": its mesh's collectives}."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as tf
+
+    if isinstance(job, list):
+        return [rank_decode(j) for j in job]
+    mesh = mesh_lib.make_host_mesh(job.get("tp", 1)) if mesh_lib._world() > 1 else None
+    dev = torch.device(job.get("device", "cpu"))
+    prompt = torch.as_tensor(job["prompt"], dtype=torch.int64, device=dev)
+    B = prompt.shape[0]
+    cfg = shd.resolve_kv_shard(job["cfg"], mesh, job["max_len"], batch=B)
+    model = tf.init(cfg, seed=job.get("seed", 0), device=dev, mesh=mesh)
+    cache = tf.init_cache(cfg, B, job["max_len"], torch.float32, device=dev,
+                          kv_heads=shd.local_kv_heads(cfg, mesh), mesh=mesh)
+    s0 = dict(mesh.stats) if mesh is not None else {}
+    with torch.no_grad():
+        tok = sampling.greedy_tokens(prefill_step(model, cache, prompt, cfg))
+        toks = [tok]
+        for _ in range(job["steps"]):
+            tok = decode_step(model, cache, tok.reshape(B, 1), cfg)
+            toks.append(tok)
+    stats = ({k: v - s0.get(k, 0) for k, v in mesh.stats.items()}
+             if mesh is not None else {})
+    return {"tokens": torch.stack(toks, 1).tolist(), "kv_shard": cfg.kv_shard,
+            "cache_bytes": sp.nbytes(v for layer in cache.layers if "idx" in layer
+                                     for key, v in layer.items() if key != "idx"),
+            "stats": stats}
 
 
 def train_step(state, batch, cfg, mesh, accum: int = 1, zero1: bool = False):
@@ -193,7 +240,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                                   mesh=mesh)
         rows = batch["tokens"].shape[0]
     else:
-        cfg = shd.resolve_kv_shard(cfg, mesh, shape.seq_len)
+        cfg = shd.resolve_kv_shard(cfg, mesh, shape.seq_len, batch=shape.global_batch)
         params = sp.abstract_params(cfg, mesh)
         cache = sp.abstract_cache(cfg, mesh, shape)
         if shape.kind == "prefill":
@@ -225,6 +272,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             "per_kind_bytes": counts["collective_bytes_by_kind"],
             "op_counts": counts["collective_op_counts"],
             "weighted_bytes": counts["collective_weighted_bytes"],
+            "data_op_counts": counts["collective_data_op_counts"],
         },
         "op_cost": {k: counts[k] for k in ("product_flops", "other_flops",
                                             "kernel_int_ops", "kernel_bytes",

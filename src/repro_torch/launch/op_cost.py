@@ -218,7 +218,8 @@ class OpCost(TorchDispatchMode):
         slices is an all-reduce of a zero-filled buffer) and the ZeRO-1
         step's all-gathers of the parameters over the data axes."""
         if self.mesh is None:
-            return {"per_kind_bytes": {}, "op_counts": {}, "weighted_bytes": 0.0}
+            return {"per_kind_bytes": {}, "op_counts": {}, "weighted_bytes": 0.0,
+                    "data_op_counts": {}}
         s0, s1 = self._stats0, getattr(self, "_stats1", dict(self.mesh.stats))
         per_kind, counts = {}, {}
         for kind, key, nkey in (("all-reduce", "all_reduce", "bytes"),
@@ -228,8 +229,11 @@ class OpCost(TorchDispatchMode):
                 counts[kind] = float(n)
                 per_kind[kind] = float(s1.get(nkey, 0) - s0.get(nkey, 0))
         weighted = sum(COLL_FACTOR.get(k, 1.0) * v for k, v in per_kind.items())
+        data = {kind: float(s1.get(f"data_{key}", 0) - s0.get(f"data_{key}", 0))
+                for kind, key in (("all-reduce", "all_reduce"), ("all-gather", "all_gather"))}
         return {"per_kind_bytes": per_kind, "op_counts": counts,
-                "weighted_bytes": weighted}
+                "weighted_bytes": weighted,
+                "data_op_counts": {k: v for k, v in data.items() if v}}
 
     def result(self) -> dict:
         coll = self.collectives()
@@ -245,6 +249,7 @@ class OpCost(TorchDispatchMode):
             "collective_bytes_by_kind": coll["per_kind_bytes"],
             "collective_op_counts": coll["op_counts"],
             "collective_weighted_bytes": coll["weighted_bytes"],
+            "collective_data_op_counts": coll["data_op_counts"],
         }
 
 

@@ -14,9 +14,11 @@ rows ``batch_spec`` gives the rank. Under ``kv_shard="seq_model"`` the
 attention buffers hold the rank's span of the positions over the model
 axis, every KV head (the JAX spec's ``PS(b, "model", ...)``; the caller
 resolves the knob first, ``shd.resolve_kv_shard``). A batch that the data
-axes do not divide (long_500k's one row) is whole on every data rank: the
-JAX default spec cuts its positions over the data axes (``cache_spec``),
-which the port's split attention does not take yet (ROADMAP A.17b).
+axes do not divide (long_500k's one row) is whole on every data rank, and
+under the heads cut its attention buffers hold the rank's span of the
+positions over the data axes with its model rank's KV heads (the JAX
+default ``cache_spec``: ``PS(None, dp, mdl(KH), None)``, ``PS(None, dp,
+None)``; ``resolve_kv_shard(..., batch=)`` sets ``kv_shard="seq_data"``).
 
 The train state (``abstract_train_state``) is the training cut (the JAX
 ``params_shardings``: the embedding vocabulary-cut) in float32 master
@@ -104,8 +106,8 @@ def rank_rows(mesh, shape: ShapeConfig) -> int:
 
 def abstract_cache(cfg, mesh, shape: ShapeConfig) -> tf.DenseCache:
     """The dense plane's cache of the rank's rows at ``shape.seq_len``
-    positions (the rank's span of them under ``kv_shard="seq_model"``), on
-    meta."""
+    positions (the rank's span of them under ``kv_shard="seq_model"`` or
+    "seq_data"), on meta."""
     return tf.init_cache(cfg, rank_rows(mesh, shape), shape.seq_len, torch.float32,
                          device=META, kv_heads=shd.local_kv_heads(cfg, mesh),
                          mesh=mesh)

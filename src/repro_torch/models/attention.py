@@ -66,6 +66,16 @@ whole row's bit for bit), sums the rank's P.V partial over the model axis
 in float32, and keeps its own heads for the row-parallel ``wo``. MLA's
 prefill decompresses the rank's positions with every head's ``wkv_b``
 (gathered for the step), as tp 1 decompresses the whole buffer.
+
+Under the heads cut, a batch the data axes do not divide is whole on every
+data rank and its dense caches' positions are cut over the data axes
+(``kv_shard`` resolved to "seq_data", ``shd.seq_axis``; the JAX default
+``cache_spec``): data rank d holds the positions [d T/dp, (d+1) T/dp) of
+its model rank's KV heads. The step writes each new position on its owner,
+scores the rank's own heads against its span, takes the split softmax and
+sums the P.V partial over the data group (``_seq_attend`` with ``axis=
+"data"``; no head gather), and goes on through the row-parallel ``wo``
+over the model group as the heads cut does.
 """
 from __future__ import annotations
 
@@ -105,10 +115,11 @@ def _softmax_fn(impl: Optional[str]):
     raise ValueError(f"unknown softmax_impl {impl!r}")
 
 
-def _split_softmax(impl: Optional[str], s: torch.Tensor, mesh) -> torch.Tensor:
+def _split_softmax(impl: Optional[str], s: torch.Tensor, mesh,
+                   axis: str = "model") -> torch.Tensor:
     """``_softmax_fn(impl)`` over the last axis of rows whose positions are
-    cut over ``mesh``'s model axis, ``s`` (..., span) float32 this rank's
-    span (spans in rank order). The max is reduced exactly; "exact" sums
+    cut over ``mesh``'s ``axis`` ("model" or "data"), ``s`` (..., span)
+    float32 this rank's span (spans in rank order). The max is reduced exactly; "exact" sums
     its partial sums over the axis (another order than the whole row's);
     the CORDIC datapaths gather the spans' 32-lane window sums and finish
     the row sum's later levels on every rank, which is the whole row's
@@ -117,17 +128,17 @@ def _split_softmax(impl: Optional[str], s: torch.Tensor, mesh) -> torch.Tensor:
     shape = s.shape
     x = s.reshape(-1, shape[-1]).contiguous()
     if impl in (None, "exact"):
-        m = shd.reduce_(x.amax(dim=-1, keepdim=True), mesh, op="max")
+        m = shd.reduce_(x.amax(dim=-1, keepdim=True), mesh, axis, op="max")
         e = torch.exp(x - m)
-        return (e / shd.reduce_(e.sum(dim=-1, keepdim=True), mesh)).view(shape)
+        return (e / shd.reduce_(e.sum(dim=-1, keepdim=True), mesh, axis)).view(shape)
     if impl == "cordic_pallas":
-        m = shd.reduce_(SM.softmax_split_max(x), mesh, op="max")
-        w = torch.cat(shd.all_gather(SM.softmax_split_windows(x, m), mesh), dim=-1)
+        m = shd.reduce_(SM.softmax_split_max(x), mesh, axis, op="max")
+        w = torch.cat(shd.all_gather(SM.softmax_split_windows(x, m), mesh, axis), dim=-1)
         return SM.softmax_split_probs(x, m, w).view(shape)
     if impl == "cordic_fixed":
-        m = shd.reduce_(x.amax(dim=-1, keepdim=True), mesh, op="max")
+        m = shd.reduce_(x.amax(dim=-1, keepdim=True), mesh, axis, op="max")
         e = F.exp_fixed(x - m)
-        w = torch.cat(shd.all_gather(nx.window_sums(e), mesh), dim=-1)
+        w = torch.cat(shd.all_gather(nx.window_sums(e), mesh, axis), dim=-1)
         return F.divide_fixed(e, nx.xla_sum(w, -1, keepdim=True)).view(shape)
     raise ValueError(f"unknown softmax_impl {impl!r}")
 
@@ -316,7 +327,7 @@ def _dense_write(buf, idx, new, lo: int = 0, total: Optional[int] = None) -> Non
     clamp(idx[b], 0, T - S) + [0, S), as ``dynamic_update_slice`` clamps
     its start (a vacant slot's idx runs on past the buffer).
 
-    A span of the positions (``kv_shard="seq_model"``): ``buf`` holds the
+    A span of the positions (``kv_shard="seq_model"`` or "seq_data"): ``buf`` holds the
     global positions [lo, lo + T) of rows ``total`` long. The start clamps
     in global positions, then each new position is written only where it
     falls in the span. S <= T: the S positions land at their positions
@@ -349,8 +360,11 @@ def _dense_write(buf, idx, new, lo: int = 0, total: Optional[int] = None) -> Non
     buf.copy_(torch.where(own, new[rows, j.clamp(0, S - 1)], buf))
 
 
-def _span(buf, mesh):
-    """(first global position, row length) of a rank's span ``buf`` (B, T/tp, ...)."""
+def _span(buf, mesh, axis: str = "model"):
+    """(first global position, row length) of a rank's span ``buf`` (B, T/n,
+    ...) of positions cut over ``mesh``'s ``axis`` (n ranks)."""
+    if axis == "data":
+        return mesh.data_rank * buf.shape[1], buf.shape[1] * mesh.dp
     return mesh.model_rank * buf.shape[1], buf.shape[1] * mesh.tp
 
 
@@ -372,18 +386,20 @@ def _own_heads(o, heads_local: int, mesh):
     return o.narrow(2, mesh.model_rank * heads_local, heads_local)
 
 
-def _seq_attend(qg, k, v, positions, k_len, lo, scale, score_dtype, softmax_impl, mesh):
-    """``_attend_rows`` over a span of the positions: q (B,S,KH,G,D) every
-    head, k/v (B,Tl,KH,Dv) the rank's positions [lo, lo + Tl), the mask in
-    global positions; the rank's P.V partial summed over the model axis in
-    float32 -> (B,S,KH,G,Dv) float32."""
+def _seq_attend(qg, k, v, positions, k_len, lo, scale, score_dtype, softmax_impl, mesh,
+                axis: str = "model"):
+    """``_attend_rows`` over a span of the positions cut over ``mesh``'s
+    ``axis``: q (B,S,KH,G,D) the heads the span holds, k/v (B,Tl,KH,Dv) the
+    rank's positions [lo, lo + Tl), the mask in global positions; the
+    rank's P.V partial summed over the axis in float32 -> (B,S,KH,G,Dv)
+    float32."""
     s = _scores(qg, k, scale, score_dtype)
     k_pos = lo + torch.arange(k.shape[1], device=qg.device)
     mask = ((k_pos[None, None, :] < k_len[:, None, None])
             & (k_pos[None, None, :] <= positions[:, :, None]))   # (B,S,Tl)
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
-    p = _split_softmax(softmax_impl, s, mesh)
-    return shd.all_reduce_(_pv(p, v, score_dtype).contiguous(), mesh)
+    p = _split_softmax(softmax_impl, s, mesh, axis)
+    return shd.reduce_(_pv(p, v, score_dtype).contiguous(), mesh, axis)
 
 
 def _dense_idx(batch: int, device, idx) -> torch.Tensor:
@@ -585,8 +601,11 @@ def _gqa_dense_apply(p: GQAttention, x, cfg, cache, q, k, v):
     """Dense continuation of gqa_apply: writes the S new K/V positions of
     each row at its ``idx`` in place, then attends over the whole buffer
     masked past ``idx + S`` (the paged gather path with the buffer in place
-    of the gather). The caller advances ``cache["idx"]``."""
-    if shd.seq_cut(cfg):
+    of the gather); under ``kv_shard="seq_data"`` the buffer is the data
+    rank's span, attended through the split softmax over the data group.
+    The caller advances ``cache["idx"]``."""
+    axis = shd.seq_axis(cfg)
+    if axis == "model":
         return _gqa_seq_apply(p, x, cfg, cache, q, k, v)
     B, S, _ = x.shape
     hd = cfg.head_dim
@@ -596,13 +615,17 @@ def _gqa_dense_apply(p: GQAttention, x, cfg, cache, q, k, v):
     positions = idx[:, None] + torch.arange(S, device=x.device)[None, :]
     q = cm.apply_rope(q, positions, cfg.rope_theta)
     k = cm.apply_rope(k, positions, cfg.rope_theta)
-    _dense_write(cache["k"], cache["idx"], k)
-    _dense_write(cache["v"], cache["idx"], v)
+    mesh = shd.active_serving_mesh() if axis else None
+    lo, total = _span(cache["k"], mesh, axis) if axis else (0, None)
+    _dense_write(cache["k"], cache["idx"], k, lo, total)
+    _dense_write(cache["v"], cache["idx"], v, lo, total)
     qg = q.reshape(B, S, KH, G, hd)
-    o = _attend_rows(qg, _kv_heads_for(cache["k"], kv).to(x.dtype),
-                     _kv_heads_for(cache["v"], kv).to(x.dtype),
-                     positions, idx + S, 1.0 / math.sqrt(hd), cfg.score_dtype,
-                     getattr(cfg, "softmax_impl", "exact"))
+    args = (qg, _kv_heads_for(cache["k"], kv).to(x.dtype),
+            _kv_heads_for(cache["v"], kv).to(x.dtype), positions, idx + S)
+    impl = getattr(cfg, "softmax_impl", "exact")
+    o = (_seq_attend(*args, lo, 1.0 / math.sqrt(hd), cfg.score_dtype, impl, mesh, axis)
+         if axis else
+         _attend_rows(*args, 1.0 / math.sqrt(hd), cfg.score_dtype, impl))
     o = o.to(qg.dtype).reshape(B, S, KH * G, hd)
     return _row_parallel(p, _out_project(o, p.wo))
 
@@ -856,8 +879,9 @@ def _mla_dense_apply(p: MLAttention, x, cfg, cache):
     ``idx`` in place, then absorbed decode (S == 1) or decompress plus
     ``_attend_rows`` (prefill) over the whole buffer, masked past
     ``idx + S``. The caller advances ``cache["idx"]``."""
-    if shd.seq_cut(cfg):
-        return _mla_seq_apply(p, x, cfg, cache)
+    axis = shd.seq_axis(cfg)
+    if axis:
+        return _mla_seq_apply(p, x, cfg, cache, axis)
     B, S, _ = x.shape
     m, H = cfg.mla, p.wq.shape[1]               # the rank's heads
     idx = cache["idx"].to(torch.int64)
@@ -884,15 +908,17 @@ def _mla_dense_apply(p: MLAttention, x, cfg, cache):
     return _row_parallel(p, _out_project(o.to(x.dtype), p.wo))
 
 
-def _mla_seq_apply(p: MLAttention, x, cfg, cache):
+def _mla_seq_apply(p: MLAttention, x, cfg, cache, axis: str = "model"):
     """_mla_dense_apply with the latent buffers' positions cut over the
-    model axis (``kv_shard="seq_model"``): the latent is head-less, so each
-    rank writes its span of the new positions' latent and rope key. Decode
-    is the absorbed form with every head's absorbed query and rope query
-    gathered; prefill decompresses the rank's positions with every head's
-    ``wkv_b`` (gathered for the step) and takes ``_seq_attend``. The P.V
-    (or P.C) partial is summed over the axis in float32, and the rank's
-    heads go on through ``wv_b`` / ``wo``."""
+    model axis (``kv_shard="seq_model"``) or, ``axis="data"``, over the
+    data axes ("seq_data"): the latent is head-less, so each rank writes its
+    span of the new positions' latent and rope key. Decode is the absorbed
+    form with every head's absorbed query and rope query gathered (over
+    "data" the rank's own heads); prefill decompresses the rank's positions
+    with every head's ``wkv_b`` (gathered for the step; over "data" the
+    rank's own) and takes ``_seq_attend``. The P.V (or P.C) partial is
+    summed over the axis in float32, and the rank's heads go on through
+    ``wv_b`` / ``wo``."""
     mesh = shd.active_serving_mesh()
     B, S, _ = x.shape
     m, Hl, H = cfg.mla, p.wq.shape[1], cfg.num_heads
@@ -901,21 +927,23 @@ def _mla_seq_apply(p: MLAttention, x, cfg, cache):
     q_nope, q_rope = _mla_project_q(p, x, cfg, positions)
     c_kv, k_rope = _mla_compress(p, x, cfg, positions)
     cc, cr = cache["c_kv"], cache["k_rope"]
-    lo, total = _span(cc, mesh)
+    lo, total = _span(cc, mesh, axis)
     _dense_write(cc, cache["idx"], c_kv, lo, total)
     _dense_write(cr, cache["idx"], k_rope, lo, total)
     wk_b, wv_b = _mla_split_wkv_b(p, cfg, x.dtype)
     scale = _mla_scale(cfg)
     k_len = idx + S
     softmax_impl = getattr(cfg, "softmax_impl", "exact")
+    if axis == "data":        # the span holds every position's latent: own heads
+        H = Hl
     q_rope = _heads_gathered(q_rope, 2, H, mesh)
     if S == 1:
         q_eff = _heads_gathered(torch.einsum("bshk,lhk->bshl", q_nope, wk_b), 2, H, mesh)
         valid = ((lo + torch.arange(cc.shape[1], device=x.device))[None, :]
                  < k_len[:, None])[:, None, None, :]
         s = _mla_absorbed_scores(q_eff, q_rope, cc, cr, scale, valid, cfg.score_dtype)
-        pr = _split_softmax(softmax_impl, s, mesh)
-        o_lat = shd.all_reduce_(_mla_pc(pr, cc, cfg.score_dtype).contiguous(), mesh)
+        pr = _split_softmax(softmax_impl, s, mesh, axis)
+        o_lat = shd.reduce_(_mla_pc(pr, cc, cfg.score_dtype).contiguous(), mesh, axis)
         o = torch.einsum("bshl,lhv->bshv", _own_heads(o_lat, Hl, mesh),
                          wv_b.to(torch.float32))
     else:
@@ -923,7 +951,8 @@ def _mla_seq_apply(p: MLAttention, x, cfg, cache):
         wv_b = _heads_gathered(wv_b, 1, H, mesh)
         k, v, qg = _mla_decompress_kq(_heads_gathered(q_nope, 2, H, mesh), q_rope,
                                       cc, cr, m, H, wk_b, wv_b)
-        o = _seq_attend(qg, k, v, positions, k_len, lo, scale, "f32", softmax_impl, mesh)
+        o = _seq_attend(qg, k, v, positions, k_len, lo, scale, "f32", softmax_impl, mesh,
+                        axis)
         o = _own_heads(o.to(qg.dtype).reshape(B, S, H, m.v_dim), Hl, mesh)
     return _row_parallel(p, _out_project(o.to(x.dtype), p.wo))
 

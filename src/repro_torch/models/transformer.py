@@ -624,15 +624,18 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
     ``init_paged_cache``); under a ``mesh`` the recurrent states are a
     rank's (models/ssm.py, models/xlstm.py), and with ``cfg.kv_shard ==
     "seq_model"`` (``shd.seq_cut``) the attention buffers hold the rank's
-    span of ``max_len / tp`` positions (a length the axis does not divide
+    span of ``max_len / tp`` positions, with "seq_data" its data rank's span
+    of ``max_len / dp`` (``shd.seq_axis``; a length the axis does not divide
     raises: ``shd.resolve_kv_shard`` turns the knob off there first)."""
     _check_cfg(cfg)
     dev = resolve_device(device)
-    if shd.seq_cut(cfg, mesh):
-        if max_len % mesh.tp:
-            raise ValueError(f"kv_shard='seq_model' cuts {max_len} positions over "
-                             f"tp={mesh.tp}, which does not divide them")
-        max_len //= mesh.tp
+    axis = shd.seq_axis(cfg, mesh)
+    if axis is not None:
+        n = mesh.tp if axis == "model" else mesh.dp
+        if max_len % n:
+            raise ValueError(f"kv_shard={cfg.kv_shard!r} cuts {max_len} positions over "
+                             f"the {axis} axis, of {n} ranks: {n} does not divide them")
+        max_len //= n
     idx = torch.zeros((batch,), dtype=torch.int32, device=dev)
     kinds = list(cfg.block_pattern) + [cfg.shared_block] * num_shared_apps(cfg)
     return DenseCache([CACHE_FNS[kind](cfg, batch, max_len, dtype, device=dev,

@@ -183,9 +183,9 @@ def test_launcher_refuses_an_explicit_paged_plane(arch):
 
 
 @pytest.mark.parametrize("arch", RECURRENT + ["phi3.5-moe-42b-a6.6b"])
-def test_training_the_served_only_kinds_raises(arch, tmp_path):
-    """These kinds were served only until ROADMAP A.11 closed: they train
-    now, through the step and the launcher (their gradients against JAX:
+def test_the_once_served_only_kinds_train(arch, tmp_path):
+    """The recurrent kinds and Phi-3.5-MoE, once served only, train through
+    the step and the launcher (their gradients against JAX:
     tests/test_torch_train_archs.py)."""
     from repro_torch.launch import train as launch_train
     from repro_torch.optim import adamw

@@ -59,6 +59,20 @@ def test_mla_plan_grids_and_workspace(shape):
         assert plan.ctas == (M // chunk * H // heads * B, 64, M // chunk * 4 * B, 256)
 
 
+@pytest.mark.parametrize("L", [1, 16, 32, 64])
+def test_plans_carry_the_score_dots_order(L):
+    """Each plan takes its score dots' order from ``dot_order`` (GQA by its
+    G and KV heads, MLA by its heads over both widths), and an MLA score
+    CTA's shared memory holds that many partials a score."""
+    gqa = PA.gqa_plan(4, 4, 8, 128, L, 8)
+    assert gqa.order == PA.dot_order("gqa", 8, 128, L, heads=4)
+    mla = PA.mla_plan(4, 16, 512, 64, L, 8)
+    assert mla.order == PA.dot_order("mla", 16, 64, L)
+    assert mla.order.partials == {1: 8, 16: 4, 32: 2, 64: 1}[L]
+    hs = mla.score_heads
+    assert mla.smem[0] == 4 * (hs * 576 + L * (576 + 8) + 2 * hs * L * (mla.order.partials + 1))
+
+
 def test_plan_ignores_lengths_and_counts_live_ctas():
     """The grids come from the shapes only; the score CTAs that find live
     blocks follow k_len: a vacant slot (k_len 1) keeps one block."""

@@ -174,7 +174,11 @@ def test_lower_cell_per_serving_shape_on_a_smoke_config(shape):
     """Zamba2's smoke config (the sub-quadratic hybrid: Mamba2, the shared
     attention block, long_500k applies) on the production mesh, each
     serving shape's batch at 64 positions: ``ok``, with the JAX record's
-    keys and the rank's memory."""
+    keys and the rank's memory. long_500k's one row is whole on every data
+    rank, so its shared block's cache holds 1/16 of the positions (the JAX
+    default cache spec's cut over the data axes, ROADMAP A.17b) and the
+    step books the split attention's reductions over the data group; the
+    shapes whose batch the data axes divide book none there."""
     full = SHAPES[shape]
     rec = dryrun.lower_cell("zamba2-1.2b", shape, smoke=True, act_impl="cordic_pallas",
                             shape=ShapeConfig(shape, 64, full.global_batch, full.kind))
@@ -192,6 +196,18 @@ def test_lower_cell_per_serving_shape_on_a_smoke_config(shape):
     calls = rec["op_cost"]["kernel_calls"]
     assert calls.get("act_2d", 0) > 0 and calls.get("silu_mul_2d", 0) > 0
     assert rec["collective"]["op_counts"]["all-reduce"] > 0
+    mesh = M.make_production_mesh()
+    cfg = dryrun.cell_config("zamba2-1.2b", smoke=True, act_impl="cordic_pallas")
+    sh = ShapeConfig(shape, 64, full.global_batch, full.kind)
+    whole = sp.memory(sp.abstract_params(cfg, mesh), sp.abstract_cache(cfg, mesh, sh))
+    kv = whole["cache_bytes"] - whole["state_bytes"]
+    got = rec["memory"]["cache_bytes"] - rec["memory"]["state_bytes"]
+    data = rec["collective"]["data_op_counts"]
+    if shape == "long_500k":
+        assert kv > 0 and got * 16 == kv, (got, kv)
+        assert data.get("all-reduce", 0) > 0
+    else:
+        assert got == kv and not data
 
 
 def test_skips_refusals_perf_and_roofline(tmp_path, capsys):

@@ -7,9 +7,16 @@ reading scratch block 0, the kv_dtype rounding seam), batched into a few
 calls, for the ``exact``, ``cordic_pallas`` and ``cordic_fixed`` softmax
 (lengths off the block boundaries leave masked lanes inside a live block,
 which ``cordic_fixed`` clips at e^-80 instead of flushing). The reference's
-own standard: ATOL 2e-5 (f32 dot and sum orders differ; the CORDIC
-probabilities are lane-exact given the row max and sum) and an unmoved
-per-row argmax.
+own standard: ATOL 2e-5 (the P.V sums' order differs from XLA's; the scores
+are XLA's own at every mapped geometry, and the CORDIC probabilities are
+lane-exact given the row max and sum) and an unmoved per-row argmax, on
+every impl, ``cordic_fixed`` included.
+
+The score dots' order (``dot_order``, ROADMAP C.4) is held bit for bit
+against jitted ``jnp.einsum`` at every geometry the engine reaches, and
+against the JAX kernels' own scores in interpret mode, eager and jitted,
+read out of the kernel by a stand-in for its softmax pass; the
+geometries whose order is not mapped are named here.
 """
 import functools
 
@@ -25,14 +32,6 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as P  # noqa: E402
 
 ATOL = 2e-5
-#: cordic_fixed rounds k = round(u / ln2) and r to Q2.14 from the score
-#: itself, so a score a few ulp off (another dot order than XLA's) can move
-#: one lane's e^r by one code: one probability code step (2^-14) times the
-#: largest value is the most that costs. The GQA scores keep that bound;
-#: the MLA scores replay XLA:CPU's dot order (ROADMAP C.4), which took the
-#: MLA geometry [3, 8, 1, 13, 16] from 6.03e-5 to 1.2e-7, so MLA is held to
-#: ATOL on every impl
-CODE = 2.0 ** -14
 IMPLS = ("exact", "cordic_pallas", "cordic_fixed")
 #: name -> (live lengths per row (0 = vacant), block_len, kv_dtype, seed)
 GEOMETRIES = {
@@ -75,16 +74,12 @@ def _pair(geom, impl):
     return args, got, want
 
 
-def _tol(impl, values):
-    return max(ATOL, CODE * np.abs(values).max()) if impl == "cordic_fixed" else ATOL
-
-
 @pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("geom", sorted(GEOMETRIES))
 def test_gqa_decode_vs_jax(geom, impl):
     args, got, want = _pair(geom, impl)
     assert np.isfinite(got).all()
-    assert np.abs(got - want).max() < _tol(impl, args[2]), np.abs(got - want).max()
+    assert np.abs(got - want).max() < ATOL, np.abs(got - want).max()
     np.testing.assert_array_equal(got.reshape(got.shape[0], -1).argmax(-1),
                                   want.reshape(want.shape[0], -1).argmax(-1))
 
@@ -193,72 +188,221 @@ def test_mla_vacant_row_leaves_live_rows_bit_unchanged(impl):
     np.testing.assert_array_equal(full[keep], sub)
 
 
+#: (kind, KH or None, rows, width, L) of the dot-order map: every arch's
+#: G / H and head_dim / kv_lora_rank at the block lengths a user may set,
+#: the rank cuts tensor parallelism gives (KH 1 of Yi at tp 4, DeepSeek's
+#: 8 heads at tp 2) and each branch of ``dot_order``
+DOT_CASES = {
+    "test-G2": ("gqa", 2, 2, 8, 16),
+    "yi-G8": ("gqa", 4, 8, 128, 16),
+    "internvl2-G7": ("gqa", 2, 7, 64, 16),
+    "musicgen-G1": ("gqa", 32, 1, 64, 16),
+    "yi-L32": ("gqa", 4, 8, 128, 32),
+    "yi-L4": ("gqa", 4, 8, 128, 4),
+    "yi-L8": ("gqa", 4, 8, 128, 8),
+    "yi-L64": ("gqa", 4, 8, 128, 64),
+    "yi-L17": ("gqa", 4, 8, 128, 17),
+    "yi-tp4-KH1": ("gqa", 1, 8, 128, 16),
+    "qwen-G5": ("gqa", 8, 5, 128, 16),
+    "command-r-G12": ("gqa", 8, 12, 128, 16),
+    "phi-G4-L3": ("gqa", 8, 4, 128, 3),
+    "test-G2-L2": ("gqa", 2, 2, 64, 2),
+    "yi-L1": ("gqa", 4, 8, 128, 1),
+    "qwen-L1": ("gqa", 8, 5, 128, 1),
+    "musicgen-G1-L32": ("gqa", 32, 1, 64, 32),
+    "smoke-KH1-G1": ("gqa", 1, 1, 16, 16),
+    "deepseek-L16": ("mla", None, 16, 512, 16),
+    "deepseek-L4": ("mla", None, 16, 512, 4),
+    "deepseek-L24": ("mla", None, 16, 512, 24),
+    "deepseek-L32": ("mla", None, 16, 512, 32),
+    "deepseek-L48": ("mla", None, 16, 512, 48),
+    "deepseek-L64": ("mla", None, 16, 512, 64),
+    "deepseek-L96": ("mla", None, 16, 512, 96),
+    "deepseek-L128": ("mla", None, 16, 512, 128),
+    "deepseek-rope-L32": ("mla", None, 16, 64, 32),
+    "deepseek-tp2-L32": ("mla", None, 8, 512, 32),
+    "deepseek-L1": ("mla", None, 16, 512, 1),
+    "deepseek-tp4-L1": ("mla", None, 4, 512, 1),
+    "deepseek-H2-L3": ("mla", None, 2, 512, 3),
+    "deepseek-H4-L2": ("mla", None, 4, 512, 2),
+    "smoke-mla-L16": ("mla", None, 4, 32, 16),
+    "smoke-mla-L64": ("mla", None, 4, 32, 64),
+}
+#: geometries whose order is not mapped (their scores agree with JAX's to
+#: f32 round-off only; ROADMAP C.4): a one-row dot LLVM vectorizes and the
+#: backend reorders, one query row a KV head at block lengths other than 1
+#: and 4-128 by powers of two (the first head's last lane now and then
+#: takes another order), a single-lane block between 9 and 15 rows, and
+#: past DOT_ORDER_MAX_L lanes
+UNMAPPED = {
+    "gqa-G1-L9": ("gqa", 2, 1, 16, 9),
+    "gqa-G1-L17": ("gqa", 2, 1, 128, 17),
+    "gqa-KH1-G1-hd64": ("gqa", 1, 1, 64, 16),
+    "mla-H1": ("mla", None, 1, 512, 16),
+    "gqa-KH1-L1": ("gqa", 1, 8, 128, 1),
+    "mla-H10-L1": ("mla", None, 10, 512, 1),
+    "mla-L512": ("mla", None, 16, 512, 512),
+}
+
+
+def _order(kind, KH, rows, width, L):
+    return P.dot_order(kind, rows, width, L, **({} if KH is None else {"heads": KH}))
+
+
+def _operands(kind, KH, rows, width, L, seed=1):
+    """(q, k) float32: GQA (KH, G, hd) and (L, KH, hd), MLA (H, R), (L, R)."""
+    rng = np.random.default_rng(seed)
+    if kind == "gqa":
+        return (rng.normal(size=(KH, rows, width)).astype(np.float32),
+                rng.normal(size=(L, KH, width)).astype(np.float32))
+    return (rng.normal(size=(rows, width)).astype(np.float32),
+            rng.normal(size=(L, width)).astype(np.float32))
+
+
+def _port_dot(kind, q, k, order):
+    """The plain versions' scores (before the scale) of one block."""
+    q, k = torch.from_numpy(q), torch.from_numpy(k)
+    if kind == "gqa":                       # (KH,G,1,hd) . (KH,1,L,hd)
+        return P._xla_dot(q[:, :, None], k.permute(1, 0, 2)[:, None], order).numpy()
+    return P._xla_dot(q[:, None], k[None], order).numpy()
+
+
+def _fma_order(a, b, order):
+    """One dot of two float32 vectors in ``order``, step by step in numpy."""
+    fma = lambda x, y, c: np.float32(np.float64(x) * np.float64(y) + np.float64(c))
+    part = [np.float32(0.0)] * order.partials
+    for i in range(len(a)):
+        t = i % order.partials
+        part[t] = fma(a[i], b[i], part[t])
+    while len(part) > 1:
+        h = len(part) // 2
+        part = ([np.float32(part[i] + part[i + h]) for i in range(h)]
+                if order.combine == "halve" else
+                [np.float32(part[i] + part[i + 1]) for i in range(0, len(part), 2)])
+    return part[0]
+
+
 def test_mla_split_dot_order():
-    """The score sum's fixed order, jitted XLA:CPU's for the JAX kernel's
-    dots (what the kernel's 4 threads per score compute): 4 strided
-    partials of fused multiply-adds, then (p0 + p1) + (p2 + p3); equal to
-    the jitted einsum at the decode shapes (heads and lanes >= 4)."""
-    import jax
-
+    """``_xla_dot`` replays each order step by step: a chain, 2, 4 and 8
+    strided partials of fused multiply-adds, combined as a tree or by
+    halves (the kernels' ``order`` argument, 2 * partials + halves)."""
     rng = np.random.default_rng(0)
-    q = rng.normal(size=(1, 4, 40)).astype(np.float32)
-    c = rng.normal(size=(1, 16, 40)).astype(np.float32)
-    assert P.MLA_SPLIT == 4
-    part = [np.float32(0.0)] * 4
-    for i in range(40):
-        t = i % 4
-        part[t] = np.float32(np.float64(q[0, 0, i]) * np.float64(c[0, 0, i])
-                             + np.float64(part[t]))
-    want = np.float32(np.float32(part[0] + part[1]) + np.float32(part[2] + part[3]))
-    got = P._split_dot(torch.from_numpy(q), torch.from_numpy(c))
-    assert got[0, 0, 0].item() == want
-    xla = jax.jit(lambda a, b: jnp.einsum("hr,lr->hl", a, b,
-                                          preferred_element_type=jnp.float32))
-    np.testing.assert_array_equal(got[0].numpy(), np.asarray(xla(q[0], c[0])))
+    q = rng.normal(size=(3, 40)).astype(np.float32)
+    c = rng.normal(size=(5, 40)).astype(np.float32)
+    orders = [P.DotOrder(1), P.DotOrder(2), P.DotOrder(4), P.DotOrder(8),
+              P.DotOrder(4, "halve"), P.DotOrder(8, "halve")]
+    assert [o.code for o in orders] == [2, 4, 8, 16, 9, 17]
+    outs = []
+    for order in orders:
+        got = _port_dot("mla", q, c, order)
+        want = np.array([[_fma_order(q[h], c[l], order) for l in range(5)]
+                         for h in range(3)])
+        np.testing.assert_array_equal(got, want)
+        outs.append(got)
+    assert len({o.tobytes() for o in outs}) == len(outs)     # the orders differ
 
 
-def _fma_orders(q, k):
-    """(4 strided fused multiply-add partials then (p0 + p1) + (p2 + p3),
-    one sequential fused multiply-add chain) of the dot of two float32
-    vectors, in numpy."""
-    fma = lambda a, b, c: np.float32(np.float64(a) * np.float64(b) + np.float64(c))
-    part, acc = [np.float32(0.0)] * 4, np.float32(0.0)
-    for i in range(len(q)):
-        part[i % 4] = fma(q[i], k[i], part[i % 4])
-        acc = fma(q[i], k[i], acc)
-    return np.float32(np.float32(part[0] + part[1]) + np.float32(part[2] + part[3])), acc
-
-
-@pytest.mark.parametrize("geom,order", [
-    ((2, 2, 8, 16), 0),       # the test geometries: G 2, L 4 or 16
-    ((4, 8, 128, 16), 0),     # Yi-9B's decode block (block_len 16)
-    ((2, 7, 64, 16), 0),      # internvl2-1b's group of 7
-    ((32, 1, 64, 16), 1),     # musicgen-large's G 1: one chain
-    ((4, 8, 128, 32), 1),     # a block of 32 lanes: one chain
-], ids=["test-G2", "yi-G8", "internvl2-G7", "musicgen-G1", "yi-L32"])
-def test_gqa_score_dot_order_depends_on_the_geometry(geom, order):
-    """ROADMAP C.4's GQA trial: jitted XLA:CPU computes the JAX kernel's
-    score dot ``einsum("hgd,lhd->hgl")`` with 4 strided fused multiply-add
-    partials when G >= 2 and the block holds <= 16 lanes, and with one
-    sequential chain when G is 1 or the block 32 lanes or more. No one
-    order fits every geometry, so the port keeps its order and the
-    ``cordic_fixed`` code-step bound (``_tol``)."""
+@pytest.mark.parametrize("case", sorted(DOT_CASES))
+def test_gqa_score_dot_order_depends_on_the_geometry(case):
+    """ROADMAP C.4: ``dot_order`` gives jitted XLA:CPU's order of the JAX
+    kernels' score dots, ``einsum("hgd,lhd->hgl")`` and
+    ``einsum("hr,lr->hl")``, bit for bit on every element, at every
+    geometry of DOT_CASES (the map in ``dot_order``'s docstring: 4
+    partials at G >= 2 and blocks of 4-16 lanes, one chain at G 1 or past
+    16 lanes, MLA's 2 partials at L 25-32 and its chain at L 49-64, ...)."""
     import jax
 
-    KH, G, hd, L = geom
-    rng = np.random.default_rng(1)
-    q = rng.normal(size=(KH, G, hd)).astype(np.float32)
-    k = rng.normal(size=(L, KH, hd)).astype(np.float32)
+    kind, KH, rows, width, L = DOT_CASES[case]
+    order = _order(kind, KH, rows, width, L)
+    assert order.mapped, order
+    q, k = _operands(kind, KH, rows, width, L)
+    spec = "hgd,lhd->hgl" if kind == "gqa" else "hr,lr->hl"
     xla = np.asarray(jax.jit(lambda a, b: jnp.einsum(
-        "hgd,lhd->hgl", a, b, preferred_element_type=jnp.float32))(q, k))
-    hits = [0, 0]
-    for h in range(min(KH, 2)):
-        for g in range(G):
-            for l in range(min(L, 4)):
-                for i, v in enumerate(_fma_orders(q[h, g], k[l, h])):
-                    hits[i] += v == xla[h, g, l]
-    n = min(KH, 2) * G * min(L, 4)
-    assert hits[order] == n and hits[1 - order] < n, hits
+        spec, a, b, preferred_element_type=jnp.float32))(q, k))
+    got = _port_dot(kind, q, k, order)
+    np.testing.assert_array_equal(got, xla)
+    if order.partials > 1 or kind == "mla":
+        # the geometry tells the orders apart: a chain misses somewhere
+        assert not np.array_equal(_port_dot(kind, q, k, P.DotOrder(1)), xla) \
+            or not np.array_equal(_port_dot(kind, q, k, P.DotOrder(4)), xla)
+
+
+@pytest.mark.parametrize("case", sorted(UNMAPPED))
+def test_unmapped_dot_orders_are_named(case):
+    """The geometries whose XLA:CPU order is not found are flagged
+    (``mapped`` False) and take a chain; the kernels run them all the
+    same."""
+    order = _order(*UNMAPPED[case])
+    assert not order.mapped and order.partials == 1
+
+
+#: (kind, KH or None, rows, width, L, how): the JAX kernels themselves in
+#: interpret mode, eager or jitted, on float32, bfloat16-rounded and int8
+#: pools
+KERNEL_CASES = [
+    ("gqa", 2, 2, 8, 4, "eager"), ("gqa", 2, 2, 8, 16, "eager"),
+    ("gqa", 4, 8, 128, 16, "jit"), ("gqa", 4, 8, 128, 32, "jit"),
+    ("gqa", 32, 1, 64, 16, "eager"), ("gqa", 2, 5, 64, 1, "jit"),
+    ("gqa", 2, 2, 64, 16, "bfloat16"), ("gqa", 2, 4, 64, 32, "int8"),
+    ("mla", None, 4, 32, 16, "eager"), ("mla", None, 4, 32, 32, "jit"),
+    ("mla", None, 16, 512, 32, "eager"), ("mla", None, 4, 32, 64, "eager"),
+]
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_jax_kernel_scores_take_the_mapped_order(case, monkeypatch):
+    """The scores the JAX kernel computes inside ``gqa_decode`` /
+    ``mla_decode`` (interpret mode, as the JAX suite and the engine run
+    it), read out by a stand-in for ``_pass_update`` that writes them to
+    the output, equal the plain versions' (the mapped dot, then times the
+    scale) bit for bit: the JIT picks the kernel dot's order as it picks a
+    bare einsum's."""
+    import jax
+
+    from repro.core import kv_quant as jkvq
+    from repro_torch.core import kv_quant as kvq
+
+    kind, KH, rows, width, L, how = case
+    n = min(L, width)
+
+    def probe(s, v, p, impl, sched, cfg, m_sc, l_sc, acc_sc, contract):
+        acc_sc[..., :n] = s[..., :n]
+        l_sc[...] = jnp.ones_like(l_sc[...])
+
+    monkeypatch.setattr(JP, "_pass_update", probe)
+    q, k = _operands(kind, KH, rows, width, L, seed=2)
+    table, k_len = np.array([[1]], np.int32), np.array([L], np.int32)
+    pool = lambda x: np.concatenate([np.zeros_like(x)[None], x[None]])
+    kw = dict(scale=0.3, interpret=True)
+    if kind == "gqa":
+        kf = k
+        if how == "bfloat16":
+            kw["kv_dtype"] = jnp.bfloat16
+            kf = torch.from_numpy(k).bfloat16().float().numpy()
+        if how == "int8":
+            spec = kvq.spec_for("int8")
+            sc = kvq.block_scale(torch.from_numpy(pool(k)), spec)
+            codes = kvq.quantize(torch.from_numpy(pool(k)), spec, sc)
+            kf = kvq.dequantize(codes, spec, sc)[1].numpy()
+            kw.update(kv_quant="int8", k_scale_pool=jnp.asarray(sc.numpy()),
+                      v_scale_pool=jnp.asarray(sc.numpy()))
+            kp = jnp.asarray(codes.numpy())
+            assert jkvq.spec_for("int8") is not None
+        else:
+            kp = jnp.asarray(pool(k))
+        fn = lambda a: JP.gqa_decode(jnp.asarray(q[None]), a, a, jnp.asarray(table),
+                                     jnp.asarray(k_len), **kw)
+        want = _port_dot(kind, q, kf, _order(kind, KH, rows, width, L)) * np.float32(0.3)
+    else:
+        zr = np.zeros((rows, 8), np.float32)
+        fn = lambda a: JP.mla_decode(jnp.asarray(q[None]), jnp.asarray(zr[None]), a,
+                                     jnp.asarray(np.zeros((2, L, 8), np.float32)),
+                                     jnp.asarray(table), jnp.asarray(k_len), **kw)
+        kp = jnp.asarray(pool(k))
+        # the rope dot of zero queries adds +0 to each score
+        want = _port_dot(kind, q, k, _order(kind, None, rows, 8, L)) * np.float32(0.3)
+    got = np.asarray((jax.jit(fn) if how == "jit" else fn)(kp))[0]
+    np.testing.assert_array_equal(got[..., :n], want[..., :n])
 
 
 def test_mla_unported_branch_raises():
