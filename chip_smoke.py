@@ -8,6 +8,7 @@
         [--out chiprun_out/rows.jsonl] [--save chiprun_out/<name>.pt]
     python3 chip_smoke.py --archs
     python3 chip_smoke.py --c7
+    python3 chip_smoke.py --prefill-probe
 
 The second form runs only the decode kernels' part of phase 3 (every
 gqa_decode and mla_decode branch at the launcher and the long-context
@@ -18,7 +19,7 @@ change, change, parent; each run appends one JSON line to ``--out``, and
 third form does the same for the row kernels: act_2d (each op at its
 shapes), silu_mul_2d, softmax_2d, log_softmax_2d and act_q_2d. The fourth
 runs the build, phases 4 (j)-(l) and the train identities of (l)'s block
-kinds alone.
+kinds alone; the last the build and phase (3d) alone.
 
 Phases of the first form, each of which must pass (the script exits non-zero otherwise):
 
@@ -40,7 +41,18 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             decode attend (4 slots x 32 heads of 128 and of 4096 lanes);
             (9c) every score-dot order of the decode kernels (a chain, 2,
             4 and 8 strided partials, tree or halves; float32, int8 and
-            Q2.14 pools) bit-equal to its plain version.
+            Q2.14 pools) bit-equal to its plain version. (3d) the paged
+            prefill's row-count-invariant product (kernels/gemm.py, ROADMAP
+            B.10) at Yi-9B's prefill shapes (QKV, O, the MLP, the logits on
+            a 4096-row slice of the vocabulary, ``_scores`` and ``_pv`` at
+            MAX_LEN's table width) and DeepSeek-V2-Lite's MLA widths, at M
+            1, 16, 17, 100, 128 and 4000: bit-equal to its plain version,
+            every row the same bits at every M and batch count; timed at M
+            128 and 4000 beside torch.matmul; then the probe: each operation
+            of one Yi-9B prefill layer on a 16-token segment alone, inside
+            rows of 128 and 4000 and as a row of a 4-row dispatch, under
+            torch's products (the operations that move are logged) and the
+            paged prefill's (none may move).
 4. paths    the port's main paths through the entry points a user calls,
             with every launch count set to 0 just before and read just
             after: (a) the paper's unit, ``ops.sigmoid`` and its integer
@@ -57,21 +69,24 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             the same model: the launcher traffic twice more from int8 and
             Q2.14 pools (gqa_decode's kv_quant branch on every decode
             step), the radix prefix cache on a shared-prompt trace over
-            int8 pools (cache on and off; the cache-on tokens equal each
-            request's alone in a fresh cache-on engine); (d') each arch on
+            int8 pools (cache off, on, and on with chunks packed 4 rows a
+            dispatch: every cache-on token equals cache off's); (d') each arch on
             each datapath (Yi's kernel datapath also on int8 and Q2.14
-            pools) in an engine at max_len 4096: its pool bytes and the
+            pools, those on its first SIDE_LAYERS blocks) in an engine at
+            max_len 4096: its pool bytes and the
             decode kernel's workspace per call, and one 4000-token request
             served (1024 tokens on cordic_fixed, whose prefill is plain
             torch), so the decode kernel's branch runs at the long shape
-            (M 256) on every step: the long-shape entries' launches; (e)
+            (M 256) on every step: the long-shape entries' launches; Yi's
+            kernel datapath serves it once more with the prefix cache on:
+            the TTFT on and off, tokens equal; (e)
             training Yi-9B at full width cut to 4 layers (float32 master weights, AdamW, the loop's 8 x 32-token
             batches): 8 loop steps with checkpoints, a bit-equal restore, 6
             steps on one batch (the loss must fall), an eval step; (f)
             chunked and multi-row prefill: trace 1 (8 prompts of 17-100
             tokens, chunks of 32, 4 rows a dispatch) on Yi-9B with the chunk
-            and without, and under the prefix cache (chunked and unchunked
-            tokens must be equal), once on DeepSeek-V2-Lite; trace 2 on
+            and without, cache off and on (every run's tokens must equal the
+            single-row unchunked run's), once on DeepSeek-V2-Lite; trace 2 on
             Yi-9B (a 4000-token prompt beside three 8-token ones at max_len
             4096, chunks of 512, and unchunked: the short requests' TTFT);
             ``ServeEngine.score`` of a 128-token prompt through
@@ -1645,9 +1660,12 @@ def serve_path(torch, build, arch):
         # the long-context serve on this datapath (Yi's kernel datapath also
         # on the quantized pools): the decode kernel's branch at M 256
         t0 = time.perf_counter()
-        formats = ("none",) + (KV_FORMATS if arch == "yi-9b"
-                               and act_impl == "cordic_pallas" else ())
-        out[f"long {act_impl}"] = long_context_pools(torch, build, cfg, served, formats)
+        yi_kernels = arch == "yi-9b" and act_impl == "cordic_pallas"
+        formats = ("none",) + (KV_FORMATS if yi_kernels else ())
+        quant_view = side_view(cfg, served)[:2] if yi_kernels else None
+        out[f"long {act_impl}"] = long_context_pools(torch, build, cfg, served, formats,
+                                                     cache_on=yi_kernels,
+                                                     quant_view=quant_view)
         log(f"[time] long-context path {arch} {act_impl}: "
             f"{time.perf_counter() - t0:.1f} s")
     if arch == "yi-9b":
@@ -1869,12 +1887,12 @@ def prefix_path(torch, build, cfg, model):
     request of a PREFIX_LEN-token shared prompt served to completion, then
     PREFIX_WAVE requests of that prompt plus a 3-8-token tail (a chat or
     agent deployment whose requests share one system prompt), MAX_NEW new
-    tokens each, with the cache on and off, one engine each. With the cache
-    on, the engine prefills in block-wide pieces (serve/engine.py), so the
-    gate holds it to the cache on without hits: each request alone in a
-    fresh engine, whose prefills run the same pieces from position 0. The
-    cache-off run prefills whole rows; its tokens are compared but not
-    gated (another GEMM width rounds otherwise on the card)."""
+    tokens each, with the cache off, on, and on with chunks of CHUNK packed
+    CHUNK_BATCH rows a dispatch, one engine each. The paged prefill runs
+    the row-count-invariant product (kernels/gemm.py), so a position's K, V
+    and logits do not depend on where its prefill started or how many rows
+    shared its dispatch: every cache-on token must equal the cache-off
+    run's (ROADMAP B.10)."""
     import numpy as np
 
     from repro_torch.serve.engine import Request, ServeEngine
@@ -1884,24 +1902,27 @@ def prefix_path(torch, build, cfg, model):
     tails = [rng.integers(0, cfg.vocab_size, int(rng.integers(3, 9))).astype(np.int32)
              for _ in range(PREFIX_WAVE)]
 
-    def engine(on):
-        return ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN,
-                           kv_impl="paged", block_len=BLOCK_LEN,
-                           paged_attend_impl="pallas", kv_quant="int8",
-                           prefix_cache=on, device=DEV)
-
     def request(rid):
         prompt = shared.copy() if rid == 0 else np.concatenate([shared, tails[rid - 1]])
         return Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW)
 
+    runs = {"off": dict(prefix_cache=False), "on": dict(prefix_cache=True),
+            "on, multi-row": dict(prefix_cache=True, prefill_chunk=CHUNK,
+                                  prefill_batch=CHUNK_BATCH)}
     res = {}
-    for on in (False, True):
-        eng = engine(on)
+    for name, kw in runs.items():
+        eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, kv_impl="paged",
+                          block_len=BLOCK_LEN, paged_attend_impl="pallas",
+                          kv_quant="int8", device=DEV, **kw)
+        groups = []
+        dispatch = eng._dispatch_prefill
+        eng._dispatch_prefill = lambda g: (groups.append(len(g)), dispatch(g))
         prime = request(0)
         eng.submit(prime)
         eng.run()
         wave = [request(1 + i) for i in range(PREFIX_WAVE)]
         pre_tokens, hit0 = eng.prefill_tokens, eng.prefix_hit_tokens
+        groups.clear()
         build.reset_launches()
         t0 = time.perf_counter()
         for r in wave:
@@ -1916,52 +1937,48 @@ def prefix_path(torch, build, cfg, model):
               "prefix trace: every request finishes")
         hits = eng.prefix_hit_tokens - hit0
         ttft = sorted((r.t_first - r.t_enqueue) * 1e3 for r in wave)
-        res[on] = dict(
+        res[name] = r = dict(
             tokens=[prime.out] + [r.out for r in wave], hit_tokens=hits,
             prompt_tokens=sum(len(r.prompt) for r in wave) - hits,
-            prefill_width=eng.prefill_tokens - pre_tokens,
+            prefill_width=eng.prefill_tokens - pre_tokens, groups=list(groups),
             shared_peak=shared_peak, peak_blocks=eng.pager.stats().peak_in_use,
             ttft_p50=statistics.median(ttft), ttft_max=ttft[-1], wall_s=wall,
             launches=dict(build.LAUNCHES),
             hits=eng.prefix.hits if eng.prefix is not None else 0)
-        r = res[on]
-        log(f"[path prefix] cache {'on' if on else 'off'}: {PREFIX_WAVE} requests "
-            f"after a {PREFIX_LEN}-token prime in {wall:.3f} s; prefix hit tokens "
-            f"{hits} ({r['hits']} hits); prompt tokens prefilled {r['prompt_tokens']}, "
-            f"prefill row widths {r['prefill_width']}; blocks shared (peak) "
-            f"{shared_peak}; peak blocks in use {r['peak_blocks']}; TTFT p50 "
-            f"{r['ttft_p50']:.1f} ms, max {r['ttft_max']:.1f} ms; launches "
-            f"{r['launches']}")
+        log(f"[path prefix] cache {name}: {PREFIX_WAVE} requests after a "
+            f"{PREFIX_LEN}-token prime in {wall:.3f} s; prefix hit tokens {hits} "
+            f"({r['hits']} hits); prompt tokens prefilled {r['prompt_tokens']}, "
+            f"prefill row widths {r['prefill_width']}, dispatches of {groups} rows; "
+            f"blocks shared (peak) {shared_peak}; peak blocks in use "
+            f"{r['peak_blocks']}; TTFT p50 {r['ttft_p50']:.1f} ms, max "
+            f"{r['ttft_max']:.1f} ms; launches {r['launches']}")
         del eng
         torch.cuda.empty_cache()
-    alone, ttft_alone = [], []
-    for rid in range(1 + PREFIX_WAVE):
-        eng = engine(True)
-        r = request(rid)
-        eng.submit(r)
-        eng.run()
-        check(eng.prefix_hit_tokens == 0, "a request alone hits nothing")
-        alone.append(r.out)
-        ttft_alone.append((r.t_first - r.t_enqueue) * 1e3)
-        del eng
-    torch.cuda.empty_cache()
-    off, on = res[False], res[True]
-    check(on["tokens"] == alone, "prefix cache hits change the tokens")
-    check(on["hit_tokens"] == PREFIX_WAVE * PREFIX_LEN, "the wave hits the prime's blocks")
-    same = sum(a == b for x, y in zip(off["tokens"], on["tokens"]) for a, b in zip(x, y))
-    log(f"[path prefix] cache-on tokens equal the cache on without hits (each "
-        f"request alone in a fresh engine, TTFT p50 {statistics.median(ttft_alone):.1f} "
-        f"ms); cache-off (whole-row prefill) tokens match {same}/"
-        f"{(1 + PREFIX_WAVE) * MAX_NEW} (reported, not gated); prefill tokens "
-        f"saved {off['prompt_tokens'] - on['prompt_tokens']} of "
+    off, on, multi = res["off"], res["on"], res["on, multi-row"]
+    n_tok = (1 + PREFIX_WAVE) * MAX_NEW
+    for name in ("on", "on, multi-row"):
+        same = sum(a == b for x, y in zip(off["tokens"], res[name]["tokens"])
+                   for a, b in zip(x, y))
+        log(f"[path prefix] cache {name}: tokens equal to cache off's {same}/{n_tok}")
+        check(res[name]["tokens"] == off["tokens"],
+              f"prefix cache {name}: tokens differ from cache off's ({same}/{n_tok})")
+        check(res[name]["hit_tokens"] == PREFIX_WAVE * PREFIX_LEN,
+              f"prefix cache {name}: the wave hits the prime's blocks")
+        check(res[name]["launches"].get("gemm", 0) > 0,
+              f"prefix cache {name}: the paged prefill never launched gemm")
+    check(max(multi["groups"]) > 1, "prefix cache, multi-row: no multi-row dispatch")
+    log(f"[path prefix] every cache-on token equals cache off's ({n_tok} tokens, "
+        f"gated), multi-row too (dispatches of {multi['groups']} rows); prefill "
+        f"tokens saved {off['prompt_tokens'] - on['prompt_tokens']} of "
         f"{off['prompt_tokens']} (row widths {off['prefill_width']} -> "
         f"{on['prefill_width']}); peak blocks {off['peak_blocks']} -> "
         f"{on['peak_blocks']}; TTFT p50 {off['ttft_p50']:.1f} -> "
-        f"{on['ttft_p50']:.1f} ms")
+        f"{on['ttft_p50']:.1f} ms ({multi['ttft_p50']:.1f} ms multi-row)")
     return res
 
 
-def long_context_pools(torch, build, cfg, model, formats):
+def long_context_pools(torch, build, cfg, model, formats, cache_on=False,
+                       quant_view=None):
     """Engines at max_len LONG_MAX_LEN with SLOTS slots for each pool
     format of ``formats``: kv_pool_bytes, the decode kernel's workspace per
     call and the device memory the engine allocated; then each serves one
@@ -1969,8 +1986,14 @@ def long_context_pools(torch, build, cfg, model, formats):
     softmax; 8 new tokens, greedy) on ``cfg``'s datapath,
     launch counts zeroed just before and read just after, so the decode
     kernel (gqa_decode, or mla_decode on an MLA arch) runs at the long
-    shape (M 256 table columns) on every decode step. Returns {format:
-    launch counts}."""
+    shape (M 256 table columns) on every decode step. ``cache_on`` serves
+    the request once more with the prefix cache on (float32 pools): its
+    TTFT beside the cache-off one (whole rows either way since ROADMAP
+    B.10; the block-wide pieces took 15.2-20.3 s) and its tokens gated
+    equal. ``quant_view`` (cfg, model), a ``side_view`` of the model,
+    serves the quantized formats instead (pool bytes compared a layer):
+    a prefill through the invariant product costs ~5.7 s at Yi's 48
+    layers, for the time limit. Returns {format: launch counts}."""
     import numpy as np
 
     from repro_torch.serve.engine import Request, ServeEngine
@@ -1980,22 +2003,26 @@ def long_context_pools(torch, build, cfg, model, formats):
     tag = f"{cfg.name} {cfg.act_impl}/{cfg.softmax_impl}"
     n_prompt = LONG_PROMPT_FIXED if cfg.softmax_impl == "cordic_fixed" else LONG_PROMPT
     prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, n_prompt)
-    for fmt in formats:
+    ttft = {}
+    for fmt in formats + (("none, cache on",) if cache_on else ()):
+        c, m = (quant_view if quant_view and fmt in KV_FORMATS else (cfg, model))
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
-        eng = ServeEngine(cfg, model, slots=SLOTS, max_len=LONG_MAX_LEN,
+        eng = ServeEngine(c, m, slots=SLOTS, max_len=LONG_MAX_LEN,
                           kv_impl="paged", block_len=BLOCK_LEN,
-                          paged_attend_impl="pallas", kv_quant=fmt, device=DEV)
+                          paged_attend_impl="pallas", kv_quant=fmt.split(",")[0],
+                          prefix_cache=fmt.endswith("cache on"), device=DEV)
         torch.cuda.synchronize()
         delta = torch.cuda.memory_allocated() - before
         nbytes = eng.kv_pool_bytes()
-        base = base or nbytes
+        base = base or nbytes / c.num_layers
         check(delta >= nbytes, f"long-context {fmt}: allocated {delta} < pools {nbytes}")
         ws = eng.decode_workspace_bytes()
         log(f"[path memory] {tag} max_len {LONG_MAX_LEN}, {SLOTS} slots, "
-            f"{eng.pager.stats().num_blocks} blocks, kv_quant={fmt}: kv_pool_bytes "
-            f"{nbytes} ({nbytes / 1e9:.3f} GB, {base / nbytes:.3f}x fewer than "
-            f"float32), memory_allocated delta {delta} ({delta / 1e9:.3f} GB); "
+            f"{eng.pager.stats().num_blocks} blocks, {c.num_layers} layers, kv_quant={fmt}: "
+            f"kv_pool_bytes {nbytes} ({nbytes / 1e9:.3f} GB, "
+            f"{base * c.num_layers / nbytes:.3f}x fewer than float32), "
+            f"memory_allocated delta {delta} ({delta / 1e9:.3f} GB); "
             f"{kernel} workspace per call {ws} bytes ({ws / 1e9:.3f} GB, "
             f"{ws / nbytes:.3f}x the pools)")
         req = Request(rid=0, prompt=prompt.astype(np.int32), max_new_tokens=8)
@@ -2011,18 +2038,25 @@ def long_context_pools(torch, build, cfg, model, formats):
         counts[fmt] = dict(build.LAUNCHES)
         check(req.done and len(req.out) == 8 and all(0 <= t < cfg.vocab_size for t in req.out),
               f"long-context {fmt}: the request finishes with its tokens")
-        check(counts[fmt].get(kernel, 0) == cfg.num_layers * len(steps),
+        check(counts[fmt].get(kernel, 0) == c.num_layers * len(steps),
               f"long-context {tag} {fmt}: {kernel} launched "
-              f"{counts[fmt].get(kernel, 0)} times, not {cfg.num_layers} x "
+              f"{counts[fmt].get(kernel, 0)} times, not {c.num_layers} x "
               f"{len(steps)} steps")
         LONG_STEPS[cfg.name, cfg.softmax_impl, fmt] = (
             statistics.median(steps[1:]) * 1e3, list(req.out))
+        ttft[fmt] = (req.t_first - req.t_enqueue) * 1e3
         log(f"[path long {tag} {fmt}] one {n_prompt}-token request, 8 new tokens in "
-            f"{time.perf_counter() - t0:.3f} s: TTFT {(req.t_first - req.t_enqueue) * 1e3:.1f} "
+            f"{time.perf_counter() - t0:.3f} s: TTFT {ttft[fmt]:.1f} "
             f"ms; step p50 after the prefill's {statistics.median(steps[1:]) * 1e3:.2f} "
             f"ms over {len(steps) - 1} steps; tokens {req.out}; launches {counts[fmt]}")
         del eng
         torch.cuda.empty_cache()
+    if cache_on:
+        on, off = (LONG_STEPS[cfg.name, cfg.softmax_impl, f][1] for f in ("none, cache on", "none"))
+        check(on == off, f"long-context {tag}: cache-on tokens {on} differ from cache off's {off}")
+        log(f"[path long {tag}] TTFT of one {n_prompt}-token request: cache off "
+            f"{ttft['none']:.1f} ms, cache on {ttft['none, cache on']:.1f} ms (both whole "
+            "rows through the invariant product; tokens equal)")
     return counts
 
 
@@ -2081,14 +2115,14 @@ def serve_trace(torch, build, cfg, model, prompts, what, max_new=MAX_NEW,
 
 def chunked_path(torch, build, cfg, model):
     """Yi-9B's chunked and multi-row prefill and ``score``: trace 1 with and
-    without chunks (cache off: the multi-row run's tokens against the
-    single-row run's are reported, not gated, since cuBLAS picks its GEMM by
-    the row count, ROADMAP B.10), then with the prefix cache on, chunked
-    (one row a dispatch) and not: both prefill the same one-block pieces,
-    so their tokens must be equal; trace 2 (the long prompt beside short
-    ones) with the chunk and without, the short requests' TTFT read;
-    ``score`` of a SCORE_LEN-token prompt through log_softmax_2d. Returns
-    {run: launch counts}."""
+    without chunks, with the cache off and on; the paged prefill's products
+    do not depend on the row count (kernels/gemm.py, ROADMAP B.10), so the
+    multi-row chunked runs (CHUNK_BATCH rows a dispatch), cache on or off,
+    and the cache-on unchunked run must all emit the single-row unchunked
+    run's tokens; trace 2 (the long prompt beside short ones) with the
+    chunk and without, the short requests' TTFT read; ``score`` of a
+    SCORE_LEN-token prompt through log_softmax_2d. Returns {run: launch
+    counts}."""
     import dataclasses
 
     import numpy as np
@@ -2100,20 +2134,19 @@ def chunked_path(torch, build, cfg, model):
     runs, counts = {}, {}
     for name, kw in (("trace 1", {}), ("trace 1, chunked", chunk),
                      ("trace 1, cache on", dict(prefix_cache=True)),
-                     ("trace 1, cache on, chunked",
-                      dict(prefix_cache=True, prefill_chunk=CHUNK, prefill_batch=1))):
+                     ("trace 1, cache on, chunked", dict(prefix_cache=True, **chunk))):
         _, counts[name], runs[name] = serve_trace(torch, build, cfg, model, prompts, name, **kw)
-    check(max(runs["trace 1, chunked"]["groups"]) > 1, "trace 1: no multi-row dispatch")
-    on, on_chunked = runs["trace 1, cache on"], runs["trace 1, cache on, chunked"]
-    check(on_chunked["tokens"] == on["tokens"],
-          "chunked prefill under the prefix cache changed the tokens")
     n_tok = REQUESTS * MAX_NEW
-    same = sum(a == b for x, y in zip(runs["trace 1"]["tokens"], runs["trace 1, chunked"]["tokens"])
-               for a, b in zip(x, y))
-    log(f"[path chunked {cfg.name}] trace 1 under the prefix cache: chunked (one row a "
-        f"dispatch) tokens equal the unchunked run's ({n_tok} tokens); cache off, the "
-        f"multi-row chunked run matches the single-row unchunked run {same}/{n_tok} "
-        "(reported, not gated: ROADMAP B.10)")
+    base = runs["trace 1"]["tokens"]
+    for name in ("trace 1, chunked", "trace 1, cache on", "trace 1, cache on, chunked"):
+        same = sum(a == b for x, y in zip(base, runs[name]["tokens"]) for a, b in zip(x, y))
+        log(f"[path chunked {cfg.name}] {name}: tokens equal to the single-row unchunked "
+            f"run's {same}/{n_tok}")
+        check(runs[name]["tokens"] == base,
+              f"{name}: tokens differ from the single-row unchunked run's ({same}/{n_tok})")
+        if "chunked" in name:
+            check(max(runs[name]["groups"]) > 1, f"{name}: no multi-row dispatch")
+        check(counts[name].get("gemm", 0) > 0, f"{name}: the paged prefill never launched gemm")
     rng = np.random.default_rng(23)
     long = [rng.integers(0, cfg.vocab_size, LONG_PROMPT).astype(np.int32)]
     shorts = [rng.integers(0, cfg.vocab_size, 8).astype(np.int32) for _ in range(LONG_SHORTS)]
@@ -4489,6 +4522,313 @@ def mesh_train_witness(torch, build):
 
 
 # ---------------------------------------------------------------------------
+#: the invariant products' row counts (a prefill's R x W rows) and batch
+#: counts: each row must be the same bits at every one; the attention's
+#: products at these positions a row (up to MAX_LEN) and PROBE_ROWS rows
+GEMM_MS = (1, 16, 17, 100, 128, 4000)
+GEMM_BATCHES = (1, 3)
+#: the timed product: Yi-9B's widest (the MLP's gate, d 4096 -> d_ff 11008)
+GEMM_TIMED = "yi gate"
+
+
+def gemm_cases(ycfg, dcfg):
+    """The paged prefill's products at Yi-9B's and DeepSeek-V2-Lite's (MLA)
+    widths. Row products: name -> (K, N, the weight read as the transpose
+    of an (N, K) table, out dtype or None). The attention's: name ->
+    (einsum, the query side's shape at (R rows, W positions), the other
+    operand's at R, the query side's W dim, the output's W dim), at
+    MAX_LEN's table width."""
+    import torch
+
+    m = dcfg.mla
+    d, hd, H, KH = ycfg.d_model, ycfg.head_dim, ycfg.num_heads, ycfg.num_kv_heads
+    G, T = H // KH, MAX_LEN
+    dd, dH = dcfg.d_model, dcfg.num_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    rows = {
+        "yi wq": (d, H * hd, False, None), "yi wk": (d, KH * hd, False, None),
+        "yi wo": (H * hd, d, False, None), "yi gate": (d, ycfg.d_ff, False, None),
+        "yi down": (ycfg.d_ff, d, False, None),
+        # the logits against a 4096-row slice of the vocabulary, float32
+        "yi logits": (d, 4096, True, torch.float32),
+        "mla wq": (dd, dH * qk, False, None),
+        "mla wkv_a": (dd, m.kv_lora_rank + m.qk_rope_dim, False, None),
+        "mla decompress": (m.kv_lora_rank, dH * (m.qk_nope_dim + m.v_dim), False, None),
+        "mla wo": (dH * m.v_dim, dd, False, None),
+    }
+    attn = {
+        "yi _scores": ("bqhgd,bkhd->bhgqk", lambda R, W: (R, W, KH, G, hd),
+                       lambda R: (R, T, KH, hd), 1, 3),
+        "yi _pv": ("bhgqk,bkhd->bqhgd", lambda R, W: (R, KH, G, W, T),
+                   lambda R: (R, T, KH, hd), 3, 1),
+        "mla _scores": ("bqhgd,bkhd->bhgqk", lambda R, W: (R, W, dH, 1, qk),
+                        lambda R: (R, T, dH, qk), 1, 3),
+        "mla _pv": ("bhgqk,bkhd->bqhgd", lambda R, W: (R, dH, 1, W, T),
+                    lambda R: (R, T, dH, m.v_dim), 3, 1),
+    }
+    return rows, attn
+
+
+def gemm_records(torch, records, ycfg, dcfg):
+    """The invariant product (kernels/gemm.py) at the paged prefill's
+    shapes, bit for bit: every row product of ``gemm_cases`` at every row
+    count of GEMM_MS against its plain version, each row the same bits at
+    every row count and batch count (M 4000's rows the reference); the
+    attention's products at 1 and PROBE_ROWS rows and GEMM_MS positions up
+    to MAX_LEN likewise. Then the timed product at M 128 and 4000 beside
+    torch.matmul (library_ms) and its bound, the larger of 2MNK over the
+    bf16 tensor-core peak and the bytes over HBM's rate. Fills
+    records["gemm"] (M 4000) and returns the M 128 record."""
+    from repro_torch.kernels import gemm as GM
+
+    c = kcost()
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    rows, attn = gemm_cases(ycfg, dcfg)
+    M_max = max(GEMM_MS)
+    err, n_checked = [0.0], [0]
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(torch.bfloat16)
+
+    def same(x, y, what):
+        err[0] = max(err[0], float((x.float() - y.float()).abs().max()))
+        n_checked[0] += 1
+        check(torch.equal(x, y), f"gemm {what}: not bit-equal")
+
+    t0 = [time.perf_counter()]
+    for name, (K, N, transposed, out_dtype) in rows.items():
+        a = rnd(M_max, K)
+        w = rnd(N, K, scale=K ** -0.5).t() if transposed else rnd(K, N, scale=K ** -0.5)
+        if name == GEMM_TIMED:
+            timed = (a, w)
+        full = GM.matmul(a, w, out_dtype)
+        for M in GEMM_MS:
+            got = GM.matmul(a[:M], w, out_dtype)
+            same(got, full[:M], f"{name} M {M}: rows against M {M_max}'s")
+            same(got, GM.matmul_plain(a[:M], w, out_dtype), f"{name} M {M} against plain")
+        for nb in GEMM_BATCHES[1:]:
+            M = min(GEMM_MS[-2], M_max // nb)
+            got = GM.gemm(a[:nb * M].view(nb, M, K), w[None].expand(nb, K, N), out_dtype)
+            same(got.reshape(nb * M, N), full[:nb * M], f"{name} batch {nb} x M {M}")
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+    sub_phase("gemm: the row products at every M and batch", t0)
+    for name, (eq, qshape, kshape, qdim, odim) in attn.items():
+        R, W = PROBE_ROWS, MAX_LEN
+        if "_pv" in name:                     # probabilities: float32 lanes
+            q = torch.rand(qshape(R, W), generator=gen, device=DEV)
+        else:
+            q = rnd(*qshape(R, W)).float()
+        other = rnd(*kshape(R)).float()
+        full = GM.einsum(eq, q, other)
+        for r in (1, R):
+            for w in [m for m in GEMM_MS if m <= W]:
+                qs = q[:r].narrow(qdim, 0, w)
+                got = GM.einsum(eq, qs, other[:r])
+                same(got, full[:r].narrow(odim, 0, w),
+                     f"{name} R {r} W {w}: rows against R {R} W {W}'s")
+                same(got, GM.einsum_plain(eq, qs, other[:r]),
+                     f"{name} R {r} W {w} against plain")
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+    sub_phase("gemm: the attention's products at every row count and width", t0)
+
+    a, w = timed
+    K, N = w.shape
+    recs = {}
+    for M in (GEMM_MS[-2], M_max):
+        x = a[:M]
+        nbytes = (x.numel() + w.numel() + M * N) * x.element_size()
+        flops = 2 * M * N * K
+        tb = {"bytes": nbytes / c.HBM_BYTES_S, "operations": flops / c.BF16_FLOP_S}
+        by = max(tb, key=tb.get)
+        ms, host = times(torch, lambda: GM.matmul(x, w), kernel="gemm_kernel")
+        lib_ms, _ = times(torch, lambda: torch.matmul(x, w))
+        _, (plain_ms, _) = plain_call(torch, lambda: GM.matmul_plain(x, w))
+        recs[M] = dict(max_abs_err=err[0], ms=ms, plain_ms=plain_ms,
+                       bound_ms=tb[by] * 1e3, bound_by=by, library_ms=lib_ms)
+        log(f"[kernels] gemm {GEMM_TIMED} M {M} K {K} N {N} bf16: {ms:.4f} ms "
+            f"({flops / ms / 1e9:.2f} TFLOP/s), host {host:.4f} ms; plain "
+            f"{plain_ms:.2f} ms (one check call); torch.matmul {lib_ms:.4f} ms; bound "
+            f"{tb[by] * 1e3:.5f} ms ({by}); {ms / lib_ms:.1f}x the library's")
+    records["gemm"] = recs[M_max]
+    log(f"[kernels] gemm: {n_checked[0]} checks bit-equal (rows across M and batch, "
+        f"and against plain), max |kernel - plain| {err[0]}")
+    sub_phase("gemm: times", t0)
+    return recs[GEMM_MS[-2]]
+
+
+#: ROADMAP B.10's probe: a PROBE_SEG-token segment prefilled alone (one
+#: row of width PROBE_SEG), inside rows of each PROBE_WIDE width, and as row
+#: 1 of a PROBE_ROWS-row dispatch; the gathered table's width
+PROBE_SEG, PROBE_WIDE, PROBE_ROWS, PROBE_T = 16, (128, 4000), 4, 4096
+#: the products the probe runs: torch's, then the paged prefill's
+PROBE_IMPLS = ("library", "invariant")
+
+
+def invariant_phase(torch, records, ycfg, dcfg):
+    """Phase (3d): the invariant product against its plain version
+    (``gemm_records``), then the probe under torch's products and under the
+    paged prefill's; under the latter no operation may move. Returns the
+    probe's readings by impl (chiprun_out/prefill_probe.json too)."""
+    gemm_records(torch, records, ycfg, dcfg)
+    probes = {impl: prefill_probe(torch, impl == "invariant") for impl in PROBE_IMPLS}
+    (OUT / "prefill_probe.json").write_text(json.dumps(probes, indent=1))
+    moved = sorted(op for op, by in probes["library"].items() if any(by.values()))
+    log(f"[probe] under torch's products these move with the row count or "
+        f"width: {moved}")
+    for op, by in probes["invariant"].items():
+        check(not any(by.values()), f"the paged prefill's {op} moves: {by}")
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return probes
+
+
+def prefill_probe(torch, invariant: bool):
+    """Each operation of one Yi-9B prefill layer at full width (bf16,
+    cordic_pallas), then the final norm and the logits, on one segment:
+    alone, inside wider rows and as one row of a multi-row dispatch. Each
+    operation takes the same bits for the segment's rows in every setup
+    (the other rows random), so a difference is that operation's own.
+    ``invariant`` runs the paged prefill's products (``cm.INVARIANT``),
+    else torch's (``cm.LIBRARY``); the norms are torch's in both. Returns {op: {setup:
+    max |difference| over the segment's outputs against alone}} (0.0:
+    bit-equal) and logs one line an op."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tf
+
+    ops = cm.INVARIANT if invariant else cm.LIBRARY
+    base = configs.get_config("yi-9b", act_impl="cordic_pallas")
+    cfg = dataclasses.replace(base, softmax_impl="cordic_pallas", num_layers=1,
+                              block_pattern=base.block_pattern[:1])
+    model = tf.init(cfg, seed=0, device=DEV)
+    blk = model.blocks[0]
+    H, KH = attn.padded_heads(cfg)
+    G, hd, S, T = H // KH, cfg.head_dim, PROBE_SEG, PROBE_T
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    setups = {"alone": (1, S, 0), **{f"W{w}": (1, w, 0) for w in PROBE_WIDE},
+              f"R{PROBE_ROWS}": (PROBE_ROWS, S, 1)}
+
+    def into(seg, R, W, row, axis):
+        """A random (R, ...) tensor holding ``seg`` at [row], its ``axis``
+        (of seg) widened to W with seg at [:S] (None: seg whole)."""
+        shape = list(seg.shape)
+        if axis is not None:
+            shape[axis] = W
+        full = torch.randn([R] + shape, generator=gen, device=DEV).to(seg.dtype)
+        idx = [row] + [slice(None)] * len(shape)
+        if axis is not None:
+            idx[1 + axis] = slice(0, S)
+        full[tuple(idx)] = seg
+        return full
+
+    def positions(R, W):
+        return torch.arange(W, device=DEV)[None, :].expand(R, W)
+
+    def masked_softmax(impl):
+        def f(s, R, W):
+            k_pos = torch.arange(T, device=DEV)
+            q_pos = positions(R, W)
+            mask = (k_pos[None, None, :] < W) & (k_pos[None, None, :] <= q_pos[:, :, None])
+            s = torch.where(mask[:, None, None], s, torch.full_like(s, attn.NEG_INF))
+            return attn._softmax_fn(impl)(s, axis=-1)
+        return f
+
+    def pool_round_trip(k, R, W):
+        nb = R * T // BLOCK_LEN + 1
+        pool = torch.zeros((nb, BLOCK_LEN) + tuple(k.shape[2:]), device=DEV)
+        tables = (1 + torch.arange(R * T // BLOCK_LEN, device=DEV, dtype=torch.int32)
+                  ).view(R, -1)
+        attn._pool_write(pool, tables, torch.zeros(R, dtype=torch.int32, device=DEV), k)
+        return attn._pool_gather(pool, tables)
+
+    # the segment's own chain, alone: each op's segment input
+    x0 = torch.randn((S, cfg.d_model), generator=gen, device=DEV).to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(hd)
+    h = cm.rmsnorm(blk.ln1, x0[None], cfg.norm_eps)[0]
+    q = attn._project(h[None], blk.attn.wq, ops)[0]
+    k = attn._project(h[None], blk.attn.wk, ops)[0]
+    v = attn._project(h[None], blk.attn.wv, ops)[0]
+    qr = cm.apply_rope(q[None], positions(1, S), cfg.rope_theta)[0]
+    kr = cm.apply_rope(k[None], positions(1, S), cfg.rope_theta)[0]
+    k_tab = torch.zeros((T, KH, hd), device=DEV, dtype=torch.bfloat16)
+    v_tab = torch.zeros_like(k_tab)
+    k_tab[:S], v_tab[:S] = kr, v
+    qg = qr.reshape(S, KH, G, hd)
+    s = attn._scores(qg[None], k_tab[None], scale, cfg.score_dtype, ops)[0]
+    p = masked_softmax(cfg.softmax_impl)(s[None], 1, S)[0]
+    o = attn._pv(p[None], v_tab[None], cfg.score_dtype, ops)[0].to(torch.bfloat16)
+    o = o.reshape(S, H, hd)
+    x1 = x0 + attn._out_project(o[None], blk.attn.wo, ops)[0]
+    h2 = cm.rmsnorm(blk.ln2, x1[None], cfg.norm_eps)[0]
+    g = ops.matmul(h2, blk.mlp.w_gate.to(h2.dtype))
+    u = ops.matmul(h2, blk.mlp.w_up.to(h2.dtype))
+    hm = kops.silu_mul(g, u)
+    x2 = x1 + ops.matmul(hm, blk.mlp.w_down.to(hm.dtype))
+
+    # (name, f(*args, R, W), [(segment arg, its axis widened to W, or
+    # None)], the segment's part of the output)
+    def seg_rows(y, row):
+        return y[row, :S]
+
+    cases = [
+        ("rmsnorm", lambda x, R, W: cm.rmsnorm(blk.ln1, x, cfg.norm_eps),
+         [(x0, 0)], seg_rows),
+        ("_project wq", lambda x, R, W: attn._project(x, blk.attn.wq, ops),
+         [(h, 0)], seg_rows),
+        ("_project wk", lambda x, R, W: attn._project(x, blk.attn.wk, ops),
+         [(h, 0)], seg_rows),
+        ("apply_rope", lambda x, R, W: cm.apply_rope(x, positions(R, W), cfg.rope_theta),
+         [(q, 0)], seg_rows),
+        ("pool write+gather", lambda x, R, W: pool_round_trip(x, R, W),
+         [(kr, 0)], seg_rows),
+        ("_scores", lambda q_, k_, R, W: attn._scores(q_, k_, scale, cfg.score_dtype, ops),
+         [(qg, 0), (k_tab, None)], lambda y, row: y[row, :, :, :S, :S]),
+        ("softmax cordic_pallas", masked_softmax("cordic_pallas"),
+         [(s, 2)], lambda y, row: y[row, :, :, :S]),
+        ("softmax exact", masked_softmax("exact"),
+         [(s, 2)], lambda y, row: y[row, :, :, :S]),
+        ("_pv", lambda p_, v_, R, W: attn._pv(p_, v_, cfg.score_dtype, ops),
+         [(p, 2), (v_tab, None)], seg_rows),
+        ("_out_project", lambda o_, R, W: attn._out_project(o_, blk.attn.wo, ops),
+         [(o, 0)], seg_rows),
+        ("mlp gate", lambda x, R, W: ops.matmul(x, blk.mlp.w_gate.to(x.dtype)),
+         [(h2, 0)], seg_rows),
+        ("silu_mul", lambda g_, u_, R, W: kops.silu_mul(g_, u_),
+         [(g, 0), (u, 0)], seg_rows),
+        ("mlp down", lambda x, R, W: ops.matmul(x, blk.mlp.w_down.to(x.dtype)),
+         [(hm, 0)], seg_rows),
+        ("final rmsnorm", lambda x, R, W: cm.rmsnorm(model.final_norm, x, cfg.norm_eps),
+         [(x2, 0)], seg_rows),
+        ("logits", lambda x, R, W: ops.unembed(model.lm_head, x),
+         [(x2, 0)], seg_rows),
+    ]
+    moved = {}
+    for name, f, args, take in cases:
+        outs = {}
+        for setup, (R, W, row) in setups.items():
+            ins = [into(seg, R, W, row, ax) for seg, ax in args]
+            outs[setup] = take(f(*ins, R, W), row).float()
+            del ins
+        ref = outs.pop("alone")
+        moved[name] = {k: (0.0 if torch.equal(ref, y) else
+                           float((ref - y).abs().nan_to_num(0.0).max()))
+                       for k, y in outs.items()}
+        log(f"[probe {'invariant' if invariant else 'library'}] {name}: " + ", ".join(
+            f"{k} {'bit-equal' if e == 0.0 else f'moves (max |diff| {e:.3g})'}"
+            for k, e in moved[name].items()))
+        del outs, ref
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    del model
+    return moved
+
+
 KERNELS = {
     # name: (route, source, replaces)
     "act_2d": ("cuda", "src/repro_torch/kernels/csrc/act.cu",
@@ -4505,6 +4845,12 @@ KERNELS = {
                  "src/repro/kernels/cordic_act.py:385"),
     "mla_decode": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
                    "src/repro/kernels/paged_attention.py:421"),
+    # port-only: the paged prefill's row-count-invariant products (ROADMAP
+    # B.10), where the JAX package leaves its dots to XLA (e.g. the
+    # projections of src/repro/models/attention.py:476)
+    "gemm": ("cuda", "src/repro_torch/kernels/csrc/gemm.cu",
+             "none: port-only, no Pallas counterpart (XLA's dots, "
+             "src/repro/models/attention.py:476)"),
     # softmax_2d's split form (kv_shard="seq_model"): its three launches
     **{n: ("cuda", "src/repro_torch/kernels/csrc/softmax.cu",
            "src/repro/kernels/softmax_cordic.py:161") for n in SPLIT_LAUNCHES},
@@ -4715,6 +5061,12 @@ def main(argv=None) -> int:
                     help="only the build and xLSTM's and Zamba2's tp 2 runs in "
                     "bfloat16 and in float32 compute, each against its tp 1 "
                     "(ROADMAP C.7; tokens reported, not gated)")
+    ap.add_argument("--prefill-probe", action="store_true",
+                    help="only the build and phase (3d): the invariant product "
+                    "against plain, timed, and ROADMAP B.10's probe (which "
+                    "operations of a Yi-9B prefill layer change a segment's bits "
+                    "with the row count and width, under torch's products and "
+                    "under the paged prefill's)")
     ap.add_argument("--src", default=str(SRC),
                     help="the tree whose repro_torch --decode-kernels or "
                     "--row-kernels runs")
@@ -4800,6 +5152,12 @@ def main(argv=None) -> int:
         log(card_line)
         log(json.dumps({"archs": RESULTS}))
         return 0
+    if args.prefill_probe:
+        invariant_phase(torch, records, ycfg, dcfg)
+        phase_done("kernels (3d): the invariant product and the probe")
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(card_line)
+        return 0
     if args.mesh_train_witness:
         failed = mesh_train_witness(torch, build)
         phase_done("mesh-train witness")
@@ -4827,6 +5185,8 @@ def main(argv=None) -> int:
         return 0
     kernel_phase(torch, card, records, ycfg, dcfg)
     phase_done("kernels")
+    invariant_phase(torch, records, ycfg, dcfg)
+    phase_done("kernels (3d): the invariant product and the probe")
     sigmoid_counts, gelu_counts = sigmoid_path(torch, build, ycfg)
     phase_done("path sigmoid")
     for k in ("act_2d", "act_q_2d"):
@@ -4835,14 +5195,14 @@ def main(argv=None) -> int:
     yi = serve_path(torch, build, "yi-9b")
     phase_done("path serve yi-9b")
     serve_counts, yi_fixed = yi["cordic_pallas"][0], yi["cordic_fixed"][0]
-    for k in ("silu_mul_2d", "softmax_2d", "gqa_decode"):
+    for k in ("silu_mul_2d", "softmax_2d", "gqa_decode", "gemm"):
         check(serve_counts.get(k, 0) > 0, f"serving Yi-9B never launched {k}")
     for fmt in KV_FORMATS:
-        for k in ("silu_mul_2d", "softmax_2d", "gqa_decode"):
+        for k in ("silu_mul_2d", "softmax_2d", "gqa_decode", "gemm"):
             check(yi[fmt][0].get(k, 0) > 0, f"serving Yi-9B on {fmt} pools never "
                   f"launched {k}")
     yi_chunked, yi_score = yi["chunked"]["trace 1, chunked"], yi["chunked"]["score cordic_pallas"]
-    for k in ("silu_mul_2d", "softmax_2d", "gqa_decode"):
+    for k in ("silu_mul_2d", "softmax_2d", "gqa_decode", "gemm"):
         check(yi_chunked.get(k, 0) > 0, f"Yi-9B's chunked trace never launched {k}")
     yi_dense, yi_dense_long = yi["dense"]["launcher"], yi["dense"]["long"]
     for k in ("silu_mul_2d", "softmax_2d"):
@@ -4857,6 +5217,9 @@ def main(argv=None) -> int:
         check(ds_counts.get(k, 0) > 0, f"serving DeepSeek-V2-Lite never launched {k}")
     check(ds_counts.get("gqa_decode", 0) == 0,
           "serving DeepSeek-V2-Lite launched the GQA decode kernel")
+    # a MoE model's prefill keeps torch's products: its routing follows the
+    # dispatch width, as in JAX
+    check(ds_counts.get("gemm", 0) == 0, "serving DeepSeek-V2-Lite launched gemm")
     ds_chunked = ds["chunked"]["chunked"]
     for k in ("mla_decode", "act_2d", "silu_mul_2d", "softmax_2d"):
         check(ds_chunked.get(k, 0) > 0, f"DeepSeek-V2-Lite's chunked trace never launched {k}")

@@ -49,7 +49,7 @@ from repro_torch.cordic_engine.schedule import (
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("act", "softmax", "paged_decode")
+SOURCES = ("act", "softmax", "paged_decode", "gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -261,6 +261,12 @@ _SIGNATURES = {
         #  scale, impl, params, stream)
         "paged_mla_decode": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P),
+    },
+    "gemm": {
+        # (a, a_dtype, a strides (batch, row, k), b, b_dtype, b strides
+        #  (batch, k, col), c, c_dtype, batch, M, N, K, wide, stream)
+        "invariant_gemm": (_P, _I, _LL, _LL, _LL, _P, _I, _LL, _LL, _LL, _P, _I,
+                           _I, _I, _I, _I, _I, _P),
     },
 }
 

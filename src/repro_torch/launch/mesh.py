@@ -53,6 +53,9 @@ import torch
 
 #: seconds a rank waits in a collective or a rendezvous before it fails
 GROUP_TIMEOUT_S = 60
+#: seconds ``RankGroup.join`` waits, after a rank's failure, for the other
+#: ranks to report theirs
+FAILURE_GRACE_S = 5.0
 
 
 @dataclasses.dataclass
@@ -268,44 +271,52 @@ class RankGroup:
             raise
 
     def join(self) -> List[Any]:
-        """The ranks' results in rank order. Raises RuntimeError (with the
-        failing rank's traceback) when a rank fails, dies or outlives the
-        timeout; every child is gone when it returns."""
+        """The ranks' results in rank order. Raises RuntimeError when a rank
+        fails, dies or outlives the timeout, with every failing rank's
+        traceback in rank order: after the first failure the others get
+        ``FAILURE_GRACE_S`` to report, since a peer's failure that follows
+        from it (a collective whose peer is gone) may arrive first. Every
+        child is gone when it returns."""
         out: Dict[int, Any] = {}
-        failure = None
+        failed: Dict[int, str] = {}
         procs, results = self._procs, self._results
+        cut = self._deadline
         try:
-            while len(out) < self.world and failure is None:
-                left = self._deadline - time.monotonic()
+            while len(out) + len(failed) < self.world:
+                left = cut - time.monotonic()
                 if left <= 0:
-                    failure = (f"ranks {sorted(set(range(self.world)) - set(out))} "
-                               f"did not finish within {self.timeout} s")
                     break
                 try:
                     rank, ok, res = results.get(timeout=min(left, 1.0))
                 except queue_lib.Empty:
-                    dead = [r for r, p in enumerate(procs)
-                            if r not in out and p.exitcode is not None]
+                    dead = [r for r, p in enumerate(procs) if r not in out
+                            and r not in failed and p.exitcode is not None]
                     if not dead:
                         continue
                     # a last look: the result may have been sent just now
                     try:
                         rank, ok, res = results.get(timeout=2.0)
                     except queue_lib.Empty:
-                        failure = (f"rank {dead[0]} exited with code "
-                                   f"{procs[dead[0]].exitcode} and no result")
-                        break
+                        for r in dead:
+                            failed[r] = (f"rank {r} exited with code "
+                                         f"{procs[r].exitcode} and no result")
+                        cut = min(cut, time.monotonic() + FAILURE_GRACE_S)
+                        continue
                 if ok:
                     out[rank] = pickle.loads(res)
                 else:
-                    failure = f"rank {rank} failed:\n{res}"
-            if failure is None:
+                    failed[rank] = f"rank {rank} failed:\n{res}"
+                    cut = min(cut, time.monotonic() + FAILURE_GRACE_S)
+            if not failed and len(out) == self.world:
                 for p in procs:
                     p.join(max(1.0, self._deadline - time.monotonic()))
         finally:
             self._stop()
-        if failure is not None:
-            raise RuntimeError(failure)
+        if failed:
+            raise RuntimeError("\n".join(failed[r] for r in sorted(failed)))
+        if len(out) < self.world:
+            raise RuntimeError(f"ranks {sorted(set(range(self.world)) - set(out))} "
+                               f"did not finish within {self.timeout} s")
         return [out[r] for r in range(self.world)]
 
     def _stop(self) -> None:

@@ -17,9 +17,10 @@ weights, seed 0, the CORDIC kernels on) and measures, on the card:
 2. one prefill of a ``--prompt-len``-token prompt at max_len 4096 (its
    TTFT, one request alone, after a 256-token warm-up) followed by 7
    decode steps against the long context (their step p50): with the
-   prefix cache off (whole-row prefill), and where the tree has the cache,
-   on with no hit (block-wide pieces, serve/engine.py). ``--prompt-len 0``
-   skips it;
+   prefix cache off, and where the tree has the cache, on with no hit
+   (trees before ROADMAP B.10 prefill it in block-wide pieces, later ones
+   in whole rows through the invariant product, serve/engine.py).
+   ``--prompt-len 0`` skips it;
 3. with ``--train-steps N``, after the serving model is freed: N train
    steps of Yi-9B at full width cut to 4 layers (the CORDIC act, softmax
    and loss kernels, AdamW, one batch of 8 x 32 tokens) after 2 warm-up

@@ -154,20 +154,20 @@ def _mxu(score_dtype: str) -> bool:
     return score_dtype == "bf16_mxu"
 
 
-def _scores(q, k, scale, score_dtype):
+def _scores(q, k, scale, score_dtype, ops=cm.LIBRARY):
     """(B,S,KH,G,D) x (B,T,KH,D) -> (B,KH,G,S,T) float32 scores. Both
     score dtypes multiply in float32: for bf16_mxu the float32 image of a
     bfloat16 operand is exact, and so are its products."""
     _mxu(score_dtype)
-    return torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    return ops.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
 
 
-def _pv(p, v, score_dtype):
+def _pv(p, v, score_dtype, ops=cm.LIBRARY):
     """Probabilities (B,KH,G,S,T) float32 against values (B,T,KH,Dv): under
     bf16_mxu the probabilities are cast to v's dtype first."""
     if _mxu(score_dtype):
         p = p.to(v.dtype)
-    return torch.einsum("bhgqk,bkhd->bqhgd", p.float(), v.float())
+    return ops.einsum("bhgqk,bkhd->bqhgd", p.float(), v.float())
 
 
 # ---------------------------------------------------------------------------
@@ -207,16 +207,17 @@ def causal_attention(q, k, v, *, q_offset=0, k_len=None, chunk: int = 1024,
 
 
 def _attend_rows(q, k, v, q_pos, k_len, scale, score_dtype: str = "f32",
-                 softmax_impl: str = "exact"):
+                 softmax_impl: str = "exact", ops=cm.LIBRARY):
     """_attend_block with per-row positions: q (B,S,KH,G,D), k/v
-    (B,T,KH,Dv), q_pos (B,S), k_len (B,)."""
-    s = _scores(q, k, scale, score_dtype)
+    (B,T,KH,Dv), q_pos (B,S), k_len (B,); ``ops`` the products
+    (``cm.Products``)."""
+    s = _scores(q, k, scale, score_dtype, ops)
     k_pos = torch.arange(k.shape[1], device=q.device)
     mask = ((k_pos[None, None, :] < k_len[:, None, None])
             & (k_pos[None, None, :] <= q_pos[:, :, None]))      # (B,S,T)
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     p = _softmax_fn(softmax_impl)(s, axis=-1)
-    return _pv(p, v, score_dtype)
+    return _pv(p, v, score_dtype, ops)
 
 
 # ---------------------------------------------------------------------------
@@ -496,16 +497,16 @@ class GQAttention(nn.Module):
                     requires_grad=False))
 
 
-def _project(x, w):
+def _project(x, w, ops=cm.LIBRARY):
     """einsum("bsd,dhk->bshk") as one matrix product."""
     B, S, d = x.shape
-    return (x @ w.to(x.dtype).reshape(d, -1)).view(B, S, *w.shape[1:])
+    return ops.matmul(x, w.to(x.dtype).reshape(d, -1)).view(B, S, *w.shape[1:])
 
 
-def _out_project(o, wo):
+def _out_project(o, wo, ops=cm.LIBRARY):
     """einsum("bshk,hkd->bsd") as one matrix product."""
     B, S = o.shape[:2]
-    return o.reshape(B, S, -1) @ wo.to(o.dtype).reshape(-1, wo.shape[-1])
+    return ops.matmul(o.reshape(B, S, -1), wo.to(o.dtype).reshape(-1, wo.shape[-1]))
 
 
 def _row_parallel(p, y):
@@ -550,10 +551,12 @@ def _gqa_paged_apply(p: GQAttention, x, cfg, cache, q, k, v):
     """Paged continuation of gqa_apply. Writes the S new K/V positions into
     the pools in place, then attends: decode (S == 1) through the decode
     kernel (``paged_attend_impl="pallas"``) or the table gather; prefill
-    (S == bucket width) through the gather and ``_attend_rows``. The
-    caller advances ``cache["lens"]``."""
+    (S == bucket width) through the gather and ``_attend_rows``, with the
+    cache's products (``cm.products_of``). The caller advances
+    ``cache["lens"]``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
+    ops = cm.products_of(cache)
     G, kv = _gqa_groups(p, cfg)
     KH = q.shape[2] // G
     lens, tables = cache["lens"], cache["tables"]
@@ -592,9 +595,9 @@ def _gqa_paged_apply(p: GQAttention, x, cfg, cache, q, k, v):
         k_full, v_full = _kv_heads_for(k_full, kv), _kv_heads_for(v_full, kv)
         o = _attend_rows(qg, k_full, v_full, positions, lens.to(torch.int64) + S,
                          1.0 / math.sqrt(hd), cfg.score_dtype,
-                         getattr(cfg, "softmax_impl", "exact"))
+                         getattr(cfg, "softmax_impl", "exact"), ops)
     o = o.to(qg.dtype).reshape(B, S, KH * G, hd)
-    return _row_parallel(p, _out_project(o, p.wo))
+    return _row_parallel(p, _out_project(o, p.wo, ops))
 
 
 def _gqa_dense_apply(p: GQAttention, x, cfg, cache, q, k, v):
@@ -664,9 +667,10 @@ def gqa_apply(p: GQAttention, x, cfg, *, cache: Optional[dict] = None):
     B, S, d = x.shape
     hd = cfg.head_dim
     x = _column_parallel(p, x)
-    q = _project(x, p.wq)
-    k = _project(x, p.wk)
-    v = _project(x, p.wv)
+    ops = cm.products_of(cache)
+    q = _project(x, p.wq, ops)
+    k = _project(x, p.wk, ops)
+    v = _project(x, p.wv, ops)
     if cfg.qkv_bias:
         # after the projections, before RoPE, on every path
         q = q + p.bq.to(x.dtype)
@@ -748,17 +752,17 @@ def mla_init_paged_cache(cfg, slots: int, num_blocks: int, block_len: int,
     }
 
 
-def _mla_project_q(p: MLAttention, x, cfg, positions):
+def _mla_project_q(p: MLAttention, x, cfg, positions, ops=cm.LIBRARY):
     m = cfg.mla
-    q = _project(x, p.wq)                                     # (B,S,H,nope+rope)
+    q = _project(x, p.wq, ops)                                # (B,S,H,nope+rope)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     return q_nope, cm.apply_rope(q_rope, positions, cfg.rope_theta)
 
 
-def _mla_compress(p: MLAttention, x, cfg, positions):
+def _mla_compress(p: MLAttention, x, cfg, positions, ops=cm.LIBRARY):
     """(c_kv (B,S,R) rmsnormed, k_rope (B,S,rope) RoPE'd), in x.dtype."""
     m = cfg.mla
-    kv = x @ p.wkv_a.to(x.dtype)
+    kv = ops.matmul(x, p.wkv_a.to(x.dtype))
     c_kv, k_rope = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
     c_kv = cm.rmsnorm(p.kv_norm, c_kv)
     k_rope = cm.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
@@ -808,15 +812,15 @@ def _mla_pc(pr, cc, score_dtype):
     return torch.einsum("bhst,btl->bshl", pr.float(), cc.float())
 
 
-def _mla_decompress_kq(q_nope, q_rope, cc, cr, m, H, wk_b, wv_b):
+def _mla_decompress_kq(q_nope, q_rope, cc, cr, m, H, wk_b, wv_b, ops=cm.LIBRARY):
     """Decompress a (compressed latent, rope key) buffer into full k/v and
     build the grouped query (B,S,H,1,nope+rope) for the row attends."""
     dtype = q_nope.dtype
     B, T = cc.shape[:2]
     S = q_nope.shape[1]
     ccd = cc.to(dtype)
-    k_nope = torch.einsum("btl,lhk->bthk", ccd, wk_b)
-    v = torch.einsum("btl,lhv->bthv", ccd, wv_b)
+    k_nope = ops.einsum("btl,lhk->bthk", ccd, wk_b)
+    v = ops.einsum("btl,lhv->bthv", ccd, wv_b)
     k = torch.cat([k_nope, cr[:, :, None, :].to(dtype).expand(
         B, T, H, m.qk_rope_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope.expand(B, S, H, m.qk_rope_dim)], dim=-1)
@@ -828,14 +832,16 @@ def _mla_paged_apply(p: MLAttention, x, cfg, cache):
     pools in place, then absorbed decode (S == 1) through the decode kernel
     (``paged_attend_impl="pallas"``) or the table gather, or prefill as
     decompress plus ``_attend_rows`` over the gathered buffer. The caller
-    advances ``cache["lens"]``."""
+    advances ``cache["lens"]``. A prefill runs the cache's products
+    (``cm.products_of``)."""
     B, S, _ = x.shape
     m, H = cfg.mla, p.wq.shape[1]               # the rank's heads
     lens, tables = cache["lens"], cache["tables"]
     positions = lens.to(torch.int64)[:, None] + torch.arange(S, device=x.device)[None, :]
+    ops = cm.products_of(cache)
 
-    q_nope, q_rope = _mla_project_q(p, x, cfg, positions)
-    c_kv, k_rope = _mla_compress(p, x, cfg, positions)
+    q_nope, q_rope = _mla_project_q(p, x, cfg, positions, ops)
+    c_kv, k_rope = _mla_compress(p, x, cfg, positions, ops)
     cp, rp = cache["c_kv_pool"], cache["k_rope_pool"]
     _pool_write(cp, tables, lens, c_kv)
     _pool_write(rp, tables, lens, k_rope)
@@ -867,11 +873,11 @@ def _mla_paged_apply(p: MLAttention, x, cfg, cache):
         # prefill: decompress the gathered buffer, per-row-positioned attend
         cc = _pool_gather(cp, tables)
         cr = _pool_gather(rp, tables)
-        k, v, qg = _mla_decompress_kq(q_nope, q_rope, cc, cr, m, H, wk_b, wv_b)
+        k, v, qg = _mla_decompress_kq(q_nope, q_rope, cc, cr, m, H, wk_b, wv_b, ops)
         o = _attend_rows(qg, k, v, positions, k_len, scale,
-                         softmax_impl=softmax_impl)
+                         softmax_impl=softmax_impl, ops=ops)
         o = o.to(qg.dtype).reshape(B, S, H, m.v_dim)
-    return _row_parallel(p, _out_project(o.to(x.dtype), p.wo))
+    return _row_parallel(p, _out_project(o.to(x.dtype), p.wo, ops))
 
 
 def _mla_dense_apply(p: MLAttention, x, cfg, cache):

@@ -6,12 +6,15 @@ the blocks call.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import gemm as G
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -65,6 +68,50 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Logits projection against a (vocab, d) table."""
     return x @ table.t()
+
+
+def unembed_f32(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Float32 logits: ``unembed`` of the table and ``x`` cast to float32
+    (the JAX ``apply`` unembeds in float32)."""
+    return unembed(table.to(torch.float32), x.to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# The products and norms of a forward
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Products:
+    """The matrix products a forward runs: ``matmul(a, b)`` and
+    ``einsum(eq, a, b)`` with torch's signatures and dtype rules, and
+    ``unembed(table, x)`` (float32 logits). The norms are torch's in both
+    sets: on the card their bits did not follow the row count or width
+    (chip_smoke.py's prefill probe, PERF.md).
+
+    ``LIBRARY`` is torch's own: on the card cuBLAS picks its product kernel
+    by the problem's shape, so an element's arithmetic follows the launch's
+    row count (ROADMAP F6). ``INVARIANT``
+    is the paged prefill's (serve/engine.py ``make_paged_prefill_step``):
+    the kernels of kernels/gemm.py, whose arithmetic for an output element
+    depends on the reduction's width and the dtypes alone, so a position's
+    K, V and logits are the same bits whatever row count, row width or
+    start its prefill ran at (ROADMAP B.10). A forward reads its set from
+    its cache (``products_of``)."""
+    matmul: Callable
+    einsum: Callable
+    unembed: Callable
+
+
+LIBRARY = Products(torch.matmul, torch.einsum, unembed_f32)
+INVARIANT = Products(G.matmul, G.einsum, G.unembed)
+
+
+def products_of(cache) -> Products:
+    """The products a layer's cache (a dict, or None) asks for: a paged
+    prefill's view carries ``INVARIANT`` under "products"; every other
+    forward runs ``LIBRARY``."""
+    if isinstance(cache, dict):
+        return cache.get("products", LIBRARY)
+    return LIBRARY
 
 
 # ---------------------------------------------------------------------------

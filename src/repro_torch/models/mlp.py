@@ -42,16 +42,17 @@ class SwiGLU(nn.Module):
             setattr(self, name, leaf(shape, gen, dtype, device))
 
 
-def swiglu_apply(p: SwiGLU, x: torch.Tensor, cfg) -> torch.Tensor:
+def swiglu_apply(p: SwiGLU, x: torch.Tensor, cfg, ops=cm.LIBRARY) -> torch.Tensor:
+    """The SwiGLU FFN; ``ops`` the products (``cm.Products``)."""
     cut = shd.is_cut(p, "w_down")
     x = shd.to_ranks(x) if cut else x
-    g = x @ p.w_gate.to(x.dtype)
-    u = x @ p.w_up.to(x.dtype)
+    g = ops.matmul(x, p.w_gate.to(x.dtype))
+    u = ops.matmul(x, p.w_up.to(x.dtype))
     if cfg.act_impl == "cordic_pallas":
         h = kops.silu_mul(g, u)
     else:
         h = get_activation("silu", cfg.act_impl, range_mode="reduce")(g) * u
-    y = h @ p.w_down.to(x.dtype)
+    y = ops.matmul(h, p.w_down.to(x.dtype))
     return shd.row_sum(y) if cut else y
 
 
@@ -70,15 +71,15 @@ class GeluMLP(nn.Module):
                                   requires_grad=False)
 
 
-def gelu_mlp_apply(p: GeluMLP, x: torch.Tensor, cfg) -> torch.Tensor:
+def gelu_mlp_apply(p: GeluMLP, x: torch.Tensor, cfg, ops=cm.LIBRARY) -> torch.Tensor:
     """GELU MLP (musicgen-style). With a CORDIC impl the tanh-approx GELU
-    routes its tanh through the MR-HRC pipeline."""
+    routes its tanh through the MR-HRC pipeline; ``ops`` the products."""
     act = get_activation("gelu_tanh" if cfg.act_impl != "exact" else "gelu",
                          cfg.act_impl, range_mode="reduce")
     cut = shd.is_cut(p, "w_out")
     x = shd.to_ranks(x) if cut else x
-    h = act(x @ p.w_in.to(x.dtype) + p.b_in.to(x.dtype))
-    y = h @ p.w_out.to(x.dtype)
+    h = act(ops.matmul(x, p.w_in.to(x.dtype)) + p.b_in.to(x.dtype))
+    y = ops.matmul(h, p.w_out.to(x.dtype))
     if cut:
         y = shd.row_sum(y)
     return y + p.b_out.to(x.dtype)

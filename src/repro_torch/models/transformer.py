@@ -173,7 +173,7 @@ class DenseBlock(nn.Module):
             return x + h, aux
         mlp_apply = (mlpm.swiglu_apply if cfg.mlp_kind == "swiglu"
                      else mlpm.gelu_mlp_apply)
-        return x + mlp_apply(self.mlp, h_in, cfg), None
+        return x + mlp_apply(self.mlp, h_in, cfg, cm.products_of(cache)), None
 
 
 #: the recurrent mixers: (module, apply)
@@ -219,7 +219,7 @@ class MLABlock(nn.Module):
         if self.is_moe:
             h, aux = moem.moe_apply(self.ffn, h_in, cfg)
             return x + h, aux
-        return x + mlpm.swiglu_apply(self.ffn, h_in, cfg), None
+        return x + mlpm.swiglu_apply(self.ffn, h_in, cfg, cm.products_of(cache)), None
 
 
 def _block(cfg, kind, **kw) -> nn.Module:
@@ -535,18 +535,24 @@ class PagedCache:
     """The paged KV plane of the whole model: per-layer pools (K/V for GQA,
     compressed latent and rope key for MLA) and one (slots, max_blocks)
     block table and (slots,) length vector shared by every layer. Updated
-    in place."""
+    in place. ``products`` (``cm.Products``) are the products a forward
+    through it runs, each layer's dict carrying them too."""
 
-    def __init__(self, layers, tables: torch.Tensor, lens: torch.Tensor):
+    def __init__(self, layers, tables: torch.Tensor, lens: torch.Tensor,
+                 products: cm.Products = cm.LIBRARY):
         self.layers = layers
         self.tables = tables
         self.lens = lens
+        self.products = products
 
-    def view(self, tables: torch.Tensor, lens: torch.Tensor) -> "PagedCache":
+    def view(self, tables: torch.Tensor, lens: torch.Tensor,
+             products: cm.Products = cm.LIBRARY) -> "PagedCache":
         """The same pools seen through caller-supplied table rows and
-        lengths (a prefill row); replaces paged_pool_view/_merge."""
-        return PagedCache([{**_pools(c), "tables": tables, "lens": lens}
-                           for c in self.layers], tables, lens)
+        lengths (a prefill row), its forward running ``products``; replaces
+        paged_pool_view/_merge."""
+        return PagedCache([{**_pools(c), "tables": tables, "lens": lens,
+                            "products": products} for c in self.layers],
+                          tables, lens, products)
 
     @property
     def positions(self) -> torch.Tensor:
@@ -759,7 +765,7 @@ def _apply(params, batch, cfg, cache, gather_logits):
     head = params.embed if cfg.tie_embeddings else params.lm_head
     if head.shape[0] < cfg.vocab_size:       # vocabulary-parallel logits
         x = shd.to_ranks(x)
-    logits = cm.unembed(head.to(torch.float32), x.to(torch.float32))
+    logits = getattr(cache, "products", cm.LIBRARY).unembed(head, x)
     if gather_logits and logits.shape[-1] < cfg.vocab_size:
         logits = shd.gather_vocab(logits, cfg.vocab_size)
     return logits, aux_total, cache

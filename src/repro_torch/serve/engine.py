@@ -37,9 +37,9 @@ Two knobs shape the prefill phase, as in the JAX engine:
     the decode.
 ``prefill_batch=R``   up to R scheduled rows run as ONE multi-row prefill
     (``make_paged_prefill_step``), padded to a power of two with
-    all-scratch rows. Defaults to ``slots`` when chunking, else 1; under
-    the prefix cache on a model without MoE layers it is 1 (below). The
-    dense plane prefills one row a dispatch, whatever R.
+    all-scratch rows. Defaults to ``slots`` when chunking on the paged
+    plane, else 1, with or without the prefix cache. The dense plane
+    prefills one row a dispatch, whatever R.
 
 A recurrent scan has no mask to hide a pad tail, so an arch with a
 recurrent block prefills each prompt at its exact length (``_bucketed``
@@ -52,8 +52,6 @@ Prefill runs at the bucket (or chunk) width, pad tokens included, as the
 JAX engine does: a GShard MoE layer's expert capacity follows the dispatch
 width (models/moe.py), so another width, chunking or row count would route
 differently; with the same knobs the port routes as the JAX engine does.
-The one exception is the prefix cache on a model without MoE layers
-(below).
 
 The paged plane has two options, as in the JAX engine, and the dense
 plane refuses both, with the JAX engine's messages:
@@ -62,14 +60,19 @@ plane refuses both, with the JAX engine's messages:
 ``prefix_cache=True`` indexes full prompt blocks in a radix tree
 (serve/prefix_cache.py): an admission whose prompt shares full blocks with
 an earlier one binds those blocks into its table and prefills from the
-first unshared block, pinned like a mid-chunk continuation. With the cache
-on, a model without MoE layers prefills one row a dispatch in block-wide
-pieces, up to the last block the row reaches, chunked or not: cuBLAS picks
-its GEMM kernel by the row count, so on the card a position's K, V and
-logits would otherwise depend on where its prefill started and on how
-many rows shared its dispatch, and a shared block would not hold the bytes
-its sharer would have written itself. A ``prefill_batch`` above 1 is
-refused there. Cache-off prefills stay whole.
+first unshared block, pinned like a mid-chunk continuation.
+
+A paged prefill of a model without MoE layers runs its matrix products
+through the row-count-invariant kernel (kernels/gemm.py, the view's
+``cm.INVARIANT``), cache on or off, chunked or not: cuBLAS picks its GEMM
+kernel by the problem's shape, so on the card a position's K, V and logits
+would otherwise depend on where its prefill started, how wide its row was
+and how many rows shared its dispatch, and a shared block would not hold
+the bytes its sharer would have written itself. With it, rows prefill
+whole and several to a dispatch, and cache-on streams equal cache-off ones
+on the card as on the CPU. A MoE model keeps torch's products: its routing
+already follows the dispatch width, as in JAX. Decode steps and the dense
+plane keep torch's products too.
 
 Sampling (serve/sampling.py) is per request: each carries its own
 ``SamplingParams`` and draws token t from the key
@@ -142,6 +145,7 @@ from repro_torch import obs as obs_lib
 from repro_torch import resolve_device
 from repro_torch.core import kv_quant as kvq
 from repro_torch.distributed import sharding as shd
+from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 from repro_torch.serve import kv_pager as kvp
 from repro_torch.serve import prng
@@ -194,9 +198,11 @@ def make_prefill_step(cfg) -> Callable:
     return prefill
 
 
-def make_paged_prefill_step(cfg, piece: Optional[int] = None) -> Callable:
+def make_paged_prefill_step(cfg) -> Callable:
     """R prefill rows straight into pool blocks, as ONE batch-R apply
-    against the shared pools (the JAX ``make_paged_prefill_step``).
+    against the shared pools (the JAX ``make_paged_prefill_step``), its
+    products the row-count-invariant kernel's on a model without MoE layers
+    (``cm.INVARIANT``; module docstring).
 
     Per row r: tokens[r] (W,) the bucket/chunk-padded segment; view_rows[r]
     (M,) the block-table row the apply writes through (the slot's blocks up
@@ -206,27 +212,20 @@ def make_paged_prefill_step(cfg, piece: Optional[int] = None) -> Callable:
     pinned to pins[r] (the true length on a final row, the chunk frontier
     mid-prompt): the pad tail advanced the view's length past it. Pad rows
     (``valid`` false) register nothing, so a pad row aliasing a live slot
-    id never clobbers it. With ``piece`` the rows run as W / piece applies
-    of ``piece`` positions each, one after the other through the same view.
-    ``slot_ids``, ``pins``, ``logit_idx`` and ``valid`` are host arrays.
-    Returns the (R, V) logits rows at logit_idx."""
+    id never clobbers it. ``slot_ids``, ``pins``, ``logit_idx`` and
+    ``valid`` are host arrays. Returns the (R, V) logits rows at
+    logit_idx."""
+    products = (cm.LIBRARY if set(tf.MOE_KINDS) & set(cfg.block_pattern)
+                else cm.INVARIANT)
+
     def prefill(params, cache: tf.PagedCache, tokens, slot_ids, view_rows,
                 full_rows, starts, pins, logit_idx, valid):
-        view = cache.view(view_rows, starts)
-        R, W = tokens.shape
-        step = piece or W
-        last = None
-        for i in range(0, W, step):
-            logits, _, _ = tf.apply(params, {"tokens": tokens[:, i:i + step]},
-                                    cfg, cache=view, gather_logits=False)
-            if last is None:
-                last = logits.new_empty(R, logits.shape[-1])
-            rows = np.flatnonzero((logit_idx >= i) & (logit_idx < i + step))
-            if rows.size:
-                r = torch.as_tensor(rows, device=logits.device)
-                last[r] = logits[r, torch.as_tensor(logit_idx[rows] - i,
-                                                    device=logits.device)]
+        view = cache.view(view_rows, starts, products)
+        logits, _, _ = tf.apply(params, {"tokens": tokens}, cfg, cache=view,
+                                gather_logits=False)
         dev = cache.tables.device
+        last = logits[torch.arange(len(logit_idx), device=logits.device),
+                      torch.as_tensor(logit_idx, device=logits.device)]
         live = torch.as_tensor(np.flatnonzero(valid), device=dev)
         slots = torch.as_tensor(slot_ids[valid].astype(np.int64), device=dev)
         cache.tables[slots] = full_rows[live]
@@ -438,19 +437,10 @@ class ServeEngine:
                 "prefix_cache shares KV pool blocks through the block-"
                 "table indirection; serve it with kv_impl='paged' (the "
                 "dense plane has per-slot buffers, nothing to share)")
-        #: piece width of a prefill (module docstring), None for whole rows
-        self.prefill_piece = (self.block_len if prefix_cache and not
-                              set(tf.MOE_KINDS) & set(cfg.block_pattern) else None)
         if prefill_batch is None:
-            prefill_batch = (slots if prefill_chunk is not None and paged
-                             and not self.prefill_piece else 1)
+            prefill_batch = slots if prefill_chunk is not None and paged else 1
         if prefill_batch < 1:
             raise ValueError(f"prefill_batch must be >= 1, got {prefill_batch}")
-        if prefill_batch > 1 and self.prefill_piece:
-            raise ValueError(
-                f"prefill_batch {prefill_batch} with the prefix cache on a model "
-                "without MoE layers: its block-wide pieces run one row a "
-                "dispatch (module docstring); use prefill_batch=1")
         # the dense plane prefills one row a dispatch, as the JAX engine
         self.prefill_batch = int(prefill_batch) if paged else 1
         #: prompt positions served from shared prefix blocks, and prefill
@@ -480,7 +470,7 @@ class ServeEngine:
                                                kv_heads=self._kv_heads)
             # device bytes per block across layers, whatever the pools hold
             self.pager.block_bytes = self.kv_pool_bytes() // num_blocks
-            self._prefill = make_paged_prefill_step(cfg, self.prefill_piece)
+            self._prefill = make_paged_prefill_step(cfg)
         else:
             self.pager = None
             self.prefix = None
@@ -835,16 +825,11 @@ class ServeEngine:
     def _dispatch_prefill_paged(self, group: List[PrefillRow]) -> None:
         """One multi-row prefill over up to ``prefill_batch`` scheduled rows,
         padded to a power of two with all-scratch rows, at the group's
-        widest row (or, a single row, in pieces up to the last block it
-        reaches)."""
+        widest row."""
         rp = 1
         while rp < len(group):
             rp *= 2
         width = max(r.width for r in group)
-        if self.prefill_piece:                      # one row a dispatch
-            (r,) = group
-            width = min(r.width, self.block_len * kvp.blocks_needed(
-                len(r.req.prompt) - r.start, self.block_len))
         toks = np.zeros((rp, width), np.int32)
         slot_ids = np.zeros(rp, np.int32)
         view_rows = np.full((rp, self.max_blocks), kvp.SCRATCH_BLOCK, np.int32)

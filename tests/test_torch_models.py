@@ -28,6 +28,7 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
 ATOL = 1e-3
@@ -198,7 +199,9 @@ def test_deepseek_paged_prefill_matches_no_cache_forward():
     assert int(cache.lens[0]) == 16
     torch.testing.assert_close(logits, ref, rtol=0, atol=ATOL)
     layer = cache.layers[2]
-    assert set(layer) == {"c_kv_pool", "k_rope_pool", "tables", "lens"}
+    # a view's layers carry the products its forward runs (torch's by default)
+    assert set(layer) == {"c_kv_pool", "k_rope_pool", "tables", "lens", "products"}
+    assert layer["products"] is cm.LIBRARY
     assert bool((layer["c_kv_pool"][3] != 0).any())
     assert bool((layer["k_rope_pool"][1:3] == 0).all())
     m = cfg.mla

@@ -5,8 +5,9 @@ package.
 The tree cases of tests/test_prefix_cache.py run on both copies (the JAX
 module and the port's, each over its own pager). The engine cases hold
 cache-on tokens to cache-off tokens and to the JAX engine with the cache
-on, float32 and int8 pools, and check that a shared block's bytes never
-change while a sibling request prefills and decodes through it.
+on, float32 and int8 pools, GQA and MLA, chunked and not (the JAX engine's
+acceptance bar), and check that a shared block's bytes never change while
+a sibling request prefills and decodes through it.
 """
 import functools
 
@@ -23,6 +24,7 @@ from repro.serve import engine as JE  # noqa: E402
 from repro.serve import kv_pager as jkvp  # noqa: E402
 from repro.serve import prefix_cache as jpc  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import engine as E  # noqa: E402
 from repro_torch.serve import kv_pager as kvp  # noqa: E402
@@ -336,29 +338,119 @@ def test_launcher_serves_prefix_cache_on_the_cpu(capsys):
 
 
 # ---------------------------------------------------------------------------
-# Cache-on prefill in block-wide pieces
+# Whole-row, multi-row prefill under the cache (ROADMAP B.10)
 # ---------------------------------------------------------------------------
 def test_prefill_pieces_only_with_the_prefix_cache(monkeypatch):
-    """Cache on: applies of one block each, up to the prompt's last block;
-    cache off: one apply at the bucket width; MoE archs whole rows."""
+    """The block-wide pieces are gone: cache on or off, a prompt prefills in
+    one apply at its bucket width, chunked rows pack several to a dispatch
+    under the cache too, and the paged prefill's view runs the invariant
+    products on a model without MoE layers (torch's on an MoE one, whose
+    routing follows the dispatch width as in JAX)."""
     _, cfg, _, model = _yi()
-    widths = []
-    apply = T.apply
+    shapes, views = [], []
+    apply, view = T.apply, T.PagedCache.view
     monkeypatch.setattr(E.tf, "apply", lambda p, b, *a, **k: (
-        widths.append(b["tokens"].shape[1]), apply(p, b, *a, **k))[1])
+        shapes.append(tuple(b["tokens"].shape)), apply(p, b, *a, **k))[1])
+    monkeypatch.setattr(T.PagedCache, "view", lambda self, *a: (
+        views.append(a[2]), view(self, *a))[1])
     prompt = np.arange(37, dtype=np.int32)
-    for prefix_cache, want in ((True, [16, 16, 16]), (False, [64])):
+    for prefix_cache in (True, False):
         eng = E.ServeEngine(cfg, model, device="cpu", slots=1,
                             prefix_cache=prefix_cache, **KW)
         eng.submit(E.Request(rid=0, prompt=prompt, max_new_tokens=1))
-        widths.clear()
+        shapes.clear()
         eng.run()
-        assert widths == want
-        assert eng.prefill_piece == (16 if prefix_cache else None)
+        assert shapes == [(1, 64)]
+        assert not hasattr(eng, "prefill_piece")
+    assert views and all(v is cm.INVARIANT for v in views)
+    # chunked under the cache: three requests resuming behind a primed
+    # 32-token prefix ride one dispatch, and emit cache off's tokens
+    prime = np.arange(32, dtype=np.int32)
+    wave = [np.concatenate([prime, np.arange(5 + i, dtype=np.int32)]) for i in range(3)]
+    outs = {}
+    for prefix_cache in (True, False):
+        eng = E.ServeEngine(cfg, model, device="cpu", slots=4, prefill_chunk=16,
+                            prefix_cache=prefix_cache, **KW)
+        assert eng.prefill_batch == 4
+        eng.submit(E.Request(rid=0, prompt=prime, max_new_tokens=1))
+        eng.run()
+        reqs = [E.Request(rid=1 + i, prompt=p, max_new_tokens=3) for i, p in enumerate(wave)]
+        for r in reqs:
+            eng.submit(r)
+        shapes.clear()
+        eng.run()
+        outs[prefix_cache] = [r.out for r in reqs]
+        if prefix_cache:
+            assert shapes[0] == (4, 16) and eng.prefix_hit_tokens == 3 * 32
+    assert outs[True] == outs[False]
     ds = configs.get_smoke("deepseek-v2-lite-16b")
     eng = E.ServeEngine(ds, T.init(ds, seed=0, device="cpu"), device="cpu",
                         slots=1, prefix_cache=True, **KW)
-    assert eng.prefill_piece is None                 # MoE capacity
+    views.clear()
+    eng.submit(E.Request(rid=0, prompt=prompt, max_new_tokens=1))
+    eng.run()
+    assert views == [cm.LIBRARY]                 # MoE capacity
+
+
+def _mixed(vocab, make, sampling, seed=7, shared_len=24):
+    """The JAX bar's requests (tests/test_prefix_cache.py ``_mk_reqs``):
+    two shared system prompts, unique tails, greedy and sampled rows."""
+    rng = np.random.default_rng(seed)
+    sys_prompts = [rng.integers(0, vocab, shared_len) for _ in range(2)]
+    kinds = [sampling(greedy=True), sampling(temperature=2.5),
+             sampling(temperature=1.5, top_k=8), None]
+    return [make(rid=i, prompt=np.concatenate(
+        [sys_prompts[i % 2], rng.integers(0, vocab, t)]).astype(np.int32),
+        max_new_tokens=5, sampling=kinds[i % len(kinds)])
+        for i, t in enumerate([5, 11, 2, 8, 15, 4])]
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_dense():
+    """DeepSeek-V2-Lite's smoke config with MLA and the dense FFN in every
+    block (the JAX bar's MLA model, no MoE layer), JAX weights and the
+    port's through the bridge."""
+    import dataclasses
+
+    jcfg, cfg = (c.get_smoke("deepseek-v2-lite-16b", act_impl="exact")
+                 for c in (jconfigs, configs))
+    jcfg, cfg = (dataclasses.replace(c, block_pattern=("mla_dense",) * c.num_layers)
+                 for c in (jcfg, cfg))
+    jparams = JT.init(jcfg, jax.random.PRNGKey(3))
+    return jcfg, cfg, jparams, T.load_jax_params(cfg, T.flatten_params(jparams),
+                                                 device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("chunk", [None, 16])
+def test_prefix_cache_bit_identical(arch, chunk):
+    """The JAX engine's acceptance bar (tests/test_prefix_cache.py
+    ``test_prefix_cache_bit_identical``) on the port: cache-on streams equal
+    cache-off ones and the JAX engine's, GQA and MLA (dense FFN), chunked
+    (``prefill_batch`` at its default, several rows a dispatch) and not,
+    greedy and sampled rows, while hitting."""
+    from repro.serve.sampling import SamplingParams as JSP
+    from repro_torch.serve.sampling import SamplingParams
+
+    jcfg, cfg, jparams, model = _yi() if arch == "yi-9b" else _mla_dense()
+    kw = dict(KW, slots=3, prefill_chunk=chunk)
+    jeng = JE.ServeEngine(jcfg, jparams, prefix_cache=True, **kw)
+    want = _mixed(cfg.vocab_size, JE.Request, JSP)
+    for r in want:
+        jeng.submit(r)
+    jeng.run()
+    streams = {}
+    for on in (False, True):
+        eng = E.ServeEngine(cfg, model, device="cpu", prefix_cache=on, **kw)
+        reqs = _mixed(cfg.vocab_size, E.Request, SamplingParams)
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        streams[on] = [r.out for r in reqs]
+    assert streams[True] == streams[False] == [r.out for r in want]
+    assert eng.prefix.hits == jeng.prefix.hits >= 1
+    assert eng.prefix.hit_blocks == jeng.prefix.hit_blocks >= 1
+    assert eng.prefill_batch == (3 if chunk else 1)
 
 
 def test_resumed_prefill_writes_the_bytes_of_a_whole_one():

@@ -6,7 +6,7 @@ versions on the CPU, the JAX Pallas kernels in interpret mode). A GShard
 MoE layer sizes its expert capacity from the dispatch width, so for
 DeepSeek-V2-Lite the gate is the JAX engine with the same chunk, row count
 and budget; for Yi (no MoE) chunked serving also equals unchunked, as
-tests/test_scheduler.py holds the JAX engine. ``score`` is held to the JAX
+tests/test_scheduler.py holds the JAX engine, with the prefix cache too. ``score`` is held to the JAX
 engine's within the logit tolerance of tests/test_torch_models.py.
 """
 import functools
@@ -140,9 +140,9 @@ def test_short_request_not_blocked_by_a_long_prefill():
 
 def test_chunked_int8_prefix_cache_equals_cache_off():
     """Int8 pools, a shared 32-token prompt: chunked serving with the
-    prefix cache (one-block pieces, one row a dispatch, resumed rows pinned
-    like continuations) emits the cache-off tokens (multi-row), and those of
-    the JAX engine with the same knobs."""
+    prefix cache (whole rows, several a dispatch, resumed rows pinned like
+    continuations) emits the cache-off tokens, and those of the JAX engine
+    with the same knobs."""
     jcfg, cfg, jparams, model = _models("yi-9b")
     rng = np.random.default_rng(4)
     shared = rng.integers(0, cfg.vocab_size, 32).astype(np.int32)
@@ -150,9 +150,17 @@ def test_chunked_int8_prefix_cache_equals_cache_off():
                for n in (3, 9, 20, 1, 14)]
     kw = dict(kv_quant="int8", prefill_chunk=16)
     _, off = _serve(E, cfg, model, prompts, **kw)
-    eng, on = _serve(E, cfg, model, prompts, prefix_cache=True, **kw)
-    assert eng.prefix.hits > 0 and eng.prefill_piece == eng.block_len
-    assert eng.prefill_batch == 1
+    eng = E.ServeEngine(cfg, model, device="cpu", prefix_cache=True, **{**ENGINE_KW, **kw})
+    groups = []
+    dispatch = eng._dispatch_prefill
+    eng._dispatch_prefill = lambda g: (groups.append(len(g)), dispatch(g))
+    reqs = [E.Request(rid=i, prompt=p, max_new_tokens=5) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    on = [r.out for r in reqs]
+    assert eng.prefix.hits > 0 and not hasattr(eng, "prefill_piece")
+    assert eng.prefill_batch == ENGINE_KW["slots"] and max(groups) > 1
     assert on == off
     assert on == _serve(JE, jcfg, jparams, prompts, prefix_cache=True, **kw)[1]
 
@@ -171,24 +179,26 @@ def test_score_matches_jax_engine(impl):
 
 
 def test_prefill_batch_checked():
-    """prefill_batch >= 1; under the prefix cache a model without MoE
-    layers prefills one row a dispatch (one-block pieces) and refuses
-    more, while an MoE model keeps the JAX engine's default."""
+    """prefill_batch >= 1, defaulting as in the JAX engine (``slots`` when
+    chunking on the paged plane, else 1), with the prefix cache as without
+    it, on a model with MoE layers or without; any row count is taken under
+    the cache."""
     _, cfg, _, model = _models("yi-9b")
     with pytest.raises(ValueError, match="prefill_batch"):
         E.ServeEngine(cfg, model, device="cpu", prefill_batch=0, **ENGINE_KW)
     eng = E.ServeEngine(cfg, model, device="cpu", **ENGINE_KW)
     assert eng.prefill_batch == 1 and eng.scheduler.prefill_chunk is None
-    with pytest.raises(ValueError, match="one row a dispatch"):
-        E.ServeEngine(cfg, model, device="cpu", prefix_cache=True,
-                      prefill_chunk=16, prefill_batch=2, **ENGINE_KW)
+    eng = E.ServeEngine(cfg, model, device="cpu", prefix_cache=True,
+                        prefill_chunk=16, prefill_batch=2, **ENGINE_KW)
+    assert eng.prefill_batch == 2
     eng = E.ServeEngine(cfg, model, device="cpu", prefix_cache=True,
                         prefill_chunk=16, **ENGINE_KW)
-    assert eng.prefill_batch == 1
+    assert eng.prefill_batch == ENGINE_KW["slots"]
+    assert not hasattr(eng, "prefill_piece") and not hasattr(E.ServeEngine, "prefill_piece")
     _, dcfg, _, dmodel = _models(DS)
     eng = E.ServeEngine(dcfg, dmodel, device="cpu", prefix_cache=True,
                         prefill_chunk=16, **ENGINE_KW)
-    assert eng.prefill_piece is None and eng.prefill_batch == ENGINE_KW["slots"]
+    assert eng.prefill_batch == ENGINE_KW["slots"]
 
 
 def test_launcher_serves_chunked_on_the_cpu(capsys):

@@ -8,6 +8,8 @@ model widths 1, 2, 4 and 16, for every leaf of all ten archs' smoke configs.
 ``psum_compressed`` runs on 2 and 4 spawned gloo ranks and equals the JAX
 function under ``jax.jit(jax.vmap(..., axis_name="i"))`` bit for bit.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -198,6 +200,17 @@ def test_run_ranks_reports_a_failing_rank():
     left behind (``psum_compressed``'s test holds a call that succeeds)."""
     with pytest.raises(RuntimeError, match="rank 1 failed(.|\n)*math domain"):
         M.run_ranks(M.rank_call, 2, ("math:sqrt", [(4.0,), (-1.0,)]), timeout=120)
+
+
+def test_run_ranks_reports_every_failing_rank():
+    """Whichever failure arrives first, the message names every failing
+    rank in rank order: a peer's failure that follows from another's (a
+    collective whose peer is gone) must not hide the cause."""
+    with pytest.raises(RuntimeError) as err:
+        M.run_ranks(M.rank_call, 2, ("math:log", [(0.0,), (-1.0,)]), timeout=120)
+    msg = str(err.value)
+    assert re.search("rank 0 failed(.|\n)*math domain(.|\n)*rank 1 failed(.|\n)*"
+                     "math domain", msg), msg
 
 
 #: a max |x| whose scale, max/127 + 1e-30, rounds otherwise unless the
