@@ -41,14 +41,19 @@ Phases of the first form, each of which must pass (the script exits non-zero oth
             decode attend (4 slots x 32 heads of 128 and of 4096 lanes);
             (9c) every score-dot order of the decode kernels (a chain, 2,
             4 and 8 strided partials, tree or halves; float32, int8 and
-            Q2.14 pools) bit-equal to its plain version. (3d) the paged
-            prefill's row-count-invariant product (kernels/gemm.py, ROADMAP
-            B.10) at Yi-9B's prefill shapes (QKV, O, the MLP, the logits on
-            a 4096-row slice of the vocabulary, ``_scores`` and ``_pv`` at
-            MAX_LEN's table width) and DeepSeek-V2-Lite's MLA widths, at M
-            1, 16, 17, 100, 128 and 4000: bit-equal to its plain version,
-            every row the same bits at every M and batch count; timed at M
-            128 and 4000 beside torch.matmul; then the probe: each operation
+            Q2.14 pools) and every P.V order (a chain in one piece or in
+            Eigen's pieces, 4 partials) bit-equal to its plain version.
+            (3d) the paged prefill's row-count-invariant product
+            (kernels/gemm.py, ROADMAP B.10, B.12) at Yi-9B's prefill shapes
+            (QKV, O, the MLP, the logits on a 4096-row slice of the
+            vocabulary, ``_scores`` and ``_pv`` at MAX_LEN's table width)
+            and DeepSeek-V2-Lite's MLA widths, at M 1, 16, 17, 100, 128 and
+            4000: the bf16 products on the tensor-core route every row the
+            same bits at every M, place in a tile and batch count, a K tail
+            equal to its zero padding, within the stated bound of float64;
+            the float32 products bit-equal to their plain version; both
+            routes timed at M 128 and 4000 beside torch.matmul; then the
+            probe: each operation
             of one Yi-9B prefill layer on a 16-token segment alone, inside
             rows of 128 and 4000 and as a row of a 4-row dispatch, under
             torch's products (the operations that move are logged) and the
@@ -194,6 +199,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -1199,17 +1205,24 @@ ORDER_CASES = (
     ("mla", dict(H=16), 64, "none"),                   # a chain
     ("mla", dict(H=16), 1, "none"),                    # 8 partials, tree
     ("mla", dict(H=4), 1, "none"),                     # 8 partials, halves
+    # the P.V orders (pv_order; the cases above take its chain in one piece)
+    ("gqa", dict(KH=2, G=2, hd=8), 16, "none"),        # 4 partials (the JAX suite's width)
+    ("gqa", dict(KH=2, G=2, hd=8), 16, "int8"),        # 4 partials on int8 codes
+    ("mla", dict(H=16), 80, "none"),                   # Eigen's pieces of 64 lanes
+    ("mla", dict(H=4, R=16, P=8), 4, "none"),          # 4 partials (the JAX suite's R)
 )
 
 
 def order_decode_kernels(torch, records, ycfg, dcfg, gen):
     """(9c) each score order of the decode kernels (``dot_order``: a chain,
-    2, 4 or 8 strided partials, tree or halves), on float32 and quantized
-    pools, against the plain version that replays it: cordic_pallas,
-    bfloat16 queries, B 4 slots at max_len MAX_LEN (k_len 37, vacant, 128,
-    5), bit-equal. Device ms of the whole call and its score phase (the
-    phase the order changes) go into the record. A tree without
-    ``dot_order`` (an older tree under --decode-kernels) skips it."""
+    2, 4 or 8 strided partials, tree or halves) and each P.V order
+    (``pv_order``: a chain in one piece or in Eigen's pieces, 4 partials;
+    a pv kernel instantiation each), on float32 and quantized pools,
+    against the plain version that replays it: cordic_pallas, bfloat16
+    queries, B 4 slots at max_len MAX_LEN (k_len 37, vacant, 128, 5; at
+    most a table's lanes), bit-equal. Device ms of the whole call and its
+    phases go into the record. A tree without ``dot_order`` (an older tree
+    under --decode-kernels) skips it."""
     from repro_torch.core import kv_quant as kvq
     from repro_torch.kernels import paged_attention as PA
 
@@ -1218,10 +1231,10 @@ def order_decode_kernels(torch, records, ycfg, dcfg, gen):
         return
     dev = torch.device(DEV)
     m = dcfg.mla
-    R, P = m.kv_lora_rank, m.qk_rope_dim
-    klens = [37, 0, MAX_LEN, 5]
     for kind, geo, L, fmt in ORDER_CASES:
-        B, M = SLOTS, MAX_LEN // L
+        B, M = SLOTS, -(-MAX_LEN // L)
+        klens = [min(k, M * L) for k in (37, 0, MAX_LEN, 5)]
+        R, P = geo.get("R", m.kv_lora_rank), geo.get("P", m.qk_rope_dim)
         N = 1 + B * M
         tables = torch.zeros(B, M, dtype=torch.int32)
         nxt = 1
@@ -1233,7 +1246,7 @@ def order_decode_kernels(torch, records, ycfg, dcfg, gen):
         k_len = torch.tensor([max(k, 1) for k in klens], dtype=torch.int32, device=dev)
         if kind == "gqa":
             KH, G, hd = geo["KH"], geo["G"], geo["hd"]
-            order = PA.gqa_plan(B, KH, G, hd, L, M).order
+            plan = PA.gqa_plan(B, KH, G, hd, L, M)
             q = torch.randn(B, KH, G, hd, generator=gen, device=dev).bfloat16()
             kf = torch.randn(N, L, KH, hd, generator=gen, device=dev)
             vf = torch.randn(N, L, KH, hd, generator=gen, device=dev)
@@ -1248,7 +1261,7 @@ def order_decode_kernels(torch, records, ycfg, dcfg, gen):
             name = f"gqa_decode[KH{KH} G{G} hd{hd} L{L}{'' if fmt == 'none' else ' ' + fmt}]"
         else:
             H = geo["H"]
-            order = PA.mla_plan(B, H, R, P, L, M).order
+            plan = PA.mla_plan(B, H, R, P, L, M)
             args = (torch.randn(B, H, R, generator=gen, device=dev).bfloat16(),
                     torch.randn(B, H, P, generator=gen, device=dev).bfloat16(),
                     torch.randn(N, L, R, generator=gen, device=dev),
@@ -1257,19 +1270,24 @@ def order_decode_kernels(torch, records, ycfg, dcfg, gen):
                       softmax_impl="cordic_pallas")
             kernel, plain = PA.mla_decode, PA.mla_decode_plain
             name = f"mla_decode[H{H} R{R} P{P} L{L}]"
+        order, pv = plan.order, getattr(plan, "pv_order", None)
         a = kernel(*args, **kw)
         b = plain(*args, **kw)
         DECODE_OUTPUTS[name] = a.cpu()
         err = float((a - b).abs().max())
-        check(order.mapped, f"{name}: dot order {order} is not mapped")
+        check(order.mapped and (pv is None or pv.mapped),
+              f"{name}: dot order {order} / P.V order {pv} is not mapped")
         check(bool(torch.isfinite(a).all()) and torch.equal(a, b),
-              f"{name} order {order}: |kernel - plain| {err} (bit-equal)")
+              f"{name} order {order}, P.V {pv}: |kernel - plain| {err} (bit-equal)")
         phases = {}
         t = times(torch, lambda: kernel(*args, **kw), f"{kind}_decode_kernel", parts=phases)
-        records[name] = dict(order=[order.partials, order.combine], max_abs_err=err,
-                             bit_equal=True, ms=t[0], host_ms=t[1], phases=phases)
-        log(f"[decode orders] {name}: {order.partials} partial(s), {order.combine}; "
-            f"bit-equal to plain; device {t[0]:.4f} ms a call, phases {phases}")
+        pv_desc = None if pv is None else [pv.partials, pv.combine, pv.chunk]
+        records[name] = dict(order=[order.partials, order.combine], pv_order=pv_desc,
+                             max_abs_err=err, bit_equal=True, ms=t[0], host_ms=t[1],
+                             phases=phases)
+        log(f"[decode orders] {name}: scores {order.partials} partial(s), {order.combine}; "
+            f"P.V {pv_desc} (partials, combine, piece); bit-equal to plain; device "
+            f"{t[0]:.4f} ms a call, phases {phases}")
 
 
 def quant_decode_kernel(torch, card, records, q, tables, k_len, klens, gen, ops):
@@ -1908,12 +1926,14 @@ def prefix_path(torch, build, cfg, model):
 
     runs = {"off": dict(prefix_cache=False), "on": dict(prefix_cache=True),
             "on, multi-row": dict(prefix_cache=True, prefill_chunk=CHUNK,
-                                  prefill_batch=CHUNK_BATCH)}
+                                  prefill_batch=CHUNK_BATCH),
+            "off, float32 chain": dict(prefix_cache=False)}
     res = {}
     for name, kw in runs.items():
-        eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, kv_impl="paged",
-                          block_len=BLOCK_LEN, paged_attend_impl="pallas",
-                          kv_quant="int8", device=DEV, **kw)
+        with chain_products(name.endswith("float32 chain")):
+            eng = ServeEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, kv_impl="paged",
+                              block_len=BLOCK_LEN, paged_attend_impl="pallas",
+                              kv_quant="int8", device=DEV, **kw)
         groups = []
         dispatch = eng._dispatch_prefill
         eng._dispatch_prefill = lambda g: (groups.append(len(g)), dispatch(g))
@@ -1956,6 +1976,11 @@ def prefix_path(torch, build, cfg, model):
         torch.cuda.empty_cache()
     off, on, multi = res["off"], res["on"], res["on, multi-row"]
     n_tok = (1 + PREFIX_WAVE) * MAX_NEW
+    chain = res["off, float32 chain"]
+    log(f"[path prefix] cache off, the bf16 products on the tensor cores against the "
+        f"float32 chain (the SIMT route, every product's former arithmetic): "
+        f"{sum(a == b for x, y in zip(off['tokens'], chain['tokens']) for a, b in zip(x, y))}"
+        f"/{n_tok} tokens equal (reported, not gated)")
     for name in ("on", "on, multi-row"):
         same = sum(a == b for x, y in zip(off["tokens"], res[name]["tokens"])
                    for a, b in zip(x, y))
@@ -1964,8 +1989,9 @@ def prefix_path(torch, build, cfg, model):
               f"prefix cache {name}: tokens differ from cache off's ({same}/{n_tok})")
         check(res[name]["hit_tokens"] == PREFIX_WAVE * PREFIX_LEN,
               f"prefix cache {name}: the wave hits the prime's blocks")
-        check(res[name]["launches"].get("gemm", 0) > 0,
-              f"prefix cache {name}: the paged prefill never launched gemm")
+        for k in ("gemm", "gemm_tc"):
+            check(res[name]["launches"].get(k, 0) > 0,
+                  f"prefix cache {name}: the paged prefill never launched {k}")
     check(max(multi["groups"]) > 1, "prefix cache, multi-row: no multi-row dispatch")
     log(f"[path prefix] every cache-on token equals cache off's ({n_tok} tokens, "
         f"gated), multi-row too (dispatches of {multi['groups']} rows); prefill "
@@ -2146,7 +2172,8 @@ def chunked_path(torch, build, cfg, model):
               f"{name}: tokens differ from the single-row unchunked run's ({same}/{n_tok})")
         if "chunked" in name:
             check(max(runs[name]["groups"]) > 1, f"{name}: no multi-row dispatch")
-        check(counts[name].get("gemm", 0) > 0, f"{name}: the paged prefill never launched gemm")
+        for k in ("gemm", "gemm_tc"):
+            check(counts[name].get(k, 0) > 0, f"{name}: the paged prefill never launched {k}")
     rng = np.random.default_rng(23)
     long = [rng.integers(0, cfg.vocab_size, LONG_PROMPT).astype(np.int32)]
     shorts = [rng.integers(0, cfg.vocab_size, 8).astype(np.int32) for _ in range(LONG_SHORTS)]
@@ -4527,8 +4554,40 @@ def mesh_train_witness(torch, build):
 #: products at these positions a row (up to MAX_LEN) and PROBE_ROWS rows
 GEMM_MS = (1, 16, 17, 100, 128, 4000)
 GEMM_BATCHES = (1, 3)
+#: row offsets of a 128-row window against M 4000's rows: a row at another
+#: place of its tile, warpgroup and 64-row wgmma fragment
+GEMM_SHIFTS = (1, 7, 64, 100)
 #: the timed product: Yi-9B's widest (the MLP's gate, d 4096 -> d_ff 11008)
 GEMM_TIMED = "yi gate"
+
+
+@contextlib.contextmanager
+def chain_products(on: bool):
+    """While ``on``, the paged prefill's products (``cm.INVARIANT``) take the
+    float32 SIMT route for bf16 operands too (the operands cast to float32,
+    exactly: the bits of the SIMT chain, the products' former arithmetic), for a run whose
+    tokens are reported against the tensor-core route's."""
+    import torch
+
+    from repro_torch.kernels import gemm as GM
+    from repro_torch.models import common as cm
+
+    if not on:
+        yield
+        return
+    saved = cm.INVARIANT
+
+    def mm(a, b, out_dtype=None):
+        return GM.matmul(a.float(), b.float(), out_dtype or torch.result_type(a, b))
+
+    def es(eq, a, b):
+        return GM.einsum(eq, a.float(), b.float()).to(torch.result_type(a, b))
+
+    cm.INVARIANT = cm.Products(mm, es, lambda table, x: mm(x, table.t(), torch.float32))
+    try:
+        yield
+    finally:
+        cm.INVARIANT = saved
 
 
 def gemm_cases(ycfg, dcfg):
@@ -4570,30 +4629,41 @@ def gemm_cases(ycfg, dcfg):
 
 
 def gemm_records(torch, records, ycfg, dcfg):
-    """The invariant product (kernels/gemm.py) at the paged prefill's
-    shapes, bit for bit: every row product of ``gemm_cases`` at every row
-    count of GEMM_MS against its plain version, each row the same bits at
-    every row count and batch count (M 4000's rows the reference); the
-    attention's products at 1 and PROBE_ROWS rows and GEMM_MS positions up
-    to MAX_LEN likewise. Then the timed product at M 128 and 4000 beside
-    torch.matmul (library_ms) and its bound, the larger of 2MNK over the
-    bf16 tensor-core peak and the bytes over HBM's rate. Fills
-    records["gemm"] (M 4000) and returns the M 128 record."""
+    """The invariant products (kernels/gemm.py) at the paged prefill's
+    shapes, on both routes. The tensor-core route (``gemm_tc``: every row
+    product of ``gemm_cases``, bf16 operands): each row the same bits at
+    every row count of GEMM_MS and batch count and shifted by each of
+    GEMM_SHIFTS rows (so a row sits at other places of a tile, a warpgroup
+    and a 64-row fragment), M 4000's rows the reference; a K tail equal to
+    its zero padding; every element of M 4000 within ``tc_gamma``'s bound of
+    a float64 product, and within that bound plus the chain's of the plain
+    version (at M 128); the max |difference| against the SIMT chain of the
+    same operands reported, not gated. The SIMT route (``gemm``, float32
+    operands): the attention's products at 1 and PROBE_ROWS rows and
+    GEMM_MS positions up to MAX_LEN, and a float32 row product, each
+    bit-equal to the plain version and across rows. Then the timed product
+    at M 128 and 4000 on both routes beside torch.matmul (library_ms) and
+    its bound, the larger of the operations over the peak of their type
+    (bf16 tensor cores, float32 outside them) and the bytes over HBM's
+    rate. Fills records["gemm_tc"] and records["gemm"] (M 4000)."""
     from repro_torch.kernels import gemm as GM
 
     c = kcost()
     gen = torch.Generator(device=DEV).manual_seed(17)
     rows, attn = gemm_cases(ycfg, dcfg)
     M_max = max(GEMM_MS)
-    err, n_checked = [0.0], [0]
+    err, n_checked, tc_err = [0.0], [0], dict(ratio=0.0, plain=0.0, simt=0.0)
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=DEV) * scale).to(torch.bfloat16)
 
     def same(x, y, what):
-        err[0] = max(err[0], float((x.float() - y.float()).abs().max()))
         n_checked[0] += 1
         check(torch.equal(x, y), f"gemm {what}: not bit-equal")
+
+    def plain_same(x, y, what):
+        err[0] = max(err[0], float((x.float() - y.float()).abs().max()))
+        same(x, y, what)
 
     t0 = [time.perf_counter()]
     for name, (K, N, transposed, out_dtype) in rows.items():
@@ -4603,16 +4673,53 @@ def gemm_records(torch, records, ycfg, dcfg):
             timed = (a, w)
         full = GM.matmul(a, w, out_dtype)
         for M in GEMM_MS:
-            got = GM.matmul(a[:M], w, out_dtype)
-            same(got, full[:M], f"{name} M {M}: rows against M {M_max}'s")
-            same(got, GM.matmul_plain(a[:M], w, out_dtype), f"{name} M {M} against plain")
+            same(GM.matmul(a[:M], w, out_dtype), full[:M], f"{name} M {M}: rows against M {M_max}'s")
+        for sh in GEMM_SHIFTS:
+            same(GM.matmul(a[sh:sh + GEMM_MS[-2]], w, out_dtype), full[sh:sh + GEMM_MS[-2]],
+                 f"{name} rows shifted by {sh}")
         for nb in GEMM_BATCHES[1:]:
             M = min(GEMM_MS[-2], M_max // nb)
             got = GM.gemm(a[:nb * M].view(nb, M, K), w[None].expand(nb, K, N), out_dtype)
             same(got.reshape(nb * M, N), full[:nb * M], f"{name} batch {nb} x M {M}")
+        odt = out_dtype or torch.bfloat16
+        ref, bound = GM.gemm_bound(a[None], w[None], GM.tc_gamma(K, odt))
+        e = (full.double() - ref[0]).abs()
+        tc_err["ratio"] = max(tc_err["ratio"], float((e / bound[0]).max()))
+        check(bool((e <= bound[0]).all()), f"gemm_tc {name}: beyond tc_gamma's bound of float64 "
+              f"(max |c - c64| / bound {float((e / bound[0]).max())})")
+        del ref, e
+        m = GEMM_MS[-2]
+        plain = GM.matmul_plain(a[:m], w, out_dtype)
+        d = (full[:m].double() - plain.double()).abs()
+        chain = GM.chain_gamma(K, odt) * bound[0, :m] / GM.tc_gamma(K, odt)
+        check(bool((d <= bound[0, :m] + chain).all()),
+              f"gemm_tc {name}: beyond the bounds' sum of the plain version")
+        tc_err["plain"] = max(tc_err["plain"], float(d.max()))
+        del bound, chain, d
+        simt = GM.matmul(a.float(), w.float(), odt)
+        tc_err["simt"] = max(tc_err["simt"], float((full.float() - simt.float()).abs().max()))
+        if name == GEMM_TIMED:                # the K tail against its zero padding
+            kt = K - K % 64 - 32
+            pa = torch.zeros(M_max, kt + 32, dtype=a.dtype, device=DEV)
+            pa[:, :kt] = a[:, :kt]
+            pw = torch.zeros(kt + 32, N, dtype=w.dtype, device=DEV)
+            pw[:kt] = w[:kt]
+            same(GM.matmul(a[:, :kt], w[:kt]), GM.matmul(pa, pw),
+                 f"{name} K {kt}: against its zero padding to {kt + 32}")
         if DEV == "cuda":
             torch.cuda.synchronize()
-    sub_phase("gemm: the row products at every M and batch", t0)
+    log(f"[kernels] gemm_tc: max |c - c64| / (tc_gamma sum|ab|) {tc_err['ratio']:.3e}; "
+        f"max |tc - plain chain| {tc_err['plain']:.3e} (M {GEMM_MS[-2]}), against the "
+        f"SIMT chain {tc_err['simt']:.3e} (M {M_max}; reported, not gated)")
+    sub_phase("gemm_tc: the row products at every M, place and batch, their bound", t0)
+    K, N = ycfg.d_model, ycfg.num_kv_heads * ycfg.head_dim       # yi wk in float32
+    a32 = torch.randn(GEMM_MS[-2], K, generator=gen, device=DEV)
+    w32 = torch.randn(K, N, generator=gen, device=DEV) * K ** -0.5
+    full = GM.matmul(a32, w32)
+    for M in [m for m in GEMM_MS if m <= GEMM_MS[-2]]:
+        got = GM.matmul(a32[:M], w32)
+        same(got, full[:M], f"float32 yi wk M {M}: rows against M {GEMM_MS[-2]}'s")
+        plain_same(got, GM.matmul_plain(a32[:M], w32), f"float32 yi wk M {M} against plain")
     for name, (eq, qshape, kshape, qdim, odim) in attn.items():
         R, W = PROBE_ROWS, MAX_LEN
         if "_pv" in name:                     # probabilities: float32 lanes
@@ -4627,35 +4734,41 @@ def gemm_records(torch, records, ycfg, dcfg):
                 got = GM.einsum(eq, qs, other[:r])
                 same(got, full[:r].narrow(odim, 0, w),
                      f"{name} R {r} W {w}: rows against R {R} W {W}'s")
-                same(got, GM.einsum_plain(eq, qs, other[:r]),
-                     f"{name} R {r} W {w} against plain")
+                plain_same(got, GM.einsum_plain(eq, qs, other[:r]),
+                           f"{name} R {r} W {w} against plain")
         if DEV == "cuda":
             torch.cuda.synchronize()
-    sub_phase("gemm: the attention's products at every row count and width", t0)
+    sub_phase("gemm: the float32 products at every row count and width", t0)
 
     a, w = timed
     K, N = w.shape
     recs = {}
     for M in (GEMM_MS[-2], M_max):
         x = a[:M]
-        nbytes = (x.numel() + w.numel() + M * N) * x.element_size()
+        xf, wf = x.float(), w.float()
         flops = 2 * M * N * K
-        tb = {"bytes": nbytes / c.HBM_BYTES_S, "operations": flops / c.BF16_FLOP_S}
-        by = max(tb, key=tb.get)
-        ms, host = times(torch, lambda: GM.matmul(x, w), kernel="gemm_kernel")
-        lib_ms, _ = times(torch, lambda: torch.matmul(x, w))
         _, (plain_ms, _) = plain_call(torch, lambda: GM.matmul_plain(x, w))
-        recs[M] = dict(max_abs_err=err[0], ms=ms, plain_ms=plain_ms,
-                       bound_ms=tb[by] * 1e3, bound_by=by, library_ms=lib_ms)
-        log(f"[kernels] gemm {GEMM_TIMED} M {M} K {K} N {N} bf16: {ms:.4f} ms "
-            f"({flops / ms / 1e9:.2f} TFLOP/s), host {host:.4f} ms; plain "
-            f"{plain_ms:.2f} ms (one check call); torch.matmul {lib_ms:.4f} ms; bound "
-            f"{tb[by] * 1e3:.5f} ms ({by}); {ms / lib_ms:.1f}x the library's")
-    records["gemm"] = recs[M_max]
-    log(f"[kernels] gemm: {n_checked[0]} checks bit-equal (rows across M and batch, "
-        f"and against plain), max |kernel - plain| {err[0]}")
+        for route, args, peak, kname in (
+                ("gemm_tc", (x, w), c.BF16_FLOP_S, "tc_gemm_kernel"),
+                ("gemm", (xf, wf), c.FP32_FLOP_S, "gemm_kernel")):
+            nbytes = sum(t.numel() * t.element_size() for t in args) + M * N * 2
+            tb = {"bytes": nbytes / c.HBM_BYTES_S, "operations": flops / peak}
+            by = max(tb, key=tb.get)
+            ms, host = times(torch, lambda: GM.matmul(*args, torch.bfloat16), kernel=kname)
+            lib_ms, _ = times(torch, lambda: torch.matmul(*args))
+            recs[route, M] = dict(
+                max_abs_err=tc_err["plain"] if route == "gemm_tc" else err[0], ms=ms,
+                plain_ms=plain_ms, bound_ms=tb[by] * 1e3, bound_by=by, library_ms=lib_ms)
+            log(f"[kernels] {route} {GEMM_TIMED} M {M} K {K} N {N} "
+                f"{'bf16' if route == 'gemm_tc' else 'float32'} operands: {ms:.4f} ms "
+                f"({flops / ms / 1e9:.2f} TFLOP/s), host {host:.4f} ms; plain "
+                f"{plain_ms:.2f} ms (one check call); torch.matmul {lib_ms:.4f} ms; bound "
+                f"{tb[by] * 1e3:.5f} ms ({by}); {ms / lib_ms:.2f}x the library's")
+    records["gemm_tc"] = recs["gemm_tc", M_max]
+    records["gemm"] = recs["gemm", M_max]
+    log(f"[kernels] gemm: {n_checked[0]} checks bit-equal (rows across M, place and batch, "
+        f"the K tail, the float32 route against plain), max |SIMT - plain| {err[0]}")
     sub_phase("gemm: times", t0)
-    return recs[GEMM_MS[-2]]
 
 
 #: ROADMAP B.10's probe: a PROBE_SEG-token segment prefilled alone (one
@@ -4851,6 +4964,10 @@ KERNELS = {
     "gemm": ("cuda", "src/repro_torch/kernels/csrc/gemm.cu",
              "none: port-only, no Pallas counterpart (XLA's dots, "
              "src/repro/models/attention.py:476)"),
+    # its bf16 route on the tensor cores (ROADMAP B.12)
+    "gemm_tc": ("cuda", "src/repro_torch/kernels/csrc/gemm_tc.cu",
+                "none: port-only, no Pallas counterpart (XLA's dots, "
+                "src/repro/models/attention.py:476)"),
     # softmax_2d's split form (kv_shard="seq_model"): its three launches
     **{n: ("cuda", "src/repro_torch/kernels/csrc/softmax.cu",
            "src/repro/kernels/softmax_cordic.py:161") for n in SPLIT_LAUNCHES},
@@ -5195,14 +5312,14 @@ def main(argv=None) -> int:
     yi = serve_path(torch, build, "yi-9b")
     phase_done("path serve yi-9b")
     serve_counts, yi_fixed = yi["cordic_pallas"][0], yi["cordic_fixed"][0]
-    for k in ("silu_mul_2d", "softmax_2d", "gqa_decode", "gemm"):
+    for k in ("silu_mul_2d", "softmax_2d", "gqa_decode", "gemm", "gemm_tc"):
         check(serve_counts.get(k, 0) > 0, f"serving Yi-9B never launched {k}")
     for fmt in KV_FORMATS:
-        for k in ("silu_mul_2d", "softmax_2d", "gqa_decode", "gemm"):
+        for k in ("silu_mul_2d", "softmax_2d", "gqa_decode", "gemm", "gemm_tc"):
             check(yi[fmt][0].get(k, 0) > 0, f"serving Yi-9B on {fmt} pools never "
                   f"launched {k}")
     yi_chunked, yi_score = yi["chunked"]["trace 1, chunked"], yi["chunked"]["score cordic_pallas"]
-    for k in ("silu_mul_2d", "softmax_2d", "gqa_decode", "gemm"):
+    for k in ("silu_mul_2d", "softmax_2d", "gqa_decode", "gemm", "gemm_tc"):
         check(yi_chunked.get(k, 0) > 0, f"Yi-9B's chunked trace never launched {k}")
     yi_dense, yi_dense_long = yi["dense"]["launcher"], yi["dense"]["long"]
     for k in ("silu_mul_2d", "softmax_2d"):
@@ -5219,7 +5336,8 @@ def main(argv=None) -> int:
           "serving DeepSeek-V2-Lite launched the GQA decode kernel")
     # a MoE model's prefill keeps torch's products: its routing follows the
     # dispatch width, as in JAX
-    check(ds_counts.get("gemm", 0) == 0, "serving DeepSeek-V2-Lite launched gemm")
+    for k in ("gemm", "gemm_tc"):
+        check(ds_counts.get(k, 0) == 0, f"serving DeepSeek-V2-Lite launched {k}")
     ds_chunked = ds["chunked"]["chunked"]
     for k in ("mla_decode", "act_2d", "silu_mul_2d", "softmax_2d"):
         check(ds_chunked.get(k, 0) > 0, f"DeepSeek-V2-Lite's chunked trace never launched {k}")

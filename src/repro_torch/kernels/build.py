@@ -49,7 +49,7 @@ from repro_torch.cordic_engine.schedule import (
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("act", "softmax", "paged_decode", "gemm")
+SOURCES = ("act", "softmax", "paged_decode", "gemm", "gemm_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -253,20 +253,28 @@ _SIGNATURES = {
     "paged_decode": {
         # (q, q_dtype, k_pool, v_pool, pool_dtype, k_scale, v_scale,
         #  code_res, tables, k_len, out, ws, ws_floats, B, KH, G, hd, L, M,
-        #  chunk, tile, order, scale, impl, kv_dtype, params, stream)
+        #  chunk, tile, order, pv_order, pv_chunk, scale, impl, kv_dtype,
+        #  params, stream)
         "paged_gqa_decode": (_P, _I, _P, _P, _I, _P, _P, _F, _P, _P, _P, _P, _LL,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P),
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
+                             _P),
         # (q_eff, q_rope, q_dtype, c_pool, r_pool, tables, k_len, out, ws,
         #  ws_floats, B, H, R, P, L, M, score_heads, chunk, tile, order,
-        #  scale, impl, params, stream)
+        #  pv_order, pv_chunk, scale, impl, params, stream)
         "paged_mla_decode": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P),
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+                             _P),
     },
     "gemm": {
         # (a, a_dtype, a strides (batch, row, k), b, b_dtype, b strides
         #  (batch, k, col), c, c_dtype, batch, M, N, K, wide, stream)
         "invariant_gemm": (_P, _I, _LL, _LL, _LL, _P, _I, _LL, _LL, _LL, _P, _I,
                            _I, _I, _I, _I, _I, _P),
+    },
+    "gemm_tc": {
+        # (a, a strides (batch, row, k), b, b strides (batch, k, col), c,
+        #  c_dtype, batch, M, N, K, stream)
+        "tc_gemm": (_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _I, _I, _I, _I, _I, _P),
     },
 }
 

@@ -1,4 +1,4 @@
-// Row-count-invariant matrix products on Hopper.
+// Row-count-invariant matrix products on Hopper: the float32 route.
 //
 // Replaces no TPU kernel: the JAX package leaves these products to XLA.
 // They are the paged prefill's (models/common.py ``INVARIANT``, ROADMAP
@@ -9,28 +9,36 @@
 // dispatch held, and a prefix-cache hit would not read the bytes its own
 // prefill would have written.
 //
-// invariant_gemm: C[b] = A[b] (M x K) . B[b] (K x N), bf16 or float32
-// operands, float32 accumulation, one rounding to the output's dtype. An
+// Two routes share that contract, chosen by dtype alone (kernels/gemm.py
+// ``gemm_route``): two bf16 operands take gemm_tc.cu (wgmma on the tensor
+// cores, one instruction shape, one CTA tile and one k-walk for every
+// launch; held by invariance and a bound against float64), and any float32
+// operand takes this kernel: TF32 would drop 13 of a float32 operand's
+// mantissa bits, so a float32 product never reaches the tensor cores. On
+// the paged prefill's path that is the attention's scores and P.V
+// (models/attention.py ``_scores``, ``_pv``: float32 under the default
+// score dtype).
+//
+// invariant_gemm: C[b] = A[b] (M x K) . B[b] (K x N), a float32 operand
+// and a float32 or bf16 one, float32 accumulation, one rounding to the output's dtype. An
 // output element is ONE chain over k = 0 .. K-1 in order: acc starts at
 // 0, then acc = acc + a*b with the product rounded to float32 first
 // (__fmul_rn / __fadd_rn: never a fused multiply-add; a bf16 product is
 // exact in float32). Nothing of that depends on M, the batch count, the
 // element's place or the launch's tiling, which is chosen by the shape
-// (F7). kernels/gemm.py ``gemm_plain`` replays it in K vectorized steps.
+// (F7). kernels/gemm.py ``gemm_plain`` replays it in K vectorized steps, so
+// kernel and plain agree bit for bit.
 //
 // What bounds it: float32 instructions outside the tensor cores, a product
-// and an add an element and k (2MNK against the card's 989 TFLOP/s bf16
-// tensor-core peak, which this kernel does not use). Design: a CTA of 256
+// and an add an element and k (2MNK against the card's 67 TFLOP/s float32
+// peak). Design: a CTA of 256
 // threads computes a BM x BN tile, each thread a TM x TN micro-tile in
 // registers (TM x TN independent chains, so one chain an element costs no
 // parallelism); the operands' BK-deep slices are staged in shared memory as
 // float32 (bf16 converted on load, exactly), the next slice loaded into
 // registers while the current one is used. Two tilings, by shape: 128 x 128
 // (8 x 8 a thread) when the output fills the card's SMs, 32 x 64 (2 x 4 a
-// thread) when it does not (a prefill of a few short rows). A tensor-core
-// (wgmma) kernel with a fixed instruction sequence per tile would also be
-// invariant, but no plain version can replay its in-instruction sum order
-// (ROADMAP B.12).
+// thread) when it does not (a prefill of a few short rows).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -184,7 +192,8 @@ int launch_out(int c_dtype, const void* a, long long sab, long long sam, long lo
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16 (build.DTYPE_CODE). ``wide`` picks the
+// dtype codes: 0 float32, 1 bfloat16 (build.DTYPE_CODE); at least one
+// operand float32 (two bf16 operands are gemm_tc.cu's). ``wide`` picks the
 // 128 x 128 tiling (kernels/gemm.py ``wide_tiles``); either gives the same
 // bits.
 extern "C" int invariant_gemm(const void* a, int a_dtype, long long sab, long long sam,
@@ -192,7 +201,8 @@ extern "C" int invariant_gemm(const void* a, int a_dtype, long long sab, long lo
                               long long sbk, long long sbn, void* c, int c_dtype, int batch,
                               int M, int N, int K, int wide, void* stream) {
   if (batch <= 0 || M <= 0 || N <= 0 || K <= 0) return (int)cudaGetLastError();
-  if (batch > 65535 || (a_dtype | b_dtype | c_dtype) & ~1) return (int)cudaErrorInvalidValue;
+  if (batch > 65535 || (a_dtype | b_dtype | c_dtype) & ~1 || (a_dtype & b_dtype))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (a_dtype == 0 && b_dtype == 0)
     return launch_out<float, float>(c_dtype, a, sab, sam, sak, b, sbb, sbk, sbn, c, batch, M, N,
@@ -200,9 +210,6 @@ extern "C" int invariant_gemm(const void* a, int a_dtype, long long sab, long lo
   if (a_dtype == 0)
     return launch_out<float, __nv_bfloat16>(c_dtype, a, sab, sam, sak, b, sbb, sbk, sbn, c, batch,
                                             M, N, K, wide, s);
-  if (b_dtype == 0)
-    return launch_out<__nv_bfloat16, float>(c_dtype, a, sab, sam, sak, b, sbb, sbk, sbn, c, batch,
-                                            M, N, K, wide, s);
-  return launch_out<__nv_bfloat16, __nv_bfloat16>(c_dtype, a, sab, sam, sak, b, sbb, sbk, sbn, c,
-                                                  batch, M, N, K, wide, s);
+  return launch_out<__nv_bfloat16, float>(c_dtype, a, sab, sam, sak, b, sbb, sbk, sbn, c, batch, M,
+                                          N, K, wide, s);
 }

@@ -43,7 +43,8 @@
 //            e^(s - m_c), the row sum l = l * alpha_c + bs_c
 //   pv       grid (ceil(M / chunk), KH, B): stages (and dequantizes) V of
 //            `chunk` blocks once and writes each block's P.V sums for all G
-//            rows, a thread per (half of the rows, value column)
+//            rows, a thread per (half of the rows, value column), in the
+//            launch's P.V order
 //   fold     grid (KH * G * ceil(hd / 128), B): each output column's
 //            accumulator over the blocks' P.V sums, in table order
 //
@@ -51,17 +52,24 @@
 //
 // Summation orders are fixed and shared with the plain PyTorch versions
 // (kernels/paged_attention.py), and they are the TPU kernel's walk per
-// output row: a score's dot runs in jitted XLA:CPU's order for the JAX
-// kernel's einsum at this geometry (paged_attention.dot_order, passed as
-// the launch's `order` = 2 * partials + halve: one fmaf chain, or 2, 4 or 8
-// strided fmaf partials combined as a tree or by halves), then times the
-// scale, then the mask; block sums and P.V sums run left to right over a
+// output row in jitted XLA:CPU's arithmetic (ROADMAP C.4): a score's dot
+// runs in XLA's order for the JAX kernel's einsum at this geometry
+// (paged_attention.dot_order, passed as the launch's `order` = 2 * partials
+// + halve: one fmaf chain, or 2, 4 or 8 strided fmaf partials combined as a
+// tree or by halves), then times the scale, then the mask; a block's P.V
+// sums run in XLA's order for the second einsum (paged_attention.pv_order,
+// the launch's `pv_order` and `pv_chunk`: an fmaf chain over the block's
+// lanes, in pieces of pv_chunk lanes added left to right where XLA hands the
+// product to Eigen's blocked kernel, or 4 strided fmaf partials as a tree;
+// a pv kernel instantiation each); block sums run left to right over a
 // block's lanes; the row sum and the accumulator fold block by block in
-// table order (exact: l = l * alpha + bs, acc = acc * alpha + pv). The row
-// max and the running maxima are order-free. Compiled with -fmad=false, so
-// kernel and plain agree bit for bit on every impl and on quantized pools;
-// the scores equal the JAX kernel's where dot_order is mapped, and XLA's
-// P.V orders differ, hence the reference's own f32 tolerance on the output.
+// table order (exact: l = fmaf(l, alpha, bs), acc = fmaf(acc, alpha, pv),
+// as XLA fuses them; the CORDIC impls acc = acc + pv). The row max and the
+// running maxima are order-free. Compiled with -fmad=false, so kernel and
+// plain agree bit for bit on every impl and on quantized pools; where both
+// orders are mapped the CORDIC impls' outputs equal the JAX kernel's bit
+// for bit, and exact's differ by its exponential alone (expf against XLA's
+// exp).
 //
 // Quantized pools (kv_quant, _gqa_kernel :260-275 with the scale-pool
 // operands :347-353): the pool type TP is int8_t or int16_t codes, and each
@@ -105,6 +113,15 @@ constexpr int kDead = INT_MIN;
 // tree, 8 as a tree or by halves.
 __host__ __device__ __forceinline__ bool order_ok(int code) {
   return code == 2 || code == 4 || code == 8 || code == 16 || code == 17;
+}
+
+// A launch's P.V order (paged_attention.pv_order): a chain (code 2) in
+// pieces of pv_chunk lanes (0: one piece), or 4 partials as a tree (code 8)
+// in one piece. Each is its own instantiation of the pv sums: GQA switches
+// uniformly over them inside one pv kernel (with_pv_order), MLA launches a
+// pv kernel an order.
+__host__ __forceinline__ bool pv_order_ok(int code, int pv_chunk) {
+  return pv_chunk >= 0 && (code == 2 || (code == 8 && pv_chunk == 0));
 }
 
 // The dot of order ORDER (2 * partials + halve) from its partials p[0..
@@ -330,7 +347,7 @@ __device__ __forceinline__ void softmax_row(float* ws, long long rows, int rows_
     __syncthreads();
     if (tid == 0) {
       float l = 0.0f;
-      for (int c = 0; c < live; ++c) l = l * am[c] + bs[c];
+      for (int c = 0; c < live; ++c) l = fmaf(l, am[c], bs[c]);  // XLA fuses the fold
       w.lr[row] = l;
     }
     return;
@@ -393,30 +410,65 @@ __device__ __forceinline__ void softmax_row(float* ws, long long rows, int rows_
 
 // A pv thread takes value column `cc` of the staged tile vs (nc, L, vcols)
 // and forms, for every row r in [r_lo, r_hi) and block j < nc, the P.V sum
-// over the block's lanes, left to right, of ps[r][j * L + l] * vs[j][l][cc]
-// (ps: (rows, nc * L)); dst(r, j, sum) keeps it. Rows go kPvRows at a time,
-// so each staged value is read once per kPvRows rows.
-template <typename Dst>
+// over the block's lanes of ps[r][j * L + l] * vs[j][l][cc] (ps: (rows, nc *
+// L)) in the launch's P.V order (paged_attention.pv_order): PARTS strided
+// fmaf partials over the lanes (PARTS 1: one chain) combined as a tree;
+// with PIECES, the lanes in pieces of `piece` from lane 0, each summed so,
+// the pieces' sums added left to right. dst(r, j, sum) keeps it. Rows go
+// kPvRows at a time, so each staged value is read once per kPvRows rows.
+template <int PARTS, bool PIECES, typename Dst>
 __device__ __forceinline__ void pv_sums(const float* ps, const float* vs, int r_lo, int r_hi,
-                                        int nc, int L, int vcols, int cc, Dst dst) {
+                                        int nc, int L, int piece, int vcols, int cc, Dst dst) {
   const int ncl = nc * L;
   const int nrows = r_hi;
-  for (int r0 = r_lo; r0 < r_hi; r0 += kPvRows) {
-    float pv[kPvRows][kMaxChunk];
+  // lanes [l0, l1) into the partials part[r][j][t]
+  auto lanes = [&](int r0, int l0, int l1, float (&part)[kPvRows][kMaxChunk][PARTS]) {
 #pragma unroll
     for (int r = 0; r < kPvRows; ++r)
 #pragma unroll
-      for (int j = 0; j < kMaxChunk; ++j) pv[r][j] = 0.0f;
-    for (int l = 0; l < L; ++l) {
+      for (int j = 0; j < kMaxChunk; ++j)
 #pragma unroll
-      for (int j = 0; j < kMaxChunk; ++j) {
-        if (j < nc) {
-          const float v = vs[(j * L + l) * vcols + cc];
+        for (int t = 0; t < PARTS; ++t) part[r][j][t] = 0.0f;
+    for (int l = l0; l < l1; l += PARTS) {
 #pragma unroll
-          for (int r = 0; r < kPvRows; ++r)
-            if (r0 + r < nrows) pv[r][j] = pv[r][j] + ps[(r0 + r) * ncl + j * L + l] * v;
+      for (int t = 0; t < PARTS; ++t) {
+        if (PARTS == 1 || l + t < l1) {
+#pragma unroll
+          for (int j = 0; j < kMaxChunk; ++j) {
+            if (j < nc) {
+              const float v = vs[(j * L + l + t) * vcols + cc];
+#pragma unroll
+              for (int r = 0; r < kPvRows; ++r)
+                if (r0 + r < nrows)
+                  part[r][j][t] = fmaf(ps[(r0 + r) * ncl + j * L + l + t], v, part[r][j][t]);
+            }
+          }
         }
       }
+    }
+  };
+  for (int r0 = r_lo; r0 < r_hi; r0 += kPvRows) {
+    float part[kPvRows][kMaxChunk][PARTS];
+    float pv[kPvRows][kMaxChunk];
+    if constexpr (PIECES) {
+#pragma unroll
+      for (int r = 0; r < kPvRows; ++r)
+#pragma unroll
+        for (int j = 0; j < kMaxChunk; ++j) pv[r][j] = 0.0f;
+      for (int l0 = 0; l0 < L; l0 += piece) {
+        lanes(r0, l0, min(L, l0 + piece), part);
+#pragma unroll
+        for (int r = 0; r < kPvRows; ++r)
+#pragma unroll
+          for (int j = 0; j < kMaxChunk; ++j)
+            pv[r][j] = pv[r][j] + combine_parts<2 * PARTS>(part[r][j]);
+      }
+    } else {
+      lanes(r0, 0, L, part);
+#pragma unroll
+      for (int r = 0; r < kPvRows; ++r)
+#pragma unroll
+        for (int j = 0; j < kMaxChunk; ++j) pv[r][j] = combine_parts<2 * PARTS>(part[r][j]);
     }
 #pragma unroll
     for (int r = 0; r < kPvRows; ++r)
@@ -424,6 +476,21 @@ __device__ __forceinline__ void pv_sums(const float* ps, const float* vs, int r_
       for (int j = 0; j < kMaxChunk; ++j)
         if (r0 + r < nrows && j < nc) dst(r0 + r, j, pv[r][j]);
   }
+}
+
+// f(std::integral_constant<int, PARTS>, std::bool_constant<PIECES>) for a
+// launch's P.V order: 4 partials in one piece, or a chain, in pieces when
+// `piece` is shorter than the block. A uniform switch inside GQA's pv
+// kernel, so its staging (and a quantized pool's dequant) compiles once for
+// every order.
+template <typename F>
+__device__ __forceinline__ void with_pv_order(int parts, int piece, int L, F f) {
+  if (parts == 4)
+    f(std::integral_constant<int, 4>{}, std::false_type{});
+  else if (piece < L)
+    f(std::integral_constant<int, 1>{}, std::true_type{});
+  else
+    f(std::integral_constant<int, 1>{}, std::false_type{});
 }
 
 // Stage the lane weights of `nrows` rows (row0 + r) over the table columns
@@ -471,7 +538,7 @@ __device__ __forceinline__ void fold_row(float* ws, long long rows, int rows_per
         if (c0 + u < live) v[u] = pv[(long long)(c0 + u) * width + d];
 #pragma unroll
       for (int u = 0; u < kFoldBatch; ++u)
-        if (c0 + u < live) acc = EXACT ? acc * smem[c0 + u] + v[u] : acc + v[u];
+        if (c0 + u < live) acc = EXACT ? fmaf(acc, smem[c0 + u], v[u]) : acc + v[u];
     }
     out[row * width + d] = EXACT ? acc / w.lr[row] : acc;
   }
@@ -638,7 +705,8 @@ __global__ void __launch_bounds__(kPvThreads)
     gqa_decode_kernel_pv(const TP* __restrict__ v_pool, const float* __restrict__ v_scale,
                          float code_res, const int* __restrict__ tables,
                          const int* __restrict__ k_len, float* __restrict__ ws, int B, int KH,
-                         int G, int hd, int L, int M, int chunk, const CordicParams p) {
+                         int G, int hd, int L, int M, int chunk, int parts, int piece,
+                         const CordicParams p) {
   extern __shared__ float smem[];
   __shared__ long long blk[kMaxChunk];
   __shared__ float vsc[kMaxChunk];
@@ -673,9 +741,12 @@ __global__ void __launch_bounds__(kPvThreads)
   __syncthreads();
   // thread (half, column): each half of the CTA takes half of the rows
   const int half = tid / kPvCols, rh = (G + 1) / 2;
-  for (int d = tid - half * kPvCols; d < hd; d += kPvCols)
-    pv_sums(ps, vs, half * rh, min(G, (half + 1) * rh), nc, L, hd, d,
-            [&](int r, int j, float v) { w.pv[((row0 + r) * M + c0 + j) * hd + d] = v; });
+  with_pv_order(parts, piece, L, [&](auto np, auto pieces) {
+    for (int d = tid - half * kPvCols; d < hd; d += kPvCols)
+      pv_sums<decltype(np)::value, decltype(pieces)::value>(
+          ps, vs, half * rh, min(G, (half + 1) * rh), nc, L, piece, hd, d,
+          [&](int r, int j, float v) { w.pv[((row0 + r) * M + c0 + j) * hd + d] = v; });
+  });
 }
 
 template <bool EXACT>
@@ -692,7 +763,7 @@ struct GqaArgs {
   float code_res;
   const int *tables, *k_len;
   float *out, *ws;
-  int B, KH, G, hd, L, M, chunk, tile, order;
+  int B, KH, G, hd, L, M, chunk, tile, order, pv_parts, pv_piece;
   float scale;
 };
 
@@ -721,7 +792,7 @@ int launch(const GqaArgs& a, const CordicParams& p, cudaStream_t s) {
   if ((rc = smem_ok(pv, pv_bytes))) return rc;
   pv<<<blocks, kPvThreads, pv_bytes, s>>>((const TP*)a.v_pool, a.v_scale, a.code_res,
                                           a.tables, a.k_len, a.ws, a.B, a.KH, G, hd, L, M,
-                                          a.chunk, p);
+                                          a.chunk, a.pv_parts, a.pv_piece, p);
   if ((rc = (int)cudaGetLastError())) return rc;
 
   auto fold = gqa_decode_kernel_fold<IMPL == kExact>;
@@ -769,18 +840,20 @@ int launch_pool(int pool_dtype, int impl, const GqaArgs& a, const CordicParams& 
 // workspace_floats(B * KH * G, M, L, hd)); chunk: blocks of a score / pv CTA
 // (1..4); tile: blocks a softmax CTA holds in shared memory at once; order:
 // the score dot's order, 2 * partials + halve (paged_attention.DotOrder; a
-// chain, 4 partials, or 8 as a tree or by halves).
+// chain, 4 partials, or 8 as a tree or by halves); pv_order, pv_chunk: the
+// P.V dots' (paged_attention.pv_order: its code, a chain or 4 partials as a
+// tree, and its pieces' lanes, 0 for one piece).
 extern "C" int paged_gqa_decode(const void* q, int q_dtype, const void* k_pool,
                                 const void* v_pool, int pool_dtype, const void* k_scale,
                                 const void* v_scale, float code_res, const void* tables,
                                 const void* k_len, void* out, void* ws, long long ws_floats,
                                 int B, int KH, int G, int hd, int L, int M, int chunk, int tile,
-                                int order, float scale, int impl, int kv_dtype,
-                                const CordicParams* p,
-                                void* stream) {
+                                int order, int pv_order, int pv_chunk, float scale, int impl,
+                                int kv_dtype, const CordicParams* p, void* stream) {
   if (B == 0) return (int)cudaGetLastError();
   if (pool_dtype != 0 && (k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (!pv_order_ok(pv_order, pv_chunk)) return (int)cudaErrorInvalidValue;
   if (chunk < 1 || chunk > kMaxChunk || tile < 1 || hd % 4 || !order_ok(order) || order == 4 ||
       hd % (order >> 1) || ws_floats < workspace_floats((long long)B * KH * G, M, L, hd))
     return (int)cudaErrorInvalidValue;
@@ -804,6 +877,8 @@ extern "C" int paged_gqa_decode(const void* q, int q_dtype, const void* k_pool,
                   chunk,
                   tile,
                   order,
+                  pv_order >> 1,
+                  pv_chunk > 0 ? pv_chunk : L,
                   scale};
   const CordicParams& pp = *p;
   if (q_dtype == 0)
@@ -985,10 +1060,11 @@ __global__ void __launch_bounds__(kSoftmaxThreads)
 
 // The P.V sums of `chunk` blocks for all heads of a slot, over kPvCols
 // latent columns: the latent slice staged once, two threads a column.
+template <int PARTS, bool PIECES>
 __global__ void __launch_bounds__(kPvThreads)
     mla_decode_kernel_pv(const float* __restrict__ c_pool, const int* __restrict__ tables,
                          const int* __restrict__ k_len, float* __restrict__ ws, int B, int H,
-                         int R, int L, int M, int chunk) {
+                         int R, int L, int M, int chunk, int piece) {
   extern __shared__ float smem[];
   __shared__ long long blk[kMaxChunk];
   const int cols = kPvCols;
@@ -1021,8 +1097,9 @@ __global__ void __launch_bounds__(kPvThreads)
   // thread (half, column): each half of the CTA takes half of the heads
   const int half = tid / kPvCols, cc = tid - half * kPvCols, hh = (H + 1) / 2;
   if (cc < width)
-    pv_sums(ps, vs, half * hh, min(H, (half + 1) * hh), nc, L, cols, cc,
-            [&](int r, int j, float v) { w.pv[((row0 + r) * M + c0 + j) * R + r0 + cc] = v; });
+    pv_sums<PARTS, PIECES>(
+        ps, vs, half * hh, min(H, (half + 1) * hh), nc, L, piece, cols, cc,
+        [&](int r, int j, float v) { w.pv[((row0 + r) * M + c0 + j) * R + r0 + cc] = v; });
 }
 
 template <bool EXACT>
@@ -1035,8 +1112,8 @@ __global__ void __launch_bounds__(kFoldThreads)
 template <typename TQ, int IMPL>
 int launch_mla(const void* q_eff, const void* q_rope, const void* c_pool, const void* r_pool,
                const void* tables, const void* k_len, void* out, void* ws, int B, int H, int R,
-               int P, int L, int M, int HG, int chunk, int tile, int order, float scale,
-               const CordicParams& p, cudaStream_t s) {
+               int P, int L, int M, int HG, int chunk, int tile, int order, int pv_parts,
+               int pv_piece, float scale, const CordicParams& p, cudaStream_t s) {
   int rc = launch_order(order, [&](auto code) {
     constexpr int kOrder = decltype(code)::value, kParts = kOrder >> 1;
     auto score = mla_decode_kernel_score<TQ, kOrder>;
@@ -1060,12 +1137,16 @@ int launch_mla(const void* q_eff, const void* q_rope, const void* c_pool, const 
                                                              (const int*)k_len, L, M, tile, p);
   if ((rc = (int)cudaGetLastError())) return rc;
 
+  // a kernel per P.V order: the latent's staging is light, and the orders'
+  // register needs differ
+  const auto pv = pv_parts == 4     ? mla_decode_kernel_pv<4, false>
+                  : pv_piece < L    ? mla_decode_kernel_pv<1, true>
+                                    : mla_decode_kernel_pv<1, false>;
   const size_t pv_bytes = sizeof(float) * (size_t)chunk * L * (kPvCols + H);
-  if ((rc = smem_ok(mla_decode_kernel_pv, pv_bytes))) return rc;
-  mla_decode_kernel_pv<<<dim3((M + chunk - 1) / chunk, (R + kPvCols - 1) / kPvCols, B),
-                         kPvThreads, pv_bytes, s>>>((const float*)c_pool, (const int*)tables,
-                                                    (const int*)k_len, (float*)ws, B, H, R, L,
-                                                    M, chunk);
+  if ((rc = smem_ok(pv, pv_bytes))) return rc;
+  pv<<<dim3((M + chunk - 1) / chunk, (R + kPvCols - 1) / kPvCols, B), kPvThreads, pv_bytes,
+       s>>>((const float*)c_pool, (const int*)tables, (const int*)k_len, (float*)ws, B, H, R, L,
+            M, chunk, pv_piece);
   if ((rc = (int)cudaGetLastError())) return rc;
 
   auto fold = mla_decode_kernel_fold<IMPL == kExact>;
@@ -1079,18 +1160,18 @@ int launch_mla(const void* q_eff, const void* q_rope, const void* c_pool, const 
 template <typename TQ>
 int launch_mla_impl(int impl, const void* qe, const void* qr, const void* cp, const void* rp,
                     const void* t, const void* kl, void* o, void* ws, int B, int H, int R,
-                    int P, int L, int M, int HG, int chunk, int tile, int order, float scale,
-                    const CordicParams& p, cudaStream_t s) {
+                    int P, int L, int M, int HG, int chunk, int tile, int order, int pv_parts,
+                    int pv_piece, float scale, const CordicParams& p, cudaStream_t s) {
   switch (impl) {
     case kExact:
       return launch_mla<TQ, kExact>(qe, qr, cp, rp, t, kl, o, ws, B, H, R, P, L, M, HG, chunk,
-                                    tile, order, scale, p, s);
+                                    tile, order, pv_parts, pv_piece, scale, p, s);
     case kCordicPallas:
       return launch_mla<TQ, kCordicPallas>(qe, qr, cp, rp, t, kl, o, ws, B, H, R, P, L, M, HG,
-                                           chunk, tile, order, scale, p, s);
+                                           chunk, tile, order, pv_parts, pv_piece, scale, p, s);
     case kCordicFixed:
       return launch_mla<TQ, kCordicFixed>(qe, qr, cp, rp, t, kl, o, ws, B, H, R, P, L, M, HG,
-                                          chunk, tile, order, scale, p, s);
+                                          chunk, tile, order, pv_parts, pv_piece, scale, p, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1103,14 +1184,17 @@ int launch_mla_impl(int impl, const void* qe, const void* qr, const void* cp, co
 // ws_floats float32 words (at least workspace_floats(B * H, M, L, R)).
 // score_heads: heads of a score CTA; chunk: blocks of a score / pv CTA
 // (1..4); tile: blocks a softmax CTA holds in shared memory at once; order:
-// the score dots' order, 2 * partials + halve (paged_attention.DotOrder).
+// the score dots' order, 2 * partials + halve (paged_attention.DotOrder);
+// pv_order, pv_chunk: the P.V dots' (as paged_gqa_decode's).
 extern "C" int paged_mla_decode(const void* q_eff, const void* q_rope, int q_dtype,
                                 const void* c_pool, const void* r_pool, const void* tables,
                                 const void* k_len, void* out, void* ws, long long ws_floats,
                                 int B, int H, int R, int P, int L, int M, int score_heads,
-                                int chunk, int tile, int order, float scale, int impl,
-                                const CordicParams* p, void* stream) {
+                                int chunk, int tile, int order, int pv_order, int pv_chunk,
+                                float scale, int impl, const CordicParams* p, void* stream) {
   if (B == 0 || H == 0) return (int)cudaGetLastError();
+  if (!pv_order_ok(pv_order, pv_chunk)) return (int)cudaErrorInvalidValue;
+  const int pv_parts = pv_order >> 1, pv_piece = pv_chunk > 0 ? pv_chunk : L;
   if (score_heads < 1 || chunk < 1 || chunk > kMaxChunk || tile < 1 || R % 4 || P % 4 ||
       !order_ok(order) || R % (order >> 1) || P % (order >> 1) ||
       ws_floats < workspace_floats((long long)B * H, M, L, R))
@@ -1119,8 +1203,9 @@ extern "C" int paged_mla_decode(const void* q_eff, const void* q_rope, int q_dty
   return q_dtype == 0
              ? launch_mla_impl<float>(impl, q_eff, q_rope, c_pool, r_pool, tables, k_len, out,
                                       ws, B, H, R, P, L, M, score_heads, chunk, tile, order,
-                                      scale, *p, s)
+                                      pv_parts, pv_piece, scale, *p, s)
              : launch_mla_impl<__nv_bfloat16>(impl, q_eff, q_rope, c_pool, r_pool, tables,
                                               k_len, out, ws, B, H, R, P, L, M, score_heads,
-                                              chunk, tile, order, scale, *p, s);
+                                              chunk, tile, order, pv_parts, pv_piece, scale, *p,
+                                              s);
 }

@@ -1,5 +1,6 @@
-"""Row-count-invariant matrix products: plain PyTorch version and the CUDA
-kernel (``csrc/gemm.cu``).
+"""Row-count-invariant matrix products: plain PyTorch version and two CUDA
+kernels, a float32 chain (``csrc/gemm.cu``) and a bf16 tensor-core product
+(``csrc/gemm_tc.cu``).
 
 No TPU kernel of the JAX package corresponds: it leaves these products to
 XLA. The port needs them on the card, where cuBLAS picks its kernel and its
@@ -10,26 +11,38 @@ K, V and logits are then the same bits whatever row count, row width and
 start its prefill dispatch had, which is what lets a prefix-cache hit read
 the bytes its own prefill would have written.
 
-The order. ``gemm(a, b)``: a (batch, M, K), b (batch, K, N) -> (batch, M,
-N). Each output element is one chain over k = 0 .. K-1 in order: ``acc =
-acc + a[m, k] * b[k, n]`` in float32 from 0, the product rounded to float32
-before the add (the kernel never fuses a multiply-add), then one rounding to
-the output dtype. bf16 operands convert to float32 exactly, and a product of
-two of them is exact in float32. The order depends on K and the dtypes
-alone: not on M, the batch, the element's place or the launch's tiling.
-``gemm_plain`` replays it in K vectorized steps, so it and the kernel agree
-bit for bit on the card.
+Two routes, chosen by the operands' dtypes alone (``gemm_route``):
+
+``"tc"``, both operands bf16 (the row projections, the MLPs, the logits of
+a bf16 model): ``wgmma`` on Hopper's tensor cores, float32 accumulation,
+one rounding to the output dtype. Every launch runs one instruction shape
+and one CTA tile and walks K from 0 in fixed 64-wide slices, with no split
+of K across CTAs, so an element's bits depend on K, its row and its column
+alone (the kernel's header states the contract). No plain version can
+replay a tensor core's sum order, so this route is held on the card by
+invariance (every row bit-equal across row and batch counts) and by the
+bound ``|c - c64| <= tc_gamma(K) * sum_k |a_k b_k|`` against a float64
+product (``gemm_bound``).
+
+``"simt"``, any float32 operand (the attention's scores and P.V under the
+default float32 score dtype): one float32 chain over k = 0 .. K-1 in order
+an element, ``acc = acc + a[m, k] * b[k, n]`` from 0, the product rounded
+before the add (never fused), then one rounding to the output dtype. TF32
+would drop 13 of a float32 operand's mantissa bits, so a float32 product
+never reaches the tensor cores. ``gemm_plain`` replays the chain in K
+vectorized steps, so it and the kernel agree bit for bit on the card.
 
 ``matmul`` and ``einsum`` lay torch's signatures over it (the products of
 ``_project``, ``_out_project``, the MLPs, ``_scores``, ``_pv``, MLA's
 projections and decompression, ``unembed``): operands are permuted and
 reshaped to (batch, M, K) and (batch, K, N) (a copy where the strides do not
-allow a view; the kernel reads any strides), the result back to the
-caller's layout.
+allow a view), the result back to the caller's layout. The tensor-core
+route also copies an operand whose strides TMA cannot describe
+(``tma_ready``, ``tma_operand``).
 
 On a CPU tensor every wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises; on a meta tensor it returns an empty result
-of the right shape (the dry run).
+launches its route's kernel or raises; on a meta tensor it returns an empty
+result of the right shape (the dry run).
 """
 from __future__ import annotations
 
@@ -74,6 +87,99 @@ def wide_tiles(M: int, N: int, batch: int) -> bool:
     return batch * -(-M // 128) * -(-N // 128) >= _SMS
 
 
+def gemm_route(a_dtype: torch.dtype, b_dtype: torch.dtype) -> str:
+    """The kernel a ``gemm`` of these operand dtypes launches on the card:
+    ``"tc"`` (csrc/gemm_tc.cu) for two bf16 operands, ``"simt"``
+    (csrc/gemm.cu) when either is float32."""
+    return "tc" if a_dtype == b_dtype == torch.bfloat16 else "simt"
+
+
+def tma_ready(t: torch.Tensor, unit: int) -> bool:
+    """Whether TMA can describe the bf16 operand ``t`` (batch, rows, cols)
+    with dim ``unit`` (1 or 2) the unit-stride one: its base 16-byte
+    aligned, its other dim's stride a multiple of 8 elements (16 bytes),
+    its batch stride 0 (shared by the batch) or a multiple of 8, as
+    ``_tma_strides`` gives them."""
+    st = _tma_strides(t, unit)
+    other = 3 - unit
+    return (t.data_ptr() % 16 == 0 and st[unit] == 1 and st[other] > 0
+            and st[other] % 8 == 0 and st[0] % 8 == 0)
+
+
+def _tma_strides(t: torch.Tensor, unit: int):
+    """t's element strides as the kernel takes them: a one-element dim is
+    never stepped, so its stride is the contiguous layout's (the unit dim
+    1, the other dim its row rounded up to 8 elements), and a batch of one
+    reads batch 0 alone (stride 0)."""
+    st = list(t.stride())
+    other = 3 - unit
+    if t.shape[unit] == 1:
+        st[unit] = 1
+    if t.shape[other] == 1:
+        st[other] = -(-t.shape[unit] // 8) * 8
+    if t.shape[0] == 1:
+        st[0] = 0
+    return st
+
+
+def tma_operand(t: torch.Tensor, unit: int) -> torch.Tensor:
+    """``t`` itself when ``tma_ready(t, unit)``, else a copy that is: the
+    same values in a buffer whose ``unit`` dim is contiguous and whose
+    other dim's stride is padded up to a multiple of 8 (the padding never
+    read: the kernel's extents are the operand's own)."""
+    if tma_ready(t, unit):
+        return t
+    nb, r, c = t.shape
+    if unit == 2:
+        buf = torch.empty((nb, r, -(-c // 8) * 8), dtype=t.dtype, device=t.device)
+        out = buf[:, :, :c]
+    else:
+        buf = torch.empty((nb, c, -(-r // 8) * 8), dtype=t.dtype, device=t.device)
+        out = buf[:, :, :r].transpose(1, 2)
+    out.copy_(t)
+    return out
+
+
+def tc_gamma(K: int, out_dtype: torch.dtype = torch.float32) -> float:
+    """The tensor-core route's bound factor: |c - c64| <= gamma * sum_k
+    |a_k b_k| against a float64 product of the same bf16 operands.
+
+    A product of two bf16 values is exact in float32. The kernel takes K in
+    n = ceil(K / 16) wgmma k16 steps, each adding 16 products onto the
+    float32 accumulator. Round-to-nearest is not assumed inside the
+    instruction: each of a step's 17 addends (the accumulator and 16
+    products) may lose up to 2u of the largest one's magnitude when aligned
+    and truncated, and the step's sum up to u of itself when it is put back
+    into float32 (u = 2^-23, a truncation of a 24-bit significand). With
+    S_j the sum of |a_k b_k| up to step j and the accumulator at most
+    (1 + gamma) S_{j-1}, step j adds at most 35 u (1 + gamma) S_j of error,
+    so over n steps gamma = 35 n u / (1 - 35 n u). A bf16 output adds its
+    own rounding, 2^-8 of |c| <= (1 + gamma) S (bf16 keeps 8 significant
+    bits): gamma_bf16 = gamma + 2^-8 (1 + gamma)."""
+    n = -(-K // 16)
+    t = 35 * n * 2.0 ** -23
+    if t >= 1:
+        raise ValueError(f"tc_gamma: K {K} too wide for the bound")
+    g = t / (1 - t)
+    return g + 2.0 ** -8 * (1 + g) if out_dtype == torch.bfloat16 else g
+
+
+def chain_gamma(K: int, out_dtype: torch.dtype = torch.float32) -> float:
+    """The float32 chain's bound factor (``"simt"``, ``gemm_plain``): a
+    recursive sum of K rounded products, gamma_K = K u / (1 - K u) with u =
+    2^-24, then a bf16 output's own rounding as in ``tc_gamma``."""
+    t = K * 2.0 ** -24
+    g = t / (1 - t)
+    return g + 2.0 ** -8 * (1 + g) if out_dtype == torch.bfloat16 else g
+
+
+def gemm_bound(a: torch.Tensor, b: torch.Tensor, gamma: float):
+    """(c64, bound): the float64 product of a (batch, M, K) and b (batch, K,
+    N) and gamma * sum_k |a_k b_k| per element, on the operands' device."""
+    a64, b64 = a.double(), b.double()
+    return a64 @ b64, gamma * (a64.abs() @ b64.abs())
+
+
 def gemm_work(a, b, out_dtype=None):
     """(bytes, INT32 operations, floating operations) of a ``gemm``: each
     operand read once, the output written once; 2MNK (a product and an add
@@ -111,6 +217,17 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
         return c.zero_()
     if nb > 65535:
         raise ValueError(f"gemm: batch {nb} beyond the kernel's grid (65535)")
+    if gemm_route(a.dtype, b.dtype) == "tc":
+        # b N-major (a (K, N) weight) or K-major (an (N, K) table's transpose)
+        unit_b = 1 if b.stride(1) == 1 and b.shape[1] > 1 and b.stride(2) != 1 else 2
+        a, b = tma_operand(a, 2), tma_operand(b, unit_b)
+        sa, sb = _tma_strides(a, 2), _tma_strides(b, unit_b)
+        rc = build.library("gemm_tc").tc_gemm(
+            a.data_ptr(), *sa, b.data_ptr(), *sb, c.data_ptr(), codes[dtype],
+            nb, M, N, K, build.stream_ptr(a))
+        build.check(rc, "gemm_tc")
+        build.count("gemm_tc")
+        return c
     rc = build.library("gemm").invariant_gemm(
         a.data_ptr(), codes[a.dtype], *a.stride(), b.data_ptr(), codes[b.dtype],
         *b.stride(), c.data_ptr(), codes[dtype], nb, M, N, K,

@@ -44,14 +44,20 @@ fused multiply-add chain, or 2, 4 or 8 strided partials of fused
 multiply-adds combined as a tree or by halves, picked by the rows, the
 block length and, for GQA, the KV heads); a GQA score is that dot times
 the scale, then the mask; an MLA score is ``(sum_R qe*c + sum_P qr*r) *
-scale``, each sum in that order. Block sums and P.V sums run left to right
-over a block's lanes; the row sum and the accumulator fold block by block
-in table order (``exact``: ``l = l * alpha + bs``, ``acc = acc * alpha +
-pv``, alpha from the running max). The row max is order-free. With
-``-fmad=false`` kernel and plain agree bit for bit on every impl; the
-scores equal the JAX kernel's at every mapped geometry, and the outputs
-agree to f32 round-off (the reference's own ATOL 2e-5): XLA orders the
-P.V dots otherwise.
+scale``, each sum in that order. A block's P.V sums run in XLA:CPU's
+order for the kernel's second einsum (``pv_order``: a fused chain over
+the block's lanes, for DeepSeek's R 512 in Eigen's pieces of 64 or 128
+lanes added left to right, 4 strided partials at the JAX suite's narrow
+widths). Block sums run left to right over a block's lanes; the row sum
+and the accumulator fold block by block in table order (``exact``: ``l =
+fma(l, alpha, bs)``, ``acc = fma(acc, alpha, pv)``, alpha from the running
+max, as XLA fuses the reference's folds; the CORDIC impls ``acc = acc +
+pv``). The row max is order-free. With ``-fmad=false`` (every fused
+multiply-add written as one) kernel and plain agree bit for bit on every
+impl. Where both the score order and the P.V order are mapped, the CORDIC
+impls' outputs equal the JAX kernel's bit for bit (quantized pools
+included); ``exact``'s differ only by its exponential (torch's and
+CUDA's ``exp`` against XLA's own), within the reference's ATOL 2e-5.
 
 Quantized pools (``gqa_decode(kv_quant="int8" | "q2_14")``): the pools hold
 int8/int16 codes and ``k_scale_pool``/``v_scale_pool`` (N,1,KH,1) float32
@@ -72,6 +78,7 @@ import torch
 from repro_torch.cordic_engine import functions as F
 from repro_torch.cordic_engine.core import PAPER_FIXED, FixedConfig
 from repro_torch.core import kv_quant as kvq
+from repro_torch.core.numerics import fma
 from repro_torch.cordic_engine.schedule import PAPER_SCHEDULE, MRSchedule
 from repro_torch.kernels import build
 from repro_torch.kernels import cost
@@ -124,10 +131,14 @@ class DotOrder:
     "halve" the upper half onto the lower, ((p0 + p4) + (p2 + p6)) + ((p1
     + p5) + (p3 + p7)). ``mapped`` False: a geometry whose order was not
     found; it takes a chain, and its scores agree with the JAX kernel's to
-    f32 round-off only."""
+    f32 round-off only. ``chunk`` (the P.V dots, ``pv_order``): the
+    contraction runs in pieces of that many lanes from lane 0, each piece
+    summed as above from 0 and added left to right onto the sum of the
+    pieces before it (Eigen's k-blocks); 0: one piece."""
     partials: int
     combine: str = "tree"
     mapped: bool = True
+    chunk: int = 0
 
     @property
     def code(self) -> int:
@@ -186,6 +197,78 @@ def dot_order(kind: str, rows: int, width: int, L: int, heads: int = 2) -> DotOr
     return (DotOrder(4), DotOrder(2), DotOrder(4), chain)[(-(-L // 16) - 1) % 4]
 
 
+def pv_order(kind: str, rows: int, width: int, L: int, heads: int = 2) -> DotOrder:
+    """The order jitted XLA:CPU takes for a decode kernel's P.V dot, the
+    contraction over a block's L lanes: ``gqa``, ``einsum("hgl,lhd->hgd")``
+    with rows = G, width = head_dim and ``heads`` = KH; ``mla``,
+    ``einsum("hl,lr->hr")`` with rows = H, width = the latent rank R.
+    Mapped like ``dot_order`` (on jitted einsums at every L of 1-256 and on
+    the JAX kernels in interpret mode, eager and jitted:
+    tests/test_torch_paged_attention.py), and like it a function of the
+    shape alone; its own map, since the output is hd or R wide here:
+
+      L 1: one product (every order agrees)
+      GQA, head_dim 64 or more (every arch's): a fused chain at every L
+          (but G 12 over 8 KV heads at L 170, where some element takes
+          another order: unmapped)
+      MLA, R 512 (DeepSeek's kv_lora_rank) over two or more heads: Eigen's
+          blocked product: a chain up to L 64, then chains of 64 lanes
+          (L + H <= 256) or 128 lanes (past it), added left to right
+      MLA, R 32 or 64, or one head (a vector by a matrix): a chain
+      head_dim 8 / R 16 (the JAX suite's geometries): a chain at L 2-3, 4
+          strided partials as a tree at L a multiple of 4, else unmapped
+      GQA head_dim 16 or 32 over one query row: a chain up to L 48
+
+    Other widths, and past DOT_ORDER_MAX_L lanes, are unmapped (a chain)."""
+    if kind not in ("gqa", "mla"):
+        raise ValueError(f"unknown decode kind {kind!r}")
+    chain, unmapped = DotOrder(1), DotOrder(1, mapped=False)
+    if L > DOT_ORDER_MAX_L:
+        return unmapped
+    if L == 1:
+        return chain
+    if width <= 16 and (width == 8 if kind == "gqa" else width == 16):
+        if L <= 3:
+            return chain
+        return DotOrder(4) if L % 4 == 0 else unmapped
+    if kind == "gqa":
+        if width >= 64:
+            return unmapped if (rows, heads, L) == (12, 8, 170) else chain
+        return chain if rows == 1 and width in (16, 32) and L <= 48 else unmapped
+    if rows == 1 or width in (32, 64):
+        return chain
+    if width == 512:
+        return chain if L <= 64 else DotOrder(1, chunk=64 if L + rows <= 256 else 128)
+    return unmapped
+
+
+def _xla_pv(p: torch.Tensor, v: torch.Tensor, order: DotOrder) -> torch.Tensor:
+    """sum_l p[..., l] * v[..., l, :] (p (..., L) and v (..., L, W)
+    broadcast) in ``order``: each fused multiply-add in float64 and rounded
+    once, as ``_xla_dot``; the pieces of ``order.chunk`` lanes added left to
+    right in float32."""
+    prod = p.double()[..., :, None] * v.double()
+    L, P = prod.shape[-2], order.partials
+    total = None
+    for c0 in range(0, L, order.chunk or L):
+        piece = prod[..., c0:c0 + (order.chunk or L), :]
+        n = piece.shape[-2]
+        if n % P:                    # a +0 product leaves a partial's bits
+            piece = torch.cat([piece, piece.new_zeros(piece.shape[:-2] + (P - n % P,)
+                                                      + piece.shape[-1:])], dim=-2)
+        piece = piece.unflatten(-2, (-1, P))               # (..., n / P, P, W)
+        part = torch.zeros(piece.shape[:-3] + piece.shape[-2:], dtype=torch.float32,
+                           device=p.device)
+        for j in range(piece.shape[-3]):
+            part = (part.double() + piece[..., j, :, :]).to(torch.float32)
+        while part.shape[-2] > 1:
+            h = part.shape[-2] // 2
+            part = (part[..., :h, :] + part[..., h:, :] if order.combine == "halve"
+                    else part[..., 0::2, :] + part[..., 1::2, :])
+        total = part[..., 0, :] if total is None else total + part[..., 0, :]
+    return total
+
+
 def _xla_dot(q: torch.Tensor, k: torch.Tensor, order: DotOrder) -> torch.Tensor:
     """sum(q * k) over the last axis (q and k broadcast) in ``order``: each
     fused multiply-add in float64 and rounded once (a float32 product is
@@ -229,7 +312,8 @@ def _block_softmax(s, live, impl, contract, width, sched, cfg):
     L); live (broadcastable to lead..., C): the row covers the column;
     contract(p, c0, c1) -> the weighted-value sum of each block of columns
     c0..c1 (lead..., c1 - c0, width), p (lead..., c1 - c0, L). ``exact``:
-    the online (flash-decoding) recurrence, block by block; the CORDIC
+    the online (flash-decoding) recurrence, block by block, each fold a
+    fused multiply-add; the CORDIC
     impls: the row max, the CORDIC e^u of every lane and the block sums
     folded into the row sum in table order, then the lane-exact
     probabilities, whose blocks' P.V sums fold in table order
@@ -245,8 +329,10 @@ def _block_softmax(s, live, impl, contract, width, sched, cfg):
             m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
             alpha = torch.exp(m - m_new)
             ef = torch.exp(sc - m_new)
-            l_sum = torch.where(lv, l_sum * alpha + _seq_sum(ef), l_sum)
-            acc = torch.where(lv, acc * alpha + contract(ef[..., None, :], c, c + 1)[..., 0, :],
+            # XLA fuses both folds of the reference (_pass_update) into a
+            # multiply-add
+            l_sum = torch.where(lv, fma(l_sum, alpha, _seq_sum(ef)), l_sum)
+            acc = torch.where(lv, fma(acc, alpha, contract(ef[..., None, :], c, c + 1)[..., 0, :]),
                               acc)
             m = torch.where(lv, m_new, m)
         return acc / l_sum
@@ -318,16 +404,14 @@ def gqa_decode_plain(q, k_pool, v_pool, tables, k_len, *, scale: float,
         return vals.to(kvd).to(torch.float32)                  # (B,C',L,KH,hd)
 
     def pv(p, c0, c1):
-        """p (B,KH,G,C',L) . V -> (B,KH,G,C',hd), left to right over a
-        block's lanes."""
+        """p (B,KH,G,C',L) . V -> (B,KH,G,C',hd), each block's sums in
+        ``pv_order``."""
         v = blocks(v_pool, v_scale_pool, c0, c1).permute(0, 3, 1, 2, 4)
-        acc = torch.zeros(p.shape[:-1] + (hd,), dtype=torch.float32, device=p.device)
-        for l in range(L):
-            acc = acc + p[..., l:l + 1] * v[:, :, None, :, l]
-        return acc
+        return _xla_pv(p, v[:, :, None], pv_ord)
 
     qf = q.to(torch.float32)[:, :, :, None, :]                  # (B,KH,G,1,hd)
     order = dot_order("gqa", G, hd, L, heads=KH)
+    pv_ord = pv_order("gqa", G, hd, L, heads=KH)
     C = blks.shape[1]
     s = torch.cat([_xla_dot(qf, blocks(k_pool, k_scale_pool, c0, min(C, c0 + PLAIN_COLS))
                             .flatten(1, 2).permute(0, 2, 1, 3)[:, :, None], order)
@@ -370,7 +454,8 @@ class DecodePlan:
     the blocks of a score / pv CTA, the heads of a score CTA (GQA: the G
     rows of a kv head), the blocks a softmax CTA holds in shared memory at
     once, the workspace in float32 words, each phase's dynamic shared
-    memory in bytes, and the score dots' order (``dot_order``). Score and
+    memory in bytes, the score dots' order (``dot_order``) and the P.V
+    dots' (``pv_order``). Score and
     pv CTAs past a slot's live blocks exit at once on the card."""
     score_grid: Tuple[int, int, int]
     chunk: int
@@ -382,6 +467,7 @@ class DecodePlan:
     workspace_floats: int
     smem: Tuple[int, int, int, int]
     order: DotOrder = DotOrder(1)
+    pv_order: DotOrder = DotOrder(1)
 
     @property
     def ctas(self) -> Tuple[int, int, int, int]:
@@ -442,7 +528,8 @@ def gqa_plan(B: int, KH: int, G: int, hd: int, L: int, M: int,
         workspace_floats=_workspace(B * KH * G, M, L, hd),
         smem=(4 * (G + chunk * L) * (hd + 1), 4 * (tile * L + 3 * M),
               4 * chunk * L * (hd + G), 4 * M),
-        order=dot_order("gqa", G, hd, L, heads=KH)),
+        order=dot_order("gqa", G, hd, L, heads=KH),
+        pv_order=pv_order("gqa", G, hd, L, heads=KH)),
         "gqa_decode", (hd,))
 
 
@@ -465,7 +552,7 @@ def mla_plan(B: int, H: int, R: int, P: int, L: int, M: int,
                    + 2 * hs * L * (order.partials + 1)),
               4 * (tile * L + 3 * M),
               4 * chunk * L * (_PV_COLS + H), 4 * M),
-        order=order),
+        order=order, pv_order=pv_order("mla", H, R, L)),
         "mla_decode", (R, P))
 
 
@@ -548,7 +635,7 @@ def gqa_decode(q, k_pool, v_pool, tables, k_len, *, scale: float,
         1.0 if spec is None else float(spec.fmt.resolution),
         tables.data_ptr(), k_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
         ws.numel(), B, KH, G, hd, L, M, plan.chunk, plan.softmax_tile, plan.order.code,
-        float(scale), IMPLS.index(impl), build.DTYPE_CODE[kvd],
+        plan.pv_order.code, plan.pv_order.chunk, float(scale), IMPLS.index(impl), build.DTYPE_CODE[kvd],
         build.params_ptr(_kernel_sched(impl, sched), cfg), build.stream_ptr(q))
     build.check(rc, "gqa_decode")
     build.count("gqa_decode")
@@ -575,15 +662,12 @@ def mla_decode_plain(q_eff, q_rope, c_pool, r_pool, tables, k_len, *,
         return c_pool[blks[:, c0:c1]].to(torch.float32)        # (B,C',L,R)
 
     def pv(p, c0, c1):
-        """p (B,H,C',L) . c -> (B,H,C',R), left to right over a block's
-        lanes."""
-        cb = latent(c0, c1)
-        acc = torch.zeros(p.shape[:-1] + (R,), dtype=torch.float32, device=p.device)
-        for l in range(L):
-            acc = acc + p[..., l:l + 1] * cb[:, None, :, l]
-        return acc
+        """p (B,H,C',L) . c -> (B,H,C',R), each block's sums in
+        ``pv_order``."""
+        return _xla_pv(p, latent(c0, c1)[:, None], pv_ord)
 
     order = dot_order("mla", H, math.gcd(R, qr.shape[-1]), L)
+    pv_ord = pv_order("mla", H, R, L)
     C = blks.shape[1]
     parts = []
     for c0 in range(0, C, PLAIN_COLS):
@@ -650,7 +734,7 @@ def mla_decode(q_eff, q_rope, c_pool, r_pool, tables, k_len, *, scale: float,
         c_pool.data_ptr(), r_pool.data_ptr(), tables.data_ptr(),
         k_len.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(), B, H, R, P,
         L, M, plan.score_heads, plan.chunk, plan.softmax_tile, plan.order.code,
-        float(scale), IMPLS.index(impl),
+        plan.pv_order.code, plan.pv_order.chunk, float(scale), IMPLS.index(impl),
         build.params_ptr(_kernel_sched(impl, sched), cfg),
         build.stream_ptr(q_eff))
     build.check(rc, "mla_decode")

@@ -1,11 +1,14 @@
 """The row-count-invariant product (``kernels/gemm.py``) on the CPU: its
-plain version against a step-by-step numpy replay of the order the CUDA
+plain version against a step-by-step numpy replay of the order the SIMT
 kernel keeps (one float32 chain over k an element, each product rounded
 before its add), within float32 round-off of a float64 product, each row
 the same bits at every row count and batch count, and the einsum / matmul
-layer against torch's at the model's equations. The kernel itself is held
-bit-equal to the plain version on the card by ``chip_smoke.py`` (phase
-3d, ``--prefill-probe``).
+layer against torch's at the model's equations; the route plan (bf16
+operands to the tensor-core kernel, any float32 one to the SIMT chain),
+TMA's layout rule and its copies, and the bound the tensor-core route is
+held to. The kernels themselves are held on the card by ``chip_smoke.py``
+(phase 3d, ``--prefill-probe``): the SIMT one bit-equal to the plain
+version, the tensor-core one by invariance and by the bound.
 """
 import numpy as np
 import pytest
@@ -144,6 +147,82 @@ def test_meta_tensors_give_the_shape_and_book_the_work():
     assert c.shape == (3, 5, 4) and c.dtype == torch.float32 and c.device.type == "meta"
     assert GM.gemm_work(a, b, torch.float32) == (
         (3 * 5 * 7 + 3 * 7 * 4) * 2 + 3 * 5 * 4 * 4, 0, 2 * 3 * 5 * 4 * 7)
+
+
+@pytest.mark.parametrize("a_dt,b_dt", [("bf16", "bf16"), ("bf16", "f32"),
+                                       ("f32", "bf16"), ("f32", "f32")])
+def test_route_plan_by_dtype(a_dt, b_dt):
+    """Two bf16 operands take the tensor-core kernel; a float32 one the SIMT
+    chain (TF32 would drop its low mantissa bits). The meta path, the dry
+    run's, is the same on both routes: no launch, the output's shape and
+    dtype."""
+    want = "tc" if a_dt == b_dt == "bf16" else "simt"
+    assert GM.gemm_route(DTYPES[a_dt], DTYPES[b_dt]) == want
+    a = torch.empty((2, 5, 24), device="meta", dtype=DTYPES[a_dt])
+    b = torch.empty((2, 24, 9), device="meta", dtype=DTYPES[b_dt])
+    for out in (None, torch.float32):
+        c = GM.gemm(a, b, out)
+        assert c.device.type == "meta" and c.shape == (2, 5, 9)
+        assert c.dtype == (out or torch.result_type(a, b))
+
+
+def _legal(t, unit):
+    st = GM._tma_strides(t, unit)
+    return (t.data_ptr() % 16 == 0 and st[unit] == 1 and st[3 - unit] % 8 == 0
+            and st[0] % 8 == 0)
+
+
+def _x(*shape):
+    return torch.arange(float(np.prod(shape))).view(shape).bfloat16()
+
+
+#: name -> (operand maker, unit dim, TMA-ready as it is)
+TMA_CASES = {
+    "contiguous": (lambda: _x(2, 5, 16), 2, True),
+    "k-major (a table's transpose)": (lambda: _x(2, 16, 8).transpose(1, 2), 1, True),
+    "k-major, 5 rows a column": (lambda: _x(2, 16, 5).transpose(1, 2), 1, False),
+    "n-major read k-major": (lambda: _x(2, 5, 16), 1, False),
+    "13 of 16 columns": (lambda: _x(2, 5, 16)[:, :, :13], 2, True),
+    "row stride 13": (lambda: _x(2, 5, 13), 2, False),
+    "base off 16 bytes": (lambda: _x(170)[1:161].view(2, 5, 16), 2, False),
+    "broadcast batch": (lambda: _x(1, 5, 16).expand(2, -1, -1), 2, True),
+    "one row": (lambda: _x(2, 5, 16)[:, :1, :], 2, True),
+    "batch stride 3 rows of 40": (lambda: _x(2, 3, 40)[:, :, :16], 2, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TMA_CASES))
+def test_tma_copy_rule(case):
+    """``tma_ready`` says whether TMA can read an operand in place (unit dim
+    stride 1, the other dim's stride a multiple of 8 elements, a 16-byte
+    base, a batch stride of 0 or a multiple of 8); ``tma_operand`` returns
+    it as it is then, and otherwise a copy that is ready, with the same
+    values."""
+    make, unit, ready = TMA_CASES[case]
+    x = make()
+    assert GM.tma_ready(x, unit) == ready == _legal(x, unit)
+    y = GM.tma_operand(x, unit)
+    assert (y is x) == ready
+    assert torch.equal(y, x) and GM.tma_ready(y, unit) and _legal(y, unit)
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("K", [64, 4096, 11008])
+def test_bound_helper_holds_the_plain_chain(K, out):
+    """``gemm_bound``: the float64 product and gamma * sum_k |a_k b_k|. The
+    plain chain lies within ``chain_gamma``'s bound, which lies within
+    ``tc_gamma``'s (the tensor-core route's, which assumes no
+    round-to-nearest inside a k16 step), at the widths of Yi's products (K
+    4096, the MLP's down product 11008)."""
+    a, b = _operands(1, 3, K, 5, torch.bfloat16, seed=K)
+    odt = DTYPES[out]
+    got = GM.gemm_plain(a, b, odt).double()
+    ref, chain = GM.gemm_bound(a, b, GM.chain_gamma(K, odt))
+    _, tc = GM.gemm_bound(a, b, GM.tc_gamma(K, odt))
+    assert bool(((got - ref).abs() <= chain).all())
+    assert bool((chain <= tc).all())
+    assert torch.allclose(ref, a.double() @ b.double())
+    assert 0 < GM.chain_gamma(K, odt) < GM.tc_gamma(K, odt) < 0.01 + (odt == torch.bfloat16)
 
 
 def test_products_route_by_the_cache():

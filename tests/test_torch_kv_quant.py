@@ -6,9 +6,10 @@ package.
 Inputs are drawn with numpy from a seed and handed to both sides. The
 format functions and the pool writes are held bit for bit against jitted
 JAX (the engine jits them); the decode against the JAX kernel in interpret
-mode within the reference's ATOL 2e-5 (the dequantized operands are the
-same floats, only the dot order differs); the engines by their greedy
-tokens and pool bytes.
+mode within the reference's ATOL 2e-5, and bit for bit on the CORDIC
+impls (the dequantized operands are the same floats, and both dots run in
+XLA:CPU's order at this geometry; ``exact`` differs by its exponential
+alone); the engines by their greedy tokens and pool bytes.
 """
 import dataclasses
 import functools
@@ -269,6 +270,9 @@ def test_gqa_decode_quant_vs_jax(fmt, impl):
     assert np.abs(got - want).max() < ATOL, np.abs(got - want).max()
     np.testing.assert_array_equal(got.reshape(got.shape[0], -1).argmax(-1),
                                   want.reshape(want.shape[0], -1).argmax(-1))
+    assert P.dot_order("gqa", 2, HD, L).mapped and P.pv_order("gqa", 2, HD, L).mapped
+    if impl != "exact":
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
@@ -276,6 +280,7 @@ def test_gqa_decode_quant_kv_dtype_bf16_vs_jax(fmt):
     """The kv_dtype round after the dequant (the engine's bf16 seam)."""
     got, want = _decode_pair(fmt, "cordic_pallas", "bfloat16")
     assert np.abs(got - want).max() < ATOL, np.abs(got - want).max()
+    np.testing.assert_array_equal(got, want)
     plain, _ = _decode_pair(fmt, "cordic_pallas", None)
     assert np.abs(plain - got).max() > 1e-5      # the round is load-bearing
 

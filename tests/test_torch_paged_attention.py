@@ -6,17 +6,20 @@ block boundaries, a single-block slot, a mixed-length batch, a vacant slot
 reading scratch block 0, the kv_dtype rounding seam), batched into a few
 calls, for the ``exact``, ``cordic_pallas`` and ``cordic_fixed`` softmax
 (lengths off the block boundaries leave masked lanes inside a live block,
-which ``cordic_fixed`` clips at e^-80 instead of flushing). The reference's
-own standard: ATOL 2e-5 (the P.V sums' order differs from XLA's; the scores
-are XLA's own at every mapped geometry, and the CORDIC probabilities are
-lane-exact given the row max and sum) and an unmoved per-row argmax, on
-every impl, ``cordic_fixed`` included.
+which ``cordic_fixed`` clips at e^-80 instead of flushing). The CORDIC
+impls equal the JAX kernel's outputs bit for bit: both dots of the kernel
+(the scores and the P.V sums) run in XLA:CPU's order at these geometries,
+and the probabilities are lane-exact. ``exact`` is held to the reference's
+own ATOL 2e-5 and an unmoved per-row argmax, and bit for bit once the
+port's exponential is XLA's (a test-side stand-in): its exponential is
+all that keeps it apart.
 
-The score dots' order (``dot_order``, ROADMAP C.4) is held bit for bit
-against jitted ``jnp.einsum`` at every geometry the engine reaches, and
-against the JAX kernels' own scores in interpret mode, eager and jitted,
-read out of the kernel by a stand-in for its softmax pass; the
-geometries whose order is not mapped are named here.
+The dots' orders (``dot_order`` for the scores, ``pv_order`` for the P.V
+sums; ROADMAP C.4) are held bit for bit against jitted ``jnp.einsum`` at
+every geometry the engine reaches, and against the JAX kernels' own
+scores and P.V sums in interpret mode, eager and jitted, read out of the
+kernel by a stand-in for its softmax pass; the geometries whose order is
+not mapped are named here.
 """
 import functools
 
@@ -77,11 +80,17 @@ def _pair(geom, impl):
 @pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("geom", sorted(GEOMETRIES))
 def test_gqa_decode_vs_jax(geom, impl):
+    """Within ATOL 2e-5 with an unmoved argmax on every impl, and bit for
+    bit on the CORDIC impls: both dot orders are mapped here."""
     args, got, want = _pair(geom, impl)
     assert np.isfinite(got).all()
     assert np.abs(got - want).max() < ATOL, np.abs(got - want).max()
     np.testing.assert_array_equal(got.reshape(got.shape[0], -1).argmax(-1),
                                   want.reshape(want.shape[0], -1).argmax(-1))
+    L = GEOMETRIES[geom][1]
+    assert P.dot_order("gqa", 2, 8, L).mapped and P.pv_order("gqa", 2, 8, L).mapped
+    if impl != "exact":
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("impl", IMPLS)
@@ -174,6 +183,32 @@ def test_mla_decode_vs_jax(geom, impl):
     assert np.abs(got - want).max() < ATOL, np.abs(got - want).max()
     np.testing.assert_array_equal(got.reshape(got.shape[0], -1).argmax(-1),
                                   want.reshape(want.shape[0], -1).argmax(-1))
+    # both dot orders mapped (H 4, R 16, P 8, L 4): the CORDIC impls bit for bit
+    assert P.dot_order("mla", 4, 8, 4).mapped and P.pv_order("mla", 4, 16, 4).mapped
+    if impl != "exact":
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("geom", sorted(GEOMETRIES) + ["mla"])
+def test_exact_decode_differs_from_jax_by_its_exp_alone(geom, monkeypatch):
+    """``exact`` with the port's exponential swapped for jitted ``jnp.exp``
+    (a test-side stand-in) equals the JAX kernel bit for bit: the scores
+    and P.V sums in XLA's order, and the folds ``l = fma(l, alpha, bs)``,
+    ``acc = fma(acc, alpha, pv)`` as XLA fuses them, so torch's ``exp``
+    against XLA's is all that keeps the outputs apart (ROADMAP C.4)."""
+    import jax
+
+    # the cached pairs first: they keep torch's exponential
+    args, _, want = _mla_pair("exact") if geom == "mla" else _pair(geom, "exact")
+    jexp = jax.jit(jnp.exp)
+    monkeypatch.setattr(torch, "exp", lambda x: torch.from_numpy(np.array(jexp(x.numpy()))))
+    if geom == "mla":
+        got = P.mla_decode(*map(torch.from_numpy, args), scale=0.2).numpy()
+    else:
+        kvd = GEOMETRIES[geom][2]
+        got = P.gqa_decode(*map(torch.from_numpy, args), scale=0.3,
+                           kv_dtype=getattr(torch, kvd) if kvd else None).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("impl", IMPLS)
@@ -336,6 +371,101 @@ def test_unmapped_dot_orders_are_named(case):
     assert not order.mapped and order.partials == 1
 
 
+#: (kind, KH or None, rows, width, L) of the P.V order map (``pv_order``):
+#: every arch's G / H and head_dim / kv_lora_rank at block lengths a user
+#: may set, the rank cuts, each branch and each border of the map
+PV_CASES = {
+    "yi-L16": ("gqa", 4, 8, 128, 16),
+    "yi-L1": ("gqa", 4, 8, 128, 1),
+    "yi-L64": ("gqa", 4, 8, 128, 64),
+    "yi-L256": ("gqa", 4, 8, 128, 256),
+    "yi-tp4-KH1": ("gqa", 1, 8, 128, 16),
+    "internvl2-G7": ("gqa", 2, 7, 64, 16),
+    "musicgen-G1": ("gqa", 32, 1, 64, 16),
+    "qwen-G5-L33": ("gqa", 8, 5, 128, 33),
+    "command-r-G12": ("gqa", 8, 12, 128, 16),
+    "phi-G4-L3": ("gqa", 8, 4, 128, 3),
+    "test-G2-L3": ("gqa", 2, 2, 8, 3),
+    "test-G2-L4": ("gqa", 2, 2, 8, 4),
+    "test-G2-L16": ("gqa", 2, 2, 8, 16),
+    "smoke-KH1-G1": ("gqa", 1, 1, 16, 16),
+    "deepseek-L16": ("mla", None, 16, 512, 16),
+    "deepseek-L64": ("mla", None, 16, 512, 64),
+    "deepseek-L65": ("mla", None, 16, 512, 65),
+    "deepseek-L200": ("mla", None, 16, 512, 200),
+    "deepseek-L240": ("mla", None, 16, 512, 240),      # pieces of 64: L + H 256
+    "deepseek-L241": ("mla", None, 16, 512, 241),      # pieces of 128: past 256
+    "deepseek-tp2-L248": ("mla", None, 8, 512, 248),
+    "deepseek-tp2-L249": ("mla", None, 8, 512, 249),
+    "deepseek-tp4-L100": ("mla", None, 4, 512, 100),
+    "mla-H1-L100": ("mla", None, 1, 512, 100),
+    "smoke-mla-L64": ("mla", None, 4, 32, 64),
+    "mla-R64-L200": ("mla", None, 4, 64, 200),
+    "test-mla-L4": ("mla", None, 4, 16, 4),
+    "test-mla-L8": ("mla", None, 4, 16, 8),
+}
+#: geometries whose P.V order is not mapped (their sums agree with JAX's to
+#: f32 round-off only; ROADMAP C.4): the narrow widths at L not a multiple
+#: of 4 (past 3), one element of G 12 over 8 KV heads at L 170, widths the
+#: engine never reaches, past DOT_ORDER_MAX_L lanes
+PV_UNMAPPED = {
+    "test-G2-L5": ("gqa", 2, 2, 8, 5),
+    "command-r-G12-L170": ("gqa", 8, 12, 128, 170),
+    "test-mla-L6": ("mla", None, 4, 16, 6),
+    "mla-R256": ("mla", None, 16, 256, 16),
+    "yi-L512": ("gqa", 4, 8, 128, 512),
+}
+
+
+def _pv_order(kind, KH, rows, width, L):
+    return P.pv_order(kind, rows, width, L, **({} if KH is None else {"heads": KH}))
+
+
+def _port_pv(kind, p, v, order):
+    """The plain versions' P.V sums of one block: GQA p (KH, G, L), v (L, KH,
+    hd) -> (KH, G, hd); MLA p (H, L), v (L, R) -> (H, R)."""
+    p, v = torch.from_numpy(p), torch.from_numpy(v)
+    if kind == "gqa":
+        return P._xla_pv(p, v.permute(1, 0, 2)[:, None], order).numpy()
+    return P._xla_pv(p, v[None], order).numpy()
+
+
+@pytest.mark.parametrize("case", sorted(PV_CASES))
+def test_pv_dot_order_depends_on_the_geometry(case):
+    """ROADMAP C.4: ``pv_order`` gives jitted XLA:CPU's order of the JAX
+    kernels' P.V dots, ``einsum("hgl,lhd->hgd")`` and ``einsum("hl,lr->hr")``,
+    bit for bit on every element, at every geometry of PV_CASES (a fused
+    chain at the archs' head_dims; DeepSeek's R 512 in Eigen's pieces of 64
+    or 128 lanes past L 64; 4 strided partials at the narrow widths)."""
+    import jax
+
+    kind, KH, rows, width, L = PV_CASES[case]
+    order = _pv_order(kind, KH, rows, width, L)
+    assert order.mapped, order
+    rng = np.random.default_rng(L)
+    if kind == "gqa":
+        p = rng.normal(size=(KH, rows, L)).astype(np.float32)
+        v = rng.normal(size=(L, KH, width)).astype(np.float32)
+    else:
+        p = rng.normal(size=(rows, L)).astype(np.float32)
+        v = rng.normal(size=(L, width)).astype(np.float32)
+    spec = "hgl,lhd->hgd" if kind == "gqa" else "hl,lr->hr"
+    xla = np.asarray(jax.jit(lambda a, b: jnp.einsum(
+        spec, a, b, preferred_element_type=jnp.float32))(p, v))
+    np.testing.assert_array_equal(_port_pv(kind, p, v, order), xla)
+    if order.partials > 1 or order.chunk:
+        # the geometry tells the orders apart: one chain misses somewhere
+        assert not np.array_equal(_port_pv(kind, p, v, P.DotOrder(1)), xla)
+
+
+@pytest.mark.parametrize("case", sorted(PV_UNMAPPED))
+def test_unmapped_pv_orders_are_named(case):
+    """The geometries whose P.V order is not found are flagged and take
+    one chain; the kernels run them all the same."""
+    order = _pv_order(*PV_UNMAPPED[case])
+    assert not order.mapped and (order.partials, order.chunk) == (1, 0)
+
+
 #: (kind, KH or None, rows, width, L, how): the JAX kernels themselves in
 #: interpret mode, eager or jitted, on float32, bfloat16-rounded and int8
 #: pools
@@ -403,6 +533,69 @@ def test_jax_kernel_scores_take_the_mapped_order(case, monkeypatch):
         want = _port_dot(kind, q, k, _order(kind, None, rows, 8, L)) * np.float32(0.3)
     got = np.asarray((jax.jit(fn) if how == "jit" else fn)(kp))[0]
     np.testing.assert_array_equal(got[..., :n], want[..., :n])
+
+
+#: (kind, KH or None, rows, width, L, how): the JAX kernels' P.V sums in
+#: interpret mode, eager or jitted, on float32 and int8 pools
+PV_KERNEL_CASES = [
+    ("gqa", 2, 2, 8, 16, "eager"), ("gqa", 4, 8, 128, 32, "jit"),
+    ("gqa", 32, 1, 64, 16, "eager"), ("gqa", 2, 4, 64, 16, "int8"),
+    ("mla", None, 16, 512, 16, "eager"), ("mla", None, 16, 512, 80, "jit"),
+    ("mla", None, 4, 16, 8, "eager"),
+]
+
+
+@pytest.mark.parametrize("case", PV_KERNEL_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_jax_kernel_pv_sums_take_the_mapped_order(case, monkeypatch):
+    """The P.V sums the JAX kernel computes inside ``gqa_decode`` /
+    ``mla_decode`` (interpret mode), read out by a stand-in for
+    ``_pass_update`` that contracts the block's scores with its values
+    through the kernel's own ``contract`` and writes them to the output,
+    equal the plain versions' (``_xla_pv`` in ``pv_order`` over the mapped
+    scores) bit for bit: the JIT orders the kernel's second einsum as it
+    orders a bare one."""
+    import jax
+
+    from repro_torch.core import kv_quant as kvq
+
+    kind, KH, rows, width, L, how = case
+
+    def probe(s, v, p, impl, sched, cfg, m_sc, l_sc, acc_sc, contract):
+        acc_sc[...] = contract(s, v)
+        l_sc[...] = jnp.ones_like(l_sc[...])
+
+    monkeypatch.setattr(JP, "_pass_update", probe)
+    q, k = _operands(kind, KH, rows, width, L, seed=3)
+    _, v = _operands(kind, KH, rows, width, L, seed=4)
+    table, k_len = np.array([[1]], np.int32), np.array([L], np.int32)
+    pool = lambda x: np.concatenate([np.zeros_like(x)[None], x[None]])
+    kw = dict(scale=0.3, interpret=True)
+    if kind == "gqa":
+        vf, kp, vp = v, jnp.asarray(pool(k)), jnp.asarray(pool(v))
+        if how == "int8":
+            spec = kvq.spec_for("int8")
+            ks, vs = (kvq.block_scale(torch.from_numpy(pool(x)), spec) for x in (k, v))
+            kc, vc = (kvq.quantize(torch.from_numpy(pool(x)), spec, sc)
+                      for x, sc in ((k, ks), (v, vs)))
+            k, vf = (kvq.dequantize(c, spec, sc)[1].numpy() for c, sc in ((kc, ks), (vc, vs)))
+            kw.update(kv_quant="int8", k_scale_pool=jnp.asarray(ks.numpy()),
+                      v_scale_pool=jnp.asarray(vs.numpy()))
+            kp, vp = jnp.asarray(kc.numpy()), jnp.asarray(vc.numpy())
+        fn = lambda a, b: JP.gqa_decode(jnp.asarray(q[None]), a, b, jnp.asarray(table),
+                                        jnp.asarray(k_len), **kw)
+        s = _port_dot(kind, q, k, _order(kind, KH, rows, width, L)) * np.float32(0.3)
+        got = np.asarray((jax.jit(fn) if how == "jit" else fn)(kp, vp))[0]
+    else:
+        zr = np.zeros((rows, 8), np.float32)
+        fn = lambda a: JP.mla_decode(jnp.asarray(q[None]), jnp.asarray(zr[None]), a,
+                                     jnp.asarray(np.zeros((2, L, 8), np.float32)),
+                                     jnp.asarray(table), jnp.asarray(k_len), **kw)
+        vf = k                                       # MLA's values are its latent rows
+        s = _port_dot(kind, q, k, _order(kind, None, rows, 8, L)) * np.float32(0.3)
+        got = np.asarray((jax.jit(fn) if how == "jit" else fn)(jnp.asarray(pool(k))))[0]
+    order = _pv_order(kind, KH, rows, width, L)
+    assert order.mapped, order
+    np.testing.assert_array_equal(got, _port_pv(kind, s.astype(np.float32), vf, order))
 
 
 def test_mla_unported_branch_raises():
